@@ -1,0 +1,321 @@
+"""The trace engine: the multi-bounce 3D forward trace.
+
+Counterpart of the 3D forward path of ``tensorflowraytrace_tpu/engine.py``.
+Rays never compact: each keeps its slot and a ``state`` code (ACTIVE,
+FINISHED on a target, STOPPED on a stop, DEAD on a miss).  When an ACTIVE
+ray reacts with an OPTICAL surface its child replaces it in its slot.  The
+bounce loop is a Python loop over ``max_bounces``.
+
+One bounce (``project_3d``) runs: the nearest-hit search (no gradient), one
+gather of per-surface rows, the differentiable refine of the winning hit,
+then (``single_pass``) classification and the reaction (vector Snell).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import torch
+
+from tensorflowraytrace_tpu_torch.config import (
+    ACTIVE, DEAD, FINISHED, OPTICAL, STOP, STOPPED, default_epsilon,
+)
+from tensorflowraytrace_tpu_torch.models.rays import RaySet
+from tensorflowraytrace_tpu_torch.models.surfaces import Scene3D
+from tensorflowraytrace_tpu_torch.ops import intersect as isect
+from tensorflowraytrace_tpu_torch.ops.geometry import snell_3d_vec
+from tensorflowraytrace_tpu_torch.ops.materials import material_index_lookup
+
+# TraceConfig fields of the JAX engine that this port does not implement yet;
+# setting one raises rather than being ignored.
+_NOT_IMPLEMENTED = ("cull", "resort_rays", "remat", "early_exit")
+
+
+@dataclass(frozen=True)
+class TraceConfig:
+    """Trace configuration; the same fields as the JAX ``TraceConfig`` with
+    ``use_pallas`` renamed ``use_kernel`` (the CUDA triangle search)."""
+
+    max_bounces: int = 25
+    new_ray_length: float = 1.0
+    # None -> dead rays keep their direction-vector length; otherwise the
+    # reference's dead_ray_length stretch factor
+    dead_ray_length: Optional[float] = None
+    keep_history: bool = False
+    # "index": per-surface int indices into the material list;
+    # "value": per-surface n_in / n_out floats in surface.fields
+    refractive_index_type: str = "index"
+    use_kernel: bool = False
+    cull: object = False
+    surf_chunk: int = 128
+    ray_block: int = 32768
+    # None -> derived from dtype (config.default_epsilon)
+    intersect_epsilon: Optional[float] = None
+    size_epsilon: Optional[float] = None
+    ray_start_epsilon: Optional[float] = None
+    remat: bool = False
+    # False -> hit points come from the search's ray parameter and no
+    # gradient reaches the surface geometry
+    differentiable: bool = True
+    resort_rays: bool = False
+    early_exit: bool = False
+
+    def __post_init__(self):
+        for name in _NOT_IMPLEMENTED:
+            if getattr(self, name):
+                raise NotImplementedError(
+                    f"TraceConfig.{name} is not implemented in the PyTorch "
+                    "port yet")
+
+    def epsilons(self, dtype):
+        e = default_epsilon(dtype)
+        return (
+            e if self.intersect_epsilon is None else self.intersect_epsilon,
+            e if self.size_epsilon is None else self.size_epsilon,
+            e if self.ray_start_epsilon is None else self.ray_start_epsilon,
+        )
+
+
+@dataclass
+class Projection:
+    """Per-ray gathered hit data handed to reactions."""
+
+    hit_valid: torch.Tensor          # (N,) bool
+    point: torch.Tensor              # (N, 3) hit point (= projected ray end)
+    norm: torch.Tensor               # (N, 3) surface normal
+    n_in: torch.Tensor               # (N,)
+    n_out: torch.Tensor              # (N,)
+    category: torch.Tensor           # (N,) OPTICAL / STOP / TARGET
+    surf_idx: torch.Tensor           # (N,) index into the merged surface set
+    kind: torch.Tensor               # (N,) 2D only
+    extras: Dict[str, torch.Tensor]  # ray_u / trig_u / trig_v
+    dim: int = 3
+
+
+@dataclass
+class TraceResult:
+    """Final ray slots plus optional per-bounce history (leading axis =
+    bounce; ``history_alive`` marks slots still bouncing when the entry was
+    recorded) and the fold accumulator."""
+
+    rays: RaySet
+    history_p0: Optional[torch.Tensor]
+    history_p1: Optional[torch.Tensor]
+    history_state: Optional[torch.Tensor]
+    history_alive: Optional[torch.Tensor]
+    fold: object = None
+    n_bounces: int = 0
+
+    @property
+    def finished_rays(self):
+        return self.rays.finished
+
+    @property
+    def active_rays(self):
+        return self.rays.active
+
+    @property
+    def stopped_rays(self):
+        return self.rays.stopped
+
+    @property
+    def dead_rays(self):
+        return self.rays.dead
+
+
+def _annotation_cols(surface, dtype, value_mode):
+    """Annotation columns of the per-bounce surface table: per-surface
+    (category, n_in, n_out) floats in "value" mode, otherwise ONE column
+    with category<<20 | mat_in<<10 | mat_out stored in a float (exact below
+    2^24; ids are range-checked when the surfaces are built)."""
+    if value_mode:
+        return [surface.category.to(dtype)[:, None],
+                surface.fields["n_in"][:, None],
+                surface.fields["n_out"][:, None]]
+    packed = (surface.category.to(torch.int32) * (1 << 20)
+              + surface.mat_in * (1 << 10) + surface.mat_out)
+    return [packed.to(dtype)[:, None]]
+
+
+def _unpack_annotation(rows, o, value_mode, materials, wavelength):
+    """Inverse of :func:`_annotation_cols` on the transposed (k, N) gathered
+    rows; returns per-ray ``(category, n_in, n_out)``."""
+    if value_mode:
+        return rows[o].to(torch.int32), rows[o + 1], rows[o + 2]
+    code = rows[o].to(torch.int32)
+    category = code >> 20
+    n_in = material_index_lookup(materials, wavelength, (code >> 10) & 0x3FF)
+    n_out = material_index_lookup(materials, wavelength, code & 0x3FF)
+    return category, n_in, n_out
+
+
+def _gather_rows_t(table, idx):
+    """``table[idx].T``: one gather of every per-surface column per bounce,
+    transposed so each column is a contiguous (N,) tensor."""
+    return table[idx.long()].T
+
+
+def project_3d(rays: RaySet, scene: Scene3D, materials,
+               cfg: TraceConfig) -> Projection:
+    """One intersection + gather pass: search, gather the winning surface's
+    row of the (M, k) table [vp v1 v2 norm annotation], refine."""
+    i_eps, s_eps, r_eps = cfg.epsilons(rays.p0.dtype)
+    tri = scene.triangles
+    hit = isect.nearest_hit_triangles(
+        rays.p0, rays.p1, tri, i_eps, s_eps, r_eps,
+        surf_chunk=cfg.surf_chunk, ray_block=cfg.ray_block,
+        use_kernel=cfg.use_kernel,
+    )
+
+    dtype = rays.p0.dtype
+    value_mode = cfg.refractive_index_type == "value"
+    if not value_mode and not materials:
+        raise ValueError("trace: refractive_index_type='index' needs materials")
+    cols = [tri.vp, tri.v1, tri.v2] if cfg.differentiable else []
+    cols += [tri.norm] + _annotation_cols(tri, dtype, value_mode)
+    rows = _gather_rows_t(torch.cat(cols, dim=1), hit.idx)
+
+    o = 9 if cfg.differentiable else 0
+    norm = rows[o:o + 3].T
+    category, n_in, n_out = _unpack_annotation(rows, o + 3, value_mode,
+                                               materials, rays.wavelength)
+    if cfg.differentiable:
+        point, ray_u, tu, tv = isect.refine_triangle_hit_from(
+            rays.p0, rays.p1, rows[0:3].T, rows[3:6].T, rows[6:9].T, i_eps)
+        extras = {"ray_u": ray_u, "trig_u": tu, "trig_v": tv}
+    else:
+        # the search's ray parameter is the refine's (same algebra)
+        point = rays.p0 + hit.ray_u[:, None] * (rays.p1 - rays.p0)
+        extras = {"ray_u": hit.ray_u}
+    return Projection(
+        hit_valid=hit.valid, point=point, norm=norm, n_in=n_in, n_out=n_out,
+        category=category, surf_idx=hit.idx, kind=hit.kind, extras=extras,
+        dim=3,
+    )
+
+
+def default_reaction(proj: Projection, rays: RaySet, cfg: TraceConfig):
+    """Snell's law refraction / reflection / TIR."""
+    return snell_3d_vec(rays.p0, proj.point, proj.norm, proj.n_in,
+                        proj.n_out, cfg.new_ray_length)
+
+
+def single_pass(rays: RaySet, scene, materials, cfg: TraceConfig,
+                reaction: Callable = default_reaction):
+    """One bounce: project, classify, react.  Returns ``(new_rays, record)``
+    where record = (p0, p1_projected, state, alive) describes the parent
+    rays as they ended this pass."""
+    if not isinstance(scene, Scene3D):
+        raise NotImplementedError("the PyTorch port traces 3D scenes only")
+    proj = project_3d(rays, scene, materials, cfg)
+
+    active = rays.state == ACTIVE
+    # finite-hit guard: a grazing hit with |det| barely over epsilon can put
+    # the refined point at u ~ 1e30+, which overflows float32 on the next
+    # bounce; such hits count as misses and the ray dies with finite
+    # coordinates
+    finite_hit = torch.all(torch.isfinite(proj.point), dim=-1)
+    hit_ok = proj.hit_valid & finite_hit
+    valid_hit = active & hit_ok
+
+    p1 = torch.where(valid_hit[:, None], proj.point, rays.p1)
+
+    # state codes enter as Python scalars: a scalar tensor built on the
+    # device would be a host-to-device copy, which synchronises the stream
+    hit_state = torch.full_like(proj.category, FINISHED)
+    hit_state = torch.where(proj.category == STOP, STOPPED, hit_state)
+    hit_state = torch.where(proj.category == OPTICAL, ACTIVE, hit_state)
+    new_state = torch.where(active, torch.where(hit_ok, hit_state, DEAD),
+                            rays.state)
+
+    if cfg.dead_ray_length is not None:
+        became_dead = active & ~hit_ok
+        stretch = rays.p0 + cfg.dead_ray_length * (p1 - rays.p0)
+        p1 = torch.where(became_dead[:, None], stretch, p1)
+
+    # reaction: the child replaces the parent in its slot.  A reaction
+    # returns (p0, p1) or (p0, p1, field_updates); the updates are merged
+    # into rays.fields for reacting slots only.
+    out = reaction(proj, dataclasses.replace(rays, p1=p1), cfg)
+    if len(out) == 3:
+        child_p0, child_p1, field_updates = out
+    else:
+        child_p0, child_p1 = out
+        field_updates = None
+    reacts = valid_hit & (proj.category == OPTICAL)
+    # finite-child guard: a degenerate reaction that produced non-finite
+    # child coordinates kills the ray instead of propagating NaN / inf
+    child_ok = (torch.all(torch.isfinite(child_p0), dim=-1)
+                & torch.all(torch.isfinite(child_p1), dim=-1))
+    new_state = torch.where(reacts & ~child_ok, DEAD, new_state)
+    reacts = reacts & child_ok
+    out_p0 = torch.where(reacts[:, None], child_p0, rays.p0)
+    out_p1 = torch.where(reacts[:, None], child_p1, p1)
+
+    new_fields = rays.fields
+    if field_updates:
+        new_fields = dict(rays.fields)
+        for k, v in field_updates.items():
+            if k.startswith("__"):
+                # reserved reaction-protocol metadata, never a ray field
+                continue
+            old = new_fields.get(k)
+            if old is None:
+                raise KeyError(
+                    f"reaction updates ray field {k!r} but the rays do not "
+                    "carry it; seed it via RaySet.make(fields={...})")
+            mask = reacts.reshape(reacts.shape + (1,) * (v.dim() - 1))
+            new_fields[k] = torch.where(mask, v.to(old.dtype), old)
+
+    new_rays = dataclasses.replace(rays, p0=out_p0, p1=out_p1,
+                                   state=new_state, fields=new_fields)
+    record = (rays.p0, p1, new_state, active)
+    return new_rays, record
+
+
+def trace(rays: RaySet, scene, materials=None, cfg: TraceConfig = TraceConfig(),
+          reaction: Callable = default_reaction,
+          fold_fn: Optional[Callable] = None,
+          fold_init=None, fold_fields: bool = False) -> TraceResult:
+    """Multi-bounce trace: ``cfg.max_bounces`` calls of :func:`single_pass`.
+    Differentiable end to end with respect to scene geometry and ray
+    starts.
+
+    ``fold_fn(acc, record) -> acc`` (starting from ``fold_init``) runs once
+    per bounce on the ``(p0, p1_projected, state, was_active)`` record, plus
+    the post-bounce ray ``fields`` as a fifth element when ``fold_fields``;
+    the final accumulator lands in ``TraceResult.fold``.  ``keep_history``
+    stacks the records along a leading bounce axis.
+    """
+    materials = tuple(materials or ())
+    if cfg.keep_history:
+        itemsize = rays.p0.element_size()
+        hist_bytes = (cfg.max_bounces * rays.n_rays
+                      * (2 * rays.dim * itemsize + 5))
+        if hist_bytes > 16 << 30:
+            raise ValueError(
+                f"keep_history at {rays.n_rays} rays x {cfg.max_bounces} "
+                f"bounces would stack ~{hist_bytes / 2 ** 30:.0f} GiB of "
+                "per-bounce history; use a fold (fold_fn/fold_init) instead")
+
+    acc = fold_init
+    records = []
+    for _ in range(cfg.max_bounces):
+        new_rays, record = single_pass(rays, scene, materials, cfg, reaction)
+        if fold_fn is not None:
+            acc = fold_fn(acc, record + (new_rays.fields,) if fold_fields
+                          else record)
+        if cfg.keep_history:
+            records.append(record)
+        rays = new_rays
+
+    if cfg.keep_history:
+        h_p0, h_p1, h_state, h_alive = (torch.stack(col) for col in zip(*records))
+    else:
+        h_p0 = h_p1 = h_state = h_alive = None
+    return TraceResult(
+        rays=rays, history_p0=h_p0, history_p1=h_p1, history_state=h_state,
+        history_alive=h_alive, fold=acc, n_bounces=cfg.max_bounces,
+    )

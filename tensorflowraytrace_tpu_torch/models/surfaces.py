@@ -1,0 +1,129 @@
+"""Triangle surface sets and the merged 3D scene.
+
+Counterpart of the 3D half of ``tensorflowraytrace_tpu/models/surfaces.py``.
+Material references live in ``mat_in`` / ``mat_out`` (int32 indices into the
+engine's material list) or in ``fields['n_in']`` / ``fields['n_out']``
+(float, "value" mode).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Dict
+
+import torch
+
+from tensorflowraytrace_tpu_torch.config import (
+    OPTICAL, STOP, TARGET, resolve_device, resolve_dtype,
+)
+
+
+def _as_cat(category, n, device):
+    return torch.as_tensor(category, dtype=torch.int32,
+                           device=device).expand(n).clone()
+
+
+def _as_mat(mat, n, device):
+    if mat is None:
+        return torch.zeros((n,), dtype=torch.int32, device=device)
+    arr = torch.as_tensor(mat, dtype=torch.int32, device=device).expand(n).clone()
+    # the engine packs category<<20 | mat_in<<10 | mat_out into one float
+    # column, which is exact only for ids in [0, 1024)
+    if n:
+        lo, hi = int(arr.min()), int(arr.max())
+        if lo < 0 or hi >= 1024:
+            raise ValueError(
+                f"material index out of range [0, 1024): got [{lo}, {hi}]; "
+                "ids >= 1024 would corrupt the engine's packed surface table")
+    return arr
+
+
+@dataclass
+class TriangleSet:
+    """3D triangles: vp/v1/v2 (M, 3) vertices, norm (M, 3) unit face normals
+    (normalize(cross(v1 - vp, v2 - v1)) unless given), per-surface category
+    and material ids, and extra per-surface ``fields``."""
+
+    vp: torch.Tensor
+    v1: torch.Tensor
+    v2: torch.Tensor
+    norm: torch.Tensor
+    category: torch.Tensor
+    mat_in: torch.Tensor
+    mat_out: torch.Tensor
+    fields: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+    @staticmethod
+    def make(vp, v1, v2, norm=None, category=OPTICAL, mat_in=None, mat_out=None,
+             fields=None, dtype=None, device=None):
+        dtype = resolve_dtype(dtype)
+        if device is None and isinstance(vp, torch.Tensor):
+            device = vp.device
+        device = resolve_device(device)
+        vp = torch.as_tensor(vp, dtype=dtype, device=device)
+        v1 = torch.as_tensor(v1, dtype=dtype, device=device)
+        v2 = torch.as_tensor(v2, dtype=dtype, device=device)
+        m = vp.shape[0]
+        if norm is None:
+            norm = compute_face_normals(vp, v1, v2)
+        else:
+            norm = torch.as_tensor(norm, dtype=dtype, device=device)
+        return TriangleSet(
+            vp=vp, v1=v1, v2=v2, norm=norm,
+            category=_as_cat(category, m, device),
+            mat_in=_as_mat(mat_in, m, device),
+            mat_out=_as_mat(mat_out, m, device),
+            fields={k: torch.as_tensor(v, device=device)
+                    for k, v in (fields or {}).items()},
+        )
+
+    @property
+    def n_surfaces(self) -> int:
+        return self.vp.shape[0]
+
+
+def compute_face_normals(vp, v1, v2):
+    """Unit face normals with the reference's orientation:
+    normalize(cross(v1 - vp, v2 - v1))."""
+    n = torch.linalg.cross(v1 - vp, v2 - v1)
+    return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
+
+
+def concat_triangles(sets):
+    sets = [s for s in sets if s is not None and s.n_surfaces > 0]
+    if not sets:
+        return None
+    common = set(sets[0].fields)
+    for s in sets[1:]:
+        common &= set(s.fields)
+    return TriangleSet(
+        vp=torch.cat([s.vp for s in sets]),
+        v1=torch.cat([s.v1 for s in sets]),
+        v2=torch.cat([s.v2 for s in sets]),
+        norm=torch.cat([s.norm for s in sets]),
+        category=torch.cat([s.category for s in sets]),
+        mat_in=torch.cat([s.mat_in for s in sets]),
+        mat_out=torch.cat([s.mat_out for s in sets]),
+        fields={k: torch.cat([s.fields[k] for s in sets]) for k in common},
+    )
+
+
+@dataclass
+class Scene3D:
+    """Merged 3D scene: optical surfaces first, then stops, then targets."""
+
+    triangles: TriangleSet
+
+    @staticmethod
+    def build(optical=(), stops=(), targets=()):
+        def label(sets, cat):
+            return [dataclasses.replace(
+                s, category=_as_cat(cat, s.n_surfaces, s.vp.device))
+                for s in sets]
+
+        merged = concat_triangles(
+            label(optical, OPTICAL) + label(stops, STOP) + label(targets, TARGET))
+        if merged is None:
+            raise ValueError("Scene3D.build: no surfaces")
+        return Scene3D(triangles=merged)

@@ -1,0 +1,57 @@
+"""Carry state across packages as NumPy arrays.
+
+The JAX package and this port share no objects; these helpers turn arrays
+taken from the JAX side (``np.asarray`` of its parameters, rays or
+triangles) into the port's tensors, so both packages compute the same
+thing.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tensorflowraytrace_tpu_torch.config import (
+    OPTICAL, resolve_device, resolve_dtype,
+)
+from tensorflowraytrace_tpu_torch.models.rays import RaySet
+from tensorflowraytrace_tpu_torch.models.surfaces import TriangleSet
+
+
+def params_from_numpy(arrays, dtype=None, device=None):
+    """Lens parameters (a list of per-surface arrays, as from the JAX
+    ``lens.init_params()`` or any trained list) as a list of tensors, ready
+    for ``ParametricMultiTriangleBoundary.build``."""
+    dtype, device = resolve_dtype(dtype), resolve_device(device)
+    return [torch.as_tensor(np.array(a), dtype=dtype, device=device)
+            for a in arrays]
+
+
+def rayset_from_numpy(p0, p1, wavelength=None, state=None, fields=None,
+                      dtype=None, device=None) -> RaySet:
+    """A RaySet from arrays; float fields take ``dtype``, others keep theirs."""
+    dtype, device = resolve_dtype(dtype), resolve_device(device)
+
+    def field_tensor(v):
+        t = torch.as_tensor(np.array(v), device=device)
+        return t.to(dtype) if t.is_floating_point() else t
+
+    return RaySet.make(
+        np.array(p0), np.array(p1),
+        None if wavelength is None else np.array(wavelength),
+        None if state is None else np.array(state),
+        {k: field_tensor(v) for k, v in (fields or {}).items()},
+        dtype=dtype, device=device)
+
+
+def triangles_from_numpy(vp, v1, v2, norm=None, category=OPTICAL, mat_in=None,
+                         mat_out=None, dtype=None, device=None) -> TriangleSet:
+    """A TriangleSet from (M, 3) vertex arrays (and optional normals and
+    per-surface ids)."""
+    def arr(a):
+        return None if a is None else np.array(a)
+
+    return TriangleSet.make(
+        arr(vp), arr(v1), arr(v2), arr(norm), category=arr(category),
+        mat_in=arr(mat_in), mat_out=arr(mat_out), dtype=resolve_dtype(dtype),
+        device=resolve_device(device))
