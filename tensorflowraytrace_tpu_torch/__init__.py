@@ -2,16 +2,22 @@
 differentiable optical ray tracer.
 
 It mirrors the module paths of ``tensorflowraytrace_tpu`` (the JAX package,
-which stays the reference) and imports no JAX.  This first slice is the 3D
-forward trace:
+which stays the reference) and imports no JAX.  Its slices so far are the
+3D forward trace and training:
 
   models/     rays, triangle surfaces, sources, distributions, boundaries,
-              meshes
+              meshes and their accumulator / smoother tools
   ops/        geometry, materials, the nearest-hit search and its CUDA
-              kernel (ops/triangle_kernels.py, csrc/triangle_search.cu)
+              kernel (ops/triangle_kernels.py, csrc/triangle_search.cu), the
+              gather's backward as a CUDA segment sum (ops/segsum_kernels.py,
+              csrc/segment_sum.cu), and their nvcc build (ops/cuda_build.py)
   engine      the multi-bounce trace loop
-  flagship    the parametric-lens imaging problem
+  optim       the optimizers (gradient pipeline, phases)
+  flagship    the parametric-lens imaging problem and its training run
   utils/      quaternions, NumPy conversion
+
+Everything is built on CUDA unless a ``device=`` says otherwise
+(``config.set_default_device`` changes the default).
 """
 
 from tensorflowraytrace_tpu_torch import config

@@ -3,7 +3,7 @@
 Counterpart of ``tensorflowraytrace_tpu/config.py``: the surface categories,
 the ray life-cycle state codes and the dtype-derived divide-safety epsilon.
 The working dtype is float32 by default (the GPU path); float64 is opt-in for
-parity and gradient checks.
+parity and gradient checks.  The default device is CUDA.
 """
 
 from __future__ import annotations
@@ -25,12 +25,36 @@ STOPPED = 2
 DEAD = 3
 
 
+# The device that constructors given no ``device=`` build on.  The port runs
+# on the card; the CPU is had only by asking for it.
+_default_device = torch.device("cuda")
+
+
 def resolve_dtype(dtype=None) -> torch.dtype:
     return DEFAULT_DTYPE if dtype is None else dtype
 
 
+def set_default_device(device) -> torch.device:
+    """Make ``device`` the default of every constructor that is given no
+    ``device=``; returns the previous default, so a caller can restore it."""
+    global _default_device
+    previous = _default_device
+    _default_device = torch.device(device)
+    return previous
+
+
 def resolve_device(device=None) -> torch.device:
-    return torch.device("cpu") if device is None else torch.device(device)
+    """``device``, or the default device (CUDA unless set otherwise by
+    :func:`set_default_device`).  Raises when the default is CUDA and no
+    CUDA device is available: the port never falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if _default_device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' or call "
+            "tensorflowraytrace_tpu_torch.config.set_default_device('cpu') "
+            "to run on the CPU")
+    return _default_device
 
 
 def default_epsilon(dtype) -> float:

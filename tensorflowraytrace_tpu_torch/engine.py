@@ -7,8 +7,9 @@ ray reacts with an OPTICAL surface its child replaces it in its slot.  The
 bounce loop is a Python loop over ``max_bounces``.
 
 One bounce (``project_3d``) runs: the nearest-hit search (no gradient), one
-gather of per-surface rows, the differentiable refine of the winning hit,
-then (``single_pass``) classification and the reaction (vector Snell).
+gather of per-surface rows (whose backward is a segment sum), the
+differentiable refine of the winning hit, then (``single_pass``)
+classification and the reaction (vector Snell).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from tensorflowraytrace_tpu_torch.config import (
 from tensorflowraytrace_tpu_torch.models.rays import RaySet
 from tensorflowraytrace_tpu_torch.models.surfaces import Scene3D
 from tensorflowraytrace_tpu_torch.ops import intersect as isect
+from tensorflowraytrace_tpu_torch.ops import segsum_kernels as segsum
 from tensorflowraytrace_tpu_torch.ops.geometry import snell_3d_vec
 from tensorflowraytrace_tpu_torch.ops.materials import material_index_lookup
 
@@ -36,7 +38,8 @@ _NOT_IMPLEMENTED = ("cull", "resort_rays", "remat", "early_exit")
 @dataclass(frozen=True)
 class TraceConfig:
     """Trace configuration; the same fields as the JAX ``TraceConfig`` with
-    ``use_pallas`` renamed ``use_kernel`` (the CUDA triangle search)."""
+    ``use_pallas`` renamed ``use_kernel`` (the CUDA triangle search, and the
+    CUDA segment sum as the gather's backward)."""
 
     max_bounces: int = 25
     new_ray_length: float = 1.0
@@ -151,10 +154,33 @@ def _unpack_annotation(rows, o, value_mode, materials, wavelength):
     return category, n_in, n_out
 
 
-def _gather_rows_t(table, idx):
+class _GatherRowsT(torch.autograd.Function):
     """``table[idx].T``: one gather of every per-surface column per bounce,
-    transposed so each column is a contiguous (N,) tensor."""
-    return table[idx.long()].T
+    transposed so each column is an (N,) tensor.  Its backward sums the
+    (k, N) cotangent into the (M, k) table gradient: K2
+    (``ops/segsum_kernels.py``) when ``use_kernel`` and the cotangent lies
+    on CUDA, the plain ``index_add_`` otherwise.  ``idx`` gets no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, table, idx, use_kernel):
+        ctx.save_for_backward(idx)
+        ctx.m = table.shape[0]
+        ctx.use_kernel = use_kernel
+        return table[idx.long()].T
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, ct):
+        (idx,) = ctx.saved_tensors
+        # the kernel's wrapper runs the plain version on CPU tensors
+        segment_sum = (segsum.segment_sum_kernel if ctx.use_kernel
+                       else segsum.segment_sum_plain)
+        return segment_sum(ct, idx, ctx.m), None, None
+
+
+def _gather_rows_t(table, idx, use_kernel=False):
+    return _GatherRowsT.apply(table, idx, use_kernel)
 
 
 def project_3d(rays: RaySet, scene: Scene3D, materials,
@@ -175,7 +201,7 @@ def project_3d(rays: RaySet, scene: Scene3D, materials,
         raise ValueError("trace: refractive_index_type='index' needs materials")
     cols = [tri.vp, tri.v1, tri.v2] if cfg.differentiable else []
     cols += [tri.norm] + _annotation_cols(tri, dtype, value_mode)
-    rows = _gather_rows_t(torch.cat(cols, dim=1), hit.idx)
+    rows = _gather_rows_t(torch.cat(cols, dim=1), hit.idx, cfg.use_kernel)
 
     o = 9 if cfg.differentiable else 0
     norm = rows[o:o + 3].T

@@ -12,6 +12,7 @@ import dataclasses
 from dataclasses import dataclass, field
 from typing import Dict
 
+import numpy as np
 import torch
 
 from tensorflowraytrace_tpu_torch.config import (
@@ -19,7 +20,16 @@ from tensorflowraytrace_tpu_torch.config import (
 )
 
 
+def _is_scalar(value):
+    return isinstance(value, (int, np.integer))
+
+
 def _as_cat(category, n, device):
+    """(n,) int32 column of a scalar or per-surface value.  A scalar is
+    filled on the device: a copy from the host would synchronise the stream
+    every time a surface is built."""
+    if _is_scalar(category):
+        return torch.full((n,), int(category), dtype=torch.int32, device=device)
     return torch.as_tensor(category, dtype=torch.int32,
                            device=device).expand(n).clone()
 
@@ -27,11 +37,13 @@ def _as_cat(category, n, device):
 def _as_mat(mat, n, device):
     if mat is None:
         return torch.zeros((n,), dtype=torch.int32, device=device)
-    arr = torch.as_tensor(mat, dtype=torch.int32, device=device).expand(n).clone()
+    arr = _as_cat(mat, n, device)
     # the engine packs category<<20 | mat_in<<10 | mat_out into one float
-    # column, which is exact only for ids in [0, 1024)
+    # column, which is exact only for ids in [0, 1024); a scalar id is
+    # checked on the host, with no read-back from the device
     if n:
-        lo, hi = int(arr.min()), int(arr.max())
+        lo, hi = ((int(mat), int(mat)) if _is_scalar(mat)
+                  else (int(arr.min()), int(arr.max())))
         if lo < 0 or hi >= 1024:
             raise ValueError(
                 f"material index out of range [0, 1024): got [{lo}, {hi}]; "

@@ -14,20 +14,17 @@ hit and ``valid`` is ``ray_u < BIG / 2``; the nearest hit wins and a tie
 goes to the first triangle index; there is no gradient.
 
 The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/`` at the repository root, under a name keyed by a hash of the source
-and the flags, and loaded with ``ctypes``.
+``build/`` and loaded with ``ctypes`` (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
+
+from tensorflowraytrace_tpu_torch.ops import cuda_build
 
 BIG = 3.0e38
 
@@ -35,60 +32,21 @@ BIG = 3.0e38
 # launches and nowhere else; callers reset it to 0 to count a run.
 LAUNCHES = 0
 
-_SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "triangle_search.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    # bit-for-bit agreement with the plain version; see the note in the source
-    "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-_LIB = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{_SOURCE.name}")
+SOURCE = "triangle_search.cu"
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(
-        _SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f"triangle_search_{digest}.so"
+    return cuda_build.library_path(SOURCE)
 
 
-def load_library(verbose: bool = False):
-    """Build the kernel library if this source has not been built yet, load
-    it and declare its C signature.  ``verbose`` adds ``-Xptxas -v`` and
-    prints the compiler's report (registers, shared memory, spills)."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    out = library_path()
-    if not out.exists():
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-               "-o", str(tmp), str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, end="")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+def load_library():
+    """The kernel library, built at first use, with its C signature
+    declared."""
+    lib = cuda_build.load(SOURCE)
     fn = lib.triangle_search_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
         + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
-    _LIB = lib
     return lib
 
 

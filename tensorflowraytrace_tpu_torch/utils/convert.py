@@ -55,3 +55,23 @@ def triangles_from_numpy(vp, v1, v2, norm=None, category=OPTICAL, mat_in=None,
         arr(vp), arr(v1), arr(v2), arr(norm), category=arr(category),
         mat_in=arr(mat_in), mat_out=arr(mat_out), dtype=resolve_dtype(dtype),
         device=resolve_device(device))
+
+
+def optimizer_state_from_numpy(optimizer, parameters, velocity):
+    """Load an optimizer's state from arrays: ``parameters`` and ``velocity``
+    are per-surface lists, as ``np.asarray`` of a JAX ``Optimizer``'s
+    ``parameters`` and ``_velocity``.  They take the dtype and device of the
+    port ``optimizer``'s own parameters, so its next step continues the JAX
+    run's Nesterov momentum.  Returns the optimizer."""
+    n = len(optimizer.parameters)
+    if len(parameters) != n or len(velocity) != n:
+        raise ValueError(f"the optimizer has {n} parameters; got "
+                         f"{len(parameters)} parameters and {len(velocity)} "
+                         "velocities")
+
+    def like(arrays):
+        return [torch.as_tensor(np.array(a), dtype=p.dtype, device=p.device)
+                for a, p in zip(arrays, optimizer.parameters)]
+
+    optimizer.parameters, optimizer._velocity = like(parameters), like(velocity)
+    return optimizer

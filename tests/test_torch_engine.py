@@ -22,6 +22,7 @@ from tensorflowraytrace_tpu import TraceConfig as JTraceConfig
 from tensorflowraytrace_tpu import TriangleSet as JTriangleSet
 from tensorflowraytrace_tpu import engine as j_engine
 from tensorflowraytrace_tpu.ops import materials as j_mats
+from tensorflowraytrace_tpu_torch import config
 from tensorflowraytrace_tpu_torch import engine as t_engine
 from tensorflowraytrace_tpu_torch import Scene3D, TraceConfig
 from tensorflowraytrace_tpu_torch.ops import materials as t_mats
@@ -31,6 +32,14 @@ from tensorflowraytrace_tpu_torch.utils.convert import (
 
 J_DT = {np.float32: jnp.float32, np.float64: jnp.float64}
 T_DT = {np.float32: torch.float32, np.float64: torch.float64}
+
+
+@pytest.fixture(autouse=True)
+def on_cpu():
+    """The port builds on CUDA by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
 
 
 def quad(x, half):

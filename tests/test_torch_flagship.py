@@ -27,6 +27,7 @@ from tensorflowraytrace_tpu.models import boundaries as j_bd  # noqa: E402
 from tensorflowraytrace_tpu.models import distributions as j_dist  # noqa: E402
 from tensorflowraytrace_tpu.models import mesh as j_mesh  # noqa: E402
 from tensorflowraytrace_tpu.models import sources as j_src  # noqa: E402
+from tensorflowraytrace_tpu_torch import config  # noqa: E402
 from tensorflowraytrace_tpu_torch import flagship  # noqa: E402
 from tensorflowraytrace_tpu_torch.models import distributions as t_dist  # noqa: E402
 from tensorflowraytrace_tpu_torch.models import mesh as t_mesh  # noqa: E402
@@ -35,6 +36,14 @@ from tensorflowraytrace_tpu_torch.utils.convert import params_from_numpy  # noqa
 
 BP, STEPS, BOUNCES = 6, 2, 4
 F64 = torch.float64
+
+
+@pytest.fixture(autouse=True)
+def on_cpu():
+    """The port builds on CUDA by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
 
 
 def close(t, j, rtol=1e-12, atol=1e-14):

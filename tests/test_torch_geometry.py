@@ -15,6 +15,7 @@ from tensorflowraytrace_tpu.models import surfaces as j_surf
 from tensorflowraytrace_tpu.ops import geometry as j_geo
 from tensorflowraytrace_tpu.ops import materials as j_mats
 from tensorflowraytrace_tpu.utils import quaternion as j_quat
+from tensorflowraytrace_tpu_torch import config
 from tensorflowraytrace_tpu_torch.models import surfaces as t_surf
 from tensorflowraytrace_tpu_torch.ops import geometry as t_geo
 from tensorflowraytrace_tpu_torch.ops import materials as t_mats
@@ -23,6 +24,14 @@ from tensorflowraytrace_tpu_torch.utils import quaternion as t_quat
 RTOL = 1e-12
 MATERIALS = ["vacuum", "acrylic", "crown_glass", "flint_glass",
              "fused_silica", "polycarbonate", "reflective", "soda_lime"]
+
+
+@pytest.fixture(autouse=True)
+def on_cpu():
+    """The port builds on CUDA by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
 
 
 def t64(a):

@@ -17,12 +17,21 @@ import torch
 from tensorflowraytrace_tpu.models.surfaces import TriangleSet as JTriangleSet
 from tensorflowraytrace_tpu.ops import intersect as j_isect
 from tensorflowraytrace_tpu.ops.pallas_kernels import nearest_hit_triangles_pallas
+from tensorflowraytrace_tpu_torch import config
 from tensorflowraytrace_tpu_torch.ops import intersect as t_isect
 from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 from tensorflowraytrace_tpu_torch.utils.convert import triangles_from_numpy
 
 EPS32 = 1e-6
 EPS64 = 1e-10
+
+
+@pytest.fixture(autouse=True)
+def on_cpu():
+    """The port builds on CUDA by default; these tests ask for the CPU."""
+    previous = config.set_default_device("cpu")
+    yield
+    config.set_default_device(previous)
 
 
 def soup(rng, n_tris, n_rays, dtype=np.float32):

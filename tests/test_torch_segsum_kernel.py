@@ -1,0 +1,111 @@
+"""The CUDA segment-sum kernel (K2) against its plain PyTorch version, on
+the card.  The pytest form of phase 6 of chip_smoke.py.
+
+Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
+``cuda`` and skip without one.  Run them on the card with
+``python -m pytest tests/test_torch_segsum_kernel.py -m cuda --noconftest
+-o addopts="" -q``.
+
+The kernel adds with atomics in an order that changes from run to run, so
+it is held elementwise to the float64 sum: ``|K2 - ref64| <= 1e-5 S +
+1e-7``, where ``S[j] = sum over idx[i] == j of |ct[:, i]|`` bounds the
+rounding of any order of float32 additions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tensorflowraytrace_tpu_torch.engine import _gather_rows_t
+from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+
+pytestmark = pytest.mark.cuda
+K = 13
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def case(n, m, device, idx="random", seed=0):
+    gen = torch.Generator(device).manual_seed(seed)
+    ct = torch.randn((K, n), generator=gen, device=device)
+    if idx == "random":
+        ids = torch.randint(0, m, (n,), generator=gen, device=device)
+    elif idx == "coherent":
+        base = torch.randint(0, m - 40, (n // 100 + 1,), generator=gen,
+                             device=device).repeat_interleave(100)[:n]
+        ids = base + torch.randint(0, 40, (n,), generator=gen, device=device)
+    else:  # every ray on one row
+        ids = torch.full((n,), m // 2, device=device)
+    return ct, ids.to(torch.int32)
+
+
+def check(ct, idx, m):
+    before = sk.LAUNCHES
+    got = sk.segment_sum_kernel(ct, idx, m)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == before + 1
+    ref64 = sk.segment_sum_plain(ct.double(), idx, m)
+    bound = sk.segment_sum_plain(ct.double().abs(), idx, m) * 1e-5 + 1e-7
+    assert got.shape == (m, K) and got.dtype == torch.float32
+    assert bool(((got.double() - ref64).abs() <= bound).all())
+    return got
+
+
+@pytest.mark.parametrize("n,m,idx", [
+    (2025, 770, "random"), (1 << 20, 770, "random"), (1 << 20, 4096, "random"),
+    (5000, 16386, "random"), (5000, 16386, "coherent"), (1 << 20, 770, "same"),
+    (1, 1, "random"), (1000, 333, "random"),
+])
+def test_kernel_matches_float64(cuda, n, m, idx):
+    check(*case(n, m, cuda, idx), m)
+
+
+def test_branches(cuda):
+    assert sk.branch(770, K, cuda) == "shared"
+    assert sk.branch(4096, K, cuda) == "shared"
+    assert sk.branch(16386, K, cuda) == "global"
+
+
+def test_zero_cotangents_sum_to_zero(cuda):
+    ct, idx = case(4096, 770, cuda)
+    ct[-1] = 0.0
+    got = check(ct, idx, 770)
+    assert bool((got[:, -1] == 0).all())
+    unused = torch.ones(770, dtype=torch.bool, device=cuda)
+    unused[idx.long()] = False
+    assert bool((got[unused] == 0).all())
+
+
+def test_gather_backward_launches_the_kernel(cuda):
+    rng = np.random.default_rng(0)
+    table = torch.as_tensor(rng.normal(0, 1, (770, K)), dtype=torch.float32,
+                            device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 770, 5000), dtype=torch.int32,
+                          device=cuda)
+    w = torch.as_tensor(rng.normal(0, 1, (K, 5000)), dtype=torch.float32,
+                        device=cuda)
+    grads = []
+    for use_kernel in (True, False):
+        t = table.clone().requires_grad_(True)
+        before = sk.LAUNCHES
+        torch.sum(w * _gather_rows_t(t, idx, use_kernel) ** 2).backward()
+        assert sk.LAUNCHES == before + int(use_kernel)
+        grads.append(t.grad)
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_refuses_what_it_cannot_take(cuda):
+    ct, idx = case(64, 10, cuda)
+    with pytest.raises(TypeError):
+        sk.segment_sum_kernel(ct.double(), idx, 10)
+    with pytest.raises(TypeError):
+        sk.segment_sum_kernel(ct, idx.long(), 10)
+    with pytest.raises(ValueError, match="is on"):
+        sk.segment_sum_kernel(ct, idx.cpu(), 10)
+    with pytest.raises(ValueError, match="must be"):
+        sk.segment_sum_kernel(ct, idx[:10], 10)
