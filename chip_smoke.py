@@ -9,14 +9,20 @@ exits non-zero without printing a result):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
    exits non-zero when CUDA is not available.
-2. build: compiles both kernels (csrc/triangle_search.cu and
-   csrc/segment_sum.cu), one nvcc each, started together, into build/.
+2. build: compiles the four kernels (csrc/triangle_search.cu,
+   triangle_search_culled.cu, triangle_search_twolevel.cu and
+   segment_sum.cu), one nvcc each, started together, into build/.
 3. K1 against its plain PyTorch version on the card: the random soup of
    bench.py (seed 0: 4094 random triangles plus the 2-triangle target quad)
    with 131072 rays, the flagship's first-bounce search, a ragged tile
    (1000 rays x 333 triangles) and a batch that misses everything.
    Criteria of tests/test_pallas.py: equal ``valid``, ``ray_u`` within
-   rtol 1e-5 where valid, > 99% equal ``idx``.
+   rtol 1e-5 where valid, > 99% equal ``idx``.  Then K3 (culled) and K4
+   (two-level) against their plain versions and against K1, bit for bit:
+   the soup Morton-sorted as in bench.py (131072 rays), the first bounce
+   of the structured guide (131072 rays x 16386 triangles), a ragged tile,
+   an all-miss batch, a batch of parked rays, and K4 with its candidate cap
+   forced to 1 so that every block overflows and sweeps.
 4. the flagship forward (flagship.entry(): 1024 rays, a lens of two
    217-vertex surfaces, 4 bounces, float32) through the kernel: the loss is
    finite, equals the port's plain search path within rtol 1e-4, and K1
@@ -41,9 +47,34 @@ exits non-zero without printing a result):
    within rtol 1e-4; K2's share of device time (torch.profiler) and the
    peak device memory.
 
-Then one JSON line describing each kernel of the path, the nvidia-smi line,
-and as the last line ``{"ok": true, "device": {...}}``.  The soup is not
-Morton-sorted as in bench.py: the brute-force search does not use the order.
+9. the Morton-sorted soup (as bench.py traces it: 2^20 rays x 4096
+   triangles x 8 bounces) through K1 brute force, ``cull=True`` (K3),
+   ``cull="grid"`` (K4), ``cull="grid", resort_rays=True`` and
+   ``cull=True, resort_rays=True``: the final
+   ``state``, ``p0`` and ``p1`` of every accelerated path equal the brute
+   path's bit for bit; each kernel launches once per bounce; median of 5
+   synchronised traces of each.
+10. the structured guide of bench.py (a 16386-triangle
+   ParametricCylindricalGuide, 64 x 128 rings, taper (0.7, 0.0),
+   Morton-sorted, 2^20 rays from seed 0, acrylic, 24 bounces) through the
+   same five paths, checked and timed as in phase 9, with equivalent
+   intersections/s N M B / t.  Then K1, K3 and K4 alone at its first
+   bounce, the rays in the re-sort's Morton order (time, plain time, and
+   the bound of the work these inputs need; K4's kernel also alone, apart
+   from the preparation of its inputs);
+   one ``cull="grid", resort_rays=True`` trace under torch.profiler (K4,
+   the candidate precompute, the re-sort and the rest of the device time,
+   and the idle share), its peak memory and its host synchronisations.
+
+Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
+earlier runs: the brute-force search does not use the order.  Then one
+JSON line describing each kernel of the path, the nvidia-smi line, and as
+the last line ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --tune`` runs phases 1 and 2 and then sweeps K4's
+ray block, fine chunk and candidate cap on the guide and the sorted soup
+(median of 3 traces each, every setting checked against the brute trace),
+and prints no result line.
 """
 
 import collections
@@ -81,6 +112,14 @@ TRAIN_RINGS = 8
 TRAIN_BOUNCES = 3
 WIDE_BP = 1024
 
+# phases 3, 9 and 10: the acceleration path
+CULL_RAYS = 131072
+GUIDE_RAYS = 1 << 20
+GUIDE_BOUNCES = 24
+# profiler ranges the port opens around the candidate precompute and the
+# re-sort; their device-side annotations are not kernels
+RANGES = ("twolevel_candidates", "resort_rays")
+
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W power limit)
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
@@ -102,13 +141,18 @@ def card():
     return torch.device("cuda:0")
 
 
-def soup_scene(n_rays, device):
+def soup_scene(n_rays, device, sort=False):
     """bench.py's random soup: a box of reflective triangles around the
-    origin, a distant target plane, rays from inside in random directions."""
+    origin, a distant target plane, rays from inside in random directions.
+    ``sort`` Morton-sorts the soup before the target is added, as bench.py
+    does."""
     import numpy as np
     import torch
 
     from tensorflowraytrace_tpu_torch import RaySet, Scene3D, TriangleSet
+    from tensorflowraytrace_tpu_torch.models.acceleration import (
+        morton_sort_triangles,
+    )
 
     f32 = torch.float32
     rng = np.random.default_rng(0)
@@ -119,6 +163,8 @@ def soup_scene(n_rays, device):
     guide = TriangleSet.make(vp.astype(np.float32), v1.astype(np.float32),
                              v2.astype(np.float32), mat_in=1, mat_out=0,
                              dtype=f32, device=device)
+    if sort:
+        guide, _ = morton_sort_triangles(guide)
     half = 500.0
     target = TriangleSet.make(
         [[50.0, -half, -half], [50.0, half, half]],
@@ -129,6 +175,48 @@ def soup_scene(n_rays, device):
     d = rng.normal(0, 1, (n_rays, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     rays = RaySet.make(p0, p0 + d, 575.0, dtype=f32, device=device)
+    return rays, scene
+
+
+def guide_scene(n_rays, device):
+    """bench.py's structured scene: a 16k-triangle cylindrical light guide
+    (Morton-sorted) with a small target past its end, rays from a disc near
+    the start heading down the guide."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from tensorflowraytrace_tpu_torch import RaySet, Scene3D, TriangleSet
+    from tensorflowraytrace_tpu_torch.models import boundaries as bd
+    from tensorflowraytrace_tpu_torch.models.acceleration import (
+        morton_sort_triangles,
+    )
+
+    f32 = torch.float32
+    guide = bd.ParametricCylindricalGuide(
+        (0.0, 0.0, 0.0), (0.0, 0.0, 40.0), minimum_radius=0.3,
+        theta_res=64, z_res=128, rotationally_symmetric=True,
+        initial_taper=(0.7, 0.0), mat_in=1, mat_out=0, dtype=f32,
+        device=device)
+    with torch.no_grad():
+        surf, _ = morton_sort_triangles(guide.build())
+    half = 0.35
+    target = TriangleSet.make(
+        [[-half, -half, 40.05], [half, half, 40.05]],
+        [[half, -half, 40.05], [-half, half, 40.05]],
+        [[half, half, 40.05], [-half, -half, 40.05]], dtype=f32, device=device)
+    scene = Scene3D.build(optical=[surf], targets=[target])
+    rng = np.random.default_rng(0)
+    r = 0.2 * np.sqrt(rng.uniform(0, 1, n_rays))
+    th = rng.uniform(0, 2 * math.pi, n_rays)
+    p0 = np.stack([r * np.cos(th), r * np.sin(th), np.full(n_rays, 0.1)],
+                  1).astype(np.float32)
+    d = rng.normal(0, 1, (n_rays, 3))
+    d[:, 2] = np.abs(d[:, 2]) * 3 + 1
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = RaySet.make(p0, p0 + d.astype(np.float32), 575.0, dtype=f32,
+                       device=device)
     return rays, scene
 
 
@@ -172,6 +260,136 @@ def compare_k1(label, p0, p1, vp, v1, v2):
           f"hits={int(rv.sum())} idx_agree={agree:.6f} max_abs_err={err} "
           f"bitwise_equal={bitwise}", flush=True)
     return err
+
+
+def compare_culled(label, p0, p1, vp, v1, v2, **twolevel):
+    """K3 and K4 against their plain versions and against K1 on the same
+    tensors, bit for bit; returns the largest |u - u_plain| on valid rays
+    (0 when bit for bit).  These launches are comparisons, not the main
+    path."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    args = [t.detach().contiguous() for t in (p0, p1, vp, v1, v2)]
+    ref = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
+    got = {
+        "K3": tk.nearest_hit_triangles_culled_kernel(*args, EPS, EPS, EPS),
+        "K4": tk.nearest_hit_triangles_twolevel_kernel(*args, EPS, EPS, EPS,
+                                                       **twolevel),
+    }
+    torch.cuda.synchronize()
+    plain = {
+        "K3": tk.nearest_hit_triangles_culled_plain(*args, EPS, EPS, EPS),
+        "K4": tk.nearest_hit_triangles_twolevel_plain(*args, EPS, EPS, EPS,
+                                                      **twolevel),
+    }
+    errs, report, bad = {}, [], []
+    for name in got:
+        (v, i, u), (pv, pi, pu) = got[name], plain[name]
+        both = v & pv
+        errs[name] = float((u[both] - pu[both]).abs().max()) if both.any() else 0.0
+        vs_plain = int(((v != pv) | (i != pi) | (u != pu)).sum())
+        vs_k1 = int(((v != ref[0]) | (i != ref[1]) | (u != ref[2])).sum())
+        report.append(f"{name} rays differing from plain {vs_plain}, "
+                      f"from K1 {vs_k1}, max_abs_err {errs[name]}")
+        if vs_plain or vs_k1:
+            bad.append(name)
+    print(f"phase 3 K3/K4 {label}: N={args[0].shape[0]} M={args[2].shape[0]} "
+          f"hits={int(ref[0].sum())} {twolevel or ''} " + "; ".join(report),
+          flush=True)
+    check(not bad, f"{label}: {bad} not bit for bit equal to K1 and plain")
+    return max(errs.values())
+
+
+def admitted_pairs(p0, p1, vp, v1, v2, u, chunk):
+    """The ray-triangle pairs a culled search must compute on these inputs:
+    for each ray, the triangles of every chunk (of ``chunk`` rows) whose box
+    its own slab test admits no farther than its final nearest hit ``u``."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    m = vp.shape[0]
+    boxes = chunk_aabbs(vp, v1, v2, chunk)
+    sizes = torch.full((boxes.shape[0],), chunk, dtype=torch.int64,
+                       device=p0.device)
+    sizes[-1] = m - (boxes.shape[0] - 1) * chunk
+    inv = tk._inverse_direction(p1 - p0)
+    o3 = [a[:, None] for a in p0.unbind(1)]
+    inv3 = [a[:, None] for a in inv.unbind(1)]
+    total = 0
+    for c0 in range(0, boxes.shape[0], 8):
+        box = boxes[c0:c0 + 8].T
+        gate = tk._slab_gate(o3, inv3, box[:3], box[3:], EPS, u[:, None])
+        total += int((gate.to(torch.int64) * sizes[c0:c0 + 8]).sum())
+    return total
+
+
+def accel_paths(label, rays, scene, materials, bounces, launched):
+    """The four search paths of one scene: the final state and endpoints of
+    every accelerated path against the brute path's, bit for bit, each
+    kernel once per bounce, and the median of 5 synchronised traces after
+    one more.  Adds each kernel's launches to ``launched``; returns the
+    medians (s) and the state counts."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import TraceConfig, trace
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    cfgs = {
+        "brute": TraceConfig(max_bounces=bounces, use_kernel=True),
+        "cull": TraceConfig(max_bounces=bounces, use_kernel=True, cull=True),
+        "grid": TraceConfig(max_bounces=bounces, use_kernel=True, cull="grid"),
+        "grid+resort": TraceConfig(max_bounces=bounces, use_kernel=True,
+                                   cull="grid", resort_rays=True),
+        "cull+resort": TraceConfig(max_bounces=bounces, use_kernel=True,
+                                   cull=True, resort_rays=True),
+    }
+    kernel_of = {"brute": "K1", "cull": "K3", "grid": "K4",
+                 "grid+resort": "K4", "cull+resort": "K3"}
+    times = {k: [] for k in cfgs}
+    finals = {}
+    for rep in range(6):  # rep 0 warms up and gives the results
+        for name, cfg in cfgs.items():
+            tk.LAUNCHES = tk.LAUNCHES_CULLED = tk.LAUNCHES_TWOLEVEL = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = trace(rays, scene, materials, cfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {"K1": tk.LAUNCHES, "K3": tk.LAUNCHES_CULLED,
+                      "K4": tk.LAUNCHES_TWOLEVEL}
+            want = {k: bounces if k == kernel_of[name] else 0 for k in counts}
+            check(counts == want, f"{label} {name}: launches {counts}, "
+                  f"not {want}")
+            for k, c in counts.items():
+                launched[k] = launched.get(k, 0) + c
+            if rep == 0:
+                finals[name] = res.rays
+            else:
+                times[name].append(dt)
+            del res
+    ref = finals["brute"]
+    check(bool(torch.isfinite(ref.p1).all()), f"{label}: non-finite endpoints")
+    states = state_counts(ref.state)
+    pairs = rays.n_rays * scene.triangles.n_surfaces * bounces
+    med = {k: statistics.median(v) for k, v in times.items()}
+    for name in cfgs:
+        got = finals[name]
+        same = {f: torch.equal(getattr(got, f), getattr(ref, f))
+                for f in ("state", "p0", "p1")}
+        print(f"{label} {name}: median {med[name] * 1e3:.3f} ms over 5 traces "
+              f"{[round(t * 1e3, 3) for t in times[name]]} = "
+              f"{pairs / med[name]:.4e} equivalent intersections/s; "
+              f"bitwise equal to brute {same}", flush=True)
+        check(all(same.values()), f"{label} {name}: differs from the brute "
+              f"trace ({same})")
+    print(f"{label}: N={rays.n_rays} M={scene.triangles.n_surfaces} "
+          f"bounces={bounces} states[active,finished,stopped,dead]={states}",
+          flush=True)
+    return med, states
 
 
 def state_counts(state):
@@ -232,7 +450,8 @@ def device_profile(prof):
 
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name not in RANGES)
     by_name = collections.Counter()
     union, last = 0.0, None
     for a, b, name in spans:
@@ -244,6 +463,70 @@ def device_profile(prof):
             union += b - last
             last = b
     return by_name, union, len(spans)
+
+
+def range_device_us(prof, label):
+    """Device time (us) of the kernels launched inside the profiler ranges
+    named ``label``."""
+    import torch
+
+    total = 0.0
+    for e in prof.events():
+        if e.name == label and e.device_type == torch.autograd.DeviceType.CPU:
+            total += (e.device_time_total if hasattr(e, "device_time_total")
+                      else e.cuda_time_total)
+    return total
+
+
+def tune_twolevel(device):
+    """``--tune``: K4's ray block and fine chunk (cap 32), then its cap at
+    the best of those, on the guide (24 bounces) and the sorted soup (8
+    bounces) with ``cull="grid", resort_rays=True``: median of 3 traces
+    after one, each checked against the brute trace bit for bit."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import TraceConfig, trace
+    from tensorflowraytrace_tpu_torch.ops import materials as mats
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    scenes = {
+        "guide": guide_scene(GUIDE_RAYS, device) + ((mats.vacuum, mats.acrylic),
+                                                    GUIDE_BOUNCES),
+        "soup": soup_scene(BENCH_RAYS, device, sort=True)
+        + ((mats.vacuum, mats.reflective), BENCH_BOUNCES),
+    }
+    refs = {k: trace(r, sc, mt, TraceConfig(max_bounces=b, use_kernel=True)).rays
+            for k, (r, sc, mt, b) in scenes.items()}
+
+    def run(rb, fine, cap):
+        tk.TWOLEVEL_RAY_BLOCK, tk.FINE_CHUNK, tk.TWOLEVEL_MAX_CAND = rb, fine, cap
+        out = {}
+        for k, (rays, scene, materials, bounces) in scenes.items():
+            cfg = TraceConfig(max_bounces=bounces, use_kernel=True,
+                              cull="grid", resort_rays=True)
+            times = []
+            for rep in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = trace(rays, scene, materials, cfg)
+                torch.cuda.synchronize()
+                if rep == 0:
+                    check(torch.equal(res.rays.state, refs[k].state)
+                          and torch.equal(res.rays.p1, refs[k].p1),
+                          f"tune {k} {rb}/{fine}/{cap} differs from brute")
+                else:
+                    times.append(time.perf_counter() - t0)
+            out[k] = statistics.median(times)
+        print(f"tune ray_block={rb} fine_chunk={fine} max_cand={cap}: "
+              + ", ".join(f"{k} {t * 1e3:.3f} ms" for k, t in out.items()),
+              flush=True)
+        return out
+
+    grid = {(rb, fine): run(rb, fine, 32)
+            for rb in (128, 256, 512, 1024) for fine in (128, 256, 512)}
+    rb, fine = min(grid, key=lambda key: grid[key]["guide"])
+    for cap in (8, 16, 64, 128):
+        run(rb, fine, cap)
 
 
 def main():
@@ -269,6 +552,9 @@ def main():
 
     from tensorflowraytrace_tpu_torch import FINISHED, Scene3D, TraceConfig, trace
     from tensorflowraytrace_tpu_torch import flagship
+    from tensorflowraytrace_tpu_torch.models.acceleration import (
+        morton_codes_device,
+    )
     from tensorflowraytrace_tpu_torch.ops import cuda_build
     from tensorflowraytrace_tpu_torch.ops import materials as mats
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
@@ -277,14 +563,20 @@ def main():
 
     # ---- phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    reports = cuda_build.build([tk.SOURCE, sk.SOURCE], verbose=True)
+    sources = [tk.SOURCE, tk.SOURCE_CULLED, tk.SOURCE_TWOLEVEL, sk.SOURCE]
+    reports = cuda_build.build(sources, verbose=True)
     for source, report in reports.items():
         print(f"phase 2 nvcc {source}:\n{report.strip()}", flush=True)
     tk.load_library()
+    tk.load_culled_library()
+    tk.load_twolevel_library()
     sk.load_library()
-    print(f"phase 2 build: {tk.library_path().name} "
-          f"{cuda_build.library_path(sk.SOURCE).name} in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"phase 2 build: "
+          + " ".join(cuda_build.library_path(s).name for s in sources)
+          + f" in {time.perf_counter() - t0:.2f} s", flush=True)
+    if "--tune" in sys.argv[1:]:
+        tune_twolevel(device)
+        return 0
 
     # ---- phase 3: K1 against its plain version
     rays, scene = soup_scene(K1_RAYS, device)
@@ -303,6 +595,30 @@ def main():
                           targets=[flagship.target_plane(torch.float32,
                                                          device)]).triangles
     compare_k1("flagship", f_rays.p0, f_rays.p1, f_tri.vp, f_tri.v1, f_tri.v2)
+
+    # K3 and K4 against their plain versions and K1
+    rays, scene = soup_scene(K1_RAYS, device, sort=True)
+    tri = scene.triangles
+    cull_err = compare_culled("sorted soup", rays.p0, rays.p1, tri.vp, tri.v1,
+                              tri.v2)
+    g_rays, g_scene = guide_scene(GUIDE_RAYS, device)
+    g_tri = g_scene.triangles
+    check(g_tri.n_surfaces == 16386, f"guide has {g_tri.n_surfaces} triangles")
+    cull_err = max(cull_err, compare_culled(
+        "guide first bounce", g_rays.p0[:CULL_RAYS], g_rays.p1[:CULL_RAYS],
+        g_tri.vp, g_tri.v1, g_tri.v2))
+    compare_culled("ragged", rays.p0[:1000], rays.p1[:1000], tri.vp[:333],
+                   tri.v1[:333], tri.v2[:333])
+    far = torch.full_like(rays.p0[:4096], 1000.0)
+    compare_culled("all-miss", far, far + 1.0, tri.vp, tri.v1, tri.v2)
+    parked = torch.full_like(rays.p0[:4096], 1e30)
+    compare_culled("parked", parked,
+                   torch.full_like(parked, 1e30 * (1 + 1e-6)), tri.vp, tri.v1,
+                   tri.v2)
+    compare_culled("forced overflow", g_rays.p0[:CULL_RAYS],
+                   g_rays.p1[:CULL_RAYS], g_tri.vp, g_tri.v1, g_tri.v2,
+                   max_cand=1)
+    del rays, scene, tri
 
     # ---- phase 4: the flagship forward, through the kernel
     forward, (params, generator) = flagship.entry(device=device)
@@ -537,6 +853,110 @@ def main():
           f"= {gmax!r}, ratio {gdiff / gmax:.3e}; loss {float(loss_k)!r}, "
           f"all-plain loss {float(loss_all_plain)!r}, rel {rel:.3e}", flush=True)
 
+    # ---- phase 9: the sorted soup through the accelerated paths
+    launched = {}
+    rays, scene = soup_scene(BENCH_RAYS, device, sort=True)
+    soup_med, _ = accel_paths("phase 9 soup", rays, scene,
+                              (mats.vacuum, mats.reflective), BENCH_BOUNCES,
+                              launched)
+    del rays, scene
+
+    # ---- phase 10: the structured guide
+    g_mats = (mats.vacuum, mats.acrylic)
+    g_med, g_states = accel_paths("phase 10 guide", g_rays, g_scene, g_mats,
+                                  GUIDE_BOUNCES, launched)
+    n, m = g_rays.n_rays, g_tri.n_surfaces
+    print("phase 10 table (median ms per trace): "
+          + "; ".join(f"{k}: soup {soup_med[k] * 1e3:.3f}, guide "
+                      f"{g_med[k] * 1e3:.3f}" for k in g_med), flush=True)
+
+    # K1, K3 and K4 alone at the guide's first bounce, the rays in the
+    # Morton order the re-sort gives them
+    lo = torch.minimum(g_tri.vp.amin(dim=0), g_tri.v2.amin(dim=0))
+    hi = torch.maximum(g_tri.vp.amax(dim=0), g_tri.v2.amax(dim=0))
+    order = torch.argsort(morton_codes_device(g_rays.p0, lo, hi), stable=True)
+    args = [t.contiguous() for t in (g_rays.p0[order], g_rays.p1[order],
+                                     g_tri.vp, g_tri.v1, g_tri.v2)]
+    _, _, u_final = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
+    brute_bound_ms = n * m * K1_FLOPS_PER_PAIR / PEAK_FP32_FLOP_S * 1e3
+    # K4's kernel alone, after its inputs are prepared
+    prepared = tk.twolevel_prepare(*args, EPS, tk.TWOLEVEL_RAY_BLOCK,
+                                   tk.FINE_CHUNK, tk.TWOLEVEL_MAX_CAND)
+    k4_kernel_ms = cuda_ms(lambda: tk.twolevel_launch(
+        args[0], args[1], m, prepared, EPS, EPS, EPS, tk.TWOLEVEL_RAY_BLOCK,
+        tk.FINE_CHUNK), 10)
+    prepare_ms = cuda_ms(lambda: tk.twolevel_prepare(
+        *args, EPS, tk.TWOLEVEL_RAY_BLOCK, tk.FINE_CHUNK,
+        tk.TWOLEVEL_MAX_CAND), 10)
+    counts = prepared[2]
+    print(f"phase 10 K4 at the first bounce: kernel alone {k4_kernel_ms:.4f} "
+          f"ms, its input preparation (boxes, candidates, table) "
+          f"{prepare_ms:.4f} ms; ray block {tk.TWOLEVEL_RAY_BLOCK}, fine "
+          f"chunk {tk.FINE_CHUNK}, cap {prepared[4]}: {counts.shape[0]} "
+          f"blocks, {int((counts == prepared[1].shape[0]).sum())} overflow, "
+          f"mean count {float(counts.float().mean()):.2f}", flush=True)
+    del prepared, counts
+    alone = {}
+    for name, fn, plain, chunk in (
+            ("K1", tk.nearest_hit_triangles_kernel,
+             tk.nearest_hit_triangles_plain, None),
+            ("K3", tk.nearest_hit_triangles_culled_kernel,
+             tk.nearest_hit_triangles_culled_plain, tk.CULL_CHUNK),
+            ("K4", tk.nearest_hit_triangles_twolevel_kernel,
+             tk.nearest_hit_triangles_twolevel_plain, tk.FINE_CHUNK)):
+        pairs = (n * m if chunk is None
+                 else admitted_pairs(*args, u_final, chunk))
+        alone[name] = {
+            "ms": cuda_ms(lambda: fn(*args, EPS, EPS, EPS), 10),
+            "plain_ms": (None if chunk is None else
+                         cuda_ms(lambda: plain(*args, EPS, EPS, EPS), 1)),
+            "pairs": pairs,
+            "bound_ms": pairs * K1_FLOPS_PER_PAIR / PEAK_FP32_FLOP_S * 1e3,
+        }
+        print(f"phase 10 {name} alone at the first bounce {n}x{m}: kernel "
+              f"{alone[name]['ms']:.4f} ms, plain {alone[name]['plain_ms']} ms, "
+              f"admitted pairs {pairs} ({pairs / (n * m):.4%} of brute), "
+              f"bound {alone[name]['bound_ms']:.4f} ms (operations; brute "
+              f"bound {brute_bound_ms:.4f} ms)", flush=True)
+    del args, u_final
+
+    # one grid + resort trace: its device time, memory and syncs
+    g_cfg = TraceConfig(max_bounces=GUIDE_BOUNCES, use_kernel=True,
+                        cull="grid", resort_rays=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    trace(g_rays, g_scene, g_mats, g_cfg)
+    torch.cuda.synchronize()
+    g_peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trace(g_rays, g_scene, g_mats, g_cfg)
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, union_us, n_device = device_profile(prof)
+    busy_us = sum(by_name.values())
+    if busy_us > 0:
+        k4_us = sum(t for k, t in by_name.items()
+                    if "triangle_search_twolevel" in k)
+        cand_us = range_device_us(prof, "twolevel_candidates")
+        resort_us = range_device_us(prof, "resort_rays")
+        rest_us = busy_us - k4_us - cand_us - resort_us
+        split = (f"device busy {union_us:.1f} us of {prof_wall_us:.1f} us "
+                 f"wall (idle share {1 - union_us / prof_wall_us:.4f}); "
+                 f"{n_device} kernels and copies, {busy_us:.1f} us: K4 "
+                 f"{k4_us:.1f} us ({k4_us / busy_us:.4%}), candidate "
+                 f"precompute {cand_us:.1f} us ({cand_us / busy_us:.4%}), "
+                 f"re-sort {resort_us:.1f} us ({resort_us / busy_us:.4%}), "
+                 f"rest {rest_us:.1f} us ({rest_us / busy_us:.4%}); top: "
+                 + "; ".join(f"{k[:50]} {t:.1f} us"
+                             for k, t in by_name.most_common(5)))
+    else:
+        split = "the profiler recorded no device time: split not measured"
+    g_syncs = count_syncs(lambda: trace(g_rays, g_scene, g_mats, g_cfg))
+    print(f"phase 10 grid+resort trace: {split}; peak device memory "
+          f"{g_peak_gib:.3f} GiB; {g_syncs} synchronising calls", flush=True)
+    check(g_syncs == 0, f"the guide trace synchronised {g_syncs} times")
+
     main_k2 = k2["flagship_bench"]
     print(json.dumps({"kernels": [{
         "name": "triangle_search", "route": "cuda",
@@ -555,7 +975,19 @@ def main():
         "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],
         "bound_by": main_k2["bound_by"], "library_ms": main_k2["library_ms"],
         "shape": f"{SEGSUM_K}x{main_k2['n']}->{main_k2['m']}x{SEGSUM_K}",
-    }]}))
+    }] + [{
+        "name": name, "route": "cuda",
+        "source": f"tensorflowraytrace_tpu_torch/csrc/{source}",
+        "replaces": f"tensorflowraytrace_tpu/ops/pallas_kernels.py:{line}",
+        "launches": launched[key], "max_abs_err": cull_err,
+        "ms": k4_kernel_ms if key == "K4" else alone[key]["ms"],
+        "wrapper_ms": alone[key]["ms"], "plain_ms": alone[key]["plain_ms"],
+        "bound_ms": alone[key]["bound_ms"], "bound_by": "operations",
+        "brute_bound_ms": brute_bound_ms, "library_ms": None,
+        "shape": f"{n}x{m} (first bounce of the guide)",
+    } for name, source, line, key in (
+        ("triangle_search_culled", tk.SOURCE_CULLED, 144, "K3"),
+        ("triangle_search_twolevel", tk.SOURCE_TWOLEVEL, 979, "K4"))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

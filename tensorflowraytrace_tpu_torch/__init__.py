@@ -2,14 +2,19 @@
 differentiable optical ray tracer.
 
 It mirrors the module paths of ``tensorflowraytrace_tpu`` (the JAX package,
-which stays the reference) and imports no JAX.  Its slices so far are the
-3D forward trace and training:
+which stays the reference) and imports no JAX and nothing of the JAX
+package.  Its slices so far are the 3D forward trace, training, and the
+acceleration path:
 
-  models/     rays, triangle surfaces, sources, distributions, boundaries,
-              meshes and their accumulator / smoother tools
+  models/     rays, triangle surfaces, sources, distributions, boundaries
+              (lens surfaces, the cylindrical light guide), meshes and their
+              accumulator / smoother tools, acceleration (Morton sort, chunk
+              boxes)
   ops/        geometry, materials, the nearest-hit search and its CUDA
-              kernel (ops/triangle_kernels.py, csrc/triangle_search.cu), the
-              gather's backward as a CUDA segment sum (ops/segsum_kernels.py,
+              kernels (ops/triangle_kernels.py: brute force
+              csrc/triangle_search.cu, culled triangle_search_culled.cu,
+              two-level triangle_search_twolevel.cu), the gather's backward
+              as a CUDA segment sum (ops/segsum_kernels.py,
               csrc/segment_sum.cu), and their nvcc build (ops/cuda_build.py)
   engine      the multi-bounce trace loop
   optim       the optimizers (gradient pipeline, phases)

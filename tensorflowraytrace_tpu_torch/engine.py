@@ -6,7 +6,9 @@ FINISHED on a target, STOPPED on a stop, DEAD on a miss).  When an ACTIVE
 ray reacts with an OPTICAL surface its child replaces it in its slot.  The
 bounce loop is a Python loop over ``max_bounces``.
 
-One bounce (``project_3d``) runs: the nearest-hit search (no gradient), one
+One bounce (``project_3d``) runs: the nearest-hit search (no gradient; with
+``cull``, terminated rays are parked outside every box and, with
+``resort_rays``, the rays are searched in Morton order), one
 gather of per-surface rows (whose backward is a segment sum), the
 differentiable refine of the winning hit, then (``single_pass``)
 classification and the reaction (vector Snell).
@@ -23,6 +25,7 @@ import torch
 from tensorflowraytrace_tpu_torch.config import (
     ACTIVE, DEAD, FINISHED, OPTICAL, STOP, STOPPED, default_epsilon,
 )
+from tensorflowraytrace_tpu_torch.models.acceleration import morton_codes_device
 from tensorflowraytrace_tpu_torch.models.rays import RaySet
 from tensorflowraytrace_tpu_torch.models.surfaces import Scene3D
 from tensorflowraytrace_tpu_torch.ops import intersect as isect
@@ -32,7 +35,7 @@ from tensorflowraytrace_tpu_torch.ops.materials import material_index_lookup
 
 # TraceConfig fields of the JAX engine that this port does not implement yet;
 # setting one raises rather than being ignored.
-_NOT_IMPLEMENTED = ("cull", "resort_rays", "remat", "early_exit")
+_NOT_IMPLEMENTED = ("remat", "early_exit")
 
 
 @dataclass(frozen=True)
@@ -51,6 +54,8 @@ class TraceConfig:
     # "value": per-surface n_in / n_out floats in surface.fields
     refractive_index_type: str = "index"
     use_kernel: bool = False
+    # conservative chunk culling (exact): True -> K3, "grid" -> K4 under
+    # use_kernel; inactive rays are parked outside every chunk box
     cull: object = False
     surf_chunk: int = 128
     ray_block: int = 32768
@@ -62,6 +67,8 @@ class TraceConfig:
     # False -> hit points come from the search's ray parameter and no
     # gradient reaches the surface geometry
     differentiable: bool = True
+    # with cull: sort the rays by the Morton code of their start before each
+    # search, so ray blocks stay coherent; results are scattered back
     resort_rays: bool = False
     early_exit: bool = False
 
@@ -189,11 +196,48 @@ def project_3d(rays: RaySet, scene: Scene3D, materials,
     row of the (M, k) table [vp v1 v2 norm annotation], refine."""
     i_eps, s_eps, r_eps = cfg.epsilons(rays.p0.dtype)
     tri = scene.triangles
+    search_p0, search_p1 = rays.p0.detach(), rays.p1.detach()
+    if cfg.cull:
+        # park terminated rays far outside every chunk box so their slab
+        # tests fail; a ray block whose rays have all terminated skips every
+        # chunk.  The values enter as Python scalars (a scalar tensor built
+        # on the device would synchronise the stream).
+        inactive = (rays.state != ACTIVE)[:, None]
+        search_p0 = torch.where(inactive, torch.full_like(search_p0, 1e30),
+                                search_p0)
+        search_p1 = torch.where(
+            inactive, torch.full_like(search_p1, 1e30 * (1 + 1e-6)), search_p1)
+
+    order = None
+    if cfg.cull and cfg.resort_rays:
+        # spatial re-sort: ray blocks stay coherent after the first bounce,
+        # so culling keeps working (parked rays sort last).  The box is that
+        # of tri.vp and tri.v2, as in the JAX package.
+        # (a profiler range, so a trace's profile can read its device time)
+        with torch.profiler.record_function("resort_rays"):
+            vp, v2 = tri.vp.detach(), tri.v2.detach()
+            lo = torch.minimum(vp.amin(dim=0), v2.amin(dim=0))
+            hi = torch.maximum(vp.amax(dim=0), v2.amax(dim=0))
+            order = torch.argsort(morton_codes_device(search_p0, lo, hi),
+                                  stable=True)
+            search_p0, search_p1 = search_p0[order], search_p1[order]
+
     hit = isect.nearest_hit_triangles(
-        rays.p0, rays.p1, tri, i_eps, s_eps, r_eps,
+        search_p0, search_p1, tri, i_eps, s_eps, r_eps,
         surf_chunk=cfg.surf_chunk, ray_block=cfg.ray_block,
-        use_kernel=cfg.use_kernel,
+        use_kernel=cfg.use_kernel, cull=cfg.cull,
     )
+    if order is not None:
+        # scatter the results back to slot order
+        def unsort(x):
+            out = torch.empty_like(x)
+            out[order] = x
+            return out
+
+        with torch.profiler.record_function("resort_rays"):
+            hit = isect.HitRecord(valid=unsort(hit.valid), idx=unsort(hit.idx),
+                                  ray_u=unsort(hit.ray_u), kind=hit.kind,
+                                  branch=hit.branch)
 
     dtype = rays.p0.dtype
     value_mode = cfg.refractive_index_type == "value"

@@ -10,6 +10,7 @@ surface differentiably::
 ``params=None`` uses the module's own ``nn.Parameter``s; passing tensors
 builds from those instead.  Constraints are functional parameter
 projections applied inside ``build``, so gradients flow through them.
+Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -129,6 +130,28 @@ class FromVectorVG:
     def generate(self, zero):
         v = torch.as_tensor(self.vector, dtype=zero.dtype, device=zero.device)
         return _normalize_rows(v.expand_as(zero))
+
+
+class FromAxisVG:
+    """Vectors radiating perpendicular from an axis line through ``first``
+    (towards ``point``, or along ``direction``); zero for points on the
+    axis, such as a cylinder's cap centres."""
+
+    def __init__(self, first, point=None, direction=None):
+        self.axis_point = np.asarray(first, dtype=np.float64)
+        if point is not None:
+            axis = np.asarray(point, dtype=np.float64) - self.axis_point
+        elif direction is not None:
+            axis = np.asarray(direction, dtype=np.float64)
+        else:
+            raise ValueError("FromAxisVG: provide 'point' or 'direction'")
+        self.axis = axis / np.linalg.norm(axis)
+
+    def generate(self, zero):
+        ap = torch.as_tensor(self.axis_point, dtype=zero.dtype, device=zero.device)
+        ax = torch.as_tensor(self.axis, dtype=zero.dtype, device=zero.device)
+        d = torch.sum((zero - ap) * ax, dim=1, keepdim=True)
+        return _normalize_rows(zero - (ap + ax * d))
 
 
 # ======================================================================
@@ -254,3 +277,95 @@ class ParametricMultiTriangleBoundary(nn.Module):
             params_list = self.param_list()
         out = self.constrain(params_list)
         return [s.build(p) for s, p in zip(self.surfaces, out)]
+
+
+class ParametricCylindricalGuide(nn.Module):
+    """A closed cylinder-like light guide whose radius profile is trainable.
+    Parameters are the radius above ``minimum_radius`` (one per ring with
+    ``rotationally_symmetric``, else one per ring point); ``build`` first
+    subtracts their minimum, so the narrowest point always sits at the
+    minimum radius.  The cap centres get no parameter and stay put.
+
+    It makes its own mesh (``mesh.cylindrical_mesh``), moves vertices along
+    ``FromAxisVG`` vectors, and keeps the vertex update map and the
+    gradient ``accumulator`` (numpy) of ``mesh_parametrization_tools``
+    seeded at the start point.  ``initial_taper=(t0, t1)`` starts the
+    parameters on a linear ramp from the first ring to the last."""
+
+    def __init__(self, start, end, minimum_radius, theta_res=6, z_res=8,
+                 start_cap=True, end_cap=True, rotationally_symmetric=False,
+                 initial_parameters=0.0, initial_taper=None, use_twist=False,
+                 use_vertex_update_map=True, mat_in=None, mat_out=None,
+                 category=OPTICAL, dtype=None, device=None):
+        super().__init__()
+        dtype, device = resolve_dtype(dtype), resolve_device(device)
+        self.dtype = dtype
+        self.mesh = mt.cylindrical_mesh(
+            start, end, radius=minimum_radius, theta_res=theta_res,
+            z_res=z_res, start_cap=start_cap, end_cap=end_cap,
+            use_twist=use_twist)
+        self.theta_res = theta_res
+        self.z_res = z_res
+        self.start_cap = start_cap
+        self.end_cap = end_cap
+        self.rotationally_symmetric = rotationally_symmetric
+        self.register_buffer(
+            "zero", torch.as_tensor(self.mesh.points, dtype=dtype, device=device))
+        self.register_buffer(
+            "faces", torch.as_tensor(self.mesh.faces, dtype=torch.long,
+                                     device=device))
+        self.register_buffer(
+            "vectors", FromAxisVG(start, point=end).generate(self.zero))
+        vum, self.accumulator = mt.mesh_parametrization_tools(
+            self.mesh, mt.get_closest_point(self.mesh, start))
+        self.register_buffer(
+            "vertex_update_map",
+            torch.as_tensor(vum, dtype=torch.bool, device=device)
+            if use_vertex_update_map else None)
+        self.mat_in = mat_in
+        self.mat_out = mat_out
+        self.category = category
+
+        size = z_res if rotationally_symmetric else z_res * theta_res
+        if initial_taper is not None:
+            try:
+                t0, t1 = initial_taper
+            except (TypeError, ValueError) as e:
+                raise ValueError("initial_taper must be a 2-tuple") from e
+            initial = np.linspace(t0, t1, z_res)
+            if not rotationally_symmetric:
+                initial = np.repeat(initial, theta_res)
+        else:
+            initial = np.broadcast_to(
+                np.asarray(initial_parameters, np.float64), (size,))
+        self.register_buffer(
+            "_initial", torch.as_tensor(np.array(initial), dtype=dtype,
+                                        device=device))
+        self.params = nn.Parameter(self.init_params())
+
+    @property
+    def n_params(self) -> int:
+        return self._initial.shape[0]
+
+    def init_params(self):
+        return self._initial.clone()
+
+    def _expand_params(self, params):
+        """The min-radius projection, the symmetry expansion and a zero for
+        each cap centre."""
+        params = params - torch.min(params)
+        if self.rotationally_symmetric:
+            params = params.repeat_interleave(self.theta_res)
+        pads = (1 if self.start_cap else 0, 1 if self.end_cap else 0)
+        return torch.nn.functional.pad(params, pads)
+
+    def params_to_vertices(self, params):
+        return self.zero + self._expand_params(params)[:, None] * self.vectors
+
+    def build(self, params=None) -> TriangleSet:
+        params = self.params if params is None else params
+        vertices = self.params_to_vertices(params)
+        vp, v1, v2 = _masked_gather(vertices, self.faces, self.vertex_update_map)
+        return TriangleSet.make(vp, v1, v2, category=self.category,
+                                mat_in=self.mat_in, mat_out=self.mat_out,
+                                dtype=self.dtype, device=vp.device)

@@ -1,8 +1,9 @@
 """Triangle meshes for building parametric surfaces, in NumPy.
 
 A copy of the parts of ``tensorflowraytrace_tpu/models/mesh.py`` the 3D
-lens path needs (that package imports JAX when it is imported, so nothing
-is imported from it): the mesh container, the hexagonal generator, and the
+lens and light-guide paths need (that package imports JAX when it is
+imported, so nothing is imported from it): the mesh container, the
+hexagonal and cylindrical generators, and the
 vertex-graph tools that make the optimizer's gradient accumulator, smoother
 and vertex update map.  These tools run once at set-up time on the host;
 the matrices they make are applied on the device by ``optim.Optimizer``.
@@ -116,6 +117,65 @@ def hexagonal_mesh(radius=1.0, step_count=10) -> TriMesh:
                 faces.append((i0, o0, o1))
                 if s < k - 1:
                     faces.append((i0, o1, i1))
+    return TriMesh(np.asarray(points), np.asarray(faces, dtype=np.int64))
+
+
+def cylindrical_mesh(start, end, radius=1.0, theta_res=6, z_res=8,
+                     start_cap=True, end_cap=True, use_twist=False,
+                     epsilion=1e-6) -> TriMesh:
+    """Cylinder between two axis points, optionally capped and twisted: z_res
+    rings of theta_res points, woven into quads of two faces, and a fan of
+    faces to the axis point of each cap.  Made for light-guide parametric
+    surfaces: the cap centres lie on the axis, so their FromAxisVG vectors
+    are zero and they stay put."""
+    start = np.reshape(np.asarray(start, dtype=np.float64), (3,))
+    end = np.reshape(np.asarray(end, dtype=np.float64), (3,))
+    axis = end - start
+
+    u = np.cross(axis, (1.0, 0.0, 0.0))
+    if np.linalg.norm(u) < epsilion:
+        u = np.cross(axis, (0.0, 1.0, 0.0))
+    if np.linalg.norm(u) < epsilion:
+        raise ValueError("cylindrical_mesh: degenerate axis")
+    u = u * radius / np.linalg.norm(u)
+    v = np.cross(axis, u)
+    v = v * radius / np.linalg.norm(v)
+
+    points = []
+    faces = []
+    if start_cap:
+        points.append(start)
+
+    ring_start = []
+    for zi in range(z_res):
+        z = zi / (z_res - 1)
+        twist = (PI / theta_res) * zi if use_twist else 0.0
+        ring_start.append(len(points))
+        for ti in range(theta_res):
+            theta = 2 * PI * ti / theta_res + twist
+            points.append(start + z * axis + math.cos(theta) * u
+                          + math.sin(theta) * v)
+
+    if start_cap:
+        base = ring_start[0]
+        for t in range(theta_res):
+            faces.append((base + t, 0, base + (t + 1) % theta_res))
+
+    for zi in range(1, z_res):
+        a = ring_start[zi - 1]
+        b = ring_start[zi]
+        for t in range(theta_res):
+            t2 = (t + 1) % theta_res
+            faces.append((a + t2, b + t, a + t))
+            faces.append((b + t, a + t2, b + t2))
+
+    if end_cap:
+        points.append(end)
+        last = len(points) - 1
+        base = ring_start[-1]
+        for t in range(theta_res):
+            faces.append((base + (t + 1) % theta_res, last, base + t))
+
     return TriMesh(np.asarray(points), np.asarray(faces, dtype=np.int64))
 
 

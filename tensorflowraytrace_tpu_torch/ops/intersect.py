@@ -6,8 +6,9 @@ The hot loop is split in two phases:
 1. **Search** (``nearest_hit_triangles``): the index of the nearest valid
    triangle per ray, without gradient (an argmin index is discrete).  Tiled
    over triangle chunks and ray blocks so the N x M intersection matrix is
-   never materialised.  ``use_kernel=True`` hands the search to the CUDA
-   kernel (``ops/triangle_kernels.py``).
+   never materialised.  ``use_kernel=True`` hands the search to a CUDA
+   kernel (``ops/triangle_kernels.py``): K1 (brute force), K3 (``cull=True``)
+   or K4 (``cull="grid"``).
 2. **Refine** (``refine_triangle_hit_from``): the one chosen ray/triangle
    intersection recomputed per ray -- O(N) and fully differentiable.
 
@@ -104,18 +105,29 @@ def _chunked_search(p0, p1, surf_arrays, chunk_fn, n_surf, surf_chunk,
 def nearest_hit_triangles(
     p0, p1, tri: TriangleSet, intersect_eps, size_eps, ray_start_eps,
     surf_chunk=_DEF_SURF_CHUNK, ray_block=_DEF_RAY_BLOCK, use_kernel=False,
+    cull=False,
 ) -> HitRecord:
     """Per-ray nearest triangle (search phase; no gradient).
 
     ``use_kernel=False`` runs the Cramer search of the JAX package's XLA
     path; ``use_kernel=True`` runs the Moller-Trumbore search of K1 (the CUDA
     kernel on the card, its plain version on the CPU), whose ``ray_u`` is
-    ``BIG`` rather than ``inf`` on a miss.
+    ``BIG`` rather than ``inf`` on a miss.  Under ``use_kernel`` the search
+    is chosen as ``nearest_hit_triangles_pallas`` chooses it: ``cull="grid"``
+    runs the two-level K4, any other true ``cull`` the culled K3, and
+    ``cull=False`` K1; all three return the same hits.  Without
+    ``use_kernel``, ``cull`` changes nothing here.
     """
     p0, p1 = p0.detach(), p1.detach()
     vp, v1, v2 = tri.vp.detach(), tri.v1.detach(), tri.v2.detach()
     if use_kernel:
-        valid, idx, ray_u = triangle_kernels.nearest_hit_triangles_kernel(
+        if cull == "grid":
+            search = triangle_kernels.nearest_hit_triangles_twolevel_kernel
+        elif cull:
+            search = triangle_kernels.nearest_hit_triangles_culled_kernel
+        else:
+            search = triangle_kernels.nearest_hit_triangles_kernel
+        valid, idx, ray_u = search(
             p0.contiguous(), p1.contiguous(), vp.contiguous(),
             v1.contiguous(), v2.contiguous(),
             intersect_eps, size_eps, ray_start_eps)

@@ -1,20 +1,40 @@
-"""K1 on Hopper: the brute-force nearest ray-triangle search.
+"""The nearest ray-triangle searches on Hopper: brute force (K1), culled
+(K3) and two-level (K4).
 
-``nearest_hit_triangles_kernel`` is the wrapper the engine calls with
-``use_kernel=True``.  On CUDA tensors it launches the hand-written kernel in
-``csrc/triangle_search.cu`` (port of ``_triangle_kernel`` in
-``tensorflowraytrace_tpu/ops/pallas_kernels.py``) or raises; it never falls
-back.  On CPU tensors it runs ``nearest_hit_triangles_plain``, the same
-Moller-Trumbore arithmetic written line by line in PyTorch, chunked over rays
-and triangles so that an N x M tensor is never materialised.
+Each search has a wrapper the engine calls with ``use_kernel=True``.  On CUDA
+tensors the wrapper launches its hand-written kernel or raises; it never
+falls back.  On CPU tensors it runs the plain PyTorch version beside it, the
+same arithmetic written line by line in PyTorch.
+
+- K1 ``nearest_hit_triangles_kernel`` (``csrc/triangle_search.cu``, port of
+  ``_triangle_kernel`` in ``tensorflowraytrace_tpu/ops/pallas_kernels.py``):
+  every ray against every triangle.
+- K3 ``nearest_hit_triangles_culled_kernel``
+  (``csrc/triangle_search_culled.cu``, port of ``_triangle_kernel_culled``):
+  K1 plus a slab test of each ray against the box of each 256-triangle
+  chunk (``models/acceleration.chunk_aabbs``); ``cull=True``.
+- K4 ``nearest_hit_triangles_twolevel_kernel``
+  (``csrc/triangle_search_twolevel.cu``, port of
+  ``_twolevel_triangle_kernel``): each ray block walks a precomputed,
+  capped list of candidate fine chunks (``twolevel_candidates``), or every
+  chunk when its list overflows, each gated by the same slab test;
+  ``cull="grid"``.
+
+The gate of K3 and K4: a chunk is computed for a ray only if some ray of
+its warp (32 rays; ``GATE_RAYS``) can hit the chunk's box at t >= r_eps no
+farther than its current best, with a relative slack of 1e-6.  The box
+holds every triangle of the chunk, so the gate only skips pairs that cannot
+give a nearer hit, and K3 and K4 return K1's hits bit for bit.  Parked rays
+(p0 = 1e30, see ``engine.project_3d``) fail every slab test.
 
 Contract (shared with every search kernel of the JAX package): per ray
 ``(valid, idx int32, ray_u)``; ``ray_u`` is ``BIG = 3e38`` where nothing is
 hit and ``valid`` is ``ray_u < BIG / 2``; the nearest hit wins and a tie
 goes to the first triangle index; there is no gradient.
 
-The kernel is compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/`` and loaded with ``ctypes`` (``ops/cuda_build.py``).
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
+``build/`` and loaded with ``ctypes`` (``ops/cuda_build.py``).  Nothing here
+imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -24,15 +44,43 @@ from pathlib import Path
 
 import torch
 
+from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs
 from tensorflowraytrace_tpu_torch.ops import cuda_build
 
 BIG = 3.0e38
 
-# Launches of the CUDA kernel in this process.  The wrapper adds one where it
-# launches and nowhere else; callers reset it to 0 to count a run.
-LAUNCHES = 0
+# Launches of each CUDA kernel in this process.  A wrapper adds one where it
+# launches and nowhere else; callers reset them to 0 to count a run.
+LAUNCHES = 0            # K1
+LAUNCHES_CULLED = 0     # K3
+LAUNCHES_TWOLEVEL = 0   # K4
 
 SOURCE = "triangle_search.cu"
+SOURCE_CULLED = "triangle_search_culled.cu"
+SOURCE_TWOLEVEL = "triangle_search_twolevel.cu"
+
+# K3: the culling chunk is the kernel's shared-memory tile
+CULL_CHUNK = 256
+# K3 and K4 decide per warp whether to compute a chunk: the plain versions
+# gate groups of this many consecutive rays
+GATE_RAYS = 32
+# K4: rays per block (one thread each), triangles per fine chunk, and the
+# cap of each block's candidate list; a block with more candidates sweeps
+# every chunk.  Chosen on the H100 by `chip_smoke.py --tune` (PERF.md): the
+# 24-bounce guide trace is fastest at 128 x 512 (12% under 256 x 256; the
+# per-chunk slab test, barriers and copy wait cost more than the larger
+# chunks' extra pairs), and the cap moved nothing from 8 to 128.
+TWOLEVEL_RAY_BLOCK = 128
+FINE_CHUNK = 512
+TWOLEVEL_MAX_CAND = 32
+# Byte budget of one chunk group of the candidate precompute's
+# (blocks, chunks, rays) slab-test temporaries; more chunks are tested
+# group by group.  1 GiB keeps the 2^20-ray guide at two groups.
+CAND_GROUP_BYTES = 1 << 30
+
+# the slab test's guards, as in the TPU kernels
+_TINY = 1e-30
+_SLACK = 1e-6
 
 
 def library_path() -> Path:
@@ -40,12 +88,31 @@ def library_path() -> Path:
 
 
 def load_library():
-    """The kernel library, built at first use, with its C signature
-    declared."""
+    """The K1 library, built at first use, with its C signature declared."""
     lib = cuda_build.load(SOURCE)
     fn = lib.triangle_search_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
         + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def load_culled_library():
+    """The K3 library, built at first use, with its C signature declared."""
+    lib = cuda_build.load(SOURCE_CULLED)
+    fn = lib.triangle_search_culled_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
+        + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def load_twolevel_library():
+    """The K4 library, built at first use, with its C signature declared."""
+    lib = cuda_build.load(SOURCE_TWOLEVEL)
+    fn = lib.triangle_search_twolevel_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+        + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return lib
 
@@ -76,9 +143,31 @@ def _check_cuda_inputs(p0, p1, vp, v1, v2):
         raise ValueError("too many rays or triangles for 32-bit indexing")
 
 
+def _plain_or_cuda(p0):
+    """True for CPU tensors (the plain version runs); raises for devices
+    that have no search."""
+    if p0.device.type == "cpu":
+        return True
+    if p0.device.type != "cuda":
+        raise ValueError(f"no triangle search for device {p0.device}")
+    return False
+
+
+def _thresholds(intersect_eps, size_eps, ray_start_eps):
+    """The float32 thresholds the kernels compare with, computed once in
+    Python as the plain versions compute them."""
+    return (float(intersect_eps), -float(size_eps), 1.0 + float(size_eps),
+            float(ray_start_eps))
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
 def nearest_hit_triangles_kernel(p0, p1, vp, v1, v2, intersect_eps, size_eps,
                                  ray_start_eps):
-    """Nearest hit of each ray (p0 -> p1, (N, 3)) among triangles
+    """K1: nearest hit of each ray (p0 -> p1, (N, 3)) among triangles
     (vp, v1, v2, (M, 3)).  Returns ``(valid, idx, ray_u)``.
 
     CPU tensors go to the plain version.  CUDA tensors launch the kernel,
@@ -86,11 +175,9 @@ def nearest_hit_triangles_kernel(p0, p1, vp, v1, v2, intersect_eps, size_eps,
     on anything else.
     """
     global LAUNCHES
-    if p0.device.type == "cpu":
+    if _plain_or_cuda(p0):
         return nearest_hit_triangles_plain(p0, p1, vp, v1, v2, intersect_eps,
                                            size_eps, ray_start_eps)
-    if p0.device.type != "cuda":
-        raise ValueError(f"no triangle search for device {p0.device}")
     _check_cuda_inputs(p0, p1, vp, v1, v2)
     fn = load_library().triangle_search_launch
     n, m = p0.shape[0], vp.shape[0]
@@ -99,67 +186,356 @@ def nearest_hit_triangles_kernel(p0, p1, vp, v1, v2, intersect_eps, size_eps,
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream
         err = fn(p0.data_ptr(), p1.data_ptr(), vp.data_ptr(), v1.data_ptr(),
-                 v2.data_ptr(), n, m, float(intersect_eps), -float(size_eps),
-                 1.0 + float(size_eps), float(ray_start_eps), u.data_ptr(),
-                 idx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"triangle_search launch failed: CUDA error {err}")
+                 v2.data_ptr(), n, m,
+                 *_thresholds(intersect_eps, size_eps, ray_start_eps),
+                 u.data_ptr(), idx.data_ptr(), stream)
+    _raise_on(err, "triangle_search")
     LAUNCHES += 1
     return u < BIG * 0.5, idx, u
+
+
+def nearest_hit_triangles_culled_kernel(p0, p1, vp, v1, v2, intersect_eps,
+                                        size_eps, ray_start_eps):
+    """K3: K1's search with the per-chunk slab gate over chunks of
+    ``CULL_CHUNK`` triangles.  Same arguments, result and device rules as
+    :func:`nearest_hit_triangles_kernel`."""
+    global LAUNCHES_CULLED
+    if _plain_or_cuda(p0):
+        return nearest_hit_triangles_culled_plain(
+            p0, p1, vp, v1, v2, intersect_eps, size_eps, ray_start_eps)
+    _check_cuda_inputs(p0, p1, vp, v1, v2)
+    fn = load_culled_library().triangle_search_culled_launch
+    n, m = p0.shape[0], vp.shape[0]
+    boxes = chunk_aabbs(vp, v1, v2, CULL_CHUNK).contiguous()
+    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
+    with torch.cuda.device(p0.device):
+        stream = torch.cuda.current_stream(p0.device).cuda_stream
+        err = fn(p0.data_ptr(), p1.data_ptr(), vp.data_ptr(), v1.data_ptr(),
+                 v2.data_ptr(), boxes.data_ptr(), n, m,
+                 *_thresholds(intersect_eps, size_eps, ray_start_eps),
+                 1.0 + _SLACK, 1.0 - _SLACK, _SLACK,
+                 u.data_ptr(), idx.data_ptr(), stream)
+    _raise_on(err, "triangle_search_culled")
+    LAUNCHES_CULLED += 1
+    return u < BIG * 0.5, idx, u
+
+
+def chunk_major_table(vp, v1, v2, fine_chunk):
+    """K4's triangle table: (C, 9, F) float32, one contiguous block per fine
+    chunk holding (v0, E1, E2) structure-of-arrays, zero rows past M."""
+    m = vp.shape[0]
+    c = -(-m // fine_chunk)
+    pad = c * fine_chunk - m
+
+    def cols(a):
+        if pad:
+            a = torch.cat([a, a.new_zeros((pad, 3))])
+        return a.T.reshape(3, c, fine_chunk)
+
+    table = torch.cat([cols(vp), cols(v1 - vp), cols(v2 - vp)])
+    return table.permute(1, 0, 2).contiguous()
+
+
+def nearest_hit_triangles_twolevel_kernel(p0, p1, vp, v1, v2, intersect_eps,
+                                          size_eps, ray_start_eps,
+                                          ray_block=None, fine_chunk=None,
+                                          max_cand=None):
+    """K4: the two-level search.  Same arguments, result and device rules
+    as :func:`nearest_hit_triangles_kernel`; ``ray_block``, ``fine_chunk``
+    and ``max_cand`` default to the module constants (read at call time, so
+    a test can lower the cap)."""
+    rb = int(ray_block or TWOLEVEL_RAY_BLOCK)
+    fine = int(fine_chunk or FINE_CHUNK)
+    cap = int(max_cand or TWOLEVEL_MAX_CAND)
+    if _plain_or_cuda(p0):
+        return nearest_hit_triangles_twolevel_plain(
+            p0, p1, vp, v1, v2, intersect_eps, size_eps, ray_start_eps,
+            rb, fine, cap)
+    _check_cuda_inputs(p0, p1, vp, v1, v2)
+    if rb % 32 or not 32 <= rb <= 1024:
+        raise ValueError(f"ray_block {rb} must be a multiple of 32 in "
+                         "[32, 1024]")
+    if fine not in (128, 256, 512):
+        raise ValueError(f"fine_chunk {fine} must be 128, 256 or 512 (the "
+                         "kernel's compiled tile widths)")
+    prepared = twolevel_prepare(p0, p1, vp, v1, v2, ray_start_eps, rb, fine,
+                                cap)
+    return twolevel_launch(p0, p1, vp.shape[0], prepared, intersect_eps,
+                           size_eps, ray_start_eps, rb, fine)
+
+
+def twolevel_prepare(p0, p1, vp, v1, v2, ray_start_eps, ray_block,
+                     fine_chunk, max_cand):
+    """K4's inputs, made on the rays' device: the chunk-major triangle
+    table, the chunk boxes, and each ray block's candidate list
+    (``twolevel_candidates``); the cap is lowered to the chunk count."""
+    cap = min(max_cand, -(-vp.shape[0] // fine_chunk))
+    boxes = chunk_aabbs(vp, v1, v2, fine_chunk).contiguous()
+    counts, cand = twolevel_candidates(p0, p1, boxes, ray_start_eps,
+                                       ray_block, cap)
+    return chunk_major_table(vp, v1, v2, fine_chunk), boxes, counts, cand, cap
+
+
+def twolevel_launch(p0, p1, m, prepared, intersect_eps, size_eps,
+                    ray_start_eps, ray_block, fine_chunk):
+    """Launch K4 on checked CUDA inputs and ``twolevel_prepare``'s output
+    for ``m`` triangles; the wrapper's second half."""
+    global LAUNCHES_TWOLEVEL
+    table, boxes, counts, cand, cap = prepared
+    fn = load_twolevel_library().triangle_search_twolevel_launch
+    n = p0.shape[0]
+    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
+    with torch.cuda.device(p0.device):
+        stream = torch.cuda.current_stream(p0.device).cuda_stream
+        err = fn(p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
+                 boxes.data_ptr(), counts.data_ptr(), cand.data_ptr(),
+                 n, m, boxes.shape[0], fine_chunk, ray_block, cap,
+                 *_thresholds(intersect_eps, size_eps, ray_start_eps),
+                 1.0 + _SLACK, 1.0 - _SLACK, _SLACK,
+                 u.data_ptr(), idx.data_ptr(), stream)
+    _raise_on(err, "triangle_search_twolevel")
+    LAUNCHES_TWOLEVEL += 1
+    return u < BIG * 0.5, idx, u
+
+
+# ======================================================================
+# plain PyTorch versions
+# ======================================================================
+
+def _moller_trumbore(ox, oy, oz, dx, dy, dz, a, e1, e2, i_eps, s_lo, s_hi,
+                     r_eps):
+    """Ray parameter of every ray-triangle pair, ``BIG`` where the pair is
+    not a valid hit: the kernels' float32 operations in their order.  Ray
+    components and triangle components (``a``, ``e1``, ``e2``: three
+    tensors each) broadcast against each other."""
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
+
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+
+    ok = torch.abs(det) >= i_eps
+    inv = 1.0 / torch.where(ok, det, torch.ones_like(det))
+
+    tx = ox - a[0]
+    ty = oy - a[1]
+    tz = oz - a[2]
+    tu = (tx * px + ty * py + tz * pz) * inv
+
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    tv = (dx * qx + dy * qy + dz * qz) * inv
+    ray_u = (e2x * qx + e2y * qy + e2z * qz) * inv
+
+    ok = ok & (tu >= s_lo) & (tv >= s_lo)
+    ok = ok & (tu + tv <= s_hi) & (ray_u >= r_eps)
+    return torch.where(ok, ray_u, BIG)
+
+
+def _merge(best_u, best_idx, rows, u, first_idx):
+    """Fold the (R, C) pair parameters of rays ``rows`` (a slice or an index
+    tensor) into the running best: ``argmin`` takes the first index inside
+    the chunk, and a chunk replaces the best only under strict <.
+    ``first_idx`` is the triangle index of column 0 (an int or (R,))."""
+    carg = torch.argmin(u, dim=1)
+    cu = u.gather(1, carg[:, None])[:, 0]
+    bu, bi = best_u[rows], best_idx[rows]
+    better = cu < bu
+    best_u[rows] = torch.where(better, cu, bu)
+    best_idx[rows] = torch.where(better, (carg + first_idx).to(torch.int32), bi)
 
 
 @torch.no_grad()
 def nearest_hit_triangles_plain(p0, p1, vp, v1, v2, intersect_eps, size_eps,
                                 ray_start_eps, ray_block=32768, tri_chunk=256):
-    """Plain PyTorch version of the kernel: the same Moller-Trumbore
-    arithmetic in the same order, over (ray_block, tri_chunk) tiles with a
-    running minimum merged under strict < (ties keep the earlier chunk;
-    ``argmin`` takes the first index inside a chunk)."""
+    """Plain PyTorch version of K1: the same Moller-Trumbore arithmetic in
+    the same order, over (ray_block, tri_chunk) tiles with a running minimum
+    merged under strict < (ties keep the earlier chunk; ``argmin`` takes the
+    first index inside a chunk)."""
     n, m = p0.shape[0], vp.shape[0]
-    dtype, device = p0.dtype, p0.device
-    best_u = torch.full((n,), BIG, dtype=dtype, device=device)
-    best_idx = torch.zeros((n,), dtype=torch.int32, device=device)
-    s_lo, s_hi = -float(size_eps), 1.0 + float(size_eps)
+    best_u = torch.full((n,), BIG, dtype=p0.dtype, device=p0.device)
+    best_idx = torch.zeros((n,), dtype=torch.int32, device=p0.device)
+    eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
     for r0 in range(0, n, ray_block):
-        o = p0[r0:r0 + ray_block, :, None]                  # (B, 3, 1)
-        ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
-        d = p1[r0:r0 + ray_block, :, None] - o
-        dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-        bu = best_u[r0:r0 + ray_block]
-        bi = best_idx[r0:r0 + ray_block]
+        rows = slice(r0, r0 + ray_block)
+        o = p0[rows, :, None]                                # (B, 3, 1)
+        d = p1[rows, :, None] - o
         for t0 in range(0, m, tri_chunk):
             a = vp[t0:t0 + tri_chunk].T[:, None]             # (3, 1, C)
             e1 = v1[t0:t0 + tri_chunk].T[:, None] - a
             e2 = v2[t0:t0 + tri_chunk].T[:, None] - a
-            e1x, e1y, e1z = e1[0], e1[1], e1[2]
-            e2x, e2y, e2z = e2[0], e2[1], e2[2]
+            u = _moller_trumbore(*o.unbind(1), *d.unbind(1), a, e1, e2, *eps)
+            _merge(best_u, best_idx, rows, u, t0)
+    return best_u < BIG * 0.5, best_idx, best_u
 
-            px = dy * e2z - dz * e2y
-            py = dz * e2x - dx * e2z
-            pz = dx * e2y - dy * e2x
-            det = e1x * px + e1y * py + e1z * pz
 
-            ok = torch.abs(det) >= intersect_eps
-            inv = 1.0 / torch.where(ok, det, torch.ones_like(det))
+def _inverse_direction(d):
+    """1 / d with |d| < 1e-30 replaced by +-1e-30 (the slab test's guard)."""
+    return 1.0 / torch.where(torch.abs(d) < _TINY,
+                             torch.where(d < 0, -_TINY, _TINY), d)
 
-            tx = ox - a[0]
-            ty = oy - a[1]
-            tz = oz - a[2]
-            tu = (tx * px + ty * py + tz * pz) * inv
 
-            qx = ty * e1z - tz * e1y
-            qy = tz * e1x - tx * e1z
-            qz = tx * e1y - ty * e1x
-            tv = (dx * qx + dy * qy + dz * qz) * inv
-            ray_u = (e2x * qx + e2y * qy + e2z * qz) * inv
+def _slab_gate(o, inv, lo, hi, r_eps, best_u):
+    """The culling gate of K3 and K4, elementwise: can the ray (origin
+    ``o``, inverse direction ``inv``; three tensors each) hit the box
+    [lo, hi] (three tensors each) at t >= r_eps, no farther than its
+    ``best_u``?  ``best_u=None`` tests only the first condition (the
+    candidate precompute).  Every operand broadcasts."""
+    tmin = tmax = None
+    for k in range(3):
+        t1 = (lo[k] - o[k]) * inv[k]
+        t2 = (hi[k] - o[k]) * inv[k]
+        near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        tmin = near if tmin is None else torch.maximum(tmin, near)
+        tmax = far if tmax is None else torch.minimum(tmax, far)
+    gate = tmax * (1.0 + _SLACK) + _SLACK >= torch.clamp(tmin, min=r_eps)
+    if best_u is not None:
+        gate = gate & (tmin * (1.0 - _SLACK) - _SLACK <= best_u)
+    return gate
 
-            ok = ok & (tu >= s_lo) & (tv >= s_lo)
-            ok = ok & (tu + tv <= s_hi) & (ray_u >= ray_start_eps)
 
-            u = torch.where(ok, ray_u, BIG)                  # (B, C)
-            carg = torch.argmin(u, dim=1)
-            cu = u.gather(1, carg[:, None])[:, 0]
-            better = cu < bu
-            bu.copy_(torch.where(better, cu, bu))
-            bi.copy_(torch.where(better, (carg + t0).to(torch.int32), bi))
+def _warp_any(need):
+    """(N,) -> (N,): True for every ray of a ``GATE_RAYS`` group that has a
+    True ray, as the kernels' warp vote decides."""
+    n = need.shape[0]
+    pad = -n % GATE_RAYS
+    if pad:
+        need = torch.cat([need, need.new_zeros((pad,))])
+    return need.view(-1, GATE_RAYS).any(dim=1).repeat_interleave(GATE_RAYS)[:n]
+
+
+def _selected(mask, piece=32768):
+    """Index tensors of the True entries of ``mask``, in pieces."""
+    rows = torch.nonzero(mask)[:, 0]
+    return [rows[i:i + piece] for i in range(0, rows.shape[0], piece)]
+
+
+@torch.no_grad()
+def nearest_hit_triangles_culled_plain(p0, p1, vp, v1, v2, intersect_eps,
+                                       size_eps, ray_start_eps,
+                                       chunk=CULL_CHUNK):
+    """Plain PyTorch version of K3: the chunks of ``chunk`` triangles in
+    order; a chunk is computed for the rays of each ``GATE_RAYS`` group of
+    which some ray passes the slab gate against its running best, with K1's
+    arithmetic and merge."""
+    n, m = p0.shape[0], vp.shape[0]
+    best_u = torch.full((n,), BIG, dtype=p0.dtype, device=p0.device)
+    best_idx = torch.zeros((n,), dtype=torch.int32, device=p0.device)
+    eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
+    d = p1 - p0
+    o3, d3, inv3 = p0.unbind(1), d.unbind(1), _inverse_direction(d).unbind(1)
+    boxes = chunk_aabbs(vp, v1, v2, chunk)
+    for c, t0 in enumerate(range(0, m, chunk)):
+        box = boxes[c]
+        need = _slab_gate(o3, inv3, box[:3], box[3:], eps[3], best_u)
+        a = vp[t0:t0 + chunk].T[:, None]                     # (3, 1, C)
+        e1 = v1[t0:t0 + chunk].T[:, None] - a
+        e2 = v2[t0:t0 + chunk].T[:, None] - a
+        for rows in _selected(_warp_any(need)):
+            u = _moller_trumbore(*(x[rows, None] for x in o3 + d3), a, e1,
+                                 e2, *eps)
+            _merge(best_u, best_idx, rows, u, t0)
+    return best_u < BIG * 0.5, best_idx, best_u
+
+
+def _cand_chunk_group(n_pad, n_chunks):
+    """Chunks per group of the candidate precompute, so that its ~6 live
+    (blocks, chunks, rays) temporaries of 4 bytes stay near
+    ``CAND_GROUP_BYTES``; at least 16."""
+    per_col = max(n_pad, 1) * 4 * 6
+    return max(16, min(n_chunks, CAND_GROUP_BYTES // per_col))
+
+
+@torch.no_grad()
+@torch.profiler.record_function("twolevel_candidates")
+def twolevel_candidates(p0, p1, boxes, ray_start_eps, ray_block, max_cand):
+    """Candidate fine chunks of each ray block: chunk c is a candidate of
+    block b iff some ray of b passes the slab gate against c's box with no
+    best yet (best = inf).  Plain PyTorch, as the JAX package computes it in
+    XLA (``_twolevel_candidates``); it runs on the card before K4.
+
+    Returns ``(counts (nb,) int32, cand (nb * max_cand,) int32)``: each
+    block's candidate ids ascending (Morton order) and packed first.  When
+    there are more chunks than ``max_cand``, blocks with more candidates
+    than that get ``counts == n_chunks`` (sweep every chunk).  The rays that
+    pad the last block vote for nothing (the TPU version pads with zero
+    rays, which vote)."""
+    n = p0.shape[0]
+    nb = -(-n // ray_block)
+    pad = nb * ray_block - n
+    live = torch.ones((n,), dtype=torch.bool, device=p0.device)
+    d = p1 - p0
+    inv = _inverse_direction(d)
+    if pad:
+        def pad_rows(a, value):
+            return torch.cat([a, a.new_full((pad,) + a.shape[1:], value)])
+        p0, inv, live = pad_rows(p0, 0.0), pad_rows(inv, 1.0), pad_rows(live, False)
+    o3 = [a.reshape(nb, 1, ray_block) for a in p0.unbind(1)]
+    inv3 = [a.reshape(nb, 1, ray_block) for a in inv.unbind(1)]
+    live = live.reshape(nb, 1, ray_block)
+    n_chunks = boxes.shape[0]
+    cg = _cand_chunk_group(nb * ray_block, n_chunks)
+    need = []
+    for c0 in range(0, n_chunks, cg):
+        box = boxes[c0:c0 + cg].T[:, None, :, None]          # (6, 1, Cg, 1)
+        gate = _slab_gate(o3, inv3, box[:3], box[3:], float(ray_start_eps),
+                          None)
+        need.append((gate & live).any(dim=-1))               # (nb, Cg)
+    need = torch.cat(need, dim=1)
+    counts = need.sum(dim=1).to(torch.int32)
+    cand = torch.argsort((~need).to(torch.int8), dim=1, stable=True)
+    if n_chunks > max_cand:
+        cand = cand[:, :max_cand]
+        counts = torch.where(counts > max_cand, n_chunks, counts)
+    return counts, cand.to(torch.int32).reshape(-1)
+
+
+@torch.no_grad()
+def nearest_hit_triangles_twolevel_plain(p0, p1, vp, v1, v2, intersect_eps,
+                                         size_eps, ray_start_eps,
+                                         ray_block=None, fine_chunk=None,
+                                         max_cand=None):
+    """Plain PyTorch version of K4: each block of ``ray_block`` rays walks
+    its candidate list (or every chunk on overflow) in order; at each step
+    the chunk is computed for the rays of each ``GATE_RAYS`` group of which
+    some ray passes the slab gate against its running best, with K1's
+    arithmetic and merge."""
+    rb = int(ray_block or TWOLEVEL_RAY_BLOCK)
+    fine = int(fine_chunk or FINE_CHUNK)
+    n = p0.shape[0]
+    eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
+    table, boxes, counts, cand, cap = twolevel_prepare(
+        p0, p1, vp, v1, v2, eps[3], rb, fine,
+        int(max_cand or TWOLEVEL_MAX_CAND))                  # table (C, 9, F)
+    n_chunks = boxes.shape[0]
+
+    # each block's walk: its list, or 0 .. n_chunks - 1 on overflow
+    nb = counts.shape[0]
+    sweep = counts == n_chunks
+    steps = n_chunks if bool(sweep.any()) else int(counts.max())
+    k = torch.arange(steps, device=p0.device)
+    listed = cand.view(nb, cap).long()[:, torch.clamp(k, max=cap - 1)]
+    walk = torch.where(sweep[:, None], k, listed)             # (nb, steps)
+    block = torch.arange(n, device=p0.device) // rb
+
+    best_u = torch.full((n,), BIG, dtype=p0.dtype, device=p0.device)
+    best_idx = torch.zeros((n,), dtype=torch.int32, device=p0.device)
+    d = p1 - p0
+    o3, d3, inv3 = p0.unbind(1), d.unbind(1), _inverse_direction(d).unbind(1)
+    for step in range(steps):
+        chunk = walk[block, step]                             # (N,)
+        box = boxes[chunk].T                                  # (6, N)
+        need = _slab_gate(o3, inv3, box[:3], box[3:], eps[3], best_u)
+        need = need & (step < counts.long())[block]
+        for rows in _selected(_warp_any(need)):
+            tri = table[chunk[rows]].unbind(1)                # 9 x (R, F)
+            a, e1, e2 = tri[0:3], tri[3:6], tri[6:9]
+            u = _moller_trumbore(*(x[rows, None] for x in o3 + d3), a, e1,
+                                 e2, *eps)
+            _merge(best_u, best_idx, rows, u, chunk[rows] * fine)
     return best_u < BIG * 0.5, best_idx, best_u

@@ -75,3 +75,17 @@ def optimizer_state_from_numpy(optimizer, parameters, velocity):
 
     optimizer.parameters, optimizer._velocity = like(parameters), like(velocity)
     return optimizer
+
+
+def guide_params_from_numpy(guide, params):
+    """Load a ``ParametricCylindricalGuide``'s parameters from an array (as
+    ``np.asarray`` of the JAX guide's ``init_params()`` or of trained
+    parameters), in the guide's dtype and on its device, so both packages
+    build the same guide.  Returns the guide."""
+    params = np.array(params)
+    if params.shape != (guide.n_params,):
+        raise ValueError(f"the guide has {guide.n_params} parameters; got an "
+                         f"array of shape {params.shape}")
+    with torch.no_grad():
+        guide.params.copy_(torch.as_tensor(params, dtype=guide.params.dtype))
+    return guide
