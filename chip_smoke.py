@@ -22,7 +22,8 @@ exits non-zero without printing a result):
    the soup Morton-sorted as in bench.py (131072 rays), the first bounce
    of the structured guide (131072 rays x 16386 triangles), a ragged tile,
    an all-miss batch, a batch of parked rays, and K4 with its candidate cap
-   forced to 1 so that every block overflows and sweeps.
+   forced to 1 so that every block overflows and sweeps.  (Phase 10
+   checks them again at the main path's shape.)
 4. the flagship forward (flagship.entry(): 1024 rays, a lens of two
    217-vertex surfaces, 4 bounces, float32) through the kernel: the loss is
    finite, equals the port's plain search path within rtol 1e-4, and K1
@@ -59,9 +60,11 @@ exits non-zero without printing a result):
    Morton-sorted, 2^20 rays from seed 0, acrylic, 24 bounces) through the
    same five paths, checked and timed as in phase 9, with equivalent
    intersections/s N M B / t.  Then K1, K3 and K4 alone at its first
-   bounce, the rays in the re-sort's Morton order (time, plain time, and
-   the bound of the work these inputs need; K4's kernel also alone, apart
-   from the preparation of its inputs);
+   bounce (2^20 rays x 16386 triangles), the rays in the re-sort's Morton
+   order: K3 and K4 bit for bit against their plain versions and K1 at
+   that shape, their times and plain times, and one bound for both, the
+   work these inputs need (pairs admitted at 256-triangle chunks); K4's
+   kernel also alone, apart from the preparation of its inputs;
    one ``cull="grid", resort_rays=True`` trace under torch.profiler (K4,
    the candidate precompute, the re-sort and the rest of the device time,
    and the idle share), its peak memory and its host synchronisations.
@@ -72,7 +75,8 @@ JSON line describing each kernel of the path, the nvidia-smi line, and as
 the last line ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --tune`` runs phases 1 and 2 and then sweeps K4's
-ray block, fine chunk and candidate cap on the guide and the sorted soup
+ray block and candidate cap (the fine chunk is compiled into the kernel)
+on the guide and the sorted soup
 (median of 3 traces each, every setting checked against the brute trace),
 and prints no result line.
 """
@@ -262,10 +266,9 @@ def compare_k1(label, p0, p1, vp, v1, v2):
     return err
 
 
-def compare_culled(label, p0, p1, vp, v1, v2, **twolevel):
+def compare_culled(label, p0, p1, vp, v1, v2):
     """K3 and K4 against their plain versions and against K1 on the same
-    tensors, bit for bit; returns the largest |u - u_plain| on valid rays
-    (0 when bit for bit).  These launches are comparisons, not the main
+    tensors, bit for bit.  These launches are comparisons, not the main
     path."""
     import torch
 
@@ -275,37 +278,40 @@ def compare_culled(label, p0, p1, vp, v1, v2, **twolevel):
     ref = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
     got = {
         "K3": tk.nearest_hit_triangles_culled_kernel(*args, EPS, EPS, EPS),
-        "K4": tk.nearest_hit_triangles_twolevel_kernel(*args, EPS, EPS, EPS,
-                                                       **twolevel),
+        "K4": tk.nearest_hit_triangles_twolevel_kernel(*args, EPS, EPS, EPS),
     }
     torch.cuda.synchronize()
     plain = {
         "K3": tk.nearest_hit_triangles_culled_plain(*args, EPS, EPS, EPS),
-        "K4": tk.nearest_hit_triangles_twolevel_plain(*args, EPS, EPS, EPS,
-                                                      **twolevel),
+        "K4": tk.nearest_hit_triangles_twolevel_plain(*args, EPS, EPS, EPS),
     }
-    errs, report, bad = {}, [], []
-    for name in got:
-        (v, i, u), (pv, pi, pu) = got[name], plain[name]
-        both = v & pv
-        errs[name] = float((u[both] - pu[both]).abs().max()) if both.any() else 0.0
-        vs_plain = int(((v != pv) | (i != pi) | (u != pu)).sum())
-        vs_k1 = int(((v != ref[0]) | (i != ref[1]) | (u != ref[2])).sum())
-        report.append(f"{name} rays differing from plain {vs_plain}, "
-                      f"from K1 {vs_k1}, max_abs_err {errs[name]}")
-        if vs_plain or vs_k1:
-            bad.append(name)
+    report = [culled_agreement(name, got[name], plain[name], ref)[1]
+              for name in got]
     print(f"phase 3 K3/K4 {label}: N={args[0].shape[0]} M={args[2].shape[0]} "
-          f"hits={int(ref[0].sum())} {twolevel or ''} " + "; ".join(report),
-          flush=True)
-    check(not bad, f"{label}: {bad} not bit for bit equal to K1 and plain")
-    return max(errs.values())
+          f"hits={int(ref[0].sum())} cap={tk.TWOLEVEL_MAX_CAND} "
+          + "; ".join(report), flush=True)
+
+
+def culled_agreement(name, got, plain, ref):
+    """One culled kernel's ``(valid, idx, u)`` against its plain version's
+    and K1's, which must be equal bit for bit; returns (max |u - u_plain|
+    on rays both find valid, a report)."""
+    (v, i, u), (pv, pi, pu) = got, plain
+    both = v & pv
+    err = float((u[both] - pu[both]).abs().max()) if both.any() else 0.0
+    vs_plain = int(((v != pv) | (i != pi) | (u != pu)).sum())
+    vs_k1 = int(((v != ref[0]) | (i != ref[1]) | (u != ref[2])).sum())
+    check(not (vs_plain or vs_k1), f"{name}: {vs_plain} rays differ from "
+          f"its plain version, {vs_k1} from K1")
+    return err, (f"{name} rays differing from plain {vs_plain}, from K1 "
+                 f"{vs_k1}, max_abs_err {err}")
 
 
 def admitted_pairs(p0, p1, vp, v1, v2, u, chunk):
     """The ray-triangle pairs a culled search must compute on these inputs:
     for each ray, the triangles of every chunk (of ``chunk`` rows) whose box
-    its own slab test admits no farther than its final nearest hit ``u``."""
+    its own slab test admits no farther than its final nearest hit ``u``.
+    One count for K3 and K4 alike, at the finer of their chunks."""
     import torch
 
     from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs
@@ -479,10 +485,10 @@ def range_device_us(prof, label):
 
 
 def tune_twolevel(device):
-    """``--tune``: K4's ray block and fine chunk (cap 32), then its cap at
-    the best of those, on the guide (24 bounces) and the sorted soup (8
-    bounces) with ``cull="grid", resort_rays=True``: median of 3 traces
-    after one, each checked against the brute trace bit for bit."""
+    """``--tune``: K4's ray block (cap 32), then its cap at the best block,
+    at the compiled fine chunk, on the guide (24 bounces) and the sorted
+    soup (8 bounces) with ``cull="grid", resort_rays=True``: median of 3
+    traces after one, each checked against the brute trace bit for bit."""
     import torch
 
     from tensorflowraytrace_tpu_torch import TraceConfig, trace
@@ -498,8 +504,8 @@ def tune_twolevel(device):
     refs = {k: trace(r, sc, mt, TraceConfig(max_bounces=b, use_kernel=True)).rays
             for k, (r, sc, mt, b) in scenes.items()}
 
-    def run(rb, fine, cap):
-        tk.TWOLEVEL_RAY_BLOCK, tk.FINE_CHUNK, tk.TWOLEVEL_MAX_CAND = rb, fine, cap
+    def run(rb, cap):
+        tk.TWOLEVEL_RAY_BLOCK, tk.TWOLEVEL_MAX_CAND = rb, cap
         out = {}
         for k, (rays, scene, materials, bounces) in scenes.items():
             cfg = TraceConfig(max_bounces=bounces, use_kernel=True,
@@ -513,20 +519,19 @@ def tune_twolevel(device):
                 if rep == 0:
                     check(torch.equal(res.rays.state, refs[k].state)
                           and torch.equal(res.rays.p1, refs[k].p1),
-                          f"tune {k} {rb}/{fine}/{cap} differs from brute")
+                          f"tune {k} {rb}/{cap} differs from brute")
                 else:
                     times.append(time.perf_counter() - t0)
             out[k] = statistics.median(times)
-        print(f"tune ray_block={rb} fine_chunk={fine} max_cand={cap}: "
+        print(f"tune ray_block={rb} fine_chunk={tk.FINE_CHUNK} max_cand={cap}: "
               + ", ".join(f"{k} {t * 1e3:.3f} ms" for k, t in out.items()),
               flush=True)
         return out
 
-    grid = {(rb, fine): run(rb, fine, 32)
-            for rb in (128, 256, 512, 1024) for fine in (128, 256, 512)}
-    rb, fine = min(grid, key=lambda key: grid[key]["guide"])
+    blocks = {rb: run(rb, 32) for rb in (64, 128, 256, 512, 1024)}
+    rb = min(blocks, key=lambda key: blocks[key]["guide"])
     for cap in (8, 16, 64, 128):
-        run(rb, fine, cap)
+        run(rb, cap)
 
 
 def main():
@@ -599,14 +604,12 @@ def main():
     # K3 and K4 against their plain versions and K1
     rays, scene = soup_scene(K1_RAYS, device, sort=True)
     tri = scene.triangles
-    cull_err = compare_culled("sorted soup", rays.p0, rays.p1, tri.vp, tri.v1,
-                              tri.v2)
+    compare_culled("sorted soup", rays.p0, rays.p1, tri.vp, tri.v1, tri.v2)
     g_rays, g_scene = guide_scene(GUIDE_RAYS, device)
     g_tri = g_scene.triangles
     check(g_tri.n_surfaces == 16386, f"guide has {g_tri.n_surfaces} triangles")
-    cull_err = max(cull_err, compare_culled(
-        "guide first bounce", g_rays.p0[:CULL_RAYS], g_rays.p1[:CULL_RAYS],
-        g_tri.vp, g_tri.v1, g_tri.v2))
+    compare_culled("guide first bounce", g_rays.p0[:CULL_RAYS],
+                   g_rays.p1[:CULL_RAYS], g_tri.vp, g_tri.v1, g_tri.v2)
     compare_culled("ragged", rays.p0[:1000], rays.p1[:1000], tri.vp[:333],
                    tri.v1[:333], tri.v2[:333])
     far = torch.full_like(rays.p0[:4096], 1000.0)
@@ -615,9 +618,12 @@ def main():
     compare_culled("parked", parked,
                    torch.full_like(parked, 1e30 * (1 + 1e-6)), tri.vp, tri.v1,
                    tri.v2)
-    compare_culled("forced overflow", g_rays.p0[:CULL_RAYS],
-                   g_rays.p1[:CULL_RAYS], g_tri.vp, g_tri.v1, g_tri.v2,
-                   max_cand=1)
+    cap, tk.TWOLEVEL_MAX_CAND = tk.TWOLEVEL_MAX_CAND, 1  # every block sweeps
+    try:
+        compare_culled("forced overflow", g_rays.p0[:CULL_RAYS],
+                       g_rays.p1[:CULL_RAYS], g_tri.vp, g_tri.v1, g_tri.v2)
+    finally:
+        tk.TWOLEVEL_MAX_CAND = cap
     del rays, scene, tri
 
     # ---- phase 4: the flagship forward, through the kernel
@@ -877,17 +883,14 @@ def main():
     order = torch.argsort(morton_codes_device(g_rays.p0, lo, hi), stable=True)
     args = [t.contiguous() for t in (g_rays.p0[order], g_rays.p1[order],
                                      g_tri.vp, g_tri.v1, g_tri.v2)]
-    _, _, u_final = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
+    k1_out = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
+    u_final = k1_out[2]
     brute_bound_ms = n * m * K1_FLOPS_PER_PAIR / PEAK_FP32_FLOP_S * 1e3
     # K4's kernel alone, after its inputs are prepared
-    prepared = tk.twolevel_prepare(*args, EPS, tk.TWOLEVEL_RAY_BLOCK,
-                                   tk.FINE_CHUNK, tk.TWOLEVEL_MAX_CAND)
+    prepared = tk.twolevel_prepare(*args, EPS)
     k4_kernel_ms = cuda_ms(lambda: tk.twolevel_launch(
-        args[0], args[1], m, prepared, EPS, EPS, EPS, tk.TWOLEVEL_RAY_BLOCK,
-        tk.FINE_CHUNK), 10)
-    prepare_ms = cuda_ms(lambda: tk.twolevel_prepare(
-        *args, EPS, tk.TWOLEVEL_RAY_BLOCK, tk.FINE_CHUNK,
-        tk.TWOLEVEL_MAX_CAND), 10)
+        args[0], args[1], m, prepared, EPS, EPS, EPS), 10)
+    prepare_ms = cuda_ms(lambda: tk.twolevel_prepare(*args, EPS), 10)
     counts = prepared[2]
     print(f"phase 10 K4 at the first bounce: kernel alone {k4_kernel_ms:.4f} "
           f"ms, its input preparation (boxes, candidates, table) "
@@ -896,29 +899,35 @@ def main():
           f"blocks, {int((counts == prepared[1].shape[0]).sum())} overflow, "
           f"mean count {float(counts.float().mean()):.2f}", flush=True)
     del prepared, counts
+    k1_guide_ms = cuda_ms(
+        lambda: tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS), 10)
+    print(f"phase 10 K1 alone at the first bounce {n}x{m}: kernel "
+          f"{k1_guide_ms:.4f} ms, bound {brute_bound_ms:.4f} ms (operations)",
+          flush=True)
+    # one bound for K3 and K4: the pairs these inputs need, at the finer of
+    # their chunks
+    bound_chunk = min(tk.CULL_CHUNK, tk.FINE_CHUNK)
+    pairs = admitted_pairs(*args, u_final, bound_chunk)
+    culled_bound_ms = pairs * K1_FLOPS_PER_PAIR / PEAK_FP32_FLOP_S * 1e3
     alone = {}
-    for name, fn, plain, chunk in (
-            ("K1", tk.nearest_hit_triangles_kernel,
-             tk.nearest_hit_triangles_plain, None),
+    for name, fn, plain in (
             ("K3", tk.nearest_hit_triangles_culled_kernel,
-             tk.nearest_hit_triangles_culled_plain, tk.CULL_CHUNK),
+             tk.nearest_hit_triangles_culled_plain),
             ("K4", tk.nearest_hit_triangles_twolevel_kernel,
-             tk.nearest_hit_triangles_twolevel_plain, tk.FINE_CHUNK)):
-        pairs = (n * m if chunk is None
-                 else admitted_pairs(*args, u_final, chunk))
-        alone[name] = {
-            "ms": cuda_ms(lambda: fn(*args, EPS, EPS, EPS), 10),
-            "plain_ms": (None if chunk is None else
-                         cuda_ms(lambda: plain(*args, EPS, EPS, EPS), 1)),
-            "pairs": pairs,
-            "bound_ms": pairs * K1_FLOPS_PER_PAIR / PEAK_FP32_FLOP_S * 1e3,
-        }
+             tk.nearest_hit_triangles_twolevel_plain)):
+        out = {}
+        ms = cuda_ms(lambda: out.update(got=fn(*args, EPS, EPS, EPS)), 10)
+        plain_ms = cuda_ms(lambda: out.update(plain=plain(*args, EPS, EPS, EPS)),
+                           1)
+        err, report = culled_agreement(name, out["got"], out["plain"], k1_out)
+        alone[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err}
         print(f"phase 10 {name} alone at the first bounce {n}x{m}: kernel "
-              f"{alone[name]['ms']:.4f} ms, plain {alone[name]['plain_ms']} ms, "
-              f"admitted pairs {pairs} ({pairs / (n * m):.4%} of brute), "
-              f"bound {alone[name]['bound_ms']:.4f} ms (operations; brute "
-              f"bound {brute_bound_ms:.4f} ms)", flush=True)
-    del args, u_final
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {report}; admitted "
+              f"pairs {pairs} at {bound_chunk}-triangle chunks "
+              f"({pairs / (n * m):.4%} of brute), bound "
+              f"{culled_bound_ms:.4f} ms (operations; brute bound "
+              f"{brute_bound_ms:.4f} ms)", flush=True)
+    del args, u_final, k1_out, out
 
     # one grid + resort trace: its device time, memory and syncs
     g_cfg = TraceConfig(max_bounces=GUIDE_BOUNCES, use_kernel=True,
@@ -979,10 +988,10 @@ def main():
         "name": name, "route": "cuda",
         "source": f"tensorflowraytrace_tpu_torch/csrc/{source}",
         "replaces": f"tensorflowraytrace_tpu/ops/pallas_kernels.py:{line}",
-        "launches": launched[key], "max_abs_err": cull_err,
+        "launches": launched[key], "max_abs_err": alone[key]["max_abs_err"],
         "ms": k4_kernel_ms if key == "K4" else alone[key]["ms"],
         "wrapper_ms": alone[key]["ms"], "plain_ms": alone[key]["plain_ms"],
-        "bound_ms": alone[key]["bound_ms"], "bound_by": "operations",
+        "bound_ms": culled_bound_ms, "bound_by": "operations",
         "brute_bound_ms": brute_bound_ms, "library_ms": None,
         "shape": f"{n}x{m} (first bounce of the guide)",
     } for name, source, line, key in (

@@ -15,15 +15,12 @@
 // The gate.  The triangles are cut into chunks of kTile rows (the shared-
 // memory tile), each with its axis-aligned box (models/acceleration.py
 // chunk_aabbs, passed in as (C, 6): min xyz, max xyz).  Before a tile is
-// staged, each thread slab-tests its own ray against the tile's box: with
-// inv = 1 / d (|d| < 1e-30 replaced by +-1e-30), t1 = (lo - o) inv,
-// t2 = (hi - o) inv, tmin = max over axes of min(t1, t2), tmax = min over
-// axes of max(t1, t2), the ray needs the tile iff
-//   tmax (1 + 1e-6) + 1e-6 >= max(tmin, r_eps)   (it can hit the box) and
-//   tmin (1 - 1e-6) - 1e-6 <= best_u             (no farther than its best).
-// The box holds every triangle of the tile, so a ray that fails cannot find
-// a nearer hit there.  __syncthreads_or decides whether the block stages the
-// tile at all, and a warp vote (__any_sync) whether a warp computes it: the
+// staged, each thread slab-tests its own ray against the tile's box
+// (tsearch::slab_gate, triangle_search_common.cuh: can the ray hit the box
+// at t >= r_eps, no farther than its best, with slack 1 +- 1e-6); a ray
+// that fails cannot find a nearer hit in the tile.  The per-tile search is
+// tsearch::search_tile, K1's arithmetic.  __syncthreads_or decides whether
+// the block stages the tile at all, and a warp vote (__any_sync) whether a warp computes it: the
 // TPU kernel gates whole 512-ray blocks, a warp is the finer gate the TPU
 // could not have.  Results are set by the warp vote, so the plain version
 // (ops/triangle_kernels.py) gates groups of 32 rays.  Parked rays
@@ -42,16 +39,12 @@
 
 #include <cuda_runtime.h>
 
+#include "triangle_search_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;   // rays per block, one per thread
 constexpr int kTile = 256;      // triangles per tile = culling chunk
-constexpr float kBig = 3.0e38f; // no-hit sentinel (u < 1.5e38 means a hit)
-constexpr float kTiny = 1.0e-30f;
-
-__device__ __forceinline__ float safe_inverse(float d) {
-  return 1.0f / (fabsf(d) < kTiny ? (d < 0.0f ? -kTiny : kTiny) : d);
-}
 
 __global__ void __launch_bounds__(kThreads)
 triangle_search_culled_kernel(const float* __restrict__ p0,
@@ -70,38 +63,15 @@ triangle_search_culled_kernel(const float* __restrict__ p0,
 
   const int ray = blockIdx.x * kThreads + threadIdx.x;
   const bool live = ray < n;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  if (live) {
-    ox = p0[3 * ray + 0];
-    oy = p0[3 * ray + 1];
-    oz = p0[3 * ray + 2];
-    dx = p1[3 * ray + 0] - ox;
-    dy = p1[3 * ray + 1] - oy;
-    dz = p1[3 * ray + 2] - oz;
-  }
-  const float ix = safe_inverse(dx), iy = safe_inverse(dy),
-              iz = safe_inverse(dz);
+  const tsearch::Ray r = tsearch::load_ray(p0, p1, ray, live);
 
-  float best_u = kBig;
+  float best_u = tsearch::kBig;
   int best_idx = 0;
 
   for (int base = 0, chunk = 0; base < m; base += kTile, ++chunk) {
-    bool need = false;
-    if (live) {
-      const float* box = aabb + 6 * chunk;
-      float t1 = (box[0] - ox) * ix, t2 = (box[3] - ox) * ix;
-      float tmin = fminf(t1, t2), tmax = fmaxf(t1, t2);
-      t1 = (box[1] - oy) * iy;
-      t2 = (box[4] - oy) * iy;
-      tmin = fmaxf(tmin, fminf(t1, t2));
-      tmax = fminf(tmax, fmaxf(t1, t2));
-      t1 = (box[2] - oz) * iz;
-      t2 = (box[5] - oz) * iz;
-      tmin = fmaxf(tmin, fminf(t1, t2));
-      tmax = fminf(tmax, fmaxf(t1, t2));
-      need = (tmax * slack_hi + slack >= fmaxf(tmin, r_eps)) &&
-             (tmin * slack_lo - slack <= best_u);
-    }
+    const bool need = live && tsearch::slab_gate(aabb + 6 * chunk, r, r_eps,
+                                                 slack_hi, slack_lo, slack,
+                                                 best_u);
     const bool warp_need = __any_sync(0xffffffffu, need);
     // also the barrier after which the previous tile is no longer read
     if (!__syncthreads_or(need)) continue;
@@ -122,38 +92,8 @@ triangle_search_culled_kernel(const float* __restrict__ p0,
     }
     __syncthreads();
     if (!warp_need) continue;
-
-    for (int t = 0; t < count; ++t) {
-      const float e1x = tile[3][t], e1y = tile[4][t], e1z = tile[5][t];
-      const float e2x = tile[6][t], e2y = tile[7][t], e2z = tile[8][t];
-
-      // P = D x E2
-      const float px = dy * e2z - dz * e2y;
-      const float py = dz * e2x - dx * e2z;
-      const float pz = dx * e2y - dy * e2x;
-      const float det = e1x * px + e1y * py + e1z * pz;
-
-      bool ok = fabsf(det) >= i_eps;
-      const float inv = 1.0f / (ok ? det : 1.0f);
-
-      const float tx = ox - tile[0][t];
-      const float ty = oy - tile[1][t];
-      const float tz = oz - tile[2][t];
-      const float tu = (tx * px + ty * py + tz * pz) * inv;
-
-      // Q = T x E1
-      const float qx = ty * e1z - tz * e1y;
-      const float qy = tz * e1x - tx * e1z;
-      const float qz = tx * e1y - ty * e1x;
-      const float tv = (dx * qx + dy * qy + dz * qz) * inv;
-      const float u = (e2x * qx + e2y * qy + e2z * qz) * inv;
-
-      ok = ok && (tu >= s_lo) && (tv >= s_lo) && (tu + tv <= s_hi) && (u >= r_eps);
-      if (ok && u < best_u) {
-        best_u = u;
-        best_idx = base + t;
-      }
-    }
+    tsearch::search_tile<kTile>(tile, count, base, r, i_eps, s_lo, s_hi,
+                                r_eps, best_u, best_idx);
   }
 
   if (live) {
@@ -165,16 +105,18 @@ triangle_search_culled_kernel(const float* __restrict__ p0,
 }  // namespace
 
 // p0, p1: (n, 3) float32 row-major; vp, v1, v2: (m, 3) float32 row-major;
-// aabb: (ceil(m / 256), 6) float32.  u_out: (n,) float32, idx_out: (n,)
-// int32.  The thresholds (s_lo = -s_eps, s_hi = 1 + s_eps) and the gate's
-// slack (1 + 1e-6, 1 - 1e-6, 1e-6) arrive as the float32 values the plain
-// version compares with.  Launches on `stream` and returns
-// cudaGetLastError() (0 = launched).
+// aabb: (ceil(m / chunk), 6) float32, where chunk must be the kernel's tile
+// of 256 triangles (else the launch returns cudaErrorInvalidValue).  u_out:
+// (n,) float32, idx_out: (n,) int32.  The thresholds (s_lo = -s_eps,
+// s_hi = 1 + s_eps) and the gate's slack (1 + 1e-6, 1 - 1e-6, 1e-6) arrive
+// as the float32 values the plain version compares with.  Launches on
+// `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int triangle_search_culled_launch(
     const float* p0, const float* p1, const float* vp, const float* v1,
-    const float* v2, const float* aabb, int n, int m, float i_eps, float s_lo,
-    float s_hi, float r_eps, float slack_hi, float slack_lo, float slack,
-    float* u_out, int* idx_out, void* stream) {
+    const float* v2, const float* aabb, int n, int m, int chunk, float i_eps,
+    float s_lo, float s_hi, float r_eps, float slack_hi, float slack_lo,
+    float slack, float* u_out, int* idx_out, void* stream) {
+  if (chunk != kTile) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n + kThreads - 1) / kThreads;
   triangle_search_culled_kernel<<<blocks, kThreads, 0,
                                   static_cast<cudaStream_t>(stream)>>>(

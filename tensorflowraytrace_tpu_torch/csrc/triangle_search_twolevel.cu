@@ -32,13 +32,16 @@
 //   computed; this takes the place of make_async_copy and the two DMA
 //   semaphores.
 // - The improving gate: before computing candidate k each thread slab-tests
-//   its ray against the chunk's box and its running best (the test of
-//   csrc/triangle_search_culled.cu: can it hit the box at t >= r_eps, no
-//   farther than best_u, with slack 1 +- 1e-6).  A block vote
-//   (__syncthreads_or) skips chunks no ray of the block needs, and a warp
-//   vote (__any_sync) skips the arithmetic of warps none of whose rays
-//   need it.  The plain version gates groups of 32 rays to match.
+//   its ray against the chunk's box and its running best (K3's test,
+//   tsearch::slab_gate in triangle_search_common.cuh: can it hit the box
+//   at t >= r_eps, no farther than best_u, with slack 1 +- 1e-6).  A
+//   block vote (__syncthreads_or) skips chunks no ray of the block needs,
+//   and a warp vote (__any_sync) skips the arithmetic of warps none of
+//   whose rays need it.  The plain version gates groups of 32 rays to
+//   match.
 // - The ragged last chunk is masked by its count of real triangles.
+// - The fine chunk is fixed at compile time (kFine = 512, chosen on the
+//   H100, see PERF.md): the tile rows sit at constant offsets.
 //
 // What bounds it: FP32 arithmetic on the admitted pairs (about 46 flops
 // each), plus the per-step slab tests and the candidate precompute outside
@@ -49,19 +52,13 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "triangle_search_common.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr float kBig = 3.0e38f;  // no-hit sentinel (u < 1.5e38 means a hit)
-constexpr float kTiny = 1.0e-30f;
+constexpr int kFine = 512;  // triangles per fine chunk; FINE_CHUNK in Python
 
-__device__ __forceinline__ float safe_inverse(float d) {
-  return 1.0f / (fabsf(d) < kTiny ? (d < 0.0f ? -kTiny : kTiny) : d);
-}
-
-// kFine (triangles per fine chunk) is a template parameter so that the nine
-// shared-memory rows sit at compile-time offsets, as in K1's static tile.
-template <int kFine>
 __global__ void __launch_bounds__(kMaxThreads)
 triangle_search_twolevel_kernel(const float* __restrict__ p0,
                                 const float* __restrict__ p1,
@@ -82,17 +79,7 @@ triangle_search_twolevel_kernel(const float* __restrict__ p0,
   const int b = blockIdx.x;
   const int ray = b * blockDim.x + threadIdx.x;
   const bool live = ray < n;
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  if (live) {
-    ox = p0[3 * ray + 0];
-    oy = p0[3 * ray + 1];
-    oz = p0[3 * ray + 2];
-    dx = p1[3 * ray + 0] - ox;
-    dy = p1[3 * ray + 1] - oy;
-    dz = p1[3 * ray + 2] - oz;
-  }
-  const float ix = safe_inverse(dx), iy = safe_inverse(dy),
-              iz = safe_inverse(dz);
+  const tsearch::Ray r = tsearch::load_ray(p0, p1, ray, live);
 
   const int cnt = counts[b];
   const bool sweep = cnt == n_chunks;
@@ -108,7 +95,7 @@ triangle_search_twolevel_kernel(const float* __restrict__ p0,
     __pipeline_commit();
   };
 
-  float best_u = kBig;
+  float best_u = tsearch::kBig;
   int best_idx = 0;
 
   if (cnt > 0) stage(chunk_id(0), 0);
@@ -121,60 +108,15 @@ triangle_search_twolevel_kernel(const float* __restrict__ p0,
       __pipeline_wait_prior(0);
     }
 
-    bool need = false;
-    if (live) {
-      const float* box = aabb + 6 * c;
-      float t1 = (box[0] - ox) * ix, t2 = (box[3] - ox) * ix;
-      float tmin = fminf(t1, t2), tmax = fmaxf(t1, t2);
-      t1 = (box[1] - oy) * iy;
-      t2 = (box[4] - oy) * iy;
-      tmin = fmaxf(tmin, fminf(t1, t2));
-      tmax = fminf(tmax, fmaxf(t1, t2));
-      t1 = (box[2] - oz) * iz;
-      t2 = (box[5] - oz) * iz;
-      tmin = fmaxf(tmin, fminf(t1, t2));
-      tmax = fminf(tmax, fmaxf(t1, t2));
-      need = (tmax * slack_hi + slack >= fmaxf(tmin, r_eps)) &&
-             (tmin * slack_lo - slack <= best_u);
-    }
+    const bool need = live && tsearch::slab_gate(aabb + 6 * c, r, r_eps,
+                                                 slack_hi, slack_lo, slack,
+                                                 best_u);
     const bool warp_need = __any_sync(0xffffffffu, need);
     // the barrier after which every thread's copies of chunk k are visible
     if (__syncthreads_or(need) && warp_need) {
-      const float (*tile)[kFine] = smem[k & 1];
       const int base = c * kFine;
-      const int count = min(kFine, m - base);
-      for (int t = 0; t < count; ++t) {
-        const float e1x = tile[3][t], e1y = tile[4][t], e1z = tile[5][t];
-        const float e2x = tile[6][t], e2y = tile[7][t], e2z = tile[8][t];
-
-        // P = D x E2
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-
-        bool ok = fabsf(det) >= i_eps;
-        const float inv = 1.0f / (ok ? det : 1.0f);
-
-        const float tx = ox - tile[0][t];
-        const float ty = oy - tile[1][t];
-        const float tz = oz - tile[2][t];
-        const float tu = (tx * px + ty * py + tz * pz) * inv;
-
-        // Q = T x E1
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float tv = (dx * qx + dy * qy + dz * qz) * inv;
-        const float u = (e2x * qx + e2y * qy + e2z * qz) * inv;
-
-        ok = ok && (tu >= s_lo) && (tv >= s_lo) && (tu + tv <= s_hi) &&
-             (u >= r_eps);
-        if (ok && u < best_u) {
-          best_u = u;
-          best_idx = base + t;
-        }
-      }
+      tsearch::search_tile<kFine>(smem[k & 1], min(kFine, m - base), base, r,
+                                  i_eps, s_lo, s_hi, r_eps, best_u, best_idx);
     }
     __syncthreads();  // buffer k & 1 is no longer read: step k+1 refills it
   }
@@ -188,7 +130,7 @@ triangle_search_twolevel_kernel(const float* __restrict__ p0,
 }  // namespace
 
 // p0, p1: (n, 3) float32; table: (n_chunks, 9, fine) float32, 16-byte
-// aligned, fine one of 128, 256, 512 (else the launch returns
+// aligned, where fine must be the kernel's 512 (else the launch returns
 // cudaErrorInvalidValue); aabb: (n_chunks, 6) float32; counts:
 // (ceil(n / ray_block),) int32; cand: (blocks * max_cand,) int32.  u_out:
 // (n,) float32, idx_out: (n,) int32.  ray_block is the block size (a
@@ -201,18 +143,11 @@ extern "C" int triangle_search_twolevel_launch(
     int ray_block, int max_cand, float i_eps, float s_lo, float s_hi,
     float r_eps, float slack_hi, float slack_lo, float slack, float* u_out,
     int* idx_out, void* stream) {
+  if (fine != kFine) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n + ray_block - 1) / ray_block;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define TWOLEVEL_LAUNCH(F)                                                  \
-  triangle_search_twolevel_kernel<F><<<blocks, ray_block, 0, s>>>(          \
-      p0, p1, table, aabb, counts, cand, n, m, n_chunks, max_cand, i_eps,   \
-      s_lo, s_hi, r_eps, slack_hi, slack_lo, slack, u_out, idx_out)
-  switch (fine) {
-    case 128: TWOLEVEL_LAUNCH(128); break;
-    case 256: TWOLEVEL_LAUNCH(256); break;
-    case 512: TWOLEVEL_LAUNCH(512); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-#undef TWOLEVEL_LAUNCH
+  triangle_search_twolevel_kernel<<<blocks, ray_block, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      p0, p1, table, aabb, counts, cand, n, m, n_chunks, max_cand, i_eps,
+      s_lo, s_hi, r_eps, slack_hi, slack_lo, slack, u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

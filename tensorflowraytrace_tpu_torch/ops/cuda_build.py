@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with ``nvcc``
 for ``sm_90a`` into its own shared library in ``build/`` at the repository
-root, under a name keyed by a hash of the source and the flags, so a changed
-source gets a new library.  ``build`` starts one ``nvcc`` for each missing
+root, under a name keyed by a hash of the source, the headers it includes
+from ``csrc/`` and the flags, so a changed source or header gets a new
+library.  ``build`` starts one ``nvcc`` for each missing
 library, all together, and waits for all of them.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -39,11 +41,20 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def _local_headers(src: Path) -> list:
+    """The ``csrc/`` headers ``src`` includes with ``#include "..."``."""
+    names = re.findall(r'^#include "([^"]+)"', src.read_text(), re.MULTILINE)
+    return [CSRC_DIR / name for name in names]
+
+
 def library_path(source: str) -> Path:
-    """The library ``csrc/<source>`` builds into."""
+    """The library ``csrc/<source>`` builds into: its name hashes the
+    source, the headers it includes from ``csrc/`` and the flags."""
     src = CSRC_DIR / source
+    text = src.read_bytes() + b"".join(h.read_bytes()
+                                       for h in _local_headers(src))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}_{digest}.so"
 
 

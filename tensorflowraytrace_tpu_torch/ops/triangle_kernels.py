@@ -59,23 +59,24 @@ SOURCE = "triangle_search.cu"
 SOURCE_CULLED = "triangle_search_culled.cu"
 SOURCE_TWOLEVEL = "triangle_search_twolevel.cu"
 
-# K3: the culling chunk is the kernel's shared-memory tile
+# K3: the culling chunk is the kernel's shared-memory tile (kTile in
+# csrc/triangle_search_culled.cu; the launch refuses another value)
 CULL_CHUNK = 256
 # K3 and K4 decide per warp whether to compute a chunk: the plain versions
 # gate groups of this many consecutive rays
 GATE_RAYS = 32
-# K4: rays per block (one thread each), triangles per fine chunk, and the
-# cap of each block's candidate list; a block with more candidates sweeps
-# every chunk.  Chosen on the H100 by `chip_smoke.py --tune` (PERF.md): the
-# 24-bounce guide trace is fastest at 128 x 512 (12% under 256 x 256; the
-# per-chunk slab test, barriers and copy wait cost more than the larger
-# chunks' extra pairs), and the cap moved nothing from 8 to 128.
+# K4: rays per block (one thread each), triangles per fine chunk (kFine in
+# csrc/triangle_search_twolevel.cu; the launch refuses another value), and
+# the cap of each block's candidate list; a block with more candidates
+# sweeps every chunk.  Chosen on the H100 by `chip_smoke.py --tune`: see
+# PERF.md.  Read at call time, so a test can lower the cap.
 TWOLEVEL_RAY_BLOCK = 128
 FINE_CHUNK = 512
 TWOLEVEL_MAX_CAND = 32
 # Byte budget of one chunk group of the candidate precompute's
 # (blocks, chunks, rays) slab-test temporaries; more chunks are tested
-# group by group.  1 GiB keeps the 2^20-ray guide at two groups.
+# group by group.  1 GiB keeps the 2^20-ray guide, 33 chunks of 512
+# triangles, in one group.
 CAND_GROUP_BYTES = 1 << 30
 
 # the slab test's guards, as in the TPU kernels
@@ -101,7 +102,7 @@ def load_culled_library():
     """The K3 library, built at first use, with its C signature declared."""
     lib = cuda_build.load(SOURCE_CULLED)
     fn = lib.triangle_search_culled_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
         + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return lib
@@ -212,7 +213,7 @@ def nearest_hit_triangles_culled_kernel(p0, p1, vp, v1, v2, intersect_eps,
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream
         err = fn(p0.data_ptr(), p1.data_ptr(), vp.data_ptr(), v1.data_ptr(),
-                 v2.data_ptr(), boxes.data_ptr(), n, m,
+                 v2.data_ptr(), boxes.data_ptr(), n, m, CULL_CHUNK,
                  *_thresholds(intersect_eps, size_eps, ray_start_eps),
                  1.0 + _SLACK, 1.0 - _SLACK, _SLACK,
                  u.data_ptr(), idx.data_ptr(), stream)
@@ -238,47 +239,37 @@ def chunk_major_table(vp, v1, v2, fine_chunk):
 
 
 def nearest_hit_triangles_twolevel_kernel(p0, p1, vp, v1, v2, intersect_eps,
-                                          size_eps, ray_start_eps,
-                                          ray_block=None, fine_chunk=None,
-                                          max_cand=None):
-    """K4: the two-level search.  Same arguments, result and device rules
-    as :func:`nearest_hit_triangles_kernel`; ``ray_block``, ``fine_chunk``
-    and ``max_cand`` default to the module constants (read at call time, so
-    a test can lower the cap)."""
-    rb = int(ray_block or TWOLEVEL_RAY_BLOCK)
-    fine = int(fine_chunk or FINE_CHUNK)
-    cap = int(max_cand or TWOLEVEL_MAX_CAND)
+                                          size_eps, ray_start_eps):
+    """K4: the two-level search with ``TWOLEVEL_RAY_BLOCK`` rays per block,
+    ``FINE_CHUNK`` triangles per chunk and lists capped at
+    ``TWOLEVEL_MAX_CAND``.  Same arguments, result and device rules as
+    :func:`nearest_hit_triangles_kernel`."""
     if _plain_or_cuda(p0):
         return nearest_hit_triangles_twolevel_plain(
-            p0, p1, vp, v1, v2, intersect_eps, size_eps, ray_start_eps,
-            rb, fine, cap)
+            p0, p1, vp, v1, v2, intersect_eps, size_eps, ray_start_eps)
     _check_cuda_inputs(p0, p1, vp, v1, v2)
+    rb = TWOLEVEL_RAY_BLOCK
     if rb % 32 or not 32 <= rb <= 1024:
-        raise ValueError(f"ray_block {rb} must be a multiple of 32 in "
-                         "[32, 1024]")
-    if fine not in (128, 256, 512):
-        raise ValueError(f"fine_chunk {fine} must be 128, 256 or 512 (the "
-                         "kernel's compiled tile widths)")
-    prepared = twolevel_prepare(p0, p1, vp, v1, v2, ray_start_eps, rb, fine,
-                                cap)
+        raise ValueError(f"TWOLEVEL_RAY_BLOCK {rb} must be a multiple of 32 "
+                         "in [32, 1024]")
+    prepared = twolevel_prepare(p0, p1, vp, v1, v2, ray_start_eps)
     return twolevel_launch(p0, p1, vp.shape[0], prepared, intersect_eps,
-                           size_eps, ray_start_eps, rb, fine)
+                           size_eps, ray_start_eps)
 
 
-def twolevel_prepare(p0, p1, vp, v1, v2, ray_start_eps, ray_block,
-                     fine_chunk, max_cand):
+def twolevel_prepare(p0, p1, vp, v1, v2, ray_start_eps):
     """K4's inputs, made on the rays' device: the chunk-major triangle
     table, the chunk boxes, and each ray block's candidate list
     (``twolevel_candidates``); the cap is lowered to the chunk count."""
-    cap = min(max_cand, -(-vp.shape[0] // fine_chunk))
-    boxes = chunk_aabbs(vp, v1, v2, fine_chunk).contiguous()
+    cap = min(TWOLEVEL_MAX_CAND, -(-vp.shape[0] // FINE_CHUNK))
+    boxes = chunk_aabbs(vp, v1, v2, FINE_CHUNK).contiguous()
     counts, cand = twolevel_candidates(p0, p1, boxes, ray_start_eps,
-                                       ray_block, cap)
-    return chunk_major_table(vp, v1, v2, fine_chunk), boxes, counts, cand, cap
+                                       TWOLEVEL_RAY_BLOCK, cap)
+    return chunk_major_table(vp, v1, v2, FINE_CHUNK), boxes, counts, cand, cap
 
 
 def twolevel_launch(p0, p1, m, prepared, intersect_eps, size_eps,
-                    ray_start_eps, ray_block, fine_chunk):
+                    ray_start_eps):
     """Launch K4 on checked CUDA inputs and ``twolevel_prepare``'s output
     for ``m`` triangles; the wrapper's second half."""
     global LAUNCHES_TWOLEVEL
@@ -291,7 +282,7 @@ def twolevel_launch(p0, p1, m, prepared, intersect_eps, size_eps,
         stream = torch.cuda.current_stream(p0.device).cuda_stream
         err = fn(p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
                  boxes.data_ptr(), counts.data_ptr(), cand.data_ptr(),
-                 n, m, boxes.shape[0], fine_chunk, ray_block, cap,
+                 n, m, boxes.shape[0], FINE_CHUNK, TWOLEVEL_RAY_BLOCK, cap,
                  *_thresholds(intersect_eps, size_eps, ray_start_eps),
                  1.0 + _SLACK, 1.0 - _SLACK, _SLACK,
                  u.data_ptr(), idx.data_ptr(), stream)
@@ -417,10 +408,9 @@ def _selected(mask, piece=32768):
 
 @torch.no_grad()
 def nearest_hit_triangles_culled_plain(p0, p1, vp, v1, v2, intersect_eps,
-                                       size_eps, ray_start_eps,
-                                       chunk=CULL_CHUNK):
-    """Plain PyTorch version of K3: the chunks of ``chunk`` triangles in
-    order; a chunk is computed for the rays of each ``GATE_RAYS`` group of
+                                       size_eps, ray_start_eps):
+    """Plain PyTorch version of K3: the chunks of ``CULL_CHUNK`` triangles
+    in order; a chunk is computed for the rays of each ``GATE_RAYS`` group of
     which some ray passes the slab gate against its running best, with K1's
     arithmetic and merge."""
     n, m = p0.shape[0], vp.shape[0]
@@ -429,6 +419,7 @@ def nearest_hit_triangles_culled_plain(p0, p1, vp, v1, v2, intersect_eps,
     eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
     d = p1 - p0
     o3, d3, inv3 = p0.unbind(1), d.unbind(1), _inverse_direction(d).unbind(1)
+    chunk = CULL_CHUNK
     boxes = chunk_aabbs(vp, v1, v2, chunk)
     for c, t0 in enumerate(range(0, m, chunk)):
         box = boxes[c]
@@ -497,21 +488,17 @@ def twolevel_candidates(p0, p1, boxes, ray_start_eps, ray_block, max_cand):
 
 @torch.no_grad()
 def nearest_hit_triangles_twolevel_plain(p0, p1, vp, v1, v2, intersect_eps,
-                                         size_eps, ray_start_eps,
-                                         ray_block=None, fine_chunk=None,
-                                         max_cand=None):
-    """Plain PyTorch version of K4: each block of ``ray_block`` rays walks
-    its candidate list (or every chunk on overflow) in order; at each step
-    the chunk is computed for the rays of each ``GATE_RAYS`` group of which
-    some ray passes the slab gate against its running best, with K1's
-    arithmetic and merge."""
-    rb = int(ray_block or TWOLEVEL_RAY_BLOCK)
-    fine = int(fine_chunk or FINE_CHUNK)
+                                         size_eps, ray_start_eps):
+    """Plain PyTorch version of K4: each block of ``TWOLEVEL_RAY_BLOCK``
+    rays walks its candidate list (or every chunk on overflow) in order; at
+    each step the chunk of ``FINE_CHUNK`` triangles is computed for the rays
+    of each ``GATE_RAYS`` group of which some ray passes the slab gate
+    against its running best, with K1's arithmetic and merge."""
+    rb, fine = TWOLEVEL_RAY_BLOCK, FINE_CHUNK
     n = p0.shape[0]
     eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
     table, boxes, counts, cand, cap = twolevel_prepare(
-        p0, p1, vp, v1, v2, eps[3], rb, fine,
-        int(max_cand or TWOLEVEL_MAX_CAND))                  # table (C, 9, F)
+        p0, p1, vp, v1, v2, eps[3])                          # table (C, 9, F)
     n_chunks = boxes.shape[0]
 
     # each block's walk: its list, or 0 .. n_chunks - 1 on overflow

@@ -255,14 +255,17 @@ def test_plain_culled_matches_pallas_interpret(rng, cull):
 
 
 @pytest.mark.parametrize("search,kw", [
-    ("culled", {}), ("culled", dict(chunk=64)),
-    ("twolevel", {}), ("twolevel", dict(max_cand=2)),
-    ("twolevel", dict(ray_block=64, fine_chunk=128)),
+    ("culled", {}), ("culled", dict(CULL_CHUNK=64)),
+    ("twolevel", {}), ("twolevel", dict(TWOLEVEL_MAX_CAND=2)),
+    ("twolevel", dict(TWOLEVEL_RAY_BLOCK=64, FINE_CHUNK=128)),
 ])
 @pytest.mark.parametrize("shape", [(1500, 2000), (1000, 333), (33, 1)])
-def test_plain_culled_equals_plain_k1(rng, search, kw, shape):
+def test_plain_culled_equals_plain_k1(rng, monkeypatch, search, kw, shape):
     """Bit for bit, on a sorted soup with some rays parked (p0 = 1e30, as
-    the engine parks terminated rays) and some pointing away from it."""
+    the engine parks terminated rays) and some pointing away from it; ``kw``
+    sets the module's chunk, block and cap constants."""
+    for name, value in kw.items():
+        monkeypatch.setattr(tk, name, value)
     n_rays, n_tris = shape
     tris, p0, p1 = sorted_soup(rng, n_tris, n_rays)
     parked = rng.random(n_rays) < 0.2
@@ -272,7 +275,7 @@ def test_plain_culled_equals_plain_k1(rng, search, kw, shape):
     args = torch_args(p0, p1, tris)
     ref = tk.nearest_hit_triangles_plain(*args, EPS, EPS, EPS)
     fn = getattr(tk, f"nearest_hit_triangles_{search}_plain")
-    got = fn(*args, EPS, EPS, EPS, **kw)
+    got = fn(*args, EPS, EPS, EPS)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
     assert not ref[0][torch.as_tensor(parked | away)].any()

@@ -67,20 +67,18 @@ def guide_slice(n_rays, device, seed=0):
     return rays + [tri.vp.detach(), tri.v1.detach(), tri.v2.detach()]
 
 
-def check(args, **twolevel):
+def check(args):
     """K3 and K4 against K1 and against their plain versions, bit for
     bit; returns K1's ``valid``."""
     ref = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
     before = (tk.LAUNCHES_CULLED, tk.LAUNCHES_TWOLEVEL)
     k3 = tk.nearest_hit_triangles_culled_kernel(*args, EPS, EPS, EPS)
-    k4 = tk.nearest_hit_triangles_twolevel_kernel(*args, EPS, EPS, EPS,
-                                                  **twolevel)
+    k4 = tk.nearest_hit_triangles_twolevel_kernel(*args, EPS, EPS, EPS)
     torch.cuda.synchronize()
     assert (tk.LAUNCHES_CULLED, tk.LAUNCHES_TWOLEVEL) == (before[0] + 1,
                                                           before[1] + 1)
     p3 = tk.nearest_hit_triangles_culled_plain(*args, EPS, EPS, EPS)
-    p4 = tk.nearest_hit_triangles_twolevel_plain(*args, EPS, EPS, EPS,
-                                                 **twolevel)
+    p4 = tk.nearest_hit_triangles_twolevel_plain(*args, EPS, EPS, EPS)
     for got in (k3, k4, p3, p4):
         for a, b in zip(got, ref):
             assert torch.equal(a, b)
@@ -114,17 +112,19 @@ def test_culled_kernels_all_miss_and_parked(cuda):
     assert check([mix0, mix1, vp, v1, v2]).any()
 
 
-@pytest.mark.parametrize("twolevel", [dict(max_cand=2),
-                                      dict(max_cand=1, ray_block=64,
-                                           fine_chunk=128),
-                                      dict(ray_block=1024, fine_chunk=512)])
-def test_twolevel_overflow_and_block_shapes(cuda, twolevel):
+@pytest.mark.parametrize("twolevel", [dict(TWOLEVEL_MAX_CAND=2),
+                                      dict(TWOLEVEL_MAX_CAND=1,
+                                           TWOLEVEL_RAY_BLOCK=64),
+                                      dict(TWOLEVEL_RAY_BLOCK=1024)])
+def test_twolevel_overflow_and_block_shapes(cuda, monkeypatch, twolevel):
     """A cap of 1 or 2 makes every block sweep all chunks; other ray blocks
-    and fine chunks give the same hits."""
-    assert check(sorted_soup(3000, 20000, cuda), **twolevel).any()
+    give the same hits (``twolevel`` sets the module constants)."""
+    for name, value in twolevel.items():
+        monkeypatch.setattr(tk, name, value)
+    assert check(sorted_soup(3000, 20000, cuda)).any()
 
 
-def test_culled_kernels_refuse_what_they_cannot_take(cuda):
+def test_culled_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
     p0, p1, vp, v1, v2 = sorted_soup(16, 32, cuda)
     for fn in (tk.nearest_hit_triangles_culled_kernel,
                tk.nearest_hit_triangles_twolevel_kernel):
@@ -136,6 +136,14 @@ def test_culled_kernels_refuse_what_they_cannot_take(cuda):
             fn(p0, p1.cpu(), vp, v1, v2, EPS, EPS, EPS)
         with pytest.raises(ValueError, match="detached"):
             fn(p0, p1, vp.clone().requires_grad_(), v1, v2, EPS, EPS, EPS)
-    with pytest.raises(ValueError, match="ray_block"):
+    # the kernels are compiled for one chunk width each
+    for name, fn in (("CULL_CHUNK", tk.nearest_hit_triangles_culled_kernel),
+                     ("FINE_CHUNK", tk.nearest_hit_triangles_twolevel_kernel)):
+        with monkeypatch.context() as m:
+            m.setattr(tk, name, 128)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fn(p0, p1, vp, v1, v2, EPS, EPS, EPS)
+    monkeypatch.setattr(tk, "TWOLEVEL_RAY_BLOCK", 100)
+    with pytest.raises(ValueError, match="TWOLEVEL_RAY_BLOCK"):
         tk.nearest_hit_triangles_twolevel_kernel(p0, p1, vp, v1, v2, EPS, EPS,
-                                                 EPS, ray_block=100)
+                                                 EPS)
