@@ -9,9 +9,10 @@ exits non-zero without printing a result):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
    exits non-zero when CUDA is not available.
-2. build: compiles the four kernels (csrc/triangle_search.cu,
-   triangle_search_culled.cu, triangle_search_twolevel.cu and
-   segment_sum.cu), one nvcc each, started together, into build/.
+2. build: compiles the eight kernels (csrc/triangle_search.cu,
+   triangle_search_culled.cu, triangle_search_twolevel.cu, segment_sum.cu,
+   segment_search.cu, segment_search_culled.cu, arc_search.cu and
+   arc_search_culled.cu), one nvcc each, started together, into build/.
 3. K1 against its plain PyTorch version on the card: the random soup of
    bench.py (seed 0: 4094 random triangles plus the 2-triangle target quad)
    with 131072 rays, the flagship's first-bounce search, a ragged tile
@@ -69,10 +70,39 @@ exits non-zero without printing a result):
    the candidate precompute, the re-sort and the rest of the device time,
    and the idle share), its peak memory and its host synchronisations.
 
+11. the 2D searches: K5 (segments) and K6 (arcs) against their plain
+   versions, and K7 and K8 (culled) against theirs and against K5 and K6,
+   all bit for bit, on examples/tpu_kernel_check.py's sets (seed 7: 777
+   random segments and 555 random arcs with signed radii and sweeps of
+   0.3-5.8 rad, Morton-sorted) against 200000 rays, a ragged tile (1000
+   rays x 333 surfaces), 1 ray x 257 surfaces, an all-miss batch, a batch
+   of parked rays and full-circle arcs.
+12. 2D training at example scale: examples/optimize_single_arc.py (60 rays,
+   one trainable arc, 2 bounces, 30 steps at momentum 0.8 and 50 at
+   lr_scale 0.1, momentum 0.9) through use_kernel=True in float32: K5 and
+   K6 launch once per bounce, K2 on each backward, the final error is below
+   5% of the first and every parameter stays finite.  Then one step of the
+   same problem at bench width (174763 beam points x 6 wavelengths ~ 2^20
+   rays): median of 5 synchronised steps.
+13. the 2D light guide at full width (scenes2d.light_guide: 4098 segments,
+   512 lenslet arcs, 2^20 rays from seed 0, acrylic, 50 bounces) through
+   brute (K5 + K6), ``cull=True`` (K7 + K8) and ``cull=True,
+   resort_rays=True``: the final ``state``, ``p0`` and ``p1`` of each
+   accelerated path equal the brute path's bit for bit, each kernel
+   launches once per bounce, median of 5 synchronised traces per path and
+   equivalent intersections/s N (M_seg + M_arc) B / t; one brute and one
+   ``cull=True, resort_rays=True`` trace under torch.profiler (shares of
+   K5/K7, K6/K8, the re-sort and the rest, the idle share), peak memory
+   and host synchronisations (0).  Then K5-K8 alone at the first bounce
+   (2^20 x 4098 and 2^20 x 512, the rays in the re-sort's order): bit for
+   bit against their plain versions, kernel and plain times by CUDA
+   events, and each kernel's bound.
+
 Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
-earlier runs: the brute-force search does not use the order.  Then one
-JSON line describing each kernel of the path, the nvidia-smi line, and as
-the last line ``{"ok": true, "device": {...}}``.
+earlier runs: the brute-force search does not use the order.  Then the
+script's own wall time, one JSON line describing each kernel of the path,
+the nvidia-smi line, and as the last line ``{"ok": true, "device":
+{...}}``.
 
 ``python3 chip_smoke.py --tune`` runs phases 1 and 2 and then sweeps K4's
 ray block and candidate cap (the fine chunk is compiled into the kernel)
@@ -131,6 +161,21 @@ PEAK_FP32_FLOP_S = 67e12
 # (2 x 9), two dot products against P (2 x 6 with the scaling by inv),
 # det (5), T (3), u (6), 1/det (1), tu + tv (1)
 K1_FLOPS_PER_PAIR = 46
+# one ray-segment pair in K5 (search2d::search_segments): den (3), 1/den
+# (1), ray_u (6), seg_u (6)
+SEG_FLOPS_PER_PAIR = 16
+# one ray-arc pair in K6 (search2d::search_arcs): the scaled coordinates
+# (6), a (3), b (4), the discriminant (6), 2a and its reciprocal (2), the
+# square root (1), the two roots (4), the window test of each root (2 x 12)
+ARC_FLOPS_PER_PAIR = 50
+
+# phases 11-13: the 2D path
+CHECK_RAYS = 200000
+CHECK_SEGMENTS = 777
+CHECK_ARCS = 555
+ARC_STEPS = (30, 50)
+ARC_WIDE_BEAM = 174763
+GUIDE2D_RAYS = 1 << 20
 
 
 def check(cond, message):
@@ -307,28 +352,27 @@ def culled_agreement(name, got, plain, ref):
                  f"{vs_k1}, max_abs_err {err}")
 
 
-def admitted_pairs(p0, p1, vp, v1, v2, u, chunk):
-    """The ray-triangle pairs a culled search must compute on these inputs:
-    for each ray, the triangles of every chunk (of ``chunk`` rows) whose box
-    its own slab test admits no farther than its final nearest hit ``u``.
-    One count for K3 and K4 alike, at the finer of their chunks."""
+def admitted_pairs(p0, p1, boxes, m, u, chunk):
+    """The ray-surface pairs a culled search must compute on these inputs:
+    for each ray, the surfaces of every chunk (of ``chunk`` rows; ``boxes``
+    (C, 2 dim) their boxes, ``m`` the surface count) whose box its own slab
+    test admits no farther than its final nearest hit ``u``.  In 3D one
+    count for K3 and K4 alike, at the finer of their chunks."""
     import torch
 
-    from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 
-    m = vp.shape[0]
-    boxes = chunk_aabbs(vp, v1, v2, chunk)
+    dim = p0.shape[1]
     sizes = torch.full((boxes.shape[0],), chunk, dtype=torch.int64,
                        device=p0.device)
     sizes[-1] = m - (boxes.shape[0] - 1) * chunk
     inv = tk._inverse_direction(p1 - p0)
-    o3 = [a[:, None] for a in p0.unbind(1)]
-    inv3 = [a[:, None] for a in inv.unbind(1)]
+    o = [a[:, None] for a in p0.unbind(1)]
+    inv = [a[:, None] for a in inv.unbind(1)]
     total = 0
     for c0 in range(0, boxes.shape[0], 8):
         box = boxes[c0:c0 + 8].T
-        gate = tk._slab_gate(o3, inv3, box[:3], box[3:], EPS, u[:, None])
+        gate = tk._slab_gate(o, inv, box[:dim], box[dim:], EPS, u[:, None])
         total += int((gate.to(torch.int64) * sizes[c0:c0 + 8]).sum())
     return total
 
@@ -484,6 +528,21 @@ def range_device_us(prof, label):
     return total
 
 
+def count_syncs(fn):
+    """The synchronising calls ``fn()`` makes, as torch's sync debug mode
+    reports them."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def tune_twolevel(device):
     """``--tune``: K4's ray block (cap 32), then its cap at the best block,
     at the compiled fine chunk, on the guide (24 bounces) and the sorted
@@ -534,9 +593,347 @@ def tune_twolevel(device):
         run(rb, cap)
 
 
+# ----------------------------------------------------------------------
+# phases 11-13: the 2D path
+# ----------------------------------------------------------------------
+
+def search_2d(kind, culled, plain=False):
+    """The wrapper (or plain version) of one 2D search and its epsilons."""
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+
+    mod, name, eps = ((gk, "segments", (EPS, EPS, EPS)) if kind == "segment"
+                      else (ak, "arcs", (EPS, EPS)))
+    suffix = ("_culled" if culled else "") + ("_plain" if plain else "_kernel")
+    fn = getattr(mod, f"nearest_hit_{name}{suffix}")
+    return lambda args: fn(*args, *eps)
+
+
+def surface_args(p0, p1, surfaces):
+    """A 2D search's tensor arguments: the rays and a SegmentSet's
+    endpoints or an ArcSet's centre, angles and radius."""
+    cols = (("p0", "p1") if hasattr(surfaces, "p0")
+            else ("center", "angle_start", "angle_end", "radius"))
+    return [t.detach().contiguous()
+            for t in (p0, p1) + tuple(getattr(surfaces, c) for c in cols)]
+
+
+def compare_2d(label, kind, args):
+    """The brute and culled kernels of ``kind`` against their plain
+    versions and each other, bit for bit; returns ``(out, err)``: their
+    outputs ``{"brute": ..., "culled": ...}`` and each one's max |u - u_plain|
+    on rays both find valid.  These launches are comparisons, not the main
+    path."""
+    import torch
+
+    out = {c: search_2d(kind, c == "culled")(args) for c in ("brute", "culled")}
+    torch.cuda.synchronize()
+    plain = {c: search_2d(kind, c == "culled", plain=True)(args)
+             for c in ("brute", "culled")}
+    pairs = {"brute vs plain": (out["brute"], plain["brute"]),
+             "culled vs plain": (out["culled"], plain["culled"]),
+             "culled vs brute": (out["culled"], out["brute"])}
+    diffs = {k: int(sum((a != b).sum() for a, b in zip(x, y)))
+             for k, (x, y) in pairs.items()}
+    err = {}
+    for c in out:
+        both = out[c][0] & plain[c][0]
+        err[c] = (float((out[c][2][both] - plain[c][2][both]).abs().max())
+                  if both.any() else 0.0)
+    print(f"{label} {kind}: N={args[0].shape[0]} M={args[2].shape[0]} "
+          f"hits={int(out['brute'][0].sum())} elements differing: {diffs}; "
+          f"max_abs_err {err}", flush=True)
+    check(not any(diffs.values()), f"{kind} {label}: differs ({diffs})")
+    return out, err
+
+
+def phase_11(device):
+    """K5-K8 against their plain versions and K7/K8 against K5/K6."""
+    import numpy as np
+    import torch
+
+    from tensorflowraytrace_tpu_torch import scenes2d
+
+    rng = np.random.default_rng(7)
+    seg = scenes2d.random_segments(rng, CHECK_SEGMENTS, device=device)
+    arc = scenes2d.random_arcs(rng, CHECK_ARCS, device=device)
+    full = scenes2d.random_arcs(rng, 300, device=device, full=True)
+    p0, p1 = scenes2d.random_rays(rng, CHECK_RAYS, device=device)
+    far = torch.full_like(p0[:4096], 100.0)
+    parked = torch.full_like(p0[:4096], 1e30)
+    cases = [("sets", p0, p1, seg, arc),
+             ("ragged", p0[:1000], p1[:1000], seg_slice(seg, 333),
+              arc_slice(arc, 333)),
+             ("one ray", p0[:1], p1[:1], seg_slice(seg, 257),
+              arc_slice(arc, 257)),
+             ("all-miss", far, far + 1.0, seg, arc),
+             ("parked", parked, torch.full_like(parked, 1e30 * (1 + 1e-6)),
+              seg, arc),
+             ("full circles", p0, p1, None, full)]
+    for label, r0, r1, s, a in cases:
+        for kind, surfaces in (("segment", s), ("arc", a)):
+            if surfaces is not None:
+                out, _ = compare_2d(f"phase 11 {label}", kind,
+                                    surface_args(r0, r1, surfaces))
+                hits = bool(out["brute"][0].any())
+                if label != "one ray":
+                    check(hits == (label not in ("all-miss", "parked")),
+                          f"{kind} {label}: hits {hits}")
+
+
+def seg_slice(seg, m):
+    import dataclasses
+
+    return dataclasses.replace(seg, p0=seg.p0[:m], p1=seg.p1[:m])
+
+
+def arc_slice(arc, m):
+    import dataclasses
+
+    return dataclasses.replace(arc, center=arc.center[:m],
+                               angle_start=arc.angle_start[:m],
+                               angle_end=arc.angle_end[:m],
+                               radius=arc.radius[:m])
+
+
+def phase_12(device):
+    """examples/optimize_single_arc.py through the kernels, then one step at
+    bench width.  Returns the kernels' launches in the 80 steps."""
+    import numpy as np
+    import torch
+
+    from tensorflowraytrace_tpu_torch import scenes2d
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+    from tensorflowraytrace_tpu_torch.optim import Optimizer
+
+    loss, params = scenes2d.single_arc(device=device, use_kernel=True)
+    opt = Optimizer(loss, params, learning_rate=1.0, grad_clip=0.1,
+                    pass_key=False)
+    gk.LAUNCHES = ak.LAUNCHES = sk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errors = np.concatenate([
+        opt.run_phase(ARC_STEPS[0], momentum=0.8),
+        opt.run_phase(ARC_STEPS[1], lr_scale=0.1, momentum=0.9)])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    steps = sum(ARC_STEPS)
+    launched = {"K5": gk.LAUNCHES, "K6": ak.LAUNCHES, "K2": sk.LAUNCHES}
+    # two bounces a step; K2 is the backward of the arc table's gather (the
+    # target segment's table has no gradient)
+    check(launched == {"K5": 2 * steps, "K6": 2 * steps, "K2": 2 * steps},
+          f"single-arc training launches {launched}")
+    check(bool(np.all(np.isfinite(errors))), "single-arc errors not finite")
+    check(all(bool(torch.isfinite(p).all()) for p in opt.parameters),
+          "single-arc parameters not finite")
+    check(errors[-1] < 0.05 * errors[0],
+          f"single-arc error {errors[0]} -> {errors[-1]}, not below 5%")
+    print(f"phase 12 single arc: {steps} steps in {train_s:.3f} s = "
+          f"{train_s / steps * 1e3:.3f} ms/step; launches {launched}; error "
+          f"{errors[0]!r} -> {errors[-1]!r} "
+          f"({errors[-1] / errors[0]:.4%}); radius "
+          f"{float(opt.parameters[0][0])!r}", flush=True)
+
+    loss, params = scenes2d.single_arc(beam_count=ARC_WIDE_BEAM,
+                                       device=device, use_kernel=True)
+    opt = Optimizer(loss, params, learning_rate=1.0, grad_clip=0.1,
+                    pass_key=False)
+    opt.run_phase(1, momentum=0.8)  # warm-up
+    step_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.run_phase(1, momentum=0.8)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    print(f"phase 12 bench-width step: {ARC_WIDE_BEAM * 6} rays, 2 bounces: "
+          f"median {statistics.median(step_s) * 1e3:.3f} ms over 5 steps "
+          f"{[round(t * 1e3, 3) for t in step_s]}", flush=True)
+    return launched
+
+
+def guide2d_paths(rays, scene, materials, launched):
+    """The 2D guide through brute, cull=True and cull=True + re-sort: each
+    accelerated path's final rays equal the brute path's bit for bit, each
+    kernel launches once per bounce, median of 5 synchronised traces after
+    one more.  Adds each kernel's launches to ``launched``."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import scenes2d, trace
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+
+    bounces = scenes2d.GUIDE_BOUNCES
+    cfgs = {"brute": scenes2d.guide_config(use_kernel=True),
+            "cull": scenes2d.guide_config(use_kernel=True, cull=True),
+            "cull+resort": scenes2d.guide_config(use_kernel=True, cull=True,
+                                                 resort_rays=True)}
+    times = {k: [] for k in cfgs}
+    finals = {}
+    for rep in range(6):  # rep 0 warms up and gives the results
+        for name, cfg in cfgs.items():
+            gk.LAUNCHES = gk.LAUNCHES_CULLED = 0
+            ak.LAUNCHES = ak.LAUNCHES_CULLED = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = trace(rays, scene, materials, cfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = {"K5": gk.LAUNCHES, "K6": ak.LAUNCHES,
+                      "K7": gk.LAUNCHES_CULLED, "K8": ak.LAUNCHES_CULLED}
+            on = ("K5", "K6") if name == "brute" else ("K7", "K8")
+            want = {k: bounces if k in on else 0 for k in counts}
+            check(counts == want, f"2D guide {name}: launches {counts}")
+            for k, c in counts.items():
+                launched[k] = launched.get(k, 0) + c
+            if rep == 0:
+                finals[name] = res.rays
+            else:
+                times[name].append(dt)
+            del res
+    ref = finals["brute"]
+    check(bool(torch.isfinite(ref.p1).all()), "2D guide: non-finite endpoints")
+    pairs = rays.n_rays * (scene.segments.n_surfaces
+                           + scene.arcs.n_surfaces) * bounces
+    med = {k: statistics.median(v) for k, v in times.items()}
+    for name in cfgs:
+        same = {f: torch.equal(getattr(finals[name], f), getattr(ref, f))
+                for f in ("state", "p0", "p1")}
+        print(f"phase 13 {name}: median {med[name] * 1e3:.3f} ms over 5 traces "
+              f"{[round(t * 1e3, 3) for t in times[name]]} = "
+              f"{pairs / med[name]:.4e} equivalent intersections/s; "
+              f"bitwise equal to brute {same}", flush=True)
+        check(all(same.values()), f"2D guide {name} differs from brute ({same})")
+    print(f"phase 13 guide: N={rays.n_rays} M_seg={scene.segments.n_surfaces} "
+          f"M_arc={scene.arcs.n_surfaces} bounces={bounces} "
+          f"states[active,finished,stopped,dead]={state_counts(ref.state)}",
+          flush=True)
+    return med
+
+
+def profile_guide2d(label, rays, scene, materials, cfg, device):
+    """One profiled trace: the device-time split, idle share, peak memory
+    and host synchronisations (which must be 0)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflowraytrace_tpu_torch import trace
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    trace(rays, scene, materials, cfg)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trace(rays, scene, materials, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, union_us, n_device = device_profile(prof)
+    busy_us = sum(by_name.values())
+    if busy_us > 0:
+        def busy(part):
+            return sum(t for k, t in by_name.items() if part in k)
+
+        seg_us = busy("segment_search_kernel") + busy(
+            "segment_search_culled_kernel")
+        arc_us = busy("arc_search_kernel") + busy("arc_search_culled_kernel")
+        resort_us = range_device_us(prof, "resort_rays")
+        rest_us = busy_us - seg_us - arc_us - resort_us
+        split = (f"device busy {union_us:.1f} us of {wall_us:.1f} us wall "
+                 f"(idle share {1 - union_us / wall_us:.4f}); {n_device} "
+                 f"kernels and copies, {busy_us:.1f} us: segment search "
+                 f"{seg_us:.1f} us ({seg_us / busy_us:.4%}), arc search "
+                 f"{arc_us:.1f} us ({arc_us / busy_us:.4%}), re-sort "
+                 f"{resort_us:.1f} us ({resort_us / busy_us:.4%}), rest "
+                 f"{rest_us:.1f} us ({rest_us / busy_us:.4%}); top: "
+                 + "; ".join(f"{k[:50]} {t:.1f} us"
+                             for k, t in by_name.most_common(5)))
+    else:
+        split = "the profiler recorded no device time: split not measured"
+    syncs = count_syncs(lambda: trace(rays, scene, materials, cfg))
+    print(f"phase 13 {label} profiled trace: {split}; peak device memory "
+          f"{peak_gib:.3f} GiB; {syncs} synchronising calls", flush=True)
+    check(syncs == 0, f"the 2D guide {label} trace synchronised {syncs} times")
+
+
+def phase_13(device):
+    """The 2D light guide at full width; returns the kernels-line fields of
+    K5-K8."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import scenes2d
+    from tensorflowraytrace_tpu_torch.models.acceleration import (
+        chunk_aabbs_2d, chunk_aabbs_arcs, morton_codes_device,
+    )
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+
+    rays, scene, materials = scenes2d.light_guide(GUIDE2D_RAYS, device=device)
+    seg, arc = scene.segments, scene.arcs
+    check((seg.n_surfaces, arc.n_surfaces) == (4098, 512),
+          f"2D guide has {seg.n_surfaces} segments, {arc.n_surfaces} arcs")
+    launched = {}
+    guide2d_paths(rays, scene, materials, launched)
+    for label, cfg in (("brute", scenes2d.guide_config(use_kernel=True)),
+                       ("cull+resort", scenes2d.guide_config(
+                           use_kernel=True, cull=True, resort_rays=True))):
+        profile_guide2d(label, rays, scene, materials, cfg, device)
+
+    # K5-K8 alone at the first bounce, the rays in the re-sort's order
+    lo = torch.minimum(seg.p0.amin(dim=0), seg.p1.amin(dim=0))
+    hi = torch.maximum(seg.p0.amax(dim=0), seg.p1.amax(dim=0))
+    order = torch.argsort(morton_codes_device(rays.p0, lo, hi), stable=True)
+    p0, p1 = rays.p0[order], rays.p1[order]
+    n = p0.shape[0]
+    fields = {}
+    for kind, surfaces, flops, boxes in (
+            ("segment", seg, SEG_FLOPS_PER_PAIR,
+             chunk_aabbs_2d(seg.p0, seg.p1, gk.CULL_CHUNK)),
+            ("arc", arc, ARC_FLOPS_PER_PAIR,
+             chunk_aabbs_arcs(arc.center, arc.angle_start, arc.angle_end,
+                              arc.radius, gk.CULL_CHUNK))):
+        args = surface_args(p0, p1, surfaces)
+        m = surfaces.n_surfaces
+        out, err = compare_2d("phase 13 first bounce", kind, args)
+        # bytes: the rays and the surface table read once, u / idx (/ branch)
+        # written once
+        surface_bytes = sum(a.numel() * 4 for a in args[2:])
+        out_bytes = n * (9 if kind == "arc" else 8)
+        bytes_ms = (n * 16 + surface_bytes + out_bytes) / PEAK_BYTES_S * 1e3
+        pairs = admitted_pairs(p0, p1, boxes, m, out["brute"][2],
+                               gk.CULL_CHUNK)
+        for culled, key in ((False, "K5" if kind == "segment" else "K6"),
+                            (True, "K7" if kind == "segment" else "K8")):
+            work = pairs if culled else n * m
+            ops_ms = work * flops / PEAK_FP32_FLOP_S * 1e3
+            fn = search_2d(kind, culled)
+            plain = search_2d(kind, culled, plain=True)
+            fields[key] = {
+                "launches": launched[key],
+                "max_abs_err": err["culled" if culled else "brute"],
+                "ms": cuda_ms(lambda: fn(args), 10),
+                "plain_ms": cuda_ms(lambda: plain(args), 1),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                "pairs": work,
+                "shape": f"{n}x{m} (first bounce of the 2D guide)",
+            }
+            f = fields[key]
+            print(f"phase 13 {key} alone at the first bounce {n}x{m}: kernel "
+                  f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, bound "
+                  f"{f['bound_ms']:.5f} ms ({f['bound_by']}; {work} pairs, "
+                  f"{work / (n * m):.4%} of brute, {flops} flops each)",
+                  flush=True)
+    return fields
+
+
 def main():
     import torch
 
+    wall_t0 = time.perf_counter()
     # ---- phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -558,9 +955,11 @@ def main():
     from tensorflowraytrace_tpu_torch import FINISHED, Scene3D, TraceConfig, trace
     from tensorflowraytrace_tpu_torch import flagship
     from tensorflowraytrace_tpu_torch.models.acceleration import (
-        morton_codes_device,
+        chunk_aabbs, morton_codes_device,
     )
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
     from tensorflowraytrace_tpu_torch.ops import cuda_build
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
     from tensorflowraytrace_tpu_torch.ops import materials as mats
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
@@ -568,12 +967,14 @@ def main():
 
     # ---- phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = [tk.SOURCE, tk.SOURCE_CULLED, tk.SOURCE_TWOLEVEL, sk.SOURCE]
+    sources = [tk.SOURCE, tk.SOURCE_CULLED, tk.SOURCE_TWOLEVEL, sk.SOURCE,
+               gk.SOURCE, gk.SOURCE_CULLED, ak.SOURCE, ak.SOURCE_CULLED]
     reports = cuda_build.build(sources, verbose=True)
     for source, report in reports.items():
         print(f"phase 2 nvcc {source}:\n{report.strip()}", flush=True)
-    tk.load_library()
-    tk.load_culled_library()
+    for mod in (tk, gk, ak):
+        mod.load_library()
+        mod.load_culled_library()
     tk.load_twolevel_library()
     sk.load_library()
     print(f"phase 2 build: "
@@ -807,16 +1208,6 @@ def main():
 
     # host synchronisations in one step (the step's final read of its error
     # is one of them) and in the ray sampling it starts with
-    def count_syncs(fn):
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-        return sum("synchroniz" in str(w.message) for w in caught)
-
     syncs = count_syncs(step)
     sample_syncs = count_syncs(lambda: source.sample(opt.generator, f32, device))
 
@@ -907,7 +1298,9 @@ def main():
     # one bound for K3 and K4: the pairs these inputs need, at the finer of
     # their chunks
     bound_chunk = min(tk.CULL_CHUNK, tk.FINE_CHUNK)
-    pairs = admitted_pairs(*args, u_final, bound_chunk)
+    pairs = admitted_pairs(args[0], args[1],
+                           chunk_aabbs(*args[2:], bound_chunk), m, u_final,
+                           bound_chunk)
     culled_bound_ms = pairs * K1_FLOPS_PER_PAIR / PEAK_FP32_FLOP_S * 1e3
     alone = {}
     for name, fn, plain in (
@@ -966,7 +1359,14 @@ def main():
           f"{g_peak_gib:.3f} GiB; {g_syncs} synchronising calls", flush=True)
     check(g_syncs == 0, f"the guide trace synchronised {g_syncs} times")
 
+    # ---- phases 11-13: the 2D path
+    phase_11(device)
+    arc_train = phase_12(device)
+    k2d = phase_13(device)
+
     main_k2 = k2["flagship_bench"]
+    print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": [{
         "name": "triangle_search", "route": "cuda",
         "source": "tensorflowraytrace_tpu_torch/csrc/triangle_search.cu",
@@ -996,7 +1396,17 @@ def main():
         "shape": f"{n}x{m} (first bounce of the guide)",
     } for name, source, line, key in (
         ("triangle_search_culled", tk.SOURCE_CULLED, 144, "K3"),
-        ("triangle_search_twolevel", tk.SOURCE_TWOLEVEL, 979, "K4"))]}))
+        ("triangle_search_twolevel", tk.SOURCE_TWOLEVEL, 979, "K4"))] + [{
+        "name": name, "route": "cuda",
+        "source": f"tensorflowraytrace_tpu_torch/csrc/{source}",
+        "replaces": f"tensorflowraytrace_tpu/ops/pallas_kernels.py:{line}",
+        **k2d[key], "library_ms": None,
+        **({"launches_training": arc_train[key]} if key in arc_train else {}),
+    } for name, source, line, key in (
+        ("segment_search", gk.SOURCE, 705, "K5"),
+        ("arc_search", ak.SOURCE, 367, "K6"),
+        ("segment_search_culled", gk.SOURCE_CULLED, 745, "K7"),
+        ("arc_search_culled", ak.SOURCE_CULLED, 454, "K8"))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

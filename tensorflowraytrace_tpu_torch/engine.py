@@ -1,17 +1,18 @@
-"""The trace engine: the multi-bounce 3D forward trace.
+"""The trace engine: the multi-bounce forward trace in 2D and 3D.
 
-Counterpart of the 3D forward path of ``tensorflowraytrace_tpu/engine.py``.
+Counterpart of the forward path of ``tensorflowraytrace_tpu/engine.py``.
 Rays never compact: each keeps its slot and a ``state`` code (ACTIVE,
 FINISHED on a target, STOPPED on a stop, DEAD on a miss).  When an ACTIVE
 ray reacts with an OPTICAL surface its child replaces it in its slot.  The
 bounce loop is a Python loop over ``max_bounces``.
 
-One bounce (``project_3d``) runs: the nearest-hit search (no gradient; with
-``cull``, terminated rays are parked outside every box and, with
-``resort_rays``, the rays are searched in Morton order), one
-gather of per-surface rows (whose backward is a segment sum), the
-differentiable refine of the winning hit, then (``single_pass``)
-classification and the reaction (vector Snell).
+One bounce (``project_3d`` for a ``Scene3D``, ``project_2d`` for a
+``Scene2D``) runs: the nearest-hit search (no gradient; with ``cull``,
+terminated rays are parked outside every box and, with ``resort_rays``,
+the rays are searched in Morton order), one gather of per-surface rows per
+surface kind (whose backward is a segment sum), the differentiable refine
+of the winning hit, then (``single_pass``) classification and the reaction
+(Snell's law: the vector form in 3D, the angle form in 2D).
 """
 
 from __future__ import annotations
@@ -27,10 +28,10 @@ from tensorflowraytrace_tpu_torch.config import (
 )
 from tensorflowraytrace_tpu_torch.models.acceleration import morton_codes_device
 from tensorflowraytrace_tpu_torch.models.rays import RaySet
-from tensorflowraytrace_tpu_torch.models.surfaces import Scene3D
+from tensorflowraytrace_tpu_torch.models.surfaces import Scene2D, Scene3D
 from tensorflowraytrace_tpu_torch.ops import intersect as isect
 from tensorflowraytrace_tpu_torch.ops import segsum_kernels as segsum
-from tensorflowraytrace_tpu_torch.ops.geometry import snell_3d_vec
+from tensorflowraytrace_tpu_torch.ops.geometry import snell_3d_vec, snells_law_2D
 from tensorflowraytrace_tpu_torch.ops.materials import material_index_lookup
 
 # TraceConfig fields of the JAX engine that this port does not implement yet;
@@ -41,8 +42,8 @@ _NOT_IMPLEMENTED = ("remat", "early_exit")
 @dataclass(frozen=True)
 class TraceConfig:
     """Trace configuration; the same fields as the JAX ``TraceConfig`` with
-    ``use_pallas`` renamed ``use_kernel`` (the CUDA triangle search, and the
-    CUDA segment sum as the gather's backward)."""
+    ``use_pallas`` renamed ``use_kernel`` (the CUDA searches, and the CUDA
+    segment sum as the gather's backward)."""
 
     max_bounces: int = 25
     new_ray_length: float = 1.0
@@ -54,8 +55,9 @@ class TraceConfig:
     # "value": per-surface n_in / n_out floats in surface.fields
     refractive_index_type: str = "index"
     use_kernel: bool = False
-    # conservative chunk culling (exact): True -> K3, "grid" -> K4 under
-    # use_kernel; inactive rays are parked outside every chunk box
+    # conservative chunk culling (exact) under use_kernel: True -> K3 in 3D,
+    # K7 and K8 in 2D; "grid" -> K4 in 3D (2D raises: K9 and K10 are not
+    # ported); inactive rays are parked outside every chunk box
     cull: object = False
     surf_chunk: int = 128
     ray_block: int = 32768
@@ -93,14 +95,14 @@ class Projection:
     """Per-ray gathered hit data handed to reactions."""
 
     hit_valid: torch.Tensor          # (N,) bool
-    point: torch.Tensor              # (N, 3) hit point (= projected ray end)
-    norm: torch.Tensor               # (N, 3) surface normal
+    point: torch.Tensor              # (N, dim) hit point (= projected ray end)
+    norm: torch.Tensor               # (N, 3) normal in 3D; (N,) its angle in 2D
     n_in: torch.Tensor               # (N,)
     n_out: torch.Tensor              # (N,)
     category: torch.Tensor           # (N,) OPTICAL / STOP / TARGET
     surf_idx: torch.Tensor           # (N,) index into the merged surface set
-    kind: torch.Tensor               # (N,) 2D only
-    extras: Dict[str, torch.Tensor]  # ray_u / trig_u / trig_v
+    kind: torch.Tensor               # (N,) 2D: KIND_SEGMENT or KIND_ARC
+    extras: Dict[str, torch.Tensor]  # ray_u, and trig_u / trig_v or seg_u / arc_u
     dim: int = 3
 
 
@@ -190,59 +192,70 @@ def _gather_rows_t(table, idx, use_kernel=False):
     return _GatherRowsT.apply(table, idx, use_kernel)
 
 
+def _search(rays, cfg, box, search):
+    """The bounce's nearest-hit search, ``search(p0, p1) -> HitRecord`` on
+    the rays' detached endpoints.  Under ``cfg.cull`` terminated rays are
+    parked far outside every chunk box (p0 = 1e30) so their slab tests
+    fail, and a ray block whose rays have all terminated skips every chunk;
+    with ``cfg.resort_rays`` and a ``box`` (lo, hi), the rays are searched in
+    the Morton order of their starts in that box (parked rays sort last),
+    so ray blocks stay coherent after the first bounce, and the hits are
+    scattered back to slot order.  Nothing reads back from the device: the
+    parking values enter as Python scalars."""
+    search_p0, search_p1 = rays.p0.detach(), rays.p1.detach()
+    if cfg.cull:
+        inactive = (rays.state != ACTIVE)[:, None]
+        search_p0 = torch.where(inactive, torch.full_like(search_p0, 1e30),
+                                search_p0)
+        search_p1 = torch.where(
+            inactive, torch.full_like(search_p1, 1e30 * (1 + 1e-6)), search_p1)
+    if not (cfg.cull and cfg.resort_rays and box is not None):
+        return search(search_p0, search_p1)
+
+    # (a profiler range, so a trace's profile can read its device time)
+    with torch.profiler.record_function("resort_rays"):
+        order = torch.argsort(morton_codes_device(search_p0, *box),
+                              stable=True)
+        search_p0, search_p1 = search_p0[order], search_p1[order]
+    hit = search(search_p0, search_p1)
+
+    def unsort(x):
+        out = torch.empty_like(x)
+        out[order] = x
+        return out
+
+    with torch.profiler.record_function("resort_rays"):
+        return isect.HitRecord(valid=unsort(hit.valid), idx=unsort(hit.idx),
+                               ray_u=unsort(hit.ray_u), kind=unsort(hit.kind),
+                               branch=unsort(hit.branch))
+
+
+def _value_mode(cfg, materials):
+    value_mode = cfg.refractive_index_type == "value"
+    if not value_mode and not materials:
+        raise ValueError("trace: refractive_index_type='index' needs materials")
+    return value_mode
+
+
 def project_3d(rays: RaySet, scene: Scene3D, materials,
                cfg: TraceConfig) -> Projection:
     """One intersection + gather pass: search, gather the winning surface's
     row of the (M, k) table [vp v1 v2 norm annotation], refine."""
     i_eps, s_eps, r_eps = cfg.epsilons(rays.p0.dtype)
     tri = scene.triangles
-    search_p0, search_p1 = rays.p0.detach(), rays.p1.detach()
-    if cfg.cull:
-        # park terminated rays far outside every chunk box so their slab
-        # tests fail; a ray block whose rays have all terminated skips every
-        # chunk.  The values enter as Python scalars (a scalar tensor built
-        # on the device would synchronise the stream).
-        inactive = (rays.state != ACTIVE)[:, None]
-        search_p0 = torch.where(inactive, torch.full_like(search_p0, 1e30),
-                                search_p0)
-        search_p1 = torch.where(
-            inactive, torch.full_like(search_p1, 1e30 * (1 + 1e-6)), search_p1)
-
-    order = None
+    box = None
     if cfg.cull and cfg.resort_rays:
-        # spatial re-sort: ray blocks stay coherent after the first bounce,
-        # so culling keeps working (parked rays sort last).  The box is that
-        # of tri.vp and tri.v2, as in the JAX package.
-        # (a profiler range, so a trace's profile can read its device time)
-        with torch.profiler.record_function("resort_rays"):
-            vp, v2 = tri.vp.detach(), tri.v2.detach()
-            lo = torch.minimum(vp.amin(dim=0), v2.amin(dim=0))
-            hi = torch.maximum(vp.amax(dim=0), v2.amax(dim=0))
-            order = torch.argsort(morton_codes_device(search_p0, lo, hi),
-                                  stable=True)
-            search_p0, search_p1 = search_p0[order], search_p1[order]
-
-    hit = isect.nearest_hit_triangles(
-        search_p0, search_p1, tri, i_eps, s_eps, r_eps,
-        surf_chunk=cfg.surf_chunk, ray_block=cfg.ray_block,
-        use_kernel=cfg.use_kernel, cull=cfg.cull,
-    )
-    if order is not None:
-        # scatter the results back to slot order
-        def unsort(x):
-            out = torch.empty_like(x)
-            out[order] = x
-            return out
-
-        with torch.profiler.record_function("resort_rays"):
-            hit = isect.HitRecord(valid=unsort(hit.valid), idx=unsort(hit.idx),
-                                  ray_u=unsort(hit.ray_u), kind=hit.kind,
-                                  branch=hit.branch)
+        # the re-sort's box is that of tri.vp and tri.v2, as in the JAX
+        # package
+        vp, v2 = tri.vp.detach(), tri.v2.detach()
+        box = (torch.minimum(vp.amin(dim=0), v2.amin(dim=0)),
+               torch.maximum(vp.amax(dim=0), v2.amax(dim=0)))
+    hit = _search(rays, cfg, box, lambda p0, p1: isect.nearest_hit_triangles(
+        p0, p1, tri, i_eps, s_eps, r_eps, surf_chunk=cfg.surf_chunk,
+        ray_block=cfg.ray_block, use_kernel=cfg.use_kernel, cull=cfg.cull))
 
     dtype = rays.p0.dtype
-    value_mode = cfg.refractive_index_type == "value"
-    if not value_mode and not materials:
-        raise ValueError("trace: refractive_index_type='index' needs materials")
+    value_mode = _value_mode(cfg, materials)
     cols = [tri.vp, tri.v1, tri.v2] if cfg.differentiable else []
     cols += [tri.norm] + _annotation_cols(tri, dtype, value_mode)
     rows = _gather_rows_t(torch.cat(cols, dim=1), hit.idx, cfg.use_kernel)
@@ -266,10 +279,88 @@ def project_3d(rays: RaySet, scene: Scene3D, materials,
     )
 
 
+def project_2d(rays: RaySet, scene: Scene2D, materials,
+               cfg: TraceConfig) -> Projection:
+    """One 2D intersection + gather pass: the search over segments and arcs
+    (``isect.nearest_hit_2d`` picks the nearer kind), then one gather per
+    surface kind of its (M, k) table [geometry annotation] and its refine;
+    each ray keeps the kind it hit (``where`` on ``hit.kind``).
+
+    Both gathers use the one ``hit.idx``, which indexes the kind the ray
+    hit: a ray that hit arc 400 also gathers segment row 400, discarded by
+    the ``where``.  The index is clamped to each table's last row first
+    (JAX's gather clamps; torch's would fault)."""
+    i_eps, s_eps, r_eps = cfg.epsilons(rays.p0.dtype)
+    box = None
+    if cfg.cull and cfg.resort_rays and scene.segments is not None:
+        # the re-sort's box is that of the segments alone, and a scene
+        # without segments is not re-sorted, as in the JAX package
+        sp0, sp1 = scene.segments.p0.detach(), scene.segments.p1.detach()
+        box = (torch.minimum(sp0.amin(dim=0), sp1.amin(dim=0)),
+               torch.maximum(sp0.amax(dim=0), sp1.amax(dim=0)))
+    hit = _search(rays, cfg, box, lambda p0, p1: isect.nearest_hit_2d(
+        p0, p1, scene, i_eps, s_eps, r_eps, surf_chunk=cfg.surf_chunk,
+        ray_block=cfg.ray_block, use_kernel=cfg.use_kernel, cull=cfg.cull))
+
+    n = rays.n_rays
+    dtype = rays.p0.dtype
+    point = rays.p1
+    norm = rays.p0.new_zeros((n,))
+    n_in = rays.p0.new_zeros((n,))
+    n_out = rays.p0.new_ones((n,))
+    category = torch.zeros((n,), dtype=torch.int32, device=rays.p0.device)
+    extras = {"ray_u": hit.ray_u}
+    value_mode = _value_mode(cfg, materials)
+
+    def gather(surface, geometry):
+        table = torch.cat(geometry + _annotation_cols(surface, dtype,
+                                                      value_mode), dim=1)
+        idx = torch.clamp(hit.idx, max=surface.n_surfaces - 1)
+        return _gather_rows_t(table, idx, cfg.use_kernel)
+
+    def take(is_kind, k_point, k_norm, rows, o):
+        nonlocal point, norm, n_in, n_out, category
+        k_cat, k_nin, k_nout = _unpack_annotation(rows, o, value_mode,
+                                                  materials, rays.wavelength)
+        point = torch.where(is_kind[:, None], k_point, point)
+        norm = torch.where(is_kind, k_norm, norm)
+        n_in = torch.where(is_kind, k_nin, n_in)
+        n_out = torch.where(is_kind, k_nout, n_out)
+        category = torch.where(is_kind, k_cat, category)
+
+    if scene.segments is not None:
+        seg = scene.segments
+        rows = gather(seg, [seg.p0, seg.p1])
+        s_point, _, seg_u, s_norm = isect.refine_segment_hit_from(
+            rays.p0, rays.p1, rows[0:2].T, rows[2:4].T, i_eps)
+        take(hit.kind == isect.KIND_SEGMENT, s_point, s_norm, rows, 4)
+        extras["seg_u"] = seg_u
+
+    if scene.arcs is not None:
+        arc = scene.arcs
+        rows = gather(arc, [arc.center, arc.radius[:, None]])
+        a_point, _, arc_u, a_norm = isect.refine_arc_hit_from(
+            rays.p0, rays.p1, rows[0:2].T, rows[2], hit.branch, i_eps)
+        take(hit.kind == isect.KIND_ARC, a_point, a_norm, rows, 3)
+        extras["arc_u"] = arc_u
+
+    return Projection(
+        hit_valid=hit.valid, point=point, norm=norm, n_in=n_in, n_out=n_out,
+        category=category, surf_idx=hit.idx, kind=hit.kind, extras=extras,
+        dim=2,
+    )
+
+
 def default_reaction(proj: Projection, rays: RaySet, cfg: TraceConfig):
-    """Snell's law refraction / reflection / TIR."""
-    return snell_3d_vec(rays.p0, proj.point, proj.norm, proj.n_in,
-                        proj.n_out, cfg.new_ray_length)
+    """Snell's law refraction / reflection / TIR: the vector form in 3D, the
+    angle form in 2D."""
+    if proj.dim == 3:
+        return snell_3d_vec(rays.p0, proj.point, proj.norm, proj.n_in,
+                            proj.n_out, cfg.new_ray_length)
+    xs, ys, xe, ye = snells_law_2D(
+        rays.p0[:, 0], rays.p0[:, 1], proj.point[:, 0], proj.point[:, 1],
+        proj.norm, proj.n_in, proj.n_out, cfg.new_ray_length)
+    return torch.stack([xs, ys], dim=1), torch.stack([xe, ye], dim=1)
 
 
 def single_pass(rays: RaySet, scene, materials, cfg: TraceConfig,
@@ -277,9 +368,10 @@ def single_pass(rays: RaySet, scene, materials, cfg: TraceConfig,
     """One bounce: project, classify, react.  Returns ``(new_rays, record)``
     where record = (p0, p1_projected, state, alive) describes the parent
     rays as they ended this pass."""
-    if not isinstance(scene, Scene3D):
-        raise NotImplementedError("the PyTorch port traces 3D scenes only")
-    proj = project_3d(rays, scene, materials, cfg)
+    if isinstance(scene, Scene3D):
+        proj = project_3d(rays, scene, materials, cfg)
+    else:
+        proj = project_2d(rays, scene, materials, cfg)
 
     active = rays.state == ACTIVE
     # finite-hit guard: a grazing hit with |det| barely over epsilon can put

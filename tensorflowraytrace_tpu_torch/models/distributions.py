@@ -1,8 +1,8 @@
 """Base-point and angle samplers for building sources.
 
-Counterpart of the square and sphere samplers of
-``tensorflowraytrace_tpu/models/distributions.py``.  Each sampler has one
-method::
+Counterpart of the 2D angle and beam samplers and the 3D square and sphere
+samplers of ``tensorflowraytrace_tpu/models/distributions.py``.  Each
+sampler has one method::
 
     sample(generator=None, dtype=None, device=None, uniforms=None)
         -> (values, ranks)
@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from tensorflowraytrace_tpu_torch.config import resolve_device, resolve_dtype
@@ -39,10 +40,23 @@ def _uniforms(uniforms, k, n, generator, dtype, device):
 
 def _scale(u, lo, hi):
     """Map uniforms in [0, 1) to [lo, hi) the way ``jax.random.uniform``
-    does: ``max(lo, u * (hi - lo) + lo)`` in the working dtype."""
-    lo = torch.tensor(lo, dtype=u.dtype, device=u.device)
-    hi = torch.tensor(hi, dtype=u.dtype, device=u.device)
-    return torch.maximum(lo, u * (hi - lo) + lo)
+    does: ``max(lo, u * (hi - lo) + lo)`` in the working dtype.  The bounds
+    and their difference are rounded to that dtype on the host and enter as
+    Python scalars, so nothing is copied to the device."""
+    host = np.float32 if u.dtype == torch.float32 else np.float64
+    lo, hi = host(lo), host(hi)
+    return torch.clamp(u * float(hi - lo) + float(lo), min=float(lo))
+
+
+def _linspace(start, stop, n, dtype, device):
+    """``jnp.linspace(start, stop, n)`` as JAX computes it: each interior
+    point is ``start (1 - s) + stop s`` with ``s = k / (n - 1)`` in
+    ``dtype``, and the last point is ``stop``."""
+    if n == 1:
+        return torch.full((1,), start, dtype=dtype, device=device)
+    step = torch.arange(n - 1, dtype=dtype, device=device) / (n - 1)
+    out = start * (1 - step) + stop * step
+    return torch.cat([out, torch.full((1,), stop, dtype=dtype, device=device)])
 
 
 class Distribution:
@@ -52,6 +66,132 @@ class Distribution:
 
     def sample(self, generator=None, dtype=None, device=None, uniforms=None):
         raise NotImplementedError
+
+
+# ----------------------------------------------------------------------
+# 2D angles (scalars) and beams
+# ----------------------------------------------------------------------
+
+def _check_angles(min_angle, max_angle, sample_count, limit):
+    if not -limit <= min_angle <= max_angle <= limit:
+        raise ValueError(f"angles must satisfy {-limit} <= min <= max <= {limit}")
+    if sample_count <= 0:
+        raise ValueError("sample_count must be > 0")
+
+
+def _uniform_angle_ranks(angles, min_angle, max_angle):
+    """Rank = angle over the larger limit in magnitude."""
+    scale = max(abs(min_angle), abs(max_angle))
+    return angles / scale if scale > 0 else angles
+
+
+class StaticUniformAngularDistribution(Distribution):
+    """``sample_count`` evenly spaced angles in [min_angle, max_angle]."""
+
+    def __init__(self, min_angle, max_angle, sample_count):
+        _check_angles(min_angle, max_angle, sample_count, PI)
+        self.min_angle = min_angle
+        self.max_angle = max_angle
+        self.sample_count = sample_count
+
+    def sample(self, generator=None, dtype=None, device=None, uniforms=None):
+        dtype, device = resolve_dtype(dtype), resolve_device(device)
+        angles = _linspace(self.min_angle, self.max_angle, self.sample_count,
+                           dtype, device)
+        return angles, _uniform_angle_ranks(angles, self.min_angle,
+                                            self.max_angle)
+
+
+class RandomUniformAngularDistribution(StaticUniformAngularDistribution):
+    """Uniform random angles in [min_angle, max_angle); uniforms rows:
+    (angle,)."""
+
+    is_random = True
+
+    def sample(self, generator=None, dtype=None, device=None, uniforms=None):
+        dtype, device = resolve_dtype(dtype), resolve_device(device)
+        u = _uniforms(uniforms, 1, self.sample_count, generator, dtype, device)
+        angles = _scale(u[0], self.min_angle, self.max_angle)
+        return angles, _uniform_angle_ranks(angles, self.min_angle,
+                                            self.max_angle)
+
+
+class RandomLambertianAngularDistribution(Distribution):
+    """Cosine-weighted random angles: the rank sin(angle) is uniform in
+    [sin(min_angle), sin(max_angle)); uniforms rows: (rank,)."""
+
+    is_random = True
+
+    def __init__(self, min_angle, max_angle, sample_count):
+        _check_angles(min_angle, max_angle, sample_count, PI / 2)
+        self.min_angle = min_angle
+        self.max_angle = max_angle
+        self.sample_count = sample_count
+
+    def sample(self, generator=None, dtype=None, device=None, uniforms=None):
+        dtype, device = resolve_dtype(dtype), resolve_device(device)
+        u = _uniforms(uniforms, 1, self.sample_count, generator, dtype, device)
+        ranks = _scale(u[0], math.sin(self.min_angle), math.sin(self.max_angle))
+        return torch.arcsin(ranks), ranks
+
+
+class _BeamBase(Distribution):
+    """2D beam: points on a line through the origin perpendicular to
+    ``central_angle``, spanning [beam_start, beam_end]; the rank is the
+    position over the larger end in magnitude (0 at the origin, +-1 at the
+    far end)."""
+
+    def __init__(self, beam_start, beam_end, sample_count, central_angle=0.0):
+        if beam_start > beam_end:
+            raise ValueError("beam_start must be <= beam_end")
+        if sample_count <= 0:
+            raise ValueError("sample_count must be > 0")
+        self.beam_start = beam_start
+        self.beam_end = beam_end
+        self.sample_count = sample_count
+        self.central_angle = central_angle
+
+    @property
+    def _rank_scale(self):
+        return max(abs(self.beam_start), abs(self.beam_end))
+
+    def _ranks(self, generator, dtype, device, uniforms):
+        raise NotImplementedError
+
+    def sample(self, generator=None, dtype=None, device=None, uniforms=None):
+        dtype, device = resolve_dtype(dtype), resolve_device(device)
+        ranks = self._ranks(generator, dtype, device, uniforms)
+        # the far end at rank +-1, along central_angle - pi/2
+        ex = self._rank_scale * math.cos(self.central_angle - PI / 2)
+        ey = self._rank_scale * math.sin(self.central_angle - PI / 2)
+        sign = -1.0 if self.beam_start < 0 else 1.0
+        points = torch.stack([ranks * sign * ex, ranks * sign * ey], dim=1)
+        return points, ranks
+
+
+class StaticUniformBeam(_BeamBase):
+    """``sample_count`` evenly spaced points across the beam."""
+
+    def _ranks(self, generator, dtype, device, uniforms):
+        scale = self._rank_scale
+        return _linspace(self.beam_start / scale, self.beam_end / scale,
+                         self.sample_count, dtype, device)
+
+
+class RandomUniformBeam(_BeamBase):
+    """Uniform random points across the beam; uniforms rows: (rank,)."""
+
+    is_random = True
+
+    def _ranks(self, generator, dtype, device, uniforms):
+        scale = self._rank_scale
+        u = _uniforms(uniforms, 1, self.sample_count, generator, dtype, device)
+        return _scale(u[0], self.beam_start / scale, self.beam_end / scale)
+
+
+# ----------------------------------------------------------------------
+# 3D squares and spheres
+# ----------------------------------------------------------------------
 
 
 class _SquareBase(Distribution):

@@ -148,14 +148,13 @@ class SourceBase:
 
 
 class _Aimable(SourceBase):
-    """center + central_angle aiming.  In 3D, ``central_angle`` is a
-    direction vector (``angle_type='vector'``, rotated from the +x axis) or a
-    quaternion (``angle_type='quaternion'``)."""
+    """center + central_angle aiming.  In 2D, ``central_angle`` is an angle
+    in radians, added to each direction angle and rotating the base points.
+    In 3D, it is a direction vector (``angle_type='vector'``, rotated from
+    the +x axis) or a quaternion (``angle_type='quaternion'``)."""
 
     def __init__(self, dimension, center, central_angle, angle_type="vector", **kw):
         super().__init__(dimension, **kw)
-        if dimension != 3:
-            raise NotImplementedError("the PyTorch port has 3D sources only")
         if angle_type not in ("vector", "quaternion"):
             raise ValueError("angle_type must be 'vector' or 'quaternion'")
         self.center = center
@@ -174,9 +173,13 @@ class _Aimable(SourceBase):
         return ca
 
     def _rotate_dirs(self, dirs, dtype):
+        if self.dimension == 2:  # scalar angles
+            return dirs + self.central_angle
         return quat.rotate_vector(self._rotation(dtype, dirs.device), dirs)
 
     def _rotate_points(self, points, dtype):
+        if self.dimension == 2:
+            return quat.rotate_2d(points, self.central_angle)
         if points.shape[-1] == 2:  # 2D base points in 3D: lift to the y-z plane
             zeros = torch.zeros((points.shape[0], 1), dtype=points.dtype,
                                 device=points.device)
@@ -211,5 +214,9 @@ class AngularSource(_Aimable):
         base = self._rotate_points(expanded["base_point"], dtype)
         center = torch.as_tensor(self.center, dtype=dtype, device=base.device)
         start = center + base
-        end = start + self.ray_length * angles
+        if self.dimension == 2:
+            direction = torch.stack([torch.cos(angles), torch.sin(angles)], dim=1)
+        else:
+            direction = angles
+        end = start + self.ray_length * direction
         return (start, end) if self.start_on_base else (end, start)

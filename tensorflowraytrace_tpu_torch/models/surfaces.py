@@ -1,7 +1,7 @@
-"""Triangle surface sets and the merged 3D scene.
+"""Surface sets (2D segments and arcs, 3D triangles) and the merged scenes.
 
-Counterpart of the 3D half of ``tensorflowraytrace_tpu/models/surfaces.py``.
-Material references live in ``mat_in`` / ``mat_out`` (int32 indices into the
+Counterpart of ``tensorflowraytrace_tpu/models/surfaces.py``.  Material
+references live in ``mat_in`` / ``mat_out`` (int32 indices into the
 engine's material list) or in ``fields['n_in']`` / ``fields['n_out']``
 (float, "value" mode).
 """
@@ -9,8 +9,9 @@ engine's material list) or in ``fields['n_in']`` / ``fields['n_out']``
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -51,6 +52,167 @@ def _as_mat(mat, n, device):
     return arr
 
 
+def _device_of(value, device):
+    if device is None and isinstance(value, torch.Tensor):
+        device = value.device
+    return resolve_device(device)
+
+
+def _fields(fields, device):
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in (fields or {}).items()}
+
+
+def _concat_fields(sets):
+    common = set(sets[0].fields)
+    for s in sets[1:]:
+        common &= set(s.fields)
+    return {k: torch.cat([s.fields[k] for s in sets]) for k in common}
+
+
+@dataclass
+class SegmentSet:
+    """2D line segments: p0/p1 (M, 2) endpoints, per-surface category and
+    material ids, and extra per-surface ``fields``.  The normal angle is
+    atan2(dy, dx) + pi/2 of the direction p1 - p0."""
+
+    p0: torch.Tensor
+    p1: torch.Tensor
+    category: torch.Tensor
+    mat_in: torch.Tensor
+    mat_out: torch.Tensor
+    fields: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+    @staticmethod
+    def make(p0, p1, category=OPTICAL, mat_in=None, mat_out=None, fields=None,
+             dtype=None, device=None):
+        dtype = resolve_dtype(dtype)
+        device = _device_of(p0, device)
+        p0 = torch.as_tensor(p0, dtype=dtype, device=device)
+        p1 = torch.as_tensor(p1, dtype=dtype, device=device)
+        m = p0.shape[0]
+        return SegmentSet(
+            p0=p0, p1=p1, category=_as_cat(category, m, device),
+            mat_in=_as_mat(mat_in, m, device),
+            mat_out=_as_mat(mat_out, m, device),
+            fields=_fields(fields, device))
+
+    @property
+    def n_surfaces(self) -> int:
+        return self.p0.shape[0]
+
+    @property
+    def device(self):
+        return self.p0.device
+
+    @property
+    def norm_angle(self):
+        d = self.p1 - self.p0
+        return torch.atan2(d[:, 1], d[:, 0]) + math.pi / 2
+
+
+@dataclass
+class ArcSet:
+    """2D circular arcs: ``center`` (M, 2), ``angle_start``/``angle_end``
+    (M,) bounding the counter-clockwise window, ``radius`` (M,).  A negative
+    radius flips the normal, not the geometry."""
+
+    center: torch.Tensor
+    angle_start: torch.Tensor
+    angle_end: torch.Tensor
+    radius: torch.Tensor
+    category: torch.Tensor
+    mat_in: torch.Tensor
+    mat_out: torch.Tensor
+    fields: Dict[str, torch.Tensor] = field(default_factory=dict)
+
+    @staticmethod
+    def make(center, angle_start, angle_end, radius, category=OPTICAL,
+             mat_in=None, mat_out=None, fields=None, dtype=None, device=None):
+        dtype = resolve_dtype(dtype)
+        device = _device_of(center, device)
+        center = torch.as_tensor(center, dtype=dtype, device=device)
+        m = center.shape[0]
+
+        def column(a):
+            # a number is filled on the device, with no copy from the host
+            if isinstance(a, (int, float)):
+                return torch.full((m,), float(a), dtype=dtype, device=device)
+            return torch.as_tensor(a, dtype=dtype,
+                                   device=device).expand(m).contiguous()
+
+        return ArcSet(
+            center=center, angle_start=column(angle_start),
+            angle_end=column(angle_end), radius=column(radius),
+            category=_as_cat(category, m, device),
+            mat_in=_as_mat(mat_in, m, device),
+            mat_out=_as_mat(mat_out, m, device),
+            fields=_fields(fields, device))
+
+    @property
+    def n_surfaces(self) -> int:
+        return self.center.shape[0]
+
+    @property
+    def device(self):
+        return self.center.device
+
+
+def concat_segments(sets):
+    sets = [s for s in sets if s is not None and s.n_surfaces > 0]
+    if not sets:
+        return None
+    return SegmentSet(
+        p0=torch.cat([s.p0 for s in sets]),
+        p1=torch.cat([s.p1 for s in sets]),
+        category=torch.cat([s.category for s in sets]),
+        mat_in=torch.cat([s.mat_in for s in sets]),
+        mat_out=torch.cat([s.mat_out for s in sets]),
+        fields=_concat_fields(sets),
+    )
+
+
+def concat_arcs(sets):
+    sets = [s for s in sets if s is not None and s.n_surfaces > 0]
+    if not sets:
+        return None
+    return ArcSet(
+        center=torch.cat([s.center for s in sets]),
+        angle_start=torch.cat([s.angle_start for s in sets]),
+        angle_end=torch.cat([s.angle_end for s in sets]),
+        radius=torch.cat([s.radius for s in sets]),
+        category=torch.cat([s.category for s in sets]),
+        mat_in=torch.cat([s.mat_in for s in sets]),
+        mat_out=torch.cat([s.mat_out for s in sets]),
+        fields=_concat_fields(sets),
+    )
+
+
+def _label(sets, cat):
+    """Copies of ``sets`` with every surface's category set to ``cat``."""
+    return [dataclasses.replace(s, category=_as_cat(cat, s.n_surfaces,
+                                                    s.device))
+            for s in sets]
+
+
+@dataclass
+class Scene2D:
+    """Merged 2D scene: every segment and every arc, each kind in the order
+    optical, stops, targets.  A kind the scene lacks is ``None``."""
+
+    segments: Optional[SegmentSet]
+    arcs: Optional[ArcSet]
+
+    @staticmethod
+    def build(optical_segments=(), stop_segments=(), target_segments=(),
+              optical_arcs=(), stop_arcs=(), target_arcs=()):
+        segs = (_label(optical_segments, OPTICAL) + _label(stop_segments, STOP)
+                + _label(target_segments, TARGET))
+        arcs = (_label(optical_arcs, OPTICAL) + _label(stop_arcs, STOP)
+                + _label(target_arcs, TARGET))
+        return Scene2D(segments=concat_segments(segs), arcs=concat_arcs(arcs))
+
+
 @dataclass
 class TriangleSet:
     """3D triangles: vp/v1/v2 (M, 3) vertices, norm (M, 3) unit face normals
@@ -70,9 +232,7 @@ class TriangleSet:
     def make(vp, v1, v2, norm=None, category=OPTICAL, mat_in=None, mat_out=None,
              fields=None, dtype=None, device=None):
         dtype = resolve_dtype(dtype)
-        if device is None and isinstance(vp, torch.Tensor):
-            device = vp.device
-        device = resolve_device(device)
+        device = _device_of(vp, device)
         vp = torch.as_tensor(vp, dtype=dtype, device=device)
         v1 = torch.as_tensor(v1, dtype=dtype, device=device)
         v2 = torch.as_tensor(v2, dtype=dtype, device=device)
@@ -86,13 +246,16 @@ class TriangleSet:
             category=_as_cat(category, m, device),
             mat_in=_as_mat(mat_in, m, device),
             mat_out=_as_mat(mat_out, m, device),
-            fields={k: torch.as_tensor(v, device=device)
-                    for k, v in (fields or {}).items()},
+            fields=_fields(fields, device),
         )
 
     @property
     def n_surfaces(self) -> int:
         return self.vp.shape[0]
+
+    @property
+    def device(self):
+        return self.vp.device
 
 
 def compute_face_normals(vp, v1, v2):
@@ -106,9 +269,6 @@ def concat_triangles(sets):
     sets = [s for s in sets if s is not None and s.n_surfaces > 0]
     if not sets:
         return None
-    common = set(sets[0].fields)
-    for s in sets[1:]:
-        common &= set(s.fields)
     return TriangleSet(
         vp=torch.cat([s.vp for s in sets]),
         v1=torch.cat([s.v1 for s in sets]),
@@ -117,7 +277,7 @@ def concat_triangles(sets):
         category=torch.cat([s.category for s in sets]),
         mat_in=torch.cat([s.mat_in for s in sets]),
         mat_out=torch.cat([s.mat_out for s in sets]),
-        fields={k: torch.cat([s.fields[k] for s in sets]) for k in common},
+        fields=_concat_fields(sets),
     )
 
 
@@ -129,13 +289,8 @@ class Scene3D:
 
     @staticmethod
     def build(optical=(), stops=(), targets=()):
-        def label(sets, cat):
-            return [dataclasses.replace(
-                s, category=_as_cat(cat, s.n_surfaces, s.vp.device))
-                for s in sets]
-
-        merged = concat_triangles(
-            label(optical, OPTICAL) + label(stops, STOP) + label(targets, TARGET))
+        merged = concat_triangles(_label(optical, OPTICAL) + _label(stops, STOP)
+                                  + _label(targets, TARGET))
         if merged is None:
             raise ValueError("Scene3D.build: no surfaces")
         return Scene3D(triangles=merged)

@@ -1,0 +1,294 @@
+"""The nearest ray-arc searches on Hopper: brute force (K6) and culled (K8).
+
+Each search has a wrapper the engine calls with ``use_kernel=True``.  On CUDA
+tensors the wrapper launches its hand-written kernel or raises; it never
+falls back.  On CPU tensors it runs the plain PyTorch version beside it, the
+same arithmetic written line by line in PyTorch.
+
+- K6 ``nearest_hit_arcs_kernel`` (``csrc/arc_search.cu``, port of
+  ``_arc_kernel`` in ``tensorflowraytrace_tpu/ops/pallas_kernels.py``):
+  every ray against both quadratic branches of every arc.
+- K8 ``nearest_hit_arcs_culled_kernel`` (``csrc/arc_search_culled.cu``,
+  port of ``_arc_kernel_culled``): K6 behind K7's slab gate on the boxes of
+  256-arc chunks (``models/acceleration.chunk_aabbs_arcs``, window-aware,
+  widened by K7's rounding margin ``segment_kernels.gate_boxes``);
+  ``cull=True``.  K8 returns K6's hits bit for bit.
+
+Both take the arc table of :func:`arc_table`, built in torch on the rays'
+device as ``nearest_hit_arcs_pallas`` builds it: the window's edge vectors
+(cos, sin of its start and end) and whether it spans more than pi or the
+full circle.  The window test is the TPU kernels' cross-product form, not
+the XLA path's ``atan2`` (``ops/intersect.nearest_hit_arcs``); the two can
+disagree at a window's edge.  Arcs take no ``size_eps``.  The quadratic's
+discriminant is the TPU kernels' b^2 - 4 a c rewritten as
+4 (a - (x_r x d_r)^2), which float32 keeps accurate for rays that start
+thousands of radii from an arc (the note in csrc/search2d_common.cuh).
+
+Contract: per ray ``(valid, idx int32, ray_u, branch)``; ``ray_u`` is
+``BIG = 3e38`` where nothing is hit, ``valid`` is ``ray_u < BIG / 2`` and
+``branch`` is True where the winning arc's minus branch gave the hit.  The
+nearest hit wins and a tie goes to the first arc, which carries its own
+branch choice (minus iff its minus root is strictly nearer).  The TPU
+kernel instead takes the branch of the tile's minima, which differs only
+when two arcs tie exactly.
+
+Nothing here imports JAX or the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_arcs
+from tensorflowraytrace_tpu_torch.ops import cuda_build
+from tensorflowraytrace_tpu_torch.ops import segment_kernels
+from tensorflowraytrace_tpu_torch.ops.segment_kernels import (
+    check_cuda_inputs, culled_walk, gate_boxes,
+)
+from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
+    _SLACK, BIG, _raise_on, plain_or_cuda,
+)
+
+# Launches of each CUDA kernel in this process.  A wrapper adds one where it
+# launches and nowhere else; callers reset them to 0 to count a run.
+LAUNCHES = 0            # K6
+LAUNCHES_CULLED = 0     # K8
+
+SOURCE = "arc_search.cu"
+SOURCE_CULLED = "arc_search_culled.cu"
+
+# the table's flag bits
+_BIG_WINDOW = 1     # the window spans more than pi
+_FULL_CIRCLE = 2    # the window is the whole circle
+
+
+def load_library():
+    """The K6 library, built at first use, with its C signature declared."""
+    lib = cuda_build.load(SOURCE)
+    fn = lib.arc_search_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+        + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def load_culled_library():
+    """The K8 library, built at first use, with its C signature declared."""
+    lib = cuda_build.load(SOURCE_CULLED)
+    fn = lib.arc_search_culled_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+        + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def arc_table(center, angle_start, angle_end, radius):
+    """The (M, 8) table the arc searches read, in the arcs' dtype and on
+    their device: centre x, centre y, radius, cos and sin of the window's
+    start, cos and sin of its end, and flags (1: sweep > pi, 2: sweep >=
+    2 pi - 1e-6), with the sweep ``angle_end - angle_start`` taken in
+    [0, 2 pi)."""
+    sweep = angle_end - angle_start
+    sweep = torch.where(sweep < 0, sweep + 2 * math.pi, sweep)
+    flags = ((sweep > math.pi).to(center.dtype) * _BIG_WINDOW
+             + (sweep >= 2 * math.pi - 1e-6).to(center.dtype) * _FULL_CIRCLE)
+    return torch.stack([center[:, 0], center[:, 1], radius,
+                        torch.cos(angle_start), torch.sin(angle_start),
+                        torch.cos(angle_end), torch.sin(angle_end), flags],
+                       dim=1).contiguous()
+
+
+def _check_arcs(p0, p1, center, angle_start, angle_end, radius):
+    check_cuda_inputs("arc", p0, p1, center=center, angle_start=angle_start,
+                      angle_end=angle_end, radius=radius)
+    m = center.shape[0]
+    if center.shape != (m, 2) or not (angle_start.shape == angle_end.shape
+                                      == radius.shape == (m,)):
+        raise ValueError("center must be (arcs, 2) and angle_start, angle_end "
+                         "and radius (arcs,)")
+
+
+def _launch(fn, name, p0, args):
+    """Outputs for ``p0``'s rays, the launch of ``fn(p0, p1, *args, u, idx,
+    branch, stream)``, and the error check."""
+    n = p0.shape[0]
+    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
+    branch = torch.empty((n,), dtype=torch.bool, device=p0.device)
+    with torch.cuda.device(p0.device):
+        stream = torch.cuda.current_stream(p0.device).cuda_stream
+        err = fn(*args, u.data_ptr(), idx.data_ptr(), branch.data_ptr(),
+                 stream)
+    _raise_on(err, name)
+    return u < BIG * 0.5, idx, u, branch
+
+
+def nearest_hit_arcs_kernel(p0, p1, center, angle_start, angle_end, radius,
+                            intersect_eps, ray_start_eps):
+    """K6: nearest hit of each ray (p0 -> p1, (N, 2)) among arcs (``center``
+    (M, 2); ``angle_start``, ``angle_end``, ``radius`` (M,)).  Returns
+    ``(valid, idx, ray_u, branch)``.
+
+    CPU tensors go to the plain version.  CUDA tensors launch the kernel,
+    which takes contiguous, detached float32 tensors on one device and raises
+    on anything else.
+    """
+    global LAUNCHES
+    if plain_or_cuda(p0, "arc"):
+        return nearest_hit_arcs_plain(p0, p1, center, angle_start, angle_end,
+                                      radius, intersect_eps, ray_start_eps)
+    _check_arcs(p0, p1, center, angle_start, angle_end, radius)
+    table = arc_table(center, angle_start, angle_end, radius)
+    out = _launch(load_library().arc_search_launch, "arc_search", p0,
+                  (p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
+                   p0.shape[0], table.shape[0], float(intersect_eps),
+                   float(ray_start_eps)))
+    LAUNCHES += 1
+    return out
+
+
+def nearest_hit_arcs_culled_kernel(p0, p1, center, angle_start, angle_end,
+                                   radius, intersect_eps, ray_start_eps):
+    """K8: K6's search with the per-chunk slab gate over chunks of
+    ``segment_kernels.CULL_CHUNK`` arcs.  Same arguments, result and device
+    rules as
+    :func:`nearest_hit_arcs_kernel`."""
+    global LAUNCHES_CULLED
+    if plain_or_cuda(p0, "arc"):
+        return nearest_hit_arcs_culled_plain(
+            p0, p1, center, angle_start, angle_end, radius, intersect_eps,
+            ray_start_eps)
+    _check_arcs(p0, p1, center, angle_start, angle_end, radius)
+    table = arc_table(center, angle_start, angle_end, radius)
+    chunk = segment_kernels.CULL_CHUNK
+    boxes = gate_boxes(chunk_aabbs_arcs(center, angle_start, angle_end,
+                                        radius, chunk)).contiguous()
+    out = _launch(load_culled_library().arc_search_culled_launch,
+                  "arc_search_culled", p0,
+                  (p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
+                   boxes.data_ptr(), p0.shape[0], table.shape[0], chunk,
+                   float(intersect_eps), float(ray_start_eps), 1.0 + _SLACK,
+                   1.0 - _SLACK, _SLACK))
+    LAUNCHES_CULLED += 1
+    return out
+
+
+# ======================================================================
+# plain PyTorch versions
+# ======================================================================
+
+def _arc_columns(table, s0, s1):
+    """Arcs s0 .. s1 - 1 of the table as (1, C) rows: centre, 1 / radius,
+    the edge vectors, and the window flags as booleans."""
+    t = table[s0:s1].T[:, None]
+    flags = t[7].to(torch.int32)
+    return (t[0], t[1], 1.0 / t[2], t[3], t[4], t[5], t[6],
+            (flags & _BIG_WINDOW) != 0, (flags & _FULL_CIRCLE) != 0)
+
+
+def _arc_pairs(ox, oy, dx, dy, xc, yc, inv_r, sx, sy, ex, ey, big, full,
+               i_eps, r_eps):
+    """Ray parameter of every ray-arc pair (``BIG`` where neither branch is
+    a valid hit) and whether the minus branch gave it: the kernels' float32
+    operations in their order.  Ray and arc components broadcast."""
+    xr = (ox - xc) * inv_r
+    yr = (oy - yc) * inv_r
+    xd = dx * inv_r
+    yd = dy * inv_r
+
+    a = xd * xd + yd * yd
+    b = 2.0 * (xr * xd + yr * yd)
+    # b^2 - 4 a (|x_r|^2 - 1) without its cancellation: see the note in
+    # csrc/search2d_common.cuh
+    cross = xr * yd - yr * xd
+    disc = 4.0 * (a - cross * cross)
+    disc = torch.where(torch.abs(disc) < i_eps, torch.zeros_like(disc), disc)
+
+    a_ok = torch.abs(a) >= i_eps
+    ok = (disc >= 0) & a_ok
+    inv2a = 1.0 / torch.where(a_ok, 2.0 * a, torch.ones_like(a))
+    sq = torch.sqrt(torch.where(disc >= 0, disc, torch.zeros_like(disc)))
+    u_plus = (-b + sq) * inv2a
+    u_minus = (-b - sq) * inv2a
+
+    def branch_valid(u):
+        px = (ox + dx * u) - xc
+        py = (oy + dy * u) - yc
+        c1 = sx * py - sy * px       # cross(window start, p)
+        c2 = px * ey - py * ex       # cross(p, window end)
+        narrow = (c1 >= 0) & (c2 >= 0)
+        wide = ~((c1 < 0) & (c2 < 0))
+        in_window = torch.where(big, wide, narrow) | full
+        return ok & (u >= r_eps) & in_window
+
+    up = torch.where(branch_valid(u_plus), u_plus, BIG)
+    um = torch.where(branch_valid(u_minus), u_minus, BIG)
+    return torch.minimum(um, up), um < up
+
+
+def _merge_arcs(best_u, best_idx, best_minus, rows, u, minus, first_idx):
+    """Fold the (R, C) pair parameters of rays ``rows`` into the running
+    best, as ``triangle_kernels._merge`` does, with the winner's branch."""
+    carg = torch.argmin(u, dim=1)
+    cu = u.gather(1, carg[:, None])[:, 0]
+    cm = minus.gather(1, carg[:, None])[:, 0]
+    bu = best_u[rows]
+    better = cu < bu
+    best_u[rows] = torch.where(better, cu, bu)
+    best_idx[rows] = torch.where(better, (carg + first_idx).to(torch.int32),
+                                 best_idx[rows])
+    best_minus[rows] = torch.where(better, cm, best_minus[rows])
+
+
+def _best(n, p0):
+    return (torch.full((n,), BIG, dtype=p0.dtype, device=p0.device),
+            torch.zeros((n,), dtype=torch.int32, device=p0.device),
+            torch.zeros((n,), dtype=torch.bool, device=p0.device))
+
+
+@torch.no_grad()
+def nearest_hit_arcs_plain(p0, p1, center, angle_start, angle_end, radius,
+                           intersect_eps, ray_start_eps, ray_block=32768,
+                           chunk=256):
+    """Plain PyTorch version of K6: the same arithmetic in the same order,
+    over (ray_block, chunk) tiles with a running minimum merged under strict
+    < (``argmin`` takes the first index inside a chunk)."""
+    n, m = p0.shape[0], center.shape[0]
+    best_u, best_idx, best_minus = _best(n, p0)
+    table = arc_table(center, angle_start, angle_end, radius)
+    eps = (float(intersect_eps), float(ray_start_eps))
+    for r0 in range(0, n, ray_block):
+        rows = slice(r0, r0 + ray_block)
+        o = p0[rows, :, None]                                # (B, 2, 1)
+        d = p1[rows, :, None] - o
+        for s0 in range(0, m, chunk):
+            u, minus = _arc_pairs(*o.unbind(1), *d.unbind(1),
+                                  *_arc_columns(table, s0, s0 + chunk), *eps)
+            _merge_arcs(best_u, best_idx, best_minus, rows, u, minus, s0)
+    return best_u < BIG * 0.5, best_idx, best_u, best_minus
+
+
+@torch.no_grad()
+def nearest_hit_arcs_culled_plain(p0, p1, center, angle_start, angle_end,
+                                  radius, intersect_eps, ray_start_eps):
+    """Plain PyTorch version of K8: the chunks of K7's ``CULL_CHUNK`` arcs in
+    order, each computed for the rays of every 32-ray group of which some
+    ray passes the slab gate against its running best, with K6's arithmetic
+    and merge."""
+    n, chunk = p0.shape[0], segment_kernels.CULL_CHUNK
+    best_u, best_idx, best_minus = _best(n, p0)
+    table = arc_table(center, angle_start, angle_end, radius)
+    eps = (float(intersect_eps), float(ray_start_eps))
+    d = p1 - p0
+    boxes = gate_boxes(chunk_aabbs_arcs(center, angle_start, angle_end,
+                                        radius, chunk))
+    for c, rows in culled_walk(p0, p1, boxes, eps[1], best_u):
+        s0 = c * chunk
+        u, minus = _arc_pairs(
+            *(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
+            *_arc_columns(table, s0, s0 + chunk), *eps)
+        _merge_arcs(best_u, best_idx, best_minus, rows, u, minus, s0)
+    return best_u < BIG * 0.5, best_idx, best_u, best_minus

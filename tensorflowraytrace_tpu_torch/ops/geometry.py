@@ -1,16 +1,190 @@
-"""3D geometry: the Cramer line/triangle solve and vector Snell's law.
+"""Geometry: intersections and Snell's law in 2D and 3D.
 
-Counterpart of the 3D half of ``tensorflowraytrace_tpu/ops/geometry.py``.
-The "safe divide" discipline is kept exactly: the denominator is masked
-BEFORE dividing, so neither the forward value nor the backward pass ever
-sees a divide by zero on an invalid intersection.
+Counterpart of ``tensorflowraytrace_tpu/ops/geometry.py``: the 2D
+line/line and line/circle solves, the angle form of Snell's law and the
+angular-window test; the 3D Cramer line/triangle solve and vector Snell's
+law.  The "safe divide" discipline is kept exactly: the denominator is
+masked BEFORE dividing, so neither the forward value nor the backward pass
+ever sees a divide by zero on an invalid intersection.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from tensorflowraytrace_tpu_torch.config import default_epsilon
+
+PI = math.pi
+
+
+def _common(*args):
+    """Broadcast the tensors to one shape and promote them to one dtype
+    before any arithmetic (a float32 operand would otherwise keep float32
+    subexpressions in a float64 solve)."""
+    dt = args[0].dtype
+    for a in args[1:]:
+        dt = torch.promote_types(dt, a.dtype)
+    return [a.to(dt) for a in torch.broadcast_tensors(*args)]
+
+
+# ======================================================================
+# 2D
+# ======================================================================
+
+def raw_line_intersect(x1s, y1s, x1e, y1e, x2s, y2s, x2e, y2e, epsilon=None):
+    """Infinite line/line intersection on co-broadcastable tensors.
+
+    Returns ``(x, y, valid, u, v)``: the intersection point, validity (False
+    where the lines are parallel) and the parameters along line 1 and 2."""
+    x1s, y1s, x1e, y1e, x2s, y2s, x2e, y2e = _common(
+        x1s, y1s, x1e, y1e, x2s, y2s, x2e, y2e)
+    if epsilon is None:
+        epsilon = default_epsilon(x1s.dtype)
+
+    x1 = x1e - x1s
+    y1 = y1e - y1s
+    x2 = x2e - x2s
+    y2 = y2e - y2s
+    denominator = x1 * y2 - y1 * x2
+
+    valid = torch.abs(denominator) >= epsilon
+    safe_value = torch.ones_like(denominator)
+    inv_den = 1.0 / torch.where(valid, denominator, safe_value)
+
+    u = torch.where(valid, (x2 * (y1s - y2s) - y2 * (x1s - x2s)) * inv_den,
+                    safe_value)
+    v = torch.where(valid, (y1 * (x2s - x1s) - x1 * (y2s - y1s)) * inv_den,
+                    safe_value)
+    x = x1s + u * x1
+    y = y1s + u * y1
+    return x, y, valid, u, v
+
+
+def raw_line_circle_intersect(xs, ys, xe, ye, xc, yc, r, epsilon=None):
+    """Infinite line/circle intersection on co-broadcastable tensors.
+
+    Returns ``(plus, minus)``, one dict per quadratic branch with keys
+    ``x, y, valid, u, v`` (``v`` the polar angle of the hit about the
+    centre).  A tiny discriminant (|rad| < epsilon) snaps to 0 so both
+    branches meet at the tangent point; a degenerate line (a ~ 0) is
+    invalid.  Everything is promoted to one dtype first: a float32 ``1 / r``
+    in a float64 solve would put a ray that starts on the circle off it."""
+    xs, ys, xe, ye, xc, yc, r = _common(xs, ys, xe, ye, xc, yc, r)
+    if epsilon is None:
+        epsilon = default_epsilon(xs.dtype)
+
+    inverse_r = 1.0 / r
+    xr = (xs - xc) * inverse_r
+    yr = (ys - yc) * inverse_r
+    xd = (xe - xs) * inverse_r
+    yd = (ye - ys) * inverse_r
+
+    a = xd * xd + yd * yd
+    b = 2.0 * xr * xd + 2.0 * yr * yd
+    c = xr * xr + yr * yr - 1.0
+    rad = b * b - 4.0 * a * c
+
+    # tangent: snap a tiny radicand to exactly zero
+    rad = torch.where(torch.abs(rad) < epsilon, torch.zeros_like(rad), rad)
+
+    # no intersection: rad < 0
+    safe_value = torch.ones_like(a)
+    rad_neg = rad < 0
+    branch_valid = ~rad_neg
+    safe_rad = torch.sqrt(torch.where(rad_neg, safe_value, rad))
+    uminus = torch.where(rad_neg, safe_value, -b - safe_rad)
+    uplus = torch.where(rad_neg, safe_value, -b + safe_rad)
+
+    # degenerate line: a ~ 0 (start == end)
+    azero = torch.abs(a) < epsilon
+    inv_den = 1.0 / torch.where(azero, safe_value, 2.0 * a)
+    valid = branch_valid & ~azero
+    uminus = torch.where(azero, safe_value, uminus * inv_den)
+    uplus = torch.where(azero, safe_value, uplus * inv_den)
+
+    xminus = xs + (xe - xs) * uminus
+    xplus = xs + (xe - xs) * uplus
+    yminus = ys + (ye - ys) * uminus
+    yplus = ys + (ye - ys) * uplus
+    vminus = torch.atan2(yminus - yc, xminus - xc)
+    vplus = torch.atan2(yplus - yc, xplus - xc)
+    return (
+        {"x": xplus, "y": yplus, "valid": valid, "u": uplus, "v": vplus},
+        {"x": xminus, "y": yminus, "valid": valid, "u": uminus, "v": vminus},
+    )
+
+
+def _safe_direction_2d(dx, dy):
+    """(1, 0) in place of a degenerate direction, so atan2's partials stay
+    finite.  Every slot runs through the reaction and is masked afterwards,
+    and d/dx atan2(0, 0) is NaN: a masked slot would poison the gradient of
+    the whole batch (``where`` blocks a cotangent, not the NaN the unused
+    branch's backward makes)."""
+    eps = torch.finfo(dx.dtype).eps
+    degenerate = (dx * dx + dy * dy) < eps * eps
+    return (torch.where(degenerate, torch.ones_like(dx), dx),
+            torch.where(degenerate, torch.zeros_like(dy), dy))
+
+
+def snells_law_2D(x_start, y_start, x_end, y_end, norm, n_in, n_out,
+                  new_ray_length):
+    """2D optical reaction (refract, reflect on a mirror or by total
+    internal reflection), angle form.  Each ray ends on the surface;
+    ``norm`` is the absolute angle of the surface normal and ``n_in == 0``
+    marks a mirror.  Returns the child ray's endpoints."""
+    norm = torch.remainder(norm, 2 * PI)
+    dx, dy = _safe_direction_2d(x_start - x_end, y_start - y_end)
+    ray_angle = torch.remainder(torch.atan2(dy, dx), 2 * PI)
+    theta1 = norm - ray_angle
+    theta1 = torch.where(theta1 > PI, theta1 - 2 * PI, theta1)
+    theta1 = torch.where(theta1 < -PI, theta1 + 2 * PI, theta1)
+
+    internal_mask = torch.abs(theta1) >= PI / 2
+
+    zero = torch.zeros_like(theta1)
+    n_in = torch.as_tensor(n_in, dtype=theta1.dtype,
+                           device=theta1.device).expand_as(theta1)
+    n_out = torch.as_tensor(n_out, dtype=theta1.dtype,
+                            device=theta1.device).expand_as(theta1)
+    n = select_eta(n_in, n_out, internal_mask)
+
+    norm = torch.where(internal_mask, norm, norm + PI)
+    theta1 = torch.where(internal_mask, theta1 + PI, theta1)
+
+    theta2 = n * torch.sin(theta1)
+    # refract when |sin(theta2)| <= 1 and not a mirror, else reflect; the
+    # double where keeps the unused arcsin branch's gradient finite
+    refracts = (torch.abs(theta2) <= 1.0) & (n != 0.0)
+    safe_theta2 = torch.where(refracts, theta2, zero)
+    # d/dx arcsin(x) is infinite at |x| == 1 (exactly critical incidence
+    # passes the <= 1 test); a clamp by one eps bounds it
+    lim = 1.0 - torch.finfo(theta2.dtype).eps
+    safe_theta2 = torch.clamp(safe_theta2, -lim, lim)
+    new_angle = torch.where(refracts, norm - torch.arcsin(safe_theta2),
+                            norm + theta1 + PI)
+
+    x_end_new = x_end + new_ray_length * torch.cos(new_angle)
+    y_end_new = y_end + new_ray_length * torch.sin(new_angle)
+    return x_end, y_end, x_end_new, y_end_new
+
+
+def angle_in_interval(angle, start, end):
+    """True where ``angle`` lies in the closed counter-clockwise interval
+    ``[start, end]``; safe across the wrap for inputs in [-pi, pi]."""
+    reduced_angle = angle - start
+    reduced_angle = torch.where(reduced_angle < 0.0, reduced_angle + 2 * PI,
+                                reduced_angle)
+    reduced_end = end - start
+    reduced_end = torch.where(reduced_end < 0.0, reduced_end + 2 * PI,
+                              reduced_end)
+    return reduced_angle <= reduced_end
+
+
+# ======================================================================
+# 3D
+# ======================================================================
 
 
 def raw_line_triangle_intersect(

@@ -1,0 +1,267 @@
+"""The nearest ray-segment searches on Hopper: brute force (K5) and culled
+(K7).
+
+Each search has a wrapper the engine calls with ``use_kernel=True``.  On CUDA
+tensors the wrapper launches its hand-written kernel or raises; it never
+falls back.  On CPU tensors it runs the plain PyTorch version beside it, the
+same arithmetic written line by line in PyTorch.
+
+- K5 ``nearest_hit_segments_kernel`` (``csrc/segment_search.cu``, port of
+  ``_segment_kernel`` in ``tensorflowraytrace_tpu/ops/pallas_kernels.py``):
+  every ray against every segment.
+- K7 ``nearest_hit_segments_culled_kernel``
+  (``csrc/segment_search_culled.cu``, port of ``_segment_kernel_culled``):
+  K5 plus a slab test of each ray against the box of each 256-segment chunk
+  (``models/acceleration.chunk_aabbs_2d``, widened by a rounding margin:
+  ``gate_boxes``); ``cull=True``.  A chunk is computed for a ray only if
+  some ray of its warp (``GATE_RAYS``) can hit the box no farther than its
+  current best, so K7 returns K5's hits bit for bit.
+
+Contract (shared with every search kernel of the JAX package): per ray
+``(valid, idx int32, ray_u)``; ``ray_u`` is ``BIG = 3e38`` where nothing is
+hit and ``valid`` is ``ray_u < BIG / 2``; the nearest hit wins and a tie
+goes to the first segment; there is no gradient.
+
+The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
+``build/`` and loaded with ``ctypes`` (``ops/cuda_build.py``); the two
+share ``csrc/search2d_common.cuh`` with the arc searches.  Nothing here
+imports JAX or the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_2d
+from tensorflowraytrace_tpu_torch.ops import cuda_build
+from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
+    _SLACK, BIG, _inverse_direction, _merge, _raise_on, _selected, _slab_gate,
+    _thresholds, _warp_any, plain_or_cuda,
+)
+
+# Launches of each CUDA kernel in this process.  A wrapper adds one where it
+# launches and nowhere else; callers reset them to 0 to count a run.
+LAUNCHES = 0            # K5
+LAUNCHES_CULLED = 0     # K7
+
+SOURCE = "segment_search.cu"
+SOURCE_CULLED = "segment_search_culled.cu"
+
+# the culling chunk of K7 and K8 is the 2D kernels' shared-memory tile
+# (kTile in csrc/search2d_common.cuh; the launch refuses another value);
+# read at call time
+CULL_CHUNK = 256
+# Each culling box is widened on every side by GATE_PAD times its largest
+# coordinate magnitude (~64 float32 ulps): the float32 arithmetic can accept
+# a hit a few ulps outside the exact surface (at an arc's window edge, a
+# segment's end), and the gate must not refuse it.  The slab test's own
+# slack (1 +- 1e-6 and 1e-6 in t) does not cover that far from the origin:
+# at x ~ 40 one ulp is 3.8e-6.  (On the full-width 2D guide a ray starting on
+# the exit face at the joint of two chunks of lenslets hit one 3.6e-7 below
+# its chunk's box.)
+GATE_PAD = 2.0 ** -17
+
+
+def load_library():
+    """The K5 library, built at first use, with its C signature declared."""
+    lib = cuda_build.load(SOURCE)
+    fn = lib.segment_search_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
+        + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def load_culled_library():
+    """The K7 library, built at first use, with its C signature declared."""
+    lib = cuda_build.load(SOURCE_CULLED)
+    fn = lib.segment_search_culled_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def check_cuda_inputs(what, p0, p1, **surfaces):
+    """What a 2D kernel takes: (N, 2) rays ``p0``/``p1`` and the per-surface
+    tensors ``surfaces`` (each with M rows), all float32, contiguous,
+    detached and on one device, with 1 <= N and N, M < 2^31 / 8."""
+    device = p0.device
+    m = None
+    for name, t in {"p0": p0, "p1": p1, **surfaces}.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, p0 on {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA {what} search takes float32 only; "
+                            f"{name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.requires_grad:
+            raise ValueError(f"{name} must be detached: the search has no "
+                             "gradient")
+        if name in surfaces:
+            if m is not None and t.shape[0] != m:
+                raise ValueError(f"the {what} tensors differ in length")
+            m = t.shape[0]
+    if p0.dim() != 2 or p0.shape[1] != 2 or p1.shape != p0.shape:
+        raise ValueError(f"p0 and p1 must be (rays, 2), got {tuple(p0.shape)} "
+                         f"and {tuple(p1.shape)}")
+    if p0.shape[0] < 1:
+        raise ValueError(f"the CUDA {what} search needs at least one ray")
+    if max(p0.shape[0], m) >= 2 ** 31 // 8:
+        raise ValueError(f"too many rays or {what}s for 32-bit indexing")
+
+
+def gate_boxes(boxes):
+    """The culling boxes the K7 and K8 gate tests: ``boxes`` (C, 4), min xy
+    then max xy, widened by ``GATE_PAD`` times each box's largest coordinate
+    magnitude."""
+    pad = GATE_PAD * boxes.abs().amax(dim=1, keepdim=True)
+    return torch.cat([boxes[:, :2] - pad, boxes[:, 2:] + pad], dim=1)
+
+
+def _check_segments(p0, p1, sp0, sp1):
+    check_cuda_inputs("segment", p0, p1, sp0=sp0, sp1=sp1)
+    if sp0.dim() != 2 or sp0.shape[1] != 2 or sp1.shape != sp0.shape:
+        raise ValueError("sp0 and sp1 must be (segments, 2) and equal in shape")
+
+
+def nearest_hit_segments_kernel(p0, p1, sp0, sp1, intersect_eps, size_eps,
+                                ray_start_eps):
+    """K5: nearest hit of each ray (p0 -> p1, (N, 2)) among segments
+    (sp0 -> sp1, (M, 2)).  Returns ``(valid, idx, ray_u)``.
+
+    CPU tensors go to the plain version.  CUDA tensors launch the kernel,
+    which takes contiguous, detached float32 tensors on one device and raises
+    on anything else.
+    """
+    global LAUNCHES
+    if plain_or_cuda(p0, "segment"):
+        return nearest_hit_segments_plain(p0, p1, sp0, sp1, intersect_eps,
+                                          size_eps, ray_start_eps)
+    _check_segments(p0, p1, sp0, sp1)
+    fn = load_library().segment_search_launch
+    n, m = p0.shape[0], sp0.shape[0]
+    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
+    with torch.cuda.device(p0.device):
+        stream = torch.cuda.current_stream(p0.device).cuda_stream
+        err = fn(p0.data_ptr(), p1.data_ptr(), sp0.data_ptr(), sp1.data_ptr(),
+                 n, m, *_thresholds(intersect_eps, size_eps, ray_start_eps),
+                 u.data_ptr(), idx.data_ptr(), stream)
+    _raise_on(err, "segment_search")
+    LAUNCHES += 1
+    return u < BIG * 0.5, idx, u
+
+
+def nearest_hit_segments_culled_kernel(p0, p1, sp0, sp1, intersect_eps,
+                                       size_eps, ray_start_eps):
+    """K7: K5's search with the per-chunk slab gate over chunks of
+    ``CULL_CHUNK`` segments.  Same arguments, result and device rules as
+    :func:`nearest_hit_segments_kernel`."""
+    global LAUNCHES_CULLED
+    if plain_or_cuda(p0, "segment"):
+        return nearest_hit_segments_culled_plain(
+            p0, p1, sp0, sp1, intersect_eps, size_eps, ray_start_eps)
+    _check_segments(p0, p1, sp0, sp1)
+    fn = load_culled_library().segment_search_culled_launch
+    n, m = p0.shape[0], sp0.shape[0]
+    boxes = gate_boxes(chunk_aabbs_2d(sp0, sp1, CULL_CHUNK)).contiguous()
+    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
+    with torch.cuda.device(p0.device):
+        stream = torch.cuda.current_stream(p0.device).cuda_stream
+        err = fn(p0.data_ptr(), p1.data_ptr(), sp0.data_ptr(), sp1.data_ptr(),
+                 boxes.data_ptr(), n, m, CULL_CHUNK,
+                 *_thresholds(intersect_eps, size_eps, ray_start_eps),
+                 1.0 + _SLACK, 1.0 - _SLACK, _SLACK,
+                 u.data_ptr(), idx.data_ptr(), stream)
+    _raise_on(err, "segment_search_culled")
+    LAUNCHES_CULLED += 1
+    return u < BIG * 0.5, idx, u
+
+
+# ======================================================================
+# plain PyTorch versions
+# ======================================================================
+
+def _segment_pairs(ox, oy, dx, dy, x2, y2, dx2, dy2, i_eps, s_lo, s_hi,
+                   r_eps):
+    """Ray parameter of every ray-segment pair, ``BIG`` where the pair is not
+    a valid hit: the kernels' float32 operations in their order.  Ray
+    components (origin, direction) and segment components (start,
+    direction) broadcast against each other."""
+    den = dx * dy2 - dy * dx2
+    ok = torch.abs(den) >= i_eps
+    inv = 1.0 / torch.where(ok, den, torch.ones_like(den))
+    ray_u = (dx2 * (oy - y2) - dy2 * (ox - x2)) * inv
+    seg_u = (dy * (x2 - ox) - dx * (y2 - oy)) * inv
+    ok = ok & (seg_u >= s_lo) & (seg_u <= s_hi) & (ray_u >= r_eps)
+    return torch.where(ok, ray_u, BIG)
+
+
+def _segment_columns(sp0, sp1, s0, s1):
+    """Start and direction of segments s0 .. s1 - 1 as four (1, C) rows."""
+    start = sp0[s0:s1].T[:, None]
+    d = sp1[s0:s1].T[:, None] - start
+    return start[0], start[1], d[0], d[1]
+
+
+@torch.no_grad()
+def nearest_hit_segments_plain(p0, p1, sp0, sp1, intersect_eps, size_eps,
+                               ray_start_eps, ray_block=32768, chunk=256):
+    """Plain PyTorch version of K5: the same arithmetic in the same order,
+    over (ray_block, chunk) tiles with a running minimum merged under strict
+    < (ties keep the earlier chunk; ``argmin`` takes the first index inside
+    a chunk)."""
+    n, m = p0.shape[0], sp0.shape[0]
+    best_u = torch.full((n,), BIG, dtype=p0.dtype, device=p0.device)
+    best_idx = torch.zeros((n,), dtype=torch.int32, device=p0.device)
+    eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
+    for r0 in range(0, n, ray_block):
+        rows = slice(r0, r0 + ray_block)
+        o = p0[rows, :, None]                                # (B, 2, 1)
+        d = p1[rows, :, None] - o
+        for s0 in range(0, m, chunk):
+            u = _segment_pairs(*o.unbind(1), *d.unbind(1),
+                               *_segment_columns(sp0, sp1, s0, s0 + chunk),
+                               *eps)
+            _merge(best_u, best_idx, rows, u, s0)
+    return best_u < BIG * 0.5, best_idx, best_u
+
+
+def culled_walk(p0, p1, boxes, r_eps, best_u):
+    """The chunks and rays the culled kernels compute, as the plain versions
+    walk them: for each chunk ``c`` of ``boxes`` ((C, 4)) in order, after the
+    earlier chunks have been merged into ``best_u``, yields ``(c, rows)`` for
+    each piece of the rays of every ``GATE_RAYS`` group of which some ray
+    passes the slab gate against its running best."""
+    o2, inv2 = p0.unbind(1), _inverse_direction(p1 - p0).unbind(1)
+    for c in range(boxes.shape[0]):
+        box = boxes[c]
+        need = _slab_gate(o2, inv2, box[:2], box[2:], r_eps, best_u)
+        for rows in _selected(_warp_any(need)):
+            yield c, rows
+
+
+@torch.no_grad()
+def nearest_hit_segments_culled_plain(p0, p1, sp0, sp1, intersect_eps,
+                                      size_eps, ray_start_eps):
+    """Plain PyTorch version of K7: the chunks of ``CULL_CHUNK`` segments in
+    order; a chunk is computed for the rays of each ``GATE_RAYS`` group of
+    which some ray passes the slab gate against its running best, with K5's
+    arithmetic and merge."""
+    n, chunk = p0.shape[0], CULL_CHUNK
+    best_u = torch.full((n,), BIG, dtype=p0.dtype, device=p0.device)
+    best_idx = torch.zeros((n,), dtype=torch.int32, device=p0.device)
+    eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
+    d = p1 - p0
+    boxes = gate_boxes(chunk_aabbs_2d(sp0, sp1, chunk))
+    for c, rows in culled_walk(p0, p1, boxes, eps[3], best_u):
+        s0 = c * chunk
+        u = _segment_pairs(*(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
+                           *_segment_columns(sp0, sp1, s0, s0 + chunk), *eps)
+        _merge(best_u, best_idx, rows, u, s0)
+    return best_u < BIG * 0.5, best_idx, best_u

@@ -144,13 +144,13 @@ def _check_cuda_inputs(p0, p1, vp, v1, v2):
         raise ValueError("too many rays or triangles for 32-bit indexing")
 
 
-def _plain_or_cuda(p0):
+def plain_or_cuda(p0, what="triangle"):
     """True for CPU tensors (the plain version runs); raises for devices
-    that have no search."""
+    that have no ``what`` search."""
     if p0.device.type == "cpu":
         return True
     if p0.device.type != "cuda":
-        raise ValueError(f"no triangle search for device {p0.device}")
+        raise ValueError(f"no {what} search for device {p0.device}")
     return False
 
 
@@ -176,7 +176,7 @@ def nearest_hit_triangles_kernel(p0, p1, vp, v1, v2, intersect_eps, size_eps,
     on anything else.
     """
     global LAUNCHES
-    if _plain_or_cuda(p0):
+    if plain_or_cuda(p0):
         return nearest_hit_triangles_plain(p0, p1, vp, v1, v2, intersect_eps,
                                            size_eps, ray_start_eps)
     _check_cuda_inputs(p0, p1, vp, v1, v2)
@@ -201,7 +201,7 @@ def nearest_hit_triangles_culled_kernel(p0, p1, vp, v1, v2, intersect_eps,
     ``CULL_CHUNK`` triangles.  Same arguments, result and device rules as
     :func:`nearest_hit_triangles_kernel`."""
     global LAUNCHES_CULLED
-    if _plain_or_cuda(p0):
+    if plain_or_cuda(p0):
         return nearest_hit_triangles_culled_plain(
             p0, p1, vp, v1, v2, intersect_eps, size_eps, ray_start_eps)
     _check_cuda_inputs(p0, p1, vp, v1, v2)
@@ -244,7 +244,7 @@ def nearest_hit_triangles_twolevel_kernel(p0, p1, vp, v1, v2, intersect_eps,
     ``FINE_CHUNK`` triangles per chunk and lists capped at
     ``TWOLEVEL_MAX_CAND``.  Same arguments, result and device rules as
     :func:`nearest_hit_triangles_kernel`."""
-    if _plain_or_cuda(p0):
+    if plain_or_cuda(p0):
         return nearest_hit_triangles_twolevel_plain(
             p0, p1, vp, v1, v2, intersect_eps, size_eps, ray_start_eps)
     _check_cuda_inputs(p0, p1, vp, v1, v2)
@@ -372,13 +372,14 @@ def _inverse_direction(d):
 
 
 def _slab_gate(o, inv, lo, hi, r_eps, best_u):
-    """The culling gate of K3 and K4, elementwise: can the ray (origin
-    ``o``, inverse direction ``inv``; three tensors each) hit the box
-    [lo, hi] (three tensors each) at t >= r_eps, no farther than its
-    ``best_u``?  ``best_u=None`` tests only the first condition (the
-    candidate precompute).  Every operand broadcasts."""
+    """The culling gate of K3, K4, K7 and K8, elementwise: can the ray
+    (origin ``o``, inverse direction ``inv``; one tensor per axis, three in
+    3D and two in 2D) hit the box [lo, hi] (one tensor per axis each) at
+    t >= r_eps, no farther than its ``best_u``?  ``best_u=None`` tests only
+    the first condition (the candidate precompute).  Every operand
+    broadcasts."""
     tmin = tmax = None
-    for k in range(3):
+    for k in range(len(o)):
         t1 = (lo[k] - o[k]) * inv[k]
         t2 = (hi[k] - o[k]) * inv[k]
         near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)

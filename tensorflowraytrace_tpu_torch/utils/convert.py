@@ -1,9 +1,9 @@
 """Carry state across packages as NumPy arrays.
 
 The JAX package and this port share no objects; these helpers turn arrays
-taken from the JAX side (``np.asarray`` of its parameters, rays or
-triangles) into the port's tensors, so both packages compute the same
-thing.
+taken from the JAX side (``np.asarray`` of its parameters, rays, segments,
+arcs or triangles) into the port's tensors, so both packages compute the
+same thing.
 """
 
 from __future__ import annotations
@@ -15,7 +15,9 @@ from tensorflowraytrace_tpu_torch.config import (
     OPTICAL, resolve_device, resolve_dtype,
 )
 from tensorflowraytrace_tpu_torch.models.rays import RaySet
-from tensorflowraytrace_tpu_torch.models.surfaces import TriangleSet
+from tensorflowraytrace_tpu_torch.models.surfaces import (
+    ArcSet, SegmentSet, TriangleSet,
+)
 
 
 def params_from_numpy(arrays, dtype=None, device=None):
@@ -44,16 +46,41 @@ def rayset_from_numpy(p0, p1, wavelength=None, state=None, fields=None,
         dtype=dtype, device=device)
 
 
+def _arr(a):
+    """A NumPy copy of ``a`` (a number, list or array), ``None`` kept."""
+    return None if a is None else np.array(a)
+
+
+def segments_from_numpy(p0, p1, category=OPTICAL, mat_in=None, mat_out=None,
+                        fields=None, dtype=None, device=None) -> SegmentSet:
+    """A SegmentSet from (M, 2) endpoint arrays (and optional per-surface
+    ids and fields)."""
+    return SegmentSet.make(
+        _arr(p0), _arr(p1), category=_arr(category), mat_in=_arr(mat_in),
+        mat_out=_arr(mat_out),
+        fields={k: _arr(v) for k, v in (fields or {}).items()},
+        dtype=resolve_dtype(dtype), device=resolve_device(device))
+
+
+def arcs_from_numpy(center, angle_start, angle_end, radius, category=OPTICAL,
+                    mat_in=None, mat_out=None, fields=None, dtype=None,
+                    device=None) -> ArcSet:
+    """An ArcSet from a (M, 2) centre array and (M,) or scalar angles and
+    radii (and optional per-surface ids and fields)."""
+    return ArcSet.make(
+        _arr(center), _arr(angle_start), _arr(angle_end), _arr(radius),
+        category=_arr(category), mat_in=_arr(mat_in), mat_out=_arr(mat_out),
+        fields={k: _arr(v) for k, v in (fields or {}).items()},
+        dtype=resolve_dtype(dtype), device=resolve_device(device))
+
+
 def triangles_from_numpy(vp, v1, v2, norm=None, category=OPTICAL, mat_in=None,
                          mat_out=None, dtype=None, device=None) -> TriangleSet:
     """A TriangleSet from (M, 3) vertex arrays (and optional normals and
     per-surface ids)."""
-    def arr(a):
-        return None if a is None else np.array(a)
-
     return TriangleSet.make(
-        arr(vp), arr(v1), arr(v2), arr(norm), category=arr(category),
-        mat_in=arr(mat_in), mat_out=arr(mat_out), dtype=resolve_dtype(dtype),
+        _arr(vp), _arr(v1), _arr(v2), _arr(norm), category=_arr(category),
+        mat_in=_arr(mat_in), mat_out=_arr(mat_out), dtype=resolve_dtype(dtype),
         device=resolve_device(device))
 
 

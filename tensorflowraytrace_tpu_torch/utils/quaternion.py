@@ -1,10 +1,13 @@
-"""Minimal quaternion utilities for source aiming.
+"""Minimal rotation utilities for source aiming: quaternions in 3D and a
+plane rotation in 2D.
 
 Counterpart of ``tensorflowraytrace_tpu/utils/quaternion.py``.  Quaternions
 are ``(..., 4)`` tensors in (w, x, y, z) order.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -69,3 +72,16 @@ def rotate_vector(q, v):
     # v' = v + 2 w (xyz x v) + 2 xyz x (xyz x v)
     t = 2.0 * torch.linalg.cross(xyz, v)
     return v + w * t + torch.linalg.cross(xyz, t)
+
+
+def rotate_2d(points, angle):
+    """Rotate ``(..., 2)`` points about the origin by ``angle`` (radians; a
+    tensor, or a number whose cosine and sine enter as Python scalars so
+    that nothing is copied to the device)."""
+    if isinstance(angle, torch.Tensor):
+        c, s = torch.cos(angle), torch.sin(angle)
+    else:
+        c, s = math.cos(angle), math.sin(angle)
+    x = points[..., 0]
+    y = points[..., 1]
+    return torch.stack([c * x - s * y, s * x + c * y], dim=-1)
