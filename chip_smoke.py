@@ -9,10 +9,11 @@ exits non-zero without printing a result):
 
 1. device: the card's name and power limit (nvidia-smi) and torch's name;
    exits non-zero when CUDA is not available.
-2. build: compiles the eight kernels (csrc/triangle_search.cu,
+2. build: compiles the ten kernels (csrc/triangle_search.cu,
    triangle_search_culled.cu, triangle_search_twolevel.cu, segment_sum.cu,
-   segment_search.cu, segment_search_culled.cu, arc_search.cu and
-   arc_search_culled.cu), one nvcc each, started together, into build/.
+   segment_search.cu, segment_search_culled.cu, segment_search_twolevel.cu,
+   arc_search.cu, arc_search_culled.cu and arc_search_twolevel.cu), one
+   nvcc each, started together, into build/.
 3. K1 against its plain PyTorch version on the card: the random soup of
    bench.py (seed 0: 4094 random triangles plus the 2-triangle target quad)
    with 131072 rays, the flagship's first-bounce search, a ragged tile
@@ -71,12 +72,14 @@ exits non-zero without printing a result):
    and the idle share), its peak memory and its host synchronisations.
 
 11. the 2D searches: K5 (segments) and K6 (arcs) against their plain
-   versions, and K7 and K8 (culled) against theirs and against K5 and K6,
-   all bit for bit, on examples/tpu_kernel_check.py's sets (seed 7: 777
-   random segments and 555 random arcs with signed radii and sweeps of
-   0.3-5.8 rad, Morton-sorted) against 200000 rays, a ragged tile (1000
-   rays x 333 surfaces), 1 ray x 257 surfaces, an all-miss batch, a batch
-   of parked rays and full-circle arcs.
+   versions, and K7 and K8 (culled) and K9 and K10 (two-level) against
+   theirs and against K5 and K6, all bit for bit, on
+   examples/tpu_kernel_check.py's sets (seed 7: 777 random segments and 555
+   random arcs with signed radii and sweeps of 0.3-5.8 rad, Morton-sorted)
+   against 200000 rays, a ragged tile (1000 rays x 333 surfaces), 1 ray x
+   257 surfaces, an all-miss batch, a batch of parked rays and full-circle
+   arcs; then the sets and the ragged tile again with K9's and K10's
+   candidate cap forced to 1, so that their blocks overflow and sweep.
 12. 2D training at example scale: examples/optimize_single_arc.py (60 rays,
    one trainable arc, 2 bounces, 30 steps at momentum 0.8 and 50 at
    lr_scale 0.1, momentum 0.9) through use_kernel=True in float32: K5 and
@@ -86,17 +89,33 @@ exits non-zero without printing a result):
    rays): median of 5 synchronised steps.
 13. the 2D light guide at full width (scenes2d.light_guide: 4098 segments,
    512 lenslet arcs, 2^20 rays from seed 0, acrylic, 50 bounces) through
-   brute (K5 + K6), ``cull=True`` (K7 + K8) and ``cull=True,
+   brute (K5 + K6), ``cull=True`` (K7 + K8), ``cull=True,
+   resort_rays=True``, ``cull="grid"`` (K9 + K10) and ``cull="grid",
    resort_rays=True``: the final ``state``, ``p0`` and ``p1`` of each
    accelerated path equal the brute path's bit for bit, each kernel
    launches once per bounce, median of 5 synchronised traces per path and
-   equivalent intersections/s N (M_seg + M_arc) B / t; one brute and one
-   ``cull=True, resort_rays=True`` trace under torch.profiler (shares of
-   K5/K7, K6/K8, the re-sort and the rest, the idle share), peak memory
-   and host synchronisations (0).  Then K5-K8 alone at the first bounce
-   (2^20 x 4098 and 2^20 x 512, the rays in the re-sort's order): bit for
-   bit against their plain versions, kernel and plain times by CUDA
-   events, and each kernel's bound.
+   equivalent intersections/s N (M_seg + M_arc) B / t; one brute, one
+   ``cull=True, resort_rays=True`` and one ``cull="grid",
+   resort_rays=True`` trace under torch.profiler (shares of the segment
+   search, the arc search, the candidate precompute, the re-sort and the
+   rest, the idle share, kernels a bounce), peak memory and host
+   synchronisations (0).  Then K5-K10 alone at the first bounce (2^20 x
+   4098 and 2^20 x 512, the rays in the re-sort's order): bit for bit
+   against their plain versions, kernel and plain times by CUDA events
+   (K9 and K10 also apart from their inputs' preparation), and each
+   kernel's bound.
+14. the 2D guide as a design problem (scenes2d.guide_design, the same rays
+   and scene) under ``TraceConfig.recommended(scene, max_bounces=50,
+   dead_ray_length=10)``: the configuration it chose; one forward and
+   backward pass of the landing loss (a ``landing_sum_fold``) with respect
+   to the lenslets' centres and radii with ``remat=True`` and with
+   ``remat=False``: the two gradients within 1e-4 of their max norm (K2's
+   atomics make them differ), each search kernel of the chosen path
+   launched exactly 50 times in each (the backward searched nothing), the
+   median of 3 synchronised passes and the peak memory of each; then one
+   ``early_exit=True`` trace under ``torch.no_grad()``: its final
+   ``state``, ``p0`` and ``p1`` equal the 50-bounce trace's bit for bit,
+   with its depth and its host synchronisations (one a bounce).
 
 Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
 earlier runs: the brute-force search does not use the order.  Then the
@@ -106,7 +125,7 @@ the nvidia-smi line, and as the last line ``{"ok": true, "device":
 
 ``python3 chip_smoke.py --tune`` runs phases 1 and 2 and then sweeps K4's
 ray block and candidate cap (the fine chunk is compiled into the kernel)
-on the guide and the sorted soup
+on the guide and the sorted soup, and K9's and K10's on the 2D guide
 (median of 3 traces each, every setting checked against the brute trace),
 and prints no result line.
 """
@@ -176,6 +195,7 @@ CHECK_ARCS = 555
 ARC_STEPS = (30, 50)
 ARC_WIDE_BEAM = 174763
 GUIDE2D_RAYS = 1 << 20
+DESIGN_PASSES = 3
 
 
 def check(cond, message):
@@ -597,14 +617,22 @@ def tune_twolevel(device):
 # phases 11-13: the 2D path
 # ----------------------------------------------------------------------
 
-def search_2d(kind, culled, plain=False):
-    """The wrapper (or plain version) of one 2D search and its epsilons."""
+# the 2D searches of each kind: variant -> (kernel, function-name suffix)
+SEARCHES_2D = {"segment": {"brute": ("K5", ""), "culled": ("K7", "_culled"),
+                           "twolevel": ("K9", "_twolevel")},
+               "arc": {"brute": ("K6", ""), "culled": ("K8", "_culled"),
+                       "twolevel": ("K10", "_twolevel")}}
+
+
+def search_2d(kind, variant, plain=False):
+    """The wrapper (or plain version) of one 2D search (``variant`` brute,
+    culled or twolevel) and its epsilons."""
     from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
     from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 
     mod, name, eps = ((gk, "segments", (EPS, EPS, EPS)) if kind == "segment"
                       else (ak, "arcs", (EPS, EPS)))
-    suffix = ("_culled" if culled else "") + ("_plain" if plain else "_kernel")
+    suffix = SEARCHES_2D[kind][variant][1] + ("_plain" if plain else "_kernel")
     fn = getattr(mod, f"nearest_hit_{name}{suffix}")
     return lambda args: fn(*args, *eps)
 
@@ -618,21 +646,20 @@ def surface_args(p0, p1, surfaces):
             for t in (p0, p1) + tuple(getattr(surfaces, c) for c in cols)]
 
 
-def compare_2d(label, kind, args):
-    """The brute and culled kernels of ``kind`` against their plain
-    versions and each other, bit for bit; returns ``(out, err)``: their
-    outputs ``{"brute": ..., "culled": ...}`` and each one's max |u - u_plain|
-    on rays both find valid.  These launches are comparisons, not the main
-    path."""
+def compare_2d(label, kind, args, variants=("brute", "culled", "twolevel")):
+    """The 2D kernels ``variants`` of ``kind`` against their plain versions
+    and the brute kernel, bit for bit; returns ``(out, err)``: their outputs
+    ``{variant: ...}`` and each one's max |u - u_plain| on rays both find
+    valid.  These launches are comparisons, not the main path."""
     import torch
 
-    out = {c: search_2d(kind, c == "culled")(args) for c in ("brute", "culled")}
+    variants = ("brute",) + tuple(v for v in variants if v != "brute")
+    out = {c: search_2d(kind, c)(args) for c in variants}
     torch.cuda.synchronize()
-    plain = {c: search_2d(kind, c == "culled", plain=True)(args)
-             for c in ("brute", "culled")}
-    pairs = {"brute vs plain": (out["brute"], plain["brute"]),
-             "culled vs plain": (out["culled"], plain["culled"]),
-             "culled vs brute": (out["culled"], out["brute"])}
+    plain = {c: search_2d(kind, c, plain=True)(args) for c in variants}
+    pairs = {f"{c} vs plain": (out[c], plain[c]) for c in variants}
+    pairs.update({f"{c} vs brute": (out[c], out["brute"])
+                  for c in variants[1:]})
     diffs = {k: int(sum((a != b).sum() for a, b in zip(x, y)))
              for k, (x, y) in pairs.items()}
     err = {}
@@ -653,6 +680,7 @@ def phase_11(device):
     import torch
 
     from tensorflowraytrace_tpu_torch import scenes2d
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 
     rng = np.random.default_rng(7)
     seg = scenes2d.random_segments(rng, CHECK_SEGMENTS, device=device)
@@ -679,6 +707,15 @@ def phase_11(device):
                 if label != "one ray":
                     check(hits == (label not in ("all-miss", "parked")),
                           f"{kind} {label}: hits {hits}")
+    # K9 and K10 with every block of more than one candidate overflowing
+    cap, gk.TWOLEVEL_MAX_CAND = gk.TWOLEVEL_MAX_CAND, 1
+    try:
+        for label, r0, r1, s, a in cases[:2]:
+            for kind, surfaces in (("segment", s), ("arc", a)):
+                compare_2d(f"phase 11 {label}, cap 1", kind,
+                           surface_args(r0, r1, surfaces), ("twolevel",))
+    finally:
+        gk.TWOLEVEL_MAX_CAND = cap
 
 
 def seg_slice(seg, m):
@@ -754,37 +791,67 @@ def phase_12(device):
     return launched
 
 
-def guide2d_paths(rays, scene, materials, launched):
-    """The 2D guide through brute, cull=True and cull=True + re-sort: each
-    accelerated path's final rays equal the brute path's bit for bit, each
-    kernel launches once per bounce, median of 5 synchronised traces after
-    one more.  Adds each kernel's launches to ``launched``."""
-    import torch
-
-    from tensorflowraytrace_tpu_torch import scenes2d, trace
+def reset_2d_launches():
     from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
     from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 
-    bounces = scenes2d.GUIDE_BOUNCES
-    cfgs = {"brute": scenes2d.guide_config(use_kernel=True),
+    for mod in (gk, ak):
+        mod.LAUNCHES = mod.LAUNCHES_CULLED = mod.LAUNCHES_TWOLEVEL = 0
+
+
+def launches_2d():
+    """The 2D search kernels' launch counts since the last reset."""
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+
+    return {"K5": gk.LAUNCHES, "K6": ak.LAUNCHES, "K7": gk.LAUNCHES_CULLED,
+            "K8": ak.LAUNCHES_CULLED, "K9": gk.LAUNCHES_TWOLEVEL,
+            "K10": ak.LAUNCHES_TWOLEVEL}
+
+
+def kernels_2d(cfg):
+    """The segment and arc search kernels a 2D trace under ``cfg`` runs."""
+    variant = ("twolevel" if cfg.cull == "grid" else
+               "culled" if cfg.cull else "brute")
+    return tuple(SEARCHES_2D[kind][variant][0] for kind in ("segment", "arc"))
+
+
+def guide2d_configs():
+    from tensorflowraytrace_tpu_torch import scenes2d
+
+    return {"brute": scenes2d.guide_config(use_kernel=True),
             "cull": scenes2d.guide_config(use_kernel=True, cull=True),
             "cull+resort": scenes2d.guide_config(use_kernel=True, cull=True,
+                                                 resort_rays=True),
+            "grid": scenes2d.guide_config(use_kernel=True, cull="grid"),
+            "grid+resort": scenes2d.guide_config(use_kernel=True, cull="grid",
                                                  resort_rays=True)}
+
+
+def guide2d_paths(rays, scene, materials, launched):
+    """The 2D guide through brute, cull=True, cull=True + re-sort,
+    cull="grid" and cull="grid" + re-sort: each accelerated path's final
+    rays equal the brute path's bit for bit, each kernel launches once per
+    bounce, median of 5 synchronised traces after one more.  Adds each
+    kernel's launches to ``launched``."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import scenes2d, trace
+
+    bounces = scenes2d.GUIDE_BOUNCES
+    cfgs = guide2d_configs()
     times = {k: [] for k in cfgs}
     finals = {}
     for rep in range(6):  # rep 0 warms up and gives the results
         for name, cfg in cfgs.items():
-            gk.LAUNCHES = gk.LAUNCHES_CULLED = 0
-            ak.LAUNCHES = ak.LAUNCHES_CULLED = 0
+            reset_2d_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = trace(rays, scene, materials, cfg)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            counts = {"K5": gk.LAUNCHES, "K6": ak.LAUNCHES,
-                      "K7": gk.LAUNCHES_CULLED, "K8": ak.LAUNCHES_CULLED}
-            on = ("K5", "K6") if name == "brute" else ("K7", "K8")
-            want = {k: bounces if k in on else 0 for k in counts}
+            counts = launches_2d()
+            want = {k: bounces if k in kernels_2d(cfg) else 0 for k in counts}
             check(counts == want, f"2D guide {name}: launches {counts}")
             for k, c in counts.items():
                 launched[k] = launched.get(k, 0) + c
@@ -837,18 +904,20 @@ def profile_guide2d(label, rays, scene, materials, cfg, device):
         def busy(part):
             return sum(t for k, t in by_name.items() if part in k)
 
-        seg_us = busy("segment_search_kernel") + busy(
-            "segment_search_culled_kernel")
-        arc_us = busy("arc_search_kernel") + busy("arc_search_culled_kernel")
+        seg_us = busy("segment_search")
+        arc_us = busy("arc_search")
+        cand_us = range_device_us(prof, "twolevel_candidates")
         resort_us = range_device_us(prof, "resort_rays")
-        rest_us = busy_us - seg_us - arc_us - resort_us
+        rest_us = busy_us - seg_us - arc_us - cand_us - resort_us
         split = (f"device busy {union_us:.1f} us of {wall_us:.1f} us wall "
                  f"(idle share {1 - union_us / wall_us:.4f}); {n_device} "
-                 f"kernels and copies, {busy_us:.1f} us: segment search "
+                 f"kernels and copies ({n_device / cfg.max_bounces:.1f} a "
+                 f"bounce), {busy_us:.1f} us: segment search "
                  f"{seg_us:.1f} us ({seg_us / busy_us:.4%}), arc search "
-                 f"{arc_us:.1f} us ({arc_us / busy_us:.4%}), re-sort "
-                 f"{resort_us:.1f} us ({resort_us / busy_us:.4%}), rest "
-                 f"{rest_us:.1f} us ({rest_us / busy_us:.4%}); top: "
+                 f"{arc_us:.1f} us ({arc_us / busy_us:.4%}), candidate "
+                 f"precompute {cand_us:.1f} us ({cand_us / busy_us:.4%}), "
+                 f"re-sort {resort_us:.1f} us ({resort_us / busy_us:.4%}), "
+                 f"rest {rest_us:.1f} us ({rest_us / busy_us:.4%}); top: "
                  + "; ".join(f"{k[:50]} {t:.1f} us"
                              for k, t in by_name.most_common(5)))
     else:
@@ -861,7 +930,7 @@ def profile_guide2d(label, rays, scene, materials, cfg, device):
 
 def phase_13(device):
     """The 2D light guide at full width; returns the kernels-line fields of
-    K5-K8."""
+    K5-K10."""
     import torch
 
     from tensorflowraytrace_tpu_torch import scenes2d
@@ -877,12 +946,11 @@ def phase_13(device):
           f"2D guide has {seg.n_surfaces} segments, {arc.n_surfaces} arcs")
     launched = {}
     guide2d_paths(rays, scene, materials, launched)
-    for label, cfg in (("brute", scenes2d.guide_config(use_kernel=True)),
-                       ("cull+resort", scenes2d.guide_config(
-                           use_kernel=True, cull=True, resort_rays=True))):
-        profile_guide2d(label, rays, scene, materials, cfg, device)
+    cfgs = guide2d_configs()
+    for label in ("brute", "cull+resort", "grid+resort"):
+        profile_guide2d(label, rays, scene, materials, cfgs[label], device)
 
-    # K5-K8 alone at the first bounce, the rays in the re-sort's order
+    # K5-K10 alone at the first bounce, the rays in the re-sort's order
     lo = torch.minimum(seg.p0.amin(dim=0), seg.p1.amin(dim=0))
     hi = torch.maximum(seg.p0.amax(dim=0), seg.p1.amax(dim=0))
     order = torch.argsort(morton_codes_device(rays.p0, lo, hi), stable=True)
@@ -905,15 +973,16 @@ def phase_13(device):
         bytes_ms = (n * 16 + surface_bytes + out_bytes) / PEAK_BYTES_S * 1e3
         pairs = admitted_pairs(p0, p1, boxes, m, out["brute"][2],
                                gk.CULL_CHUNK)
-        for culled, key in ((False, "K5" if kind == "segment" else "K6"),
-                            (True, "K7" if kind == "segment" else "K8")):
-            work = pairs if culled else n * m
+        for variant, (key, _) in SEARCHES_2D[kind].items():
+            # K7-K10 share one bound: the pairs these inputs need at
+            # 256-surface chunks
+            work = n * m if variant == "brute" else pairs
             ops_ms = work * flops / PEAK_FP32_FLOP_S * 1e3
-            fn = search_2d(kind, culled)
-            plain = search_2d(kind, culled, plain=True)
+            fn = search_2d(kind, variant)
+            plain = search_2d(kind, variant, plain=True)
             fields[key] = {
                 "launches": launched[key],
-                "max_abs_err": err["culled" if culled else "brute"],
+                "max_abs_err": err[variant],
                 "ms": cuda_ms(lambda: fn(args), 10),
                 "plain_ms": cuda_ms(lambda: plain(args), 1),
                 "bound_ms": max(bytes_ms, ops_ms),
@@ -922,12 +991,166 @@ def phase_13(device):
                 "shape": f"{n}x{m} (first bounce of the 2D guide)",
             }
             f = fields[key]
+            if variant == "twolevel":
+                # the kernel alone, apart from its inputs' preparation
+                mod = gk if kind == "segment" else ak
+                eps = (EPS,) * (3 if kind == "segment" else 2)
+                prepared = mod.twolevel_prepare(*args, EPS)
+                f["wrapper_ms"] = f["ms"]
+                f["ms"] = cuda_ms(lambda: mod.twolevel_launch(
+                    args[0], args[1], m, prepared, *eps), 10)
+                f["prepare_ms"] = cuda_ms(
+                    lambda: mod.twolevel_prepare(*args, EPS), 10)
+                counts = prepared[2]
+                f["blocks"] = counts.shape[0]
+                # a count of n_chunks is a sweep only when the cap is
+                # below n_chunks; otherwise it lists every chunk
+                n_chunks = prepared[1].shape[0]
+                f["overflow_blocks"] = (int((counts == n_chunks).sum())
+                                        if prepared[4] < n_chunks else 0)
+                f["mean_candidates"] = float(counts.float().mean())
+                print(f"phase 13 {key} at the first bounce: kernel alone "
+                      f"{f['ms']:.4f} ms, its input preparation (table, "
+                      f"boxes, candidates) {f['prepare_ms']:.4f} ms, wrapper "
+                      f"{f['wrapper_ms']:.4f} ms; ray block "
+                      f"{gk.TWOLEVEL_RAY_BLOCK}, chunk {gk.CULL_CHUNK}, cap "
+                      f"{prepared[4]}: {f['blocks']} blocks, "
+                      f"{f['overflow_blocks']} overflow, mean count "
+                      f"{f['mean_candidates']:.2f} of {prepared[1].shape[0]}",
+                      flush=True)
+                del prepared, counts
             print(f"phase 13 {key} alone at the first bounce {n}x{m}: kernel "
                   f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, bound "
                   f"{f['bound_ms']:.5f} ms ({f['bound_by']}; {work} pairs, "
                   f"{work / (n * m):.4%} of brute, {flops} flops each)",
                   flush=True)
     return fields
+
+
+def phase_14(device):
+    """The 2D guide as a design problem under TraceConfig.recommended: one
+    forward and backward pass with and without remat, then an early-exit
+    trace.  Returns the search kernels' launches in the passes."""
+    import dataclasses
+
+    import torch
+
+    from tensorflowraytrace_tpu_torch import TraceConfig, scenes2d, trace
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+
+    bounces = scenes2d.GUIDE_BOUNCES
+    loss, params, scene = scenes2d.guide_design(GUIDE2D_RAYS, device=device)
+    cfg = TraceConfig.recommended(scene, max_bounces=bounces,
+                                  dead_ray_length=scenes2d.DEAD_RAY_LENGTH)
+    print(f"phase 14 recommended: {cfg}", flush=True)
+    check(cfg.use_kernel and cfg.remat, f"recommended chose {cfg}")
+    on_path = kernels_2d(cfg)
+
+    def forward_backward(c):
+        value = loss(params, c)
+        return value.detach(), torch.autograd.grad(value, params)
+
+    launched, result = {}, {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, remat=remat)
+        forward_backward(c)  # warm-up
+        reset_2d_launches()
+        sk.LAUNCHES = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        result[remat] = forward_backward(c)
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        counts = launches_2d()
+        want = {k: bounces if k in on_path else 0 for k in counts}
+        check(counts == want, f"phase 14 remat={remat}: search launches "
+              f"{counts}, not {want}")
+        for k in on_path:
+            launched[k] = launched.get(k, 0) + counts[k]
+        k2 = sk.LAUNCHES
+        times = []
+        for _ in range(DESIGN_PASSES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward_backward(c)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        value, grads = result[remat]
+        print(f"phase 14 remat={remat}: forward + backward median "
+              f"{statistics.median(times) * 1e3:.3f} ms over {DESIGN_PASSES} "
+              f"{[round(t * 1e3, 3) for t in times]}; peak device memory "
+              f"{peak_gib:.3f} GiB; loss {float(value)!r}; max |g| centre "
+              f"{float(grads[0].abs().max())!r} radius "
+              f"{float(grads[1].abs().max())!r}; search launches "
+              f"{ {k: counts[k] for k in on_path} }, K2 {k2}", flush=True)
+    gmax = max(float(g.abs().max()) for g in result[False][1])
+    gdiff = max(float((a - b).abs().max())
+                for a, b in zip(result[True][1], result[False][1]))
+    check(gmax > 0 and gdiff <= 1e-4 * gmax,
+          f"remat gradient differs by {gdiff} (max {gmax})")
+    print(f"phase 14 gradient: max |g_remat - g| = {gdiff!r}, max |g| = "
+          f"{gmax!r}, ratio {gdiff / gmax:.3e}; loss remat "
+          f"{float(result[True][0])!r}, without {float(result[False][0])!r}",
+          flush=True)
+
+    rays, scene, materials = scenes2d.light_guide(GUIDE2D_RAYS, device=device)
+    with torch.no_grad():
+        full = trace(rays, scene, materials, cfg)
+        early_cfg = dataclasses.replace(cfg, early_exit=True)
+        early = trace(rays, scene, materials, early_cfg)
+        syncs = count_syncs(lambda: trace(rays, scene, materials, early_cfg))
+    same = {f: torch.equal(getattr(early.rays, f), getattr(full.rays, f))
+            for f in ("state", "p0", "p1")}
+    print(f"phase 14 early_exit: {early.n_bounces} bounces of {bounces}; "
+          f"states[active,finished,stopped,dead]="
+          f"{state_counts(early.rays.state)}; bitwise equal to the "
+          f"{bounces}-bounce trace {same}; {syncs} synchronising calls",
+          flush=True)
+    check(all(same.values()), f"early exit differs from the full trace {same}")
+    return launched
+
+
+def tune_twolevel_2d(device):
+    """``--tune``: K9's and K10's ray block (cap 32), then their cap at the
+    best block, on the 2D guide (50 bounces) with ``cull="grid"`` with and
+    without the re-sort: median of 3 traces after one, each checked against
+    the brute trace bit for bit; the brute trace's median, taken in the
+    same process, is the yardstick."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import scenes2d, trace
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+
+    rays, scene, materials = scenes2d.light_guide(GUIDE2D_RAYS, device=device)
+    cfgs = guide2d_configs()
+    ref = trace(rays, scene, materials, cfgs["brute"]).rays
+
+    def run(rb, cap):
+        gk.TWOLEVEL_RAY_BLOCK, gk.TWOLEVEL_MAX_CAND = rb, cap
+        out = {}
+        for name in ("brute", "grid", "grid+resort"):
+            times = []
+            for rep in range(4):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = trace(rays, scene, materials, cfgs[name])
+                torch.cuda.synchronize()
+                if rep == 0:
+                    check(torch.equal(res.rays.state, ref.state)
+                          and torch.equal(res.rays.p1, ref.p1),
+                          f"tune 2D {name} {rb}/{cap} differs from brute")
+                else:
+                    times.append(time.perf_counter() - t0)
+            out[name] = statistics.median(times)
+        print(f"tune 2D ray_block={rb} chunk={gk.CULL_CHUNK} max_cand={cap}: "
+              + ", ".join(f"{k} {t * 1e3:.3f} ms" for k, t in out.items()),
+              flush=True)
+        return out
+
+    blocks = {rb: run(rb, 32) for rb in (64, 128, 256, 512)}
+    rb = min(blocks, key=lambda key: min(blocks[key].values()))
+    for cap in (2, 4, 8, 16):
+        run(rb, cap)
 
 
 def main():
@@ -968,20 +1191,22 @@ def main():
     # ---- phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
     sources = [tk.SOURCE, tk.SOURCE_CULLED, tk.SOURCE_TWOLEVEL, sk.SOURCE,
-               gk.SOURCE, gk.SOURCE_CULLED, ak.SOURCE, ak.SOURCE_CULLED]
+               gk.SOURCE, gk.SOURCE_CULLED, gk.SOURCE_TWOLEVEL, ak.SOURCE,
+               ak.SOURCE_CULLED, ak.SOURCE_TWOLEVEL]
     reports = cuda_build.build(sources, verbose=True)
     for source, report in reports.items():
         print(f"phase 2 nvcc {source}:\n{report.strip()}", flush=True)
     for mod in (tk, gk, ak):
         mod.load_library()
         mod.load_culled_library()
-    tk.load_twolevel_library()
+        mod.load_twolevel_library()
     sk.load_library()
     print(f"phase 2 build: "
           + " ".join(cuda_build.library_path(s).name for s in sources)
           + f" in {time.perf_counter() - t0:.2f} s", flush=True)
     if "--tune" in sys.argv[1:]:
         tune_twolevel(device)
+        tune_twolevel_2d(device)
         return 0
 
     # ---- phase 3: K1 against its plain version
@@ -1359,10 +1584,11 @@ def main():
           f"{g_peak_gib:.3f} GiB; {g_syncs} synchronising calls", flush=True)
     check(g_syncs == 0, f"the guide trace synchronised {g_syncs} times")
 
-    # ---- phases 11-13: the 2D path
+    # ---- phases 11-14: the 2D path
     phase_11(device)
     arc_train = phase_12(device)
     k2d = phase_13(device)
+    design = phase_14(device)
 
     main_k2 = k2["flagship_bench"]
     print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
@@ -1402,11 +1628,14 @@ def main():
         "replaces": f"tensorflowraytrace_tpu/ops/pallas_kernels.py:{line}",
         **k2d[key], "library_ms": None,
         **({"launches_training": arc_train[key]} if key in arc_train else {}),
+        **({"launches_design": design[key]} if key in design else {}),
     } for name, source, line, key in (
         ("segment_search", gk.SOURCE, 705, "K5"),
         ("arc_search", ak.SOURCE, 367, "K6"),
         ("segment_search_culled", gk.SOURCE_CULLED, 745, "K7"),
-        ("arc_search_culled", ak.SOURCE_CULLED, 454, "K8"))]}))
+        ("arc_search_culled", ak.SOURCE_CULLED, 454, "K8"),
+        ("segment_search_twolevel", gk.SOURCE_TWOLEVEL, 1230, "K9"),
+        ("arc_search_twolevel", ak.SOURCE_TWOLEVEL, 1322, "K10"))]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

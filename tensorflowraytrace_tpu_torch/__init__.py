@@ -4,7 +4,8 @@ differentiable optical ray tracer.
 It mirrors the module paths of ``tensorflowraytrace_tpu`` (the JAX package,
 which stays the reference) and imports no JAX and nothing of the JAX
 package.  Its slices so far are the 3D forward trace, training, the
-acceleration path and the 2D trace:
+acceleration path, the 2D trace and the deep 2D trace (two-level 2D
+searches, remat, early exit, folds, TraceConfig.recommended):
 
   models/     rays, surfaces (2D segments and arcs, 3D triangles, the
               merged Scene2D and Scene3D), sources, distributions (2D
@@ -17,11 +18,12 @@ acceleration path and the 2D trace:
               force csrc/triangle_search.cu, culled triangle_search_culled.cu,
               two-level triangle_search_twolevel.cu), segments
               (ops/segment_kernels.py: segment_search.cu,
-              segment_search_culled.cu) and arcs (ops/arc_kernels.py:
-              arc_search.cu, arc_search_culled.cu); the gather's backward
+              segment_search_culled.cu, segment_search_twolevel.cu) and
+              arcs (ops/arc_kernels.py: arc_search.cu, arc_search_culled.cu,
+              arc_search_twolevel.cu); the gather's backward
               as a CUDA segment sum (ops/segsum_kernels.py,
               csrc/segment_sum.cu); and their nvcc build (ops/cuda_build.py)
-  engine      the multi-bounce trace loop, 2D and 3D
+  engine      the multi-bounce trace loop, 2D and 3D, and its folds
   optim       the optimizers (gradient pipeline, phases)
   flagship    the parametric-lens imaging problem and its training run
   utils/      rotations, NumPy conversion

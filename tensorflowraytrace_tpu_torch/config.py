@@ -43,6 +43,13 @@ def set_default_device(device) -> torch.device:
     return previous
 
 
+def default_device() -> torch.device:
+    """The default device as set (CUDA unless :func:`set_default_device`
+    changed it).  Unlike :func:`resolve_device` it does not check that the
+    device is available: it says where the port would run."""
+    return _default_device
+
+
 def resolve_device(device=None) -> torch.device:
     """``device``, or the default device (CUDA unless set otherwise by
     :func:`set_default_device`).  Raises when the default is CUDA and no

@@ -1,7 +1,8 @@
 // What the 2D nearest-hit searches share: the ray load, the 2D slab gate,
-// and the staging and per-tile search of segments (K5 segment_search.cu,
-// K7 segment_search_culled.cu) and of arcs (K6 arc_search.cu, K8
-// arc_search_culled.cu).
+// the staging and per-tile search of segments (K5 segment_search.cu, K7
+// segment_search_culled.cu, K9 segment_search_twolevel.cu) and of arcs (K6
+// arc_search.cu, K8 arc_search_culled.cu, K10 arc_search_twolevel.cu), and
+// the two-level walk of K9 and K10.
 //
 // Every kernel runs one thread per ray, kThreads rays per block, and walks
 // the surfaces in tiles of kTile staged in shared memory as
@@ -16,6 +17,7 @@
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace search2d {
@@ -75,6 +77,12 @@ __device__ __forceinline__ bool slab_gate(const float* __restrict__ box,
 
 // ---------------------------------------------------------------- segments
 
+// One tile of segments as K9 stages it whole from its chunk-major table
+// (ops/segment_kernels.segment_chunk_table): the rows of stage_segments.
+struct SegmentTile {
+  float row[4][kTile];
+};
+
 // Segments base .. base + count - 1 of sp0, sp1 ((m, 2) float32 row-major)
 // into the tile's rows: start x, start y, direction x, direction y.
 __device__ __forceinline__ void stage_segments(float (*tile)[kTile],
@@ -127,6 +135,9 @@ __device__ __forceinline__ void search_segments(const float (*tile)[kTile],
 // than pi, 2: a full circle).
 constexpr int kArcCols = 8;
 
+// K10 stages an ArcTile whole from its chunk-major table
+// (ops/arc_kernels.arc_chunk_table), whose eighth row holds the flags' int32
+// bits: the layout is 8 rows of kTile 4-byte words.
 struct ArcTile {
   float xc[kTile], yc[kTile], inv_r[kTile];
   float sx[kTile], sy[kTile], ex[kTile], ey[kTile];
@@ -221,6 +232,66 @@ __device__ __forceinline__ void search_arcs(const ArcTile& tile, int count,
       best_idx = base + t;
       best_minus = um < up;
     }
+  }
+}
+
+// ------------------------------------------------------- the two-level walk
+
+// The walk of K9 and K10: one CUDA block per ray block (one thread per
+// ray), fine chunks of kTile surfaces.
+// - The block reads its own candidate count and list from global memory
+//   (ops/triangle_kernels.twolevel_candidates): it walks cand[b * max_cand
+//   ...] for counts[b] steps, or every chunk 0 .. n_chunks - 1 in order when
+//   counts[b] == n_chunks (its list overflowed the cap).
+// - Chunk k + 1 is copied with cp.async (16 bytes a thread) from the
+//   chunk-major table (one Tile per chunk, zero past m) into the second of
+//   the two shared buffers while chunk k is searched.
+// - Chunk k is gated by slab_gate against each ray's running best: a block
+//   vote (__syncthreads_or) skips a chunk no ray of the block needs, a warp
+//   vote (__any_sync) the arithmetic of warps none of whose rays need it.
+// - The ragged last chunk is searched for its real surfaces only.
+// `search(tile, count, base)` folds a staged tile into the thread's running
+// best, whose ray parameter `best_u` it updates.
+template <typename Tile, typename Search>
+__device__ __forceinline__ void twolevel_walk(
+    Tile (&buf)[2], const float* __restrict__ table,
+    const float* __restrict__ aabb, const int* __restrict__ counts,
+    const int* __restrict__ cand, int n_chunks, int max_cand, int m,
+    const Ray& r, bool live, float r_eps, float slack_hi, float slack_lo,
+    float slack, const float& best_u, Search search) {
+  static_assert(sizeof(Tile) % sizeof(float4) == 0, "whole float4 copies");
+  constexpr int kVecs = sizeof(Tile) / sizeof(float4);
+  const int cnt = counts[blockIdx.x];
+  const bool sweep = cnt == n_chunks;
+  const int* list = cand + static_cast<size_t>(blockIdx.x) * max_cand;
+  auto chunk_id = [&](int k) { return sweep ? k : list[min(k, max_cand - 1)]; };
+  auto stage = [&](int c, int slot) {
+    const float4* src =
+        reinterpret_cast<const float4*>(table) + static_cast<size_t>(c) * kVecs;
+    float4* dst = reinterpret_cast<float4*>(&buf[slot]);
+    for (int i = threadIdx.x; i < kVecs; i += blockDim.x)
+      __pipeline_memcpy_async(dst + i, src + i, sizeof(float4));
+    __pipeline_commit();
+  };
+
+  if (cnt > 0) stage(chunk_id(0), 0);
+  for (int k = 0; k < cnt; ++k) {
+    const int c = chunk_id(k);
+    if (k + 1 < cnt) {
+      stage(chunk_id(k + 1), (k + 1) & 1);
+      __pipeline_wait_prior(1);  // this thread's copies of chunk k landed
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    const bool need = live && slab_gate(aabb + 4 * c, r, r_eps, slack_hi,
+                                        slack_lo, slack, best_u);
+    const bool warp_need = __any_sync(0xffffffffu, need);
+    // the barrier after which every thread's copies of chunk k are visible
+    if (__syncthreads_or(need) && warp_need) {
+      const int base = c * kTile;
+      search(buf[k & 1], min(kTile, m - base), base);
+    }
+    __syncthreads();  // buffer k & 1 is no longer read: step k+1 refills it
   }
 }
 

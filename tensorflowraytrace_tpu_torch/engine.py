@@ -1,18 +1,22 @@
-"""The trace engine: the multi-bounce forward trace in 2D and 3D.
+"""The trace engine: the multi-bounce trace in 2D and 3D, and the fold
+helpers that reduce it bounce by bounce.
 
-Counterpart of the forward path of ``tensorflowraytrace_tpu/engine.py``.
-Rays never compact: each keeps its slot and a ``state`` code (ACTIVE,
-FINISHED on a target, STOPPED on a stop, DEAD on a miss).  When an ACTIVE
-ray reacts with an OPTICAL surface its child replaces it in its slot.  The
-bounce loop is a Python loop over ``max_bounces``.
+Counterpart of ``tensorflowraytrace_tpu/engine.py`` (without
+``trace_streamed``).  Rays never compact: each keeps its slot and a
+``state`` code (ACTIVE, FINISHED on a target, STOPPED on a stop, DEAD on a
+miss).  When an ACTIVE ray reacts with an OPTICAL surface its child replaces
+it in its slot.  The bounce loop is a Python loop over ``max_bounces``, or,
+with ``early_exit``, until no ray is ACTIVE.
 
-One bounce (``project_3d`` for a ``Scene3D``, ``project_2d`` for a
-``Scene2D``) runs: the nearest-hit search (no gradient; with ``cull``,
-terminated rays are parked outside every box and, with ``resort_rays``,
-the rays are searched in Morton order), one gather of per-surface rows per
-surface kind (whose backward is a segment sum), the differentiable refine
-of the winning hit, then (``single_pass``) classification and the reaction
-(Snell's law: the vector form in 3D, the angle form in 2D).
+One bounce (``single_pass``) runs the nearest-hit search (``search_bounce``:
+no gradient; with ``cull``, terminated rays are parked outside every box
+and, with ``resort_rays``, the rays are searched in Morton order), then the
+rest of the bounce: one gather of per-surface rows per surface kind (whose
+backward is a segment sum) and the differentiable refine of the winning hit
+(``project_3d`` for a ``Scene3D``, ``project_2d`` for a ``Scene2D``),
+classification and the reaction (Snell's law: the vector form in 3D, the
+angle form in 2D).  With ``remat`` the rest of the bounce is recomputed in
+the backward pass; the search is not.
 """
 
 from __future__ import annotations
@@ -22,9 +26,12 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from tensorflowraytrace_tpu_torch import config
 from tensorflowraytrace_tpu_torch.config import (
     ACTIVE, DEAD, FINISHED, OPTICAL, STOP, STOPPED, default_epsilon,
+    resolve_device,
 )
 from tensorflowraytrace_tpu_torch.models.acceleration import morton_codes_device
 from tensorflowraytrace_tpu_torch.models.rays import RaySet
@@ -34,9 +41,13 @@ from tensorflowraytrace_tpu_torch.ops import segsum_kernels as segsum
 from tensorflowraytrace_tpu_torch.ops.geometry import snell_3d_vec, snells_law_2D
 from tensorflowraytrace_tpu_torch.ops.materials import material_index_lookup
 
-# TraceConfig fields of the JAX engine that this port does not implement yet;
-# setting one raises rather than being ignored.
-_NOT_IMPLEMENTED = ("remat", "early_exit")
+# TraceConfig.recommended on the card: 3D scenes of at least this many
+# triangles are traced with cull=True and resort_rays=True.  PERF.md, the
+# table of recommended's rules: chip_smoke.py's sorted soup (4096
+# triangles) and structured guide (16386) both run fastest that way on the
+# H100; no smaller 3D scene was measured culled, and the flagship's
+# 770-triangle traces are launch-bound.
+CULL_3D_MIN_TRIANGLES = 4096
 
 
 @dataclass(frozen=True)
@@ -56,8 +67,8 @@ class TraceConfig:
     refractive_index_type: str = "index"
     use_kernel: bool = False
     # conservative chunk culling (exact) under use_kernel: True -> K3 in 3D,
-    # K7 and K8 in 2D; "grid" -> K4 in 3D (2D raises: K9 and K10 are not
-    # ported); inactive rays are parked outside every chunk box
+    # K7 and K8 in 2D; "grid" -> the two-level K4 in 3D, K9 and K10 in 2D;
+    # inactive rays are parked outside every chunk box
     cull: object = False
     surf_chunk: int = 128
     ray_block: int = 32768
@@ -65,6 +76,9 @@ class TraceConfig:
     intersect_epsilon: Optional[float] = None
     size_epsilon: Optional[float] = None
     ray_start_epsilon: Optional[float] = None
+    # recompute each bounce but its search in the backward pass
+    # (torch.utils.checkpoint): the backward keeps each bounce's rays and
+    # hits, not the intermediates of its refine and reaction
     remat: bool = False
     # False -> hit points come from the search's ray parameter and no
     # gradient reaches the surface geometry
@@ -72,14 +86,10 @@ class TraceConfig:
     # with cull: sort the rays by the Morton code of their start before each
     # search, so ray blocks stay coherent; results are scattered back
     resort_rays: bool = False
+    # stop bouncing once no ray is ACTIVE; forward only (it raises when
+    # autograd would record the trace) and not with keep_history.  Each
+    # bounce then reads one bool back from the device.
     early_exit: bool = False
-
-    def __post_init__(self):
-        for name in _NOT_IMPLEMENTED:
-            if getattr(self, name):
-                raise NotImplementedError(
-                    f"TraceConfig.{name} is not implemented in the PyTorch "
-                    "port yet")
 
     def epsilons(self, dtype):
         e = default_epsilon(dtype)
@@ -88,6 +98,37 @@ class TraceConfig:
             e if self.size_epsilon is None else self.size_epsilon,
             e if self.ray_start_epsilon is None else self.ray_start_epsilon,
         )
+
+    @staticmethod
+    def recommended(scene, max_bounces=25, **overrides):
+        """A TraceConfig for ``scene`` where the port would run: on its
+        default device (``config.default_device()``, as the JAX package
+        reads its first device).
+
+        * Off the card, the JAX package's policy off the TPU: no kernels,
+          no culling, no re-sort.
+        * On the card (a CUDA default), the CUDA searches
+          (``use_kernel``), with ``cull=True`` and ``resort_rays`` for 3D
+          scenes of ``CULL_3D_MIN_TRIANGLES`` triangles or more, and the
+          brute searches otherwise: the H100 measurements in PERF.md's
+          table of these rules (not the TPU's, which pick ``"grid"``).
+        * ``remat`` for deep traces (bounce budget > 16), so the backward
+          pass keeps each bounce's rays and hits but not every
+          intermediate of every bounce.
+
+        Morton-sort the scene once at build time so culling has compact
+        chunks to skip.  Any field can be overridden by keyword.
+        """
+        on_card = config.default_device().type == "cuda"
+        if isinstance(scene, Scene3D):
+            culled = on_card and (scene.triangles.n_surfaces
+                                  >= CULL_3D_MIN_TRIANGLES)
+        else:
+            culled = False
+        cfg = dict(max_bounces=max_bounces, use_kernel=on_card, cull=culled,
+                   resort_rays=culled, remat=max_bounces > 16)
+        cfg.update(overrides)
+        return TraceConfig(**cfg)
 
 
 @dataclass
@@ -237,23 +278,46 @@ def _value_mode(cfg, materials):
     return value_mode
 
 
-def project_3d(rays: RaySet, scene: Scene3D, materials,
-               cfg: TraceConfig) -> Projection:
-    """One intersection + gather pass: search, gather the winning surface's
-    row of the (M, k) table [vp v1 v2 norm annotation], refine."""
+def search_bounce(rays: RaySet, scene, cfg: TraceConfig) -> isect.HitRecord:
+    """The bounce's nearest-hit search over a ``Scene3D`` or ``Scene2D``
+    (:func:`_search`, on detached endpoints: it has no gradient).  With
+    ``resort_rays`` the re-sort's box is that of the triangles' ``vp`` and
+    ``v2`` in 3D and of the segments alone in 2D (a 2D scene without
+    segments is not re-sorted), as in the JAX package."""
     i_eps, s_eps, r_eps = cfg.epsilons(rays.p0.dtype)
-    tri = scene.triangles
-    box = None
-    if cfg.cull and cfg.resort_rays:
-        # the re-sort's box is that of tri.vp and tri.v2, as in the JAX
-        # package
-        vp, v2 = tri.vp.detach(), tri.v2.detach()
-        box = (torch.minimum(vp.amin(dim=0), v2.amin(dim=0)),
-               torch.maximum(vp.amax(dim=0), v2.amax(dim=0)))
-    hit = _search(rays, cfg, box, lambda p0, p1: isect.nearest_hit_triangles(
-        p0, p1, tri, i_eps, s_eps, r_eps, surf_chunk=cfg.surf_chunk,
-        ray_block=cfg.ray_block, use_kernel=cfg.use_kernel, cull=cfg.cull))
+    kw = dict(surf_chunk=cfg.surf_chunk, ray_block=cfg.ray_block,
+              use_kernel=cfg.use_kernel, cull=cfg.cull)
+    if isinstance(scene, Scene3D):
+        a, b = scene.triangles.vp, scene.triangles.v2
 
+        def search(p0, p1):
+            return isect.nearest_hit_triangles(p0, p1, scene.triangles, i_eps,
+                                               s_eps, r_eps, **kw)
+    else:
+        a = b = None
+        if scene.segments is not None:
+            a, b = scene.segments.p0, scene.segments.p1
+
+        def search(p0, p1):
+            return isect.nearest_hit_2d(p0, p1, scene, i_eps, s_eps, r_eps,
+                                        **kw)
+    box = None
+    if cfg.cull and cfg.resort_rays and a is not None:
+        a, b = a.detach(), b.detach()
+        box = (torch.minimum(a.amin(dim=0), b.amin(dim=0)),
+               torch.maximum(a.amax(dim=0), b.amax(dim=0)))
+    return _search(rays, cfg, box, search)
+
+
+def project_3d(rays: RaySet, scene: Scene3D, materials, cfg: TraceConfig,
+               hit: Optional[isect.HitRecord] = None) -> Projection:
+    """One intersection + gather pass: the search (or its result ``hit``),
+    then the gather of the winning surface's row of the (M, k) table
+    [vp v1 v2 norm annotation] and the refine."""
+    if hit is None:
+        hit = search_bounce(rays, scene, cfg)
+    i_eps = cfg.epsilons(rays.p0.dtype)[0]
+    tri = scene.triangles
     dtype = rays.p0.dtype
     value_mode = _value_mode(cfg, materials)
     cols = [tri.vp, tri.v1, tri.v2] if cfg.differentiable else []
@@ -279,29 +343,21 @@ def project_3d(rays: RaySet, scene: Scene3D, materials,
     )
 
 
-def project_2d(rays: RaySet, scene: Scene2D, materials,
-               cfg: TraceConfig) -> Projection:
+def project_2d(rays: RaySet, scene: Scene2D, materials, cfg: TraceConfig,
+               hit: Optional[isect.HitRecord] = None) -> Projection:
     """One 2D intersection + gather pass: the search over segments and arcs
-    (``isect.nearest_hit_2d`` picks the nearer kind), then one gather per
-    surface kind of its (M, k) table [geometry annotation] and its refine;
-    each ray keeps the kind it hit (``where`` on ``hit.kind``).
+    (``isect.nearest_hit_2d`` picks the nearer kind; or its result ``hit``),
+    then one gather per surface kind of its (M, k) table [geometry
+    annotation] and its refine; each ray keeps the kind it hit (``where``
+    on ``hit.kind``).
 
     Both gathers use the one ``hit.idx``, which indexes the kind the ray
     hit: a ray that hit arc 400 also gathers segment row 400, discarded by
     the ``where``.  The index is clamped to each table's last row first
     (JAX's gather clamps; torch's would fault)."""
-    i_eps, s_eps, r_eps = cfg.epsilons(rays.p0.dtype)
-    box = None
-    if cfg.cull and cfg.resort_rays and scene.segments is not None:
-        # the re-sort's box is that of the segments alone, and a scene
-        # without segments is not re-sorted, as in the JAX package
-        sp0, sp1 = scene.segments.p0.detach(), scene.segments.p1.detach()
-        box = (torch.minimum(sp0.amin(dim=0), sp1.amin(dim=0)),
-               torch.maximum(sp0.amax(dim=0), sp1.amax(dim=0)))
-    hit = _search(rays, cfg, box, lambda p0, p1: isect.nearest_hit_2d(
-        p0, p1, scene, i_eps, s_eps, r_eps, surf_chunk=cfg.surf_chunk,
-        ray_block=cfg.ray_block, use_kernel=cfg.use_kernel, cull=cfg.cull))
-
+    if hit is None:
+        hit = search_bounce(rays, scene, cfg)
+    i_eps = cfg.epsilons(rays.p0.dtype)[0]
     n = rays.n_rays
     dtype = rays.p0.dtype
     point = rays.p1
@@ -365,13 +421,29 @@ def default_reaction(proj: Projection, rays: RaySet, cfg: TraceConfig):
 
 def single_pass(rays: RaySet, scene, materials, cfg: TraceConfig,
                 reaction: Callable = default_reaction):
-    """One bounce: project, classify, react.  Returns ``(new_rays, record)``
-    where record = (p0, p1_projected, state, alive) describes the parent
-    rays as they ended this pass."""
+    """One bounce: search, project, classify, react.  Returns
+    ``(new_rays, record)`` where record = (p0, p1_projected, state, alive)
+    describes the parent rays as they ended this pass.
+
+    With ``cfg.remat`` everything after the search runs under
+    ``torch.utils.checkpoint`` with the search's per-ray hits as inputs
+    (the counterpart of the JAX package's ``save_only_these_names`` policy
+    on ``_tag_hit``): the backward recomputes the O(N) gathers, refine and
+    reaction, and never the N x M search.  The bounce draws no random
+    numbers, so no RNG state is kept."""
+    hit = search_bounce(rays, scene, cfg)
+    if cfg.remat:
+        return checkpoint(_bounce_rest, rays, scene, materials, cfg, reaction,
+                          hit, use_reentrant=False, preserve_rng_state=False)
+    return _bounce_rest(rays, scene, materials, cfg, reaction, hit)
+
+
+def _bounce_rest(rays, scene, materials, cfg, reaction, hit):
+    """The bounce after its search: :func:`single_pass`'s result."""
     if isinstance(scene, Scene3D):
-        proj = project_3d(rays, scene, materials, cfg)
+        proj = project_3d(rays, scene, materials, cfg, hit)
     else:
-        proj = project_2d(rays, scene, materials, cfg)
+        proj = project_2d(rays, scene, materials, cfg, hit)
 
     active = rays.state == ACTIVE
     # finite-hit guard: a grazing hit with |det| barely over epsilon can put
@@ -448,8 +520,19 @@ def trace(rays: RaySet, scene, materials=None, cfg: TraceConfig = TraceConfig(),
     ``fold_fn(acc, record) -> acc`` (starting from ``fold_init``) runs once
     per bounce on the ``(p0, p1_projected, state, was_active)`` record, plus
     the post-bounce ray ``fields`` as a fifth element when ``fold_fields``;
-    the final accumulator lands in ``TraceResult.fold``.  ``keep_history``
-    stacks the records along a leading bounce axis.
+    the final accumulator lands in ``TraceResult.fold`` (see
+    :func:`path_length_fold`, :func:`bounce_count_fold`,
+    :func:`landing_sum_fold`).  Folds compose with ``cfg.remat`` and are
+    differentiable.  ``keep_history`` stacks the records along a leading
+    bounce axis.
+
+    ``cfg.early_exit`` stops once no ray is ACTIVE and reports the depth
+    reached in ``TraceResult.n_bounces``, as the JAX package's
+    ``while_loop`` does.  It is forward only: it raises when autograd
+    records the trace (run it under ``torch.no_grad()``) and with
+    ``keep_history``.  Its test of whether any ray is still ACTIVE reads
+    one bool back from the device before each bounce, a host
+    synchronisation per bounce that the other traces do not make.
     """
     materials = tuple(materials or ())
     if cfg.keep_history:
@@ -462,16 +545,30 @@ def trace(rays: RaySet, scene, materials=None, cfg: TraceConfig = TraceConfig(),
                 f"bounces would stack ~{hist_bytes / 2 ** 30:.0f} GiB of "
                 "per-bounce history; use a fold (fold_fn/fold_init) instead")
 
+    if cfg.early_exit and cfg.keep_history:
+        raise ValueError("early_exit is incompatible with keep_history (the "
+                         "JAX package's while_loop has no stacked outputs)")
+
     acc = fold_init
     records = []
-    for _ in range(cfg.max_bounces):
+    n_done = 0
+    while n_done < cfg.max_bounces:
+        if cfg.early_exit and not bool(torch.any(rays.state == ACTIVE)):
+            break
         new_rays, record = single_pass(rays, scene, materials, cfg, reaction)
+        if (cfg.early_exit and torch.is_grad_enabled()
+                and (new_rays.p0.requires_grad or new_rays.p1.requires_grad)):
+            raise ValueError(
+                "early_exit is forward only (the JAX package's while_loop is "
+                "not differentiable): trace under torch.no_grad(), or without "
+                "early_exit for gradients")
         if fold_fn is not None:
             acc = fold_fn(acc, record + (new_rays.fields,) if fold_fields
                           else record)
         if cfg.keep_history:
             records.append(record)
         rays = new_rays
+        n_done += 1
 
     if cfg.keep_history:
         h_p0, h_p1, h_state, h_alive = (torch.stack(col) for col in zip(*records))
@@ -479,5 +576,56 @@ def trace(rays: RaySet, scene, materials=None, cfg: TraceConfig = TraceConfig(),
         h_p0 = h_p1 = h_state = h_alive = None
     return TraceResult(
         rays=rays, history_p0=h_p0, history_p1=h_p1, history_state=h_state,
-        history_alive=h_alive, fold=acc, n_bounces=cfg.max_bounces,
+        history_alive=h_alive, fold=acc, n_bounces=n_done,
     )
+
+
+# ======================================================================
+# fold helpers: reductions of a deep trace without its history
+# ======================================================================
+
+def newly_terminated(record, state_code):
+    """Mask of the slots whose ray reached ``state_code`` on this bounce;
+    takes either record arity (4, or 5 with ``fold_fields``)."""
+    _, _, state, alive = record[:4]
+    return alive & (state == state_code)
+
+
+def path_length_fold(n_rays, dtype, device=None):
+    """``(init, fn)``: per-slot total path length, the sum of segment
+    lengths over every bounce the ray was alive (each bounce overwrites the
+    final slots, so without the fold this needs the history)."""
+    init = torch.zeros((n_rays,), dtype=dtype, device=resolve_device(device))
+
+    def fn(acc, record):
+        p0, p1, _, alive = record[:4]
+        seg = torch.linalg.vector_norm(p1 - p0, dim=-1)
+        return acc + torch.where(alive, seg, 0.0)
+
+    return init, fn
+
+
+def bounce_count_fold(n_rays, device=None):
+    """``(init, fn)``: per-slot number of bounces each ray was alive for."""
+    init = torch.zeros((n_rays,), dtype=torch.int32,
+                       device=resolve_device(device))
+
+    def fn(acc, record):
+        return acc + record[3].to(torch.int32)
+
+    return init, fn
+
+
+def landing_sum_fold(value_fn, dtype, state_code=FINISHED, device=None):
+    """``(init, fn)``: running scalar sum of ``value_fn(p1) -> (N,)`` over
+    the rays at the bounce they terminate with ``state_code``, e.g. a
+    squared landing error summed over finished rays, so that a deep trace's
+    loss needs neither its history nor a gather of the final slots."""
+    init = torch.zeros((), dtype=dtype, device=resolve_device(device))
+
+    def fn(acc, record):
+        _, p1, state, alive = record[:4]
+        mask = alive & (state == state_code)
+        return acc + torch.sum(torch.where(mask, value_fn(p1), 0.0))
+
+    return init, fn

@@ -14,8 +14,8 @@ search's hits bit for bit, it only skips work that cannot give a nearer hit.
    box of each arc.
 3. The culled searches slab-test rays against those boxes and skip the
    chunks no ray can improve on: ``ops/triangle_kernels.py`` (K3 for
-   ``cull=True``, K4 for ``cull="grid"``), ``ops/segment_kernels.py`` (K7)
-   and ``ops/arc_kernels.py`` (K8).
+   ``cull=True``, K4 for ``cull="grid"``), ``ops/segment_kernels.py`` (K7,
+   K9) and ``ops/arc_kernels.py`` (K8, K10).
 4. ``morton_codes_device`` orders the rays on the device for the engine's
    per-bounce re-sort (``TraceConfig.resort_rays``).
 """

@@ -1,4 +1,5 @@
-"""The nearest ray-arc searches on Hopper: brute force (K6) and culled (K8).
+"""The nearest ray-arc searches on Hopper: brute force (K6), culled (K8) and
+two-level (K10).
 
 Each search has a wrapper the engine calls with ``use_kernel=True``.  On CUDA
 tensors the wrapper launches its hand-written kernel or raises; it never
@@ -13,8 +14,13 @@ same arithmetic written line by line in PyTorch.
   256-arc chunks (``models/acceleration.chunk_aabbs_arcs``, window-aware,
   widened by K7's rounding margin ``segment_kernels.gate_boxes``);
   ``cull=True``.  K8 returns K6's hits bit for bit.
+- K10 ``nearest_hit_arcs_twolevel_kernel`` (``csrc/arc_search_twolevel.cu``,
+  port of ``_twolevel_arc_kernel``): K9's two-level walk
+  (``segment_kernels.py``) over chunks of 256 arcs behind K8's gate, on
+  K8's boxes; ``cull="grid"``.  K10 returns K6's hits bit for bit (not the
+  TPU kernel's: it keeps K6's discriminant and branch rule).
 
-Both take the arc table of :func:`arc_table`, built in torch on the rays'
+All three take the arc table of :func:`arc_table`, built in torch on the rays'
 device as ``nearest_hit_arcs_pallas`` builds it: the window's edge vectors
 (cos, sin of its start and end) and whether it spans more than pi or the
 full circle.  The window test is the TPU kernels' cross-product form, not
@@ -46,19 +52,22 @@ from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_arcs
 from tensorflowraytrace_tpu_torch.ops import cuda_build
 from tensorflowraytrace_tpu_torch.ops import segment_kernels
 from tensorflowraytrace_tpu_torch.ops.segment_kernels import (
-    check_cuda_inputs, culled_walk, gate_boxes,
+    check_cuda_inputs, culled_walk, gate_boxes, twolevel_lists,
+    check_twolevel_ray_block,
 )
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
-    _SLACK, BIG, _raise_on, plain_or_cuda,
+    _SLACK, BIG, _raise_on, chunk_major, plain_or_cuda, twolevel_walk,
 )
 
 # Launches of each CUDA kernel in this process.  A wrapper adds one where it
 # launches and nowhere else; callers reset them to 0 to count a run.
 LAUNCHES = 0            # K6
 LAUNCHES_CULLED = 0     # K8
+LAUNCHES_TWOLEVEL = 0   # K10
 
 SOURCE = "arc_search.cu"
 SOURCE_CULLED = "arc_search_culled.cu"
+SOURCE_TWOLEVEL = "arc_search_twolevel.cu"
 
 # the table's flag bits
 _BIG_WINDOW = 1     # the window spans more than pi
@@ -85,6 +94,16 @@ def load_culled_library():
     return lib
 
 
+def load_twolevel_library():
+    """The K10 library, built at first use, with its C signature declared."""
+    lib = cuda_build.load(SOURCE_TWOLEVEL)
+    fn = lib.arc_search_twolevel_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+        + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 4
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def arc_table(center, angle_start, angle_end, radius):
     """The (M, 8) table the arc searches read, in the arcs' dtype and on
     their device: centre x, centre y, radius, cos and sin of the window's
@@ -99,6 +118,15 @@ def arc_table(center, angle_start, angle_end, radius):
                         torch.cos(angle_start), torch.sin(angle_start),
                         torch.cos(angle_end), torch.sin(angle_end), flags],
                        dim=1).contiguous()
+
+
+def arc_chunk_table(center, angle_start, angle_end, radius, chunk):
+    """K10's arc table: (C, 8, chunk), chunk-major, the rows of
+    :func:`arc_table` with the radius replaced by its reciprocal (the value
+    K6 computes when it stages a tile), zero past M."""
+    t = arc_table(center, angle_start, angle_end, radius)
+    return chunk_major(torch.cat([t[:, :2], 1.0 / t[:, 2:3], t[:, 3:]], dim=1),
+                       chunk)
 
 
 def _check_arcs(p0, p1, center, angle_start, angle_end, radius):
@@ -173,6 +201,57 @@ def nearest_hit_arcs_culled_kernel(p0, p1, center, angle_start, angle_end,
                    float(intersect_eps), float(ray_start_eps), 1.0 + _SLACK,
                    1.0 - _SLACK, _SLACK))
     LAUNCHES_CULLED += 1
+    return out
+
+
+def nearest_hit_arcs_twolevel_kernel(p0, p1, center, angle_start, angle_end,
+                                     radius, intersect_eps, ray_start_eps):
+    """K10: K9's two-level search (``segment_kernels.TWOLEVEL_RAY_BLOCK``
+    rays a block, chunks of ``segment_kernels.CULL_CHUNK`` arcs, lists
+    capped at ``segment_kernels.TWOLEVEL_MAX_CAND``) with K6's arithmetic.
+    Same arguments, result and device rules as
+    :func:`nearest_hit_arcs_kernel`."""
+    if plain_or_cuda(p0, "arc"):
+        return nearest_hit_arcs_twolevel_plain(
+            p0, p1, center, angle_start, angle_end, radius, intersect_eps,
+            ray_start_eps)
+    _check_arcs(p0, p1, center, angle_start, angle_end, radius)
+    check_twolevel_ray_block()
+    return twolevel_launch(
+        p0, p1, center.shape[0],
+        twolevel_prepare(p0, p1, center, angle_start, angle_end, radius,
+                         ray_start_eps),
+        intersect_eps, ray_start_eps)
+
+
+def twolevel_prepare(p0, p1, center, angle_start, angle_end, radius,
+                     ray_start_eps):
+    """K10's inputs, made on the rays' device: ``(table, boxes, counts,
+    cand, cap)``, the chunk-major arc table with its flags row as int32
+    bits (as search2d::ArcTile reads it), the gate boxes of its chunks and
+    each ray block's candidate list on them."""
+    chunk = segment_kernels.CULL_CHUNK
+    table = arc_chunk_table(center, angle_start, angle_end, radius, chunk)
+    table[:, 7] = table[:, 7].to(torch.int32).view(torch.float32)
+    boxes = gate_boxes(chunk_aabbs_arcs(center, angle_start, angle_end,
+                                        radius, chunk)).contiguous()
+    return (table, boxes, *twolevel_lists(p0, p1, boxes, ray_start_eps))
+
+
+def twolevel_launch(p0, p1, m, prepared, intersect_eps, ray_start_eps):
+    """Launch K10 on checked CUDA inputs and :func:`twolevel_prepare`'s
+    output for ``m`` arcs; the wrapper's second half."""
+    global LAUNCHES_TWOLEVEL
+    table, boxes, counts, cand, cap = prepared
+    out = _launch(load_twolevel_library().arc_search_twolevel_launch,
+                  "arc_search_twolevel", p0,
+                  (p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
+                   boxes.data_ptr(), counts.data_ptr(), cand.data_ptr(),
+                   p0.shape[0], m, boxes.shape[0], segment_kernels.CULL_CHUNK,
+                   segment_kernels.TWOLEVEL_RAY_BLOCK, cap,
+                   float(intersect_eps), float(ray_start_eps), 1.0 + _SLACK,
+                   1.0 - _SLACK, _SLACK))
+    LAUNCHES_TWOLEVEL += 1
     return out
 
 
@@ -291,4 +370,31 @@ def nearest_hit_arcs_culled_plain(p0, p1, center, angle_start, angle_end,
             *(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
             *_arc_columns(table, s0, s0 + chunk), *eps)
         _merge_arcs(best_u, best_idx, best_minus, rows, u, minus, s0)
+    return best_u < BIG * 0.5, best_idx, best_u, best_minus
+
+
+@torch.no_grad()
+def nearest_hit_arcs_twolevel_plain(p0, p1, center, angle_start, angle_end,
+                                    radius, intersect_eps, ray_start_eps):
+    """Plain PyTorch version of K10: K9's walk
+    (``triangle_kernels.twolevel_walk``) over chunks of
+    ``segment_kernels.CULL_CHUNK`` arcs, on K8's boxes, with K6's arithmetic
+    and merge."""
+    n, chunk = p0.shape[0], segment_kernels.CULL_CHUNK
+    best_u, best_idx, best_minus = _best(n, p0)
+    eps = (float(intersect_eps), float(ray_start_eps))
+    d = p1 - p0
+    boxes = gate_boxes(chunk_aabbs_arcs(center, angle_start, angle_end,
+                                        radius, chunk))
+    table = arc_chunk_table(center, angle_start, angle_end, radius, chunk)
+    for c, rows in twolevel_walk(
+            p0, p1, boxes, *twolevel_lists(p0, p1, boxes, eps[1]),
+            segment_kernels.TWOLEVEL_RAY_BLOCK, eps[1], best_u):
+        t = table[c]                                         # (R, 8, F)
+        flags = t[:, 7].to(torch.int32)
+        u, minus = _arc_pairs(
+            *(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
+            *t[:, :7].unbind(1), (flags & _BIG_WINDOW) != 0,
+            (flags & _FULL_CIRCLE) != 0, *eps)
+        _merge_arcs(best_u, best_idx, best_minus, rows, u, minus, c * chunk)
     return best_u < BIG * 0.5, best_idx, best_u, best_minus

@@ -10,9 +10,9 @@ is split in two phases:
    Tiled over surface chunks and ray blocks so the N x M intersection matrix
    is never materialised.  ``use_kernel=True`` hands the search to a CUDA
    kernel: K1 (brute force), K3 (``cull=True``) or K4 (``cull="grid"``) for
-   triangles (``ops/triangle_kernels.py``); K5 or K7 (``cull=True``) for
-   segments (``ops/segment_kernels.py``); K6 or K8 for arcs
-   (``ops/arc_kernels.py``).
+   triangles (``ops/triangle_kernels.py``); K5, K7 (``cull=True``) or K9
+   (``cull="grid"``) for segments (``ops/segment_kernels.py``); K6, K8 or
+   K10 for arcs (``ops/arc_kernels.py``).
 2. **Refine** (``refine_*_hit_from``): the one chosen intersection
    recomputed per ray -- O(N) and fully differentiable.
 
@@ -189,14 +189,6 @@ def refine_triangle_hit_from(p0, p1, vp, v1, v2, intersect_eps):
 # Segments and arcs (2D)
 # ======================================================================
 
-def _reject_grid(cull, surfaces):
-    if cull == "grid":
-        raise NotImplementedError(
-            f'cull="grid" on {surfaces} needs the two-level 2D searches '
-            "(K9 _twolevel_segment_kernel, K10 _twolevel_arc_kernel), which "
-            'are not ported yet; use cull=True')
-
-
 def nearest_hit_segments(
     p0, p1, seg: SegmentSet, intersect_eps, size_eps, ray_start_eps,
     surf_chunk=_DEF_SURF_CHUNK, ray_block=_DEF_RAY_BLOCK, use_kernel=False,
@@ -205,16 +197,20 @@ def nearest_hit_segments(
     """Per-ray nearest segment (search phase; no gradient).
 
     ``use_kernel=False`` runs the line/line solve of the JAX package's XLA
-    path; ``use_kernel=True`` runs K5 (``cull=False``) or K7 (``cull=True``;
-    the CUDA kernel on the card, its plain version on the CPU), whose
-    ``ray_u`` is ``BIG`` rather than ``inf`` on a miss.  ``cull="grid"``
-    raises under ``use_kernel``: its search (K9) is not ported."""
+    path; ``use_kernel=True`` runs (the CUDA kernel on the card, its plain
+    version on the CPU) the search ``nearest_hit_segments_pallas`` chooses:
+    the two-level K9 for ``cull="grid"``, the culled K7 for any other true
+    ``cull``, K5 for ``cull=False``.  All three return the same hits, with
+    ``ray_u`` ``BIG`` rather than ``inf`` on a miss."""
     p0, p1 = p0.detach(), p1.detach()
     sp0, sp1 = seg.p0.detach(), seg.p1.detach()
     if use_kernel:
-        _reject_grid(cull, "segments")
-        search = (segment_kernels.nearest_hit_segments_culled_kernel if cull
-                  else segment_kernels.nearest_hit_segments_kernel)
+        if cull == "grid":
+            search = segment_kernels.nearest_hit_segments_twolevel_kernel
+        elif cull:
+            search = segment_kernels.nearest_hit_segments_culled_kernel
+        else:
+            search = segment_kernels.nearest_hit_segments_kernel
         valid, idx, ray_u = search(p0.contiguous(), p1.contiguous(),
                                    sp0.contiguous(), sp1.contiguous(),
                                    intersect_eps, size_eps, ray_start_eps)
@@ -258,18 +254,21 @@ def nearest_hit_arcs(
 
     ``use_kernel=False`` runs the JAX package's XLA path: the line/circle
     solve and the ``atan2`` window test (``geometry.angle_in_interval``).
-    ``use_kernel=True`` runs K6 (``cull=False``) or K8 (``cull=True``), whose
+    ``use_kernel=True`` runs K6 (``cull=False``), K8 (``cull=True``) or K10
+    (``cull="grid"``), chosen as ``nearest_hit_arcs_pallas`` chooses; their
     window test is the TPU kernels' cross-product form (it can disagree with
-    ``atan2`` at a window's edge) and whose ``ray_u`` is ``BIG`` on a miss.
-    Arcs take no ``size_eps``.  ``cull="grid"`` raises under
-    ``use_kernel``: its search (K10) is not ported."""
+    ``atan2`` at a window's edge) and their ``ray_u`` is ``BIG`` on a miss.
+    Arcs take no ``size_eps``."""
     p0, p1 = p0.detach(), p1.detach()
     center, a1 = arc.center.detach(), arc.angle_start.detach()
     a2, radius = arc.angle_end.detach(), arc.radius.detach()
     if use_kernel:
-        _reject_grid(cull, "arcs")
-        search = (arc_kernels.nearest_hit_arcs_culled_kernel if cull
-                  else arc_kernels.nearest_hit_arcs_kernel)
+        if cull == "grid":
+            search = arc_kernels.nearest_hit_arcs_twolevel_kernel
+        elif cull:
+            search = arc_kernels.nearest_hit_arcs_culled_kernel
+        else:
+            search = arc_kernels.nearest_hit_arcs_kernel
         valid, idx, ray_u, branch = search(
             p0.contiguous(), p1.contiguous(), center.contiguous(),
             a1.contiguous(), a2.contiguous(), radius.contiguous(),

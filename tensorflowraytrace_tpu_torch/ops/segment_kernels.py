@@ -1,5 +1,5 @@
-"""The nearest ray-segment searches on Hopper: brute force (K5) and culled
-(K7).
+"""The nearest ray-segment searches on Hopper: brute force (K5), culled
+(K7) and two-level (K9).
 
 Each search has a wrapper the engine calls with ``use_kernel=True``.  On CUDA
 tensors the wrapper launches its hand-written kernel or raises; it never
@@ -16,6 +16,13 @@ same arithmetic written line by line in PyTorch.
   ``gate_boxes``); ``cull=True``.  A chunk is computed for a ray only if
   some ray of its warp (``GATE_RAYS``) can hit the box no farther than its
   current best, so K7 returns K5's hits bit for bit.
+- K9 ``nearest_hit_segments_twolevel_kernel``
+  (``csrc/segment_search_twolevel.cu``, port of
+  ``_twolevel_segment_kernel``): each block of ``TWOLEVEL_RAY_BLOCK`` rays
+  walks a precomputed, capped list of candidate chunks of 256 segments
+  (``triangle_kernels.twolevel_candidates`` on K7's widened boxes), or
+  every chunk when its list overflows, each chunk behind K7's gate;
+  ``cull="grid"``.  K9 returns K5's hits bit for bit.
 
 Contract (shared with every search kernel of the JAX package): per ray
 ``(valid, idx int32, ray_u)``; ``ray_u`` is ``BIG = 3e38`` where nothing is
@@ -38,21 +45,31 @@ from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_2d
 from tensorflowraytrace_tpu_torch.ops import cuda_build
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
     _SLACK, BIG, _inverse_direction, _merge, _raise_on, _selected, _slab_gate,
-    _thresholds, _warp_any, plain_or_cuda,
+    _thresholds, _warp_any, chunk_major, plain_or_cuda, twolevel_candidates,
+    twolevel_walk,
 )
 
 # Launches of each CUDA kernel in this process.  A wrapper adds one where it
 # launches and nowhere else; callers reset them to 0 to count a run.
 LAUNCHES = 0            # K5
 LAUNCHES_CULLED = 0     # K7
+LAUNCHES_TWOLEVEL = 0   # K9
 
 SOURCE = "segment_search.cu"
 SOURCE_CULLED = "segment_search_culled.cu"
+SOURCE_TWOLEVEL = "segment_search_twolevel.cu"
 
-# the culling chunk of K7 and K8 is the 2D kernels' shared-memory tile
-# (kTile in csrc/search2d_common.cuh; the launch refuses another value);
-# read at call time
+# the culling chunk of K7 and K8 and the fine chunk of K9 and K10 is the 2D
+# kernels' shared-memory tile (kTile in csrc/search2d_common.cuh; the
+# launches refuse another value); read at call time
 CULL_CHUNK = 256
+# K9 and K10: rays per block (one thread each; a multiple of 32 up to the
+# kernels' launch bound of 512) and the cap of each block's candidate list;
+# a block with more candidates sweeps every chunk.  Chosen on the H100 by
+# `chip_smoke.py --tune`: see PERF.md.  Read at call time, so a test can
+# lower the cap.
+TWOLEVEL_RAY_BLOCK = 256
+TWOLEVEL_MAX_CAND = 32
 # Each culling box is widened on every side by GATE_PAD times its largest
 # coordinate magnitude (~64 float32 ulps): the float32 arithmetic can accept
 # a hit a few ulps outside the exact surface (at an arc's window edge, a
@@ -79,6 +96,16 @@ def load_culled_library():
     lib = cuda_build.load(SOURCE_CULLED)
     fn = lib.segment_search_culled_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def load_twolevel_library():
+    """The K9 library, built at first use, with its C signature declared."""
+    lib = cuda_build.load(SOURCE_TWOLEVEL)
+    fn = lib.segment_search_twolevel_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
         + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return lib
@@ -115,9 +142,9 @@ def check_cuda_inputs(what, p0, p1, **surfaces):
 
 
 def gate_boxes(boxes):
-    """The culling boxes the K7 and K8 gate tests: ``boxes`` (C, 4), min xy
-    then max xy, widened by ``GATE_PAD`` times each box's largest coordinate
-    magnitude."""
+    """The culling boxes the gates of K7-K10 and the candidate lists of K9
+    and K10 test: ``boxes`` (C, 4), min xy then max xy, widened by
+    ``GATE_PAD`` times each box's largest coordinate magnitude."""
     pad = GATE_PAD * boxes.abs().amax(dim=1, keepdim=True)
     return torch.cat([boxes[:, :2] - pad, boxes[:, 2:] + pad], dim=1)
 
@@ -180,6 +207,80 @@ def nearest_hit_segments_culled_kernel(p0, p1, sp0, sp1, intersect_eps,
                  u.data_ptr(), idx.data_ptr(), stream)
     _raise_on(err, "segment_search_culled")
     LAUNCHES_CULLED += 1
+    return u < BIG * 0.5, idx, u
+
+
+def check_twolevel_ray_block():
+    """Raise unless ``TWOLEVEL_RAY_BLOCK`` is a block K9 and K10 launch."""
+    rb = TWOLEVEL_RAY_BLOCK
+    if rb % 32 or not 32 <= rb <= 512:
+        raise ValueError(f"TWOLEVEL_RAY_BLOCK {rb} must be a multiple of 32 "
+                         "in [32, 512]")
+
+
+def twolevel_lists(p0, p1, boxes, ray_start_eps):
+    """The candidate lists of K9 and K10 on the (C, 4) gate ``boxes``:
+    ``(counts, cand, cap)`` of :func:`twolevel_candidates` at
+    ``TWOLEVEL_RAY_BLOCK`` rays a block, the cap lowered to the chunk
+    count."""
+    cap = min(TWOLEVEL_MAX_CAND, boxes.shape[0])
+    counts, cand = twolevel_candidates(p0, p1, boxes, float(ray_start_eps),
+                                       TWOLEVEL_RAY_BLOCK, cap)
+    return counts, cand, cap
+
+
+def segment_chunk_table(sp0, sp1, chunk):
+    """K9's segment table: (C, 4, chunk), chunk-major, rows start x, start
+    y, direction x, direction y (``sp1 - sp0``), zero past M."""
+    return chunk_major(torch.cat([sp0, sp1 - sp0], dim=1), chunk)
+
+
+def nearest_hit_segments_twolevel_kernel(p0, p1, sp0, sp1, intersect_eps,
+                                         size_eps, ray_start_eps):
+    """K9: the two-level search over chunks of ``CULL_CHUNK`` segments,
+    ``TWOLEVEL_RAY_BLOCK`` rays a block, lists capped at
+    ``TWOLEVEL_MAX_CAND``.  Same arguments, result and device rules as
+    :func:`nearest_hit_segments_kernel`."""
+    if plain_or_cuda(p0, "segment"):
+        return nearest_hit_segments_twolevel_plain(
+            p0, p1, sp0, sp1, intersect_eps, size_eps, ray_start_eps)
+    _check_segments(p0, p1, sp0, sp1)
+    check_twolevel_ray_block()
+    return twolevel_launch(p0, p1, sp0.shape[0],
+                           twolevel_prepare(p0, p1, sp0, sp1, ray_start_eps),
+                           intersect_eps, size_eps, ray_start_eps)
+
+
+def twolevel_prepare(p0, p1, sp0, sp1, ray_start_eps):
+    """K9's inputs, made on the rays' device: ``(table, boxes, counts,
+    cand, cap)``, the chunk-major segment table, the gate boxes of its
+    chunks and each ray block's candidate list on them."""
+    chunk = CULL_CHUNK
+    boxes = gate_boxes(chunk_aabbs_2d(sp0, sp1, chunk)).contiguous()
+    return (segment_chunk_table(sp0, sp1, chunk), boxes,
+            *twolevel_lists(p0, p1, boxes, ray_start_eps))
+
+
+def twolevel_launch(p0, p1, m, prepared, intersect_eps, size_eps,
+                    ray_start_eps):
+    """Launch K9 on checked CUDA inputs and :func:`twolevel_prepare`'s
+    output for ``m`` segments; the wrapper's second half."""
+    global LAUNCHES_TWOLEVEL
+    table, boxes, counts, cand, cap = prepared
+    fn = load_twolevel_library().segment_search_twolevel_launch
+    n = p0.shape[0]
+    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
+    with torch.cuda.device(p0.device):
+        stream = torch.cuda.current_stream(p0.device).cuda_stream
+        err = fn(p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
+                 boxes.data_ptr(), counts.data_ptr(), cand.data_ptr(), n, m,
+                 boxes.shape[0], CULL_CHUNK, TWOLEVEL_RAY_BLOCK, cap,
+                 *_thresholds(intersect_eps, size_eps, ray_start_eps),
+                 1.0 + _SLACK, 1.0 - _SLACK, _SLACK,
+                 u.data_ptr(), idx.data_ptr(), stream)
+    _raise_on(err, "segment_search_twolevel")
+    LAUNCHES_TWOLEVEL += 1
     return u < BIG * 0.5, idx, u
 
 
@@ -264,4 +365,29 @@ def nearest_hit_segments_culled_plain(p0, p1, sp0, sp1, intersect_eps,
         u = _segment_pairs(*(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
                            *_segment_columns(sp0, sp1, s0, s0 + chunk), *eps)
         _merge(best_u, best_idx, rows, u, s0)
+    return best_u < BIG * 0.5, best_idx, best_u
+
+
+@torch.no_grad()
+def nearest_hit_segments_twolevel_plain(p0, p1, sp0, sp1, intersect_eps,
+                                        size_eps, ray_start_eps):
+    """Plain PyTorch version of K9: each block of ``TWOLEVEL_RAY_BLOCK``
+    rays walks its candidate list (or every chunk on overflow) in order
+    (``triangle_kernels.twolevel_walk``); at each step the chunk of
+    ``CULL_CHUNK`` segments is computed for the rays of each 32-ray group of
+    which some ray passes the slab gate against its running best, with K5's
+    arithmetic and merge."""
+    n = p0.shape[0]
+    best_u = torch.full((n,), BIG, dtype=p0.dtype, device=p0.device)
+    best_idx = torch.zeros((n,), dtype=torch.int32, device=p0.device)
+    eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
+    d = p1 - p0
+    table, boxes, counts, cand, cap = twolevel_prepare(p0, p1, sp0, sp1,
+                                                       eps[3])  # (C, 4, F)
+    for c, rows in twolevel_walk(p0, p1, boxes, counts, cand, cap,
+                                 TWOLEVEL_RAY_BLOCK, eps[3], best_u):
+        t = table[c]                                         # (R, 4, F)
+        u = _segment_pairs(*(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
+                           t[:, 0], t[:, 1], t[:, 2], t[:, 3], *eps)
+        _merge(best_u, best_idx, rows, u, c * CULL_CHUNK)
     return best_u < BIG * 0.5, best_idx, best_u

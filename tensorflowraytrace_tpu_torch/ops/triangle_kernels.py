@@ -18,7 +18,9 @@ same arithmetic written line by line in PyTorch.
   ``_twolevel_triangle_kernel``): each ray block walks a precomputed,
   capped list of candidate fine chunks (``twolevel_candidates``), or every
   chunk when its list overflows, each gated by the same slab test;
-  ``cull="grid"``.
+  ``cull="grid"``.  The candidate precompute and the plain walk serve the
+  two-level 2D searches K9 and K10 as well (``ops/segment_kernels.py``,
+  ``ops/arc_kernels.py``).
 
 The gate of K3 and K4: a chunk is computed for a ray only if some ray of
 its warp (32 rays; ``GATE_RAYS``) can hit the chunk's box at t >= r_eps no
@@ -222,20 +224,23 @@ def nearest_hit_triangles_culled_kernel(p0, p1, vp, v1, v2, intersect_eps,
     return u < BIG * 0.5, idx, u
 
 
+def chunk_major(columns, chunk):
+    """The (M, k) per-surface ``columns`` as a (C, k, chunk) table, C =
+    ceil(M / chunk): one contiguous block per chunk holding its k columns
+    as rows (structure of arrays), zero past M.  The two-level kernels
+    stage a chunk with one contiguous copy."""
+    m, k = columns.shape
+    c = -(-m // chunk)
+    pad = c * chunk - m
+    if pad:
+        columns = torch.cat([columns, columns.new_zeros((pad, k))])
+    return columns.reshape(c, chunk, k).permute(0, 2, 1).contiguous()
+
+
 def chunk_major_table(vp, v1, v2, fine_chunk):
     """K4's triangle table: (C, 9, F) float32, one contiguous block per fine
     chunk holding (v0, E1, E2) structure-of-arrays, zero rows past M."""
-    m = vp.shape[0]
-    c = -(-m // fine_chunk)
-    pad = c * fine_chunk - m
-
-    def cols(a):
-        if pad:
-            a = torch.cat([a, a.new_zeros((pad, 3))])
-        return a.T.reshape(3, c, fine_chunk)
-
-    table = torch.cat([cols(vp), cols(v1 - vp), cols(v2 - vp)])
-    return table.permute(1, 0, 2).contiguous()
+    return chunk_major(torch.cat([vp, v1 - vp, v2 - vp], dim=1), fine_chunk)
 
 
 def nearest_hit_triangles_twolevel_kernel(p0, p1, vp, v1, v2, intersect_eps,
@@ -449,7 +454,10 @@ def twolevel_candidates(p0, p1, boxes, ray_start_eps, ray_block, max_cand):
     """Candidate fine chunks of each ray block: chunk c is a candidate of
     block b iff some ray of b passes the slab gate against c's box with no
     best yet (best = inf).  Plain PyTorch, as the JAX package computes it in
-    XLA (``_twolevel_candidates``); it runs on the card before K4.
+    XLA (``_twolevel_candidates`` in 3D, ``_twolevel_candidates_2d`` in
+    2D); it runs on the card before K4, K9 and K10.  ``p0``, ``p1`` are
+    (N, dim) rays and ``boxes`` (C, 2 dim) chunk boxes, minimum then
+    maximum.
 
     Returns ``(counts (nb,) int32, cand (nb * max_cand,) int32)``: each
     block's candidate ids ascending (Morton order) and packed first.  When
@@ -457,7 +465,7 @@ def twolevel_candidates(p0, p1, boxes, ray_start_eps, ray_block, max_cand):
     than that get ``counts == n_chunks`` (sweep every chunk).  The rays that
     pad the last block vote for nothing (the TPU version pads with zero
     rays, which vote)."""
-    n = p0.shape[0]
+    n, dim = p0.shape
     nb = -(-n // ray_block)
     pad = nb * ray_block - n
     live = torch.ones((n,), dtype=torch.bool, device=p0.device)
@@ -467,15 +475,15 @@ def twolevel_candidates(p0, p1, boxes, ray_start_eps, ray_block, max_cand):
         def pad_rows(a, value):
             return torch.cat([a, a.new_full((pad,) + a.shape[1:], value)])
         p0, inv, live = pad_rows(p0, 0.0), pad_rows(inv, 1.0), pad_rows(live, False)
-    o3 = [a.reshape(nb, 1, ray_block) for a in p0.unbind(1)]
-    inv3 = [a.reshape(nb, 1, ray_block) for a in inv.unbind(1)]
+    o = [a.reshape(nb, 1, ray_block) for a in p0.unbind(1)]
+    inv = [a.reshape(nb, 1, ray_block) for a in inv.unbind(1)]
     live = live.reshape(nb, 1, ray_block)
     n_chunks = boxes.shape[0]
     cg = _cand_chunk_group(nb * ray_block, n_chunks)
     need = []
     for c0 in range(0, n_chunks, cg):
-        box = boxes[c0:c0 + cg].T[:, None, :, None]          # (6, 1, Cg, 1)
-        gate = _slab_gate(o3, inv3, box[:3], box[3:], float(ray_start_eps),
+        box = boxes[c0:c0 + cg].T[:, None, :, None]          # (2 dim, 1, Cg, 1)
+        gate = _slab_gate(o, inv, box[:dim], box[dim:], float(ray_start_eps),
                           None)
         need.append((gate & live).any(dim=-1))               # (nb, Cg)
     need = torch.cat(need, dim=1)
@@ -487,6 +495,35 @@ def twolevel_candidates(p0, p1, boxes, ray_start_eps, ray_block, max_cand):
     return counts, cand.to(torch.int32).reshape(-1)
 
 
+def twolevel_walk(p0, p1, boxes, counts, cand, cap, ray_block, r_eps,
+                  best_u):
+    """The chunks and rays the two-level kernels (K4, K9, K10) compute, as
+    their plain versions walk them: each block of ``ray_block`` rays walks
+    its candidate list (``counts``, ``cand`` and ``cap`` of
+    :func:`twolevel_candidates`) or, on overflow, every chunk of ``boxes``
+    in order.  At each step, after the earlier steps have been merged into
+    ``best_u``, yields ``(chunk, rows)`` -- ``chunk`` the (R,) chunk id of
+    each ray of ``rows`` -- for each piece of the rays of every
+    ``GATE_RAYS`` group of which some ray passes the slab gate against its
+    running best."""
+    n, dim = p0.shape
+    n_chunks, nb = boxes.shape[0], counts.shape[0]
+    sweep = counts == n_chunks
+    steps = n_chunks if bool(sweep.any()) else int(counts.max())
+    k = torch.arange(steps, device=p0.device)
+    listed = cand.view(nb, cap).long()[:, torch.clamp(k, max=cap - 1)]
+    walk = torch.where(sweep[:, None], k, listed)             # (nb, steps)
+    block = torch.arange(n, device=p0.device) // ray_block
+    o, inv = p0.unbind(1), _inverse_direction(p1 - p0).unbind(1)
+    for step in range(steps):
+        chunk = walk[block, step]                             # (N,)
+        box = boxes[chunk].T                                  # (2 dim, N)
+        need = _slab_gate(o, inv, box[:dim], box[dim:], r_eps, best_u)
+        need = need & (step < counts.long())[block]
+        for rows in _selected(_warp_any(need)):
+            yield chunk[rows], rows
+
+
 @torch.no_grad()
 def nearest_hit_triangles_twolevel_plain(p0, p1, vp, v1, v2, intersect_eps,
                                          size_eps, ray_start_eps):
@@ -495,35 +532,19 @@ def nearest_hit_triangles_twolevel_plain(p0, p1, vp, v1, v2, intersect_eps,
     each step the chunk of ``FINE_CHUNK`` triangles is computed for the rays
     of each ``GATE_RAYS`` group of which some ray passes the slab gate
     against its running best, with K1's arithmetic and merge."""
-    rb, fine = TWOLEVEL_RAY_BLOCK, FINE_CHUNK
     n = p0.shape[0]
     eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
     table, boxes, counts, cand, cap = twolevel_prepare(
         p0, p1, vp, v1, v2, eps[3])                          # table (C, 9, F)
-    n_chunks = boxes.shape[0]
-
-    # each block's walk: its list, or 0 .. n_chunks - 1 on overflow
-    nb = counts.shape[0]
-    sweep = counts == n_chunks
-    steps = n_chunks if bool(sweep.any()) else int(counts.max())
-    k = torch.arange(steps, device=p0.device)
-    listed = cand.view(nb, cap).long()[:, torch.clamp(k, max=cap - 1)]
-    walk = torch.where(sweep[:, None], k, listed)             # (nb, steps)
-    block = torch.arange(n, device=p0.device) // rb
-
     best_u = torch.full((n,), BIG, dtype=p0.dtype, device=p0.device)
     best_idx = torch.zeros((n,), dtype=torch.int32, device=p0.device)
     d = p1 - p0
-    o3, d3, inv3 = p0.unbind(1), d.unbind(1), _inverse_direction(d).unbind(1)
-    for step in range(steps):
-        chunk = walk[block, step]                             # (N,)
-        box = boxes[chunk].T                                  # (6, N)
-        need = _slab_gate(o3, inv3, box[:3], box[3:], eps[3], best_u)
-        need = need & (step < counts.long())[block]
-        for rows in _selected(_warp_any(need)):
-            tri = table[chunk[rows]].unbind(1)                # 9 x (R, F)
-            a, e1, e2 = tri[0:3], tri[3:6], tri[6:9]
-            u = _moller_trumbore(*(x[rows, None] for x in o3 + d3), a, e1,
-                                 e2, *eps)
-            _merge(best_u, best_idx, rows, u, chunk[rows] * fine)
+    o3, d3 = p0.unbind(1), d.unbind(1)
+    for chunk, rows in twolevel_walk(p0, p1, boxes, counts, cand, cap,
+                                     TWOLEVEL_RAY_BLOCK, eps[3], best_u):
+        tri = table[chunk].unbind(1)                          # 9 x (R, F)
+        a, e1, e2 = tri[0:3], tri[3:6], tri[6:9]
+        u = _moller_trumbore(*(x[rows, None] for x in o3 + d3), a, e1, e2,
+                             *eps)
+        _merge(best_u, best_idx, rows, u, chunk * FINE_CHUNK)
     return best_u < BIG * 0.5, best_idx, best_u

@@ -15,6 +15,10 @@ light guide at full width, and the random sets of the kernel checks.
   ``examples/light_guide.py``, whose source (a Lambertian fan from a beam
   just before the entry) and trace settings (``dead_ray_length`` 10, up to
   50 bounces) it keeps.  The segments and the arcs are Morton-sorted.
+- ``guide_design``: the light guide as a design problem, its lenslets'
+  centres and radii the parameters and the squared landing heights of the
+  rays that finish on the target the loss (``landing_loss_fold``), summed
+  bounce by bounce so that a 50-bounce trace keeps no history.
 - ``random_segments``, ``random_arcs``, ``random_rays``: the sets of
   ``examples/tpu_kernel_check.py``, Morton-sorted.
 
@@ -23,13 +27,16 @@ Both build on CUDA unless given ``device=``; there is no CPU fallback.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
 import torch
 
 from tensorflowraytrace_tpu_torch.config import FINISHED, resolve_device
-from tensorflowraytrace_tpu_torch.engine import TraceConfig, trace
+from tensorflowraytrace_tpu_torch.engine import (
+    TraceConfig, landing_sum_fold, trace,
+)
 from tensorflowraytrace_tpu_torch.models import distributions as dist
 from tensorflowraytrace_tpu_torch.models import sources as src
 from tensorflowraytrace_tpu_torch.models.acceleration import (
@@ -153,6 +160,41 @@ def guide_config(**kw):
     ``kw`` adds or overrides fields (``use_kernel``, ``cull``, ...)."""
     return TraceConfig(**{"max_bounces": GUIDE_BOUNCES,
                           "dead_ray_length": DEAD_RAY_LENGTH, **kw})
+
+
+def landing_loss_fold(dtype, device=None):
+    """The guide's loss as a fold: ``landing_sum_fold`` of the squared
+    landing height y^2 of the rays at the bounce they finish on the target
+    (x = ``TARGET_X``, the guide's only target)."""
+    return landing_sum_fold(lambda p1: p1[:, 1] ** 2, dtype, FINISHED, device)
+
+
+def guide_design(n_rays=1 << 20, n_wall=2048, n_lenslets=512,
+                 dtype=torch.float32, device=None, generator=None,
+                 uniforms=None):
+    """The light guide of :func:`light_guide` (same arguments, same rays and
+    Morton-sorted scene) as a design problem: ``(loss, params, scene)``.
+
+    ``params`` are the exit face's lenslet centres (M, 2) and radii (M,), in
+    the scene's order, as leaf tensors that require grad.  ``loss(params,
+    cfg)`` traces the rays under ``cfg`` through the guide with those
+    lenslets and returns the landing loss (:func:`landing_loss_fold`), a
+    scalar.  ``scene`` is the guide at the initial parameters (what
+    ``TraceConfig.recommended`` reads)."""
+    rays, scene, materials = light_guide(n_rays, n_wall, n_lenslets, dtype,
+                                         device, generator, uniforms)
+    arcs = scene.arcs
+    params = [arcs.center.detach().clone().requires_grad_(True),
+              arcs.radius.detach().clone().requires_grad_(True)]
+
+    def loss(params, cfg):
+        designed = Scene2D(segments=scene.segments, arcs=dataclasses.replace(
+            arcs, center=params[0], radius=params[1]))
+        init, fn = landing_loss_fold(rays.p0.dtype, rays.p0.device)
+        return trace(rays, designed, materials, cfg, fold_fn=fn,
+                     fold_init=init).fold
+
+    return loss, params, scene
 
 
 # ----------------------------------------------------------------------

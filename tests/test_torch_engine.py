@@ -271,13 +271,10 @@ def test_trace_is_differentiable(rng):
 
 @pytest.mark.parametrize("field", ["cull", "resort_rays", "remat", "early_exit"])
 def test_unported_config_fields_raise(field):
-    """The fields not ported yet raise; cull and resort_rays, ported since
-    (tests/test_torch_accel.py), are accepted."""
-    if field in ("cull", "resort_rays"):
-        assert getattr(TraceConfig(**{field: True}), field) is True
-    else:
-        with pytest.raises(NotImplementedError, match=field):
-            TraceConfig(**{field: True})
+    """Every field that was once unported is accepted now: cull and
+    resort_rays (tests/test_torch_accel.py), remat and early_exit
+    (tests/test_torch_deeptrace.py)."""
+    assert getattr(TraceConfig(**{field: True}), field) is True
     TraceConfig(**{field: False})  # the default stays accepted
 
 

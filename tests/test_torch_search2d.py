@@ -17,8 +17,8 @@
   rays, rays that miss, full circles and the rounding margin of the gate's
   boxes included.
 * No silent fallback: the wrappers run their plain versions only on CPU
-  tensors and refuse other devices; ``cull="grid"`` on a 2D scene raises;
-  no module of the port imports JAX or the JAX package; every header a
+  tensors and refuse other devices; ``cull="grid"`` on a 2D scene runs K9
+  and K10 and returns the brute hits; no module of the port imports JAX or the JAX package; every header a
   kernel source includes ships with the package.
 """
 
@@ -41,12 +41,11 @@ from tensorflowraytrace_tpu.models import acceleration as j_acc
 from tensorflowraytrace_tpu.models import surfaces as j_surf
 from tensorflowraytrace_tpu.ops import intersect as j_isect
 from tensorflowraytrace_tpu.ops import pallas_kernels as pk
-from tensorflowraytrace_tpu_torch import RaySet, TraceConfig, config, scenes2d, trace
+from tensorflowraytrace_tpu_torch import config, scenes2d
 from tensorflowraytrace_tpu_torch.models import acceleration as t_acc
 from tensorflowraytrace_tpu_torch.models import surfaces as t_surf
 from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
 from tensorflowraytrace_tpu_torch.ops import intersect as t_isect
-from tensorflowraytrace_tpu_torch.ops import materials as t_mats
 from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 from tensorflowraytrace_tpu_torch.utils.convert import (
     arcs_from_numpy, segments_from_numpy,
@@ -363,18 +362,31 @@ def test_wrappers_run_plain_on_cpu_and_refuse_other_devices(rng):
         ak.nearest_hit_arcs_culled_kernel(t, t, t, r, r, r, EPS, EPS)
 
 
-def test_grid_cull_on_2d_raises(rng):
-    """K9 and K10 are not ported: cull="grid" on a 2D scene raises under
-    use_kernel, and runs no other search in their place."""
-    p0, p1 = rays(rng, 20)
-    _, ts = both_segments(segments(rng, 10))
-    _, ta = both_arcs(arcs(rng, 10))
-    cfg = TraceConfig(max_bounces=1, use_kernel=True, cull="grid")
+def test_grid_cull_on_2d_raises(rng, monkeypatch):
+    """cull="grid" on a 2D scene no longer raises: under use_kernel it runs
+    the two-level K9 and K10 (their plain versions on the CPU) and returns
+    the brute-force hits, on segments alone, arcs alone and both."""
+    p0, p1 = rays(rng, 300)
+    _, ts = both_segments(segments(rng, 600))
+    _, ta = both_arcs(arcs(rng, 300))
+    ts, ta = t_acc.morton_sort_segments(ts)[0], t_acc.morton_sort_arcs(ta)[0]
+    called = []
+    for mod, name in ((gk, "nearest_hit_segments_twolevel_kernel"),
+                      (ak, "nearest_hit_arcs_twolevel_kernel")):
+        wrapper = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, w=wrapper, n=name: (
+            called.append(n), w(*a))[1])
     for scene in (t_surf.Scene2D(ts, None), t_surf.Scene2D(None, ta),
                   t_surf.Scene2D(ts, ta)):
-        with pytest.raises(NotImplementedError, match="K9.*K10"):
-            trace(RaySet.make(p0, p1), scene, (t_mats.vacuum, t_mats.acrylic),
-                  cfg)
+        got = t_isect.nearest_hit_2d(T(p0), T(p1), scene, EPS, EPS, EPS,
+                                     use_kernel=True, cull="grid")
+        ref = t_isect.nearest_hit_2d(T(p0), T(p1), scene, EPS, EPS, EPS,
+                                     use_kernel=True)
+        for name in ("valid", "idx", "ray_u", "kind", "branch"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+        assert ref.valid.any()
+    assert called.count("nearest_hit_segments_twolevel_kernel") == 2
+    assert called.count("nearest_hit_arcs_twolevel_kernel") == 2
 
 
 def _imports(path):
