@@ -60,16 +60,21 @@ exits non-zero without printing a result):
 10. the structured guide of bench.py (a 16386-triangle
    ParametricCylindricalGuide, 64 x 128 rings, taper (0.7, 0.0),
    Morton-sorted, 2^20 rays from seed 0, acrylic, 24 bounces) through the
-   same five paths, checked and timed as in phase 9, with equivalent
-   intersections/s N M B / t.  Then K1, K3 and K4 alone at its first
-   bounce (2^20 rays x 16386 triangles), the rays in the re-sort's Morton
-   order: K3 and K4 bit for bit against their plain versions and K1 at
-   that shape, their times and plain times, and one bound for both, the
-   work these inputs need (pairs admitted at 256-triangle chunks); K4's
-   kernel also alone, apart from the preparation of its inputs;
-   one ``cull="grid", resort_rays=True`` trace under torch.profiler (K4,
-   the candidate precompute, the re-sort and the rest of the device time,
-   and the idle share), its peak memory and its host synchronisations.
+   same five paths, children starting ``engine.start_epsilon`` past their
+   surface as under ``TraceConfig.recommended`` on the card, checked and
+   timed as in phase 9, with equivalent intersections/s N M B / t.  Then
+   K1, K3 and K4 alone at its first bounce (2^20 rays x 16386 triangles),
+   the rays in the re-sort's Morton order: K3 and K4 bit for bit against
+   their plain versions and K1 at that shape, their times and plain
+   times, and one bound for both, the work these inputs need (pairs
+   admitted at 256-triangle chunks, those whose tu fails charged the
+   operations before the reject test refuses them), with the floor
+   without FMAs; K4's kernel also alone, apart from the preparation of its inputs;
+   one ``cull=True, resort_rays=True`` trace (the path ``recommended``
+   picks) and one ``cull="grid", resort_rays=True`` trace under
+   torch.profiler (the search kernel, the candidate precompute, the
+   re-sort and the rest of the device time, the idle share, kernels a
+   bounce), their peak memory and host synchronisations.
 
 11. the 2D searches: K5 (segments) and K6 (arcs) against their plain
    versions, and K7 and K8 (culled) and K9 and K10 (two-level) against
@@ -173,16 +178,24 @@ GUIDE_BOUNCES = 24
 # re-sort; their device-side annotations are not kernels
 RANGES = ("twolevel_candidates", "resort_rays")
 
-# H100 SXM peaks (NVIDIA's data sheet, at the 700 W power limit)
+# H100 SXM peaks (NVIDIA's data sheet, at the 700 W power limit).  The
+# FP32 peak counts an FMA as two operations; the searches are built with
+# --fmad=false, so their floor without FMAs is twice the operation bound.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
-# FP32 operations of one ray-triangle pair in K1: two cross products
+# FP32 operations of one ray-triangle pair in K1 (K3 and K4 do the same
+# exact arithmetic, behind a cheaper test): two cross products
 # (2 x 9), two dot products against P (2 x 6 with the scaling by inv),
 # det (5), T (3), u (6), 1/det (1), tu + tv (1)
 K1_FLOPS_PER_PAIR = 46
-# one ray-segment pair in K5 (search2d::search_segments): den (3), 1/den
-# (1), ray_u (6), seg_u (6)
-SEG_FLOPS_PER_PAIR = 16
+# the part of that a pair whose tu fails costs in K3 and K4 before the
+# reject test refuses it (tsearch::triangle_pair): P (9), det (5), T (3),
+# tu's numerator (5), the reciprocal (1), one product (1)
+TU_FLOPS_PER_PAIR = 24
+# one ray-segment pair of K5, K7 and K9 (search2d::SegmentPair, shared t):
+# T (2), den (3), the two numerators (2 x 3), the reciprocal (1), two
+# products (2); a pair the reject test refuses costs as much
+SEG_FLOPS_PER_PAIR = 14
 # one ray-arc pair in K6 (search2d::search_arcs): the scaled coordinates
 # (6), a (3), b (4), the discriminant (6), 2a and its reciprocal (2), the
 # square root (1), the two roots (4), the window test of each root (2 x 12)
@@ -397,26 +410,71 @@ def admitted_pairs(p0, p1, boxes, m, u, chunk):
     return total
 
 
-def accel_paths(label, rays, scene, materials, bounces, launched):
-    """The four search paths of one scene: the final state and endpoints of
-    every accelerated path against the brute path's, bit for bit, each
-    kernel once per bounce, and the median of 5 synchronised traces after
-    one more.  Adds each kernel's launches to ``launched``; returns the
-    medians (s) and the state counts."""
+def triangle_pairs(p0, p1, vp, v1, v2, u, chunk):
+    """The ray-triangle pairs K3 and K4 must compute on these inputs
+    (``admitted_pairs`` at chunks of ``chunk`` triangles) and how many of
+    them fail on tu alone: |det| < i_eps, or the exact tu = (T . P) / det
+    outside [s_lo, s_hi - s_lo], where no tv can make the pair valid.
+    Returns (admitted, out on tu)."""
     import torch
 
-    from tensorflowraytrace_tpu_torch import TraceConfig, trace
+    from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 
-    cfgs = {
-        "brute": TraceConfig(max_bounces=bounces, use_kernel=True),
-        "cull": TraceConfig(max_bounces=bounces, use_kernel=True, cull=True),
-        "grid": TraceConfig(max_bounces=bounces, use_kernel=True, cull="grid"),
-        "grid+resort": TraceConfig(max_bounces=bounces, use_kernel=True,
-                                   cull="grid", resort_rays=True),
-        "cull+resort": TraceConfig(max_bounces=bounces, use_kernel=True,
-                                   cull=True, resort_rays=True),
-    }
+    i_eps, s_lo, s_hi, _ = tk._thresholds(EPS, EPS, EPS)
+    d = p1 - p0
+    o = [a[:, None] for a in p0.unbind(1)]
+    inv = [a[:, None] for a in tk._inverse_direction(d).unbind(1)]
+    boxes = chunk_aabbs(vp, v1, v2, chunk)
+    admitted = out = 0
+    for c in range(boxes.shape[0]):
+        box = boxes[c:c + 1].T
+        rows = tk._slab_gate(o, inv, box[:3], box[3:], EPS,
+                             u[:, None])[:, 0].nonzero()[:, 0]
+        tri = slice(c * chunk, (c + 1) * chunk)
+        a = vp[tri]
+        e1, e2 = v1[tri] - a, v2[tri] - a
+        admitted += rows.numel() * a.shape[0]
+        step = max(1, (1 << 22) // a.shape[0])
+        for r0 in range(0, rows.numel(), step):
+            r = rows[r0:r0 + step]
+            pv = torch.linalg.cross(d[r][:, None], e2[None])       # D x E2
+            det = (e1[None] * pv).sum(-1)
+            tu = ((p0[r][:, None] - a[None]) * pv).sum(-1) * (1.0 / det)
+            ok = (det.abs() >= i_eps) & (tu >= s_lo) & (tu <= s_hi - s_lo)
+            out += int((~ok).sum())
+    return admitted, out
+
+
+def accel_configs(bounces, scene):
+    """The five search paths' trace configurations for ``scene``, children
+    starting ``engine.start_epsilon`` past their surface."""
+    from tensorflowraytrace_tpu_torch import TraceConfig
+    from tensorflowraytrace_tpu_torch.engine import start_epsilon
+
+    eps = start_epsilon(scene)
+
+    def cfg(**kw):
+        return TraceConfig(max_bounces=bounces, use_kernel=True,
+                           ray_start_epsilon=eps, **kw)
+
+    return {"brute": cfg(), "cull": cfg(cull=True), "grid": cfg(cull="grid"),
+            "grid+resort": cfg(cull="grid", resort_rays=True),
+            "cull+resort": cfg(cull=True, resort_rays=True)}
+
+
+def accel_paths(label, rays, scene, materials, bounces, launched):
+    """The search paths of one scene (``accel_configs``): the final state
+    and endpoints of every accelerated path against the brute path's, bit
+    for bit, each kernel once per bounce, and the median of 5 synchronised
+    traces after one more.  Adds each kernel's launches to ``launched``;
+    returns the medians (s) and the state counts."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import trace
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    cfgs = accel_configs(bounces, scene)
     kernel_of = {"brute": "K1", "cull": "K3", "grid": "K4",
                  "grid+resort": "K4", "cull+resort": "K3"}
     times = {k: [] for k in cfgs}
@@ -561,6 +619,51 @@ def count_syncs(fn):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def profile_guide3d(label, kernel, rays, scene, materials, cfg, device):
+    """One profiled trace of the 3D guide: the device-time split (the
+    search kernel named ``kernel``, the candidate precompute, the re-sort,
+    the rest), the idle share, kernels a bounce, peak memory and host
+    synchronisations (which must be 0)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflowraytrace_tpu_torch import trace
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    trace(rays, scene, materials, cfg)
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trace(rays, scene, materials, cfg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, union_us, n_device = device_profile(prof)
+    busy_us = sum(by_name.values())
+    if busy_us > 0:
+        search_us = sum(t for k, t in by_name.items() if kernel in k)
+        cand_us = range_device_us(prof, "twolevel_candidates")
+        resort_us = range_device_us(prof, "resort_rays")
+        rest_us = busy_us - search_us - cand_us - resort_us
+        split = (f"device busy {union_us:.1f} us of {wall_us:.1f} us wall "
+                 f"(idle share {1 - union_us / wall_us:.4f}); {n_device} "
+                 f"kernels and copies ({n_device / cfg.max_bounces:.1f} a "
+                 f"bounce), {busy_us:.1f} us: {kernel} {search_us:.1f} us "
+                 f"({search_us / busy_us:.4%}), candidate precompute "
+                 f"{cand_us:.1f} us ({cand_us / busy_us:.4%}), re-sort "
+                 f"{resort_us:.1f} us ({resort_us / busy_us:.4%}), rest "
+                 f"{rest_us:.1f} us ({rest_us / busy_us:.4%}); top: "
+                 + "; ".join(f"{k[:50]} {t:.1f} us"
+                             for k, t in by_name.most_common(5)))
+    else:
+        split = "the profiler recorded no device time: split not measured"
+    syncs = count_syncs(lambda: trace(rays, scene, materials, cfg))
+    print(f"phase 10 {label} profiled trace: {split}; peak device memory "
+          f"{peak_gib:.3f} GiB; {syncs} synchronising calls", flush=True)
+    check(syncs == 0, f"the guide {label} trace synchronised {syncs} times")
 
 
 def tune_twolevel(device):
@@ -816,16 +919,16 @@ def kernels_2d(cfg):
     return tuple(SEARCHES_2D[kind][variant][0] for kind in ("segment", "arc"))
 
 
-def guide2d_configs():
+def guide2d_configs(scene):
     from tensorflowraytrace_tpu_torch import scenes2d
 
-    return {"brute": scenes2d.guide_config(use_kernel=True),
-            "cull": scenes2d.guide_config(use_kernel=True, cull=True),
-            "cull+resort": scenes2d.guide_config(use_kernel=True, cull=True,
-                                                 resort_rays=True),
-            "grid": scenes2d.guide_config(use_kernel=True, cull="grid"),
-            "grid+resort": scenes2d.guide_config(use_kernel=True, cull="grid",
-                                                 resort_rays=True)}
+    def cfg(**kw):
+        return scenes2d.guide_config(scene, use_kernel=True, **kw)
+
+    return {"brute": cfg(), "cull": cfg(cull=True),
+            "cull+resort": cfg(cull=True, resort_rays=True),
+            "grid": cfg(cull="grid"),
+            "grid+resort": cfg(cull="grid", resort_rays=True)}
 
 
 def guide2d_paths(rays, scene, materials, launched):
@@ -839,7 +942,7 @@ def guide2d_paths(rays, scene, materials, launched):
     from tensorflowraytrace_tpu_torch import scenes2d, trace
 
     bounces = scenes2d.GUIDE_BOUNCES
-    cfgs = guide2d_configs()
+    cfgs = guide2d_configs(scene)
     times = {k: [] for k in cfgs}
     finals = {}
     for rep in range(6):  # rep 0 warms up and gives the results
@@ -946,7 +1049,7 @@ def phase_13(device):
           f"2D guide has {seg.n_surfaces} segments, {arc.n_surfaces} arcs")
     launched = {}
     guide2d_paths(rays, scene, materials, launched)
-    cfgs = guide2d_configs()
+    cfgs = guide2d_configs(scene)
     for label in ("brute", "cull+resort", "grid+resort"):
         profile_guide2d(label, rays, scene, materials, cfgs[label], device)
 
@@ -987,6 +1090,9 @@ def phase_13(device):
                 "plain_ms": cuda_ms(lambda: plain(args), 1),
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
+                # every operation an instruction: the kernels are built
+                # with --fmad=false, and the peak counts an FMA as two
+                "floor_no_fma_ms": max(bytes_ms, 2 * ops_ms),
                 "pairs": work,
                 "shape": f"{n}x{m} (first bounce of the 2D guide)",
             }
@@ -1022,7 +1128,8 @@ def phase_13(device):
             print(f"phase 13 {key} alone at the first bounce {n}x{m}: kernel "
                   f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, bound "
                   f"{f['bound_ms']:.5f} ms ({f['bound_by']}; {work} pairs, "
-                  f"{work / (n * m):.4%} of brute, {flops} flops each)",
+                  f"{work / (n * m):.4%} of brute, {flops} flops each; "
+                  f"without FMAs {f['floor_no_fma_ms']:.5f} ms)",
                   flush=True)
     return fields
 
@@ -1122,7 +1229,7 @@ def tune_twolevel_2d(device):
     from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 
     rays, scene, materials = scenes2d.light_guide(GUIDE2D_RAYS, device=device)
-    cfgs = guide2d_configs()
+    cfgs = guide2d_configs(scene)
     ref = trace(rays, scene, materials, cfgs["brute"]).rays
 
     def run(rb, cap):
@@ -1177,8 +1284,9 @@ def main():
 
     from tensorflowraytrace_tpu_torch import FINISHED, Scene3D, TraceConfig, trace
     from tensorflowraytrace_tpu_torch import flagship
+    from tensorflowraytrace_tpu_torch.engine import start_epsilon
     from tensorflowraytrace_tpu_torch.models.acceleration import (
-        chunk_aabbs, morton_codes_device,
+        morton_codes_device,
     )
     from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
     from tensorflowraytrace_tpu_torch.ops import cuda_build
@@ -1483,14 +1591,17 @@ def main():
                               launched)
     del rays, scene
 
-    # ---- phase 10: the structured guide
+    # ---- phase 10: the structured guide, children starting the card's
+    # float32 ray_start_epsilon past their surface (TraceConfig.recommended)
     g_mats = (mats.vacuum, mats.acrylic)
     g_med, g_states = accel_paths("phase 10 guide", g_rays, g_scene, g_mats,
                                   GUIDE_BOUNCES, launched)
     n, m = g_rays.n_rays, g_tri.n_surfaces
-    print("phase 10 table (median ms per trace): "
-          + "; ".join(f"{k}: soup {soup_med[k] * 1e3:.3f}, guide "
-                      f"{g_med[k] * 1e3:.3f}" for k in g_med), flush=True)
+    print(f"phase 10 ray_start_epsilon {start_epsilon(g_scene)!r}; table "
+          "(median ms per "
+          "trace): " + "; ".join(f"{k}: soup {soup_med[k] * 1e3:.3f}, guide "
+                                 f"{g_med[k] * 1e3:.3f}" for k in g_med),
+          flush=True)
 
     # K1, K3 and K4 alone at the guide's first bounce, the rays in the
     # Morton order the re-sort gives them
@@ -1521,12 +1632,11 @@ def main():
           f"{k1_guide_ms:.4f} ms, bound {brute_bound_ms:.4f} ms (operations)",
           flush=True)
     # one bound for K3 and K4: the pairs these inputs need, at the finer of
-    # their chunks
+    # their chunks, those refused on tu at their cost so far
     bound_chunk = min(tk.CULL_CHUNK, tk.FINE_CHUNK)
-    pairs = admitted_pairs(args[0], args[1],
-                           chunk_aabbs(*args[2:], bound_chunk), m, u_final,
-                           bound_chunk)
-    culled_bound_ms = pairs * K1_FLOPS_PER_PAIR / PEAK_FP32_FLOP_S * 1e3
+    pairs, tu_out = triangle_pairs(*args, u_final, bound_chunk)
+    culled_bound_ms = ((pairs - tu_out) * K1_FLOPS_PER_PAIR
+                       + tu_out * TU_FLOPS_PER_PAIR) / PEAK_FP32_FLOP_S * 1e3
     alone = {}
     for name, fn, plain in (
             ("K3", tk.nearest_hit_triangles_culled_kernel,
@@ -1542,47 +1652,20 @@ def main():
         print(f"phase 10 {name} alone at the first bounce {n}x{m}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms; {report}; admitted "
               f"pairs {pairs} at {bound_chunk}-triangle chunks "
-              f"({pairs / (n * m):.4%} of brute), bound "
-              f"{culled_bound_ms:.4f} ms (operations; brute bound "
+              f"({pairs / (n * m):.4%} of brute; {tu_out / pairs:.4%} of "
+              f"them out on tu), bound "
+              f"{culled_bound_ms:.4f} ms (operations; without FMAs "
+              f"{2 * culled_bound_ms:.4f} ms; brute bound "
               f"{brute_bound_ms:.4f} ms)", flush=True)
     del args, u_final, k1_out, out
 
-    # one grid + resort trace: its device time, memory and syncs
-    g_cfg = TraceConfig(max_bounces=GUIDE_BOUNCES, use_kernel=True,
-                        cull="grid", resort_rays=True)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    trace(g_rays, g_scene, g_mats, g_cfg)
-    torch.cuda.synchronize()
-    g_peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trace(g_rays, g_scene, g_mats, g_cfg)
-        torch.cuda.synchronize()
-        prof_wall_us = (time.perf_counter() - t0) * 1e6
-    by_name, union_us, n_device = device_profile(prof)
-    busy_us = sum(by_name.values())
-    if busy_us > 0:
-        k4_us = sum(t for k, t in by_name.items()
-                    if "triangle_search_twolevel" in k)
-        cand_us = range_device_us(prof, "twolevel_candidates")
-        resort_us = range_device_us(prof, "resort_rays")
-        rest_us = busy_us - k4_us - cand_us - resort_us
-        split = (f"device busy {union_us:.1f} us of {prof_wall_us:.1f} us "
-                 f"wall (idle share {1 - union_us / prof_wall_us:.4f}); "
-                 f"{n_device} kernels and copies, {busy_us:.1f} us: K4 "
-                 f"{k4_us:.1f} us ({k4_us / busy_us:.4%}), candidate "
-                 f"precompute {cand_us:.1f} us ({cand_us / busy_us:.4%}), "
-                 f"re-sort {resort_us:.1f} us ({resort_us / busy_us:.4%}), "
-                 f"rest {rest_us:.1f} us ({rest_us / busy_us:.4%}); top: "
-                 + "; ".join(f"{k[:50]} {t:.1f} us"
-                             for k, t in by_name.most_common(5)))
-    else:
-        split = "the profiler recorded no device time: split not measured"
-    g_syncs = count_syncs(lambda: trace(g_rays, g_scene, g_mats, g_cfg))
-    print(f"phase 10 grid+resort trace: {split}; peak device memory "
-          f"{g_peak_gib:.3f} GiB; {g_syncs} synchronising calls", flush=True)
-    check(g_syncs == 0, f"the guide trace synchronised {g_syncs} times")
+    # the cull=True + re-sort trace (recommended's) and the grid + re-sort
+    # trace: device time, memory and syncs
+    g_cfgs = accel_configs(GUIDE_BOUNCES, g_scene)
+    for label, kernel in (("cull+resort", "triangle_search_culled"),
+                          ("grid+resort", "triangle_search_twolevel")):
+        profile_guide3d(label, kernel, g_rays, g_scene, g_mats, g_cfgs[label],
+                        device)
 
     # ---- phases 11-14: the 2D path
     phase_11(device)
@@ -1600,6 +1683,7 @@ def main():
         "launches": train_launches["K1"], "launches_forward": forward_launches,
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound_ms, "bound_by": "operations", "library_ms": None,
+        "floor_no_fma_ms": 2 * k1_bound_ms,
         "shape": f"{BENCH_RAYS}x{N_SOUP_TRIS + 2}",
     }, {
         "name": "segment_sum", "route": "cuda",
@@ -1618,8 +1702,10 @@ def main():
         "ms": k4_kernel_ms if key == "K4" else alone[key]["ms"],
         "wrapper_ms": alone[key]["ms"], "plain_ms": alone[key]["plain_ms"],
         "bound_ms": culled_bound_ms, "bound_by": "operations",
+        "floor_no_fma_ms": 2 * culled_bound_ms,
         "brute_bound_ms": brute_bound_ms, "library_ms": None,
         "shape": f"{n}x{m} (first bounce of the guide)",
+        "pairs": pairs, "pairs_out_on_tu": tu_out,
     } for name, source, line, key in (
         ("triangle_search_culled", tk.SOURCE_CULLED, 144, "K3"),
         ("triangle_search_twolevel", tk.SOURCE_TWOLEVEL, 979, "K4"))] + [{

@@ -36,7 +36,13 @@ from tensorflowraytrace_tpu_torch import config
 from tensorflowraytrace_tpu_torch.config import (
     ACTIVE, DEAD, FINISHED, OPTICAL, STOP, STOPPED, TARGET,
 )
-from tensorflowraytrace_tpu_torch.engine import TraceConfig, TraceResult, trace
+from tensorflowraytrace_tpu_torch.engine import (
+    TraceConfig, TraceResult, bounce_count_fold, landing_sum_fold,
+    newly_terminated, path_length_fold, trace,
+)
+from tensorflowraytrace_tpu_torch.models.acceleration import (
+    morton_sort_segments, morton_sort_triangles,
+)
 from tensorflowraytrace_tpu_torch.models.rays import RaySet
 from tensorflowraytrace_tpu_torch.models.surfaces import (
     ArcSet, Scene2D, Scene3D, SegmentSet, TriangleSet,

@@ -1,24 +1,28 @@
 // What the 2D nearest-hit searches share: the ray load, the 2D slab gate,
-// the staging and per-tile search of segments (K5 segment_search.cu, K7
-// segment_search_culled.cu, K9 segment_search_twolevel.cu) and of arcs (K6
-// arc_search.cu, K8 arc_search_culled.cu, K10 arc_search_twolevel.cu), and
-// the two-level walk of K9 and K10.
+// the pair test, staging and per-tile search of segments (K5
+// segment_search.cu, K7 segment_search_culled.cu, K9
+// segment_search_twolevel.cu) and of arcs (K6 arc_search.cu, K8
+// arc_search_culled.cu, K10 arc_search_twolevel.cu), and the two-level walk
+// of K9 and K10.
 //
-// Every kernel runs one thread per ray, kThreads rays per block, and walks
-// the surfaces in tiles of kTile staged in shared memory as
-// structure-of-arrays rows, read as broadcasts.  A surface replaces the
-// ray's running best only under strict <, so a tie keeps the first index.
-// The arithmetic is the plain versions' (ops/segment_kernels.py,
-// ops/arc_kernels.py): the same float32 operations in the same order, built
-// with --fmad=false and without fast math, so that sqrtf and every division
-// are IEEE and kernel and plain version agree bit for bit.  The culled
-// kernels run the brute kernels' tile search and only skip tiles, so they
-// return the brute kernels' hits bit for bit.
+// K6-K10 run one thread per ray, kThreads rays per block, and walk the
+// surfaces in tiles of kTile staged in shared memory as structure-of-arrays
+// rows, read as broadcasts; K5 stages its own float4 tiles and runs several
+// rays a thread.  A surface replaces the ray's running best only under
+// strict <, so a tie keeps the first index.  The arithmetic is the plain
+// versions' (ops/segment_kernels.py, ops/arc_kernels.py): the same float32
+// operations in the same order, built with --fmad=false and without fast
+// math, so that sqrtf and every division are IEEE and kernel and plain
+// version agree bit for bit.  The segment kernels share one pair test
+// (segment_pair), and the culled kernels only skip tiles, so they return
+// the brute kernels' hits bit for bit.
 
 #pragma once
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "reject_test.cuh"
 
 namespace search2d {
 
@@ -99,31 +103,65 @@ __device__ __forceinline__ void stage_segments(float (*tile)[kTile],
   }
 }
 
-// The nearest valid segment of a staged tile, folded into the running best:
+// One ray-segment pair, the plain version's arithmetic:
 //   den = dx1 dy2 - dy1 dx2, valid only when |den| >= i_eps,
 //   inv = 1 / (ok ? den : 1),
 //   ray_u = (dx2 (y1 - y2) - dy2 (x1 - x2)) inv,
 //   seg_u = (dy1 (x2 - x1) - dx1 (y2 - y1)) inv,
-//   valid when s_lo <= seg_u <= s_hi and ray_u >= r_eps.
+//   valid when s_lo <= seg_u <= s_hi and ray_u >= r_eps; it replaces the
+//   running best only under strict <.
+// seg_u's numerator is formed as dx1 (y1 - y2) - dy1 (x1 - x2): IEEE
+// rounding is symmetric, so negating both differences negates both products
+// and gives the same difference, bit for bit (a zero's sign aside, which no
+// comparison sees).  A search forms the exact numerators (SegmentPair),
+// runs reject_test.cuh's test on them (maybe), and only for a pair the test
+// cannot reject the division and the exact compares (fold), so its result
+// is the plain version's bit for bit.
+struct SegmentPair {
+  float den, nu, ns;
+
+  SegmentPair() = default;
+
+  __device__ __forceinline__ SegmentPair(float x2, float y2, float dx2,
+                                         float dy2, const Ray& r) {
+    const float tx = r.ox - x2, ty = r.oy - y2;
+    den = r.dx * dy2 - r.dy * dx2;
+    nu = dx2 * ty - dy2 * tx;
+    ns = r.dx * ty - r.dy * tx;
+  }
+
+  // False only where the exact arithmetic rejects the pair; no branch.
+  __device__ __forceinline__ bool maybe(const reject::Limits& L,
+                                        const reject::Best& best) const {
+    const float ad = fabsf(den);
+    const float a = reject::approx_rcp(den);
+    const bool near = reject::inside(ns * a, L.s_win) &
+                      reject::inside(nu * a, best.win);
+    return (ad >= L.i_eps) & (reject::out_of_range(ad, L) | near);
+  }
+
+  // The exact arithmetic, for a pair with |den| >= i_eps (so 1 / den is the
+  // plain version's 1 / (ok ? den : 1)), folded into the running best.
+  __device__ __forceinline__ void fold(int idx, const reject::Limits& L,
+                                       reject::Best& best) const {
+    const float inv = 1.0f / den;
+    const float u = nu * inv;
+    const float s = ns * inv;
+    if ((s >= L.s_lo) && (s <= L.s_hi) && (u >= L.r_eps) && u < best.u)
+      best.set(u, idx, L);
+  }
+};
+
+// The nearest valid segment of a staged tile (rows start x, start y,
+// direction x, direction y), folded into the running best in index order.
 __device__ __forceinline__ void search_segments(const float (*tile)[kTile],
                                                 int count, int base,
-                                                const Ray& r, float i_eps,
-                                                float s_lo, float s_hi,
-                                                float r_eps, float& best_u,
-                                                int& best_idx) {
+                                                const Ray& r,
+                                                const reject::Limits& L,
+                                                reject::Best& best) {
   for (int t = 0; t < count; ++t) {
-    const float x2 = tile[0][t], y2 = tile[1][t];
-    const float dx2 = tile[2][t], dy2 = tile[3][t];
-    const float den = r.dx * dy2 - r.dy * dx2;
-    bool ok = fabsf(den) >= i_eps;
-    const float inv = 1.0f / (ok ? den : 1.0f);
-    const float u = (dx2 * (r.oy - y2) - dy2 * (r.ox - x2)) * inv;
-    const float s = (r.dy * (x2 - r.ox) - r.dx * (y2 - r.oy)) * inv;
-    ok = ok && (s >= s_lo) && (s <= s_hi) && (u >= r_eps);
-    if (ok && u < best_u) {
-      best_u = u;
-      best_idx = base + t;
-    }
+    const SegmentPair pair(tile[0][t], tile[1][t], tile[2][t], tile[3][t], r);
+    if (pair.maybe(L, best)) pair.fold(base + t, L, best);
   }
 }
 

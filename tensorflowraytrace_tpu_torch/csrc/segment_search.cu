@@ -6,21 +6,33 @@
 //
 // What it computes, per ray: the smallest valid ray parameter u over every
 // segment and the index of the first segment that gives it; u = 3e38 and
-// idx 0 on a miss.  The pair arithmetic (search2d::search_segments in
+// idx 0 on a miss.  The pair arithmetic (search2d::segment_pair in
 // search2d_common.cuh) is the plain version's (ops/segment_kernels.py) in
 // the same order, built with --fmad=false, so both agree bit for bit.
 //
-// What bounds it: FP32 arithmetic, 16 operations per ray-segment pair (the
-// denominator 3, its reciprocal 1, ray_u 6, seg_u 6) and the compares, with
-// almost no bytes once a tile of segments sits in shared memory: a block of
-// 256 rays reads each segment's 16 bytes once and uses them 256 times.
+// What bounds it: FP32 issue slots.  A pair needs 14 operations (T 2, the
+// denominator 3, the two numerators 6, a reciprocal 1, two products 2),
+// and without FMAs each is an instruction; the IEEE division, which only
+// a pair the reject test keeps pays, issues about eight more (a MUFU.RCP,
+// a Newton step, a range check).  Bytes hardly count: a block reads each
+// segment's 16 bytes once and uses them for all of its rays.
 //
-// The design: one thread per ray with its running best in registers;
-// tiles of 256 segments staged as (start, direction) structure-of-arrays in
-// shared memory, the direction computed once per segment; every thread of
-// a warp reads the same segment at once, a broadcast.  The ragged last tile
-// is masked by its count (the TPU kernel's zero padding and its (8, M)
-// packing do not carry over).
+// The design:
+// - The reject test (reject_test.cuh): the pair's exact numerators and
+//   denominator (11 operations), an approximate reciprocal and two
+//   products, and four compares against thresholds widened by the
+//   reciprocal's worst error.  Only a pair it cannot reject runs the
+//   division and the exact compares, in today's order.  A ray's line
+//   crosses few of the segments, so a warp rarely takes that path.
+// - One 128-bit shared load a segment: the tile holds (x, y, dx, dy) as
+//   one float4 per segment, the direction computed once while staging, and
+//   every thread reads the same segment at once (a broadcast).
+// - kRays rays a thread: each load serves kRays pairs, and the rays'
+//   state stays in registers.  A block of kThreads threads takes kThreads
+//   x kRays consecutive rays, ray k of a thread at offset k kThreads, so
+//   loads and stores stay coalesced; 2^20 rays make 1024 blocks.
+// - Tiles of kSegTile segments (16 KB) in shared memory, the ragged last
+//   one masked by its count.
 
 #include <cuda_runtime.h>
 
@@ -29,34 +41,61 @@
 namespace {
 
 using search2d::kThreads;
-using search2d::kTile;
+constexpr int kRays = 4;         // rays a thread
+constexpr int kSegTile = 1024;   // segments a shared-memory tile
 
 __global__ void __launch_bounds__(kThreads)
 segment_search_kernel(const float* __restrict__ p0,
                       const float* __restrict__ p1,
                       const float* __restrict__ sp0,
                       const float* __restrict__ sp1, int n, int m,
-                      float i_eps, float s_lo, float s_hi, float r_eps,
+                      const reject::Limits lim,
                       float* __restrict__ u_out, int* __restrict__ idx_out) {
-  __shared__ float tile[4][kTile];
+  __shared__ float4 tile[kSegTile];
 
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = ray < n;
-  const search2d::Ray r = search2d::load_ray(p0, p1, ray, live);
-
-  float best_u = search2d::kBig;
-  int best_idx = 0;
-  for (int base = 0; base < m; base += kTile) {
-    const int count = min(kTile, m - base);
-    __syncthreads();  // the previous tile is no longer read
-    search2d::stage_segments(tile, sp0, sp1, base, count);
-    __syncthreads();
-    search2d::search_segments(tile, count, base, r, i_eps, s_lo, s_hi, r_eps,
-                              best_u, best_idx);
+  const int first = blockIdx.x * (kThreads * kRays) + threadIdx.x;
+  search2d::Ray r[kRays];
+  reject::Best best[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int ray = first + k * kThreads;
+    r[k] = search2d::load_ray(p0, p1, ray, ray < n);
+    best[k].set(search2d::kBig, 0, lim);
   }
-  if (live) {
-    u_out[ray] = best_u;
-    idx_out[ray] = best_idx;
+
+  for (int base = 0; base < m; base += kSegTile) {
+    const int count = min(kSegTile, m - base);
+    __syncthreads();  // the previous tile is no longer read
+    for (int t = threadIdx.x; t < count; t += kThreads) {
+      const int g = 2 * (base + t);
+      const float x = sp0[g + 0], y = sp0[g + 1];
+      tile[t] = make_float4(x, y, sp1[g + 0] - x, sp1[g + 1] - y);
+    }
+    __syncthreads();
+    for (int t = 0; t < count; ++t) {
+      const float4 s = tile[t];
+      search2d::SegmentPair pair[kRays];
+      bool maybe[kRays], any = false;
+#pragma unroll
+      for (int k = 0; k < kRays; ++k) {
+        pair[k] = search2d::SegmentPair(s.x, s.y, s.z, s.w, r[k]);
+        maybe[k] = pair[k].maybe(lim, best[k]);
+        any |= maybe[k];
+      }
+      if (any) {  // rarely: one branch a segment, not one a pair
+#pragma unroll
+        for (int k = 0; k < kRays; ++k)
+          if (maybe[k]) pair[k].fold(base + t, lim, best[k]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int ray = first + k * kThreads;
+    if (ray < n) {
+      u_out[ray] = best[k].u;
+      idx_out[ray] = best[k].idx;
+    }
   }
 }
 
@@ -71,9 +110,10 @@ extern "C" int segment_search_launch(const float* p0, const float* p1,
                                      int n, int m, float i_eps, float s_lo,
                                      float s_hi, float r_eps, float* u_out,
                                      int* idx_out, void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const int blocks = (n + kThreads * kRays - 1) / (kThreads * kRays);
   segment_search_kernel<<<blocks, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      p0, p1, sp0, sp1, n, m, i_eps, s_lo, s_hi, r_eps, u_out, idx_out);
+      p0, p1, sp0, sp1, n, m, reject::limits(i_eps, s_lo, s_hi, r_eps), u_out,
+      idx_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,7 @@
 // cull=True).
 //
 // What it computes: exactly what segment_search.cu (K5) computes, with K5's
-// tile search (search2d::search_segments), so valid, idx and u equal K5's
+// pair test (search2d::segment_pair), so valid, idx and u equal K5's
 // bit for bit.  It only skips pairs that cannot give a nearer hit.
 //
 // The gate.  The segments are cut into chunks of kTile rows (the shared-
@@ -26,7 +26,7 @@
 // fail every slab test, and a block whose rays are all parked stages no
 // tile.
 //
-// What bounds it: FP32 arithmetic on the admitted pairs (16 operations
+// What bounds it: FP32 arithmetic on the admitted pairs (14 operations
 // each, as in K5), plus one 14-operation slab test per ray and tile.  After
 // the first bounce most rays have a near best hit or are parked, so most
 // (warp, tile) pairs are skipped; on a Morton-sorted scene a tile is a
@@ -47,7 +47,7 @@ segment_search_culled_kernel(const float* __restrict__ p0,
                              const float* __restrict__ sp0,
                              const float* __restrict__ sp1,
                              const float* __restrict__ aabb, int n, int m,
-                             float i_eps, float s_lo, float s_hi, float r_eps,
+                             const reject::Limits lim,
                              float slack_hi, float slack_lo, float slack,
                              float* __restrict__ u_out,
                              int* __restrict__ idx_out) {
@@ -57,12 +57,12 @@ segment_search_culled_kernel(const float* __restrict__ p0,
   const bool live = ray < n;
   const search2d::Ray r = search2d::load_ray(p0, p1, ray, live);
 
-  float best_u = search2d::kBig;
-  int best_idx = 0;
+  reject::Best best;
+  best.set(search2d::kBig, 0, lim);
   for (int base = 0, chunk = 0; base < m; base += kTile, ++chunk) {
-    const bool need = live && search2d::slab_gate(aabb + 4 * chunk, r, r_eps,
-                                                  slack_hi, slack_lo, slack,
-                                                  best_u);
+    const bool need =
+        live && search2d::slab_gate(aabb + 4 * chunk, r, lim.r_eps, slack_hi,
+                                    slack_lo, slack, best.u);
     const bool warp_need = __any_sync(0xffffffffu, need);
     // also the barrier after which the previous tile is no longer read
     if (!__syncthreads_or(need)) continue;
@@ -70,12 +70,11 @@ segment_search_culled_kernel(const float* __restrict__ p0,
     search2d::stage_segments(tile, sp0, sp1, base, count);
     __syncthreads();
     if (!warp_need) continue;
-    search2d::search_segments(tile, count, base, r, i_eps, s_lo, s_hi, r_eps,
-                              best_u, best_idx);
+    search2d::search_segments(tile, count, base, r, lim, best);
   }
   if (live) {
-    u_out[ray] = best_u;
-    idx_out[ray] = best_idx;
+    u_out[ray] = best.u;
+    idx_out[ray] = best.idx;
   }
 }
 
@@ -95,7 +94,8 @@ extern "C" int segment_search_culled_launch(
   const int blocks = (n + kThreads - 1) / kThreads;
   segment_search_culled_kernel<<<blocks, kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
-      p0, p1, sp0, sp1, aabb, n, m, i_eps, s_lo, s_hi, r_eps, slack_hi,
+      p0, p1, sp0, sp1, aabb, n, m, reject::limits(i_eps, s_lo, s_hi, r_eps),
+      slack_hi,
       slack_lo, slack, u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,7 +6,7 @@
 // cull="grid").
 //
 // What it computes: exactly what segment_search.cu (K5) computes, with K5's
-// tile search (search2d::search_segments), so valid, idx and u equal K5's
+// pair test (search2d::segment_pair), so valid, idx and u equal K5's
 // bit for bit.  It only skips pairs that cannot give a nearer hit.
 //
 // The design is K4's (triangle_search_twolevel.cu), written once for K9 and
@@ -33,7 +33,7 @@
 // candidate table inside SMEM (_slab_ray_axis), its 1024-ray blocks and the
 // (8, N) / (8, M) layouts.
 //
-// What bounds it: FP32 arithmetic on the admitted pairs (16 operations each,
+// What bounds it: FP32 arithmetic on the admitted pairs (14 operations each,
 // as in K5; the bound K7 has, at the same 256-segment chunks), plus one
 // slab test per ray and candidate chunk and the candidate precompute
 // outside the kernel.  The candidate lists skip the chunks no ray of a block
@@ -57,8 +57,8 @@ segment_search_twolevel_kernel(const float* __restrict__ p0,
                                const float* __restrict__ aabb,
                                const int* __restrict__ counts,
                                const int* __restrict__ cand, int n, int m,
-                               int n_chunks, int max_cand, float i_eps,
-                               float s_lo, float s_hi, float r_eps,
+                               int n_chunks, int max_cand,
+                               const reject::Limits lim,
                                float slack_hi, float slack_lo, float slack,
                                float* __restrict__ u_out,
                                int* __restrict__ idx_out) {
@@ -68,18 +68,17 @@ segment_search_twolevel_kernel(const float* __restrict__ p0,
   const bool live = ray < n;
   const search2d::Ray r = search2d::load_ray(p0, p1, ray, live);
 
-  float best_u = search2d::kBig;
-  int best_idx = 0;
+  reject::Best best;
+  best.set(search2d::kBig, 0, lim);
   search2d::twolevel_walk(
-      buf, table, aabb, counts, cand, n_chunks, max_cand, m, r, live, r_eps,
-      slack_hi, slack_lo, slack, best_u,
+      buf, table, aabb, counts, cand, n_chunks, max_cand, m, r, live, lim.r_eps,
+      slack_hi, slack_lo, slack, best.u,
       [&](const search2d::SegmentTile& tile, int count, int base) {
-        search2d::search_segments(tile.row, count, base, r, i_eps, s_lo, s_hi,
-                                  r_eps, best_u, best_idx);
+        search2d::search_segments(tile.row, count, base, r, lim, best);
       });
   if (live) {
-    u_out[ray] = best_u;
-    idx_out[ray] = best_idx;
+    u_out[ray] = best.u;
+    idx_out[ray] = best.idx;
   }
 }
 
@@ -105,7 +104,8 @@ extern "C" int segment_search_twolevel_launch(
   const int blocks = (n + ray_block - 1) / ray_block;
   segment_search_twolevel_kernel<<<blocks, ray_block, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
-      p0, p1, table, aabb, counts, cand, n, m, n_chunks, max_cand, i_eps, s_lo,
-      s_hi, r_eps, slack_hi, slack_lo, slack, u_out, idx_out);
+      p0, p1, table, aabb, counts, cand, n, m, n_chunks, max_cand,
+      reject::limits(i_eps, s_lo, s_hi, r_eps), slack_hi, slack_lo, slack,
+      u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

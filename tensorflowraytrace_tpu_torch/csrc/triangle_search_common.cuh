@@ -1,14 +1,17 @@
-// The slab gate and the per-tile Moller-Trumbore search shared by the
+// The slab gate and the per-pair Moller-Trumbore search shared by the
 // culled (K3, triangle_search_culled.cu) and two-level (K4,
 // triangle_search_twolevel.cu) triangle searches.
 //
 // The arithmetic is K1's (triangle_search.cu): the same float32 operations
-// in the same order, built with --fmad=false, so that both kernels return
-// K1's valid, idx and u bit for bit.  K1 keeps its own copy, unchanged.
+// in the same order, built with --fmad=false, behind reject_test.cuh's
+// test, so that both kernels return K1's valid, idx and u bit for bit.  K1
+// keeps its own copy, unchanged.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "reject_test.cuh"
 
 namespace tsearch {
 
@@ -69,48 +72,67 @@ __device__ __forceinline__ bool slab_gate(const float* __restrict__ box,
          (tmin * slack_lo - slack <= best_u);
 }
 
+// One ray-triangle pair (vertex v0, edges E1 = v1 - v0, E2 = v2 - v0)
+// folded into the running best, K1's arithmetic:
+//   P = D x E2, det = E1 . P; the pair is invalid when |det| < i_eps;
+//   T = o - v0, Q = T x E1, inv = 1 / det,
+//   tu = (T . P) inv, tv = (D . Q) inv, u = (E2 . Q) inv,
+//   valid when tu >= s_lo, tv >= s_lo, tu + tv <= s_hi, u >= r_eps;
+// it replaces the best only under strict <.  reject_test.cuh's test runs
+// on the exact numerators, tu's first (before Q is formed), then tv's, tu +
+// tv's and u's; the division and the exact compares run only for a pair it
+// cannot reject.
+__device__ __forceinline__ void triangle_pair(
+    float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
+    float e2x, float e2y, float e2z, int idx, const Ray& r,
+    const reject::Limits& L, reject::Best& best) {
+  // P = D x E2
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float tx = r.ox - v0x;
+  const float ty = r.oy - v0y;
+  const float tz = r.oz - v0z;
+  const float ntu = tx * px + ty * py + tz * pz;
+  const float ad = fabsf(det);
+  const float a = reject::approx_rcp(det);
+  const bool wide = reject::out_of_range(ad, L);
+  const float wtu = ntu * a;
+  if (!((ad >= L.i_eps) & (wide | reject::inside(wtu, L.tu_win)))) return;
+
+  // Q = T x E1
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float ntv = r.dx * qx + r.dy * qy + r.dz * qz;
+  const float nu = e2x * qx + e2y * qy + e2z * qz;
+  const float wtv = ntv * a;
+  if (!(wide | ((wtv >= L.s_lo_w) & (wtu + wtv <= L.sum_hi_w) &
+                reject::inside(nu * a, best.win))))
+    return;
+
+  const float inv = 1.0f / det;  // |det| >= i_eps: K1's 1 / (ok ? det : 1)
+  const float tu = ntu * inv;
+  const float tv = ntv * inv;
+  const float u = nu * inv;
+  if ((tu >= L.s_lo) && (tv >= L.s_lo) && (tu + tv <= L.s_hi) &&
+      (u >= L.r_eps) && u < best.u)
+    best.set(u, idx, L);
+}
+
 // Fold the first `count` triangles of a shared-memory tile, stored as nine
 // rows of kRow floats (v0 xyz, E1 xyz, E2 xyz), into the ray's running best;
-// column t is triangle base + t.  A triangle replaces the best only under
-// strict <, so a tie keeps the first index.
+// column t is triangle base + t: triangle_pair in index order.
 template <int kRow>
 __device__ __forceinline__ void search_tile(const float (*tile)[kRow],
                                             int count, int base, const Ray& r,
-                                            float i_eps, float s_lo,
-                                            float s_hi, float r_eps,
-                                            float& best_u, int& best_idx) {
-  for (int t = 0; t < count; ++t) {
-    const float e1x = tile[3][t], e1y = tile[4][t], e1z = tile[5][t];
-    const float e2x = tile[6][t], e2y = tile[7][t], e2z = tile[8][t];
-
-    // P = D x E2
-    const float px = r.dy * e2z - r.dz * e2y;
-    const float py = r.dz * e2x - r.dx * e2z;
-    const float pz = r.dx * e2y - r.dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-
-    bool ok = fabsf(det) >= i_eps;
-    const float inv = 1.0f / (ok ? det : 1.0f);
-
-    const float tx = r.ox - tile[0][t];
-    const float ty = r.oy - tile[1][t];
-    const float tz = r.oz - tile[2][t];
-    const float tu = (tx * px + ty * py + tz * pz) * inv;
-
-    // Q = T x E1
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float tv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
-    const float u = (e2x * qx + e2y * qy + e2z * qz) * inv;
-
-    ok = ok && (tu >= s_lo) && (tv >= s_lo) && (tu + tv <= s_hi) &&
-         (u >= r_eps);
-    if (ok && u < best_u) {
-      best_u = u;
-      best_idx = base + t;
-    }
-  }
+                                            const reject::Limits& L,
+                                            reject::Best& best) {
+  for (int t = 0; t < count; ++t)
+    triangle_pair(tile[0][t], tile[1][t], tile[2][t], tile[3][t], tile[4][t],
+                  tile[5][t], tile[6][t], tile[7][t], tile[8][t], base + t, r,
+                  L, best);
 }
 
 }  // namespace tsearch

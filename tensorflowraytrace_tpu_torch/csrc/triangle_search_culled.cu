@@ -14,28 +14,51 @@
 //
 // The gate.  The triangles are cut into chunks of kTile rows (the shared-
 // memory tile), each with its axis-aligned box (models/acceleration.py
-// chunk_aabbs, passed in as (C, 6): min xyz, max xyz).  Before a tile is
-// staged, each thread slab-tests its own ray against the tile's box
-// (tsearch::slab_gate, triangle_search_common.cuh: can the ray hit the box
-// at t >= r_eps, no farther than its best, with slack 1 +- 1e-6); a ray
-// that fails cannot find a nearer hit in the tile.  The per-tile search is
-// tsearch::search_tile, K1's arithmetic.  __syncthreads_or decides whether
-// the block stages the tile at all, and a warp vote (__any_sync) whether a warp computes it: the
-// TPU kernel gates whole 512-ray blocks, a warp is the finer gate the TPU
-// could not have.  Results are set by the warp vote, so the plain version
-// (ops/triangle_kernels.py) gates groups of 32 rays.  Parked rays
+// chunk_aabbs, widened by ops/triangle_kernels.culled_boxes so that it
+// holds every point Moller-Trumbore accepts, s_eps of an edge beyond a
+// triangle and a float32 rounding margin; passed in as (C, 6): min xyz, max
+// xyz).  For each tile every ray slab-tests its own box (tsearch::slab_gate,
+// triangle_search_common.cuh: can it hit the box at t >= r_eps, no farther
+// than its best, with slack 1 +- 1e-6); a ray that fails cannot find a
+// nearer hit in the tile.  Each ray's own gate decides, so the plain
+// version (ops/triangle_kernels.py) gates ray by ray.  Parked rays
 // (p0 = 1e30, engine.project_3d) fail every slab test, and a block whose
-// rays are all parked stages no tile.
+// rays all fail stages no tile.
 //
-// What bounds it: FP32 arithmetic on the admitted pairs (about 46 flops
-// each, as in K1), plus one 20-flop slab test per ray and tile.  What the
-// gate does about it: after the first bounce most rays have a near best
-// hit or are parked, so most (warp, tile) pairs are skipped; on a
-// Morton-sorted scene a tile is a compact patch, so its box is small.
+// What bounds it: FP32 issue slots on the admitted pairs, each an
+// instruction without FMAs: 24 operations for a pair the reject test
+// refuses on tu (most of them), K1's 46 and the IEEE division's eight or
+// so for the rest, plus one slab test a ray and tile.  After the first
+// bounce most rays have a near best hit or are parked, so a tile is needed
+// by few rays of a block, and by different ones from tile to tile.
 //
-// One thread per ray, kThreads rays per block; tiles of kTile triangles
-// staged as (v0, E1, E2) structure-of-arrays in shared memory, read as
-// broadcasts; the running best in registers.
+// The design:
+// - Compaction inside the block.  The block's kBlock rays (one a thread)
+//   keep their origin, direction and running best in shared memory.  For
+//   each tile every thread gates its own ray; a ballot and a scan of the
+//   warps' counts write the slots of the k rays that need the tile into a
+//   list.  A tile then costs in proportion to the rays that need it, not
+//   to the warps that hold one.
+// - The whole block computes the listed rays: `group` threads a ray (the
+//   largest power of two up to 32 with group k <= kBlock), each folding
+//   every group-th triangle of the tile into its own copy of the ray's
+//   best, then a shuffle takes the group's smallest (u, idx), which is
+//   what the fold of the whole tile in index order under strict < gives.
+//   About a tenth of a block's rays need a given tile on the 3D guide's
+//   first bounce: one thread a listed ray would leave nine tenths of the
+//   threads idle and the SM short of warps to hide latency.
+// - The pair test (tsearch::triangle_pair, reject_test.cuh): the exact
+//   numerators, an approximate reciprocal, tu's widened range before Q is
+//   formed, then tv's, tu + tv's and u's; the division and the exact
+//   compares only for a pair the test cannot reject.
+// - The tile holds (v0, E1, E2) as three rows of float4, the edges
+//   computed once while staging: three 128-bit shared loads a triangle,
+//   consecutive triangles at consecutive addresses for a group's threads,
+//   the same triangle for the groups (a broadcast).
+// - kBlock is 256 rays: the H100 sweep of 128, 256, 512 and 1024 (PERF.md)
+//   put 128 within 1.3% of 256 and both ahead of 512 and 1024.  The shared
+//   memory (12 KB of tile and 36 bytes a ray) is one dynamic array: the
+//   same arrays declared static ran slower on the H100 (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -43,10 +66,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // rays per block, one per thread
 constexpr int kTile = 256;      // triangles per tile = culling chunk
+constexpr int kBlock = 256;     // rays per block, one a thread
+constexpr int kWarps = kBlock / 32;
+constexpr unsigned kFull = 0xffffffffu;
+// the tile, two float4 a ray, the list, the warps' counts
+constexpr size_t kShared = sizeof(float4) * (3 * kTile + 2 * kBlock) +
+                           sizeof(int) * kBlock + sizeof(int) * 32;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBlock)
 triangle_search_culled_kernel(const float* __restrict__ p0,
                               const float* __restrict__ p1,
                               const float* __restrict__ vp,
@@ -54,51 +82,102 @@ triangle_search_culled_kernel(const float* __restrict__ p0,
                               const float* __restrict__ v2,
                               const float* __restrict__ aabb,
                               int n, int m,
-                              float i_eps, float s_lo, float s_hi, float r_eps,
+                              const reject::Limits lim,
                               float slack_hi, float slack_lo, float slack,
                               float* __restrict__ u_out,
                               int* __restrict__ idx_out) {
-  // structure-of-arrays tile: v0x v0y v0z e1x e1y e1z e2x e2y e2z
-  __shared__ float tile[9][kTile];
+  extern __shared__ float4 smem[];
+  float4* tile = smem;                      // 3 rows of kTile float4
+  float4* ray_a = tile + 3 * kTile;         // ox oy oz dx
+  float4* ray_b = ray_a + kBlock;           // dy dz best_u best_idx (bits)
+  int* list = reinterpret_cast<int*>(ray_b + kBlock);
+  int* warp_count = list + kBlock;
 
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
+  const int me = threadIdx.x;
+  const int lane = me & 31, warp = me >> 5;
+  const int ray = blockIdx.x * kBlock + me;
   const bool live = ray < n;
   const tsearch::Ray r = tsearch::load_ray(p0, p1, ray, live);
-
-  float best_u = tsearch::kBig;
-  int best_idx = 0;
+  ray_a[me] = make_float4(r.ox, r.oy, r.oz, r.dx);
+  ray_b[me] = make_float4(r.dy, r.dz, tsearch::kBig, __int_as_float(0));
 
   for (int base = 0, chunk = 0; base < m; base += kTile, ++chunk) {
-    const bool need = live && tsearch::slab_gate(aabb + 6 * chunk, r, r_eps,
+    // the previous tile's bests are written; the tile and list are free
+    __syncthreads();
+    const bool need = live && tsearch::slab_gate(aabb + 6 * chunk, r, lim.r_eps,
                                                  slack_hi, slack_lo, slack,
-                                                 best_u);
-    const bool warp_need = __any_sync(0xffffffffu, need);
-    // also the barrier after which the previous tile is no longer read
-    if (!__syncthreads_or(need)) continue;
+                                                 ray_b[me].z);
+    const unsigned vote = __ballot_sync(kFull, need);
+    if (lane == 0) warp_count[warp] = __popc(vote);
+    __syncthreads();
+    // inclusive scan of the warps' counts, in every warp
+    int c = lane < kWarps ? warp_count[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(kFull, c, d);
+      if (lane >= d) c += up;
+    }
+    const int total = __shfl_sync(kFull, c, 31);
+    if (total == 0) continue;  // the same in every thread
+    const int before = __shfl_sync(kFull, c, warp) - __popc(vote);
+    if (need) list[before + __popc(vote & ((1u << lane) - 1u))] = me;
 
     const int count = min(kTile, m - base);
-    for (int t = threadIdx.x; t < count; t += kThreads) {
+    for (int t = me; t < count; t += kBlock) {
       const int g = 3 * (base + t);
       const float ax = vp[g + 0], ay = vp[g + 1], az = vp[g + 2];
-      tile[0][t] = ax;
-      tile[1][t] = ay;
-      tile[2][t] = az;
-      tile[3][t] = v1[g + 0] - ax;
-      tile[4][t] = v1[g + 1] - ay;
-      tile[5][t] = v1[g + 2] - az;
-      tile[6][t] = v2[g + 0] - ax;
-      tile[7][t] = v2[g + 1] - ay;
-      tile[8][t] = v2[g + 2] - az;
+      tile[t] = make_float4(ax, ay, az, v1[g + 0] - ax);
+      tile[kTile + t] = make_float4(v1[g + 1] - ay, v1[g + 2] - az,
+                                    v2[g + 0] - ax, v2[g + 1] - ay);
+      tile[2 * kTile + t] = make_float4(v2[g + 2] - az, 0.f, 0.f, 0.f);
     }
     __syncthreads();
-    if (!warp_need) continue;
-    tsearch::search_tile<kTile>(tile, count, base, r, i_eps, s_lo, s_hi,
-                                r_eps, best_u, best_idx);
+
+    // `group` threads a listed ray (a power of two, at most a warp), each
+    // folding every group-th triangle of the tile into its own copy of the
+    // ray's best; a shuffle then takes the smallest (u, idx) of the group,
+    // which is what folding the whole tile in index order under strict <
+    // gives.
+    int group = 32;
+    while (group * total > kBlock) group >>= 1;
+    const int j = me / group, part = me % group;
+    if (warp * 32 < total * group) {  // the same in the whole warp
+      reject::Best best;
+      int slot = 0;
+      float4 b = make_float4(0.f, 0.f, tsearch::kBig, __int_as_float(0));
+      if (j < total) {
+        slot = list[j];
+        const float4 a = ray_a[slot];
+        b = ray_b[slot];
+        const tsearch::Ray q{a.x, a.y, a.z, a.w, b.x, b.y, 0.f, 0.f, 0.f};
+        best.set(b.z, __float_as_int(b.w), lim);
+        for (int t = part; t < count; t += group) {
+          const float4 t0 = tile[t], t1 = tile[kTile + t],
+                       t2 = tile[2 * kTile + t];
+          tsearch::triangle_pair(t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z,
+                                 t1.w, t2.x, base + t, q, lim, best);
+        }
+      } else {
+        best.u = tsearch::kBig;
+        best.idx = 0;
+      }
+      for (int d = 1; d < group; d <<= 1) {
+        const float u = __shfl_xor_sync(kFull, best.u, d);
+        const int idx = __shfl_xor_sync(kFull, best.idx, d);
+        if (u < best.u || (u == best.u && idx < best.idx)) {
+          best.u = u;
+          best.idx = idx;
+        }
+      }
+      if (j < total && part == 0)
+        ray_b[slot] = make_float4(b.x, b.y, best.u, __int_as_float(best.idx));
+    }
   }
 
+  __syncthreads();
   if (live) {
-    u_out[ray] = best_u;
-    idx_out[ray] = best_idx;
+    u_out[ray] = ray_b[me].z;
+    idx_out[ray] = __float_as_int(ray_b[me].w);
   }
 }
 
@@ -106,8 +185,8 @@ triangle_search_culled_kernel(const float* __restrict__ p0,
 
 // p0, p1: (n, 3) float32 row-major; vp, v1, v2: (m, 3) float32 row-major;
 // aabb: (ceil(m / chunk), 6) float32, where chunk must be the kernel's tile
-// of 256 triangles (else the launch returns cudaErrorInvalidValue).  u_out:
-// (n,) float32, idx_out: (n,) int32.  The thresholds (s_lo = -s_eps,
+// of 256 triangles (else the launch returns cudaErrorInvalidValue).
+// u_out: (n,) float32, idx_out: (n,) int32.  The thresholds (s_lo = -s_eps,
 // s_hi = 1 + s_eps) and the gate's slack (1 + 1e-6, 1 - 1e-6, 1e-6) arrive
 // as the float32 values the plain version compares with.  Launches on
 // `stream` and returns cudaGetLastError() (0 = launched).
@@ -117,10 +196,10 @@ extern "C" int triangle_search_culled_launch(
     float s_lo, float s_hi, float r_eps, float slack_hi, float slack_lo,
     float slack, float* u_out, int* idx_out, void* stream) {
   if (chunk != kTile) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  triangle_search_culled_kernel<<<blocks, kThreads, 0,
+  const int blocks = (n + kBlock - 1) / kBlock;
+  triangle_search_culled_kernel<<<blocks, kBlock, kShared,
                                   static_cast<cudaStream_t>(stream)>>>(
-      p0, p1, vp, v1, v2, aabb, n, m, i_eps, s_lo, s_hi, r_eps, slack_hi,
-      slack_lo, slack, u_out, idx_out);
+      p0, p1, vp, v1, v2, aabb, n, m, reject::limits(i_eps, s_lo, s_hi, r_eps),
+      slack_hi, slack_lo, slack, u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,11 +43,11 @@
 // - The fine chunk is fixed at compile time (kFine = 512, chosen on the
 //   H100, see PERF.md): the tile rows sit at constant offsets.
 //
-// What bounds it: FP32 arithmetic on the admitted pairs (about 46 flops
-// each), plus the per-step slab tests and the candidate precompute outside
-// the kernel.  The candidate lists and the gate keep the admitted pairs near
-// the pairs a ray can improve on; cp.async keeps the copies off the
-// critical path.
+// What bounds it: FP32 arithmetic on the admitted pairs (24 operations for
+// one refused on tu, 46 for the rest, as in K3), plus the per-step slab
+// tests and the candidate precompute outside the kernel.  The candidate
+// lists and the gate keep the admitted pairs near the pairs a ray can
+// improve on; cp.async keeps the copies off the critical path.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -67,9 +67,8 @@ triangle_search_twolevel_kernel(const float* __restrict__ p0,
                                 const int* __restrict__ counts,
                                 const int* __restrict__ cand,
                                 int n, int m, int n_chunks,
-                                int max_cand, float i_eps, float s_lo,
-                                float s_hi, float r_eps, float slack_hi,
-                                float slack_lo, float slack,
+                                int max_cand, const reject::Limits lim,
+                                float slack_hi, float slack_lo, float slack,
                                 float* __restrict__ u_out,
                                 int* __restrict__ idx_out) {
   // two buffers of one chunk each: 9 rows of kFine floats
@@ -95,8 +94,8 @@ triangle_search_twolevel_kernel(const float* __restrict__ p0,
     __pipeline_commit();
   };
 
-  float best_u = tsearch::kBig;
-  int best_idx = 0;
+  reject::Best best;
+  best.set(tsearch::kBig, 0, lim);
 
   if (cnt > 0) stage(chunk_id(0), 0);
   for (int k = 0; k < cnt; ++k) {
@@ -108,22 +107,22 @@ triangle_search_twolevel_kernel(const float* __restrict__ p0,
       __pipeline_wait_prior(0);
     }
 
-    const bool need = live && tsearch::slab_gate(aabb + 6 * c, r, r_eps,
+    const bool need = live && tsearch::slab_gate(aabb + 6 * c, r, lim.r_eps,
                                                  slack_hi, slack_lo, slack,
-                                                 best_u);
+                                                 best.u);
     const bool warp_need = __any_sync(0xffffffffu, need);
     // the barrier after which every thread's copies of chunk k are visible
     if (__syncthreads_or(need) && warp_need) {
       const int base = c * kFine;
       tsearch::search_tile<kFine>(smem[k & 1], min(kFine, m - base), base, r,
-                                  i_eps, s_lo, s_hi, r_eps, best_u, best_idx);
+                                  lim, best);
     }
     __syncthreads();  // buffer k & 1 is no longer read: step k+1 refills it
   }
 
   if (live) {
-    u_out[ray] = best_u;
-    idx_out[ray] = best_idx;
+    u_out[ray] = best.u;
+    idx_out[ray] = best.idx;
   }
 }
 
@@ -147,7 +146,8 @@ extern "C" int triangle_search_twolevel_launch(
   const int blocks = (n + ray_block - 1) / ray_block;
   triangle_search_twolevel_kernel<<<blocks, ray_block, 0,
                                     static_cast<cudaStream_t>(stream)>>>(
-      p0, p1, table, aabb, counts, cand, n, m, n_chunks, max_cand, i_eps,
-      s_lo, s_hi, r_eps, slack_hi, slack_lo, slack, u_out, idx_out);
+      p0, p1, table, aabb, counts, cand, n, m, n_chunks, max_cand,
+      reject::limits(i_eps, s_lo, s_hi, r_eps), slack_hi, slack_lo, slack,
+      u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

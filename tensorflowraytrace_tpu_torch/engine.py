@@ -22,6 +22,7 @@ the backward pass; the search is not.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -48,6 +49,13 @@ from tensorflowraytrace_tpu_torch.ops.materials import material_index_lookup
 # H100; no smaller 3D scene was measured culled, and the flagship's
 # 770-triangle traces are launch-bound.
 CULL_3D_MIN_TRIANGLES = 4096
+# TraceConfig.recommended on the card: in float32 a child ray starts this
+# many float32 spacings of the scene's largest coordinate magnitude past its
+# surface (ray_start_epsilon).  The float32 default of 1e-6 is below one
+# spacing from 16 units on (3.8e-6 at 40), so a child could start just
+# behind its surface and hit it again; PERF.md, the table of recommended's
+# rules.
+START_SPACINGS = 4
 
 
 @dataclass(frozen=True)
@@ -112,6 +120,8 @@ class TraceConfig:
           scenes of ``CULL_3D_MIN_TRIANGLES`` triangles or more, and the
           brute searches otherwise: the H100 measurements in PERF.md's
           table of these rules (not the TPU's, which pick ``"grid"``).
+        * ``ray_start_epsilon`` by :func:`start_epsilon`: from the scene's
+          extent for a float32 scene on the card.
         * ``remat`` for deep traces (bounce budget > 16), so the backward
           pass keeps each bounce's rays and hits but not every
           intermediate of every bounce.
@@ -126,9 +136,44 @@ class TraceConfig:
         else:
             culled = False
         cfg = dict(max_bounces=max_bounces, use_kernel=on_card, cull=culled,
-                   resort_rays=culled, remat=max_bounces > 16)
+                   resort_rays=culled, remat=max_bounces > 16,
+                   ray_start_epsilon=start_epsilon(scene,
+                                                   config.default_device()))
         cfg.update(overrides)
         return TraceConfig(**cfg)
+
+
+def float32_start_epsilon(extent) -> float:
+    """The card's float32 ``ray_start_epsilon`` for coordinates up to
+    ``extent`` in magnitude: ``START_SPACINGS`` float32 spacings of it
+    (1.5e-5 at 40 units), never below the float32 default."""
+    # the float32 spacing of x in [2^(e-1), 2^e) is 2^(e-24)
+    spacing = math.ldexp(1.0, math.frexp(float(extent))[1] - 24)
+    return max(default_epsilon(torch.float32), START_SPACINGS * spacing)
+
+
+def start_epsilon(scene, device=None) -> Optional[float]:
+    """The ``ray_start_epsilon`` of tracing ``scene`` on ``device`` (by
+    default the device its surfaces lie on), the one rule every caller
+    takes: on the card, for a float32 scene, :func:`float32_start_epsilon`
+    of the largest coordinate magnitude of its surfaces (an arc reaches its
+    centre plus its radius), read back from the device; None (the dtype's
+    default) otherwise."""
+    if isinstance(scene, Scene3D):
+        t = scene.triangles
+        parts = [t.vp, t.v1, t.v2]
+    else:
+        parts = []
+        if scene.segments is not None:
+            parts += [scene.segments.p0, scene.segments.p1]
+        if scene.arcs is not None:
+            parts.append(scene.arcs.center.abs()
+                         + scene.arcs.radius.abs()[:, None])
+    device = parts[0].device if device is None else torch.device(device)
+    if device.type != "cuda" or parts[0].dtype != torch.float32:
+        return None
+    return float32_start_epsilon(
+        torch.stack([p.detach().abs().max() for p in parts]).max())
 
 
 @dataclass

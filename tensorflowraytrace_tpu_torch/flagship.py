@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from tensorflowraytrace_tpu_torch.config import FINISHED, resolve_device
-from tensorflowraytrace_tpu_torch.engine import TraceConfig, trace
+from tensorflowraytrace_tpu_torch.engine import TraceConfig, start_epsilon, trace
 from tensorflowraytrace_tpu_torch.models import boundaries as bd
 from tensorflowraytrace_tpu_torch.models import distributions as dist
 from tensorflowraytrace_tpu_torch.models import mesh as mt
@@ -81,7 +81,10 @@ def _flagship(dtype, bp_count, mesh_steps, max_bounces, use_kernel, device,
     target = target_plane(dtype, device)
 
     materials = (mats.vacuum, mats.acrylic)
-    cfg = TraceConfig(max_bounces=max_bounces, use_kernel=use_kernel)
+    # ray_start_epsilon at the initial lens
+    cfg = TraceConfig(max_bounces=max_bounces, use_kernel=use_kernel,
+                      ray_start_epsilon=start_epsilon(Scene3D.build(
+                          optical=lens.build(), targets=[target])))
     goal_scale = -(MAGNIFICATION * OBJECT_SIZE)
 
     def loss(params, rays):

@@ -42,9 +42,18 @@ def _nvcc() -> str:
 
 
 def _local_headers(src: Path) -> list:
-    """The ``csrc/`` headers ``src`` includes with ``#include "..."``."""
-    names = re.findall(r'^#include "([^"]+)"', src.read_text(), re.MULTILINE)
-    return [CSRC_DIR / name for name in names]
+    """The ``csrc/`` headers ``src`` includes with ``#include "..."``, and
+    theirs, each once."""
+    found = []
+    todo = [src]
+    while todo:
+        text = todo.pop().read_text()
+        for name in re.findall(r'^#include "([^"]+)"', text, re.MULTILINE):
+            header = CSRC_DIR / name
+            if header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
 
 
 def library_path(source: str) -> Path:

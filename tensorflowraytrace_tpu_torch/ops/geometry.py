@@ -83,8 +83,13 @@ def raw_line_circle_intersect(xs, ys, xe, ye, xc, yc, r, epsilon=None):
 
     a = xd * xd + yd * yd
     b = 2.0 * xr * xd + 2.0 * yr * yd
-    c = xr * xr + yr * yr - 1.0
-    rad = b * b - 4.0 * a * c
+    # b^2 - 4 a (|x_r|^2 - 1) as 4 (a - (x_r x d_r)^2), the same quantity
+    # without its cancellation: b^2 and 4 a c are ~(|o - c| |d| / r^2)^2
+    # each, so a ray starting D radii from the centre would lose ~2 log10(D)
+    # digits (float32 noise at the light guide's lenslets, D ~ 13000).  The
+    # CUDA arc searches use the same form.
+    cross = xr * yd - yr * xd
+    rad = 4.0 * (a - cross * cross)
 
     # tangent: snap a tiny radicand to exactly zero
     rad = torch.where(torch.abs(rad) < epsilon, torch.zeros_like(rad), rad)

@@ -42,7 +42,7 @@ import ctypes
 import torch
 
 from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_2d
-from tensorflowraytrace_tpu_torch.ops import cuda_build
+from tensorflowraytrace_tpu_torch.ops import cuda_build, triangle_kernels
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
     _SLACK, BIG, _inverse_direction, _merge, _raise_on, _selected, _slab_gate,
     _thresholds, _warp_any, chunk_major, plain_or_cuda, twolevel_candidates,
@@ -70,15 +70,6 @@ CULL_CHUNK = 256
 # lower the cap.
 TWOLEVEL_RAY_BLOCK = 256
 TWOLEVEL_MAX_CAND = 32
-# Each culling box is widened on every side by GATE_PAD times its largest
-# coordinate magnitude (~64 float32 ulps): the float32 arithmetic can accept
-# a hit a few ulps outside the exact surface (at an arc's window edge, a
-# segment's end), and the gate must not refuse it.  The slab test's own
-# slack (1 +- 1e-6 and 1e-6 in t) does not cover that far from the origin:
-# at x ~ 40 one ulp is 3.8e-6.  (On the full-width 2D guide a ray starting on
-# the exit face at the joint of two chunks of lenslets hit one 3.6e-7 below
-# its chunk's box.)
-GATE_PAD = 2.0 ** -17
 
 
 def load_library():
@@ -144,8 +135,12 @@ def check_cuda_inputs(what, p0, p1, **surfaces):
 def gate_boxes(boxes):
     """The culling boxes the gates of K7-K10 and the candidate lists of K9
     and K10 test: ``boxes`` (C, 4), min xy then max xy, widened by
-    ``GATE_PAD`` times each box's largest coordinate magnitude."""
-    pad = GATE_PAD * boxes.abs().amax(dim=1, keepdim=True)
+    ``triangle_kernels.GATE_PAD`` (read at call time) times each box's
+    largest coordinate magnitude: a hit at an arc's window edge or a
+    segment's end may lie a few ulps outside the exact surface.  On the
+    full-width 2D guide a ray starting on the exit face at the joint of two
+    chunks of lenslets hit one 3.6e-7 below its chunk's raw box."""
+    pad = triangle_kernels.GATE_PAD * boxes.abs().amax(dim=1, keepdim=True)
     return torch.cat([boxes[:, :2] - pad, boxes[:, 2:] + pad], dim=1)
 
 

@@ -12,7 +12,9 @@ same arithmetic written line by line in PyTorch.
 - K3 ``nearest_hit_triangles_culled_kernel``
   (``csrc/triangle_search_culled.cu``, port of ``_triangle_kernel_culled``):
   K1 plus a slab test of each ray against the box of each 256-triangle
-  chunk (``models/acceleration.chunk_aabbs``); ``cull=True``.
+  chunk (``models/acceleration.chunk_aabbs``, widened by
+  ``culled_boxes``); a block computes a chunk for the rays whose own test
+  passes; ``cull=True``.
 - K4 ``nearest_hit_triangles_twolevel_kernel``
   (``csrc/triangle_search_twolevel.cu``, port of
   ``_twolevel_triangle_kernel``): each ray block walks a precomputed,
@@ -22,12 +24,13 @@ same arithmetic written line by line in PyTorch.
   two-level 2D searches K9 and K10 as well (``ops/segment_kernels.py``,
   ``ops/arc_kernels.py``).
 
-The gate of K3 and K4: a chunk is computed for a ray only if some ray of
-its warp (32 rays; ``GATE_RAYS``) can hit the chunk's box at t >= r_eps no
-farther than its current best, with a relative slack of 1e-6.  The box
-holds every triangle of the chunk, so the gate only skips pairs that cannot
-give a nearer hit, and K3 and K4 return K1's hits bit for bit.  Parked rays
-(p0 = 1e30, see ``engine.project_3d``) fail every slab test.
+The gate of K3 and K4: a chunk is computed for a ray only if the ray (K3)
+or some ray of its warp (K4: 32 rays, ``GATE_RAYS``) can hit the chunk's
+box at t >= r_eps no farther than its current best, with a relative slack
+of 1e-6.  The box holds every triangle of the chunk (K3's also every point
+Moller-Trumbore accepts beyond one), so the gate only skips pairs that
+cannot give a nearer hit, and K3 and K4 return K1's hits bit for bit.
+Parked rays (p0 = 1e30, see ``engine.project_3d``) fail every slab test.
 
 Contract (shared with every search kernel of the JAX package): per ray
 ``(valid, idx int32, ray_u)``; ``ray_u`` is ``BIG = 3e38`` where nothing is
@@ -64,9 +67,17 @@ SOURCE_TWOLEVEL = "triangle_search_twolevel.cu"
 # K3: the culling chunk is the kernel's shared-memory tile (kTile in
 # csrc/triangle_search_culled.cu; the launch refuses another value)
 CULL_CHUNK = 256
-# K3 and K4 decide per warp whether to compute a chunk: the plain versions
-# gate groups of this many consecutive rays
+# K4 and K7-K10 decide per warp whether to compute a chunk: their plain
+# versions gate groups of this many consecutive rays (K3 gates each ray on
+# its own)
 GATE_RAYS = 32
+# K3's culling boxes (and K7-K10's, ops/segment_kernels.gate_boxes) are
+# widened on every side by GATE_PAD times their largest coordinate
+# magnitude (~64 float32 ulps): the float32 arithmetic can accept a hit a
+# few ulps outside the exact surface, and the gate must not refuse it.  The
+# slab test's own slack (1 +- 1e-6 and 1e-6 in t) does not cover that far
+# from the origin: at x ~ 40 one ulp is 3.8e-6.
+GATE_PAD = 2.0 ** -17
 # K4: rays per block (one thread each), triangles per fine chunk (kFine in
 # csrc/triangle_search_twolevel.cu; the launch refuses another value), and
 # the cap of each block's candidate list; a block with more candidates
@@ -209,7 +220,7 @@ def nearest_hit_triangles_culled_kernel(p0, p1, vp, v1, v2, intersect_eps,
     _check_cuda_inputs(p0, p1, vp, v1, v2)
     fn = load_culled_library().triangle_search_culled_launch
     n, m = p0.shape[0], vp.shape[0]
-    boxes = chunk_aabbs(vp, v1, v2, CULL_CHUNK).contiguous()
+    boxes = culled_boxes(vp, v1, v2, size_eps).contiguous()
     u = torch.empty((n,), dtype=torch.float32, device=p0.device)
     idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
@@ -222,6 +233,21 @@ def nearest_hit_triangles_culled_kernel(p0, p1, vp, v1, v2, intersect_eps,
     _raise_on(err, "triangle_search_culled")
     LAUNCHES_CULLED += 1
     return u < BIG * 0.5, idx, u
+
+
+def culled_boxes(vp, v1, v2, size_eps):
+    """K3's gate boxes: the (C, 6) boxes of its chunks of ``CULL_CHUNK``
+    triangles (min xyz, max xyz), widened on every side by 2 ``size_eps``
+    times the box's widest side and ``GATE_PAD`` times its largest
+    coordinate magnitude.  Moller-Trumbore accepts barycentric weights down
+    to -``size_eps`` (tu, tv >= -s_eps, tu + tv <= 1 + s_eps), at most two
+    of them negative, so an accepted point lies within 2 s_eps of a side's
+    width outside the triangle's box; ``GATE_PAD`` covers the rounding."""
+    boxes = chunk_aabbs(vp, v1, v2, CULL_CHUNK)
+    width = (boxes[:, 3:] - boxes[:, :3]).amax(dim=1, keepdim=True)
+    pad = (2.0 * float(size_eps) * width
+           + GATE_PAD * boxes.abs().amax(dim=1, keepdim=True))
+    return torch.cat([boxes[:, :3] - pad, boxes[:, 3:] + pad], dim=1)
 
 
 def chunk_major(columns, chunk):
@@ -416,8 +442,8 @@ def _selected(mask, piece=32768):
 def nearest_hit_triangles_culled_plain(p0, p1, vp, v1, v2, intersect_eps,
                                        size_eps, ray_start_eps):
     """Plain PyTorch version of K3: the chunks of ``CULL_CHUNK`` triangles
-    in order; a chunk is computed for the rays of each ``GATE_RAYS`` group of
-    which some ray passes the slab gate against its running best, with K1's
+    in order; a chunk is computed for the rays that pass the slab gate
+    against their own running best on its ``culled_boxes`` box, with K1's
     arithmetic and merge."""
     n, m = p0.shape[0], vp.shape[0]
     best_u = torch.full((n,), BIG, dtype=p0.dtype, device=p0.device)
@@ -426,14 +452,14 @@ def nearest_hit_triangles_culled_plain(p0, p1, vp, v1, v2, intersect_eps,
     d = p1 - p0
     o3, d3, inv3 = p0.unbind(1), d.unbind(1), _inverse_direction(d).unbind(1)
     chunk = CULL_CHUNK
-    boxes = chunk_aabbs(vp, v1, v2, chunk)
+    boxes = culled_boxes(vp, v1, v2, size_eps)
     for c, t0 in enumerate(range(0, m, chunk)):
         box = boxes[c]
         need = _slab_gate(o3, inv3, box[:3], box[3:], eps[3], best_u)
         a = vp[t0:t0 + chunk].T[:, None]                     # (3, 1, C)
         e1 = v1[t0:t0 + chunk].T[:, None] - a
         e2 = v2[t0:t0 + chunk].T[:, None] - a
-        for rows in _selected(_warp_any(need)):
+        for rows in _selected(need):
             u = _moller_trumbore(*(x[rows, None] for x in o3 + d3), a, e1,
                                  e2, *eps)
             _merge(best_u, best_idx, rows, u, t0)

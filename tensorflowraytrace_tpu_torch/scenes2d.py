@@ -35,7 +35,7 @@ import torch
 
 from tensorflowraytrace_tpu_torch.config import FINISHED, resolve_device
 from tensorflowraytrace_tpu_torch.engine import (
-    TraceConfig, landing_sum_fold, trace,
+    TraceConfig, landing_sum_fold, start_epsilon, trace,
 )
 from tensorflowraytrace_tpu_torch.models import distributions as dist
 from tensorflowraytrace_tpu_torch.models import sources as src
@@ -75,7 +75,6 @@ def single_arc(beam_count=10, dtype=torch.float32, device=None,
     target = SegmentSet.make([[10.0, -5.0]], [[10.0, 5.0]], dtype=dtype,
                              device=device)
     materials = (mats.vacuum, mats.acrylic)
-    cfg = TraceConfig(max_bounces=max_bounces, use_kernel=use_kernel)
 
     def build_scene(p):
         arc = ArcSet.make(torch.stack([torch.stack([p, torch.zeros_like(p)])]),
@@ -83,12 +82,17 @@ def single_arc(beam_count=10, dtype=torch.float32, device=None,
                           dtype=dtype, device=device)
         return Scene2D.build(optical_arcs=[arc], target_segments=[target])
 
+    init = torch.tensor([5.0], dtype=dtype, device=device)
+    # ray_start_epsilon at the initial arc
+    cfg = TraceConfig(max_bounces=max_bounces, use_kernel=use_kernel,
+                      ray_start_epsilon=start_epsilon(build_scene(init[0])))
+
     def loss(params):
         res = trace(rays, build_scene(params[0][0]), materials, cfg)
         finished = res.rays.state == FINISHED
         return torch.sum(torch.where(finished, res.rays.p1[:, 1] ** 2, 0.0))
 
-    return loss, [torch.tensor([5.0], dtype=dtype, device=device)]
+    return loss, [init]
 
 
 # ----------------------------------------------------------------------
@@ -155,11 +159,13 @@ def light_guide(n_rays=1 << 20, n_wall=2048, n_lenslets=512,
     return rays, scene, (mats.vacuum, mats.acrylic)
 
 
-def guide_config(**kw):
-    """The guide's trace settings (50 bounces, dead rays stretched 10x);
+def guide_config(scene, **kw):
+    """The trace settings of the guide ``scene`` (50 bounces, dead rays
+    stretched 10x, ``engine.start_epsilon``'s ``ray_start_epsilon``);
     ``kw`` adds or overrides fields (``use_kernel``, ``cull``, ...)."""
     return TraceConfig(**{"max_bounces": GUIDE_BOUNCES,
-                          "dead_ray_length": DEAD_RAY_LENGTH, **kw})
+                          "dead_ray_length": DEAD_RAY_LENGTH,
+                          "ray_start_epsilon": start_epsilon(scene), **kw})
 
 
 def landing_loss_fold(dtype, device=None):

@@ -110,6 +110,66 @@ def test_guide_first_bounce(cuda):
     check(arc_args(rays.p0, rays.p1, scene.arcs), "arc")
 
 
+def around(x):
+    """float32 x and its two neighbours."""
+    x = np.float32(x)
+    return [np.nextafter(x, np.float32(-np.inf)), x,
+            np.nextafter(x, np.float32(np.inf))]
+
+
+def segment_case(rays, segments, cuda):
+    """(rays (n, 4) as p0 xy, p1 xy; segments (m, 4) as sp0 xy, sp1 xy) as
+    K5's arguments."""
+    r = torch.as_tensor(np.asarray(rays, np.float32), device=cuda)
+    s = torch.as_tensor(np.asarray(segments, np.float32), device=cuda)
+    return [t.contiguous() for t in (r[:, :2], r[:, 2:], s[:, :2], s[:, 2:])]
+
+
+def test_segment_kernels_at_the_reject_tests_edges(cuda):
+    """K5 (and K7) bit for bit with the plain version where its reject test
+    has least room: |den| at i_eps, seg_u at s_lo and s_hi, ray_u at r_eps,
+    each a float32 step either side; equal u on two segments (the first
+    index wins); parked rays; ragged last tiles and ray counts that are not
+    a multiple of a block's rays."""
+    s_lo, s_hi = np.float32(-EPS), np.float32(1.0 + EPS)
+    # |den| = dy2 for a ray along +x from x = -0.5 and a segment (0, 0) ->
+    # (1, dy2); the ray crosses it at seg_u = 0.5
+    for e in around(EPS):
+        args = segment_case([[-0.5, e / 2, 0.5, e / 2]], [[0, 0, 1, e]], cuda)
+        check(args, "segment")
+    # seg_u = oy on the segment x = 0, y in [0, 1] (den = 1)
+    ys = around(s_lo) + around(s_hi) + around(0.0)
+    args = segment_case([[-0.5, y, 0.5, y] for y in ys], [[0, 0, 0, 1]], cuda)
+    valid = check(args, "segment").cpu().numpy()
+    assert valid[1] and valid[4] and not valid[0] and not valid[5]
+    # ray_u = r at the segment x = 0: rays start r before it
+    rs = around(EPS) + around(2 * EPS) + around(0.0)
+    args = segment_case([[-r, 0.5, 1 - r, 0.5] for r in rs], [[0, 0, 0, 1]],
+                        cuda)
+    valid = check(args, "segment").cpu().numpy()
+    assert valid[4] and not valid[7]
+    # equal u = 2 on five segments through (1, 0.5), one of them twice, for
+    # the second ray (the first index wins); the first ray meets segment 4
+    # first, at u = 1.75
+    args = segment_case([[-1, 0.25, 0, 0.25], [-1, 0.5, 0, 0.5]],
+                        [[2, 0, 2, 1], [1, -1, 1, 2], [1, 0, 1, 1],
+                         [1, 0, 1, 1], [0.5, 0, 1.5, 1], [0.5, 1, 1.5, 0]],
+                        cuda)
+    check(args, "segment")
+    _, idx, u = sk.nearest_hit_segments_kernel(*args, EPS, EPS, EPS)
+    assert idx.tolist() == [4, 1] and u.tolist() == [1.75, 2.0]
+    # parked rays among live ones; tiles and blocks left ragged
+    rng = np.random.default_rng(11)
+    for n, m in ((1000, 1025), (1025, 2049), (3000, 4097)):
+        seg = scenes2d.random_segments(rng, m, device=cuda)
+        p0, p1 = scenes2d.random_rays(rng, n, device=cuda)
+        third = (torch.arange(n, device=cuda) % 3 == 0)[:, None]
+        p0 = torch.where(third, torch.full_like(p0, 1e30), p0)
+        p1 = torch.where(third, torch.full_like(p1, 1e30 * (1 + 1e-6)), p1)
+        valid = check(seg_args(p0, p1, seg), "segment")
+        assert valid.any() and not valid[third[:, 0]].any()
+
+
 def test_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
     rng = np.random.default_rng(10)
     p0, p1 = scenes2d.random_rays(rng, 32, device=cuda)

@@ -283,6 +283,58 @@ def test_plain_culled_equals_plain_k1(rng, monkeypatch, search, kw, shape):
         assert ref[0].any()
 
 
+def small_guide(rng, n_rays):
+    """chip_smoke.py's 3D guide, small: a 16 x 32 ring cylindrical guide
+    (1024 triangles, taper 0.7 -> 0, Morton-sorted), rays from a disc near
+    its start heading down it."""
+    guide = t_bd.ParametricCylindricalGuide(
+        (0.0, 0.0, 0.0), (0.0, 0.0, 40.0), minimum_radius=0.3, theta_res=16,
+        z_res=32, rotationally_symmetric=True, initial_taper=(0.7, 0.0),
+        mat_in=1, mat_out=0, dtype=torch.float32)
+    with torch.no_grad():
+        surf, _ = t_acc.morton_sort_triangles(guide.build())
+    r = 0.2 * np.sqrt(rng.uniform(0, 1, n_rays))
+    th = rng.uniform(0, 2 * np.pi, n_rays)
+    p0 = np.stack([r * np.cos(th), r * np.sin(th), np.full(n_rays, 0.1)],
+                  1).astype(np.float32)
+    d = rng.normal(0, 1, (n_rays, 3))
+    d[:, 2] = np.abs(d[:, 2]) * 3 + 1
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(p0), torch.as_tensor(p0 + d.astype(np.float32)),
+            surf.vp, surf.v1, surf.v2)
+
+
+@pytest.mark.parametrize("chunk", [256, 64])
+def test_plain_culled_gates_each_ray_and_equals_k1_on_a_guide(rng, monkeypatch,
+                                                              chunk):
+    """K3's plain version gates ray by ray (no warp vote) and still equals
+    the plain K1 bit for bit on a small guide, including a ray that grazes
+    a triangle s_eps beyond its edge, outside the chunk's raw box: the
+    widened box (``culled_boxes``) keeps it."""
+    monkeypatch.setattr(tk, "CULL_CHUNK", chunk)
+    p0, p1, vp, v1, v2 = small_guide(rng, 2000)
+    # the graze: a lone triangle past the guide's end (the last chunk) and
+    # a ray along -z through its edge y = 5 at tv ~ -s_eps / 2
+    t = vp.shape[0]
+    lone = torch.tensor([[5.0, 5.0, 45.0], [6.0, 5.0, 45.0], [5.0, 6.0, 45.0]])
+    vp, v1, v2 = (torch.cat([v, lone[k][None]]) for k, v in enumerate((vp, v1,
+                                                                       v2)))
+    y = np.float32(5.0) - np.float32(5e-7)
+    p0 = torch.cat([torch.tensor([[5.5, y, 46.0]]), p0])
+    p1 = torch.cat([torch.tensor([[5.5, y, 44.0]]), p1])
+    args = (p0, p1, vp, v1, v2)
+    ref = tk.nearest_hit_triangles_plain(*args, EPS, EPS, EPS)
+    got = tk.nearest_hit_triangles_culled_plain(*args, EPS, EPS, EPS)
+    for x, w in zip(got, ref):
+        assert torch.equal(x, w)
+    assert bool(ref[0][0]) and int(ref[1][0]) == t
+    assert ref[0].float().mean() > 0.5
+    # outside the raw box of its chunk, inside the widened one
+    raw = t_acc.chunk_aabbs(vp, v1, v2, chunk)[-1]
+    wide = tk.culled_boxes(vp, v1, v2, EPS)[-1]
+    assert y < raw[1] and wide[1] <= y
+
+
 def test_twolevel_overflow_constant_reaches_the_wrapper(rng, monkeypatch):
     """The cap is read from the module at call time, so a test lowers it
     (as tests/test_pallas.py lowers TWOLEVEL_MAX_CAND) and every block of

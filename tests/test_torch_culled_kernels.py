@@ -112,6 +112,38 @@ def test_culled_kernels_all_miss_and_parked(cuda):
     assert check([mix0, mix1, vp, v1, v2]).any()
 
 
+def test_culled_blocks_parked_full_and_single(cuda):
+    """K3 against its plain version and K1: a block whose rays are all
+    parked, a block in which every ray needs every tile (rays along the
+    plane of edge-on triangles: no hit, so no ray's best ever culls a box
+    its line crosses), and a block in which one ray needs a tile (the
+    others point away from the soup)."""
+    ray_block = 256                  # kBlock in csrc/triangle_search_culled.cu
+    p0, p1, vp, v1, v2 = sorted_soup(2000, 3 * ray_block, cuda)
+    b = slice(0, ray_block)
+    p0[b], p1[b] = 1e30, 1e30 * (1 + 1e-6)              # all parked
+    one = slice(ray_block, 2 * ray_block)
+    p0[one], p1[one] = 100.0, 101.0                     # all away ...
+    p0[ray_block], p1[ray_block] = p0[-1], p1[-1]        # ... but one
+    valid = check([p0, p1, vp, v1, v2])
+    assert not valid[b].any() and valid.any()
+
+    # edge-on triangles in the plane y = 0 strung along x: every chunk box
+    # contains the rays' lines, and every pair has det == 0
+    rng = np.random.default_rng(1)
+    m = 1100
+    x = np.sort(rng.uniform(0, 100, m))
+    tri = [np.stack([x + rng.uniform(-1, 1, m), np.zeros(m),
+                     rng.uniform(-1, 1, m)], 1) for _ in range(3)]
+    tri = [torch.as_tensor(t, dtype=torch.float32, device=cuda) for t in tri]
+    n = 2 * ray_block + 7
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, n), dtype=torch.float32,
+                        device=cuda)
+    q0 = torch.stack([torch.full_like(z, -1.0), torch.zeros_like(z), z], 1)
+    q1 = q0 + torch.tensor([1.0, 0.0, 0.0], device=cuda)
+    assert not check([q0, q1, *tri]).any()
+
+
 @pytest.mark.parametrize("twolevel", [dict(TWOLEVEL_MAX_CAND=2),
                                       dict(TWOLEVEL_MAX_CAND=1,
                                            TWOLEVEL_RAY_BLOCK=64),

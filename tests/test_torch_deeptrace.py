@@ -161,14 +161,14 @@ def test_remat_runs_each_search_kernel_once_a_bounce(monkeypatch):
     """Under ``use_kernel`` (the plain versions on the CPU) a forward and
     backward pass with ``remat`` calls the K5 and K6 wrappers once a bounce
     and K2's (the arc table's gather backward) once a bounce."""
-    loss, params, _ = scenes2d.guide_design(512, device="cpu", **GUIDE)
+    loss, params, scene = scenes2d.guide_design(512, device="cpu", **GUIDE)
     calls = []
     for module, name in ((gk, "nearest_hit_segments_kernel"),
                          (ak, "nearest_hit_arcs_kernel"),
                          (sk, "segment_sum_kernel")):
         counting(monkeypatch, module, name, calls)
-    value = loss(params, scenes2d.guide_config(max_bounces=3, use_kernel=True,
-                                               remat=True))
+    value = loss(params, scenes2d.guide_config(scene, max_bounces=3,
+                                               use_kernel=True, remat=True))
     torch.autograd.grad(value, params)
     assert sorted(calls) == sorted(["nearest_hit_segments_kernel",
                                     "nearest_hit_arcs_kernel",

@@ -47,6 +47,7 @@ from tensorflowraytrace_tpu_torch.models import surfaces as t_surf
 from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
 from tensorflowraytrace_tpu_torch.ops import intersect as t_isect
 from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 from tensorflowraytrace_tpu_torch.utils.convert import (
     arcs_from_numpy, segments_from_numpy,
 )
@@ -327,7 +328,7 @@ def test_gate_margin_keeps_a_hit_at_a_chunk_joint(monkeypatch):
     assert int(ref[1]) == 256
     for a, b in zip(ak.nearest_hit_arcs_culled_plain(*args, EPS, EPS), ref):
         assert torch.equal(a, b)
-    monkeypatch.setattr(gk, "GATE_PAD", 0.0)
+    monkeypatch.setattr(tk, "GATE_PAD", 0.0)
     assert int(ak.nearest_hit_arcs_culled_plain(*args, EPS, EPS)[1]) == 255
 
 

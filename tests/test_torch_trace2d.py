@@ -213,7 +213,8 @@ def test_small_guide_accelerated_traces_equal_brute():
     rays, scene, mats = scenes2d.light_guide(4096, n_wall=128, n_lenslets=32,
                                              device="cpu")
     assert (scene.segments.n_surfaces, scene.arcs.n_surfaces) == (258, 32)
-    cfgs = [scenes2d.guide_config(max_bounces=8, use_kernel=True, **kw)
+    cfgs = [scenes2d.guide_config(scene, max_bounces=8, use_kernel=True,
+                                  **kw)
             for kw in ({}, dict(cull=True), dict(cull=True, resort_rays=True))]
     ref = t_engine.trace(rays, scene, mats, cfgs[0]).rays
     counts = torch.bincount(ref.state.long(), minlength=4)

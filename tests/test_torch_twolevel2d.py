@@ -162,7 +162,7 @@ def test_twolevel_keeps_the_hit_at_a_chunk_joint(monkeypatch):
         monkeypatch.setattr(gk, "TWOLEVEL_MAX_CAND", cap)
         assert_same(ak.nearest_hit_arcs_twolevel_plain(*args, EPS, EPS), ref)
     monkeypatch.setattr(gk, "TWOLEVEL_MAX_CAND", 32)
-    monkeypatch.setattr(gk, "GATE_PAD", 0.0)
+    monkeypatch.setattr(tk, "GATE_PAD", 0.0)
     assert int(ak.nearest_hit_arcs_twolevel_plain(*args, EPS, EPS)[1]) == 255
 
 
@@ -227,11 +227,11 @@ def test_small_guide_grid_traces_equal_brute(monkeypatch):
         monkeypatch.setattr(mod, name, lambda *a, w=wrapper, n=name: (
             calls.append(n), w(*a))[1])
     ref = t_engine.trace(rays_, scene, mats, scenes2d.guide_config(
-        max_bounces=3, use_kernel=True)).rays
+        scene, max_bounces=3, use_kernel=True)).rays
     assert not calls
     for resort in (False, True):
         got = t_engine.trace(rays_, scene, mats, scenes2d.guide_config(
-            max_bounces=3, use_kernel=True, cull="grid",
+            scene, max_bounces=3, use_kernel=True, cull="grid",
             resort_rays=resort)).rays
         for name in ("state", "p0", "p1"):
             assert torch.equal(getattr(got, name), getattr(ref, name))
