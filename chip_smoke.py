@@ -69,7 +69,8 @@ exits non-zero without printing a result):
    times, and one bound for both, the work these inputs need (pairs
    admitted at 256-triangle chunks, those whose tu fails charged the
    operations before the reject test refuses them), with the floor
-   without FMAs; K4's kernel also alone, apart from the preparation of its inputs;
+   without FMAs; K4's kernel also alone, apart from the preparation of its
+   inputs (its table, widened boxes and candidate lists);
    one ``cull=True, resort_rays=True`` trace (the path ``recommended``
    picks) and one ``cull="grid", resort_rays=True`` trace under
    torch.profiler (the search kernel, the candidate precompute, the
@@ -84,7 +85,11 @@ exits non-zero without printing a result):
    against 200000 rays, a ragged tile (1000 rays x 333 surfaces), 1 ray x
    257 surfaces, an all-miss batch, a batch of parked rays and full-circle
    arcs; then the sets and the ragged tile again with K9's and K10's
-   candidate cap forced to 1, so that their blocks overflow and sweep.
+   candidate cap forced to 1, so that their blocks overflow and sweep; then
+   K6, K8 and K10 on scenes2d.arc_edge_cases, the edges of their exact
+   reject (the discriminant and |a| within float32 steps of i_eps, tangent
+   rays, rays 13000 radii away, windows wider than pi, exact ties, parked
+   rays).
 12. 2D training at example scale: examples/optimize_single_arc.py (60 rays,
    one trainable arc, 2 bounces, 30 steps at momentum 0.8 and 50 at
    lr_scale 0.1, momentum 0.9) through use_kernel=True in float32: K5 and
@@ -106,9 +111,12 @@ exits non-zero without printing a result):
    rest, the idle share, kernels a bounce), peak memory and host
    synchronisations (0).  Then K5-K10 alone at the first bounce (2^20 x
    4098 and 2^20 x 512, the rays in the re-sort's order): bit for bit
-   against their plain versions, kernel and plain times by CUDA events
-   (K9 and K10 also apart from their inputs' preparation), and each
-   kernel's bound.
+   against their plain versions; by CUDA events the kernel alone, apart
+   from its inputs' preparation (K6-K10's tables, boxes and candidate
+   lists), the whole wrapper and the plain version; and each kernel's
+   bound, the work these inputs need: for the arcs the pairs past the exact
+   reject (``arc_kernels.admitted_arc_pairs``) at 50 operations and the
+   rest at the 15 before it, beside the flat 50-operation bound.
 14. the 2D guide as a design problem (scenes2d.guide_design, the same rays
    and scene) under ``TraceConfig.recommended(scene, max_bounces=50,
    dead_ray_length=10)``: the configuration it chose; one forward and
@@ -128,11 +136,13 @@ script's own wall time, one JSON line describing each kernel of the path,
 the nvidia-smi line, and as the last line ``{"ok": true, "device":
 {...}}``.
 
-``python3 chip_smoke.py --tune`` runs phases 1 and 2 and then sweeps K4's
-ray block and candidate cap (the fine chunk is compiled into the kernel)
-on the guide and the sorted soup, and K9's and K10's on the 2D guide
+``python3 chip_smoke.py --tune`` runs phases 1 and 2, times K4 alone at
+the guide's first bounce at every ray block, then sweeps K4's ray block
+and candidate cap on the guide and the sorted soup and K9's and K10's ray block and cap on the 2D guide
 (median of 3 traces each, every setting checked against the brute trace),
-and prints no result line.
+and prints no result line.  ``python3 chip_smoke.py --arcs-alone`` runs
+phases 1 and 2 and times K6 and K8 launched alone at the 2D guide's first
+bounce (see ``arcs_alone``), and prints no result line either.
 """
 
 import collections
@@ -196,10 +206,14 @@ TU_FLOPS_PER_PAIR = 24
 # T (2), den (3), the two numerators (2 x 3), the reciprocal (1), two
 # products (2); a pair the reject test refuses costs as much
 SEG_FLOPS_PER_PAIR = 14
-# one ray-arc pair in K6 (search2d::search_arcs): the scaled coordinates
-# (6), a (3), b (4), the discriminant (6), 2a and its reciprocal (2), the
-# square root (1), the two roots (4), the window test of each root (2 x 12)
+# one ray-arc pair of K6, K8 and K10 that passes the exact reject
+# (search2d::ArcPair): the scaled coordinates (6), a (3), the cross term
+# (3), the discriminant (3), b (4), 2a and its reciprocal (2), the square
+# root (1), the two roots (4), the window test of each root (2 x 12); a
+# pair the reject refuses (a negative discriminant, or |a| < i_eps) costs
+# only the operations up to the discriminant
 ARC_FLOPS_PER_PAIR = 50
+ARC_REJECT_FLOPS = 15
 
 # phases 11-13: the 2D path
 CHECK_RAYS = 200000
@@ -666,11 +680,28 @@ def profile_guide3d(label, kernel, rays, scene, materials, cfg, device):
     check(syncs == 0, f"the guide {label} trace synchronised {syncs} times")
 
 
+def first_bounce_3d(rays, tri):
+    """A 3D search's arguments at a scene's first bounce, the rays in the
+    Morton order the re-sort gives them: ``[p0, p1, vp, v1, v2]``."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch.models.acceleration import (
+        morton_codes_device,
+    )
+
+    lo = torch.minimum(tri.vp.amin(dim=0), tri.v2.amin(dim=0))
+    hi = torch.maximum(tri.vp.amax(dim=0), tri.v2.amax(dim=0))
+    order = torch.argsort(morton_codes_device(rays.p0, lo, hi), stable=True)
+    return [t.contiguous() for t in (rays.p0[order], rays.p1[order], tri.vp,
+                                     tri.v1, tri.v2)]
+
+
 def tune_twolevel(device):
-    """``--tune``: K4's ray block (cap 32), then its cap at the best block,
-    at the compiled fine chunk, on the guide (24 bounces) and the sorted
-    soup (8 bounces) with ``cull="grid", resort_rays=True``: median of 3
-    traces after one, each checked against the brute trace bit for bit."""
+    """``--tune``: K4 alone at the guide's first bounce at every ray block
+    (checked against K1 bit for bit); then K4's ray block (cap 32) and its
+    cap at the best block, on the guide (24 bounces) and the sorted soup (8 bounces) with ``cull="grid",
+    resort_rays=True``: median of 3 traces after one, each checked against
+    the brute trace bit for bit."""
     import torch
 
     from tensorflowraytrace_tpu_torch import TraceConfig, trace
@@ -685,6 +716,25 @@ def tune_twolevel(device):
     }
     refs = {k: trace(r, sc, mt, TraceConfig(max_bounces=b, use_kernel=True)).rays
             for k, (r, sc, mt, b) in scenes.items()}
+
+    # K4 alone at the guide's first bounce at each block
+    args = first_bounce_3d(scenes["guide"][0], scenes["guide"][1].triangles)
+    ref = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
+    m = args[2].shape[0]
+    for rb in (64, 128, 256, 512, 1024):
+        tk.TWOLEVEL_RAY_BLOCK = rb
+        prepared = tk.twolevel_prepare(*args, EPS, EPS)
+        got = tk.twolevel_launch(args[0], args[1], m, prepared, EPS, EPS, EPS)
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"tune K4 alone {rb} differs from K1")
+        ms = cuda_ms(lambda: tk.twolevel_launch(args[0], args[1], m, prepared,
+                                                EPS, EPS, EPS), 10)
+        print(f"tune K4 alone at the guide's first bounce: ray_block={rb} "
+              f"fine_chunk={tk.FINE_CHUNK} cap={prepared[4]}: kernel "
+              f"{ms:.4f} ms, mean candidates "
+              f"{float(prepared[2].float().mean()):.2f}", flush=True)
+        del prepared, got
+    del args, ref
 
     def run(rb, cap):
         tk.TWOLEVEL_RAY_BLOCK, tk.TWOLEVEL_MAX_CAND = rb, cap
@@ -819,6 +869,12 @@ def phase_11(device):
                            surface_args(r0, r1, surfaces), ("twolevel",))
     finally:
         gk.TWOLEVEL_MAX_CAND = cap
+    # K6, K8 and K10 at the edges of their exact reject
+    for label, r0, r1, a in scenes2d.arc_edge_cases(device=device):
+        out, _ = compare_2d(f"phase 11 reject edge {label}", "arc",
+                            surface_args(r0, r1, a))
+        check(bool(out["brute"][0].any()) == (label != "parked"),
+              f"arc reject edge {label}: hits")
 
 
 def seg_slice(seg, m):
@@ -1038,7 +1094,7 @@ def phase_13(device):
 
     from tensorflowraytrace_tpu_torch import scenes2d
     from tensorflowraytrace_tpu_torch.models.acceleration import (
-        chunk_aabbs_2d, chunk_aabbs_arcs, morton_codes_device,
+        chunk_aabbs_2d, chunk_aabbs_arcs,
     )
     from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
     from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
@@ -1054,18 +1110,14 @@ def phase_13(device):
         profile_guide2d(label, rays, scene, materials, cfgs[label], device)
 
     # K5-K10 alone at the first bounce, the rays in the re-sort's order
-    lo = torch.minimum(seg.p0.amin(dim=0), seg.p1.amin(dim=0))
-    hi = torch.maximum(seg.p0.amax(dim=0), seg.p1.amax(dim=0))
-    order = torch.argsort(morton_codes_device(rays.p0, lo, hi), stable=True)
-    p0, p1 = rays.p0[order], rays.p1[order]
+    p0, p1 = first_bounce_2d(rays, seg)
     n = p0.shape[0]
     fields = {}
-    for kind, surfaces, flops, boxes in (
-            ("segment", seg, SEG_FLOPS_PER_PAIR,
-             chunk_aabbs_2d(seg.p0, seg.p1, gk.CULL_CHUNK)),
-            ("arc", arc, ARC_FLOPS_PER_PAIR,
-             chunk_aabbs_arcs(arc.center, arc.angle_start, arc.angle_end,
-                              arc.radius, gk.CULL_CHUNK))):
+    for kind, surfaces, boxes in (
+            ("segment", seg, chunk_aabbs_2d(seg.p0, seg.p1, gk.CULL_CHUNK)),
+            ("arc", arc, chunk_aabbs_arcs(arc.center, arc.angle_start,
+                                          arc.angle_end, arc.radius,
+                                          gk.CULL_CHUNK))):
         args = surface_args(p0, p1, surfaces)
         m = surfaces.n_surfaces
         out, err = compare_2d("phase 13 first bounce", kind, args)
@@ -1074,39 +1126,54 @@ def phase_13(device):
         surface_bytes = sum(a.numel() * 4 for a in args[2:])
         out_bytes = n * (9 if kind == "arc" else 8)
         bytes_ms = (n * 16 + surface_bytes + out_bytes) / PEAK_BYTES_S * 1e3
-        pairs = admitted_pairs(p0, p1, boxes, m, out["brute"][2],
-                               gk.CULL_CHUNK)
+        u_final = out["brute"][2]
+        if kind == "segment":
+            # every pair the same 14 operations; K7 and K9 share one bound,
+            # the pairs these inputs need at 256-segment chunks
+            culled = admitted_pairs(p0, p1, boxes, m, u_final, gk.CULL_CHUNK)
+            work = {"brute": (n * m, n * m), "culled": (culled, culled)}
+            flops = (SEG_FLOPS_PER_PAIR, SEG_FLOPS_PER_PAIR)
+        else:
+            # (pairs, of them past the exact reject), the others charged the
+            # operations before it
+            work = {"brute": (n * m, ak.admitted_arc_pairs(
+                        p0, p1, arc.center, arc.radius, EPS)),
+                    "culled": arc_work(p0, p1, boxes, arc, u_final)}
+            flops = (ARC_REJECT_FLOPS, ARC_FLOPS_PER_PAIR)
+        alone = alone_2d(kind, args, m)
         for variant, (key, _) in SEARCHES_2D[kind].items():
-            # K7-K10 share one bound: the pairs these inputs need at
-            # 256-surface chunks
-            work = n * m if variant == "brute" else pairs
-            ops_ms = work * flops / PEAK_FP32_FLOP_S * 1e3
+            pairs, past = work["brute" if variant == "brute" else "culled"]
+            ops_ms = (((pairs - past) * flops[0] + past * flops[1])
+                      / PEAK_FP32_FLOP_S * 1e3)
+            prepare, launch = alone[variant]
             fn = search_2d(kind, variant)
             plain = search_2d(kind, variant, plain=True)
-            fields[key] = {
+            prepared = prepare()
+            fields[key] = f = {
                 "launches": launched[key],
                 "max_abs_err": err[variant],
-                "ms": cuda_ms(lambda: fn(args), 10),
+                # the kernel alone, apart from its inputs' preparation
+                "ms": cuda_ms(lambda: launch(prepared), 10),
+                "wrapper_ms": cuda_ms(lambda: fn(args), 10),
+                "prepare_ms": cuda_ms(prepare, 10),
                 "plain_ms": cuda_ms(lambda: plain(args), 1),
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms > ops_ms else "operations",
                 # every operation an instruction: the kernels are built
                 # with --fmad=false, and the peak counts an FMA as two
                 "floor_no_fma_ms": max(bytes_ms, 2 * ops_ms),
-                "pairs": work,
+                "pairs": pairs,
                 "shape": f"{n}x{m} (first bounce of the 2D guide)",
             }
-            f = fields[key]
+            check(all(torch.equal(a, b) for a, b in
+                      zip(launch(prepared), out[variant])),
+                  f"{key} launched alone differs from its wrapper")
+            if kind == "arc":
+                flat_ms = pairs * ARC_FLOPS_PER_PAIR / PEAK_FP32_FLOP_S * 1e3
+                f["pairs_past_reject"] = past
+                f["flat_bound_ms"] = max(bytes_ms, flat_ms)
+            detail = ""
             if variant == "twolevel":
-                # the kernel alone, apart from its inputs' preparation
-                mod = gk if kind == "segment" else ak
-                eps = (EPS,) * (3 if kind == "segment" else 2)
-                prepared = mod.twolevel_prepare(*args, EPS)
-                f["wrapper_ms"] = f["ms"]
-                f["ms"] = cuda_ms(lambda: mod.twolevel_launch(
-                    args[0], args[1], m, prepared, *eps), 10)
-                f["prepare_ms"] = cuda_ms(
-                    lambda: mod.twolevel_prepare(*args, EPS), 10)
                 counts = prepared[2]
                 f["blocks"] = counts.shape[0]
                 # a count of n_chunks is a sweep only when the cap is
@@ -1115,23 +1182,137 @@ def phase_13(device):
                 f["overflow_blocks"] = (int((counts == n_chunks).sum())
                                         if prepared[4] < n_chunks else 0)
                 f["mean_candidates"] = float(counts.float().mean())
-                print(f"phase 13 {key} at the first bounce: kernel alone "
-                      f"{f['ms']:.4f} ms, its input preparation (table, "
-                      f"boxes, candidates) {f['prepare_ms']:.4f} ms, wrapper "
-                      f"{f['wrapper_ms']:.4f} ms; ray block "
-                      f"{gk.TWOLEVEL_RAY_BLOCK}, chunk {gk.CULL_CHUNK}, cap "
-                      f"{prepared[4]}: {f['blocks']} blocks, "
-                      f"{f['overflow_blocks']} overflow, mean count "
-                      f"{f['mean_candidates']:.2f} of {prepared[1].shape[0]}",
-                      flush=True)
-                del prepared, counts
+                detail = (f"; ray block {gk.TWOLEVEL_RAY_BLOCK}, chunk "
+                          f"{gk.CULL_CHUNK}, cap {prepared[4]}: {f['blocks']} "
+                          f"blocks, {f['overflow_blocks']} overflow, mean "
+                          f"count {f['mean_candidates']:.2f} of {n_chunks}")
+            if kind == "arc":
+                detail += (f"; {past} pairs past the exact reject "
+                           f"({past / pairs:.4%}), the others charged "
+                           f"{flops[0]} flops; flat {ARC_FLOPS_PER_PAIR}-flop "
+                           f"bound {f['flat_bound_ms']:.5f} ms")
+            del prepared
             print(f"phase 13 {key} alone at the first bounce {n}x{m}: kernel "
-                  f"{f['ms']:.4f} ms, plain {f['plain_ms']:.4f} ms, bound "
-                  f"{f['bound_ms']:.5f} ms ({f['bound_by']}; {work} pairs, "
-                  f"{work / (n * m):.4%} of brute, {flops} flops each; "
-                  f"without FMAs {f['floor_no_fma_ms']:.5f} ms)",
-                  flush=True)
+                  f"{f['ms']:.4f} ms, its input preparation "
+                  f"{f['prepare_ms']:.4f} ms, wrapper {f['wrapper_ms']:.4f} "
+                  f"ms, plain {f['plain_ms']:.4f} ms, bound "
+                  f"{f['bound_ms']:.5f} ms ({f['bound_by']}; {pairs} pairs, "
+                  f"{pairs / (n * m):.4%} of brute; without FMAs "
+                  f"{f['floor_no_fma_ms']:.5f} ms){detail}", flush=True)
     return fields
+
+
+def first_bounce_2d(rays, seg):
+    """The 2D guide's rays at its first bounce in the Morton order the
+    re-sort gives them over the segments' box: ``(p0, p1)``."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch.models.acceleration import (
+        morton_codes_device,
+    )
+
+    lo = torch.minimum(seg.p0.amin(dim=0), seg.p1.amin(dim=0))
+    hi = torch.maximum(seg.p0.amax(dim=0), seg.p1.amax(dim=0))
+    order = torch.argsort(morton_codes_device(rays.p0, lo, hi), stable=True)
+    return rays.p0[order], rays.p1[order]
+
+
+def arcs_alone(device):
+    """``--arcs-alone``: K6 and K8 launched alone at the 2D guide's first
+    bounce, apart from their table and boxes, each checked against the
+    plain K6 bit for bit.  It calls ``arc_kernels``' ``arc_table``,
+    ``gate_boxes`` and ``_launch`` and the libraries' C entry points, whose
+    arguments are the same in every version of the port since K8 was
+    ported: copied into the root of an earlier checkout, the script times
+    that checkout's kernels the same way (mean of 20 launches each)."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import scenes2d
+    from tensorflowraytrace_tpu_torch.models.acceleration import (
+        chunk_aabbs_arcs,
+    )
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+
+    rays, scene, _ = scenes2d.light_guide(GUIDE2D_RAYS, device=device)
+    p0, p1 = first_bounce_2d(rays, scene.segments)
+    arcs = (scene.arcs.center, scene.arcs.angle_start, scene.arcs.angle_end,
+            scene.arcs.radius)
+    table = ak.arc_table(*arcs)
+    boxes = ak.gate_boxes(chunk_aabbs_arcs(*arcs, gk.CULL_CHUNK)).contiguous()
+    n, m = p0.shape[0], table.shape[0]
+    eps = (float(EPS), float(EPS))
+    slack = (1.0 + ak._SLACK, 1.0 - ak._SLACK, ak._SLACK)
+    launches = {
+        "K6": lambda: ak._launch(
+            ak.load_library().arc_search_launch, "arc_search", p0,
+            (p0.data_ptr(), p1.data_ptr(), table.data_ptr(), n, m, *eps)),
+        "K8": lambda: ak._launch(
+            ak.load_culled_library().arc_search_culled_launch,
+            "arc_search_culled", p0,
+            (p0.data_ptr(), p1.data_ptr(), table.data_ptr(), boxes.data_ptr(),
+             n, m, gk.CULL_CHUNK, *eps, *slack)),
+    }
+    ref = ak.nearest_hit_arcs_plain(p0, p1, *arcs, EPS, EPS)
+    for key, launch in launches.items():
+        check(all(torch.equal(a, b) for a, b in zip(launch(), ref)),
+              f"{key} launched alone differs from the plain K6")
+        print(f"arcs alone {key} at the 2D guide's first bounce {n}x{m}: "
+              f"kernel {cuda_ms(launch, 20):.4f} ms", flush=True)
+
+
+def alone_2d(kind, args, m):
+    """Each 2D kernel of ``kind`` as ``{variant: (prepare, launch)}``: its
+    inputs' preparation and its launch on them, the wrapper's two halves
+    (K5's wrapper prepares nothing)."""
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+
+    p0, p1, *surfaces = args
+    if kind == "segment":
+        eps = (EPS, EPS, EPS)
+        return {
+            "brute": (lambda: None, lambda _: gk.nearest_hit_segments_kernel(
+                *args, *eps)),
+            "culled": (lambda: gk.culled_prepare(*surfaces),
+                       lambda prep: gk.culled_launch(p0, p1, prep, *eps)),
+            "twolevel": (lambda: gk.twolevel_prepare(*args, EPS),
+                         lambda prep: gk.twolevel_launch(p0, p1, m, prep,
+                                                         *eps)),
+        }
+    return {
+        "brute": (lambda: ak.prepare(*surfaces),
+                  lambda prep: ak.launch(p0, p1, prep, EPS, EPS)),
+        "culled": (lambda: ak.culled_prepare(*surfaces),
+                   lambda prep: ak.culled_launch(p0, p1, prep, EPS, EPS)),
+        "twolevel": (lambda: ak.twolevel_prepare(*args, EPS),
+                     lambda prep: ak.twolevel_launch(p0, p1, m, prep, EPS,
+                                                     EPS)),
+    }
+
+
+def arc_work(p0, p1, boxes, arc, u):
+    """The ray-arc pairs K8 and K10 must compute on these inputs
+    (``admitted_pairs`` at 256-arc chunks, ``boxes`` their boxes) and how
+    many of them pass the exact reject (``arc_kernels.admitted_arc_pairs``)."""
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    chunk = gk.CULL_CHUNK
+    o = [a[:, None] for a in p0.unbind(1)]
+    inv = [a[:, None] for a in tk._inverse_direction(p1 - p0).unbind(1)]
+    admitted = past = 0
+    for c in range(boxes.shape[0]):
+        box = boxes[c:c + 1].T
+        rows = tk._slab_gate(o, inv, box[:2], box[2:], EPS,
+                             u[:, None])[:, 0].nonzero()[:, 0]
+        arcs = slice(c * chunk, (c + 1) * chunk)
+        centre = arc.center[arcs]
+        admitted += rows.numel() * centre.shape[0]
+        past += ak.admitted_arc_pairs(p0[rows], p1[rows], centre,
+                                      arc.radius[arcs], EPS)
+    return admitted, past
 
 
 def phase_14(device):
@@ -1285,9 +1466,6 @@ def main():
     from tensorflowraytrace_tpu_torch import FINISHED, Scene3D, TraceConfig, trace
     from tensorflowraytrace_tpu_torch import flagship
     from tensorflowraytrace_tpu_torch.engine import start_epsilon
-    from tensorflowraytrace_tpu_torch.models.acceleration import (
-        morton_codes_device,
-    )
     from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
     from tensorflowraytrace_tpu_torch.ops import cuda_build
     from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
@@ -1315,6 +1493,9 @@ def main():
     if "--tune" in sys.argv[1:]:
         tune_twolevel(device)
         tune_twolevel_2d(device)
+        return 0
+    if "--arcs-alone" in sys.argv[1:]:
+        arcs_alone(device)
         return 0
 
     # ---- phase 3: K1 against its plain version
@@ -1605,19 +1786,15 @@ def main():
 
     # K1, K3 and K4 alone at the guide's first bounce, the rays in the
     # Morton order the re-sort gives them
-    lo = torch.minimum(g_tri.vp.amin(dim=0), g_tri.v2.amin(dim=0))
-    hi = torch.maximum(g_tri.vp.amax(dim=0), g_tri.v2.amax(dim=0))
-    order = torch.argsort(morton_codes_device(g_rays.p0, lo, hi), stable=True)
-    args = [t.contiguous() for t in (g_rays.p0[order], g_rays.p1[order],
-                                     g_tri.vp, g_tri.v1, g_tri.v2)]
+    args = first_bounce_3d(g_rays, g_tri)
     k1_out = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
     u_final = k1_out[2]
     brute_bound_ms = n * m * K1_FLOPS_PER_PAIR / PEAK_FP32_FLOP_S * 1e3
     # K4's kernel alone, after its inputs are prepared
-    prepared = tk.twolevel_prepare(*args, EPS)
+    prepared = tk.twolevel_prepare(*args, EPS, EPS)
     k4_kernel_ms = cuda_ms(lambda: tk.twolevel_launch(
         args[0], args[1], m, prepared, EPS, EPS, EPS), 10)
-    prepare_ms = cuda_ms(lambda: tk.twolevel_prepare(*args, EPS), 10)
+    prepare_ms = cuda_ms(lambda: tk.twolevel_prepare(*args, EPS, EPS), 10)
     counts = prepared[2]
     print(f"phase 10 K4 at the first bounce: kernel alone {k4_kernel_ms:.4f} "
           f"ms, its input preparation (boxes, candidates, table) "

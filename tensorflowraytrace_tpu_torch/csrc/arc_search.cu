@@ -23,16 +23,31 @@
 // that rays far from small arcs keep their hits on the arc (the note in
 // search2d_common.cuh).
 //
-// What bounds it: FP32 arithmetic, 50 operations per ray-arc pair (the
-// scaled coordinates 6, a 3, b 4, the discriminant 6, 2a and its
-// reciprocal 2, the square root 1, the two roots 4, the window test of each
-// root 12 + 12) and the compares; an arc is 32 bytes read once per block of
-// 256 rays.
+// What bounds it: FP32 issue slots.  Every pair pays the reject test, 15
+// operations (the scaled coordinates 6, a 3, the cross term 3, the
+// discriminant 3) and its snap and compares; a pair that passes it pays 35
+// more (b 4, 2a and its reciprocal 2, the square root 1, the two roots 4,
+// the window test of each root 12 + 12), and the IEEE division and square
+// root issue about eight instructions each.  Bytes hardly count: an arc is
+// 32 bytes read once per block.
 //
-// The design: one thread per ray with its running best in registers;
-// tiles of 256 arcs staged in shared memory (1 / r computed once per arc),
-// read as broadcasts.  The ragged last tile is masked by its count (the TPU
-// kernel's "dead" padding column does not carry over).
+// The design:
+// - The exact reject (search2d::ArcPair): a pair whose discriminant is
+//   negative after the plain version's snap, or whose |a| is below i_eps,
+//   gives u = 3e38 on both branches, so skipping it is exact; its test
+//   reads only the centre and 1 / r and costs no division or square root.
+//   A ray's line meets the circles of few arcs (on the 2D guide one or two
+//   of the 512 lenslets), so a warp rarely takes the exact path.
+// - One 128-bit shared load an arc for the test (centre, 1 / r, flags), a
+//   second only on the exact path (the window edges); 1 / r is computed
+//   once per arc while staging.
+// - kRays rays a thread, as K5: each load serves kRays pairs, one branch
+//   an arc covers the thread's rays, and the rays' state stays in
+//   registers.  A block of kThreads
+//   threads takes kThreads x kRays consecutive rays, ray k of a thread at
+//   offset k kThreads, so loads and stores stay coalesced.
+// - Tiles of kTile = 256 arcs (8 KB), the ragged last one masked by its
+//   count (the TPU kernel's "dead" padding column does not carry over).
 
 #include <cuda_runtime.h>
 
@@ -42,6 +57,7 @@ namespace {
 
 using search2d::kThreads;
 using search2d::kTile;
+constexpr int kRays = 4;  // rays a thread
 
 __global__ void __launch_bounds__(kThreads)
 arc_search_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
@@ -51,25 +67,30 @@ arc_search_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
                   unsigned char* __restrict__ branch_out) {
   __shared__ search2d::ArcTile tile;
 
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = ray < n;
-  const search2d::Ray r = search2d::load_ray(p0, p1, ray, live);
-
-  float best_u = search2d::kBig;
-  int best_idx = 0;
-  bool best_minus = false;
+  const int first = blockIdx.x * (kThreads * kRays) + threadIdx.x;
+  search2d::Ray r[kRays];
+  search2d::ArcBest best[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int ray = first + k * kThreads;
+    r[k] = search2d::load_ray(p0, p1, ray, ray < n);
+    best[k] = search2d::ArcBest{search2d::kBig, 0, false};
+  }
   for (int base = 0; base < m; base += kTile) {
     const int count = min(kTile, m - base);
     __syncthreads();  // the previous tile is no longer read
     search2d::stage_arcs(tile, table, base, count);
     __syncthreads();
-    search2d::search_arcs(tile, count, base, r, i_eps, r_eps, best_u,
-                          best_idx, best_minus);
+    search2d::search_arcs(tile, count, base, r, i_eps, r_eps, best);
   }
-  if (live) {
-    u_out[ray] = best_u;
-    idx_out[ray] = best_idx;
-    branch_out[ray] = best_minus ? 1 : 0;
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int ray = first + k * kThreads;
+    if (ray < n) {
+      u_out[ray] = best[k].u;
+      idx_out[ray] = best[k].idx;
+      branch_out[ray] = best[k].minus ? 1 : 0;
+    }
   }
 }
 
@@ -84,7 +105,7 @@ extern "C" int arc_search_launch(const float* p0, const float* p1,
                                  float i_eps, float r_eps, float* u_out,
                                  int* idx_out, unsigned char* branch_out,
                                  void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
+  const int blocks = (n + kThreads * kRays - 1) / (kThreads * kRays);
   arc_search_kernel<<<blocks, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       p0, p1, table, n, m, i_eps, r_eps, u_out, idx_out, branch_out);

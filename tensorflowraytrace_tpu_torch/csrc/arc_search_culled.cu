@@ -18,8 +18,9 @@
 // (__any_sync); the plain version (ops/arc_kernels.py) gates groups of 32
 // rays as the warp vote does.  Parked rays fail every slab test.
 //
-// What bounds it: FP32 arithmetic on the admitted pairs (50 operations
-// each, as in K6), plus one 14-operation slab test per ray and tile.
+// What bounds it: FP32 arithmetic on the admitted pairs (K6's pair test:
+// 15 operations for a pair its exact reject refuses, 50 for the rest),
+// plus one 14-operation slab test per ray and tile.
 
 #include <cuda_runtime.h>
 
@@ -43,15 +44,13 @@ arc_search_culled_kernel(const float* __restrict__ p0,
 
   const int ray = blockIdx.x * kThreads + threadIdx.x;
   const bool live = ray < n;
-  const search2d::Ray r = search2d::load_ray(p0, p1, ray, live);
+  const search2d::Ray r[1] = {search2d::load_ray(p0, p1, ray, live)};
 
-  float best_u = search2d::kBig;
-  int best_idx = 0;
-  bool best_minus = false;
+  search2d::ArcBest best[1] = {{search2d::kBig, 0, false}};
   for (int base = 0, chunk = 0; base < m; base += kTile, ++chunk) {
-    const bool need = live && search2d::slab_gate(aabb + 4 * chunk, r, r_eps,
-                                                  slack_hi, slack_lo, slack,
-                                                  best_u);
+    const bool need = live && search2d::slab_gate(aabb + 4 * chunk, r[0],
+                                                  r_eps, slack_hi, slack_lo,
+                                                  slack, best[0].u);
     const bool warp_need = __any_sync(0xffffffffu, need);
     // also the barrier after which the previous tile is no longer read
     if (!__syncthreads_or(need)) continue;
@@ -59,13 +58,12 @@ arc_search_culled_kernel(const float* __restrict__ p0,
     search2d::stage_arcs(tile, table, base, count);
     __syncthreads();
     if (!warp_need) continue;
-    search2d::search_arcs(tile, count, base, r, i_eps, r_eps, best_u,
-                          best_idx, best_minus);
+    search2d::search_arcs(tile, count, base, r, i_eps, r_eps, best);
   }
   if (live) {
-    u_out[ray] = best_u;
-    idx_out[ray] = best_idx;
-    branch_out[ray] = best_minus ? 1 : 0;
+    u_out[ray] = best[0].u;
+    idx_out[ray] = best[0].idx;
+    branch_out[ray] = best[0].minus ? 1 : 0;
   }
 }
 

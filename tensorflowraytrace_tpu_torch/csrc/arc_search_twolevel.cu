@@ -16,10 +16,10 @@
 // The design is K9's (segment_search_twolevel.cu): search2d::twolevel_walk
 // over fine chunks of search2d::kTile = 256 arcs.  Its inputs, prepared by
 // the wrapper (ops/arc_kernels.py) on the card:
-// - the arc table chunk-major, (C, 8, 256) 4-byte words, one
-//   search2d::ArcTile per chunk: centre x, centre y, 1 / radius, cos and
-//   sin of the window's start and end (float32), and the window flags as
-//   int32 bits, zero past m;
+// - the arc table chunk-major, (C, 2, 256, 4) 4-byte words, one
+//   search2d::ArcTile per chunk: 256 rows of (centre x, centre y,
+//   1 / radius, the window flags as int32 bits), then 256 rows of (cos and
+//   sin of the window's start and end), zero past m;
 // - the chunk boxes over the arcs' window-aware boxes, (C, 4) float32
 //   (models/acceleration.py chunk_aabbs_arcs widened by
 //   ops/segment_kernels.gate_boxes, as K8's);
@@ -30,10 +30,10 @@
 // 1024-ray blocks, the (16, M) layout and its dead padding column (the
 // ragged chunk is searched for its real arcs only).
 //
-// What bounds it: FP32 arithmetic on the admitted pairs (50 operations each,
-// as in K6; the bound K8 has, at the same 256-arc chunks), plus one slab
-// test per ray and candidate chunk and the candidate precompute outside the
-// kernel.
+// What bounds it: FP32 arithmetic on the admitted pairs (K6's pair test,
+// 15 or 50 operations; the bound K8 has, at the same 256-arc chunks), plus
+// one slab test per ray and candidate chunk and the candidate precompute
+// outside the kernel.
 
 #include <cuda_runtime.h>
 
@@ -61,28 +61,25 @@ arc_search_twolevel_kernel(const float* __restrict__ p0,
 
   const int ray = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = ray < n;
-  const search2d::Ray r = search2d::load_ray(p0, p1, ray, live);
+  const search2d::Ray r[1] = {search2d::load_ray(p0, p1, ray, live)};
 
-  float best_u = search2d::kBig;
-  int best_idx = 0;
-  bool best_minus = false;
+  search2d::ArcBest best[1] = {{search2d::kBig, 0, false}};
   search2d::twolevel_walk(
-      buf, table, aabb, counts, cand, n_chunks, max_cand, m, r, live, r_eps,
-      slack_hi, slack_lo, slack, best_u,
+      buf, table, aabb, counts, cand, n_chunks, max_cand, m, r[0], live,
+      r_eps, slack_hi, slack_lo, slack, best[0].u,
       [&](const search2d::ArcTile& tile, int count, int base) {
-        search2d::search_arcs(tile, count, base, r, i_eps, r_eps, best_u,
-                              best_idx, best_minus);
+        search2d::search_arcs(tile, count, base, r, i_eps, r_eps, best);
       });
   if (live) {
-    u_out[ray] = best_u;
-    idx_out[ray] = best_idx;
-    branch_out[ray] = best_minus ? 1 : 0;
+    u_out[ray] = best[0].u;
+    idx_out[ray] = best[0].idx;
+    branch_out[ray] = best[0].minus ? 1 : 0;
   }
 }
 
 }  // namespace
 
-// p0, p1: (n, 2) float32; table: (n_chunks, 8, fine) 4-byte words, 16-byte
+// p0, p1: (n, 2) float32; table: (n_chunks, 2, fine, 4) 4-byte words, 16-byte
 // aligned, where fine must be the kernel's tile of 256 (else the launch
 // returns cudaErrorInvalidValue); aabb: (n_chunks, 4) float32; counts,
 // cand and ray_block as in segment_search_twolevel_launch; thresholds and

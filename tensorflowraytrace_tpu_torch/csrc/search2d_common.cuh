@@ -5,17 +5,18 @@
 // arc_search_culled.cu, K10 arc_search_twolevel.cu), and the two-level walk
 // of K9 and K10.
 //
-// K6-K10 run one thread per ray, kThreads rays per block, and walk the
-// surfaces in tiles of kTile staged in shared memory as structure-of-arrays
-// rows, read as broadcasts; K5 stages its own float4 tiles and runs several
-// rays a thread.  A surface replaces the ray's running best only under
-// strict <, so a tie keeps the first index.  The arithmetic is the plain
-// versions' (ops/segment_kernels.py, ops/arc_kernels.py): the same float32
-// operations in the same order, built with --fmad=false and without fast
-// math, so that sqrtf and every division are IEEE and kernel and plain
-// version agree bit for bit.  The segment kernels share one pair test
-// (segment_pair), and the culled kernels only skip tiles, so they return
-// the brute kernels' hits bit for bit.
+// K7-K10 run one thread per ray, kThreads rays per block, and walk the
+// surfaces in tiles staged in shared memory; K5 and K6 run several rays a
+// thread, K5 in tiles of its own.  Every thread reads the same
+// surface at once (a broadcast).  A surface replaces the ray's running best
+// only under strict <, so a tie keeps the first index.  The arithmetic is
+// the plain versions' (ops/segment_kernels.py, ops/arc_kernels.py): the
+// same float32 operations in the same order, built with --fmad=false and
+// without fast math, so that sqrtf and every division are IEEE and kernel
+// and plain version agree bit for bit.  The segment kernels share one pair
+// test (SegmentPair) and the arc kernels another (ArcPair), each of which
+// skips only pairs the exact arithmetic rejects, and the culled kernels
+// only skip tiles, so they return the brute kernels' hits bit for bit.
 
 #pragma once
 
@@ -173,13 +174,16 @@ __device__ __forceinline__ void search_segments(const float (*tile)[kTile],
 // than pi, 2: a full circle).
 constexpr int kArcCols = 8;
 
+// A tile of arcs in shared memory, two 128-bit rows an arc:
+// - head: centre x, centre y, 1 / radius and the flags' int32 bits, all that
+//   the reject test (ArcPair) reads;
+// - edge: cos and sin of the window's start, cos and sin of its end, read
+//   only for a pair that passes it.
 // K10 stages an ArcTile whole from its chunk-major table
-// (ops/arc_kernels.arc_chunk_table), whose eighth row holds the flags' int32
-// bits: the layout is 8 rows of kTile 4-byte words.
+// (ops/arc_kernels.arc_chunk_table, (C, 2, kTile, 4) 4-byte words).
 struct ArcTile {
-  float xc[kTile], yc[kTile], inv_r[kTile];
-  float sx[kTile], sy[kTile], ex[kTile], ey[kTile];
-  int flags[kTile];
+  float4 head[kTile];
+  float4 edge[kTile];
 };
 
 __device__ __forceinline__ void stage_arcs(ArcTile& tile,
@@ -187,46 +191,39 @@ __device__ __forceinline__ void stage_arcs(ArcTile& tile,
                                            int base, int count) {
   for (int t = threadIdx.x; t < count; t += blockDim.x) {
     const float* row = table + kArcCols * (base + t);
-    tile.xc[t] = row[0];
-    tile.yc[t] = row[1];
-    tile.inv_r[t] = 1.0f / row[2];
-    tile.sx[t] = row[3];
-    tile.sy[t] = row[4];
-    tile.ex[t] = row[5];
-    tile.ey[t] = row[6];
-    tile.flags[t] = static_cast<int>(row[7]);
+    tile.head[t] = make_float4(row[0], row[1], 1.0f / row[2],
+                               __int_as_float(static_cast<int>(row[7])));
+    tile.edge[t] = make_float4(row[3], row[4], row[5], row[6]);
   }
 }
 
-// Is the hit at ray parameter u a valid hit of arc t?  The window test is
-// the TPU kernel's cross-product form: with p the hit relative to the
-// centre, c1 = cross(start edge, p) and c2 = cross(p, end edge); a window
-// of at most pi needs c1 >= 0 and c2 >= 0, a wider one only not both < 0,
-// a full circle nothing.
-__device__ __forceinline__ bool arc_branch_valid(const ArcTile& tile, int t,
-                                                 const Ray& r, float u,
-                                                 bool ok, float r_eps) {
-  const float px = (r.ox + r.dx * u) - tile.xc[t];
-  const float py = (r.oy + r.dy * u) - tile.yc[t];
-  const float c1 = tile.sx[t] * py - tile.sy[t] * px;
-  const float c2 = px * tile.ey[t] - py * tile.ex[t];
-  const int flags = tile.flags[t];
-  const bool in_window =
-      (flags & 2) ||
-      ((flags & 1) ? !(c1 < 0.0f && c2 < 0.0f) : (c1 >= 0.0f && c2 >= 0.0f));
-  return ok && (u >= r_eps) && in_window;
-}
+// A ray's running best among arcs: ray parameter, arc, and whether the
+// arc's minus branch gave it.
+struct ArcBest {
+  float u;
+  int idx;
+  bool minus;
+};
 
-// The nearest valid arc of a staged tile, folded into the running best.
-// The quadratic is normalised by the radius (x_r = (o - c) / r,
-// d_r = d / r): a = |d_r|^2, b = 2 (x_r . d_r), and the discriminant
+// One ray-arc pair, the plain version's arithmetic (ops/arc_kernels.py
+// _arc_pairs).  The quadratic is normalised by the radius (x_r = (o - c) /
+// r, d_r = d / r): a = |d_r|^2, b = 2 (x_r . d_r), and the discriminant
 // b^2 - 4 a (|x_r|^2 - 1) evaluated as 4 (a - (x_r x d_r)^2), the same
 // quantity without its cancellation (see below); it is snapped to 0 when
-// |disc| < i_eps; the pair is valid only when disc >= 0 and |a| >= i_eps;
-// u+- = (-b +- sqrt(disc)) / (2 a).  Of the arc's two branches the smaller
-// valid u counts, and the branch flag is set when the minus branch's is
-// strictly smaller; an arc replaces the best only under strict <, carrying
-// its own branch.
+// |disc| < i_eps; the pair is valid only when disc >= 0 and |a| >= i_eps
+// (`ok`); u+- = (-b +- sqrt(disc)) / (2 a).  Of the arc's two branches the
+// smaller valid u counts, and the branch flag is set when the minus
+// branch's is strictly smaller; an arc replaces the best only under strict
+// <, carrying its own branch.
+//
+// The reject.  A pair without `ok` gives u = 3e38 on both branches, which
+// never replaces a best under strict <, so a search may skip it exactly.
+// The constructor forms `ok` from the centre and 1 / r alone, with the
+// plain version's operations up to the discriminant (15: the scaled
+// coordinates 6, a 3, the cross term 3, disc 3) and its snap, so `ok` has
+// the plain version's bits and needs no margin; it is branch-free (&, not
+// &&).  Only a pair with `ok` pays fold: b, the square root, the IEEE
+// 1 / (2 a), both roots and the two window tests, unchanged.
 //
 // The discriminant.  The TPU kernel computes b^2 - 4 a c, two terms of
 // size (|o - c| |d| / r^2)^2 whose difference is 4 (|d| / r)^2 at most: a
@@ -235,40 +232,92 @@ __device__ __forceinline__ bool arc_branch_valid(const ArcTile& tile, int t,
 // (D ~ 13000), where float32 b^2 - 4 a c is noise and puts hits up to ~0.03
 // off the arc, outside the culling boxes.  The cross-product form loses no
 // more than the ray's own coordinates do.
-__device__ __forceinline__ void search_arcs(const ArcTile& tile, int count,
-                                            int base, const Ray& r,
-                                            float i_eps, float r_eps,
-                                            float& best_u, int& best_idx,
-                                            bool& best_minus) {
-  for (int t = 0; t < count; ++t) {
-    const float inv_r = tile.inv_r[t];
-    const float xr = (r.ox - tile.xc[t]) * inv_r;
-    const float yr = (r.oy - tile.yc[t]) * inv_r;
-    const float xd = r.dx * inv_r;
-    const float yd = r.dy * inv_r;
+struct ArcPair {
+  float xr, yr, xd, yd, a, disc;
+  bool ok;
 
-    const float a = xd * xd + yd * yd;
-    const float b = 2.0f * (xr * xd + yr * yd);
+  ArcPair() = default;
+
+  __device__ __forceinline__ ArcPair(const float4& head, const Ray& r,
+                                     float i_eps) {
+    const float inv_r = head.z;
+    xr = (r.ox - head.x) * inv_r;
+    yr = (r.oy - head.y) * inv_r;
+    xd = r.dx * inv_r;
+    yd = r.dy * inv_r;
+    a = xd * xd + yd * yd;
     const float cross = xr * yd - yr * xd;
-    float disc = 4.0f * (a - cross * cross);
-    disc = fabsf(disc) < i_eps ? 0.0f : disc;
+    const float d = 4.0f * (a - cross * cross);
+    disc = fabsf(d) < i_eps ? 0.0f : d;
+    ok = (disc >= 0.0f) & (fabsf(a) >= i_eps);
+  }
 
-    const bool a_ok = fabsf(a) >= i_eps;
-    const bool ok = (disc >= 0.0f) && a_ok;
-    const float inv2a = 1.0f / (a_ok ? 2.0f * a : 1.0f);
-    const float sq = sqrtf(disc >= 0.0f ? disc : 0.0f);
+  // Is the hit at ray parameter u inside arc's window?  The TPU kernel's
+  // cross-product form: with p the hit relative to the centre, c1 =
+  // cross(start edge, p) and c2 = cross(p, end edge); a window of at most pi
+  // needs c1 >= 0 and c2 >= 0, a wider one only not both < 0, a full circle
+  // nothing.
+  __device__ __forceinline__ static bool in_window(const float4& head,
+                                                   const float4& edge,
+                                                   const Ray& r, float u) {
+    const float px = (r.ox + r.dx * u) - head.x;
+    const float py = (r.oy + r.dy * u) - head.y;
+    const float c1 = edge.x * py - edge.y * px;
+    const float c2 = px * edge.w - py * edge.z;
+    const int flags = __float_as_int(head.w);
+    const bool wide = !((c1 < 0.0f) & (c2 < 0.0f));
+    const bool narrow = (c1 >= 0.0f) & (c2 >= 0.0f);
+    return ((flags & 2) != 0) | ((flags & 1) ? wide : narrow);
+  }
+
+  // The exact arithmetic, for a pair with `ok` (so 1 / (2 a) and the square
+  // root are the plain version's 1 / (a_ok ? 2 a : 1) and sqrt(max(disc,
+  // 0))), folded into the running best as arc `idx`.
+  __device__ __forceinline__ void fold(const float4& head, const float4& edge,
+                                       const Ray& r, float r_eps, int idx,
+                                       ArcBest& best) const {
+    const float b = 2.0f * (xr * xd + yr * yd);
+    const float inv2a = 1.0f / (2.0f * a);
+    const float sq = sqrtf(disc);
     const float u_plus = (-b + sq) * inv2a;
     const float u_minus = (-b - sq) * inv2a;
-
-    const float up =
-        arc_branch_valid(tile, t, r, u_plus, ok, r_eps) ? u_plus : kBig;
-    const float um =
-        arc_branch_valid(tile, t, r, u_minus, ok, r_eps) ? u_minus : kBig;
+    const bool plus_ok = (u_plus >= r_eps) & in_window(head, edge, r, u_plus);
+    const bool minus_ok =
+        (u_minus >= r_eps) & in_window(head, edge, r, u_minus);
+    const float up = plus_ok ? u_plus : kBig;
+    const float um = minus_ok ? u_minus : kBig;
     const float u = fminf(um, up);
-    if (u < best_u) {
-      best_u = u;
-      best_idx = base + t;
-      best_minus = um < up;
+    if (u < best.u) {
+      best.u = u;
+      best.idx = idx;
+      best.minus = um < up;
+    }
+  }
+};
+
+// The nearest valid arc of a staged tile for each of a thread's kRays rays,
+// folded into their running bests in index order: one 128-bit load and
+// kRays reject tests an arc, and one branch an arc (taken when some ray's
+// pair passes), not one a pair.
+template <int kRays>
+__device__ __forceinline__ void search_arcs(const ArcTile& tile, int count,
+                                            int base, const Ray (&r)[kRays],
+                                            float i_eps, float r_eps,
+                                            ArcBest (&best)[kRays]) {
+  for (int t = 0; t < count; ++t) {
+    const float4 head = tile.head[t];
+    ArcPair pair[kRays];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < kRays; ++k) {
+      pair[k] = ArcPair(head, r[k], i_eps);
+      any |= pair[k].ok;
+    }
+    if (any) {  // rarely: a ray's line meets few of the circles
+      const float4 edge = tile.edge[t];
+#pragma unroll
+      for (int k = 0; k < kRays; ++k)
+        if (pair[k].ok) pair[k].fold(head, edge, r[k], r_eps, base + t, best[k]);
     }
   }
 }

@@ -1,6 +1,7 @@
-// The slab gate and the per-pair Moller-Trumbore search shared by the
-// culled (K3, triangle_search_culled.cu) and two-level (K4,
-// triangle_search_twolevel.cu) triangle searches.
+// What the culled (K3, triangle_search_culled.cu) and two-level (K4,
+// triangle_search_twolevel.cu) triangle searches share: the ray load, the
+// slab gate, the per-pair Moller-Trumbore test, and the compaction of a
+// block's rays that need a tile with the group fold that computes them.
 //
 // The arithmetic is K1's (triangle_search.cu): the same float32 operations
 // in the same order, built with --fmad=false, behind reject_test.cuh's
@@ -121,18 +122,104 @@ __device__ __forceinline__ void triangle_pair(
     best.set(u, idx, L);
 }
 
-// Fold the first `count` triangles of a shared-memory tile, stored as nine
-// rows of kRow floats (v0 xyz, E1 xyz, E2 xyz), into the ray's running best;
-// column t is triangle base + t: triangle_pair in index order.
+// ------------------------------------------------- compaction and the fold
+//
+// K3 and K4 compute a tile only for the rays of a block whose own gate
+// passes.  After the first bounce about a tenth of a block's rays need a
+// given tile, and different ones from tile to tile, so a warp vote would
+// compute most tiles for 32 rays to serve three.  Instead:
+// - The block's rays (one a thread) keep their origin, direction and
+//   running best in shared memory, two float4 a ray: ray_a (ox, oy, oz, dx)
+//   and ray_b (dy, dz, best u, best idx as int32 bits).
+// - compact: every thread gates its own ray; a ballot and a scan of the
+//   warps' counts write the slots of the k rays that need the tile into a
+//   list.  A tile then costs in proportion to the rays that need it.
+// - fold_listed: the whole block computes the listed rays, `group` threads
+//   a ray (the largest power of two up to 32 with group k <= the block's
+//   threads), each folding every group-th triangle of the tile into its own
+//   copy of the ray's best; a shuffle takes the group's smallest (u, idx),
+//   which is what the fold of the whole tile in index order under strict <
+//   gives.  One thread a listed ray would leave nine tenths of the threads
+//   idle and the SM short of warps to hide latency.
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// This thread's ray into the block's shared arrays, with no best yet.
+__device__ __forceinline__ void put_ray(float4* ray_a, float4* ray_b,
+                                        const Ray& r) {
+  ray_a[threadIdx.x] = make_float4(r.ox, r.oy, r.oz, r.dx);
+  ray_b[threadIdx.x] = make_float4(r.dy, r.dz, kBig, __int_as_float(0));
+}
+
+// The rays of the block that need a tile: every thread passes its own
+// `need`; the slots (thread ids) of those that need it go to list[0 ..
+// total - 1] in thread order, and total is returned, the same in every
+// thread.  `warp_count` (32 ints) is written before one __syncthreads
+// inside and read after it, so a caller that compacts again with no barrier
+// in between passes another array.  The list is written after that
+// barrier: a caller reads it only after a barrier of its own.
+__device__ __forceinline__ int compact(bool need, int* list, int* warp_count) {
+  const int me = threadIdx.x, lane = me & 31, warp = me >> 5;
+  const unsigned vote = __ballot_sync(kFull, need);
+  if (lane == 0) warp_count[warp] = __popc(vote);
+  __syncthreads();
+  // inclusive scan of the warps' counts, in every warp
+  int c = lane < static_cast<int>(blockDim.x >> 5) ? warp_count[lane] : 0;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(kFull, c, d);
+    if (lane >= d) c += up;
+  }
+  const int total = __shfl_sync(kFull, c, 31);
+  const int before = __shfl_sync(kFull, c, warp) - __popc(vote);
+  if (need) list[before + __popc(vote & ((1u << lane) - 1u))] = me;
+  return total;
+}
+
+// Fold the first `count` triangles of a tile (three rows of kRow float4:
+// (v0x, v0y, v0z, E1x), (E1y, E1z, E2x, E2y), (E2z, -, -, -); column t is
+// triangle base + t) into the bests of the `total` listed rays, and write
+// each back to ray_b.  Every thread of the block calls it.
 template <int kRow>
-__device__ __forceinline__ void search_tile(const float (*tile)[kRow],
-                                            int count, int base, const Ray& r,
-                                            const reject::Limits& L,
-                                            reject::Best& best) {
-  for (int t = 0; t < count; ++t)
-    triangle_pair(tile[0][t], tile[1][t], tile[2][t], tile[3][t], tile[4][t],
-                  tile[5][t], tile[6][t], tile[7][t], tile[8][t], base + t, r,
-                  L, best);
+__device__ __forceinline__ void fold_listed(const float4* tile, int count,
+                                            int base, int total,
+                                            const int* list,
+                                            const float4* ray_a,
+                                            float4* ray_b,
+                                            const reject::Limits& L) {
+  const int me = threadIdx.x, warp = me >> 5;
+  int group = 32;
+  while (group * total > static_cast<int>(blockDim.x)) group >>= 1;
+  const int j = me / group, part = me % group;
+  if (warp * 32 >= total * group) return;  // the same in the whole warp
+  reject::Best best;
+  int slot = 0;
+  float4 b = make_float4(0.f, 0.f, kBig, __int_as_float(0));
+  if (j < total) {
+    slot = list[j];
+    const float4 a = ray_a[slot];
+    b = ray_b[slot];
+    const Ray q{a.x, a.y, a.z, a.w, b.x, b.y, 0.f, 0.f, 0.f};
+    best.set(b.z, __float_as_int(b.w), L);
+    for (int t = part; t < count; t += group) {
+      const float4 t0 = tile[t], t1 = tile[kRow + t], t2 = tile[2 * kRow + t];
+      triangle_pair(t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w, t2.x,
+                    base + t, q, L, best);
+    }
+  } else {
+    best.u = kBig;
+    best.idx = 0;
+  }
+  for (int d = 1; d < group; d <<= 1) {
+    const float u = __shfl_xor_sync(kFull, best.u, d);
+    const int idx = __shfl_xor_sync(kFull, best.idx, d);
+    if (u < best.u || (u == best.u && idx < best.idx)) {
+      best.u = u;
+      best.idx = idx;
+    }
+  }
+  if (j < total && part == 0)
+    ray_b[slot] = make_float4(b.x, b.y, best.u, __int_as_float(best.idx));
 }
 
 }  // namespace tsearch

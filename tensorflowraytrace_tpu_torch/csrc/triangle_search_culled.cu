@@ -33,20 +33,15 @@
 // by few rays of a block, and by different ones from tile to tile.
 //
 // The design:
-// - Compaction inside the block.  The block's kBlock rays (one a thread)
-//   keep their origin, direction and running best in shared memory.  For
-//   each tile every thread gates its own ray; a ballot and a scan of the
-//   warps' counts write the slots of the k rays that need the tile into a
-//   list.  A tile then costs in proportion to the rays that need it, not
-//   to the warps that hold one.
-// - The whole block computes the listed rays: `group` threads a ray (the
-//   largest power of two up to 32 with group k <= kBlock), each folding
-//   every group-th triangle of the tile into its own copy of the ray's
-//   best, then a shuffle takes the group's smallest (u, idx), which is
-//   what the fold of the whole tile in index order under strict < gives.
-//   About a tenth of a block's rays need a given tile on the 3D guide's
-//   first bounce: one thread a listed ray would leave nine tenths of the
-//   threads idle and the SM short of warps to hide latency.
+// - Compaction inside the block (tsearch::compact and tsearch::fold_listed,
+//   triangle_search_common.cuh, which K4 shares).  The block's kBlock rays
+//   (one a thread) keep their origin, direction and running best in shared
+//   memory.  For each tile every thread gates its own ray; a ballot and a
+//   scan of the warps' counts list the rays that need the tile, and the
+//   whole block computes them, `group` threads a listed ray, each folding
+//   every group-th triangle, then a shuffle takes the group's smallest
+//   (u, idx), the in-order fold's result.  A tile then costs in proportion
+//   to the rays that need it, not to the warps that hold one.
 // - The pair test (tsearch::triangle_pair, reject_test.cuh): the exact
 //   numerators, an approximate reciprocal, tu's widened range before Q is
 //   formed, then tv's, tu + tv's and u's; the division and the exact
@@ -68,8 +63,6 @@ namespace {
 
 constexpr int kTile = 256;      // triangles per tile = culling chunk
 constexpr int kBlock = 256;     // rays per block, one a thread
-constexpr int kWarps = kBlock / 32;
-constexpr unsigned kFull = 0xffffffffu;
 // the tile, two float4 a ray, the list, the warps' counts
 constexpr size_t kShared = sizeof(float4) * (3 * kTile + 2 * kBlock) +
                            sizeof(int) * kBlock + sizeof(int) * 32;
@@ -94,12 +87,10 @@ triangle_search_culled_kernel(const float* __restrict__ p0,
   int* warp_count = list + kBlock;
 
   const int me = threadIdx.x;
-  const int lane = me & 31, warp = me >> 5;
   const int ray = blockIdx.x * kBlock + me;
   const bool live = ray < n;
   const tsearch::Ray r = tsearch::load_ray(p0, p1, ray, live);
-  ray_a[me] = make_float4(r.ox, r.oy, r.oz, r.dx);
-  ray_b[me] = make_float4(r.dy, r.dz, tsearch::kBig, __int_as_float(0));
+  tsearch::put_ray(ray_a, ray_b, r);
 
   for (int base = 0, chunk = 0; base < m; base += kTile, ++chunk) {
     // the previous tile's bests are written; the tile and list are free
@@ -107,20 +98,8 @@ triangle_search_culled_kernel(const float* __restrict__ p0,
     const bool need = live && tsearch::slab_gate(aabb + 6 * chunk, r, lim.r_eps,
                                                  slack_hi, slack_lo, slack,
                                                  ray_b[me].z);
-    const unsigned vote = __ballot_sync(kFull, need);
-    if (lane == 0) warp_count[warp] = __popc(vote);
-    __syncthreads();
-    // inclusive scan of the warps' counts, in every warp
-    int c = lane < kWarps ? warp_count[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(kFull, c, d);
-      if (lane >= d) c += up;
-    }
-    const int total = __shfl_sync(kFull, c, 31);
+    const int total = tsearch::compact(need, list, warp_count);
     if (total == 0) continue;  // the same in every thread
-    const int before = __shfl_sync(kFull, c, warp) - __popc(vote);
-    if (need) list[before + __popc(vote & ((1u << lane) - 1u))] = me;
 
     const int count = min(kTile, m - base);
     for (int t = me; t < count; t += kBlock) {
@@ -131,47 +110,9 @@ triangle_search_culled_kernel(const float* __restrict__ p0,
                                     v2[g + 0] - ax, v2[g + 1] - ay);
       tile[2 * kTile + t] = make_float4(v2[g + 2] - az, 0.f, 0.f, 0.f);
     }
-    __syncthreads();
-
-    // `group` threads a listed ray (a power of two, at most a warp), each
-    // folding every group-th triangle of the tile into its own copy of the
-    // ray's best; a shuffle then takes the smallest (u, idx) of the group,
-    // which is what folding the whole tile in index order under strict <
-    // gives.
-    int group = 32;
-    while (group * total > kBlock) group >>= 1;
-    const int j = me / group, part = me % group;
-    if (warp * 32 < total * group) {  // the same in the whole warp
-      reject::Best best;
-      int slot = 0;
-      float4 b = make_float4(0.f, 0.f, tsearch::kBig, __int_as_float(0));
-      if (j < total) {
-        slot = list[j];
-        const float4 a = ray_a[slot];
-        b = ray_b[slot];
-        const tsearch::Ray q{a.x, a.y, a.z, a.w, b.x, b.y, 0.f, 0.f, 0.f};
-        best.set(b.z, __float_as_int(b.w), lim);
-        for (int t = part; t < count; t += group) {
-          const float4 t0 = tile[t], t1 = tile[kTile + t],
-                       t2 = tile[2 * kTile + t];
-          tsearch::triangle_pair(t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z,
-                                 t1.w, t2.x, base + t, q, lim, best);
-        }
-      } else {
-        best.u = tsearch::kBig;
-        best.idx = 0;
-      }
-      for (int d = 1; d < group; d <<= 1) {
-        const float u = __shfl_xor_sync(kFull, best.u, d);
-        const int idx = __shfl_xor_sync(kFull, best.idx, d);
-        if (u < best.u || (u == best.u && idx < best.idx)) {
-          best.u = u;
-          best.idx = idx;
-        }
-      }
-      if (j < total && part == 0)
-        ray_b[slot] = make_float4(b.x, b.y, best.u, __int_as_float(best.idx));
-    }
+    __syncthreads();  // the tile and the list are written
+    tsearch::fold_listed<kTile>(tile, count, base, total, list, ray_a, ray_b,
+                                lim);
   }
 
   __syncthreads();

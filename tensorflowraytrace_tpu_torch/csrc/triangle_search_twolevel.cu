@@ -12,14 +12,18 @@
 // note), so valid, idx and u equal K1's bit for bit.
 //
 // Inputs, prepared by the wrapper (ops/triangle_kernels.py) on the card:
-// - the triangle table chunk-major, (C, 9, F) float32: fine chunk c holds
-//   rows c*F .. c*F+F-1 as (v0, E1, E2) structure-of-arrays, zero past m;
-// - the chunk boxes, (C, 6) float32 (models/acceleration.py chunk_aabbs);
+// - the triangle table chunk-major, (C, 3, F, 4) float32: fine chunk c holds
+//   triangles c*F .. c*F+F-1 as three rows of F float4, (v0x, v0y, v0z,
+//   E1x), (E1y, E1z, E2x, E2y), (E2z, 0, 0, 0) -- K3's tile -- zero past m;
+// - the chunk boxes, (C, 6) float32 (models/acceleration.py chunk_aabbs at
+//   F triangles, widened as K3's by ops/triangle_kernels.culled_boxes: each
+//   ray's own gate decides, so each box must hold every point
+//   Moller-Trumbore accepts);
 // - counts (nb,) int32 and cand (nb * max_cand,) int32 from
-//   twolevel_candidates: block b walks cand[b*max_cand ...] for counts[b]
-//   steps, or every chunk 0 .. C-1 in order when counts[b] == C (its list
-//   overflowed the cap).  A chunk is a candidate of a block when some ray
-//   of the block can hit its box at all.
+//   twolevel_candidates on those boxes: block b walks cand[b*max_cand ...]
+//   for counts[b] steps, or every chunk 0 .. C-1 in order when counts[b] ==
+//   C (its list overflowed the cap).  A chunk is a candidate of a block
+//   when some ray of the block can hit its box at all.
 //
 // The design, against the TPU kernel's:
 // - The grid: one block per ray block (blockDim.x rays, one per thread).
@@ -31,17 +35,23 @@
 //   buffers with cp.async (16 bytes a thread) while candidate k is
 //   computed; this takes the place of make_async_copy and the two DMA
 //   semaphores.
-// - The improving gate: before computing candidate k each thread slab-tests
-//   its ray against the chunk's box and its running best (K3's test,
-//   tsearch::slab_gate in triangle_search_common.cuh: can it hit the box
-//   at t >= r_eps, no farther than best_u, with slack 1 +- 1e-6).  A
-//   block vote (__syncthreads_or) skips chunks no ray of the block needs,
-//   and a warp vote (__any_sync) skips the arithmetic of warps none of
-//   whose rays need it.  The plain version gates groups of 32 rays to
-//   match.
+// - K3's compaction (tsearch::compact, tsearch::fold_listed in
+//   triangle_search_common.cuh): before computing candidate k each thread
+//   slab-tests its own ray against the chunk's box and its running best
+//   (tsearch::slab_gate: can it hit the box at t >= r_eps, no farther than
+//   best_u, with slack 1 +- 1e-6); a ballot and a scan list the rays that
+//   pass, and the whole block computes only those, `group` threads a listed
+//   ray.  A candidate no ray needs costs one gate and one barrier (the
+//   warps' counts are double-buffered, so no second barrier guards them).
+//   The plain version gates ray by ray to match.
 // - The ragged last chunk is masked by its count of real triangles.
-// - The fine chunk is fixed at compile time (kFine = 512, chosen on the
-//   H100, see PERF.md): the tile rows sit at constant offsets.
+// - The fine chunk is a constant, kFine = 512 (FINE_CHUNK in Python; a
+//   256-triangle chunk halves K4's time alone but doubles the dense
+//   candidate precompute, and lost the trace on the H100, see PERF.md): the
+//   tile rows sit at constant offsets.  Two buffers of 512 triangles are
+//   48 KB and the rays 36 bytes each, above the 48 KB of static shared
+//   memory, so the block's shared memory is one dynamic array, its limit
+//   raised with cudaFuncSetAttribute.
 //
 // What bounds it: FP32 arithmetic on the admitted pairs (24 operations for
 // one refused on tu, 46 for the rest, as in K3), plus the per-step slab
@@ -57,12 +67,19 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kFine = 512;  // triangles per fine chunk; FINE_CHUNK in Python
+constexpr int kFine = 512;  // triangles per fine chunk
+
+// shared memory: two chunk buffers, two float4 a ray, the list, two arrays
+// of the warps' counts
+size_t shared_bytes(int ray_block) {
+  return sizeof(float4) * (2 * 3 * kFine + 2 * ray_block) +
+         sizeof(int) * (ray_block + 2 * 32);
+}
 
 __global__ void __launch_bounds__(kMaxThreads)
 triangle_search_twolevel_kernel(const float* __restrict__ p0,
                                 const float* __restrict__ p1,
-                                const float* __restrict__ table,
+                                const float4* __restrict__ table,
                                 const float* __restrict__ aabb,
                                 const int* __restrict__ counts,
                                 const int* __restrict__ cand,
@@ -71,65 +88,69 @@ triangle_search_twolevel_kernel(const float* __restrict__ p0,
                                 float slack_hi, float slack_lo, float slack,
                                 float* __restrict__ u_out,
                                 int* __restrict__ idx_out) {
-  // two buffers of one chunk each: 9 rows of kFine floats
-  __shared__ __align__(16) float smem[2][9][kFine];
-  constexpr int chunk_floats = 9 * kFine;
+  constexpr int kChunkVecs = 3 * kFine;  // float4 of one chunk
+  extern __shared__ float4 smem[];
+  float4* buf = smem;                             // 2 chunks
+  float4* ray_a = buf + 2 * kChunkVecs;           // ox oy oz dx
+  float4* ray_b = ray_a + blockDim.x;             // dy dz best_u best_idx
+  int* list = reinterpret_cast<int*>(ray_b + blockDim.x);
+  int* warp_count = list + blockDim.x;            // 2 x 32
 
-  const int b = blockIdx.x;
-  const int ray = b * blockDim.x + threadIdx.x;
+  const int b = blockIdx.x, me = threadIdx.x;
+  const int ray = b * blockDim.x + me;
   const bool live = ray < n;
   const tsearch::Ray r = tsearch::load_ray(p0, p1, ray, live);
+  tsearch::put_ray(ray_a, ray_b, r);
 
   const int cnt = counts[b];
   const bool sweep = cnt == n_chunks;
-  const int* list = cand + static_cast<size_t>(b) * max_cand;
-  auto chunk_id = [&](int k) { return sweep ? k : list[min(k, max_cand - 1)]; };
-
+  const int* cands = cand + static_cast<size_t>(b) * max_cand;
+  auto chunk_id = [&](int k) {
+    return sweep ? k : cands[min(k, max_cand - 1)];
+  };
   auto stage = [&](int c, int slot) {
-    const float4* src = reinterpret_cast<const float4*>(
-        table + static_cast<size_t>(c) * chunk_floats);
-    float4* dst = reinterpret_cast<float4*>(&smem[slot][0][0]);
-    for (int i = threadIdx.x; i < chunk_floats / 4; i += blockDim.x)
+    const float4* src = table + static_cast<size_t>(c) * kChunkVecs;
+    float4* dst = buf + slot * kChunkVecs;
+    for (int i = me; i < kChunkVecs; i += blockDim.x)
       __pipeline_memcpy_async(dst + i, src + i, sizeof(float4));
     __pipeline_commit();
   };
-
-  reject::Best best;
-  best.set(tsearch::kBig, 0, lim);
 
   if (cnt > 0) stage(chunk_id(0), 0);
   for (int k = 0; k < cnt; ++k) {
     const int c = chunk_id(k);
     if (k + 1 < cnt) {
+      // buffer (k + 1) & 1 was last read at step k - 1, before its barrier
       stage(chunk_id(k + 1), (k + 1) & 1);
       __pipeline_wait_prior(1);  // this thread's copies of chunk k landed
     } else {
       __pipeline_wait_prior(0);
     }
-
     const bool need = live && tsearch::slab_gate(aabb + 6 * c, r, lim.r_eps,
                                                  slack_hi, slack_lo, slack,
-                                                 best.u);
-    const bool warp_need = __any_sync(0xffffffffu, need);
-    // the barrier after which every thread's copies of chunk k are visible
-    if (__syncthreads_or(need) && warp_need) {
-      const int base = c * kFine;
-      tsearch::search_tile<kFine>(smem[k & 1], min(kFine, m - base), base, r,
-                                  lim, best);
-    }
-    __syncthreads();  // buffer k & 1 is no longer read: step k+1 refills it
+                                                 ray_b[me].z);
+    // its barrier also makes every thread's copies of chunk k visible
+    const int total = tsearch::compact(need, list, warp_count + 32 * (k & 1));
+    if (total == 0) continue;  // the same in every thread
+    __syncthreads();  // the list is written
+    const int base = c * kFine;
+    tsearch::fold_listed<kFine>(buf + (k & 1) * kChunkVecs,
+                                min(kFine, m - base), base, total, list,
+                                ray_a, ray_b, lim);
+    __syncthreads();  // the bests are written; the buffer and list are free
   }
 
+  // every best was written before a barrier this thread has passed
   if (live) {
-    u_out[ray] = best.u;
-    idx_out[ray] = best.idx;
+    u_out[ray] = ray_b[me].z;
+    idx_out[ray] = __float_as_int(ray_b[me].w);
   }
 }
 
 }  // namespace
 
-// p0, p1: (n, 3) float32; table: (n_chunks, 9, fine) float32, 16-byte
-// aligned, where fine must be the kernel's 512 (else the launch returns
+// p0, p1: (n, 3) float32; table: (n_chunks, 3, fine, 4) float32, 16-byte
+// aligned, where fine must be 512 (else the launch returns
 // cudaErrorInvalidValue); aabb: (n_chunks, 6) float32; counts:
 // (ceil(n / ray_block),) int32; cand: (blocks * max_cand,) int32.  u_out:
 // (n,) float32, idx_out: (n,) int32.  ray_block is the block size (a
@@ -142,12 +163,19 @@ extern "C" int triangle_search_twolevel_launch(
     int ray_block, int max_cand, float i_eps, float s_lo, float s_hi,
     float r_eps, float slack_hi, float slack_lo, float slack, float* u_out,
     int* idx_out, void* stream) {
-  if (fine != kFine) return static_cast<int>(cudaErrorInvalidValue);
+  if (fine != kFine || ray_block % 32 != 0 || ray_block < 32 ||
+      ray_block > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = shared_bytes(ray_block);
+  const cudaError_t err = cudaFuncSetAttribute(
+      triangle_search_twolevel_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (n + ray_block - 1) / ray_block;
-  triangle_search_twolevel_kernel<<<blocks, ray_block, 0,
+  triangle_search_twolevel_kernel<<<blocks, ray_block, bytes,
                                     static_cast<cudaStream_t>(stream)>>>(
-      p0, p1, table, aabb, counts, cand, n, m, n_chunks, max_cand,
-      reject::limits(i_eps, s_lo, s_hi, r_eps), slack_hi, slack_lo, slack,
-      u_out, idx_out);
+      p0, p1, reinterpret_cast<const float4*>(table), aabb, counts, cand, n,
+      m, n_chunks, max_cand, reject::limits(i_eps, s_lo, s_hi, r_eps),
+      slack_hi, slack_lo, slack, u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,6 +30,15 @@ discriminant is the TPU kernels' b^2 - 4 a c rewritten as
 4 (a - (x_r x d_r)^2), which float32 keeps accurate for rays that start
 thousands of radii from an arc (the note in csrc/search2d_common.cuh).
 
+The kernels skip, exactly, every pair whose discriminant is negative (after
+the snap to 0 below ``intersect_eps``) or whose |a| is below
+``intersect_eps``: such a pair has no valid branch.  :func:`arc_pair_admits`
+is that predicate in PyTorch; :func:`admitted_arc_pairs` counts the pairs
+it admits, the work a kernel's bound is charged for.
+
+Each wrapper is two halves, a preparation (the arc table, the gate boxes,
+the candidate lists) and the launch, so that the launch can be timed alone.
+
 Contract: per ray ``(valid, idx int32, ray_u, branch)``; ``ray_u`` is
 ``BIG = 3e38`` where nothing is hit, ``valid`` is ``ray_u < BIG / 2`` and
 ``branch`` is True where the winning arc's minus branch gave the hit.  The
@@ -56,7 +65,8 @@ from tensorflowraytrace_tpu_torch.ops.segment_kernels import (
     check_twolevel_ray_block,
 )
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
-    _SLACK, BIG, _raise_on, chunk_major, plain_or_cuda, twolevel_walk,
+    _SLACK, BIG, GATE_RAYS, _raise_on, chunk_major, plain_or_cuda,
+    twolevel_walk,
 )
 
 # Launches of each CUDA kernel in this process.  A wrapper adds one where it
@@ -121,12 +131,17 @@ def arc_table(center, angle_start, angle_end, radius):
 
 
 def arc_chunk_table(center, angle_start, angle_end, radius, chunk):
-    """K10's arc table: (C, 8, chunk), chunk-major, the rows of
-    :func:`arc_table` with the radius replaced by its reciprocal (the value
-    K6 computes when it stages a tile), zero past M."""
+    """K10's arc table: (C, 2, chunk, 4), chunk-major, one
+    ``search2d::ArcTile`` per chunk: ``chunk`` rows of (centre x, centre y,
+    1 / radius, flags) -- the radius replaced by the reciprocal K6 computes
+    when it stages a tile -- then ``chunk`` rows of (cos, sin of the
+    window's start, cos, sin of its end); zero past M.  The flags stay
+    float here (the plain version reads them so); :func:`twolevel_prepare`
+    turns them into the int32 bits the kernel reads."""
     t = arc_table(center, angle_start, angle_end, radius)
-    return chunk_major(torch.cat([t[:, :2], 1.0 / t[:, 2:3], t[:, 3:]], dim=1),
-                       chunk)
+    cols = torch.cat([t[:, :2], 1.0 / t[:, 2:3], t[:, 7:8], t[:, 3:7]], dim=1)
+    return chunk_major(cols, chunk).view(-1, 2, 4, chunk).transpose(2, 3) \
+        .contiguous()
 
 
 def _check_arcs(p0, p1, center, angle_start, angle_end, radius):
@@ -164,12 +179,23 @@ def nearest_hit_arcs_kernel(p0, p1, center, angle_start, angle_end, radius,
     which takes contiguous, detached float32 tensors on one device and raises
     on anything else.
     """
-    global LAUNCHES
     if plain_or_cuda(p0, "arc"):
         return nearest_hit_arcs_plain(p0, p1, center, angle_start, angle_end,
                                       radius, intersect_eps, ray_start_eps)
     _check_arcs(p0, p1, center, angle_start, angle_end, radius)
-    table = arc_table(center, angle_start, angle_end, radius)
+    return launch(p0, p1, prepare(center, angle_start, angle_end, radius),
+                  intersect_eps, ray_start_eps)
+
+
+def prepare(center, angle_start, angle_end, radius):
+    """K6's input made on the arcs' device: the table of :func:`arc_table`."""
+    return arc_table(center, angle_start, angle_end, radius)
+
+
+def launch(p0, p1, table, intersect_eps, ray_start_eps):
+    """Launch K6 on checked CUDA inputs and :func:`prepare`'s table; the
+    wrapper's second half."""
+    global LAUNCHES
     out = _launch(load_library().arc_search_launch, "arc_search", p0,
                   (p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
                    p0.shape[0], table.shape[0], float(intersect_eps),
@@ -182,24 +208,38 @@ def nearest_hit_arcs_culled_kernel(p0, p1, center, angle_start, angle_end,
                                    radius, intersect_eps, ray_start_eps):
     """K8: K6's search with the per-chunk slab gate over chunks of
     ``segment_kernels.CULL_CHUNK`` arcs.  Same arguments, result and device
-    rules as
-    :func:`nearest_hit_arcs_kernel`."""
-    global LAUNCHES_CULLED
+    rules as :func:`nearest_hit_arcs_kernel`."""
     if plain_or_cuda(p0, "arc"):
         return nearest_hit_arcs_culled_plain(
             p0, p1, center, angle_start, angle_end, radius, intersect_eps,
             ray_start_eps)
     _check_arcs(p0, p1, center, angle_start, angle_end, radius)
-    table = arc_table(center, angle_start, angle_end, radius)
-    chunk = segment_kernels.CULL_CHUNK
+    return culled_launch(p0, p1, culled_prepare(center, angle_start,
+                                                angle_end, radius),
+                         intersect_eps, ray_start_eps)
+
+
+def culled_prepare(center, angle_start, angle_end, radius):
+    """K8's inputs made on the arcs' device: ``(table, boxes)``, the table
+    of :func:`arc_table` and the gate boxes of its chunks of
+    ``segment_kernels.CULL_CHUNK`` arcs."""
     boxes = gate_boxes(chunk_aabbs_arcs(center, angle_start, angle_end,
-                                        radius, chunk)).contiguous()
+                                        radius, segment_kernels.CULL_CHUNK))
+    return arc_table(center, angle_start, angle_end, radius), \
+        boxes.contiguous()
+
+
+def culled_launch(p0, p1, prepared, intersect_eps, ray_start_eps):
+    """Launch K8 on checked CUDA inputs and :func:`culled_prepare`'s
+    output; the wrapper's second half."""
+    global LAUNCHES_CULLED
+    table, boxes = prepared
     out = _launch(load_culled_library().arc_search_culled_launch,
                   "arc_search_culled", p0,
                   (p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
-                   boxes.data_ptr(), p0.shape[0], table.shape[0], chunk,
-                   float(intersect_eps), float(ray_start_eps), 1.0 + _SLACK,
-                   1.0 - _SLACK, _SLACK))
+                   boxes.data_ptr(), p0.shape[0], table.shape[0],
+                   segment_kernels.CULL_CHUNK, float(intersect_eps),
+                   float(ray_start_eps), 1.0 + _SLACK, 1.0 - _SLACK, _SLACK))
     LAUNCHES_CULLED += 1
     return out
 
@@ -232,7 +272,7 @@ def twolevel_prepare(p0, p1, center, angle_start, angle_end, radius,
     each ray block's candidate list on them."""
     chunk = segment_kernels.CULL_CHUNK
     table = arc_chunk_table(center, angle_start, angle_end, radius, chunk)
-    table[:, 7] = table[:, 7].to(torch.int32).view(torch.float32)
+    table[:, 0, :, 3] = table[:, 0, :, 3].to(torch.int32).view(torch.float32)
     boxes = gate_boxes(chunk_aabbs_arcs(center, angle_start, angle_end,
                                         radius, chunk)).contiguous()
     return (table, boxes, *twolevel_lists(p0, p1, boxes, ray_start_eps))
@@ -268,27 +308,34 @@ def _arc_columns(table, s0, s1):
             (flags & _BIG_WINDOW) != 0, (flags & _FULL_CIRCLE) != 0)
 
 
-def _arc_pairs(ox, oy, dx, dy, xc, yc, inv_r, sx, sy, ex, ey, big, full,
-               i_eps, r_eps):
-    """Ray parameter of every ray-arc pair (``BIG`` where neither branch is
-    a valid hit) and whether the minus branch gave it: the kernels' float32
-    operations in their order.  Ray and arc components broadcast."""
+def _arc_discriminant(ox, oy, dx, dy, xc, yc, inv_r, i_eps):
+    """The kernels' float32 operations up to the exact reject
+    (``search2d::ArcPair``): the scaled ray ``xr, yr, xd, yd``, ``a``, the
+    discriminant snapped to 0 below ``i_eps``, and ``ok``, False where it is
+    negative or |a| is below ``i_eps``."""
     xr = (ox - xc) * inv_r
     yr = (oy - yc) * inv_r
     xd = dx * inv_r
     yd = dy * inv_r
-
     a = xd * xd + yd * yd
-    b = 2.0 * (xr * xd + yr * yd)
     # b^2 - 4 a (|x_r|^2 - 1) without its cancellation: see the note in
     # csrc/search2d_common.cuh
     cross = xr * yd - yr * xd
     disc = 4.0 * (a - cross * cross)
     disc = torch.where(torch.abs(disc) < i_eps, torch.zeros_like(disc), disc)
+    return xr, yr, xd, yd, a, disc, (disc >= 0) & (torch.abs(a) >= i_eps)
 
-    a_ok = torch.abs(a) >= i_eps
-    ok = (disc >= 0) & a_ok
-    inv2a = 1.0 / torch.where(a_ok, 2.0 * a, torch.ones_like(a))
+
+def _arc_pairs(ox, oy, dx, dy, xc, yc, inv_r, sx, sy, ex, ey, big, full,
+               i_eps, r_eps):
+    """Ray parameter of every ray-arc pair (``BIG`` where neither branch is
+    a valid hit) and whether the minus branch gave it: the kernels' float32
+    operations in their order.  Ray and arc components broadcast."""
+    xr, yr, xd, yd, a, disc, ok = _arc_discriminant(ox, oy, dx, dy, xc, yc,
+                                                    inv_r, i_eps)
+    b = 2.0 * (xr * xd + yr * yd)
+    inv2a = 1.0 / torch.where(torch.abs(a) >= i_eps, 2.0 * a,
+                              torch.ones_like(a))
     sq = torch.sqrt(torch.where(disc >= 0, disc, torch.zeros_like(disc)))
     u_plus = (-b + sq) * inv2a
     u_minus = (-b - sq) * inv2a
@@ -306,6 +353,33 @@ def _arc_pairs(ox, oy, dx, dy, xc, yc, inv_r, sx, sy, ex, ey, big, full,
     up = torch.where(branch_valid(u_plus), u_plus, BIG)
     um = torch.where(branch_valid(u_minus), u_minus, BIG)
     return torch.minimum(um, up), um < up
+
+
+def arc_pair_admits(ox, oy, dx, dy, xc, yc, inv_r, i_eps):
+    """The kernels' exact reject of a ray-arc pair, elementwise: False where
+    the discriminant, snapped to 0 below ``i_eps``, is negative or |a| is
+    below ``i_eps`` -- ``_arc_pairs``'s ``ok``.  A pair it refuses has no
+    valid branch.  Ray and arc components broadcast."""
+    return _arc_discriminant(ox, oy, dx, dy, xc, yc, inv_r, i_eps)[-1]
+
+
+@torch.no_grad()
+def admitted_arc_pairs(p0, p1, center, radius, intersect_eps, piece=1 << 24):
+    """How many of the ray-arc pairs of rays ``p0`` -> ``p1`` ((N, 2)) and
+    arcs (``center`` (M, 2), ``radius`` (M,)) :func:`arc_pair_admits`
+    admits: the pairs a kernel computes past its reject test.  Rays are
+    taken ``piece`` pairs at a time."""
+    n, m = p0.shape[0], center.shape[0]
+    inv_r = 1.0 / radius
+    d = p1 - p0
+    step = max(1, piece // m)
+    total = 0
+    for r0 in range(0, n, step):
+        o, dd = p0[r0:r0 + step, :, None], d[r0:r0 + step, :, None]
+        total += int(arc_pair_admits(o[:, 0], o[:, 1], dd[:, 0], dd[:, 1],
+                                     center[:, 0], center[:, 1], inv_r,
+                                     float(intersect_eps)).sum())
+    return total
 
 
 def _merge_arcs(best_u, best_idx, best_minus, rows, u, minus, first_idx):
@@ -389,12 +463,12 @@ def nearest_hit_arcs_twolevel_plain(p0, p1, center, angle_start, angle_end,
     table = arc_chunk_table(center, angle_start, angle_end, radius, chunk)
     for c, rows in twolevel_walk(
             p0, p1, boxes, *twolevel_lists(p0, p1, boxes, eps[1]),
-            segment_kernels.TWOLEVEL_RAY_BLOCK, eps[1], best_u):
-        t = table[c]                                         # (R, 8, F)
-        flags = t[:, 7].to(torch.int32)
+            segment_kernels.TWOLEVEL_RAY_BLOCK, eps[1], best_u, GATE_RAYS):
+        head, edge = table[c].unbind(1)                      # (R, F, 4) each
+        flags = head[..., 3].to(torch.int32)
         u, minus = _arc_pairs(
             *(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
-            *t[:, :7].unbind(1), (flags & _BIG_WINDOW) != 0,
-            (flags & _FULL_CIRCLE) != 0, *eps)
+            *head[..., :3].unbind(-1), *edge.unbind(-1),
+            (flags & _BIG_WINDOW) != 0, (flags & _FULL_CIRCLE) != 0, *eps)
         _merge_arcs(best_u, best_idx, best_minus, rows, u, minus, c * chunk)
     return best_u < BIG * 0.5, best_idx, best_u, best_minus

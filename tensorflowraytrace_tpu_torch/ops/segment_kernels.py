@@ -44,9 +44,9 @@ import torch
 from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_2d
 from tensorflowraytrace_tpu_torch.ops import cuda_build, triangle_kernels
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
-    _SLACK, BIG, _inverse_direction, _merge, _raise_on, _selected, _slab_gate,
-    _thresholds, _warp_any, chunk_major, plain_or_cuda, twolevel_candidates,
-    twolevel_walk,
+    _SLACK, BIG, GATE_RAYS, _inverse_direction, _merge, _raise_on, _selected,
+    _slab_gate, _thresholds, _warp_any, chunk_major, plain_or_cuda,
+    twolevel_candidates, twolevel_walk,
 )
 
 # Launches of each CUDA kernel in this process.  A wrapper adds one where it
@@ -183,14 +183,28 @@ def nearest_hit_segments_culled_kernel(p0, p1, sp0, sp1, intersect_eps,
     """K7: K5's search with the per-chunk slab gate over chunks of
     ``CULL_CHUNK`` segments.  Same arguments, result and device rules as
     :func:`nearest_hit_segments_kernel`."""
-    global LAUNCHES_CULLED
     if plain_or_cuda(p0, "segment"):
         return nearest_hit_segments_culled_plain(
             p0, p1, sp0, sp1, intersect_eps, size_eps, ray_start_eps)
     _check_segments(p0, p1, sp0, sp1)
+    return culled_launch(p0, p1, culled_prepare(sp0, sp1), intersect_eps,
+                         size_eps, ray_start_eps)
+
+
+def culled_prepare(sp0, sp1):
+    """K7's inputs made on the segments' device: ``(sp0, sp1, boxes)``, the
+    segments and the gate boxes of their chunks of ``CULL_CHUNK``."""
+    return sp0, sp1, gate_boxes(chunk_aabbs_2d(sp0, sp1,
+                                               CULL_CHUNK)).contiguous()
+
+
+def culled_launch(p0, p1, prepared, intersect_eps, size_eps, ray_start_eps):
+    """Launch K7 on checked CUDA inputs and :func:`culled_prepare`'s
+    output; the wrapper's second half."""
+    global LAUNCHES_CULLED
+    sp0, sp1, boxes = prepared
     fn = load_culled_library().segment_search_culled_launch
     n, m = p0.shape[0], sp0.shape[0]
-    boxes = gate_boxes(chunk_aabbs_2d(sp0, sp1, CULL_CHUNK)).contiguous()
     u = torch.empty((n,), dtype=torch.float32, device=p0.device)
     idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
@@ -380,7 +394,8 @@ def nearest_hit_segments_twolevel_plain(p0, p1, sp0, sp1, intersect_eps,
     table, boxes, counts, cand, cap = twolevel_prepare(p0, p1, sp0, sp1,
                                                        eps[3])  # (C, 4, F)
     for c, rows in twolevel_walk(p0, p1, boxes, counts, cand, cap,
-                                 TWOLEVEL_RAY_BLOCK, eps[3], best_u):
+                                 TWOLEVEL_RAY_BLOCK, eps[3], best_u,
+                                 GATE_RAYS):
         t = table[c]                                         # (R, 4, F)
         u = _segment_pairs(*(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
                            t[:, 0], t[:, 1], t[:, 2], t[:, 3], *eps)

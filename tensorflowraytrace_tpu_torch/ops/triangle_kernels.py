@@ -18,18 +18,18 @@ same arithmetic written line by line in PyTorch.
 - K4 ``nearest_hit_triangles_twolevel_kernel``
   (``csrc/triangle_search_twolevel.cu``, port of
   ``_twolevel_triangle_kernel``): each ray block walks a precomputed,
-  capped list of candidate fine chunks (``twolevel_candidates``), or every
-  chunk when its list overflows, each gated by the same slab test;
+  capped list of candidate fine chunks (``twolevel_candidates`` on
+  ``culled_boxes`` at ``FINE_CHUNK``), or every chunk when its list
+  overflows, each computed for the rays whose own test passes, as in K3;
   ``cull="grid"``.  The candidate precompute and the plain walk serve the
   two-level 2D searches K9 and K10 as well (``ops/segment_kernels.py``,
   ``ops/arc_kernels.py``).
 
-The gate of K3 and K4: a chunk is computed for a ray only if the ray (K3)
-or some ray of its warp (K4: 32 rays, ``GATE_RAYS``) can hit the chunk's
-box at t >= r_eps no farther than its current best, with a relative slack
-of 1e-6.  The box holds every triangle of the chunk (K3's also every point
-Moller-Trumbore accepts beyond one), so the gate only skips pairs that
-cannot give a nearer hit, and K3 and K4 return K1's hits bit for bit.
+The gate of K3 and K4: a chunk is computed for a ray only if the ray can
+hit the chunk's box at t >= r_eps no farther than its current best, with a
+relative slack of 1e-6.  The box holds every point Moller-Trumbore accepts
+in the chunk (``culled_boxes``), so the gate only skips pairs that cannot
+give a nearer hit, and K3 and K4 return K1's hits bit for bit.
 Parked rays (p0 = 1e30, see ``engine.project_3d``) fail every slab test.
 
 Contract (shared with every search kernel of the JAX package): per ray
@@ -67,9 +67,9 @@ SOURCE_TWOLEVEL = "triangle_search_twolevel.cu"
 # K3: the culling chunk is the kernel's shared-memory tile (kTile in
 # csrc/triangle_search_culled.cu; the launch refuses another value)
 CULL_CHUNK = 256
-# K4 and K7-K10 decide per warp whether to compute a chunk: their plain
-# versions gate groups of this many consecutive rays (K3 gates each ray on
-# its own)
+# K7-K10 decide per warp whether to compute a chunk: their plain versions
+# gate groups of this many consecutive rays (K3 and K4 gate each ray on its
+# own)
 GATE_RAYS = 32
 # K3's culling boxes (and K7-K10's, ops/segment_kernels.gate_boxes) are
 # widened on every side by GATE_PAD times their largest coordinate
@@ -78,12 +78,13 @@ GATE_RAYS = 32
 # slab test's own slack (1 +- 1e-6 and 1e-6 in t) does not cover that far
 # from the origin: at x ~ 40 one ulp is 3.8e-6.
 GATE_PAD = 2.0 ** -17
-# K4: rays per block (one thread each), triangles per fine chunk (kFine in
-# csrc/triangle_search_twolevel.cu; the launch refuses another value), and
-# the cap of each block's candidate list; a block with more candidates
-# sweeps every chunk.  Chosen on the H100 by `chip_smoke.py --tune`: see
-# PERF.md.  Read at call time, so a test can lower the cap.
-TWOLEVEL_RAY_BLOCK = 128
+# K4: rays per block (one thread each, a multiple of 32 up to 1024),
+# triangles per fine chunk (the kernel is compiled for 512; the launch
+# refuses another value), and the cap of each block's candidate
+# list; a block with more candidates sweeps every chunk.  Chosen on the
+# H100 by `chip_smoke.py --tune`: see PERF.md.  Read at call time, so a
+# test can lower the cap.
+TWOLEVEL_RAY_BLOCK = 512
 FINE_CHUNK = 512
 TWOLEVEL_MAX_CAND = 32
 # Byte budget of one chunk group of the candidate precompute's
@@ -235,15 +236,16 @@ def nearest_hit_triangles_culled_kernel(p0, p1, vp, v1, v2, intersect_eps,
     return u < BIG * 0.5, idx, u
 
 
-def culled_boxes(vp, v1, v2, size_eps):
-    """K3's gate boxes: the (C, 6) boxes of its chunks of ``CULL_CHUNK``
-    triangles (min xyz, max xyz), widened on every side by 2 ``size_eps``
+def culled_boxes(vp, v1, v2, size_eps, chunk=None):
+    """The gate boxes of K3 and K4: the (C, 6) boxes of chunks of ``chunk``
+    triangles (``CULL_CHUNK`` when None; K4's ``FINE_CHUNK``), min xyz then
+    max xyz, widened on every side by 2 ``size_eps``
     times the box's widest side and ``GATE_PAD`` times its largest
     coordinate magnitude.  Moller-Trumbore accepts barycentric weights down
     to -``size_eps`` (tu, tv >= -s_eps, tu + tv <= 1 + s_eps), at most two
     of them negative, so an accepted point lies within 2 s_eps of a side's
     width outside the triangle's box; ``GATE_PAD`` covers the rounding."""
-    boxes = chunk_aabbs(vp, v1, v2, CULL_CHUNK)
+    boxes = chunk_aabbs(vp, v1, v2, CULL_CHUNK if chunk is None else chunk)
     width = (boxes[:, 3:] - boxes[:, :3]).amax(dim=1, keepdim=True)
     pad = (2.0 * float(size_eps) * width
            + GATE_PAD * boxes.abs().amax(dim=1, keepdim=True))
@@ -264,9 +266,18 @@ def chunk_major(columns, chunk):
 
 
 def chunk_major_table(vp, v1, v2, fine_chunk):
-    """K4's triangle table: (C, 9, F) float32, one contiguous block per fine
-    chunk holding (v0, E1, E2) structure-of-arrays, zero rows past M."""
-    return chunk_major(torch.cat([vp, v1 - vp, v2 - vp], dim=1), fine_chunk)
+    """K4's triangle table: (C, 3, F, 4) float32, one contiguous block per
+    fine chunk holding K3's tile, three rows of F float4: (v0x, v0y, v0z,
+    E1x), (E1y, E1z, E2x, E2y), (E2z, 0, 0, 0); zero past M."""
+    cols = torch.cat([vp, v1 - vp, v2 - vp, torch.zeros_like(vp)], dim=1)
+    return chunk_major(cols, fine_chunk).view(-1, 3, 4, fine_chunk) \
+        .transpose(2, 3).contiguous()
+
+
+def table_rows(table):
+    """K4's (C, 3, F, 4) table as (C, 9, F) rows v0 xyz, E1 xyz, E2 xyz."""
+    c, _, f, _ = table.shape
+    return table.transpose(2, 3).reshape(c, 12, f)[:, :9]
 
 
 def nearest_hit_triangles_twolevel_kernel(p0, p1, vp, v1, v2, intersect_eps,
@@ -283,17 +294,18 @@ def nearest_hit_triangles_twolevel_kernel(p0, p1, vp, v1, v2, intersect_eps,
     if rb % 32 or not 32 <= rb <= 1024:
         raise ValueError(f"TWOLEVEL_RAY_BLOCK {rb} must be a multiple of 32 "
                          "in [32, 1024]")
-    prepared = twolevel_prepare(p0, p1, vp, v1, v2, ray_start_eps)
+    prepared = twolevel_prepare(p0, p1, vp, v1, v2, size_eps, ray_start_eps)
     return twolevel_launch(p0, p1, vp.shape[0], prepared, intersect_eps,
                            size_eps, ray_start_eps)
 
 
-def twolevel_prepare(p0, p1, vp, v1, v2, ray_start_eps):
+def twolevel_prepare(p0, p1, vp, v1, v2, size_eps, ray_start_eps):
     """K4's inputs, made on the rays' device: the chunk-major triangle
-    table, the chunk boxes, and each ray block's candidate list
-    (``twolevel_candidates``); the cap is lowered to the chunk count."""
+    table, the gate boxes of its fine chunks (``culled_boxes``), and each
+    ray block's candidate list on them (``twolevel_candidates``); the cap
+    is lowered to the chunk count."""
     cap = min(TWOLEVEL_MAX_CAND, -(-vp.shape[0] // FINE_CHUNK))
-    boxes = chunk_aabbs(vp, v1, v2, FINE_CHUNK).contiguous()
+    boxes = culled_boxes(vp, v1, v2, size_eps, FINE_CHUNK).contiguous()
     counts, cand = twolevel_candidates(p0, p1, boxes, ray_start_eps,
                                        TWOLEVEL_RAY_BLOCK, cap)
     return chunk_major_table(vp, v1, v2, FINE_CHUNK), boxes, counts, cand, cap
@@ -422,14 +434,17 @@ def _slab_gate(o, inv, lo, hi, r_eps, best_u):
     return gate
 
 
-def _warp_any(need):
-    """(N,) -> (N,): True for every ray of a ``GATE_RAYS`` group that has a
-    True ray, as the kernels' warp vote decides."""
+def _warp_any(need, group=GATE_RAYS):
+    """(N,) -> (N,): True for every ray of a ``group`` of consecutive rays
+    that has a True ray, as the kernels' warp vote decides (``group`` 1:
+    each ray on its own)."""
+    if group == 1:
+        return need
     n = need.shape[0]
-    pad = -n % GATE_RAYS
+    pad = -n % group
     if pad:
         need = torch.cat([need, need.new_zeros((pad,))])
-    return need.view(-1, GATE_RAYS).any(dim=1).repeat_interleave(GATE_RAYS)[:n]
+    return need.view(-1, group).any(dim=1).repeat_interleave(group)[:n]
 
 
 def _selected(mask, piece=32768):
@@ -522,16 +537,17 @@ def twolevel_candidates(p0, p1, boxes, ray_start_eps, ray_block, max_cand):
 
 
 def twolevel_walk(p0, p1, boxes, counts, cand, cap, ray_block, r_eps,
-                  best_u):
+                  best_u, group):
     """The chunks and rays the two-level kernels (K4, K9, K10) compute, as
     their plain versions walk them: each block of ``ray_block`` rays walks
     its candidate list (``counts``, ``cand`` and ``cap`` of
     :func:`twolevel_candidates`) or, on overflow, every chunk of ``boxes``
     in order.  At each step, after the earlier steps have been merged into
     ``best_u``, yields ``(chunk, rows)`` -- ``chunk`` the (R,) chunk id of
-    each ray of ``rows`` -- for each piece of the rays of every
-    ``GATE_RAYS`` group of which some ray passes the slab gate against its
-    running best."""
+    each ray of ``rows`` -- for each piece of the rays of every ``group``
+    of consecutive rays of which some ray passes the slab gate against its
+    running best: 1 for K4, whose rays gate on their own, ``GATE_RAYS`` for
+    K9 and K10, which keep the warp vote."""
     n, dim = p0.shape
     n_chunks, nb = boxes.shape[0], counts.shape[0]
     sweep = counts == n_chunks
@@ -546,7 +562,7 @@ def twolevel_walk(p0, p1, boxes, counts, cand, cap, ray_block, r_eps,
         box = boxes[chunk].T                                  # (2 dim, N)
         need = _slab_gate(o, inv, box[:dim], box[dim:], r_eps, best_u)
         need = need & (step < counts.long())[block]
-        for rows in _selected(_warp_any(need)):
+        for rows in _selected(_warp_any(need, group)):
             yield chunk[rows], rows
 
 
@@ -556,18 +572,19 @@ def nearest_hit_triangles_twolevel_plain(p0, p1, vp, v1, v2, intersect_eps,
     """Plain PyTorch version of K4: each block of ``TWOLEVEL_RAY_BLOCK``
     rays walks its candidate list (or every chunk on overflow) in order; at
     each step the chunk of ``FINE_CHUNK`` triangles is computed for the rays
-    of each ``GATE_RAYS`` group of which some ray passes the slab gate
-    against its running best, with K1's arithmetic and merge."""
+    that pass the slab gate against their own running best on its
+    ``culled_boxes`` box, with K1's arithmetic and merge."""
     n = p0.shape[0]
     eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
     table, boxes, counts, cand, cap = twolevel_prepare(
-        p0, p1, vp, v1, v2, eps[3])                          # table (C, 9, F)
+        p0, p1, vp, v1, v2, size_eps, eps[3])
+    table = table_rows(table)                                # (C, 9, F)
     best_u = torch.full((n,), BIG, dtype=p0.dtype, device=p0.device)
     best_idx = torch.zeros((n,), dtype=torch.int32, device=p0.device)
     d = p1 - p0
     o3, d3 = p0.unbind(1), d.unbind(1)
     for chunk, rows in twolevel_walk(p0, p1, boxes, counts, cand, cap,
-                                     TWOLEVEL_RAY_BLOCK, eps[3], best_u):
+                                     TWOLEVEL_RAY_BLOCK, eps[3], best_u, 1):
         tri = table[chunk].unbind(1)                          # 9 x (R, F)
         a, e1, e2 = tri[0:3], tri[3:6], tri[6:9]
         u = _moller_trumbore(*(x[rows, None] for x in o3 + d3), a, e1, e2,

@@ -21,6 +21,10 @@ light guide at full width, and the random sets of the kernel checks.
   bounce by bounce so that a 50-bounce trace keeps no history.
 - ``random_segments``, ``random_arcs``, ``random_rays``: the sets of
   ``examples/tpu_kernel_check.py``, Morton-sorted.
+- ``arc_edge_cases``: ray-arc sets at the edges of the arc searches' exact
+  reject (a discriminant or |a| within float32 steps of ``intersect_eps``,
+  tangent rays, rays 13000 radii away, full circles, windows wider than pi,
+  exact ties, parked rays).
 
 Both build on CUDA unless given ``device=``; there is no CPU fallback.
 """
@@ -240,3 +244,107 @@ def random_arcs(rng, n, dtype=torch.float32, device=None, full=False):
     arc = ArcSet.make(center, a1, a1 + sweep, radius, mat_in=1, dtype=dtype,
                       device=device)
     return morton_sort_arcs(arc)[0]
+
+
+def _steps(x, k):
+    """float32 x and its k float32 neighbours on either side, ascending."""
+    out = [np.float32(x)]
+    for _ in range(k):
+        out.append(np.nextafter(out[-1], np.float32(np.inf)))
+        out.insert(0, np.nextafter(out[0], np.float32(-np.inf)))
+    return np.array(out, np.float32)
+
+
+def arc_edge_cases(dtype=torch.float32, device=None, i_eps=1e-6):
+    """Ray-arc sets at the edges of the arc searches' reject test (the
+    discriminant 4 (a - (x_r x d_r)^2) snapped to 0 below ``i_eps``, and
+    |a| >= ``i_eps``): a list of ``(label, p0, p1, arcs)``, the rays (N, 2)
+    and an ArcSet, unsorted so that the indices stay where they are put.
+
+    - "tangent": unit circles at the origin (a half window, a window of 1.5
+      pi and a full circle, each twice, the copies 300 arcs apart, in
+      another 256-arc tile) against rays along x at heights within 80
+      float32 steps of +-1 and rays along y at x within 80 steps of +-1:
+      the discriminant runs through 0 and +-``i_eps`` (one step of height
+      moves it ~5e-7 below 1 and ~1e-6 above).
+    - "small a": the same circles against rays from inside whose direction
+      is within 64 steps of sqrt(``i_eps``) long, so that a = |d|^2 / r^2
+      runs through ``i_eps``.
+    - "far": 64 lenslets of radius 0.003 across |y| <= 0.2 at x = 40 (the
+      2D guide's exit face) against rays from x = 0 aimed within the face:
+      they start ~13000 radii away.
+    - "wide windows": random arcs sweeping between pi and 2 pi against
+      random rays.
+    - "ties": a circle twice (indices 0 and 300), its mirror image, and
+      rays through their common centre line: equal u on different arcs.
+    - "parked": rays at 1e30 against the tangent set."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(13)
+
+    def rays(p0, d):
+        p0 = np.asarray(p0, np.float32)
+        return (torch.as_tensor(p0, dtype=dtype, device=device),
+                torch.as_tensor(p0 + np.asarray(d, np.float32), dtype=dtype,
+                                device=device))
+
+    def arcs(center, start, sweep, radius, spacer=0):
+        """The arcs, each repeated after ``spacer`` filler arcs far away."""
+        center = np.asarray(center, np.float32)
+        start = np.asarray(start, np.float32)
+        sweep = np.asarray(sweep, np.float32)
+        radius = np.asarray(radius, np.float32)
+        if spacer:
+            fill = np.full((spacer, 2), 1000.0, np.float32)
+            center = np.concatenate([center, fill, center])
+            start = np.concatenate([start, np.zeros(spacer, np.float32), start])
+            sweep = np.concatenate([sweep, np.full(spacer, 1.0, np.float32),
+                                    sweep])
+            radius = np.concatenate([radius, np.ones(spacer, np.float32),
+                                     radius])
+        return ArcSet.make(center, start, start + sweep, radius, mat_in=1,
+                           dtype=dtype, device=device)
+
+    unit = arcs(np.zeros((3, 2)), [0.0, -0.25 * PI, 0.0],
+                [PI, 1.5 * PI, 2 * PI], [1.0, 1.0, 1.0], spacer=297)
+    cases = []
+    hy = np.concatenate([_steps(1.0, 80), _steps(-1.0, 80)])
+    p0 = np.concatenate([np.stack([np.full_like(hy, -2.0), hy], 1),
+                         np.stack([hy, np.full_like(hy, -2.0)], 1)])
+    d = np.concatenate([np.tile([[1.0, 0.0]], (hy.size, 1)),
+                        np.tile([[0.0, 1.0]], (hy.size, 1))])
+    cases.append(("tangent", *rays(p0, d), unit))
+
+    small = np.concatenate([_steps(math.sqrt(i_eps), 64),
+                            -_steps(math.sqrt(i_eps), 64)])
+    p0 = np.tile([[-0.5, 0.25]], (2 * small.size, 1))
+    d = np.concatenate([np.stack([small, np.zeros_like(small)], 1),
+                        np.stack([np.zeros_like(small), small], 1)])
+    cases.append(("small a", *rays(p0, d), unit))
+
+    k = 64
+    yc = np.linspace(-0.2, 0.2, k)
+    lens = arcs(np.stack([np.full(k, 40.0), yc], 1), np.full(k, -0.5 * PI),
+                np.full(k, PI), np.full(k, 0.003))
+    n = 4096
+    p0 = np.stack([np.zeros(n), rng.uniform(-0.5, 0.5, n)], 1)
+    aim = np.stack([np.full(n, 40.0), rng.uniform(-0.21, 0.21, n)], 1)
+    cases.append(("far", *rays(p0, aim - p0), lens))
+
+    m = 300
+    wide = arcs(rng.uniform(-3, 3, (m, 2)), rng.uniform(-PI, PI, m),
+                rng.uniform(PI + 0.01, 2 * PI - 0.01, m),
+                rng.uniform(0.3, 1.5, m) * rng.choice([-1.0, 1.0], m))
+    th = rng.uniform(0, 2 * PI, n)
+    cases.append(("wide windows",
+                  *rays(rng.uniform(-4, 4, (n, 2)),
+                        np.stack([np.cos(th), np.sin(th)], 1)), wide))
+
+    twins = arcs([[0.0, 0.0], [0.0, 0.0]], [0.5 * PI, -0.5 * PI], [PI, PI],
+                 [1.0, -1.0], spacer=298)
+    y = np.linspace(-0.9, 0.9, 64)
+    cases.append(("ties", *rays(np.stack([np.full_like(y, -3.0), y], 1),
+                                np.tile([[1.0, 0.0]], (y.size, 1))), twins))
+
+    parked = np.full((512, 2), 1e30, np.float32)
+    cases.append(("parked", *rays(parked, parked * np.float32(1e-6)), unit))
+    return cases

@@ -1,7 +1,8 @@
 """The 2D search kernels on the card: K5 (segments) and K6 (arcs) bit for
 bit against their plain PyTorch versions, and the culled K7 and K8 bit for
 bit against theirs and against K5 and K6.  The pytest form of
-chip_smoke.py's phase 11, plus the first bounce of the 2D light guide.
+chip_smoke.py's phase 11, plus the first bounce of the 2D light guide and
+the edges of the arc kernels' exact reject (scenes2d.arc_edge_cases).
 
 Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 ``cuda`` and skip without one.  Run them on the card with
@@ -168,6 +169,27 @@ def test_segment_kernels_at_the_reject_tests_edges(cuda):
         p1 = torch.where(third, torch.full_like(p1, 1e30 * (1 + 1e-6)), p1)
         valid = check(seg_args(p0, p1, seg), "segment")
         assert valid.any() and not valid[third[:, 0]].any()
+
+
+@pytest.mark.parametrize("label", ["tangent", "small a", "far",
+                                   "wide windows", "ties", "parked"])
+def test_arc_kernels_at_the_reject_edges(cuda, label):
+    """K6 and K8 bit for bit, branch flag included, with their plain
+    versions on scenes2d.arc_edge_cases: the discriminant and |a| within
+    float32 steps of i_eps, tangent rays, rays 13000 radii from the
+    lenslets, windows wider than pi, exact ties between arcs in different
+    tiles, parked rays."""
+    cases = {c[0]: c[1:] for c in scenes2d.arc_edge_cases(device=cuda)}
+    p0, p1, arc = cases[label]
+    valid = check(arc_args(p0, p1, arc), "arc")
+    assert bool(valid.any()) == (label != "parked")
+
+
+def test_arc_kernels_on_a_ragged_guide(cuda):
+    """K6 and K8 on the 2D guide's first search at a ray count that leaves
+    K6's last block of 1024 rays (4 a thread) ragged."""
+    rays, scene, _ = scenes2d.light_guide(100003, device=cuda)
+    check(arc_args(rays.p0, rays.p1, scene.arcs), "arc")
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):

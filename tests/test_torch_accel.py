@@ -12,7 +12,9 @@
   Pallas kernels in interpret mode (equal ``valid``, ``ray_u`` within rtol
   1e-5, > 99% equal ``idx``: XLA:CPU rounds the interpreted kernels
   differently in the last bit) and equal the plain K1 bit for bit,
-  including K4's overflow sweep.
+  including K4's overflow sweep; both gate each ray on its own, on widened
+  boxes, and ``twolevel_walk`` gates K4's rays one by one and K9's and
+  K10's by 32-ray groups.
 * ``engine``: traces with ``cull=True`` and with ``cull="grid",
   resort_rays=True`` equal the ``cull=False`` trace exactly, and the
   accelerated trace agrees with JAX's ``use_pallas=True`` trace.
@@ -333,6 +335,84 @@ def test_plain_culled_gates_each_ray_and_equals_k1_on_a_guide(rng, monkeypatch,
     raw = t_acc.chunk_aabbs(vp, v1, v2, chunk)[-1]
     wide = tk.culled_boxes(vp, v1, v2, EPS)[-1]
     assert y < raw[1] and wide[1] <= y
+
+
+def test_plain_twolevel_gates_each_ray_and_equals_k1_on_a_guide(rng):
+    """K4's plain version gates ray by ray, on K3's widened boxes at its
+    fine chunk, and equals the plain K1 bit for bit on a small guide with
+    the graze of the K3 test above: a ray along -z through a lone
+    triangle's edge at tv ~ -s_eps / 2, outside its fine chunk's raw box."""
+    p0, p1, vp, v1, v2 = small_guide(rng, 2000)
+    t = vp.shape[0]
+    lone = torch.tensor([[5.0, 5.0, 45.0], [6.0, 5.0, 45.0], [5.0, 6.0, 45.0]])
+    vp, v1, v2 = (torch.cat([v, lone[k][None]]) for k, v in enumerate((vp, v1,
+                                                                       v2)))
+    y = np.float32(5.0) - np.float32(5e-7)
+    p0 = torch.cat([torch.tensor([[5.5, y, 46.0]]), p0])
+    p1 = torch.cat([torch.tensor([[5.5, y, 44.0]]), p1])
+    args = (p0, p1, vp, v1, v2)
+    ref = tk.nearest_hit_triangles_plain(*args, EPS, EPS, EPS)
+    got = tk.nearest_hit_triangles_twolevel_plain(*args, EPS, EPS, EPS)
+    for x, w in zip(got, ref):
+        assert torch.equal(x, w)
+    assert bool(ref[0][0]) and int(ref[1][0]) == t
+    raw = t_acc.chunk_aabbs(vp, v1, v2, tk.FINE_CHUNK)[-1]
+    wide = tk.twolevel_prepare(*args, EPS, EPS)[1][-1]
+    assert y < raw[1] and wide[1] <= y
+
+
+@pytest.mark.parametrize("group", [1, 32])
+def test_twolevel_walk_gate_group(rng, group):
+    """``twolevel_walk`` yields at its first step the rays that pass their
+    own gate (``group`` 1, K4) or every ray of a 32-ray group of which one
+    passes (K9 and K10's warp vote)."""
+    tris, p0, p1 = sorted_soup(rng, 2000, 700)
+    p0[::3] = 100.0                       # a third of the rays point away
+    p1[::3] = 101.0
+    p0, p1 = torch.as_tensor(p0), torch.as_tensor(p1)
+    vp, v1, v2 = (torch.as_tensor(a) for a in tris)
+    _, boxes, counts, cand, cap = tk.twolevel_prepare(p0, p1, vp, v1, v2, EPS,
+                                                      EPS)
+    best = torch.full((700,), tk.BIG)
+    chunk, rows = next(tk.twolevel_walk(p0, p1, boxes, counts, cand, cap,
+                                        tk.TWOLEVEL_RAY_BLOCK, EPS, best,
+                                        group))
+    block = torch.arange(700) // tk.TWOLEVEL_RAY_BLOCK
+    first = cand.view(-1, cap)[block, 0].long()
+    box = boxes[first].T
+    need = tk._slab_gate(p0.unbind(1), tk._inverse_direction(p1 - p0).unbind(1),
+                         box[:3], box[3:], EPS, best) & (counts > 0)[block]
+    want = tk._warp_any(need, group)
+    assert torch.equal(rows, torch.nonzero(want)[:, 0])
+    assert torch.equal(chunk, first[rows])
+    if group == 1:
+        assert torch.equal(want, need) and not need[::3].any()
+    else:
+        assert want[::3].any()
+
+
+@pytest.mark.parametrize("live", [0, 1, 31, 32, 33, 64, 128])
+def test_plain_twolevel_with_blocks_that_few_rays_need(rng, monkeypatch,
+                                                       live):
+    """Blocks of 128 rays in which ``live`` rays point into a sorted soup
+    and the rest away or parked: K4's plain version equals the plain K1,
+    its lists and gates serving 0, 1, a warp, a warp and one, or every ray
+    of a block; a cap of 2 makes the blocks with candidates sweep."""
+    monkeypatch.setattr(tk, "TWOLEVEL_RAY_BLOCK", 128)
+    tris, p0, p1 = sorted_soup(rng, 1300, 3 * 128)
+    dead = (np.arange(3 * 128) % 128) >= live
+    p0[dead], p1[dead] = 100.0, 101.0
+    p0[dead & (np.arange(3 * 128) % 2 == 0)] = 1e30
+    p1[dead & (np.arange(3 * 128) % 2 == 0)] = np.float32(1e30 * (1 + 1e-6))
+    args = torch_args(p0, p1, tris)
+    ref = tk.nearest_hit_triangles_plain(*args, EPS, EPS, EPS)
+    for cap in (32, 2):
+        monkeypatch.setattr(tk, "TWOLEVEL_MAX_CAND", cap)
+        got = tk.nearest_hit_triangles_twolevel_plain(*args, EPS, EPS, EPS)
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b)
+    assert not ref[0][torch.as_tensor(dead)].any()
+    assert bool(ref[0].any()) == (live > 0)
 
 
 def test_twolevel_overflow_constant_reaches_the_wrapper(rng, monkeypatch):

@@ -156,6 +156,32 @@ def test_twolevel_overflow_and_block_shapes(cuda, monkeypatch, twolevel):
     assert check(sorted_soup(3000, 20000, cuda)).any()
 
 
+@pytest.mark.parametrize("ray_block", [64, 128, 256, 512, 1024])
+def test_twolevel_blocks_that_few_rays_need(cuda, monkeypatch, ray_block):
+    """K4 at every ray block the tune tries, against K1 and its plain
+    version: consecutive blocks in which 0, 1, 31, 32, 33 and all rays
+    point into a sorted soup of 3000 triangles (a ragged last chunk) and
+    the others away or parked, so that a chunk is
+    needed by none, one, a warp less one, a warp, a warp and one, or every
+    ray of a block; then with a cap of 1, so that every block with more
+    than one candidate sweeps."""
+    monkeypatch.setattr(tk, "TWOLEVEL_RAY_BLOCK", ray_block)
+    lives = [0, 1, 31, 32, 33, ray_block]
+    p0, p1, vp, v1, v2 = sorted_soup(3000, len(lives) * ray_block, cuda)
+    slot = torch.arange(p0.shape[0], device=cuda) % ray_block
+    live = slot < torch.tensor(lives, device=cuda).repeat_interleave(ray_block)
+    away = (~live & (slot % 2 == 0))[:, None]
+    parked = (~live & (slot % 2 == 1))[:, None]
+    p0 = torch.where(away, torch.full_like(p0, 100.0), p0)
+    p1 = torch.where(away, torch.full_like(p1, 101.0), p1)
+    p0 = torch.where(parked, torch.full_like(p0, 1e30), p0)
+    p1 = torch.where(parked, torch.full_like(p1, 1e30 * (1 + 1e-6)), p1)
+    for cap in (32, 1):
+        monkeypatch.setattr(tk, "TWOLEVEL_MAX_CAND", cap)
+        valid = check([p0, p1, vp, v1, v2])
+        assert valid.any() and not valid[~live].any()
+
+
 def test_culled_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
     p0, p1, vp, v1, v2 = sorted_soup(16, 32, cuda)
     for fn in (tk.nearest_hit_triangles_culled_kernel,
@@ -168,7 +194,7 @@ def test_culled_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
             fn(p0, p1.cpu(), vp, v1, v2, EPS, EPS, EPS)
         with pytest.raises(ValueError, match="detached"):
             fn(p0, p1, vp.clone().requires_grad_(), v1, v2, EPS, EPS, EPS)
-    # the kernels are compiled for one chunk width each
+    # K3 and K4 are compiled for one chunk width each
     for name, fn in (("CULL_CHUNK", tk.nearest_hit_triangles_culled_kernel),
                      ("FINE_CHUNK", tk.nearest_hit_triangles_twolevel_kernel)):
         with monkeypatch.context() as m:

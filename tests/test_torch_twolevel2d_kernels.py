@@ -118,6 +118,22 @@ def test_guide_first_bounce(cuda, monkeypatch, cap):
     check(arc_args(rays.p0, rays.p1, scene.arcs), "arc")
 
 
+@pytest.mark.parametrize("cap", [None, 1])
+@pytest.mark.parametrize("label", ["tangent", "small a", "far",
+                                   "wide windows", "ties", "parked"])
+def test_k10_at_the_reject_edges(cuda, monkeypatch, label, cap):
+    """K10 bit for bit, branch flag included, with its plain version and
+    K6 on scenes2d.arc_edge_cases (the discriminant and |a| at i_eps,
+    tangent and far rays, wide windows, exact ties between arcs of two
+    chunks, parked rays); ``cap`` 1 makes the blocks overflow and sweep."""
+    if cap is not None:
+        monkeypatch.setattr(sk, "TWOLEVEL_MAX_CAND", cap)
+    cases = {c[0]: c[1:] for c in scenes2d.arc_edge_cases(device=cuda)}
+    p0, p1, arc = cases[label]
+    valid = check(arc_args(p0, p1, arc), "arc")
+    assert bool(valid.any()) == (label != "parked")
+
+
 def test_chunk_joint_ray(cuda):
     """The ray of tests/test_torch_search2d.py's chunk-joint case: it hits
     lenslet 256 just outside chunk 1's raw box, and keeps it because the
