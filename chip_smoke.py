@@ -14,12 +14,15 @@ exits non-zero without printing a result):
    segment_search.cu, segment_search_culled.cu, segment_search_twolevel.cu,
    arc_search.cu, arc_search_culled.cu and arc_search_twolevel.cu), one
    nvcc each, started together, into build/.
-3. K1 against its plain PyTorch version on the card: the random soup of
-   bench.py (seed 0: 4094 random triangles plus the 2-triangle target quad)
-   with 131072 rays, the flagship's first-bounce search, a ragged tile
-   (1000 rays x 333 triangles) and a batch that misses everything.
-   Criteria of tests/test_pallas.py: equal ``valid``, ``ray_u`` within
-   rtol 1e-5 where valid, > 99% equal ``idx``.  Then K3 (culled) and K4
+3. K1 against its plain PyTorch version on the card, bit for bit (equal
+   ``valid``, ``idx`` and ``ray_u``), at the rays a thread its launch
+   chooses and at each of 1 and 4: the random soup of bench.py (seed 0:
+   4094 random triangles plus the 2-triangle target quad) with 131072
+   rays, the flagship's first-bounce search (1024 rays), a ragged tile
+   (1000 rays x 333 triangles), a batch that misses everything, both ray
+   sets with every third ray parked (p0 = 1e30) and cut to a count that is
+   no multiple of a block's rays (1021 and 131035), and a batch of parked
+   rays.  Then K3 (culled) and K4
    (two-level) against their plain versions and against K1, bit for bit:
    the soup Morton-sorted as in bench.py (131072 rays), the first bounce
    of the structured guide (131072 rays x 16386 triangles), a ragged tile,
@@ -32,7 +35,11 @@ exits non-zero without printing a result):
    launched exactly once per bounce.
 5. the bench-scale trace: 2^20 rays x 4096 triangles x 8 bounces of the
    soup, kernel path against the plain path: per-state ray counts within
-   0.1% of N; median of 5 synchronised runs of each.
+   0.1% of N; median of 5 synchronised runs of each.  Then K1 alone at its
+   first bounce, with two bounds: the flat 46 operations a pair, and the
+   work these inputs need, the pairs that fail on tu alone
+   (``triangle_kernels.pairs_out_on_tu``) charged the 24 operations before
+   the reject test refuses them; each with its floor without FMAs.
 6. K2 (the segment sum) against float64 ``index_add_`` at the flagship's,
    the soup's and ragged shapes, with k = 13: elementwise
    ``|K2 - ref64| <= 1e-5 S + 1e-7``, ``S[j] = sum over idx[i] == j of
@@ -64,7 +71,8 @@ exits non-zero without printing a result):
    surface as under ``TraceConfig.recommended`` on the card, checked and
    timed as in phase 9, with equivalent intersections/s N M B / t.  Then
    K1, K3 and K4 alone at its first bounce (2^20 rays x 16386 triangles),
-   the rays in the re-sort's Morton order: K3 and K4 bit for bit against
+   the rays in the re-sort's Morton order: K1's time and its two bounds
+   as in phase 5; K3 and K4 bit for bit against
    their plain versions and K1 at that shape, their times and plain
    times, and one bound for both, the work these inputs need (pairs
    admitted at 256-triangle chunks, those whose tu fails charged the
@@ -136,12 +144,15 @@ script's own wall time, one JSON line describing each kernel of the path,
 the nvidia-smi line, and as the last line ``{"ok": true, "device":
 {...}}``.
 
-``python3 chip_smoke.py --tune`` runs phases 1 and 2, times K4 alone at
-the guide's first bounce at every ray block, then sweeps K4's ray block
-and candidate cap on the guide and the sorted soup and K9's and K10's ray block and cap on the 2D guide
-(median of 3 traces each, every setting checked against the brute trace),
-and prints no result line.  ``python3 chip_smoke.py --arcs-alone`` runs
-phases 1 and 2 and times K6 and K8 launched alone at the 2D guide's first
+``python3 chip_smoke.py --tune`` runs phases 1 and 2, times K1 alone at
+the soup's and the guide's first bounce at 1 and 4 rays a thread and K4
+alone at the guide's first bounce at every ray block, then sweeps K4's ray
+block and candidate cap on the guide and the sorted soup; times K9 alone
+at the 2D guide's first bounce at every ray block, then sweeps K9's and
+K10's ray block and cap on the 2D guide (median of 3 traces each, every
+setting checked against the brute trace), and prints no result line.
+``python3 chip_smoke.py --arcs-alone`` runs phases 1 and 2 and times K6
+and K8 launched alone at the 2D guide's first
 bounce (see ``arcs_alone``), and prints no result line either.
 """
 
@@ -193,13 +204,13 @@ RANGES = ("twolevel_candidates", "resort_rays")
 # --fmad=false, so their floor without FMAs is twice the operation bound.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
-# FP32 operations of one ray-triangle pair in K1 (K3 and K4 do the same
+# FP32 operations of one ray-triangle pair (K1, K3 and K4 do the same
 # exact arithmetic, behind a cheaper test): two cross products
 # (2 x 9), two dot products against P (2 x 6 with the scaling by inv),
 # det (5), T (3), u (6), 1/det (1), tu + tv (1)
 K1_FLOPS_PER_PAIR = 46
-# the part of that a pair whose tu fails costs in K3 and K4 before the
-# reject test refuses it (tsearch::triangle_pair): P (9), det (5), T (3),
+# the part of that a pair whose tu fails costs in K1, K3 and K4 before the
+# reject test refuses it (tsearch::TrianglePair): P (9), det (5), T (3),
 # tu's numerator (5), the reciprocal (1), one product (1)
 TU_FLOPS_PER_PAIR = 24
 # one ray-segment pair of K5, K7 and K9 (search2d::SegmentPair, shared t):
@@ -333,29 +344,48 @@ def cuda_ms(fn, reps):
 
 
 def compare_k1(label, p0, p1, vp, v1, v2):
-    """Kernel against plain on the same tensors; returns max |du| on valid
-    rays.  These launches are comparisons, not the main path."""
+    """K1 against its plain version on the same tensors, bit for bit, at
+    the rays a thread the wrapper chooses and at each its kernel is
+    compiled for; returns max |du| on valid rays (0 when equal).  These
+    launches are comparisons, not the main path."""
     import torch
 
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 
     args = [t.detach().contiguous() for t in (p0, p1, vp, v1, v2)]
-    valid, idx, u = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
-    torch.cuda.synchronize()
-    rv, ri, ru = tk.nearest_hit_triangles_plain(*args, EPS, EPS, EPS)
-    check(torch.equal(valid, rv), f"{label}: valid differs from the plain version")
-    if rv.any():
-        torch.testing.assert_close(u[rv], ru[rv], rtol=1e-5, atol=0)
-        agree = (idx[rv] == ri[rv]).double().mean().item()
-        check(agree > 0.99, f"{label}: idx agrees on only {agree:.4%}")
-        err = (u[rv] - ru[rv]).abs().max().item()
-    else:
-        agree, err = 1.0, 0.0
-    bitwise = torch.equal(u, ru) and torch.equal(idx, ri)
+    ref = tk.nearest_hit_triangles_plain(*args, EPS, EPS, EPS)
+    chosen = tk.brute_rays_per_thread(args[0].shape[0], args[0].device)
+    err = 0.0
+    for rpt in (None,) + tk.BRUTE_RAYS_PER_THREAD:
+        got = (tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
+               if rpt is None else
+               tk.brute_launch(*args, EPS, EPS, EPS, rays_per_thread=rpt))
+        torch.cuda.synchronize()
+        diffs = [int((a != b).sum()) for a, b in zip(got, ref)]
+        both = got[0] & ref[0]
+        if both.any():
+            err = max(err, float((got[2][both] - ref[2][both]).abs().max()))
+        check(not any(diffs), f"K1 {label} at {rpt or chosen} rays a thread: "
+              f"valid, idx, u differ from the plain version in {diffs} rays")
     print(f"phase 3 K1 {label}: N={args[0].shape[0]} M={args[2].shape[0]} "
-          f"hits={int(rv.sum())} idx_agree={agree:.6f} max_abs_err={err} "
-          f"bitwise_equal={bitwise}", flush=True)
+          f"hits={int(ref[0].sum())}; bit for bit at rays a thread "
+          f"{tk.BRUTE_RAYS_PER_THREAD} and at the launch's choice {chosen}",
+          flush=True)
     return err
+
+
+def k1_bounds(p0, p1, vp, v1, v2):
+    """K1's two bounds (ms) on these inputs: the flat 46 operations a pair,
+    and the work they need, the pairs that fail on tu alone charged 24;
+    returns (flat, needed, pairs out on tu)."""
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    pairs = p0.shape[0] * vp.shape[0]
+    tu_out = tk.pairs_out_on_tu(p0, p1, vp, v1, v2, EPS, EPS)
+    flat = pairs * K1_FLOPS_PER_PAIR / PEAK_FP32_FLOP_S * 1e3
+    needed = ((pairs - tu_out) * K1_FLOPS_PER_PAIR
+              + tu_out * TU_FLOPS_PER_PAIR) / PEAK_FP32_FLOP_S * 1e3
+    return flat, needed, tu_out
 
 
 def compare_culled(label, p0, p1, vp, v1, v2):
@@ -424,21 +454,50 @@ def admitted_pairs(p0, p1, boxes, m, u, chunk):
     return total
 
 
-def triangle_pairs(p0, p1, vp, v1, v2, u, chunk):
-    """The ray-triangle pairs K3 and K4 must compute on these inputs
-    (``admitted_pairs`` at chunks of ``chunk`` triangles) and how many of
-    them fail on tu alone: |det| < i_eps, or the exact tu = (T . P) / det
-    outside [s_lo, s_hi - s_lo], where no tv can make the pair valid.
-    Returns (admitted, out on tu)."""
+def k1_branch_shares(p0, p1, vp, v1, v2, rays_per_thread):
+    """K1's divergence on these inputs: the share of its (warp, triangle)
+    steps on which some of the warp's 32 x ``rays_per_thread`` pairs
+    passes tu's test (the branch a triangle is taken), and of its (warp,
+    ray k, triangle) steps on which some lane's ray k does (that ray's
+    second half runs).  By the exact tu test, which the kernel's widened
+    test passes at least; rays laid out as the kernel takes them, 256
+    threads a block, ray k of a thread at offset 256 k."""
     import torch
 
-    from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 
     i_eps, s_lo, s_hi, _ = tk._thresholds(EPS, EPS, EPS)
-    d = p1 - p0
+    n, m = p0.shape[0], vp.shape[0]
+    block = 256 * rays_per_thread
+    a = vp.T[:, None]
+    e1, e2 = v1.T[:, None] - a, v2.T[:, None] - a
+    step = max(1, (1 << 25) // (m * block)) * block
+    branch = ray_half = 0
+    for r0 in range(0, n, step):
+        o = p0[r0:r0 + step, :, None]
+        d = p1[r0:r0 + step, :, None] - o
+        ok, _, _, tu = tk._tu(*o.unbind(1), *d.unbind(1), a, e1, e2, i_eps)
+        passes = ~tk._out_on_tu(ok, tu, s_lo, s_hi)            # (B, M)
+        pad = -passes.shape[0] % block
+        if pad:
+            passes = torch.cat([passes, passes.new_zeros((pad, m))])
+        lanes = passes.view(-1, rays_per_thread, 8, 32, m).any(dim=3)
+        branch += int(lanes.any(dim=1).sum())
+        ray_half += int(lanes.sum())
+    warps = -(-n // block) * 8
+    return (branch / (warps * m), ray_half / (warps * rays_per_thread * m))
+
+
+def triangle_pairs(p0, p1, vp, v1, v2, u, chunk):
+    """The ray-triangle pairs K3 and K4 must compute on these inputs
+    (``admitted_pairs`` at chunks of ``chunk`` triangles) and how many of
+    them fail on tu alone (``triangle_kernels.pairs_out_on_tu``).  Returns
+    (admitted, out on tu)."""
+    from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
     o = [a[:, None] for a in p0.unbind(1)]
-    inv = [a[:, None] for a in tk._inverse_direction(d).unbind(1)]
+    inv = [a[:, None] for a in tk._inverse_direction(p1 - p0).unbind(1)]
     boxes = chunk_aabbs(vp, v1, v2, chunk)
     admitted = out = 0
     for c in range(boxes.shape[0]):
@@ -446,17 +505,9 @@ def triangle_pairs(p0, p1, vp, v1, v2, u, chunk):
         rows = tk._slab_gate(o, inv, box[:3], box[3:], EPS,
                              u[:, None])[:, 0].nonzero()[:, 0]
         tri = slice(c * chunk, (c + 1) * chunk)
-        a = vp[tri]
-        e1, e2 = v1[tri] - a, v2[tri] - a
-        admitted += rows.numel() * a.shape[0]
-        step = max(1, (1 << 22) // a.shape[0])
-        for r0 in range(0, rows.numel(), step):
-            r = rows[r0:r0 + step]
-            pv = torch.linalg.cross(d[r][:, None], e2[None])       # D x E2
-            det = (e1[None] * pv).sum(-1)
-            tu = ((p0[r][:, None] - a[None]) * pv).sum(-1) * (1.0 / det)
-            ok = (det.abs() >= i_eps) & (tu >= s_lo) & (tu <= s_hi - s_lo)
-            out += int((~ok).sum())
+        admitted += rows.numel() * vp[tri].shape[0]
+        out += tk.pairs_out_on_tu(p0[rows], p1[rows], vp[tri], v1[tri],
+                                  v2[tri], EPS, EPS)
     return admitted, out
 
 
@@ -694,6 +745,34 @@ def first_bounce_3d(rays, tri):
     order = torch.argsort(morton_codes_device(rays.p0, lo, hi), stable=True)
     return [t.contiguous() for t in (rays.p0[order], rays.p1[order], tri.vp,
                                      tri.v1, tri.v2)]
+
+
+def tune_brute(device):
+    """``--tune``: K1 alone at the unsorted soup's and the guide's first
+    bounce (2^20 rays each) at each rays a thread it is compiled for,
+    checked against each other bit for bit (``brute_rays_per_thread``
+    takes 4 at both shapes)."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    rays, scene = soup_scene(BENCH_RAYS, device)
+    tri = scene.triangles
+    g_rays, g_scene = guide_scene(GUIDE_RAYS, device)
+    cases = {"soup": [t.contiguous() for t in (rays.p0, rays.p1, tri.vp,
+                                               tri.v1, tri.v2)],
+             "guide": first_bounce_3d(g_rays, g_scene.triangles)}
+    for name, args in cases.items():
+        ref = tk.brute_launch(*args, EPS, EPS, EPS, rays_per_thread=1)
+        for rpt in tk.BRUTE_RAYS_PER_THREAD:
+            got = tk.brute_launch(*args, EPS, EPS, EPS, rays_per_thread=rpt)
+            check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+                  f"tune K1 at {rpt} rays a thread differs on the {name}")
+            ms = cuda_ms(lambda: tk.brute_launch(
+                *args, EPS, EPS, EPS, rays_per_thread=rpt), 10)
+            print(f"tune K1 alone at the {name}'s first bounce "
+                  f"{args[0].shape[0]}x{args[2].shape[0]}: {rpt} rays a "
+                  f"thread: kernel {ms:.4f} ms", flush=True)
 
 
 def tune_twolevel(device):
@@ -1276,7 +1355,7 @@ def alone_2d(kind, args, m):
                 *args, *eps)),
             "culled": (lambda: gk.culled_prepare(*surfaces),
                        lambda prep: gk.culled_launch(p0, p1, prep, *eps)),
-            "twolevel": (lambda: gk.twolevel_prepare(*args, EPS),
+            "twolevel": (lambda: gk.twolevel_prepare(*args, EPS, EPS),
                          lambda prep: gk.twolevel_launch(p0, p1, m, prep,
                                                          *eps)),
         }
@@ -1399,11 +1478,12 @@ def phase_14(device):
 
 
 def tune_twolevel_2d(device):
-    """``--tune``: K9's and K10's ray block (cap 32), then their cap at the
-    best block, on the 2D guide (50 bounces) with ``cull="grid"`` with and
-    without the re-sort: median of 3 traces after one, each checked against
-    the brute trace bit for bit; the brute trace's median, taken in the
-    same process, is the yardstick."""
+    """``--tune``: K9 alone at the 2D guide's first bounce at every ray
+    block (checked against K5 bit for bit); then K9's and K10's ray block
+    (cap 32), then their cap at the best block, on the 2D guide (50
+    bounces) with ``cull="grid"`` with and without the re-sort: median of 3
+    traces after one, each checked against the brute trace bit for bit; the
+    brute trace's median, taken in the same process, is the yardstick."""
     import torch
 
     from tensorflowraytrace_tpu_torch import scenes2d, trace
@@ -1412,6 +1492,31 @@ def tune_twolevel_2d(device):
     rays, scene, materials = scenes2d.light_guide(GUIDE2D_RAYS, device=device)
     cfgs = guide2d_configs(scene)
     ref = trace(rays, scene, materials, cfgs["brute"]).rays
+
+    # K9 alone at the first bounce at each block (the kernel takes up to
+    # 1024 rays a block; the wrapper refuses more than K10's 512)
+    p0, p1 = first_bounce_2d(rays, scene.segments)
+    args = surface_args(p0, p1, scene.segments)
+    m = scene.segments.n_surfaces
+    k5 = gk.nearest_hit_segments_kernel(*args, EPS, EPS, EPS)
+    block = gk.TWOLEVEL_RAY_BLOCK
+    try:
+        for rb in (128, 256, 512, 1024):
+            gk.TWOLEVEL_RAY_BLOCK = rb
+            prepared = gk.twolevel_prepare(*args, EPS, EPS)
+            got = gk.twolevel_launch(p0, p1, m, prepared, EPS, EPS, EPS)
+            check(all(torch.equal(a, b) for a, b in zip(got, k5)),
+                  f"tune K9 alone {rb} differs from K5")
+            ms = cuda_ms(lambda: gk.twolevel_launch(p0, p1, m, prepared, EPS,
+                                                    EPS, EPS), 10)
+            print(f"tune K9 alone at the 2D guide's first bounce: "
+                  f"ray_block={rb} cap={prepared[4]}: kernel {ms:.4f} ms, "
+                  f"mean candidates {float(prepared[2].float().mean()):.2f}",
+                  flush=True)
+            del prepared, got
+    finally:
+        gk.TWOLEVEL_RAY_BLOCK = block
+    del args, k5
 
     def run(rb, cap):
         gk.TWOLEVEL_RAY_BLOCK, gk.TWOLEVEL_MAX_CAND = rb, cap
@@ -1491,6 +1596,7 @@ def main():
           + " ".join(cuda_build.library_path(s).name for s in sources)
           + f" in {time.perf_counter() - t0:.2f} s", flush=True)
     if "--tune" in sys.argv[1:]:
+        tune_brute(device)
         tune_twolevel(device)
         tune_twolevel_2d(device)
         return 0
@@ -1515,6 +1621,19 @@ def main():
                           targets=[flagship.target_plane(torch.float32,
                                                          device)]).triangles
     compare_k1("flagship", f_rays.p0, f_rays.p1, f_tri.vp, f_tri.v1, f_tri.v2)
+    # every third ray parked (p0 = 1e30, as the engine parks terminated
+    # rays), the count cut to no multiple of a block's rays
+    for label, r0, r1, t, n_cut in (
+            ("flagship", f_rays.p0, f_rays.p1, f_tri, 1021),
+            ("soup", rays.p0, rays.p1, tri, K1_RAYS - 37)):
+        third = (torch.arange(r0.shape[0], device=device) % 3 == 0)[:, None]
+        q0 = torch.where(third, torch.full_like(r0, 1e30), r0)
+        q1 = torch.where(third, torch.full_like(r1, 1e30 * (1 + 1e-6)), r1)
+        compare_k1(f"{label} parked and ragged", q0[:n_cut], q1[:n_cut],
+                   t.vp, t.v1, t.v2)
+    parked = torch.full_like(rays.p0[:4096], 1e30)
+    compare_k1("parked", parked, torch.full_like(parked, 1e30 * (1 + 1e-6)),
+               tri.vp, tri.v1, tri.v2)
 
     # K3 and K4 against their plain versions and K1
     rays, scene = soup_scene(K1_RAYS, device, sort=True)
@@ -1604,10 +1723,18 @@ def main():
                                      scene.triangles.v1, scene.triangles.v2)]
     k1_ms = cuda_ms(lambda: tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS), 20)
     k1_plain_ms = cuda_ms(lambda: tk.nearest_hit_triangles_plain(*args, EPS, EPS, EPS), 3)
-    k1_bound_ms = n * m * K1_FLOPS_PER_PAIR / PEAK_FP32_FLOP_S * 1e3
-    print(f"phase 5 K1 search {n}x{m}: kernel {k1_ms:.4f} ms, plain "
-          f"{k1_plain_ms:.4f} ms, bound {k1_bound_ms:.4f} ms (operations)",
-          flush=True)
+    k1_flat_ms, k1_bound_ms, k1_tu_out = k1_bounds(*args)
+    rpt = tk.brute_rays_per_thread(n, device)
+    branch, ray_half = k1_branch_shares(*args, rpt)
+    print(f"phase 5 K1 search {n}x{m}: kernel {k1_ms:.4f} ms at "
+          f"{rpt} rays a thread (its branch taken on {branch:.4%} of "
+          f"(warp, triangle) steps, a ray's second half run on "
+          f"{ray_half:.4%}), plain "
+          f"{k1_plain_ms:.4f} ms; bound {k1_bound_ms:.4f} ms (operations; "
+          f"{k1_tu_out} of {n * m} pairs, {k1_tu_out / (n * m):.4%}, out on "
+          f"tu; without FMAs {2 * k1_bound_ms:.4f} ms), flat "
+          f"{K1_FLOPS_PER_PAIR}-operation bound {k1_flat_ms:.4f} ms (without "
+          f"FMAs {2 * k1_flat_ms:.4f} ms)", flush=True)
     del rays, scene, res, args
 
     # ---- phase 6: K2 against float64 index_add_
@@ -1805,9 +1932,19 @@ def main():
     del prepared, counts
     k1_guide_ms = cuda_ms(
         lambda: tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS), 10)
+    _, k1_guide_bound_ms, k1_guide_tu_out = k1_bounds(*args)
+    rpt = tk.brute_rays_per_thread(n, device)
+    branch, ray_half = k1_branch_shares(*args, rpt)
     print(f"phase 10 K1 alone at the first bounce {n}x{m}: kernel "
-          f"{k1_guide_ms:.4f} ms, bound {brute_bound_ms:.4f} ms (operations)",
-          flush=True)
+          f"{k1_guide_ms:.4f} ms at {rpt} rays a thread (its branch taken "
+          f"on {branch:.4%} of (warp, triangle) steps, a ray's second half "
+          f"run on {ray_half:.4%}); bound {k1_guide_bound_ms:.4f} ms "
+          f"(operations; "
+          f"{k1_guide_tu_out} of {n * m} pairs, "
+          f"{k1_guide_tu_out / (n * m):.4%}, out on tu; without FMAs "
+          f"{2 * k1_guide_bound_ms:.4f} ms), flat {K1_FLOPS_PER_PAIR}-"
+          f"operation bound {brute_bound_ms:.4f} ms (without FMAs "
+          f"{2 * brute_bound_ms:.4f} ms)", flush=True)
     # one bound for K3 and K4: the pairs these inputs need, at the finer of
     # their chunks, those refused on tu at their cost so far
     bound_chunk = min(tk.CULL_CHUNK, tk.FINE_CHUNK)
@@ -1860,8 +1997,13 @@ def main():
         "launches": train_launches["K1"], "launches_forward": forward_launches,
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound_ms, "bound_by": "operations", "library_ms": None,
-        "floor_no_fma_ms": 2 * k1_bound_ms,
+        "floor_no_fma_ms": 2 * k1_bound_ms, "pairs_out_on_tu": k1_tu_out,
+        "flat_bound_ms": k1_flat_ms, "flat_floor_no_fma_ms": 2 * k1_flat_ms,
         "shape": f"{BENCH_RAYS}x{N_SOUP_TRIS + 2}",
+        "guide_ms": k1_guide_ms, "guide_bound_ms": k1_guide_bound_ms,
+        "guide_flat_bound_ms": brute_bound_ms,
+        "guide_pairs_out_on_tu": k1_guide_tu_out,
+        "guide_shape": f"{n}x{m} (first bounce of the guide)",
     }, {
         "name": "segment_sum", "route": "cuda",
         "source": "tensorflowraytrace_tpu_torch/csrc/segment_sum.cu",

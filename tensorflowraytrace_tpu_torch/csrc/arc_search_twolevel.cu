@@ -13,8 +13,10 @@
 // carries its own branch choice into the running best, where the TPU kernel
 // took the branch of the tile's minima (they differ only at exact ties).
 //
-// The design is K9's (segment_search_twolevel.cu): search2d::twolevel_walk
-// over fine chunks of search2d::kTile = 256 arcs.  Its inputs, prepared by
+// The design: search2d::twolevel_walk over fine chunks of search2d::kTile =
+// 256 arcs, one thread a ray, each chunk gated by a block vote and a warp
+// vote on K8's slab test against each ray's running best (K9 has since
+// taken K4's ray compaction; K10 keeps the votes).  Its inputs, prepared by
 // the wrapper (ops/arc_kernels.py) on the card:
 // - the arc table chunk-major, (C, 2, 256, 4) 4-byte words, one
 //   search2d::ArcTile per chunk: 256 rows of (centre x, centre y,
@@ -23,8 +25,8 @@
 // - the chunk boxes over the arcs' window-aware boxes, (C, 4) float32
 //   (models/acceleration.py chunk_aabbs_arcs widened by
 //   ops/segment_kernels.gate_boxes, as K8's);
-// - counts and cand from twolevel_candidates on those widened boxes, as
-//   K9's.  A block of parked rays has no candidate.
+// - counts and cand from twolevel_candidates on those widened boxes.  A
+//   block of parked rays has no candidate.
 //
 // Left out from the TPU kernel: the ray-axis slabbing (_slab_ray_axis), its
 // 1024-ray blocks, the (16, M) layout and its dead padding column (the

@@ -2,13 +2,14 @@
 // the pair test, staging and per-tile search of segments (K5
 // segment_search.cu, K7 segment_search_culled.cu, K9
 // segment_search_twolevel.cu) and of arcs (K6 arc_search.cu, K8
-// arc_search_culled.cu, K10 arc_search_twolevel.cu), and the two-level walk
-// of K9 and K10.
+// arc_search_culled.cu, K10 arc_search_twolevel.cu), and the two-level
+// walks: K10's with a warp vote, K9's with compaction.cuh's ray compaction.
 //
-// K7-K10 run one thread per ray, kThreads rays per block, and walk the
-// surfaces in tiles staged in shared memory; K5 and K6 run several rays a
-// thread, K5 in tiles of its own.  Every thread reads the same
-// surface at once (a broadcast).  A surface replaces the ray's running best
+// K7, K8 and K10 run one thread per ray, kThreads rays per block, and walk
+// the surfaces in tiles staged in shared memory; K5 and K6 run several rays
+// a thread, K5 in tiles of its own; K9 computes each chunk for the listed
+// rays that need it, several threads a ray.  In a tile search every thread
+// reads the same surface at once (a broadcast).  A surface replaces the ray's running best
 // only under strict <, so a tie keeps the first index.  The arithmetic is
 // the plain versions' (ops/segment_kernels.py, ops/arc_kernels.py): the
 // same float32 operations in the same order, built with --fmad=false and
@@ -23,6 +24,7 @@
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
+#include "compaction.cuh"
 #include "reject_test.cuh"
 
 namespace search2d {
@@ -81,12 +83,6 @@ __device__ __forceinline__ bool slab_gate(const float* __restrict__ box,
 }
 
 // ---------------------------------------------------------------- segments
-
-// One tile of segments as K9 stages it whole from its chunk-major table
-// (ops/segment_kernels.segment_chunk_table): the rows of stage_segments.
-struct SegmentTile {
-  float row[4][kTile];
-};
 
 // Segments base .. base + count - 1 of sp0, sp1 ((m, 2) float32 row-major)
 // into the tile's rows: start x, start y, direction x, direction y.
@@ -324,8 +320,8 @@ __device__ __forceinline__ void search_arcs(const ArcTile& tile, int count,
 
 // ------------------------------------------------------- the two-level walk
 
-// The walk of K9 and K10: one CUDA block per ray block (one thread per
-// ray), fine chunks of kTile surfaces.
+// The walk of K10: one CUDA block per ray block (one thread per ray), fine
+// chunks of kTile surfaces.
 // - The block reads its own candidate count and list from global memory
 //   (ops/triangle_kernels.twolevel_candidates): it walks cand[b * max_cand
 //   ...] for counts[b] steps, or every chunk 0 .. n_chunks - 1 in order when
@@ -379,6 +375,111 @@ __device__ __forceinline__ void twolevel_walk(
       search(buf[k & 1], min(kTile, m - base), base);
     }
     __syncthreads();  // buffer k & 1 is no longer read: step k+1 refills it
+  }
+}
+
+// ------------------------------------- K9's walk, with ray compaction
+//
+// One CUDA block per ray block (one thread a ray), fine chunks of kTile
+// segments, each one float4 (x, y, dx, dy) in the chunk-major table
+// (ops/segment_kernels.segment_chunk_table, (C, kTile, 4) float32, zero past
+// m).  The block's rays keep (ox, oy, dx, dy) in ray_a and (best u, best idx
+// as int32 bits) in ray_b, in shared memory.
+
+// This thread's ray into the block's shared arrays, with no best yet.
+__device__ __forceinline__ void put_ray(float4* ray_a, float2* ray_b,
+                                        const Ray& r) {
+  ray_a[threadIdx.x] = make_float4(r.ox, r.oy, r.dx, r.dy);
+  ray_b[threadIdx.x] = make_float2(kBig, __int_as_float(0));
+}
+
+// Fold the first `count` segments of a staged chunk (column t is segment
+// base + t) into the bests of the `total` listed rays, `group` threads a
+// ray (compaction::group_size), and write each back to ray_b.  Every
+// thread of the block calls it.
+__device__ __forceinline__ void fold_listed_segments(
+    const float4* tile, int count, int base, int total, const int* list,
+    const float4* ray_a, float2* ray_b, const reject::Limits& L) {
+  const int me = threadIdx.x, warp = me >> 5;
+  const int group = compaction::group_size(total);
+  const int j = me / group, part = me % group;
+  if (warp * 32 >= total * group) return;  // the same in the whole warp
+  reject::Best best;
+  int slot = 0;
+  if (j < total) {
+    slot = list[j];
+    const float4 a = ray_a[slot];
+    const float2 b = ray_b[slot];
+    const Ray q{a.x, a.y, a.z, a.w, 0.f, 0.f};
+    best.set(b.x, __float_as_int(b.y), L);
+    for (int t = part; t < count; t += group) {
+      const float4 s = tile[t];
+      const SegmentPair pair(s.x, s.y, s.z, s.w, q);
+      if (pair.maybe(L, best)) pair.fold(base + t, L, best);
+    }
+  } else {
+    best.u = kBig;
+    best.idx = 0;
+  }
+  compaction::group_min(best.u, best.idx, group);
+  if (j < total && part == 0)
+    ray_b[slot] = make_float2(best.u, __int_as_float(best.idx));
+}
+
+// The walk: the block reads its own candidate count and list
+// (ops/triangle_kernels.twolevel_candidates): it walks cand[b * max_cand
+// ...] for counts[b] steps, or every chunk 0 .. n_chunks - 1 in order when
+// counts[b] == n_chunks (its list overflowed the cap).  At step k:
+// - chunk k + 1 is copied with cp.async (16 bytes a thread) into the second
+//   of the two buffers `buf` (2 x kVecs float4) while chunk k is computed;
+// - every thread gates its own ray on slab_gate against its running best
+//   (`best_u`, its own slot of ray_b), and compaction::compact lists the
+//   rays that pass;
+// - `fold(tile, chunk, total)` computes the chunk for the listed rays.
+// A chunk no ray needs costs one gate and one barrier: the warps' counts
+// (`warp_count`, 2 x 32 ints) are double-buffered, so no second barrier
+// guards them.  Ascending lists and the in-order sweep keep every earlier
+// best's idx below the chunk's, as compaction::group_min needs.
+template <int kVecs, typename Fold>
+__device__ __forceinline__ void twolevel_walk_listed(
+    float4* buf, const float4* __restrict__ table,
+    const float* __restrict__ aabb, const int* __restrict__ counts,
+    const int* __restrict__ cand, int n_chunks, int max_cand, const Ray& r,
+    bool live, float r_eps, float slack_hi, float slack_lo, float slack,
+    const float& best_u, int* list, int* warp_count, Fold fold) {
+  const int cnt = counts[blockIdx.x];
+  const bool sweep = cnt == n_chunks;
+  const int* cands = cand + static_cast<size_t>(blockIdx.x) * max_cand;
+  auto chunk_id = [&](int k) {
+    return sweep ? k : cands[min(k, max_cand - 1)];
+  };
+  auto stage = [&](int c, int slot) {
+    const float4* src = table + static_cast<size_t>(c) * kVecs;
+    float4* dst = buf + slot * kVecs;
+    for (int i = threadIdx.x; i < kVecs; i += blockDim.x)
+      __pipeline_memcpy_async(dst + i, src + i, sizeof(float4));
+    __pipeline_commit();
+  };
+
+  if (cnt > 0) stage(chunk_id(0), 0);
+  for (int k = 0; k < cnt; ++k) {
+    const int c = chunk_id(k);
+    if (k + 1 < cnt) {
+      // buffer (k + 1) & 1 was last read at step k - 1, before its barrier
+      stage(chunk_id(k + 1), (k + 1) & 1);
+      __pipeline_wait_prior(1);  // this thread's copies of chunk k landed
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    const bool need = live && slab_gate(aabb + 4 * c, r, r_eps, slack_hi,
+                                        slack_lo, slack, best_u);
+    // its barrier also makes every thread's copies of chunk k visible
+    const int total =
+        compaction::compact(need, list, warp_count + 32 * (k & 1));
+    if (total == 0) continue;  // the same in every thread
+    __syncthreads();  // the list is written
+    fold(buf + (k & 1) * kVecs, c, total);
+    __syncthreads();  // the bests are written; the buffer and list are free
   }
 }
 

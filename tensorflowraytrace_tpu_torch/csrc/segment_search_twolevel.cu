@@ -6,28 +6,44 @@
 // cull="grid").
 //
 // What it computes: exactly what segment_search.cu (K5) computes, with K5's
-// pair test (search2d::segment_pair), so valid, idx and u equal K5's
+// pair test (search2d::SegmentPair), so valid, idx and u equal K5's
 // bit for bit.  It only skips pairs that cannot give a nearer hit.
 //
-// The design is K4's (triangle_search_twolevel.cu), written once for K9 and
-// K10 as search2d::twolevel_walk: one block per ray block, each walking its
-// own candidate list of fine chunks (or every chunk when its list overflowed
-// the cap), chunk k + 1 staged with cp.async while chunk k is searched,
-// every chunk gated by a block vote and a warp vote on K7's slab test
-// against each ray's running best.  The fine chunk is the 2D kernels' tile
-// (search2d::kTile = 256 segments, also the JAX package's FINE_CHUNK).
+// The design, K4's (triangle_search_twolevel.cu) for segments:
+// - The grid: one block per ray block (blockDim.x rays, one a thread), each
+//   walking its own candidate list of fine chunks, or every chunk when its
+//   list overflowed the cap (search2d::twolevel_walk_listed).  The fine
+//   chunk is the 2D kernels' tile (search2d::kTile = 256 segments, also the
+//   JAX package's FINE_CHUNK).
+// - Staging: chunk k + 1 is copied with cp.async into the second of two
+//   shared buffers while chunk k is computed.  A segment is one float4 (x,
+//   y, dx, dy), so a pair costs one 128-bit shared load.
+// - K3's compaction (compaction.cuh): before computing chunk k each thread
+//   slab-tests its own ray against the chunk's box and its running best
+//   (K7's test, search2d::slab_gate); a ballot and a scan list the rays
+//   that pass, and the whole block computes only those, `group` threads a
+//   listed ray, each folding every group-th segment with K5's pair test
+//   (search2d::SegmentPair), then a shuffle takes the group's smallest (u,
+//   idx), the smaller idx at equal u (search2d::fold_listed_segments).  A
+//   chunk then costs in proportion to the rays that need it, not to the
+//   warps that hold one, and a chunk no ray needs costs one gate and one
+//   barrier.  The plain version gates ray by ray to match.
+// - The ragged last chunk is computed for its real segments only.
 //
 // Inputs, prepared by the wrapper (ops/segment_kernels.py) on the card:
-// - the segment table chunk-major, (C, 4, 256) float32: chunk c holds
-//   segments 256 c .. 256 c + 255 as rows start x, start y, direction x,
-//   direction y (sp1 - sp0), zero past m;
-// - the chunk boxes, (C, 4) float32 (models/acceleration.py chunk_aabbs_2d
-//   widened by ops/segment_kernels.gate_boxes' rounding margin, as K7's);
+// - the segment table chunk-major, (C, 256, 4) float32: chunk c holds
+//   segments 256 c .. 256 c + 255 as float4 (start x, start y, direction x,
+//   direction y = sp1 - sp0), zero past m;
+// - the chunk boxes, (C, 4) float32 (models/acceleration.py chunk_aabbs_2d,
+//   widened by ops/segment_kernels.twolevel_boxes: each ray's own gate
+//   decides, so each box must hold every point the pair test accepts,
+//   size_eps of a side beyond a segment's box, and the gate boxes' rounding
+//   margin);
 // - counts (nb,) int32 and cand (nb * max_cand,) int32 from
-//   twolevel_candidates on those same widened boxes: a chunk is a
-//   candidate of a block when some ray of the block can hit its box at all.
-//   Parked rays (p0 = 1e30) can hit no box, so a block of parked rays has
-//   no candidate and writes u = 3e38.
+//   twolevel_candidates on those same boxes: a chunk is a candidate of a
+//   block when some ray of the block can hit its box at all.  Parked rays
+//   (p0 = 1e30) can hit no box, so a block of parked rays has no candidate
+//   and writes u = 3e38.
 //
 // Left out from the TPU kernel: the ray-axis slabbing that kept the
 // candidate table inside SMEM (_slab_ray_axis), its 1024-ray blocks and the
@@ -36,9 +52,7 @@
 // What bounds it: FP32 arithmetic on the admitted pairs (14 operations each,
 // as in K5; the bound K7 has, at the same 256-segment chunks), plus one
 // slab test per ray and candidate chunk and the candidate precompute
-// outside the kernel.  The candidate lists skip the chunks no ray of a block
-// can reach, the gate the chunks behind each warp's running best; cp.async
-// keeps the copies off the critical path.
+// outside the kernel.
 
 #include <cuda_runtime.h>
 
@@ -46,14 +60,19 @@
 
 namespace {
 
-// The most rays a block may hold: the launch bound keeps up to 128
-// registers a thread.
-constexpr int kMaxThreads = 512;
+constexpr int kMaxThreads = 1024;
+
+// shared memory: two chunk buffers, a float4 and a float2 a ray, the list,
+// two arrays of the warps' counts (under 48 KB up to kMaxThreads rays)
+size_t shared_bytes(int ray_block) {
+  return sizeof(float4) * (2 * search2d::kTile + ray_block) +
+         sizeof(float2) * ray_block + sizeof(int) * (ray_block + 2 * 32);
+}
 
 __global__ void __launch_bounds__(kMaxThreads)
 segment_search_twolevel_kernel(const float* __restrict__ p0,
                                const float* __restrict__ p1,
-                               const float* __restrict__ table,
+                               const float4* __restrict__ table,
                                const float* __restrict__ aabb,
                                const int* __restrict__ counts,
                                const int* __restrict__ cand, int n, int m,
@@ -62,36 +81,46 @@ segment_search_twolevel_kernel(const float* __restrict__ p0,
                                float slack_hi, float slack_lo, float slack,
                                float* __restrict__ u_out,
                                int* __restrict__ idx_out) {
-  __shared__ __align__(16) search2d::SegmentTile buf[2];
+  constexpr int kVecs = search2d::kTile;  // float4 of one chunk
+  extern __shared__ float4 smem[];
+  float4* buf = smem;                                        // 2 chunks
+  float4* ray_a = buf + 2 * kVecs;                           // ox oy dx dy
+  float2* ray_b = reinterpret_cast<float2*>(ray_a + blockDim.x);  // u, idx
+  int* list = reinterpret_cast<int*>(ray_b + blockDim.x);
+  int* warp_count = list + blockDim.x;                       // 2 x 32
 
-  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  const int me = threadIdx.x;
+  const int ray = blockIdx.x * blockDim.x + me;
   const bool live = ray < n;
   const search2d::Ray r = search2d::load_ray(p0, p1, ray, live);
+  search2d::put_ray(ray_a, ray_b, r);
 
-  reject::Best best;
-  best.set(search2d::kBig, 0, lim);
-  search2d::twolevel_walk(
-      buf, table, aabb, counts, cand, n_chunks, max_cand, m, r, live, lim.r_eps,
-      slack_hi, slack_lo, slack, best.u,
-      [&](const search2d::SegmentTile& tile, int count, int base) {
-        search2d::search_segments(tile.row, count, base, r, lim, best);
+  search2d::twolevel_walk_listed<kVecs>(
+      buf, table, aabb, counts, cand, n_chunks, max_cand, r, live, lim.r_eps,
+      slack_hi, slack_lo, slack, ray_b[me].x, list, warp_count,
+      [&](const float4* tile, int c, int total) {
+        const int base = c * search2d::kTile;
+        search2d::fold_listed_segments(tile, min(search2d::kTile, m - base),
+                                       base, total, list, ray_a, ray_b, lim);
       });
+
+  // every best was written before a barrier this thread has passed
   if (live) {
-    u_out[ray] = best.u;
-    idx_out[ray] = best.idx;
+    u_out[ray] = ray_b[me].x;
+    idx_out[ray] = __float_as_int(ray_b[me].y);
   }
 }
 
 }  // namespace
 
-// p0, p1: (n, 2) float32; table: (n_chunks, 4, fine) float32, 16-byte
+// p0, p1: (n, 2) float32; table: (n_chunks, fine, 4) float32, 16-byte
 // aligned, where fine must be the kernel's tile of 256 (else the launch
 // returns cudaErrorInvalidValue); aabb: (n_chunks, 4) float32; counts:
 // (ceil(n / ray_block),) int32; cand: (blocks * max_cand,) int32; ray_block
-// a multiple of 32 in [32, 512] (else cudaErrorInvalidValue).  Thresholds and
-// slack as in segment_search_culled_launch.  u_out: (n,) float32, idx_out:
-// (n,) int32.  Launches on `stream` and returns cudaGetLastError() (0 =
-// launched).
+// a multiple of 32 in [32, 1024] (else cudaErrorInvalidValue).  Thresholds
+// and slack as in segment_search_culled_launch.  u_out: (n,) float32,
+// idx_out: (n,) int32.  Launches on `stream` and returns cudaGetLastError()
+// (0 = launched).
 extern "C" int segment_search_twolevel_launch(
     const float* p0, const float* p1, const float* table, const float* aabb,
     const int* counts, const int* cand, int n, int m, int n_chunks, int fine,
@@ -102,10 +131,10 @@ extern "C" int segment_search_twolevel_launch(
       ray_block > kMaxThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n + ray_block - 1) / ray_block;
-  segment_search_twolevel_kernel<<<blocks, ray_block, 0,
+  segment_search_twolevel_kernel<<<blocks, ray_block, shared_bytes(ray_block),
                                    static_cast<cudaStream_t>(stream)>>>(
-      p0, p1, table, aabb, counts, cand, n, m, n_chunks, max_cand,
-      reject::limits(i_eps, s_lo, s_hi, r_eps), slack_hi, slack_lo, slack,
-      u_out, idx_out);
+      p0, p1, reinterpret_cast<const float4*>(table), aabb, counts, cand, n,
+      m, n_chunks, max_cand, reject::limits(i_eps, s_lo, s_hi, r_eps),
+      slack_hi, slack_lo, slack, u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,19 @@
-// What the culled (K3, triangle_search_culled.cu) and two-level (K4,
-// triangle_search_twolevel.cu) triangle searches share: the ray load, the
-// slab gate, the per-pair Moller-Trumbore test, and the compaction of a
-// block's rays that need a tile with the group fold that computes them.
+// What the triangle searches share: the ray load, the slab gate of the
+// culled (K3, triangle_search_culled.cu) and two-level (K4,
+// triangle_search_twolevel.cu) searches, the per-pair Moller-Trumbore test
+// of all three and K1 (triangle_search.cu), and the group fold that K3 and
+// K4 run on the rays compaction.cuh lists.
 //
-// The arithmetic is K1's (triangle_search.cu): the same float32 operations
-// in the same order, built with --fmad=false, behind reject_test.cuh's
-// test, so that both kernels return K1's valid, idx and u bit for bit.  K1
-// keeps its own copy, unchanged.
+// The arithmetic is the plain version's (ops/triangle_kernels.py): the same
+// float32 operations in the same order, built with --fmad=false, behind
+// reject_test.cuh's test, so that every kernel returns the plain version's
+// valid, idx and u bit for bit.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "compaction.cuh"
 #include "reject_test.cuh"
 
 namespace tsearch {
@@ -29,9 +31,11 @@ __device__ __forceinline__ float safe_inverse(float d) {
   return 1.0f / (fabsf(d) < kTiny ? (d < 0.0f ? -kTiny : kTiny) : d);
 }
 
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ p0,
-                                        const float* __restrict__ p1,
-                                        int ray, bool live) {
+// The ray's origin and direction only, its inverse direction left zero:
+// K1 has no slab test.
+__device__ __forceinline__ Ray load_ray_direction(const float* __restrict__ p0,
+                                                  const float* __restrict__ p1,
+                                                  int ray, bool live) {
   Ray r{0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   if (live) {
     r.ox = p0[3 * ray + 0];
@@ -41,6 +45,13 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ p0,
     r.dy = p1[3 * ray + 1] - r.oy;
     r.dz = p1[3 * ray + 2] - r.oz;
   }
+  return r;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ p0,
+                                        const float* __restrict__ p1,
+                                        int ray, bool live) {
+  Ray r = load_ray_direction(p0, p1, ray, live);
   r.ix = safe_inverse(r.dx);
   r.iy = safe_inverse(r.dy);
   r.iz = safe_inverse(r.dz);
@@ -73,107 +84,98 @@ __device__ __forceinline__ bool slab_gate(const float* __restrict__ box,
          (tmin * slack_lo - slack <= best_u);
 }
 
-// One ray-triangle pair (vertex v0, edges E1 = v1 - v0, E2 = v2 - v0)
-// folded into the running best, K1's arithmetic:
+// One ray-triangle pair (vertex v0, edges E1 = v1 - v0, E2 = v2 - v0),
+// the plain version's arithmetic:
 //   P = D x E2, det = E1 . P; the pair is invalid when |det| < i_eps;
 //   T = o - v0, Q = T x E1, inv = 1 / det,
 //   tu = (T . P) inv, tv = (D . Q) inv, u = (E2 . Q) inv,
 //   valid when tu >= s_lo, tv >= s_lo, tu + tv <= s_hi, u >= r_eps;
-// it replaces the best only under strict <.  reject_test.cuh's test runs
-// on the exact numerators, tu's first (before Q is formed), then tv's, tu +
-// tv's and u's; the division and the exact compares run only for a pair it
-// cannot reject.
+// it replaces the running best only under strict <.  reject_test.cuh's
+// test runs on the exact numerators, tu's first: the constructor forms P,
+// det, T, tu's numerator and the approximate reciprocal (24 operations, all
+// that a pair refused on tu costs), maybe() tests them without a branch,
+// and fold() forms Q and tests tv's, tu + tv's and u's numerators; the
+// division and the exact compares run only for a pair neither test can
+// reject.
+struct TrianglePair {
+  float det, tx, ty, tz, ntu, a, wtu;
+  bool wide;
+
+  TrianglePair() = default;
+
+  __device__ __forceinline__ TrianglePair(float v0x, float v0y, float v0z,
+                                          float e1x, float e1y, float e1z,
+                                          float e2x, float e2y, float e2z,
+                                          const Ray& r,
+                                          const reject::Limits& L) {
+    // P = D x E2
+    const float px = r.dy * e2z - r.dz * e2y;
+    const float py = r.dz * e2x - r.dx * e2z;
+    const float pz = r.dx * e2y - r.dy * e2x;
+    det = e1x * px + e1y * py + e1z * pz;
+    tx = r.ox - v0x;
+    ty = r.oy - v0y;
+    tz = r.oz - v0z;
+    ntu = tx * px + ty * py + tz * pz;
+    a = reject::approx_rcp(det);
+    wide = reject::out_of_range(fabsf(det), L);
+    wtu = ntu * a;
+  }
+
+  // False only where the exact arithmetic rejects the pair on |det| or tu.
+  __device__ __forceinline__ bool maybe(const reject::Limits& L) const {
+    return (fabsf(det) >= L.i_eps) & (wide | reject::inside(wtu, L.tu_win));
+  }
+
+  // The rest, for a pair maybe() keeps, folded into the running best as
+  // triangle idx.
+  __device__ __forceinline__ void fold(float e1x, float e1y, float e1z,
+                                       float e2x, float e2y, float e2z,
+                                       int idx, const Ray& r,
+                                       const reject::Limits& L,
+                                       reject::Best& best) const {
+    // Q = T x E1
+    const float qx = ty * e1z - tz * e1y;
+    const float qy = tz * e1x - tx * e1z;
+    const float qz = tx * e1y - ty * e1x;
+    const float ntv = r.dx * qx + r.dy * qy + r.dz * qz;
+    const float nu = e2x * qx + e2y * qy + e2z * qz;
+    const float wtv = ntv * a;
+    if (!(wide | ((wtv >= L.s_lo_w) & (wtu + wtv <= L.sum_hi_w) &
+                  reject::inside(nu * a, best.win))))
+      return;
+
+    const float inv = 1.0f / det;  // |det| >= i_eps: 1 / (ok ? det : 1)
+    const float tu = ntu * inv;
+    const float tv = ntv * inv;
+    const float u = nu * inv;
+    if ((tu >= L.s_lo) && (tv >= L.s_lo) && (tu + tv <= L.s_hi) &&
+        (u >= L.r_eps) && u < best.u)
+      best.set(u, idx, L);
+  }
+};
+
+// One pair folded into the running best, one branch after tu's test.
 __device__ __forceinline__ void triangle_pair(
     float v0x, float v0y, float v0z, float e1x, float e1y, float e1z,
     float e2x, float e2y, float e2z, int idx, const Ray& r,
     const reject::Limits& L, reject::Best& best) {
-  // P = D x E2
-  const float px = r.dy * e2z - r.dz * e2y;
-  const float py = r.dz * e2x - r.dx * e2z;
-  const float pz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * px + e1y * py + e1z * pz;
-  const float tx = r.ox - v0x;
-  const float ty = r.oy - v0y;
-  const float tz = r.oz - v0z;
-  const float ntu = tx * px + ty * py + tz * pz;
-  const float ad = fabsf(det);
-  const float a = reject::approx_rcp(det);
-  const bool wide = reject::out_of_range(ad, L);
-  const float wtu = ntu * a;
-  if (!((ad >= L.i_eps) & (wide | reject::inside(wtu, L.tu_win)))) return;
-
-  // Q = T x E1
-  const float qx = ty * e1z - tz * e1y;
-  const float qy = tz * e1x - tx * e1z;
-  const float qz = tx * e1y - ty * e1x;
-  const float ntv = r.dx * qx + r.dy * qy + r.dz * qz;
-  const float nu = e2x * qx + e2y * qy + e2z * qz;
-  const float wtv = ntv * a;
-  if (!(wide | ((wtv >= L.s_lo_w) & (wtu + wtv <= L.sum_hi_w) &
-                reject::inside(nu * a, best.win))))
-    return;
-
-  const float inv = 1.0f / det;  // |det| >= i_eps: K1's 1 / (ok ? det : 1)
-  const float tu = ntu * inv;
-  const float tv = ntv * inv;
-  const float u = nu * inv;
-  if ((tu >= L.s_lo) && (tv >= L.s_lo) && (tu + tv <= L.s_hi) &&
-      (u >= L.r_eps) && u < best.u)
-    best.set(u, idx, L);
+  const TrianglePair pair(v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, r, L);
+  if (pair.maybe(L)) pair.fold(e1x, e1y, e1z, e2x, e2y, e2z, idx, r, L, best);
 }
 
-// ------------------------------------------------- compaction and the fold
+// ------------------------------------------------------------- the fold
 //
 // K3 and K4 compute a tile only for the rays of a block whose own gate
-// passes.  After the first bounce about a tenth of a block's rays need a
-// given tile, and different ones from tile to tile, so a warp vote would
-// compute most tiles for 32 rays to serve three.  Instead:
-// - The block's rays (one a thread) keep their origin, direction and
-//   running best in shared memory, two float4 a ray: ray_a (ox, oy, oz, dx)
-//   and ray_b (dy, dz, best u, best idx as int32 bits).
-// - compact: every thread gates its own ray; a ballot and a scan of the
-//   warps' counts write the slots of the k rays that need the tile into a
-//   list.  A tile then costs in proportion to the rays that need it.
-// - fold_listed: the whole block computes the listed rays, `group` threads
-//   a ray (the largest power of two up to 32 with group k <= the block's
-//   threads), each folding every group-th triangle of the tile into its own
-//   copy of the ray's best; a shuffle takes the group's smallest (u, idx),
-//   which is what the fold of the whole tile in index order under strict <
-//   gives.  One thread a listed ray would leave nine tenths of the threads
-//   idle and the SM short of warps to hide latency.
-
-constexpr unsigned kFull = 0xffffffffu;
+// passes (compaction.cuh).  The block's rays keep two float4 a ray in
+// shared memory: ray_a (ox, oy, oz, dx) and ray_b (dy, dz, best u, best idx
+// as int32 bits).
 
 // This thread's ray into the block's shared arrays, with no best yet.
 __device__ __forceinline__ void put_ray(float4* ray_a, float4* ray_b,
                                         const Ray& r) {
   ray_a[threadIdx.x] = make_float4(r.ox, r.oy, r.oz, r.dx);
   ray_b[threadIdx.x] = make_float4(r.dy, r.dz, kBig, __int_as_float(0));
-}
-
-// The rays of the block that need a tile: every thread passes its own
-// `need`; the slots (thread ids) of those that need it go to list[0 ..
-// total - 1] in thread order, and total is returned, the same in every
-// thread.  `warp_count` (32 ints) is written before one __syncthreads
-// inside and read after it, so a caller that compacts again with no barrier
-// in between passes another array.  The list is written after that
-// barrier: a caller reads it only after a barrier of its own.
-__device__ __forceinline__ int compact(bool need, int* list, int* warp_count) {
-  const int me = threadIdx.x, lane = me & 31, warp = me >> 5;
-  const unsigned vote = __ballot_sync(kFull, need);
-  if (lane == 0) warp_count[warp] = __popc(vote);
-  __syncthreads();
-  // inclusive scan of the warps' counts, in every warp
-  int c = lane < static_cast<int>(blockDim.x >> 5) ? warp_count[lane] : 0;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int up = __shfl_up_sync(kFull, c, d);
-    if (lane >= d) c += up;
-  }
-  const int total = __shfl_sync(kFull, c, 31);
-  const int before = __shfl_sync(kFull, c, warp) - __popc(vote);
-  if (need) list[before + __popc(vote & ((1u << lane) - 1u))] = me;
-  return total;
 }
 
 // Fold the first `count` triangles of a tile (three rows of kRow float4:
@@ -188,8 +190,7 @@ __device__ __forceinline__ void fold_listed(const float4* tile, int count,
                                             float4* ray_b,
                                             const reject::Limits& L) {
   const int me = threadIdx.x, warp = me >> 5;
-  int group = 32;
-  while (group * total > static_cast<int>(blockDim.x)) group >>= 1;
+  const int group = compaction::group_size(total);
   const int j = me / group, part = me % group;
   if (warp * 32 >= total * group) return;  // the same in the whole warp
   reject::Best best;
@@ -210,14 +211,7 @@ __device__ __forceinline__ void fold_listed(const float4* tile, int count,
     best.u = kBig;
     best.idx = 0;
   }
-  for (int d = 1; d < group; d <<= 1) {
-    const float u = __shfl_xor_sync(kFull, best.u, d);
-    const int idx = __shfl_xor_sync(kFull, best.idx, d);
-    if (u < best.u || (u == best.u && idx < best.idx)) {
-      best.u = u;
-      best.idx = idx;
-    }
-  }
+  compaction::group_min(best.u, best.idx, group);
   if (j < total && part == 0)
     ray_b[slot] = make_float4(b.x, b.y, best.u, __int_as_float(best.idx));
 }

@@ -33,8 +33,8 @@
 // by few rays of a block, and by different ones from tile to tile.
 //
 // The design:
-// - Compaction inside the block (tsearch::compact and tsearch::fold_listed,
-//   triangle_search_common.cuh, which K4 shares).  The block's kBlock rays
+// - Compaction inside the block (compaction::compact, compaction.cuh, and
+//   tsearch::fold_listed, triangle_search_common.cuh, which K4 shares).  The block's kBlock rays
 //   (one a thread) keep their origin, direction and running best in shared
 //   memory.  For each tile every thread gates its own ray; a ballot and a
 //   scan of the warps' counts list the rays that need the tile, and the
@@ -98,7 +98,7 @@ triangle_search_culled_kernel(const float* __restrict__ p0,
     const bool need = live && tsearch::slab_gate(aabb + 6 * chunk, r, lim.r_eps,
                                                  slack_hi, slack_lo, slack,
                                                  ray_b[me].z);
-    const int total = tsearch::compact(need, list, warp_count);
+    const int total = compaction::compact(need, list, warp_count);
     if (total == 0) continue;  // the same in every thread
 
     const int count = min(kTile, m - base);

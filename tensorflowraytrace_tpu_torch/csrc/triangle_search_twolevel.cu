@@ -35,8 +35,8 @@
 //   buffers with cp.async (16 bytes a thread) while candidate k is
 //   computed; this takes the place of make_async_copy and the two DMA
 //   semaphores.
-// - K3's compaction (tsearch::compact, tsearch::fold_listed in
-//   triangle_search_common.cuh): before computing candidate k each thread
+// - K3's compaction (compaction::compact in compaction.cuh,
+//   tsearch::fold_listed in triangle_search_common.cuh): before computing candidate k each thread
 //   slab-tests its own ray against the chunk's box and its running best
 //   (tsearch::slab_gate: can it hit the box at t >= r_eps, no farther than
 //   best_u, with slack 1 +- 1e-6); a ballot and a scan list the rays that
@@ -130,7 +130,8 @@ triangle_search_twolevel_kernel(const float* __restrict__ p0,
                                                  slack_hi, slack_lo, slack,
                                                  ray_b[me].z);
     // its barrier also makes every thread's copies of chunk k visible
-    const int total = tsearch::compact(need, list, warp_count + 32 * (k & 1));
+    const int total =
+        compaction::compact(need, list, warp_count + 32 * (k & 1));
     if (total == 0) continue;  // the same in every thread
     __syncthreads();  // the list is written
     const int base = c * kFine;

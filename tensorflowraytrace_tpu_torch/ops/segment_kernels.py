@@ -20,9 +20,10 @@ same arithmetic written line by line in PyTorch.
   (``csrc/segment_search_twolevel.cu``, port of
   ``_twolevel_segment_kernel``): each block of ``TWOLEVEL_RAY_BLOCK`` rays
   walks a precomputed, capped list of candidate chunks of 256 segments
-  (``triangle_kernels.twolevel_candidates`` on K7's widened boxes), or
-  every chunk when its list overflows, each chunk behind K7's gate;
-  ``cull="grid"``.  K9 returns K5's hits bit for bit.
+  (``triangle_kernels.twolevel_candidates`` on ``twolevel_boxes``), or
+  every chunk when its list overflows, each chunk computed for the rays
+  whose own K7 gate passes; ``cull="grid"``.  K9 returns K5's hits bit for
+  bit.
 
 Contract (shared with every search kernel of the JAX package): per ray
 ``(valid, idx int32, ray_u)``; ``ray_u`` is ``BIG = 3e38`` where nothing is
@@ -44,9 +45,9 @@ import torch
 from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_2d
 from tensorflowraytrace_tpu_torch.ops import cuda_build, triangle_kernels
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
-    _SLACK, BIG, GATE_RAYS, _inverse_direction, _merge, _raise_on, _selected,
+    _SLACK, BIG, _inverse_direction, _merge, _raise_on, _selected,
     _slab_gate, _thresholds, _warp_any, chunk_major, plain_or_cuda,
-    twolevel_candidates, twolevel_walk,
+    twolevel_candidates, twolevel_walk, widen_boxes,
 )
 
 # Launches of each CUDA kernel in this process.  A wrapper adds one where it
@@ -133,8 +134,8 @@ def check_cuda_inputs(what, p0, p1, **surfaces):
 
 
 def gate_boxes(boxes):
-    """The culling boxes the gates of K7-K10 and the candidate lists of K9
-    and K10 test: ``boxes`` (C, 4), min xy then max xy, widened by
+    """The culling boxes the gates of K7, K8 and K10 and the candidate lists
+    of K10 test: ``boxes`` (C, 4), min xy then max xy, widened by
     ``triangle_kernels.GATE_PAD`` (read at call time) times each box's
     largest coordinate magnitude: a hit at an arc's window edge or a
     segment's end may lie a few ulps outside the exact surface.  On the
@@ -228,7 +229,7 @@ def check_twolevel_ray_block():
 
 
 def twolevel_lists(p0, p1, boxes, ray_start_eps):
-    """The candidate lists of K9 and K10 on the (C, 4) gate ``boxes``:
+    """The candidate lists of K9 and K10 on the (C, 4) ``boxes``:
     ``(counts, cand, cap)`` of :func:`twolevel_candidates` at
     ``TWOLEVEL_RAY_BLOCK`` rays a block, the cap lowered to the chunk
     count."""
@@ -239,9 +240,22 @@ def twolevel_lists(p0, p1, boxes, ray_start_eps):
 
 
 def segment_chunk_table(sp0, sp1, chunk):
-    """K9's segment table: (C, 4, chunk), chunk-major, rows start x, start
-    y, direction x, direction y (``sp1 - sp0``), zero past M."""
-    return chunk_major(torch.cat([sp0, sp1 - sp0], dim=1), chunk)
+    """K9's segment table: (C, chunk, 4), chunk-major, one float4 a segment:
+    start x, start y, direction x, direction y (``sp1 - sp0``); zero past
+    M."""
+    return chunk_major(torch.cat([sp0, sp1 - sp0], dim=1), chunk) \
+        .transpose(1, 2).contiguous()
+
+
+def twolevel_boxes(sp0, sp1, size_eps):
+    """K9's boxes, for its candidate lists and its gate: the boxes of chunks
+    of ``CULL_CHUNK`` segments widened (``triangle_kernels.widen_boxes``)
+    by ``size_eps`` of the widest side.  A segment accepts seg_u down to
+    -size_eps and up to 1 + size_eps, so an accepted point lies within
+    size_eps of the segment's extent along each axis outside its box; K9
+    gates each ray on its own, so a box must hold every point it accepts
+    (K7's ``gate_boxes`` need not: its warp vote decides)."""
+    return widen_boxes(chunk_aabbs_2d(sp0, sp1, CULL_CHUNK), float(size_eps))
 
 
 def nearest_hit_segments_twolevel_kernel(p0, p1, sp0, sp1, intersect_eps,
@@ -256,17 +270,17 @@ def nearest_hit_segments_twolevel_kernel(p0, p1, sp0, sp1, intersect_eps,
     _check_segments(p0, p1, sp0, sp1)
     check_twolevel_ray_block()
     return twolevel_launch(p0, p1, sp0.shape[0],
-                           twolevel_prepare(p0, p1, sp0, sp1, ray_start_eps),
+                           twolevel_prepare(p0, p1, sp0, sp1, size_eps,
+                                            ray_start_eps),
                            intersect_eps, size_eps, ray_start_eps)
 
 
-def twolevel_prepare(p0, p1, sp0, sp1, ray_start_eps):
+def twolevel_prepare(p0, p1, sp0, sp1, size_eps, ray_start_eps):
     """K9's inputs, made on the rays' device: ``(table, boxes, counts,
-    cand, cap)``, the chunk-major segment table, the gate boxes of its
-    chunks and each ray block's candidate list on them."""
-    chunk = CULL_CHUNK
-    boxes = gate_boxes(chunk_aabbs_2d(sp0, sp1, chunk)).contiguous()
-    return (segment_chunk_table(sp0, sp1, chunk), boxes,
+    cand, cap)``, the chunk-major segment table, the boxes of its chunks
+    (``twolevel_boxes``) and each ray block's candidate list on them."""
+    boxes = twolevel_boxes(sp0, sp1, size_eps).contiguous()
+    return (segment_chunk_table(sp0, sp1, CULL_CHUNK), boxes,
             *twolevel_lists(p0, p1, boxes, ray_start_eps))
 
 
@@ -383,21 +397,20 @@ def nearest_hit_segments_twolevel_plain(p0, p1, sp0, sp1, intersect_eps,
     """Plain PyTorch version of K9: each block of ``TWOLEVEL_RAY_BLOCK``
     rays walks its candidate list (or every chunk on overflow) in order
     (``triangle_kernels.twolevel_walk``); at each step the chunk of
-    ``CULL_CHUNK`` segments is computed for the rays of each 32-ray group of
-    which some ray passes the slab gate against its running best, with K5's
-    arithmetic and merge."""
+    ``CULL_CHUNK`` segments is computed for the rays that pass the slab
+    gate against their own running best on its ``twolevel_boxes`` box,
+    with K5's arithmetic and merge."""
     n = p0.shape[0]
     best_u = torch.full((n,), BIG, dtype=p0.dtype, device=p0.device)
     best_idx = torch.zeros((n,), dtype=torch.int32, device=p0.device)
     eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
     d = p1 - p0
-    table, boxes, counts, cand, cap = twolevel_prepare(p0, p1, sp0, sp1,
-                                                       eps[3])  # (C, 4, F)
+    table, boxes, counts, cand, cap = twolevel_prepare(
+        p0, p1, sp0, sp1, size_eps, eps[3])                  # (C, F, 4)
     for c, rows in twolevel_walk(p0, p1, boxes, counts, cand, cap,
-                                 TWOLEVEL_RAY_BLOCK, eps[3], best_u,
-                                 GATE_RAYS):
-        t = table[c]                                         # (R, 4, F)
+                                 TWOLEVEL_RAY_BLOCK, eps[3], best_u, 1):
+        t = table[c]                                         # (R, F, 4)
         u = _segment_pairs(*(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
-                           t[:, 0], t[:, 1], t[:, 2], t[:, 3], *eps)
+                           *t.unbind(2), *eps)
         _merge(best_u, best_idx, rows, u, c * CULL_CHUNK)
     return best_u < BIG * 0.5, best_idx, best_u

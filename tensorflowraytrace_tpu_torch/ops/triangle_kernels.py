@@ -8,7 +8,8 @@ same arithmetic written line by line in PyTorch.
 
 - K1 ``nearest_hit_triangles_kernel`` (``csrc/triangle_search.cu``, port of
   ``_triangle_kernel`` in ``tensorflowraytrace_tpu/ops/pallas_kernels.py``):
-  every ray against every triangle.
+  every ray against every triangle, 1 or 4 rays a thread
+  (``brute_rays_per_thread``).
 - K3 ``nearest_hit_triangles_culled_kernel``
   (``csrc/triangle_search_culled.cu``, port of ``_triangle_kernel_culled``):
   K1 plus a slab test of each ray against the box of each 256-triangle
@@ -64,14 +65,19 @@ SOURCE = "triangle_search.cu"
 SOURCE_CULLED = "triangle_search_culled.cu"
 SOURCE_TWOLEVEL = "triangle_search_twolevel.cu"
 
+# K1: threads a block (kThreads in csrc/triangle_search.cu) and the rays a
+# thread it is compiled for; see brute_rays_per_thread
+BRUTE_THREADS = 256
+BRUTE_RAYS_PER_THREAD = (1, 4)
 # K3: the culling chunk is the kernel's shared-memory tile (kTile in
 # csrc/triangle_search_culled.cu; the launch refuses another value)
 CULL_CHUNK = 256
-# K7-K10 decide per warp whether to compute a chunk: their plain versions
-# gate groups of this many consecutive rays (K3 and K4 gate each ray on its
-# own)
+# K7, K8 and K10 decide per warp whether to compute a chunk: their plain
+# versions gate groups of this many consecutive rays (K3, K4 and K9 gate
+# each ray on its own)
 GATE_RAYS = 32
-# K3's culling boxes (and K7-K10's, ops/segment_kernels.gate_boxes) are
+# The culling boxes of K3-K4 and K7-K10 (widen_boxes,
+# ops/segment_kernels.gate_boxes) are
 # widened on every side by GATE_PAD times their largest coordinate
 # magnitude (~64 float32 ulps): the float32 arithmetic can accept a hit a
 # few ulps outside the exact surface, and the gate must not refuse it.  The
@@ -107,7 +113,7 @@ def load_library():
     lib = cuda_build.load(SOURCE)
     fn = lib.triangle_search_launch
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
-        + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3
+        + [ctypes.c_float] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return lib
 
@@ -189,13 +195,33 @@ def nearest_hit_triangles_kernel(p0, p1, vp, v1, v2, intersect_eps, size_eps,
     which takes contiguous, detached float32 tensors on one device and raises
     on anything else.
     """
-    global LAUNCHES
     if plain_or_cuda(p0):
         return nearest_hit_triangles_plain(p0, p1, vp, v1, v2, intersect_eps,
                                            size_eps, ray_start_eps)
     _check_cuda_inputs(p0, p1, vp, v1, v2)
-    fn = load_library().triangle_search_launch
+    return brute_launch(p0, p1, vp, v1, v2, intersect_eps, size_eps,
+                        ray_start_eps)
+
+
+def brute_rays_per_thread(n, device):
+    """K1's rays a thread for ``n`` rays on ``device``: 4, so that one
+    shared load of a triangle serves four pairs, where that still launches
+    at least two blocks an SM; else 1 (the flagship's 1024 rays would
+    otherwise fill one block on one SM)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 4 if -(-n // (4 * BRUTE_THREADS)) >= 2 * sms else 1
+
+
+def brute_launch(p0, p1, vp, v1, v2, intersect_eps, size_eps, ray_start_eps,
+                 rays_per_thread=None):
+    """Launch K1 on checked CUDA inputs, ``rays_per_thread`` (1 or 4) rays
+    a thread, :func:`brute_rays_per_thread`'s choice when None; the
+    wrapper's second half."""
+    global LAUNCHES
     n, m = p0.shape[0], vp.shape[0]
+    if rays_per_thread is None:
+        rays_per_thread = brute_rays_per_thread(n, p0.device)
+    fn = load_library().triangle_search_launch
     u = torch.empty((n,), dtype=torch.float32, device=p0.device)
     idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
@@ -203,7 +229,7 @@ def nearest_hit_triangles_kernel(p0, p1, vp, v1, v2, intersect_eps, size_eps,
         err = fn(p0.data_ptr(), p1.data_ptr(), vp.data_ptr(), v1.data_ptr(),
                  v2.data_ptr(), n, m,
                  *_thresholds(intersect_eps, size_eps, ray_start_eps),
-                 u.data_ptr(), idx.data_ptr(), stream)
+                 rays_per_thread, u.data_ptr(), idx.data_ptr(), stream)
     _raise_on(err, "triangle_search")
     LAUNCHES += 1
     return u < BIG * 0.5, idx, u
@@ -239,17 +265,25 @@ def nearest_hit_triangles_culled_kernel(p0, p1, vp, v1, v2, intersect_eps,
 def culled_boxes(vp, v1, v2, size_eps, chunk=None):
     """The gate boxes of K3 and K4: the (C, 6) boxes of chunks of ``chunk``
     triangles (``CULL_CHUNK`` when None; K4's ``FINE_CHUNK``), min xyz then
-    max xyz, widened on every side by 2 ``size_eps``
-    times the box's widest side and ``GATE_PAD`` times its largest
-    coordinate magnitude.  Moller-Trumbore accepts barycentric weights down
-    to -``size_eps`` (tu, tv >= -s_eps, tu + tv <= 1 + s_eps), at most two
-    of them negative, so an accepted point lies within 2 s_eps of a side's
-    width outside the triangle's box; ``GATE_PAD`` covers the rounding."""
+    max xyz, widened (``widen_boxes``) by 2 ``size_eps`` of the widest
+    side.  Moller-Trumbore accepts barycentric weights down to
+    -``size_eps`` (tu, tv >= -s_eps, tu + tv <= 1 + s_eps), at most two of
+    them negative, so an accepted point lies within 2 s_eps of a side's
+    width outside the triangle's box."""
     boxes = chunk_aabbs(vp, v1, v2, CULL_CHUNK if chunk is None else chunk)
-    width = (boxes[:, 3:] - boxes[:, :3]).amax(dim=1, keepdim=True)
-    pad = (2.0 * float(size_eps) * width
-           + GATE_PAD * boxes.abs().amax(dim=1, keepdim=True))
-    return torch.cat([boxes[:, :3] - pad, boxes[:, 3:] + pad], dim=1)
+    return widen_boxes(boxes, 2.0 * float(size_eps))
+
+
+def widen_boxes(boxes, size_pad):
+    """(C, 2 dim) boxes, min then max, widened on every side by
+    ``size_pad`` times the box's widest side and ``GATE_PAD`` times its
+    largest coordinate magnitude (the rounding margin): the boxes of the
+    searches that gate each ray on its own (K3, K4, K9), which must hold
+    every point the pair test accepts."""
+    dim = boxes.shape[1] // 2
+    width = (boxes[:, dim:] - boxes[:, :dim]).amax(dim=1, keepdim=True)
+    pad = size_pad * width + GATE_PAD * boxes.abs().amax(dim=1, keepdim=True)
+    return torch.cat([boxes[:, :dim] - pad, boxes[:, dim:] + pad], dim=1)
 
 
 def chunk_major(columns, chunk):
@@ -338,6 +372,34 @@ def twolevel_launch(p0, p1, m, prepared, intersect_eps, size_eps,
 # plain PyTorch versions
 # ======================================================================
 
+def _tu(ox, oy, oz, dx, dy, dz, a, e1, e2, i_eps):
+    """The first half of every ray-triangle pair, up to tu:
+    ``(ok, inv, T, tu)``, ``ok`` false where |det| < i_eps.  The kernels'
+    float32 operations in their order; ray components and triangle
+    components (``a``, ``e1``, ``e2``: three tensors each) broadcast
+    against each other."""
+    e2x, e2y, e2z = e2
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1[0] * px + e1[1] * py + e1[2] * pz
+
+    ok = torch.abs(det) >= i_eps
+    inv = 1.0 / torch.where(ok, det, torch.ones_like(det))
+
+    t = (ox - a[0], oy - a[1], oz - a[2])
+    tu = (t[0] * px + t[1] * py + t[2] * pz) * inv
+    return ok, inv, t, tu
+
+
+def _out_on_tu(ok, tu, s_lo, s_hi):
+    """Pairs that fail on tu alone: |det| < i_eps (not ``ok``), or tu
+    outside [s_lo, s_hi - s_lo], where no tv can make them valid (tv >=
+    s_lo and tu + tv <= s_hi).  The kernels refuse such a pair after the
+    operations up to tu's numerator and the approximate reciprocal."""
+    return ~(ok & (tu >= s_lo) & (tu <= s_hi - s_lo))
+
+
 def _moller_trumbore(ox, oy, oz, dx, dy, dz, a, e1, e2, i_eps, s_lo, s_hi,
                      r_eps):
     """Ray parameter of every ray-triangle pair, ``BIG`` where the pair is
@@ -346,19 +408,7 @@ def _moller_trumbore(ox, oy, oz, dx, dy, dz, a, e1, e2, i_eps, s_lo, s_hi,
     tensors each) broadcast against each other."""
     e1x, e1y, e1z = e1
     e2x, e2y, e2z = e2
-
-    px = dy * e2z - dz * e2y
-    py = dz * e2x - dx * e2z
-    pz = dx * e2y - dy * e2x
-    det = e1x * px + e1y * py + e1z * pz
-
-    ok = torch.abs(det) >= i_eps
-    inv = 1.0 / torch.where(ok, det, torch.ones_like(det))
-
-    tx = ox - a[0]
-    ty = oy - a[1]
-    tz = oz - a[2]
-    tu = (tx * px + ty * py + tz * pz) * inv
+    ok, inv, (tx, ty, tz), tu = _tu(ox, oy, oz, dx, dy, dz, a, e1, e2, i_eps)
 
     qx = ty * e1z - tz * e1y
     qy = tz * e1x - tx * e1z
@@ -406,6 +456,29 @@ def nearest_hit_triangles_plain(p0, p1, vp, v1, v2, intersect_eps, size_eps,
             u = _moller_trumbore(*o.unbind(1), *d.unbind(1), a, e1, e2, *eps)
             _merge(best_u, best_idx, rows, u, t0)
     return best_u < BIG * 0.5, best_idx, best_u
+
+
+@torch.no_grad()
+def pairs_out_on_tu(p0, p1, vp, v1, v2, intersect_eps, size_eps,
+                    piece=1 << 25):
+    """How many of the pairs of every ray (p0 -> p1, (N, 3)) with every
+    triangle (vp, v1, v2, (M, 3)) fail on tu alone (``_out_on_tu``), by the
+    plain version's arithmetic, ``piece`` pairs at a time.  The bounds of
+    K1, K3 and K4 charge such a pair 24 operations, the rest 46."""
+    n, m = p0.shape[0], vp.shape[0]
+    if n == 0 or m == 0:
+        return 0
+    i_eps, s_lo, s_hi, _ = _thresholds(intersect_eps, size_eps, 0.0)
+    a = vp.T[:, None]                                        # (3, 1, M)
+    e1, e2 = v1.T[:, None] - a, v2.T[:, None] - a
+    step = max(1, piece // m)
+    out = 0
+    for r0 in range(0, n, step):
+        o = p0[r0:r0 + step, :, None]                        # (B, 3, 1)
+        d = p1[r0:r0 + step, :, None] - o
+        ok, _, _, tu = _tu(*o.unbind(1), *d.unbind(1), a, e1, e2, i_eps)
+        out += int(_out_on_tu(ok, tu, s_lo, s_hi).sum())
+    return out
 
 
 def _inverse_direction(d):
@@ -546,8 +619,8 @@ def twolevel_walk(p0, p1, boxes, counts, cand, cap, ray_block, r_eps,
     ``best_u``, yields ``(chunk, rows)`` -- ``chunk`` the (R,) chunk id of
     each ray of ``rows`` -- for each piece of the rays of every ``group``
     of consecutive rays of which some ray passes the slab gate against its
-    running best: 1 for K4, whose rays gate on their own, ``GATE_RAYS`` for
-    K9 and K10, which keep the warp vote."""
+    running best: 1 for K4 and K9, whose rays gate on their own,
+    ``GATE_RAYS`` for K10, which keeps the warp vote."""
     n, dim = p0.shape
     n_chunks, nb = boxes.shape[0], counts.shape[0]
     sweep = counts == n_chunks

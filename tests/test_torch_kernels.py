@@ -6,10 +6,10 @@ Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 ``python -m pytest tests/test_torch_kernels.py -m cuda -p no:xdist``.
 
 The kernel is built with --fmad=false and evaluates the plain version's
-float32 operations in the plain version's order, so the two are compared
-bit for bit; the criteria of tests/test_pallas.py (equal ``valid``,
-``ray_u`` within rtol 1e-5, > 99% equal ``idx``) are the floor it must
-never fall below.
+float32 operations in the plain version's order, behind a reject test that
+refuses only pairs the exact arithmetic refuses, so the two are compared
+bit for bit (``valid``, ``idx`` and ``ray_u``), at the rays a thread the
+launch chooses for the ray count and at each the kernel is compiled for.
 """
 
 import numpy as np
@@ -41,29 +41,68 @@ def soup(n_tris, n_rays, device, seed=0):
 
 
 def check(args):
-    before = tk.LAUNCHES
-    valid, idx, u = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
-    torch.cuda.synchronize()
-    assert tk.LAUNCHES == before + 1
+    """K1 at the launch's choice of rays a thread and at each of 1 and 4,
+    bit for bit against the plain version; returns ``valid``."""
     rv, ri, ru = tk.nearest_hit_triangles_plain(*args, EPS, EPS, EPS)
-    assert torch.equal(valid, rv)
-    torch.testing.assert_close(u[rv], ru[rv], rtol=1e-5, atol=0)
-    if rv.any():
-        assert (idx[rv] == ri[rv]).float().mean() > 0.99
-    # bit for bit, by construction (see the module docstring)
-    assert torch.equal(u, ru) and torch.equal(idx, ri)
-    return valid
+    before = tk.LAUNCHES
+    for rpt in (None,) + tk.BRUTE_RAYS_PER_THREAD:
+        got = (tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
+               if rpt is None else
+               tk.brute_launch(*args, EPS, EPS, EPS, rays_per_thread=rpt))
+        torch.cuda.synchronize()
+        valid, idx, u = got
+        assert torch.equal(valid, rv)
+        assert torch.equal(idx, ri)
+        assert torch.equal(u, ru)
+    assert tk.LAUNCHES == before + 3
+    return rv
+
+
+def park(p0, p1):
+    """Every third ray parked (p0 = 1e30), as the engine parks terminated
+    rays."""
+    third = (torch.arange(p0.shape[0], device=p0.device) % 3 == 0)[:, None]
+    return (torch.where(third, torch.full_like(p0, 1e30), p0),
+            torch.where(third, torch.full_like(p1, 1e30 * (1 + 1e-6)), p1))
 
 
 @pytest.mark.parametrize("n_rays,n_tris,some_hit", [
     (131072, 4096, True), (1000, 333, True),
     # ragged edges: one triangle, one ray; either may well hit nothing
     (256, 1, False), (1, 257, False),
+    # ray counts that are no multiple of a block's rays (256 or 1024)
+    (1021, 772, True), (131035, 4096, True),
 ])
 def test_kernel_matches_plain(cuda, n_rays, n_tris, some_hit):
     valid = check(soup(n_tris, n_rays, cuda))
     if some_hit:
         assert valid.any()
+
+
+@pytest.mark.parametrize("n_rays", [1024, 131072, 1021, 131035])
+def test_kernel_with_parked_rays(cuda, n_rays):
+    """A third of the rays parked: they hit nothing, the others as before."""
+    p0, p1, vp, v1, v2 = soup(4096, n_rays, cuda)
+    q0, q1 = park(p0, p1)
+    valid = check([q0, q1, vp, v1, v2])
+    assert valid.any() and not valid[::3].any()
+
+
+def test_kernel_all_parked(cuda):
+    p0, p1, vp, v1, v2 = soup(4096, 4096, cuda)
+    q0 = torch.full_like(p0, 1e30)
+    assert not check([q0, torch.full_like(q0, 1e30 * (1 + 1e-6)), vp, v1,
+                      v2]).any()
+
+
+def test_launch_choice(cuda):
+    """4 rays a thread only where that still gives two blocks an SM."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    edge = 2 * sms * 4 * tk.BRUTE_THREADS
+    assert tk.brute_rays_per_thread(1024, cuda) == 1
+    assert tk.brute_rays_per_thread(edge - 1024, cuda) == 1
+    assert tk.brute_rays_per_thread(edge, cuda) == 4
+    assert tk.brute_rays_per_thread(1 << 20, cuda) == 4
 
 
 def test_kernel_all_miss(cuda):
@@ -85,3 +124,7 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="detached"):
         tk.nearest_hit_triangles_kernel(p0, p1, vp.requires_grad_(), v1, v2,
                                         EPS, EPS, EPS)
+    # the kernel is compiled for 1 and 4 rays a thread
+    with pytest.raises(RuntimeError, match="launch failed"):
+        tk.brute_launch(p0, p1, vp.detach(), v1, v2, EPS, EPS, EPS,
+                        rays_per_thread=2)

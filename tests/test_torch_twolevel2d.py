@@ -4,10 +4,13 @@ against the JAX package and against the brute searches, on the CPU.
 * The candidate precompute (``triangle_kernels.twolevel_candidates``, which
   also serves K4 in 3D) equals ``_twolevel_candidates_2d`` on the same
   boxes, ray block and cap, with lists, forced overflow and chunk groups.
+* K9's chunk table holds one float4 (start, direction) a segment, and its
+  boxes hold every point its pair test accepts, also at a large size_eps.
 * The plain K9 and K10 equal the plain K5 and K6 bit for bit: parked rays,
   rays that miss, full circles, forced overflow (cap 2), another ray block,
-  and the light guide's chunk-joint ray that the gate boxes' rounding
-  margin keeps.
+  a large size_eps (K9 gates each ray on its own), rays at the 2D guide's
+  chunk joints, and the light guide's chunk-joint ray that the gate boxes'
+  rounding margin keeps.
 * The plain K9 and K10 against the Pallas kernels in interpret mode
   (``cull="grid"``): tests/test_pallas.py's criteria for segments (equal
   ``valid``, ``ray_u`` within rtol 1e-5 with an atol of 1e-8 for hits
@@ -114,8 +117,104 @@ def test_twolevel_candidates_2d_match_jax(rng, monkeypatch, case):
 
 
 # ----------------------------------------------------------------------
+# K9's table and boxes
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("m", [600, 256, 1])
+def test_segment_chunk_table_holds_the_columns(rng, m):
+    """(C, 256, 4): segment 256 c + t is row t of chunk c, (start x, start
+    y, direction x, direction y), zero past M."""
+    seg = sorted_segments(rng, m)
+    table = gk.segment_chunk_table(seg.p0, seg.p1, 256)
+    assert table.shape == (-(-m // 256), 256, 4) and table.is_contiguous()
+    rows = table.reshape(-1, 4)
+    assert torch.equal(rows[:m, :2], seg.p0)
+    assert torch.equal(rows[:m, 2:], seg.p1 - seg.p0)
+    assert not rows[m:].any()
+
+
+def past_the_ends(rng, n_random):
+    """40 unit segments along x at y = 0, 2, ..., 78 (chunks of 8 make
+    boxes one unit wide), rays up the y axis through each segment's line
+    0.5% of a segment past either end (seg_u -0.005 and 1.005), through
+    its middle, and ``n_random`` random rays."""
+    y = 2.0 * np.arange(40)
+    sp0 = np.stack([np.zeros(40), y], 1).astype(np.float32)
+    sp1 = np.stack([np.ones(40), y], 1).astype(np.float32)
+    x = np.repeat([[-0.005, 0.5, 1.005]], 40, 0).ravel()
+    p0 = np.stack([x, np.repeat(y, 3) - 0.5], 1)
+    q0 = np.concatenate([p0, rng.uniform(-1, 80, (n_random, 2))])
+    d = np.concatenate([np.repeat([[0.0, 1.0]], 120, 0),
+                        rng.normal(0, 1, (n_random, 2))])
+    return (torch.as_tensor(q0.astype(np.float32)),
+            torch.as_tensor((q0 + d).astype(np.float32)),
+            torch.as_tensor(sp0), torch.as_tensor(sp1))
+
+
+@pytest.mark.parametrize("size_eps", [1e-6, 1e-2])
+def test_twolevel_boxes_hold_every_accepted_point(rng, monkeypatch,
+                                                  size_eps):
+    """Every hit the pair test accepts, nearest or not (seg_u up to
+    size_eps past either end), lies in K9's box of its segment's chunk;
+    at size_eps 1e-2 the gate boxes alone (K7's) miss the hits past the
+    ends."""
+    monkeypatch.setattr(gk, "CULL_CHUNK", 8)
+    p0, p1, sp0, sp1 = past_the_ends(rng, 500)
+    o, d = p0[:, :, None], (p1 - p0)[:, :, None]
+    u = gk._segment_pairs(*o.unbind(1), *d.unbind(1),
+                          *gk._segment_columns(sp0, sp1, 0, 40),
+                          *tk._thresholds(EPS, size_eps, EPS))
+    ray, surf = torch.nonzero(u < tk.BIG * 0.5, as_tuple=True)
+    point = p0[ray] + u[ray, surf][:, None] * (p1 - p0)[ray]
+    chunk = surf // 8
+
+    def outside(boxes):
+        box = boxes[chunk]
+        return int(((point < box[:, :2]) | (point > box[:, 2:])).any(1).sum())
+
+    assert ray.numel() > 40
+    assert outside(gk.twolevel_boxes(sp0, sp1, size_eps)) == 0
+    raw = gk.gate_boxes(t_acc.chunk_aabbs_2d(sp0, sp1, 8))
+    assert (outside(raw) >= 80) == (size_eps > 1e-3)
+
+
+# ----------------------------------------------------------------------
 # the plain K9 and K10 against the plain K5 and K6
 # ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("cap", [32, 1])
+def test_plain_twolevel_segments_at_a_large_size_eps(rng, monkeypatch, cap):
+    """size_eps 1e-2 accepts hits 1% of a segment past its ends: K9 gates
+    each ray on its own, and its boxes keep them, also when the lists
+    overflow (cap 1)."""
+    monkeypatch.setattr(gk, "TWOLEVEL_MAX_CAND", cap)
+    monkeypatch.setattr(gk, "CULL_CHUNK", 8)
+    monkeypatch.setattr(gk, "TWOLEVEL_RAY_BLOCK", 32)
+    args = past_the_ends(rng, 500)
+    ref = gk.nearest_hit_segments_plain(*args, EPS, 1e-2, EPS)
+    assert_same(gk.nearest_hit_segments_twolevel_plain(*args, EPS, 1e-2, EPS),
+                ref)
+    assert ref[0][:120].all()
+
+
+@pytest.mark.parametrize("cap", [32, 1])
+def test_plain_twolevel_segments_at_chunk_joints(monkeypatch, cap):
+    """Rays from the 2D guide's axis at the first vertex of every chunk of
+    256 segments, and 1e-6 of a segment either side of it: hits at a
+    segment's end, and ties between segments of two chunks that share the
+    vertex, which the earlier chunk must win."""
+    monkeypatch.setattr(gk, "TWOLEVEL_MAX_CAND", cap)
+    _, scene, _ = scenes2d.light_guide(32, device="cpu")
+    seg = scene.segments
+    start, step = seg.p0[256::256], (seg.p1 - seg.p0)[256::256]
+    target = torch.cat([start + f * step for f in (-1e-6, 0.0, 1e-6)])
+    o = torch.stack([target[:, 0] - 0.5, torch.zeros_like(target[:, 0])], 1)
+    args = [o, target, seg.p0, seg.p1]
+    ref = gk.nearest_hit_segments_plain(*args, EPS, EPS, EPS)
+    assert_same(gk.nearest_hit_segments_twolevel_plain(*args, EPS, EPS, EPS),
+                ref)
+    assert ref[0].float().mean() > 0.9
+
 
 @pytest.mark.parametrize("kw", [{}, dict(TWOLEVEL_MAX_CAND=2),
                                 dict(TWOLEVEL_RAY_BLOCK=64, CULL_CHUNK=64)])
