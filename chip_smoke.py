@@ -97,7 +97,13 @@ exits non-zero without printing a result):
    K6, K8 and K10 on scenes2d.arc_edge_cases, the edges of their exact
    reject (the discriminant and |a| within float32 steps of i_eps, tangent
    rays, rays 13000 radii away, windows wider than pi, exact ties, parked
-   rays).
+   rays); then all six, at the list cap and at cap 1, on
+   scenes2d.gate_edge_cases, hits where the boxes of K7-K10 must reach
+   (up to size_eps 1e-2 past a segment's ends, tangent pairs snapped off
+   their circle, window ends from near and 13000 radii away, parked and
+   all-miss batches); then on scenes2d.block_rays at K7's and K9/K10's
+   ray blocks (blocks of which every ray, one ray or no ray needs a
+   chunk) over 300 and 100 surfaces.
 12. 2D training at example scale: examples/optimize_single_arc.py (60 rays,
    one trainable arc, 2 bounces, 30 steps at momentum 0.8 and 50 at
    lr_scale 0.1, momentum 0.9) through use_kernel=True in float32: K5 and
@@ -124,7 +130,12 @@ exits non-zero without printing a result):
    lists), the whole wrapper and the plain version; and each kernel's
    bound, the work these inputs need: for the arcs the pairs past the exact
    reject (``arc_kernels.admitted_arc_pairs``) at 50 operations and the
-   rest at the 15 before it, beside the flat 50-operation bound.
+   rest at the 15 before it, beside the flat 50-operation bound; the
+   bounds count the pairs on the chunks' exact boxes, and beside them the
+   pairs a per-ray gate admits on the boxes with the rounding margin alone
+   and on the widened boxes K7-K10 gate on; K9's and K10's preparation in
+   its three parts (table, boxes, candidate lists), by CUDA events and by
+   the host time that enqueues them.
 14. the 2D guide as a design problem (scenes2d.guide_design, the same rays
    and scene) under ``TraceConfig.recommended(scene, max_bounces=50,
    dead_ray_length=10)``: the configuration it chose; one forward and
@@ -147,16 +158,19 @@ the nvidia-smi line, and as the last line ``{"ok": true, "device":
 ``python3 chip_smoke.py --tune`` runs phases 1 and 2, times K1 alone at
 the soup's and the guide's first bounce at 1 and 4 rays a thread and K4
 alone at the guide's first bounce at every ray block, then sweeps K4's ray
-block and candidate cap on the guide and the sorted soup; times K9 alone
-at the 2D guide's first bounce at every ray block, then sweeps K9's and
-K10's ray block and cap on the 2D guide (median of 3 traces each, every
-setting checked against the brute trace), and prints no result line.
+block and candidate cap on the guide and the sorted soup; times K7 at
+128-1024 rays a block, alone at the 2D guide's first bounce and in its
+``cull=True`` traces; times K9 alone at the 2D guide's first bounce at
+every ray block, then sweeps K9's and K10's ray block and cap on the 2D
+guide (median of 3 traces each, every setting checked against the brute
+trace), and prints no result line.
 ``python3 chip_smoke.py --arcs-alone`` runs phases 1 and 2 and times K6
 and K8 launched alone at the 2D guide's first
 bounce (see ``arcs_alone``), and prints no result line either.
 """
 
 import collections
+import contextlib
 import json
 import statistics
 import subprocess
@@ -658,6 +672,28 @@ def device_profile(prof):
     return by_name, union, len(spans)
 
 
+def kernel_device_ms(fn, name, reps=10):
+    """Mean device time (ms) of the kernels whose name holds ``name`` that
+    torch.profiler records over ``reps`` calls of ``fn`` after one: the
+    kernel alone, without the gaps that CUDA events around back-to-back
+    calls also count when a kernel is shorter than the host time that
+    launches it.  None when the profiler records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and name in e.name]
+    return sum(spans) / len(spans) / 1e3 if spans else None
+
+
 def range_device_us(prof, label):
     """Device time (us) of the kernels launched inside the profiler ranges
     named ``label``."""
@@ -856,14 +892,14 @@ SEARCHES_2D = {"segment": {"brute": ("K5", ""), "culled": ("K7", "_culled"),
                        "twolevel": ("K10", "_twolevel")}}
 
 
-def search_2d(kind, variant, plain=False):
+def search_2d(kind, variant, plain=False, size_eps=EPS):
     """The wrapper (or plain version) of one 2D search (``variant`` brute,
-    culled or twolevel) and its epsilons."""
+    culled or twolevel) and its epsilons (``size_eps`` for segments)."""
     from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
     from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 
-    mod, name, eps = ((gk, "segments", (EPS, EPS, EPS)) if kind == "segment"
-                      else (ak, "arcs", (EPS, EPS)))
+    mod, name, eps = ((gk, "segments", (EPS, size_eps, EPS))
+                      if kind == "segment" else (ak, "arcs", (EPS, EPS)))
     suffix = SEARCHES_2D[kind][variant][1] + ("_plain" if plain else "_kernel")
     fn = getattr(mod, f"nearest_hit_{name}{suffix}")
     return lambda args: fn(*args, *eps)
@@ -878,7 +914,8 @@ def surface_args(p0, p1, surfaces):
             for t in (p0, p1) + tuple(getattr(surfaces, c) for c in cols)]
 
 
-def compare_2d(label, kind, args, variants=("brute", "culled", "twolevel")):
+def compare_2d(label, kind, args, variants=("brute", "culled", "twolevel"),
+               size_eps=EPS):
     """The 2D kernels ``variants`` of ``kind`` against their plain versions
     and the brute kernel, bit for bit; returns ``(out, err)``: their outputs
     ``{variant: ...}`` and each one's max |u - u_plain| on rays both find
@@ -886,9 +923,10 @@ def compare_2d(label, kind, args, variants=("brute", "culled", "twolevel")):
     import torch
 
     variants = ("brute",) + tuple(v for v in variants if v != "brute")
-    out = {c: search_2d(kind, c)(args) for c in variants}
+    out = {c: search_2d(kind, c, size_eps=size_eps)(args) for c in variants}
     torch.cuda.synchronize()
-    plain = {c: search_2d(kind, c, plain=True)(args) for c in variants}
+    plain = {c: search_2d(kind, c, plain=True, size_eps=size_eps)(args)
+             for c in variants}
     pairs = {f"{c} vs plain": (out[c], plain[c]) for c in variants}
     pairs.update({f"{c} vs brute": (out[c], out["brute"])
                   for c in variants[1:]})
@@ -907,7 +945,7 @@ def compare_2d(label, kind, args, variants=("brute", "culled", "twolevel")):
 
 
 def phase_11(device):
-    """K5-K8 against their plain versions and K7/K8 against K5/K6."""
+    """K5-K10 against their plain versions and K7-K10 against K5/K6."""
     import numpy as np
     import torch
 
@@ -940,20 +978,56 @@ def phase_11(device):
                     check(hits == (label not in ("all-miss", "parked")),
                           f"{kind} {label}: hits {hits}")
     # K9 and K10 with every block of more than one candidate overflowing
-    cap, gk.TWOLEVEL_MAX_CAND = gk.TWOLEVEL_MAX_CAND, 1
-    try:
+    with override(gk, TWOLEVEL_MAX_CAND=1):
         for label, r0, r1, s, a in cases[:2]:
             for kind, surfaces in (("segment", s), ("arc", a)):
                 compare_2d(f"phase 11 {label}, cap 1", kind,
                            surface_args(r0, r1, surfaces), ("twolevel",))
-    finally:
-        gk.TWOLEVEL_MAX_CAND = cap
     # K6, K8 and K10 at the edges of their exact reject
     for label, r0, r1, a in scenes2d.arc_edge_cases(device=device):
         out, _ = compare_2d(f"phase 11 reject edge {label}", "arc",
                             surface_args(r0, r1, a))
         check(bool(out["brute"][0].any()) == (label != "parked"),
               f"arc reject edge {label}: hits")
+    # hits at the edge of the boxes of the gates (K7-K10), the lists
+    # overflowing (cap 1) too
+    for label, r0, r1, s, size_eps in scenes2d.gate_edge_cases(device=device):
+        kind = "segment" if hasattr(s, "p0") else "arc"
+        for cap in (gk.TWOLEVEL_MAX_CAND, 1):
+            with override(gk, TWOLEVEL_MAX_CAND=cap):
+                out, _ = compare_2d(f"phase 11 gate edge {label}, cap {cap}",
+                                    kind, surface_args(r0, r1, s),
+                                    size_eps=size_eps)
+        hits = label.split()[0] not in ("parked", "all-miss")
+        check(bool(out["brute"][0].any()) == hits, f"gate edge {label}: hits")
+    # blocks of which every ray, one ray or no ray needs a chunk, over a
+    # ragged chunk and fewer than 256 surfaces, at K7's and K9/K10's blocks
+    for m in (300, 100):
+        for kind, make in (("segment", scenes2d.random_segments),
+                           ("arc", scenes2d.random_arcs)):
+            surfaces = make(rng, m, device=device)
+            for block in sorted({gk.CULLED_RAY_BLOCK, gk.TWOLEVEL_RAY_BLOCK}):
+                r0, r1 = scenes2d.block_rays(rng, surfaces, block,
+                                             device=device)
+                out, _ = compare_2d(f"phase 11 blocks of {block}, M={m}", kind,
+                                    surface_args(r0, r1, surfaces))
+                valid = out["brute"][0]
+                check(bool(valid[:block].any())
+                      and not bool(valid[block + 1:3 * block].any()),
+                      f"blocks of {block}, {kind} M={m}: hits")
+
+
+@contextlib.contextmanager
+def override(mod, **values):
+    """A context in which ``mod``'s attributes take ``values``."""
+    old = {k: getattr(mod, k) for k in values}
+    for k, v in values.items():
+        setattr(mod, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(mod, k, v)
 
 
 def seg_slice(seg, m):
@@ -1206,6 +1280,7 @@ def phase_13(device):
         out_bytes = n * (9 if kind == "arc" else 8)
         bytes_ms = (n * 16 + surface_bytes + out_bytes) / PEAK_BYTES_S * 1e3
         u_final = out["brute"][2]
+        gate_pairs = gate_box_pairs(kind, args, u_final)
         if kind == "segment":
             # every pair the same 14 operations; K7 and K9 share one bound,
             # the pairs these inputs need at 256-segment chunks
@@ -1225,6 +1300,7 @@ def phase_13(device):
             ops_ms = (((pairs - past) * flops[0] + past * flops[1])
                       / PEAK_FP32_FLOP_S * 1e3)
             prepare, launch = alone[variant]
+            kernel = cuda_kernel_name(kind, variant)
             fn = search_2d(kind, variant)
             plain = search_2d(kind, variant, plain=True)
             prepared = prepare()
@@ -1233,6 +1309,10 @@ def phase_13(device):
                 "max_abs_err": err[variant],
                 # the kernel alone, apart from its inputs' preparation
                 "ms": cuda_ms(lambda: launch(prepared), 10),
+                # its device time alone (CUPTI), without the host gaps the
+                # events count when a kernel is shorter than its launch
+                "device_ms": kernel_device_ms(lambda: launch(prepared),
+                                              kernel),
                 "wrapper_ms": cuda_ms(lambda: fn(args), 10),
                 "prepare_ms": cuda_ms(prepare, 10),
                 "plain_ms": cuda_ms(lambda: plain(args), 1),
@@ -1252,7 +1332,17 @@ def phase_13(device):
                 f["pairs_past_reject"] = past
                 f["flat_bound_ms"] = max(bytes_ms, flat_ms)
             detail = ""
+            if variant != "brute":
+                f["pairs_on_gate_boxes"] = gate_pairs
+                detail += ("; pairs a per-ray gate admits on the boxes with "
+                           f"the rounding margin alone {gate_pairs['margin']}"
+                           f", on the boxes it gates on "
+                           f"{gate_pairs['gate']}")
             if variant == "twolevel":
+                f["prepare_split"] = split = prepare_split(kind, args)
+                detail += "; its preparation " + ", ".join(
+                    f"{k} {ev:.4f} ms by CUDA events, {host:.4f} ms of host "
+                    f"time" for k, (ev, host) in split.items())
                 counts = prepared[2]
                 f["blocks"] = counts.shape[0]
                 # a count of n_chunks is a sweep only when the cap is
@@ -1261,24 +1351,100 @@ def phase_13(device):
                 f["overflow_blocks"] = (int((counts == n_chunks).sum())
                                         if prepared[4] < n_chunks else 0)
                 f["mean_candidates"] = float(counts.float().mean())
-                detail = (f"; ray block {gk.TWOLEVEL_RAY_BLOCK}, chunk "
-                          f"{gk.CULL_CHUNK}, cap {prepared[4]}: {f['blocks']} "
-                          f"blocks, {f['overflow_blocks']} overflow, mean "
-                          f"count {f['mean_candidates']:.2f} of {n_chunks}")
+                detail += (f"; ray block {gk.TWOLEVEL_RAY_BLOCK}, chunk "
+                           f"{gk.CULL_CHUNK}, cap {prepared[4]}: "
+                           f"{f['blocks']} blocks, {f['overflow_blocks']} "
+                           f"overflow, mean count "
+                           f"{f['mean_candidates']:.2f} of {n_chunks}")
             if kind == "arc":
                 detail += (f"; {past} pairs past the exact reject "
                            f"({past / pairs:.4%}), the others charged "
                            f"{flops[0]} flops; flat {ARC_FLOPS_PER_PAIR}-flop "
                            f"bound {f['flat_bound_ms']:.5f} ms")
             del prepared
+            dev_ms = ("not measured" if f["device_ms"] is None
+                      else f"{f['device_ms']:.4f} ms")
             print(f"phase 13 {key} alone at the first bounce {n}x{m}: kernel "
-                  f"{f['ms']:.4f} ms, its input preparation "
+                  f"{f['ms']:.4f} ms (its device time {dev_ms}), its input "
+                  f"preparation "
                   f"{f['prepare_ms']:.4f} ms, wrapper {f['wrapper_ms']:.4f} "
                   f"ms, plain {f['plain_ms']:.4f} ms, bound "
                   f"{f['bound_ms']:.5f} ms ({f['bound_by']}; {pairs} pairs, "
                   f"{pairs / (n * m):.4%} of brute; without FMAs "
                   f"{f['floor_no_fma_ms']:.5f} ms){detail}", flush=True)
     return fields
+
+
+def cuda_kernel_name(kind, variant):
+    """The name of the CUDA kernel (``__global__`` function) of a 2D
+    search, as the profiler reports it: its source's stem + ``_kernel``."""
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+
+    mod = gk if kind == "segment" else ak
+    source = getattr(mod, {"brute": "SOURCE", "culled": "SOURCE_CULLED",
+                           "twolevel": "SOURCE_TWOLEVEL"}[variant])
+    return source.removesuffix(".cu") + "_kernel"
+
+
+def gate_box_pairs(kind, args, u):
+    """The ray-surface pairs a per-ray gate admits on these inputs
+    (``admitted_pairs``, ``u`` the final hits) on two kinds of chunk box:
+    ``margin``, the exact boxes with the rounding margin alone (K7's, K8's
+    and K10's boxes before they had to hold every accepted point), and
+    ``gate``, the boxes K7-K10 gate on (``segment_kernels.twolevel_boxes``
+    at size_eps EPS, ``arc_kernels.twolevel_boxes``)."""
+    from tensorflowraytrace_tpu_torch.models.acceleration import (
+        chunk_aabbs_2d, chunk_aabbs_arcs,
+    )
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    p0, p1, *surfaces = args
+    if kind == "segment":
+        exact = chunk_aabbs_2d(*surfaces, gk.CULL_CHUNK)
+        gate = gk.twolevel_boxes(*surfaces, EPS)
+    else:
+        exact = chunk_aabbs_arcs(*surfaces, gk.CULL_CHUNK)
+        gate = ak.twolevel_boxes(*surfaces)
+    m = surfaces[0].shape[0]
+    return {name: admitted_pairs(p0, p1, boxes, m, u, gk.CULL_CHUNK)
+            for name, boxes in (("margin", tk.widen_boxes(exact, 0.0)),
+                                ("gate", gate))}
+
+
+def prepare_split(kind, args):
+    """K9's or K10's input preparation in its three parts, the chunk-major
+    table, the boxes and the candidate lists: ``{part: (ms by CUDA events,
+    ms of host time to enqueue it)}``, each the mean of 10 calls after
+    one."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+
+    p0, p1, *surfaces = args
+    if kind == "segment":
+        table = lambda: gk.segment_chunk_table(*surfaces, gk.CULL_CHUNK)
+        boxes = lambda: gk.twolevel_boxes(*surfaces, EPS).contiguous()
+    else:
+        table = lambda: ak.twolevel_table(*surfaces)
+        boxes = lambda: ak.twolevel_boxes(*surfaces).contiguous()
+    made = boxes()
+    parts = {"table": table, "boxes": boxes,
+             "lists": lambda: gk.twolevel_lists(p0, p1, made, EPS)}
+    split = {}
+    for name, fn in parts.items():
+        events = cuda_ms(fn, 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        host = (time.perf_counter() - t0) / 10 * 1e3
+        torch.cuda.synchronize()
+        split[name] = (events, host)
+    return split
 
 
 def first_bounce_2d(rays, seg):
@@ -1300,16 +1466,14 @@ def arcs_alone(device):
     """``--arcs-alone``: K6 and K8 launched alone at the 2D guide's first
     bounce, apart from their table and boxes, each checked against the
     plain K6 bit for bit.  It calls ``arc_kernels``' ``arc_table``,
-    ``gate_boxes`` and ``_launch`` and the libraries' C entry points, whose
-    arguments are the same in every version of the port since K8 was
+    ``culled_prepare`` and ``_launch`` and the libraries' C entry points,
+    whose arguments are the same in every version of the port since K8 was
     ported: copied into the root of an earlier checkout, the script times
-    that checkout's kernels the same way (mean of 20 launches each)."""
+    that checkout's kernels, on that checkout's boxes, the same way (mean
+    of 20 launches each)."""
     import torch
 
     from tensorflowraytrace_tpu_torch import scenes2d
-    from tensorflowraytrace_tpu_torch.models.acceleration import (
-        chunk_aabbs_arcs,
-    )
     from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
     from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 
@@ -1318,7 +1482,7 @@ def arcs_alone(device):
     arcs = (scene.arcs.center, scene.arcs.angle_start, scene.arcs.angle_end,
             scene.arcs.radius)
     table = ak.arc_table(*arcs)
-    boxes = ak.gate_boxes(chunk_aabbs_arcs(*arcs, gk.CULL_CHUNK)).contiguous()
+    boxes = ak.culled_prepare(*arcs)[1]
     n, m = p0.shape[0], table.shape[0]
     eps = (float(EPS), float(EPS))
     slack = (1.0 + ak._SLACK, 1.0 - ak._SLACK, ak._SLACK)
@@ -1353,7 +1517,7 @@ def alone_2d(kind, args, m):
         return {
             "brute": (lambda: None, lambda _: gk.nearest_hit_segments_kernel(
                 *args, *eps)),
-            "culled": (lambda: gk.culled_prepare(*surfaces),
+            "culled": (lambda: gk.culled_prepare(*surfaces, EPS),
                        lambda prep: gk.culled_launch(p0, p1, prep, *eps)),
             "twolevel": (lambda: gk.twolevel_prepare(*args, EPS, EPS),
                          lambda prep: gk.twolevel_launch(p0, p1, m, prep,
@@ -1477,6 +1641,53 @@ def phase_14(device):
     return launched
 
 
+def tune_culled_2d(device):
+    """``--tune``: K7 at 128, 256, 512 and 1024 rays a block: alone at the
+    2D guide's first bounce (checked against K5 bit for bit), then the 2D
+    guide (50 bounces) with ``cull=True`` with and without the re-sort:
+    median of 3 traces after one, each checked against the brute trace bit
+    for bit, the brute trace's median beside them."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import scenes2d, trace
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+
+    rays, scene, materials = scenes2d.light_guide(GUIDE2D_RAYS, device=device)
+    cfgs = guide2d_configs(scene)
+    ref = trace(rays, scene, materials, cfgs["brute"]).rays
+    p0, p1 = first_bounce_2d(rays, scene.segments)
+    args = surface_args(p0, p1, scene.segments)
+    k5 = gk.nearest_hit_segments_kernel(*args, EPS, EPS, EPS)
+    prepared = gk.culled_prepare(*args[2:], EPS)
+    for rb in (128, 256, 512, 1024):
+        with override(gk, CULLED_RAY_BLOCK=rb):
+            got = gk.culled_launch(p0, p1, prepared, EPS, EPS, EPS)
+            check(all(torch.equal(a, b) for a, b in zip(got, k5)),
+                  f"tune K7 alone {rb} differs from K5")
+            ms = cuda_ms(lambda: gk.culled_launch(p0, p1, prepared, EPS, EPS,
+                                                  EPS), 10)
+            out = {}
+            for name in ("brute", "cull", "cull+resort"):
+                times = []
+                for rep in range(4):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = trace(rays, scene, materials, cfgs[name])
+                    torch.cuda.synchronize()
+                    if rep == 0:
+                        check(torch.equal(res.rays.state, ref.state)
+                              and torch.equal(res.rays.p1, ref.p1),
+                              f"tune 2D {name} K7 block {rb} differs from "
+                              "brute")
+                    else:
+                        times.append(time.perf_counter() - t0)
+                out[name] = statistics.median(times)
+        print(f"tune K7 ray_block={rb}: alone at the 2D guide's first bounce "
+              f"{ms:.4f} ms; 2D guide " + ", ".join(
+                  f"{k} {t * 1e3:.3f} ms" for k, t in out.items()),
+              flush=True)
+
+
 def tune_twolevel_2d(device):
     """``--tune``: K9 alone at the 2D guide's first bounce at every ray
     block (checked against K5 bit for bit); then K9's and K10's ray block
@@ -1598,6 +1809,7 @@ def main():
     if "--tune" in sys.argv[1:]:
         tune_brute(device)
         tune_twolevel(device)
+        tune_culled_2d(device)
         tune_twolevel_2d(device)
         return 0
     if "--arcs-alone" in sys.argv[1:]:

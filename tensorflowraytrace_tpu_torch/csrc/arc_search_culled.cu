@@ -8,11 +8,13 @@
 // tile search (search2d::search_arcs), so valid, idx, u and branch equal
 // K6's bit for bit.  It only skips pairs that cannot give a nearer hit.
 //
-// The gate is K7's (segment_search_culled.cu) on window-aware boxes: each
-// chunk of kTile arcs has the box of its arcs' boxes
-// (models/acceleration.py chunk_aabbs_arcs, widened by K7's rounding
-// margin, (C, 4): min xy, max xy), each arc's box holding its endpoints and
-// the axis extremes inside its window.
+// The gate is the slab test of search2d::slab_gate on window-aware boxes:
+// each chunk of kTile arcs has the box of its arcs' boxes
+// (models/acceleration.py chunk_aabbs_arcs, (C, 4): min xy, max xy), each
+// arc's box holding its endpoints and the axis extremes inside its window,
+// widened to hold every point the pair test accepts, a tangent pair's
+// snapped point included (ops/arc_kernels.twolevel_boxes, K10's boxes; the
+// derivation is in arc_search_twolevel.cu).
 // A block stages a tile only if some ray passes the slab gate
 // (__syncthreads_or), a warp computes it only if one of its rays does
 // (__any_sync); the plain version (ops/arc_kernels.py) gates groups of 32

@@ -1,7 +1,7 @@
 // The compaction of a block's rays that need a tile, and the group fold's
 // reduction, shared by the culled and two-level searches that compute a
 // tile only for the rays whose own gate passes: K3 and K4
-// (triangle_search_common.cuh) and K9 (search2d_common.cuh).
+// (triangle_search_common.cuh) and K7, K9 and K10 (search2d_common.cuh).
 //
 // After the first bounce about a tenth of a block's rays need a given tile,
 // and different ones from tile to tile, so a warp vote would compute most
@@ -63,10 +63,11 @@ __device__ __forceinline__ int group_size(int total) {
 
 // The smallest (u, idx) over the `group` threads of a group (aligned lanes
 // of one warp, a power of two), the smaller idx at equal u: every thread of
-// the warp calls it, and each ends with its group's result.  A thread
-// folded its surfaces in index order under strict <, starting from the
-// ray's best of earlier tiles, whose idx is below every idx of this tile,
-// so this is the in-order fold of the whole tile.
+// the warp calls it, and each ends with its group's result.  idx may be any
+// key that orders as the surfaces' indices do (K10's carries the branch).
+// A thread folded its surfaces in index order under strict <, starting from
+// the ray's best of earlier tiles, whose idx is below every idx of this
+// tile, so this is the in-order fold of the whole tile.
 __device__ __forceinline__ void group_min(float& u, int& idx, int group) {
   for (int d = 1; d < group; d <<= 1) {
     const float other_u = __shfl_xor_sync(kFull, u, d);

@@ -1,23 +1,28 @@
 // What the 2D nearest-hit searches share: the ray load, the 2D slab gate,
-// the pair test, staging and per-tile search of segments (K5
-// segment_search.cu, K7 segment_search_culled.cu, K9
-// segment_search_twolevel.cu) and of arcs (K6 arc_search.cu, K8
-// arc_search_culled.cu, K10 arc_search_twolevel.cu), and the two-level
-// walks: K10's with a warp vote, K9's with compaction.cuh's ray compaction.
+// the pair tests of segments (K5 segment_search.cu, K7
+// segment_search_culled.cu, K9 segment_search_twolevel.cu) and of arcs (K6
+// arc_search.cu, K8 arc_search_culled.cu, K10 arc_search_twolevel.cu), the
+// arcs' tile and its search, and the listed walk with its folds.
 //
-// K7, K8 and K10 run one thread per ray, kThreads rays per block, and walk
-// the surfaces in tiles staged in shared memory; K5 and K6 run several rays
-// a thread, K5 in tiles of its own; K9 computes each chunk for the listed
-// rays that need it, several threads a ray.  In a tile search every thread
-// reads the same surface at once (a broadcast).  A surface replaces the ray's running best
+// K5 and K6 run several rays a thread over tiles staged in shared memory,
+// every thread reading the same surface at once (a broadcast); K8 runs one
+// ray a thread, kThreads rays a block, and computes a tile for a warp when
+// one of its rays passes the slab gate (a warp vote).  K7, K9 and K10 walk
+// chunks of kTile surfaces with compaction.cuh's ray compaction
+// (walk_listed): each ray passes its own gate, and the block computes a
+// chunk for the listed rays only, several threads a ray
+// (fold_listed_segments, fold_listed_arcs); K7 sweeps every chunk, K9 and
+// K10 their candidate lists.  A surface replaces the ray's running best
 // only under strict <, so a tie keeps the first index.  The arithmetic is
 // the plain versions' (ops/segment_kernels.py, ops/arc_kernels.py): the
 // same float32 operations in the same order, built with --fmad=false and
 // without fast math, so that sqrtf and every division are IEEE and kernel
 // and plain version agree bit for bit.  The segment kernels share one pair
 // test (SegmentPair) and the arc kernels another (ArcPair), each of which
-// skips only pairs the exact arithmetic rejects, and the culled kernels
-// only skip tiles, so they return the brute kernels' hits bit for bit.
+// skips only pairs the exact arithmetic rejects, and the culled and
+// two-level kernels only skip chunks whose box a ray cannot reach no
+// farther than its best, so they return the brute kernels' hits bit for
+// bit.
 
 #pragma once
 
@@ -29,7 +34,7 @@
 
 namespace search2d {
 
-constexpr int kThreads = 256;     // rays per block, one per thread
+constexpr int kThreads = 256;     // K5, K6, K8: threads a block
 constexpr int kTile = 256;        // surfaces per tile = culling chunk
 constexpr float kBig = 3.0e38f;   // no-hit sentinel (u < 1.5e38 means a hit)
 constexpr float kTiny = 1.0e-30f;
@@ -84,22 +89,6 @@ __device__ __forceinline__ bool slab_gate(const float* __restrict__ box,
 
 // ---------------------------------------------------------------- segments
 
-// Segments base .. base + count - 1 of sp0, sp1 ((m, 2) float32 row-major)
-// into the tile's rows: start x, start y, direction x, direction y.
-__device__ __forceinline__ void stage_segments(float (*tile)[kTile],
-                                               const float* __restrict__ sp0,
-                                               const float* __restrict__ sp1,
-                                               int base, int count) {
-  for (int t = threadIdx.x; t < count; t += blockDim.x) {
-    const int g = 2 * (base + t);
-    const float x = sp0[g + 0], y = sp0[g + 1];
-    tile[0][t] = x;
-    tile[1][t] = y;
-    tile[2][t] = sp1[g + 0] - x;
-    tile[3][t] = sp1[g + 1] - y;
-  }
-}
-
 // One ray-segment pair, the plain version's arithmetic:
 //   den = dx1 dy2 - dy1 dx2, valid only when |den| >= i_eps,
 //   inv = 1 / (ok ? den : 1),
@@ -148,19 +137,6 @@ struct SegmentPair {
       best.set(u, idx, L);
   }
 };
-
-// The nearest valid segment of a staged tile (rows start x, start y,
-// direction x, direction y), folded into the running best in index order.
-__device__ __forceinline__ void search_segments(const float (*tile)[kTile],
-                                                int count, int base,
-                                                const Ray& r,
-                                                const reject::Limits& L,
-                                                reject::Best& best) {
-  for (int t = 0; t < count; ++t) {
-    const SegmentPair pair(tile[0][t], tile[1][t], tile[2][t], tile[3][t], r);
-    if (pair.maybe(L, best)) pair.fold(base + t, L, best);
-  }
-}
 
 // -------------------------------------------------------------------- arcs
 
@@ -318,85 +294,32 @@ __device__ __forceinline__ void search_arcs(const ArcTile& tile, int count,
   }
 }
 
-// ------------------------------------------------------- the two-level walk
 
-// The walk of K10: one CUDA block per ray block (one thread per ray), fine
-// chunks of kTile surfaces.
-// - The block reads its own candidate count and list from global memory
-//   (ops/triangle_kernels.twolevel_candidates): it walks cand[b * max_cand
-//   ...] for counts[b] steps, or every chunk 0 .. n_chunks - 1 in order when
-//   counts[b] == n_chunks (its list overflowed the cap).
-// - Chunk k + 1 is copied with cp.async (16 bytes a thread) from the
-//   chunk-major table (one Tile per chunk, zero past m) into the second of
-//   the two shared buffers while chunk k is searched.
-// - Chunk k is gated by slab_gate against each ray's running best: a block
-//   vote (__syncthreads_or) skips a chunk no ray of the block needs, a warp
-//   vote (__any_sync) the arithmetic of warps none of whose rays need it.
-// - The ragged last chunk is searched for its real surfaces only.
-// `search(tile, count, base)` folds a staged tile into the thread's running
-// best, whose ray parameter `best_u` it updates.
-template <typename Tile, typename Search>
-__device__ __forceinline__ void twolevel_walk(
-    Tile (&buf)[2], const float* __restrict__ table,
-    const float* __restrict__ aabb, const int* __restrict__ counts,
-    const int* __restrict__ cand, int n_chunks, int max_cand, int m,
-    const Ray& r, bool live, float r_eps, float slack_hi, float slack_lo,
-    float slack, const float& best_u, Search search) {
-  static_assert(sizeof(Tile) % sizeof(float4) == 0, "whole float4 copies");
-  constexpr int kVecs = sizeof(Tile) / sizeof(float4);
-  const int cnt = counts[blockIdx.x];
-  const bool sweep = cnt == n_chunks;
-  const int* list = cand + static_cast<size_t>(blockIdx.x) * max_cand;
-  auto chunk_id = [&](int k) { return sweep ? k : list[min(k, max_cand - 1)]; };
-  auto stage = [&](int c, int slot) {
-    const float4* src =
-        reinterpret_cast<const float4*>(table) + static_cast<size_t>(c) * kVecs;
-    float4* dst = reinterpret_cast<float4*>(&buf[slot]);
-    for (int i = threadIdx.x; i < kVecs; i += blockDim.x)
-      __pipeline_memcpy_async(dst + i, src + i, sizeof(float4));
-    __pipeline_commit();
-  };
-
-  if (cnt > 0) stage(chunk_id(0), 0);
-  for (int k = 0; k < cnt; ++k) {
-    const int c = chunk_id(k);
-    if (k + 1 < cnt) {
-      stage(chunk_id(k + 1), (k + 1) & 1);
-      __pipeline_wait_prior(1);  // this thread's copies of chunk k landed
-    } else {
-      __pipeline_wait_prior(0);
-    }
-    const bool need = live && slab_gate(aabb + 4 * c, r, r_eps, slack_hi,
-                                        slack_lo, slack, best_u);
-    const bool warp_need = __any_sync(0xffffffffu, need);
-    // the barrier after which every thread's copies of chunk k are visible
-    if (__syncthreads_or(need) && warp_need) {
-      const int base = c * kTile;
-      search(buf[k & 1], min(kTile, m - base), base);
-    }
-    __syncthreads();  // buffer k & 1 is no longer read: step k+1 refills it
-  }
-}
-
-// ------------------------------------- K9's walk, with ray compaction
+// ------------------------------------ the listed walk (K7, K9, K10)
 //
-// One CUDA block per ray block (one thread a ray), fine chunks of kTile
-// segments, each one float4 (x, y, dx, dy) in the chunk-major table
-// (ops/segment_kernels.segment_chunk_table, (C, kTile, 4) float32, zero past
-// m).  The block's rays keep (ox, oy, dx, dy) in ray_a and (best u, best idx
-// as int32 bits) in ray_b, in shared memory.
+// One CUDA block per ray block (one thread a ray), chunks of kTile
+// surfaces.  The block's rays keep (ox, oy, dx, dy) in ray_a and (best u,
+// best key as int32 bits) in ray_b, in shared memory.  The key is the best
+// surface's idx for segments and arc_key(idx, minus) for arcs: at equal u
+// the smaller key is the smaller idx, so compaction::group_min reduces
+// either, and an arc's branch travels with its idx.
 
-// This thread's ray into the block's shared arrays, with no best yet.
+// This thread's ray into the block's shared arrays, with no best yet (u =
+// kBig, key 0: idx 0 and the plus branch, the brute searches' miss).
 __device__ __forceinline__ void put_ray(float4* ray_a, float2* ray_b,
                                         const Ray& r) {
   ray_a[threadIdx.x] = make_float4(r.ox, r.oy, r.dx, r.dy);
   ray_b[threadIdx.x] = make_float2(kBig, __int_as_float(0));
 }
 
-// Fold the first `count` segments of a staged chunk (column t is segment
-// base + t) into the bests of the `total` listed rays, `group` threads a
-// ray (compaction::group_size), and write each back to ray_b.  Every
-// thread of the block calls it.
+__device__ __forceinline__ int arc_key(int idx, bool minus) {
+  return (idx << 1) | (minus ? 1 : 0);
+}
+
+// Fold the first `count` segments of a staged chunk (one float4 (x, y, dx,
+// dy) a segment; row t is segment base + t) into the bests of the `total`
+// listed rays, `group` threads a ray (compaction::group_size), and write
+// each back to ray_b.  Every thread of the block calls it.
 __device__ __forceinline__ void fold_listed_segments(
     const float4* tile, int count, int base, int total, const int* list,
     const float4* ray_a, float2* ray_b, const reject::Limits& L) {
@@ -426,61 +349,122 @@ __device__ __forceinline__ void fold_listed_segments(
     ray_b[slot] = make_float2(best.u, __int_as_float(best.idx));
 }
 
-// The walk: the block reads its own candidate count and list
-// (ops/triangle_kernels.twolevel_candidates): it walks cand[b * max_cand
-// ...] for counts[b] steps, or every chunk 0 .. n_chunks - 1 in order when
-// counts[b] == n_chunks (its list overflowed the cap).  At step k:
-// - chunk k + 1 is copied with cp.async (16 bytes a thread) into the second
-//   of the two buffers `buf` (2 x kVecs float4) while chunk k is computed;
-// - every thread gates its own ray on slab_gate against its running best
-//   (`best_u`, its own slot of ray_b), and compaction::compact lists the
-//   rays that pass;
-// - `fold(tile, chunk, total)` computes the chunk for the listed rays.
-// A chunk no ray needs costs one gate and one barrier: the warps' counts
-// (`warp_count`, 2 x 32 ints) are double-buffered, so no second barrier
-// guards them.  Ascending lists and the in-order sweep keep every earlier
-// best's idx below the chunk's, as compaction::group_min needs.
-template <int kVecs, typename Fold>
-__device__ __forceinline__ void twolevel_walk_listed(
-    float4* buf, const float4* __restrict__ table,
-    const float* __restrict__ aabb, const int* __restrict__ counts,
-    const int* __restrict__ cand, int n_chunks, int max_cand, const Ray& r,
-    bool live, float r_eps, float slack_hi, float slack_lo, float slack,
-    const float& best_u, int* list, int* warp_count, Fold fold) {
-  const int cnt = counts[blockIdx.x];
-  const bool sweep = cnt == n_chunks;
-  const int* cands = cand + static_cast<size_t>(blockIdx.x) * max_cand;
-  auto chunk_id = [&](int k) {
-    return sweep ? k : cands[min(k, max_cand - 1)];
-  };
-  auto stage = [&](int c, int slot) {
+// fold_listed_segments for arcs: the first `count` arcs of a staged
+// ArcTile, each thread running the reject test (ArcPair) on every
+// group-th arc's head and reading the edge row only for a pair that passes
+// (search_arcs' structure).  A thread folds its arcs in index order under
+// strict <, each carrying its own branch; the group's smallest (u, key) is
+// then the in-order fold of the whole chunk, the branch with its arc.
+__device__ __forceinline__ void fold_listed_arcs(
+    const ArcTile& tile, int count, int base, int total, const int* list,
+    const float4* ray_a, float2* ray_b, float i_eps, float r_eps) {
+  const int me = threadIdx.x, warp = me >> 5;
+  const int group = compaction::group_size(total);
+  const int j = me / group, part = me % group;
+  if (warp * 32 >= total * group) return;  // the same in the whole warp
+  ArcBest best{kBig, 0, false};
+  int slot = 0;
+  if (j < total) {
+    slot = list[j];
+    const float4 a = ray_a[slot];
+    const float2 b = ray_b[slot];
+    const Ray q{a.x, a.y, a.z, a.w, 0.f, 0.f};
+    const int key = __float_as_int(b.y);
+    best = ArcBest{b.x, key >> 1, (key & 1) != 0};
+    for (int t = part; t < count; t += group) {
+      const float4 head = tile.head[t];
+      const ArcPair pair(head, q, i_eps);
+      if (pair.ok) pair.fold(head, tile.edge[t], q, r_eps, base + t, best);
+    }
+  }
+  int key = arc_key(best.idx, best.minus);
+  compaction::group_min(best.u, key, group);
+  if (j < total && part == 0)
+    ray_b[slot] = make_float2(best.u, __int_as_float(key));
+}
+
+// How K9 and K10 stage a chunk: cp.async (16 bytes a thread) from a
+// chunk-major table of kVecs float4 a chunk into two buffers `buf` (2 x
+// kVecs float4), chunk k + 1 into the second while chunk k is computed.
+// The walk calls start(c) for its first chunk, then at each step k
+// land(k, next), which returns chunk k's buffer (this thread's copies
+// landed; the walk's next barrier makes every thread's visible) and starts
+// the copy of chunk `next` for step k + 1 (-1: none) into the buffer
+// step k - 1 computed, which that step's last barrier freed.
+template <int kVecs>
+struct CopyStage {
+  float4* buf;
+  const float4* __restrict__ table;
+
+  __device__ __forceinline__ void copy(int c, int slot) {
     const float4* src = table + static_cast<size_t>(c) * kVecs;
     float4* dst = buf + slot * kVecs;
     for (int i = threadIdx.x; i < kVecs; i += blockDim.x)
       __pipeline_memcpy_async(dst + i, src + i, sizeof(float4));
     __pipeline_commit();
-  };
-
-  if (cnt > 0) stage(chunk_id(0), 0);
-  for (int k = 0; k < cnt; ++k) {
-    const int c = chunk_id(k);
-    if (k + 1 < cnt) {
-      // buffer (k + 1) & 1 was last read at step k - 1, before its barrier
-      stage(chunk_id(k + 1), (k + 1) & 1);
+  }
+  __device__ __forceinline__ void start(int c) { copy(c, 0); }
+  __device__ __forceinline__ const float4* land(int k, int next) {
+    if (next >= 0) {
+      copy(next, (k + 1) & 1);
       __pipeline_wait_prior(1);  // this thread's copies of chunk k landed
     } else {
       __pipeline_wait_prior(0);
     }
+    return buf + (k & 1) * kVecs;
+  }
+};
+
+// The walk: `steps` chunks, chunk_of(k) at step k, brought in by `stage`
+// (CopyStage's interface).  At step k every thread gates its own ray on
+// slab_gate against chunk k's box in `aabb` and its running best (`best_u`,
+// its own slot of ray_b); compaction::compact lists the rays that pass;
+// `fold(tile, chunk, total)` computes the chunk for the listed rays.  A
+// chunk no ray needs costs one gate and one barrier: the warps' counts
+// (`warp_count`, 2 x 32 ints) are double-buffered, so no second barrier
+// guards them.  Chunks must come in ascending order, so that every earlier
+// best's key lies below the chunk's, as compaction::group_min needs.
+template <typename ChunkOf, typename Stage, typename Fold>
+__device__ __forceinline__ void walk_listed(
+    int steps, ChunkOf chunk_of, Stage& stage, const float* __restrict__ aabb,
+    const Ray& r, bool live, float r_eps, float slack_hi, float slack_lo,
+    float slack, const float& best_u, int* list, int* warp_count,
+    Fold fold) {
+  if (steps > 0) stage.start(chunk_of(0));
+  for (int k = 0; k < steps; ++k) {
+    const int c = chunk_of(k);
+    const float4* tile = stage.land(k, k + 1 < steps ? chunk_of(k + 1) : -1);
     const bool need = live && slab_gate(aabb + 4 * c, r, r_eps, slack_hi,
                                         slack_lo, slack, best_u);
-    // its barrier also makes every thread's copies of chunk k visible
+    // its barrier also makes every thread's part of chunk k visible
     const int total =
         compaction::compact(need, list, warp_count + 32 * (k & 1));
     if (total == 0) continue;  // the same in every thread
     __syncthreads();  // the list is written
-    fold(buf + (k & 1) * kVecs, c, total);
+    fold(tile, c, total);
     __syncthreads();  // the bests are written; the buffer and list are free
   }
+}
+
+// The walk of K9 and K10 over the block's own candidate list
+// (ops/triangle_kernels.twolevel_candidates): cand[b * max_cand ...] for
+// counts[b] steps, or every chunk 0 .. n_chunks - 1 in order when counts[b]
+// == n_chunks (its list overflowed the cap).  Lists are ascending.
+template <typename Stage, typename Fold>
+__device__ __forceinline__ void twolevel_walk_listed(
+    Stage& stage, const float* __restrict__ aabb,
+    const int* __restrict__ counts, const int* __restrict__ cand,
+    int n_chunks, int max_cand, const Ray& r, bool live, float r_eps,
+    float slack_hi, float slack_lo, float slack, const float& best_u,
+    int* list, int* warp_count, Fold fold) {
+  const int cnt = counts[blockIdx.x];
+  const bool sweep = cnt == n_chunks;
+  const int* cands = cand + static_cast<size_t>(blockIdx.x) * max_cand;
+  walk_listed(
+      cnt,
+      [&](int k) { return sweep ? k : cands[min(k, max_cand - 1)]; }, stage,
+      aabb, r, live, r_eps, slack_hi, slack_lo, slack, best_u, list,
+      warp_count, fold);
 }
 
 }  // namespace search2d

@@ -6,31 +6,43 @@
 // cull=True).
 //
 // What it computes: exactly what segment_search.cu (K5) computes, with K5's
-// pair test (search2d::segment_pair), so valid, idx and u equal K5's
-// bit for bit.  It only skips pairs that cannot give a nearer hit.
+// pair test (search2d::SegmentPair), so valid, idx and u equal K5's bit
+// for bit.  It only skips pairs that cannot give a nearer hit.
 //
-// The gate.  The segments are cut into chunks of kTile rows (the shared-
-// memory tile), each with its axis-aligned box (models/acceleration.py
-// chunk_aabbs_2d, widened by a rounding margin of ~64 float32 ulps of its
-// coordinates by ops/segment_kernels.gate_boxes, passed in as (C, 4): min
-// xy, max xy; the margin covers hits the float32 arithmetic accepts a few
-// ulps outside the exact surface, which the slab test's slack does not far
-// from the origin).  Before a tile is
-// staged, each thread slab-tests its own ray against the tile's box
-// (search2d::slab_gate: can the ray hit the box at t >= r_eps, no farther
-// than its best, with slack 1 +- 1e-6).  __syncthreads_or decides whether
-// the block stages the tile at all, a warp vote (__any_sync) whether a warp
-// computes it: the TPU kernel gates whole ray blocks, a warp is the finer
-// gate.  The plain version (ops/segment_kernels.py) gates groups of 32
-// rays as the warp vote does.  Parked rays (p0 = 1e30, engine.project_2d)
-// fail every slab test, and a block whose rays are all parked stages no
-// tile.
+// The design: K9's walk (segment_search_twolevel.cu) over every chunk in
+// order, with no candidate list (search2d::walk_listed):
+// - One block per ray block (ray_block rays, one a thread), chunks of
+//   search2d::kTile = 256 segments, each with its box (the chunk's box,
+//   widened by ops/segment_kernels.twolevel_boxes, passed in as (C, 4): min
+//   xy, max xy).
+// - The gate: before computing chunk k each thread slab-tests its own ray
+//   against the chunk's box and its running best (search2d::slab_gate:
+//   can the ray hit the box at t >= r_eps, no farther than its best, with
+//   slack 1 +- 1e-6); compaction.cuh lists the rays that pass, and the
+//   whole block computes only those, `group` threads a listed ray
+//   (search2d::fold_listed_segments).  A chunk costs in proportion to the
+//   rays that need it, not to the warps that hold one, and a chunk no ray
+//   needs costs one gate and one barrier.  The TPU kernel gated whole ray
+//   blocks; the plain version (ops/segment_kernels.py) gates ray by ray to
+//   match.  Parked rays (p0 = 1e30, engine.project_2d) fail every gate.
+// - The boxes: a ray's own gate decides, so a box must hold every point
+//   the pair test accepts: seg_u from -size_eps to 1 + size_eps puts a hit
+//   up to size_eps of a segment's extent outside its box, so the boxes are
+//   widened by size_eps of their widest side, plus the rounding margin of
+//   ops/triangle_kernels.GATE_PAD (K9's boxes).
+// - Staging: each chunk is read from sp0 and sp1 as they are, so the
+//   wrapper prepares nothing but the boxes.  Each thread loads its
+//   segments of chunk k + 1 into registers (SegmentStage) while chunk k is
+//   computed, and writes them into the one shared buffer as K9's float4
+//   (x, y, dx = x1 - x0, dy = y1 - y0) at step k + 1, after the barrier
+//   that ends step k.  The float32 subtraction is the one the plain
+//   version and K9's table make, bit for bit.
 //
 // What bounds it: FP32 arithmetic on the admitted pairs (14 operations
-// each, as in K5), plus one 14-operation slab test per ray and tile.  After
-// the first bounce most rays have a near best hit or are parked, so most
-// (warp, tile) pairs are skipped; on a Morton-sorted scene a tile is a
-// compact stretch of wall, so its box is small.
+// each, as in K5), plus one slab test per ray and chunk.  After the first
+// bounce most rays have a near best hit or are parked, so most (ray,
+// chunk) pairs are skipped; on a Morton-sorted scene a chunk is a compact
+// stretch of wall, so its box is small.
 
 #include <cuda_runtime.h>
 
@@ -38,10 +50,61 @@
 
 namespace {
 
-using search2d::kThreads;
 using search2d::kTile;
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kMaxThreads = 1024;
+// two blocks of kMaxThreads an SM: 32 registers a thread, so that a full
+// SM of 2048 threads fits at every ray block.  Left free, ptxas takes 45-49
+// for the listed walk and the fold, which leaves 5 of 8 blocks of 256 an SM
+// and cost K7 and K9 5% on the H100; the bound spills 4-44 bytes.
+constexpr int kMinBlocks = 2;
+// the fewest rays a block: SegmentStage holds kPer segments a thread
+constexpr int kPer = 2;
+constexpr int kMinThreads = kTile / kPer;
+
+// shared memory: one chunk buffer, a float4 and a float2 a ray, the list,
+// two arrays of the warps' counts (under 48 KB up to kMaxThreads rays)
+size_t shared_bytes(int ray_block) {
+  return sizeof(float4) * (kTile + ray_block) + sizeof(float2) * ray_block +
+         sizeof(int) * (ray_block + 2 * 32);
+}
+
+// walk_listed's stage for segments read from sp0 and sp1 ((m, 2) float32
+// row-major): thread i holds segments i and i + blockDim.x of the next
+// chunk, zero past m.  One buffer is enough: land(k) writes it after the
+// barrier that ends step k - 1, the last to read it.
+struct SegmentStage {
+  float4* buf;
+  const float* __restrict__ sp0;
+  const float* __restrict__ sp1;
+  int m;
+  float2 a[kPer], b[kPer];
+
+  __device__ __forceinline__ void start(int c) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int s = c * kTile + threadIdx.x + i * blockDim.x;
+      const bool in = threadIdx.x + i * blockDim.x < kTile && s < m;
+      a[i] = b[i] = make_float2(0.f, 0.f);
+      if (in) {
+        a[i] = make_float2(sp0[2 * s], sp0[2 * s + 1]);
+        b[i] = make_float2(sp1[2 * s], sp1[2 * s + 1]);
+      }
+    }
+  }
+  __device__ __forceinline__ const float4* land(int, int next) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int t = threadIdx.x + i * blockDim.x;
+      if (t < kTile)
+        buf[t] = make_float4(a[i].x, a[i].y, b[i].x - a[i].x, b[i].y - a[i].y);
+    }
+    if (next >= 0) start(next);
+    return buf;
+  }
+};
+
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 segment_search_culled_kernel(const float* __restrict__ p0,
                              const float* __restrict__ p1,
                              const float* __restrict__ sp0,
@@ -51,51 +114,56 @@ segment_search_culled_kernel(const float* __restrict__ p0,
                              float slack_hi, float slack_lo, float slack,
                              float* __restrict__ u_out,
                              int* __restrict__ idx_out) {
-  __shared__ float tile[4][kTile];
+  extern __shared__ float4 smem[];
+  float4* buf = smem;                                        // 1 chunk
+  float4* ray_a = buf + kTile;                               // ox oy dx dy
+  float2* ray_b = reinterpret_cast<float2*>(ray_a + blockDim.x);  // u, idx
+  int* list = reinterpret_cast<int*>(ray_b + blockDim.x);
+  int* warp_count = list + blockDim.x;                       // 2 x 32
 
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
+  const int me = threadIdx.x;
+  const int ray = blockIdx.x * blockDim.x + me;
   const bool live = ray < n;
   const search2d::Ray r = search2d::load_ray(p0, p1, ray, live);
+  search2d::put_ray(ray_a, ray_b, r);
 
-  reject::Best best;
-  best.set(search2d::kBig, 0, lim);
-  for (int base = 0, chunk = 0; base < m; base += kTile, ++chunk) {
-    const bool need =
-        live && search2d::slab_gate(aabb + 4 * chunk, r, lim.r_eps, slack_hi,
-                                    slack_lo, slack, best.u);
-    const bool warp_need = __any_sync(0xffffffffu, need);
-    // also the barrier after which the previous tile is no longer read
-    if (!__syncthreads_or(need)) continue;
-    const int count = min(kTile, m - base);
-    search2d::stage_segments(tile, sp0, sp1, base, count);
-    __syncthreads();
-    if (!warp_need) continue;
-    search2d::search_segments(tile, count, base, r, lim, best);
-  }
+  SegmentStage stage{buf, sp0, sp1, m};
+  search2d::walk_listed(
+      (m + kTile - 1) / kTile, [](int k) { return k; }, stage, aabb, r, live,
+      lim.r_eps, slack_hi, slack_lo, slack, ray_b[me].x, list, warp_count,
+      [&](const float4* tile, int c, int total) {
+        const int base = c * kTile;
+        search2d::fold_listed_segments(tile, min(kTile, m - base), base,
+                                       total, list, ray_a, ray_b, lim);
+      });
+
+  // every best was written before a barrier this thread has passed
   if (live) {
-    u_out[ray] = best.u;
-    idx_out[ray] = best.idx;
+    u_out[ray] = ray_b[me].x;
+    idx_out[ray] = __float_as_int(ray_b[me].y);
   }
 }
 
 }  // namespace
 
 // K5's arguments plus aabb: (ceil(m / chunk), 4) float32, where chunk must
-// be the kernel's tile of 256 segments (else the launch returns
-// cudaErrorInvalidValue), and the gate's slack (1 + 1e-6, 1 - 1e-6, 1e-6)
-// as the float32 values the plain version uses.  Launches on `stream` and
-// returns cudaGetLastError() (0 = launched).
+// be the kernel's tile of 256 segments, and ray_block, a multiple of 32 in
+// [128, 1024] (else the launch returns cudaErrorInvalidValue); the gate's
+// slack (1 + 1e-6, 1 - 1e-6, 1e-6) as the float32 values the plain version
+// uses.  Launches on `stream` and returns cudaGetLastError() (0 =
+// launched).
 extern "C" int segment_search_culled_launch(
     const float* p0, const float* p1, const float* sp0, const float* sp1,
-    const float* aabb, int n, int m, int chunk, float i_eps, float s_lo,
-    float s_hi, float r_eps, float slack_hi, float slack_lo, float slack,
-    float* u_out, int* idx_out, void* stream) {
-  if (chunk != kTile) return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  segment_search_culled_kernel<<<blocks, kThreads, 0,
+    const float* aabb, int n, int m, int chunk, int ray_block, float i_eps,
+    float s_lo, float s_hi, float r_eps, float slack_hi, float slack_lo,
+    float slack, float* u_out, int* idx_out, void* stream) {
+  if (chunk != kTile || ray_block % 32 != 0 || ray_block < kMinThreads ||
+      ray_block > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + ray_block - 1) / ray_block;
+  segment_search_culled_kernel<<<blocks, ray_block, shared_bytes(ray_block),
                                  static_cast<cudaStream_t>(stream)>>>(
       p0, p1, sp0, sp1, aabb, n, m, reject::limits(i_eps, s_lo, s_hi, r_eps),
-      slack_hi,
-      slack_lo, slack, u_out, idx_out);
+      slack_hi, slack_lo, slack, u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,6 +61,11 @@
 namespace {
 
 constexpr int kMaxThreads = 1024;
+// two blocks of kMaxThreads an SM: 32 registers a thread, so that a full
+// SM of 2048 threads fits at every ray block.  Left free, ptxas takes 45-49
+// for the listed walk and the fold, which leaves 5 of 8 blocks of 256 an SM
+// and cost K7 and K9 5% on the H100; the bound spills 4-44 bytes.
+constexpr int kMinBlocks = 2;
 
 // shared memory: two chunk buffers, a float4 and a float2 a ray, the list,
 // two arrays of the warps' counts (under 48 KB up to kMaxThreads rays)
@@ -69,7 +74,7 @@ size_t shared_bytes(int ray_block) {
          sizeof(float2) * ray_block + sizeof(int) * (ray_block + 2 * 32);
 }
 
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocks)
 segment_search_twolevel_kernel(const float* __restrict__ p0,
                                const float* __restrict__ p1,
                                const float4* __restrict__ table,
@@ -95,8 +100,9 @@ segment_search_twolevel_kernel(const float* __restrict__ p0,
   const search2d::Ray r = search2d::load_ray(p0, p1, ray, live);
   search2d::put_ray(ray_a, ray_b, r);
 
-  search2d::twolevel_walk_listed<kVecs>(
-      buf, table, aabb, counts, cand, n_chunks, max_cand, r, live, lim.r_eps,
+  search2d::CopyStage<kVecs> stage{buf, table};
+  search2d::twolevel_walk_listed(
+      stage, aabb, counts, cand, n_chunks, max_cand, r, live, lim.r_eps,
       slack_hi, slack_lo, slack, ray_b[me].x, list, warp_count,
       [&](const float4* tile, int c, int total) {
         const int base = c * search2d::kTile;

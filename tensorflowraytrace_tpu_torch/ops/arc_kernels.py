@@ -10,15 +10,18 @@ same arithmetic written line by line in PyTorch.
   ``_arc_kernel`` in ``tensorflowraytrace_tpu/ops/pallas_kernels.py``):
   every ray against both quadratic branches of every arc.
 - K8 ``nearest_hit_arcs_culled_kernel`` (``csrc/arc_search_culled.cu``,
-  port of ``_arc_kernel_culled``): K6 behind K7's slab gate on the boxes of
+  port of ``_arc_kernel_culled``): K6 behind a slab gate on the boxes of
   256-arc chunks (``models/acceleration.chunk_aabbs_arcs``, window-aware,
-  widened by K7's rounding margin ``segment_kernels.gate_boxes``);
+  widened to hold every point the pair test accepts: :func:`twolevel_boxes`),
+  computing a chunk for a warp when one of its rays needs it;
   ``cull=True``.  K8 returns K6's hits bit for bit.
 - K10 ``nearest_hit_arcs_twolevel_kernel`` (``csrc/arc_search_twolevel.cu``,
   port of ``_twolevel_arc_kernel``): K9's two-level walk
-  (``segment_kernels.py``) over chunks of 256 arcs behind K8's gate, on
-  K8's boxes; ``cull="grid"``.  K10 returns K6's hits bit for bit (not the
-  TPU kernel's: it keeps K6's discriminant and branch rule).
+  (``segment_kernels.py``) over chunks of 256 arcs, each ray gated on its
+  own on boxes that hold every point the pair test accepts
+  (:func:`twolevel_boxes`); ``cull="grid"``.  K10 returns K6's hits bit for
+  bit (not the TPU kernel's: it keeps K6's discriminant and branch
+  rule).
 
 All three take the arc table of :func:`arc_table`, built in torch on the rays'
 device as ``nearest_hit_arcs_pallas`` builds it: the window's edge vectors
@@ -61,12 +64,12 @@ from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_arcs
 from tensorflowraytrace_tpu_torch.ops import cuda_build
 from tensorflowraytrace_tpu_torch.ops import segment_kernels
 from tensorflowraytrace_tpu_torch.ops.segment_kernels import (
-    check_cuda_inputs, culled_walk, gate_boxes, twolevel_lists,
+    check_cuda_inputs, culled_walk, twolevel_lists,
     check_twolevel_ray_block,
 )
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
     _SLACK, BIG, GATE_RAYS, _raise_on, chunk_major, plain_or_cuda,
-    twolevel_walk,
+    twolevel_walk, widen_boxes,
 )
 
 # Launches of each CUDA kernel in this process.  A wrapper adds one where it
@@ -82,6 +85,14 @@ SOURCE_TWOLEVEL = "arc_search_twolevel.cu"
 # the table's flag bits
 _BIG_WINDOW = 1     # the window spans more than pi
 _FULL_CIRCLE = 2    # the window is the whole circle
+
+# How far outside its arc's window-aware box, as a share of |radius|, the
+# pair test can accept a point: the tangent snap takes a discriminant below
+# intersect_eps as 0 for pairs with a >= intersect_eps, which puts the
+# accepted point between sqrt(3 / 4) and sqrt(5 / 4) radii from the centre
+# (the derivation is in csrc/arc_search_twolevel.cu), so up to
+# 1 - sqrt(3 / 4) = 0.134 |r| off the circle; rounded up.
+SNAP_REACH = 0.14
 
 
 def load_library():
@@ -221,10 +232,9 @@ def nearest_hit_arcs_culled_kernel(p0, p1, center, angle_start, angle_end,
 
 def culled_prepare(center, angle_start, angle_end, radius):
     """K8's inputs made on the arcs' device: ``(table, boxes)``, the table
-    of :func:`arc_table` and the gate boxes of its chunks of
+    of :func:`arc_table` and the :func:`twolevel_boxes` of its chunks of
     ``segment_kernels.CULL_CHUNK`` arcs."""
-    boxes = gate_boxes(chunk_aabbs_arcs(center, angle_start, angle_end,
-                                        radius, segment_kernels.CULL_CHUNK))
+    boxes = twolevel_boxes(center, angle_start, angle_end, radius)
     return arc_table(center, angle_start, angle_end, radius), \
         boxes.contiguous()
 
@@ -264,18 +274,41 @@ def nearest_hit_arcs_twolevel_kernel(p0, p1, center, angle_start, angle_end,
         intersect_eps, ray_start_eps)
 
 
+def twolevel_boxes(center, angle_start, angle_end, radius):
+    """K8's and K10's boxes, for their gates and K10's candidate lists:
+    the boxes of chunks of ``segment_kernels.CULL_CHUNK`` arcs over the
+    arcs' window-aware boxes, widened (``triangle_kernels.widen_boxes``) by
+    ``SNAP_REACH`` of the chunk's largest |radius| and the rounding margin.
+    K10 gates each ray on its own, so a box must hold every point the pair
+    test accepts, also a tangent pair's snapped point off the circle; K8's
+    warp vote too loses such a hit when no ray of its warp reaches the box
+    (tests/test_torch_gate_boxes2d.py)."""
+    chunk = segment_kernels.CULL_CHUNK
+    boxes = chunk_aabbs_arcs(center, angle_start, angle_end, radius, chunk)
+    reach = chunk_major(radius.detach().abs()[:, None], chunk).amax(dim=2)
+    return widen_boxes(boxes, 0.0, SNAP_REACH * reach)
+
+
+def twolevel_table(center, angle_start, angle_end, radius):
+    """K10's arc table: :func:`arc_chunk_table` at
+    ``segment_kernels.CULL_CHUNK`` with its flags row as int32 bits (as
+    search2d::ArcTile reads it)."""
+    table = arc_chunk_table(center, angle_start, angle_end, radius,
+                            segment_kernels.CULL_CHUNK)
+    table[:, 0, :, 3] = table[:, 0, :, 3].to(torch.int32).view(torch.float32)
+    return table
+
+
 def twolevel_prepare(p0, p1, center, angle_start, angle_end, radius,
                      ray_start_eps):
     """K10's inputs, made on the rays' device: ``(table, boxes, counts,
-    cand, cap)``, the chunk-major arc table with its flags row as int32
-    bits (as search2d::ArcTile reads it), the gate boxes of its chunks and
-    each ray block's candidate list on them."""
-    chunk = segment_kernels.CULL_CHUNK
-    table = arc_chunk_table(center, angle_start, angle_end, radius, chunk)
-    table[:, 0, :, 3] = table[:, 0, :, 3].to(torch.int32).view(torch.float32)
-    boxes = gate_boxes(chunk_aabbs_arcs(center, angle_start, angle_end,
-                                        radius, chunk)).contiguous()
-    return (table, boxes, *twolevel_lists(p0, p1, boxes, ray_start_eps))
+    cand, cap)``, the chunk-major arc table (:func:`twolevel_table`), the
+    :func:`twolevel_boxes` of its chunks and each ray block's candidate
+    list on them."""
+    boxes = twolevel_boxes(center, angle_start, angle_end,
+                           radius).contiguous()
+    return (twolevel_table(center, angle_start, angle_end, radius), boxes,
+            *twolevel_lists(p0, p1, boxes, ray_start_eps))
 
 
 def twolevel_launch(p0, p1, m, prepared, intersect_eps, ray_start_eps):
@@ -427,18 +460,17 @@ def nearest_hit_arcs_plain(p0, p1, center, angle_start, angle_end, radius,
 @torch.no_grad()
 def nearest_hit_arcs_culled_plain(p0, p1, center, angle_start, angle_end,
                                   radius, intersect_eps, ray_start_eps):
-    """Plain PyTorch version of K8: the chunks of K7's ``CULL_CHUNK`` arcs in
-    order, each computed for the rays of every 32-ray group of which some
-    ray passes the slab gate against its running best, with K6's arithmetic
-    and merge."""
+    """Plain PyTorch version of K8: the chunks of ``CULL_CHUNK`` arcs in
+    order, each computed for the rays of every ``GATE_RAYS`` group of which
+    some ray passes the slab gate against its running best on its
+    :func:`twolevel_boxes` box, with K6's arithmetic and merge."""
     n, chunk = p0.shape[0], segment_kernels.CULL_CHUNK
     best_u, best_idx, best_minus = _best(n, p0)
     table = arc_table(center, angle_start, angle_end, radius)
     eps = (float(intersect_eps), float(ray_start_eps))
     d = p1 - p0
-    boxes = gate_boxes(chunk_aabbs_arcs(center, angle_start, angle_end,
-                                        radius, chunk))
-    for c, rows in culled_walk(p0, p1, boxes, eps[1], best_u):
+    boxes = twolevel_boxes(center, angle_start, angle_end, radius)
+    for c, rows in culled_walk(p0, p1, boxes, eps[1], best_u, GATE_RAYS):
         s0 = c * chunk
         u, minus = _arc_pairs(
             *(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
@@ -452,18 +484,17 @@ def nearest_hit_arcs_twolevel_plain(p0, p1, center, angle_start, angle_end,
                                     radius, intersect_eps, ray_start_eps):
     """Plain PyTorch version of K10: K9's walk
     (``triangle_kernels.twolevel_walk``) over chunks of
-    ``segment_kernels.CULL_CHUNK`` arcs, on K8's boxes, with K6's arithmetic
-    and merge."""
+    ``segment_kernels.CULL_CHUNK`` arcs, each ray gated on its own on
+    :func:`twolevel_boxes`, with K6's arithmetic and merge."""
     n, chunk = p0.shape[0], segment_kernels.CULL_CHUNK
     best_u, best_idx, best_minus = _best(n, p0)
     eps = (float(intersect_eps), float(ray_start_eps))
     d = p1 - p0
-    boxes = gate_boxes(chunk_aabbs_arcs(center, angle_start, angle_end,
-                                        radius, chunk))
+    boxes = twolevel_boxes(center, angle_start, angle_end, radius)
     table = arc_chunk_table(center, angle_start, angle_end, radius, chunk)
     for c, rows in twolevel_walk(
             p0, p1, boxes, *twolevel_lists(p0, p1, boxes, eps[1]),
-            segment_kernels.TWOLEVEL_RAY_BLOCK, eps[1], best_u, GATE_RAYS):
+            segment_kernels.TWOLEVEL_RAY_BLOCK, eps[1], best_u, 1):
         head, edge = table[c].unbind(1)                      # (R, F, 4) each
         flags = head[..., 3].to(torch.int32)
         u, minus = _arc_pairs(

@@ -12,18 +12,18 @@ same arithmetic written line by line in PyTorch.
 - K7 ``nearest_hit_segments_culled_kernel``
   (``csrc/segment_search_culled.cu``, port of ``_segment_kernel_culled``):
   K5 plus a slab test of each ray against the box of each 256-segment chunk
-  (``models/acceleration.chunk_aabbs_2d``, widened by a rounding margin:
-  ``gate_boxes``); ``cull=True``.  A chunk is computed for a ray only if
-  some ray of its warp (``GATE_RAYS``) can hit the box no farther than its
-  current best, so K7 returns K5's hits bit for bit.
+  (``models/acceleration.chunk_aabbs_2d``, widened to hold every point the
+  pair test accepts: ``twolevel_boxes``); ``cull=True``.  Each block of
+  ``CULLED_RAY_BLOCK`` rays sweeps every chunk in order, and a chunk is
+  computed only for the rays that can hit its box no farther than their
+  own current best, so K7 returns K5's hits bit for bit.
 - K9 ``nearest_hit_segments_twolevel_kernel``
   (``csrc/segment_search_twolevel.cu``, port of
-  ``_twolevel_segment_kernel``): each block of ``TWOLEVEL_RAY_BLOCK`` rays
-  walks a precomputed, capped list of candidate chunks of 256 segments
-  (``triangle_kernels.twolevel_candidates`` on ``twolevel_boxes``), or
-  every chunk when its list overflows, each chunk computed for the rays
-  whose own K7 gate passes; ``cull="grid"``.  K9 returns K5's hits bit for
-  bit.
+  ``_twolevel_segment_kernel``): K7's walk and gate over a precomputed,
+  capped list of candidate chunks of each block of ``TWOLEVEL_RAY_BLOCK``
+  rays (``triangle_kernels.twolevel_candidates`` on ``twolevel_boxes``), or
+  every chunk when its list overflows; ``cull="grid"``.  K9 returns K5's
+  hits bit for bit.
 
 Contract (shared with every search kernel of the JAX package): per ray
 ``(valid, idx int32, ray_u)``; ``ray_u`` is ``BIG = 3e38`` where nothing is
@@ -43,7 +43,7 @@ import ctypes
 import torch
 
 from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_2d
-from tensorflowraytrace_tpu_torch.ops import cuda_build, triangle_kernels
+from tensorflowraytrace_tpu_torch.ops import cuda_build
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
     _SLACK, BIG, _inverse_direction, _merge, _raise_on, _selected,
     _slab_gate, _thresholds, _warp_any, chunk_major, plain_or_cuda,
@@ -64,6 +64,10 @@ SOURCE_TWOLEVEL = "segment_search_twolevel.cu"
 # kernels' shared-memory tile (kTile in csrc/search2d_common.cuh; the
 # launches refuse another value); read at call time
 CULL_CHUNK = 256
+# K7: rays per block (one thread each; a multiple of 32 in [128, 1024]).
+# Chosen on the H100 by `chip_smoke.py --tune`: see PERF.md.  Read at call
+# time.
+CULLED_RAY_BLOCK = 1024
 # K9 and K10: rays per block (one thread each; a multiple of 32 up to the
 # kernels' launch bound of 512) and the cap of each block's candidate list;
 # a block with more candidates sweeps every chunk.  Chosen on the H100 by
@@ -87,7 +91,7 @@ def load_culled_library():
     """The K7 library, built at first use, with its C signature declared."""
     lib = cuda_build.load(SOURCE_CULLED)
     fn = lib.segment_search_culled_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
         + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
     return lib
@@ -133,18 +137,6 @@ def check_cuda_inputs(what, p0, p1, **surfaces):
         raise ValueError(f"too many rays or {what}s for 32-bit indexing")
 
 
-def gate_boxes(boxes):
-    """The culling boxes the gates of K7, K8 and K10 and the candidate lists
-    of K10 test: ``boxes`` (C, 4), min xy then max xy, widened by
-    ``triangle_kernels.GATE_PAD`` (read at call time) times each box's
-    largest coordinate magnitude: a hit at an arc's window edge or a
-    segment's end may lie a few ulps outside the exact surface.  On the
-    full-width 2D guide a ray starting on the exit face at the joint of two
-    chunks of lenslets hit one 3.6e-7 below its chunk's raw box."""
-    pad = triangle_kernels.GATE_PAD * boxes.abs().amax(dim=1, keepdim=True)
-    return torch.cat([boxes[:, :2] - pad, boxes[:, 2:] + pad], dim=1)
-
-
 def _check_segments(p0, p1, sp0, sp1):
     check_cuda_inputs("segment", p0, p1, sp0=sp0, sp1=sp1)
     if sp0.dim() != 2 or sp0.shape[1] != 2 or sp1.shape != sp0.shape:
@@ -181,22 +173,24 @@ def nearest_hit_segments_kernel(p0, p1, sp0, sp1, intersect_eps, size_eps,
 
 def nearest_hit_segments_culled_kernel(p0, p1, sp0, sp1, intersect_eps,
                                        size_eps, ray_start_eps):
-    """K7: K5's search with the per-chunk slab gate over chunks of
-    ``CULL_CHUNK`` segments.  Same arguments, result and device rules as
+    """K7: K5's search with each ray's slab gate over chunks of
+    ``CULL_CHUNK`` segments, ``CULLED_RAY_BLOCK`` rays a block.  Same
+    arguments, result and device rules as
     :func:`nearest_hit_segments_kernel`."""
     if plain_or_cuda(p0, "segment"):
         return nearest_hit_segments_culled_plain(
             p0, p1, sp0, sp1, intersect_eps, size_eps, ray_start_eps)
     _check_segments(p0, p1, sp0, sp1)
-    return culled_launch(p0, p1, culled_prepare(sp0, sp1), intersect_eps,
-                         size_eps, ray_start_eps)
+    check_culled_ray_block()
+    return culled_launch(p0, p1, culled_prepare(sp0, sp1, size_eps),
+                         intersect_eps, size_eps, ray_start_eps)
 
 
-def culled_prepare(sp0, sp1):
+def culled_prepare(sp0, sp1, size_eps):
     """K7's inputs made on the segments' device: ``(sp0, sp1, boxes)``, the
-    segments and the gate boxes of their chunks of ``CULL_CHUNK``."""
-    return sp0, sp1, gate_boxes(chunk_aabbs_2d(sp0, sp1,
-                                               CULL_CHUNK)).contiguous()
+    segments as they are (the kernel stages them itself) and the
+    ``twolevel_boxes`` of their chunks of ``CULL_CHUNK``."""
+    return sp0, sp1, twolevel_boxes(sp0, sp1, size_eps).contiguous()
 
 
 def culled_launch(p0, p1, prepared, intersect_eps, size_eps, ray_start_eps):
@@ -211,13 +205,21 @@ def culled_launch(p0, p1, prepared, intersect_eps, size_eps, ray_start_eps):
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream
         err = fn(p0.data_ptr(), p1.data_ptr(), sp0.data_ptr(), sp1.data_ptr(),
-                 boxes.data_ptr(), n, m, CULL_CHUNK,
+                 boxes.data_ptr(), n, m, CULL_CHUNK, CULLED_RAY_BLOCK,
                  *_thresholds(intersect_eps, size_eps, ray_start_eps),
                  1.0 + _SLACK, 1.0 - _SLACK, _SLACK,
                  u.data_ptr(), idx.data_ptr(), stream)
     _raise_on(err, "segment_search_culled")
     LAUNCHES_CULLED += 1
     return u < BIG * 0.5, idx, u
+
+
+def check_culled_ray_block():
+    """Raise unless ``CULLED_RAY_BLOCK`` is a block K7 launches."""
+    rb = CULLED_RAY_BLOCK
+    if rb % 32 or not 128 <= rb <= 1024:
+        raise ValueError(f"CULLED_RAY_BLOCK {rb} must be a multiple of 32 "
+                         "in [128, 1024]")
 
 
 def check_twolevel_ray_block():
@@ -248,13 +250,14 @@ def segment_chunk_table(sp0, sp1, chunk):
 
 
 def twolevel_boxes(sp0, sp1, size_eps):
-    """K9's boxes, for its candidate lists and its gate: the boxes of chunks
-    of ``CULL_CHUNK`` segments widened (``triangle_kernels.widen_boxes``)
-    by ``size_eps`` of the widest side.  A segment accepts seg_u down to
-    -size_eps and up to 1 + size_eps, so an accepted point lies within
-    size_eps of the segment's extent along each axis outside its box; K9
-    gates each ray on its own, so a box must hold every point it accepts
-    (K7's ``gate_boxes`` need not: its warp vote decides)."""
+    """K7's and K9's boxes, for their gates and K9's candidate lists: the
+    boxes of chunks of ``CULL_CHUNK`` segments widened
+    (``triangle_kernels.widen_boxes``) by ``size_eps`` of the widest side.
+    A segment accepts seg_u down to -size_eps and up to 1 + size_eps, so an
+    accepted point lies within size_eps of the segment's extent along each
+    axis outside its box; K7 and K9 gate each ray on its own, so a box must
+    hold every point the pair test accepts (boxes with the rounding margin
+    alone lose hits past a segment's ends at size_eps 1e-2)."""
     return widen_boxes(chunk_aabbs_2d(sp0, sp1, CULL_CHUNK), float(size_eps))
 
 
@@ -356,17 +359,19 @@ def nearest_hit_segments_plain(p0, p1, sp0, sp1, intersect_eps, size_eps,
     return best_u < BIG * 0.5, best_idx, best_u
 
 
-def culled_walk(p0, p1, boxes, r_eps, best_u):
+def culled_walk(p0, p1, boxes, r_eps, best_u, group):
     """The chunks and rays the culled kernels compute, as the plain versions
     walk them: for each chunk ``c`` of ``boxes`` ((C, 4)) in order, after the
     earlier chunks have been merged into ``best_u``, yields ``(c, rows)`` for
-    each piece of the rays of every ``GATE_RAYS`` group of which some ray
-    passes the slab gate against its running best."""
+    each piece of the rays of every ``group`` of consecutive rays of which
+    some ray passes the slab gate against its running best: 1 for K7, whose
+    rays gate on their own, ``GATE_RAYS`` for K8, which keeps the warp
+    vote."""
     o2, inv2 = p0.unbind(1), _inverse_direction(p1 - p0).unbind(1)
     for c in range(boxes.shape[0]):
         box = boxes[c]
         need = _slab_gate(o2, inv2, box[:2], box[2:], r_eps, best_u)
-        for rows in _selected(_warp_any(need)):
+        for rows in _selected(_warp_any(need, group)):
             yield c, rows
 
 
@@ -374,16 +379,16 @@ def culled_walk(p0, p1, boxes, r_eps, best_u):
 def nearest_hit_segments_culled_plain(p0, p1, sp0, sp1, intersect_eps,
                                       size_eps, ray_start_eps):
     """Plain PyTorch version of K7: the chunks of ``CULL_CHUNK`` segments in
-    order; a chunk is computed for the rays of each ``GATE_RAYS`` group of
-    which some ray passes the slab gate against its running best, with K5's
+    order; a chunk is computed for the rays that pass the slab gate against
+    their own running best on its ``twolevel_boxes`` box, with K5's
     arithmetic and merge."""
     n, chunk = p0.shape[0], CULL_CHUNK
     best_u = torch.full((n,), BIG, dtype=p0.dtype, device=p0.device)
     best_idx = torch.zeros((n,), dtype=torch.int32, device=p0.device)
     eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
     d = p1 - p0
-    boxes = gate_boxes(chunk_aabbs_2d(sp0, sp1, chunk))
-    for c, rows in culled_walk(p0, p1, boxes, eps[3], best_u):
+    boxes = twolevel_boxes(sp0, sp1, size_eps)
+    for c, rows in culled_walk(p0, p1, boxes, eps[3], best_u, 1):
         s0 = c * chunk
         u = _segment_pairs(*(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
                            *_segment_columns(sp0, sp1, s0, s0 + chunk), *eps)

@@ -72,14 +72,13 @@ BRUTE_RAYS_PER_THREAD = (1, 4)
 # K3: the culling chunk is the kernel's shared-memory tile (kTile in
 # csrc/triangle_search_culled.cu; the launch refuses another value)
 CULL_CHUNK = 256
-# K7, K8 and K10 decide per warp whether to compute a chunk: their plain
-# versions gate groups of this many consecutive rays (K3, K4 and K9 gate
-# each ray on its own)
+# K8 decides per warp whether to compute a chunk: its plain version gates
+# groups of this many consecutive rays (K3, K4, K7, K9 and K10 gate each
+# ray on its own)
 GATE_RAYS = 32
-# The culling boxes of K3-K4 and K7-K10 (widen_boxes,
-# ops/segment_kernels.gate_boxes) are
-# widened on every side by GATE_PAD times their largest coordinate
-# magnitude (~64 float32 ulps): the float32 arithmetic can accept a hit a
+# The culling boxes of K3-K4 and K7-K10 (widen_boxes) are widened on
+# every side by GATE_PAD times their largest coordinate magnitude (~64
+# float32 ulps): the float32 arithmetic can accept a hit a
 # few ulps outside the exact surface, and the gate must not refuse it.  The
 # slab test's own slack (1 +- 1e-6 and 1e-6 in t) does not cover that far
 # from the origin: at x ~ 40 one ulp is 3.8e-6.
@@ -274,15 +273,17 @@ def culled_boxes(vp, v1, v2, size_eps, chunk=None):
     return widen_boxes(boxes, 2.0 * float(size_eps))
 
 
-def widen_boxes(boxes, size_pad):
+def widen_boxes(boxes, size_pad, reach=0.0):
     """(C, 2 dim) boxes, min then max, widened on every side by
-    ``size_pad`` times the box's widest side and ``GATE_PAD`` times its
-    largest coordinate magnitude (the rounding margin): the boxes of the
-    searches that gate each ray on its own (K3, K4, K9), which must hold
-    every point the pair test accepts."""
+    ``size_pad`` times the box's widest side, ``reach`` (a number or a
+    (C, 1) tensor) and ``GATE_PAD`` times its largest coordinate magnitude
+    (the rounding margin): the boxes of the searches that gate each ray on
+    its own (K3, K4, K7, K9, K10), which must hold every point the pair
+    test accepts."""
     dim = boxes.shape[1] // 2
     width = (boxes[:, dim:] - boxes[:, :dim]).amax(dim=1, keepdim=True)
-    pad = size_pad * width + GATE_PAD * boxes.abs().amax(dim=1, keepdim=True)
+    pad = (size_pad * width + reach
+           + GATE_PAD * boxes.abs().amax(dim=1, keepdim=True))
     return torch.cat([boxes[:, :dim] - pad, boxes[:, dim:] + pad], dim=1)
 
 
@@ -619,8 +620,8 @@ def twolevel_walk(p0, p1, boxes, counts, cand, cap, ray_block, r_eps,
     ``best_u``, yields ``(chunk, rows)`` -- ``chunk`` the (R,) chunk id of
     each ray of ``rows`` -- for each piece of the rays of every ``group``
     of consecutive rays of which some ray passes the slab gate against its
-    running best: 1 for K4 and K9, whose rays gate on their own,
-    ``GATE_RAYS`` for K10, which keeps the warp vote."""
+    running best (1 for rays that gate on their own, as K4, K9 and K10 do;
+    ``GATE_RAYS`` for a warp vote)."""
     n, dim = p0.shape
     n_chunks, nb = boxes.shape[0], counts.shape[0]
     sweep = counts == n_chunks

@@ -25,6 +25,13 @@ light guide at full width, and the random sets of the kernel checks.
   reject (a discriminant or |a| within float32 steps of ``intersect_eps``,
   tangent rays, rays 13000 radii away, full circles, windows wider than pi,
   exact ties, parked rays).
+- ``gate_edge_cases``: ray sets whose hits lie where a per-ray gate's
+  chunk boxes must reach (past a segment's ends under a large
+  ``size_eps``, a tangent pair's snapped point off its circle, a window's
+  end, seen from near and from thousands of radii away), and parked and
+  all-miss batches.
+- ``block_rays``: rays in blocks of which every ray, one ray or no ray
+  reaches the surfaces.
 
 Both build on CUDA unless given ``device=``; there is no CPU fallback.
 """
@@ -348,3 +355,137 @@ def arc_edge_cases(dtype=torch.float32, device=None, i_eps=1e-6):
     parked = np.full((512, 2), 1e30, np.float32)
     cases.append(("parked", *rays(parked, parked * np.float32(1e-6)), unit))
     return cases
+
+
+def gate_edge_cases(dtype=torch.float32, device=None):
+    """Rays and surfaces whose accepted hits lie at the edge of what a chunk
+    box must hold when each ray passes its own gate (K7, K9, K10): a list
+    of ``(label, p0, p1, surfaces, size_eps)``, ``surfaces`` a SegmentSet
+    or an ArcSet of 512 (or 300) surfaces, two chunks of 256, unsorted so
+    that the indices stay where they are put.
+
+    - "segment ends": unit segments along x at y = 0, 1, ..., 511 against
+      rays up the y axis from 0.5 below each, through the segment's line
+      at seg_u -0.0101, -0.005, its end 0 and the float32 steps beside it,
+      0.5, 1 and its steps, 1.005 and 1.0101: under ``size_eps`` 1e-2 the
+      hits up to 0.01 past an end count, and lie outside the chunk's raw
+      box by more than its rounding margin.
+    - "segment ends, small size_eps": the same under 1e-6.
+    - "tangent snap": lenslets of radius 0.003 stacked along y (centres
+      0.006 apart at x = 0; windows of +-pi/2 and of +-0.05 about +x, in
+      turns) against short rays up the y axis (|d| from 1.0 to 10 times
+      1e-3 r, a = |d|^2 / r^2 from 1e-6) passing 0.87 to 1.115 radii from
+      the centres: where 4 a |1 - D^2 / r^2| < 1e-6 the discriminant snaps
+      to 0 and the hit is the closest point, up to 0.13 r inside or 0.12 r
+      outside the circle, outside the short arcs' boxes.
+    - "window ends": 300 random arcs against rays from 1-4 away aimed at
+      each window's float32 end points and the points a float32 step of
+      the aim either side.
+    - "far ends": the 2D guide's 512 exit lenslets (radius 0.003 at x = 40)
+      against rays from x = 0 aimed at the joints of neighbouring lenslets,
+      chunk 0's and chunk 1's included: ~13000 radii away.
+    - "parked" (p0 = 1e30) and "all-miss" (rays at 100 pointing away)
+      against both kinds."""
+    device = resolve_device(device)
+    rng = np.random.default_rng(17)
+
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a, np.float32), dtype=dtype,
+                               device=device)
+
+    def rays(p0, d):
+        p0 = np.asarray(p0, np.float32)
+        return tensor(p0), tensor(p0 + np.asarray(d, np.float32))
+
+    cases = []
+    y = np.arange(512, dtype=np.float32)
+    segs = SegmentSet.make(np.stack([np.zeros(512), y], 1),
+                           np.stack([np.ones(512), y], 1), mat_in=1,
+                           dtype=dtype, device=device)
+    xs = np.concatenate([[-0.0101, -0.005], _steps(0.0, 2), [0.5],
+                         _steps(1.0, 2), [1.005, 1.0101]]).astype(np.float32)
+    p0 = np.stack([np.tile(xs, 512), np.repeat(y, xs.size) - 0.5], 1)
+    up = np.tile([[0.0, 1.0]], (p0.shape[0], 1))
+    cases.append(("segment ends", *rays(p0, up), segs, 1e-2))
+    cases.append(("segment ends, small size_eps", *rays(p0, up), segs, 1e-6))
+
+    r, k = 0.003, 512
+    yc = (0.006 * (np.arange(k) - k / 2)).astype(np.float32)
+    half = np.where(np.arange(k) % 2 == 0, 0.5 * PI, 0.05)
+    lens = ArcSet.make(np.stack([np.zeros(k), yc], 1), -half, half,
+                       np.full(k, r), mat_in=1, dtype=dtype, device=device)
+    dist = np.array([0.87, 0.9, 0.95, 1.0, 1.05, 1.1, 1.115])
+    length = np.array([1.0, 1.05, 1.1, 1.5, 2.0, 10.0]) * 1e-3 * r
+    pick = np.arange(0, k, 7)
+    grid = np.stack(np.meshgrid(pick, dist, length, indexing="ij"),
+                    -1).reshape(-1, 3)
+    p0 = np.stack([grid[:, 1] * r, yc[grid[:, 0].astype(int)] - 0.5 * r], 1)
+    d = np.stack([np.zeros(grid.shape[0]), grid[:, 2]], 1)
+    cases.append(("tangent snap", *rays(p0, d), lens, 1e-6))
+
+    m = 300
+    center = rng.uniform(-3, 3, (m, 2)).astype(np.float32)
+    a1 = rng.uniform(-PI, PI, m).astype(np.float32)
+    a2 = a1 + rng.uniform(0.3, 5.8, m).astype(np.float32)
+    radius = (rng.uniform(0.3, 1.5, m)
+              * rng.choice([-1.0, 1.0], m)).astype(np.float32)
+    arcs = ArcSet.make(center, a1, a2, radius, mat_in=1, dtype=dtype,
+                       device=device)
+    ends = np.concatenate([
+        center + np.abs(radius)[:, None] * np.stack(
+            [np.cos(a), np.sin(a)], 1).astype(np.float32) for a in (a1, a2)])
+    th = rng.uniform(0, 2 * PI, ends.shape[0])
+    start = ends + rng.uniform(1, 4, (ends.shape[0], 1)) * np.stack(
+        [np.cos(th), np.sin(th)], 1)
+    aims = [ends, np.nextafter(ends, np.float32(np.inf)),
+            np.nextafter(ends, np.float32(-np.inf))]
+    p0 = np.concatenate([start] * 3).astype(np.float32)
+    cases.append(("window ends", *rays(p0, np.concatenate(aims) - p0), arcs,
+                  1e-6))
+
+    _, _, lenslets = guide_surfaces()
+    exit_face = ArcSet.make(*lenslets, mat_in=1, dtype=dtype, device=device)
+    w = 2 * EXIT_HALF_HEIGHT / 512
+    joints = (-EXIT_HALF_HEIGHT + w * np.arange(1, 512)).astype(np.float32)
+    aim = np.stack([np.full(joints.size, GUIDE_LENGTH), joints], 1)
+    aim = np.concatenate([aim, aim + [0.0, 1e-6], aim - [0.0, 1e-6]])
+    p0 = np.stack([np.zeros(aim.shape[0]),
+                   rng.uniform(-0.5, 0.5, aim.shape[0])], 1)
+    cases.append(("far ends", *rays(p0, aim - p0), exit_face, 1e-6))
+
+    parked = np.full((512, 2), 1e30, np.float32)
+    away = np.full((512, 2), 100.0, np.float32)
+    for label, q0, dq in (("parked", parked, parked * np.float32(1e-6)),
+                          ("all-miss", away, np.ones_like(away))):
+        cases.append((f"{label} segments", *rays(q0, dq), segs, 1e-2))
+        cases.append((f"{label} arcs", *rays(q0, dq), lens, 1e-6))
+    return cases
+
+
+def block_rays(rng, surfaces, block, dtype=torch.float32, device=None):
+    """``3 block + 5`` unit rays from uniform points in [-4, 4]^2, ``(p0,
+    p1)``: in the first block of ``block`` rays every ray is aimed at a
+    point of one of ``surfaces`` (a SegmentSet's middles or an ArcSet's
+    window middles), in the second only the first ray, in the third none,
+    and the 5 rays of the ragged last block all are; the rays not aimed
+    start at (100, 100) and point away."""
+    if isinstance(surfaces, SegmentSet):
+        targets = (surfaces.p0 + surfaces.p1) / 2
+    else:
+        sweep = torch.remainder(surfaces.angle_end - surfaces.angle_start,
+                                2 * PI)
+        mid = surfaces.angle_start + sweep / 2
+        unit = torch.stack([torch.cos(mid), torch.sin(mid)], 1)
+        targets = surfaces.center + surfaces.radius.abs()[:, None] * unit
+    targets = targets.detach().cpu().double().numpy()
+    n = 3 * block + 5
+    p0 = np.full((n, 2), 100.0)
+    p1 = p0 + 1.0
+    aimed = np.r_[0:block + 1, 3 * block:n]
+    start = rng.uniform(-4, 4, (aimed.size, 2))
+    d = targets[rng.integers(0, len(targets), aimed.size)] - start
+    p0[aimed] = start
+    p1[aimed] = start + d / np.linalg.norm(d, axis=1, keepdims=True)
+    return tuple(torch.as_tensor(a.astype(np.float32), dtype=dtype,
+                                 device=resolve_device(device))
+                 for a in (p0, p1))

@@ -1,8 +1,11 @@
 """The 2D search kernels on the card: K5 (segments) and K6 (arcs) bit for
 bit against their plain PyTorch versions, and the culled K7 and K8 bit for
 bit against theirs and against K5 and K6.  The pytest form of
-chip_smoke.py's phase 11, plus the first bounce of the 2D light guide and
-the edges of the arc kernels' exact reject (scenes2d.arc_edge_cases).
+chip_smoke.py's phase 11, plus the first bounce of the 2D light guide, the
+edges of the arc kernels' exact reject (scenes2d.arc_edge_cases), the hits
+a per-ray gate's boxes must hold (scenes2d.gate_edge_cases), and ray
+blocks of which every ray, one ray or no ray needs a chunk, over ragged
+chunk counts.
 
 Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 ``cuda`` and skip without one.  Run them on the card with
@@ -44,11 +47,11 @@ def arc_args(p0, p1, arc):
                                               arc.radius)]
 
 
-def check(args, kind):
+def check(args, kind, size_eps=EPS):
     """The brute and culled kernels of ``kind`` against their plain
     versions and each other, bit for bit; returns the brute ``valid``."""
-    mod, name, eps = ((sk, "segments", (EPS, EPS, EPS)) if kind == "segment"
-                      else (ak, "arcs", (EPS, EPS)))
+    mod, name, eps = ((sk, "segments", (EPS, size_eps, EPS))
+                      if kind == "segment" else (ak, "arcs", (EPS, EPS)))
     before = (mod.LAUNCHES, mod.LAUNCHES_CULLED)
     brute = getattr(mod, f"nearest_hit_{name}_kernel")(*args, *eps)
     culled = getattr(mod, f"nearest_hit_{name}_culled_kernel")(*args, *eps)
@@ -192,6 +195,50 @@ def test_arc_kernels_on_a_ragged_guide(cuda):
     check(arc_args(rays.p0, rays.p1, scene.arcs), "arc")
 
 
+GATE_LABELS = ["segment ends", "segment ends, small size_eps", "tangent snap",
+               "window ends", "far ends", "parked segments", "parked arcs",
+               "all-miss segments", "all-miss arcs"]
+
+
+def gate_case(label, cuda):
+    """scenes2d.gate_edge_cases' case ``label``: ``(kind, args, size_eps)``."""
+    p0, p1, surfaces, size_eps = {c[0]: c[1:] for c in
+                                  scenes2d.gate_edge_cases(device=cuda)}[label]
+    if hasattr(surfaces, "p0"):
+        return "segment", seg_args(p0, p1, surfaces), size_eps
+    return "arc", arc_args(p0, p1, surfaces), size_eps
+
+
+@pytest.mark.parametrize("label", GATE_LABELS)
+def test_gate_edge_cases(cuda, label):
+    """K7 against K5 and K8 against K6 where the accepted hits lie at the
+    edge of the chunk boxes: past a segment's ends under size_eps 1e-2, a
+    tangent pair's snapped point off its circle, window ends from near and
+    far; parked and all-miss batches."""
+    kind, args, size_eps = gate_case(label, cuda)
+    valid = check(args, kind, size_eps)
+    assert bool(valid.any()) == (label.split()[0] not in ("parked",
+                                                          "all-miss"))
+
+
+@pytest.mark.parametrize("m", [300, 100])
+def test_blocks_that_every_one_or_no_ray_needs(cuda, m):
+    """K7 over blocks of ``sk.CULLED_RAY_BLOCK`` rays and K8 over its 256:
+    a block whose every ray is aimed at a surface, one with a single such
+    ray, one with none and a ragged last block; m = 300 leaves the second
+    chunk ragged, m = 100 is one chunk short of 256."""
+    rng = np.random.default_rng(12)
+    for kind, make, to_args, block in (
+            ("segment", scenes2d.random_segments, seg_args,
+             sk.CULLED_RAY_BLOCK),
+            ("arc", scenes2d.random_arcs, arc_args, 256)):
+        surfaces = make(rng, m, device=cuda)
+        p0, p1 = scenes2d.block_rays(rng, surfaces, block, device=cuda)
+        valid = check(to_args(p0, p1, surfaces), kind)
+        assert valid[:block].float().mean() > 0.5
+        assert not valid[block + 1:3 * block].any()
+
+
 def test_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
     rng = np.random.default_rng(10)
     p0, p1 = scenes2d.random_rays(rng, 32, device=cuda)
@@ -210,6 +257,11 @@ def test_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
             fn(args[0], args[1].cpu(), *args[2:], *eps)
         with pytest.raises(ValueError, match="detached"):
             fn(*args[:2], args[2].clone().requires_grad_(), *args[3:], *eps)
+    for rb in (96, 2048):
+        monkeypatch.setattr(sk, "CULLED_RAY_BLOCK", rb)
+        with pytest.raises(ValueError, match="CULLED_RAY_BLOCK"):
+            searches[1][0](*seg, EPS, EPS, EPS)
+    monkeypatch.setattr(sk, "CULLED_RAY_BLOCK", 256)
     # the culled kernels are compiled for one chunk width
     monkeypatch.setattr(sk, "CULL_CHUNK", 128)
     for fn, args, eps in (searches[1], searches[3]):

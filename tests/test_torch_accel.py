@@ -13,8 +13,8 @@
   1e-5, > 99% equal ``idx``: XLA:CPU rounds the interpreted kernels
   differently in the last bit) and equal the plain K1 bit for bit,
   including K4's overflow sweep; both gate each ray on its own, on widened
-  boxes, and ``twolevel_walk`` gates K4's rays one by one and K9's and
-  K10's by 32-ray groups.
+  boxes, and ``twolevel_walk`` gates rays one by one (K4, K9, K10) or by
+  32-ray groups (a warp vote).
 * ``engine``: traces with ``cull=True`` and with ``cull="grid",
   resort_rays=True`` equal the ``cull=False`` trace exactly, and the
   accelerated trace agrees with JAX's ``use_pallas=True`` trace.
@@ -364,8 +364,8 @@ def test_plain_twolevel_gates_each_ray_and_equals_k1_on_a_guide(rng):
 @pytest.mark.parametrize("group", [1, 32])
 def test_twolevel_walk_gate_group(rng, group):
     """``twolevel_walk`` yields at its first step the rays that pass their
-    own gate (``group`` 1, K4) or every ray of a 32-ray group of which one
-    passes (K9 and K10's warp vote)."""
+    own gate (``group`` 1, K4, K9 and K10) or every ray of a 32-ray group
+    of which one passes (a warp vote)."""
     tris, p0, p1 = sorted_soup(rng, 2000, 700)
     p0[::3] = 100.0                       # a third of the rays point away
     p1[::3] = 101.0

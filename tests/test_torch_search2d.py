@@ -316,9 +316,9 @@ def test_plain_culled_equals_plain_brute(rng, monkeypatch, chunk, shape):
 def test_gate_margin_keeps_a_hit_at_a_chunk_joint(monkeypatch):
     """A ray starting on the light guide's exit face at the joint of its two
     chunks of lenslets hits lenslet 256 at a point float32 puts 3.6e-7
-    outside chunk 1's box: without the gate's rounding margin the culled
-    search would miss it (the ray is from the 2D guide's 18th bounce on the
-    card)."""
+    outside chunk 1's box: without the boxes' widening (the rounding margin
+    and the tangent snap's reach) the culled search would miss it (the ray
+    is from the 2D guide's 18th bounce on the card)."""
     _, scene, _ = scenes2d.light_guide(32, device="cpu")
     arc = scene.arcs
     o = torch.tensor([[39.99999237060547, 1.0311603546142578e-05]])
@@ -329,6 +329,7 @@ def test_gate_margin_keeps_a_hit_at_a_chunk_joint(monkeypatch):
     for a, b in zip(ak.nearest_hit_arcs_culled_plain(*args, EPS, EPS), ref):
         assert torch.equal(a, b)
     monkeypatch.setattr(tk, "GATE_PAD", 0.0)
+    monkeypatch.setattr(ak, "SNAP_REACH", 0.0)
     assert int(ak.nearest_hit_arcs_culled_plain(*args, EPS, EPS)[1]) == 255
 
 

@@ -101,7 +101,7 @@ def test_twolevel_candidates_2d_match_jax(rng, monkeypatch, case):
     if case == "groups":  # 21 chunks in groups of 16, in both packages
         monkeypatch.setattr(pk, "CAND_GROUP_BYTES", 1)
         monkeypatch.setattr(tk, "CAND_GROUP_BYTES", 1)
-    boxes = gk.gate_boxes(t_acc.chunk_aabbs_2d(seg.p0, seg.p1, 256))
+    boxes = tk.widen_boxes(t_acc.chunk_aabbs_2d(seg.p0, seg.p1, 256), 0.0)
     rays8 = np.zeros((8, 1536), np.float32)
     rays8[0:2], rays8[2:4] = p0.T, p1.T
     want_counts, want_cand = pk._twolevel_candidates_2d(
@@ -155,9 +155,9 @@ def past_the_ends(rng, n_random):
 def test_twolevel_boxes_hold_every_accepted_point(rng, monkeypatch,
                                                   size_eps):
     """Every hit the pair test accepts, nearest or not (seg_u up to
-    size_eps past either end), lies in K9's box of its segment's chunk;
-    at size_eps 1e-2 the gate boxes alone (K7's) miss the hits past the
-    ends."""
+    size_eps past either end), lies in K7's and K9's box of its segment's
+    chunk; at size_eps 1e-2 the boxes with the rounding margin alone miss
+    the hits past the ends."""
     monkeypatch.setattr(gk, "CULL_CHUNK", 8)
     p0, p1, sp0, sp1 = past_the_ends(rng, 500)
     o, d = p0[:, :, None], (p1 - p0)[:, :, None]
@@ -174,7 +174,7 @@ def test_twolevel_boxes_hold_every_accepted_point(rng, monkeypatch,
 
     assert ray.numel() > 40
     assert outside(gk.twolevel_boxes(sp0, sp1, size_eps)) == 0
-    raw = gk.gate_boxes(t_acc.chunk_aabbs_2d(sp0, sp1, 8))
+    raw = tk.widen_boxes(t_acc.chunk_aabbs_2d(sp0, sp1, 8), 0.0)
     assert (outside(raw) >= 80) == (size_eps > 1e-3)
 
 
@@ -250,7 +250,8 @@ def test_twolevel_keeps_the_hit_at_a_chunk_joint(monkeypatch):
     """tests/test_torch_search2d.py's ray from the guide's exit face: its
     hit on lenslet 256 lies 3.6e-7 outside chunk 1's raw box.  K10's
     candidate list and gate use the widened boxes and keep it, also when the
-    list overflows (cap 1); with the raw boxes (GATE_PAD 0) it is lost."""
+    list overflows (cap 1); with the raw boxes (GATE_PAD and SNAP_REACH 0)
+    it is lost."""
     _, scene, _ = scenes2d.light_guide(32, device="cpu")
     o = torch.tensor([[39.99999237060547, 1.0311603546142578e-05]])
     d = torch.tensor([[0.531158447265625, -0.8472734093666077]])
@@ -262,6 +263,7 @@ def test_twolevel_keeps_the_hit_at_a_chunk_joint(monkeypatch):
         assert_same(ak.nearest_hit_arcs_twolevel_plain(*args, EPS, EPS), ref)
     monkeypatch.setattr(gk, "TWOLEVEL_MAX_CAND", 32)
     monkeypatch.setattr(tk, "GATE_PAD", 0.0)
+    monkeypatch.setattr(ak, "SNAP_REACH", 0.0)
     assert int(ak.nearest_hit_arcs_twolevel_plain(*args, EPS, EPS)[1]) == 255
 
 

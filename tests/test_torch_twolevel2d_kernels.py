@@ -2,14 +2,16 @@
 bit for bit against their plain PyTorch versions and against the brute
 K5 and K6, with forced candidate-list overflow, and what their wrappers
 refuse.  The pytest form of chip_smoke.py's phase-11 K9/K10 checks, plus the
-first bounce of the 2D light guide.
+first bounce of the 2D light guide, the hits a per-ray gate's boxes must
+hold (scenes2d.gate_edge_cases) and ray blocks of which every ray, one ray
+or no ray needs a chunk, over ragged chunk counts.
 
 Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 ``cuda`` and skip without one.  Run them on the card with
 ``python -m pytest tests/test_torch_twolevel2d_kernels.py -m cuda
 --noconftest -o addopts=""`` (this file imports no JAX).
 
-K9 and K10 run K5's and K6's tile searches (csrc/search2d_common.cuh) with
+K9 and K10 run K5's and K6's pair tests (csrc/search2d_common.cuh) with
 the same float32 operations as the plain versions, and their gate only
 skips pairs that cannot give a nearer hit, so every output is equal
 exactly.
@@ -44,11 +46,11 @@ def arc_args(p0, p1, arc):
                                               arc.radius)]
 
 
-def check(args, kind):
+def check(args, kind, size_eps=EPS):
     """The two-level kernel of ``kind`` against its plain version and the
     brute kernel, bit for bit; returns the brute ``valid``."""
-    mod, name, eps = ((sk, "segments", (EPS, EPS, EPS)) if kind == "segment"
-                      else (ak, "arcs", (EPS, EPS)))
+    mod, name, eps = ((sk, "segments", (EPS, size_eps, EPS))
+                      if kind == "segment" else (ak, "arcs", (EPS, EPS)))
     before = mod.LAUNCHES_TWOLEVEL
     got = getattr(mod, f"nearest_hit_{name}_twolevel_kernel")(*args, *eps)
     brute = getattr(mod, f"nearest_hit_{name}_kernel")(*args, *eps)
@@ -145,6 +147,54 @@ def test_chunk_joint_ray(cuda):
     args = arc_args(o, o + d, scene.arcs)
     check(args, "arc")
     assert int(ak.nearest_hit_arcs_twolevel_kernel(*args, EPS, EPS)[1]) == 256
+
+
+GATE_LABELS = ["segment ends", "segment ends, small size_eps", "tangent snap",
+               "window ends", "far ends", "parked segments", "parked arcs",
+               "all-miss segments", "all-miss arcs"]
+
+
+def gate_case(label, cuda):
+    """scenes2d.gate_edge_cases' case ``label``: ``(kind, args, size_eps)``."""
+    p0, p1, surfaces, size_eps = {c[0]: c[1:] for c in
+                                  scenes2d.gate_edge_cases(device=cuda)}[label]
+    if hasattr(surfaces, "p0"):
+        return "segment", seg_args(p0, p1, surfaces), size_eps
+    return "arc", arc_args(p0, p1, surfaces), size_eps
+
+
+@pytest.mark.parametrize("cap", [None, 1])
+@pytest.mark.parametrize("label", GATE_LABELS)
+def test_gate_edge_cases(cuda, monkeypatch, label, cap):
+    """K9 against K5 and K10 against K6 where the accepted hits lie at the
+    edge of the chunk boxes: past a segment's ends under size_eps 1e-2, a
+    tangent pair's snapped point off its circle, window ends from near and
+    far; parked and all-miss batches; ``cap`` 1 makes the blocks overflow
+    and sweep."""
+    if cap is not None:
+        monkeypatch.setattr(sk, "TWOLEVEL_MAX_CAND", cap)
+    kind, args, size_eps = gate_case(label, cuda)
+    valid = check(args, kind, size_eps)
+    assert bool(valid.any()) == (label.split()[0] not in ("parked",
+                                                          "all-miss"))
+
+
+@pytest.mark.parametrize("m", [300, 100])
+def test_blocks_that_every_one_or_no_ray_needs(cuda, m):
+    """K9 and K10 over blocks of ``sk.TWOLEVEL_RAY_BLOCK`` rays: a block
+    whose every ray is aimed at a surface, one with a single such ray, one
+    with none and a ragged last block; m = 300 leaves the second chunk
+    ragged, m = 100 is one chunk short of 256."""
+    rng = np.random.default_rng(12)
+    block = sk.TWOLEVEL_RAY_BLOCK
+    for kind, make, to_args in (("segment", scenes2d.random_segments,
+                                 seg_args),
+                                ("arc", scenes2d.random_arcs, arc_args)):
+        surfaces = make(rng, m, device=cuda)
+        p0, p1 = scenes2d.block_rays(rng, surfaces, block, device=cuda)
+        valid = check(to_args(p0, p1, surfaces), kind)
+        assert valid[:block].float().mean() > 0.5
+        assert not valid[block + 1:3 * block].any()
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
