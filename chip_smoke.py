@@ -41,10 +41,15 @@ exits non-zero without printing a result):
    (``triangle_kernels.pairs_out_on_tu``) charged the 24 operations before
    the reject test refuses them; each with its floor without FMAs.
 6. K2 (the segment sum) against float64 ``index_add_`` at the flagship's,
-   the soup's and ragged shapes, with k = 13: elementwise
+   the soup's and ragged shapes, with k = 13, and at the 2D guide
+   backward's (2^20 rays, the 512-arc table, k = 4: the cotangents and
+   rows of the K2 call of phase 14's backward whose rays hit the most
+   arcs, and each call's share of rays with a zero cotangent, printed):
+   elementwise
    ``|K2 - ref64| <= 1e-5 S + 1e-7``, ``S[j] = sum over idx[i] == j of
-   |ct[:, i]|``; K2, its plain version and ``index_add_`` timed by CUDA
-   events at (2^20, 770) and (2^20, 4096).
+   |ct[:, i]|``; K2 (by CUDA events, and by device time after phase 14),
+   its plain version and ``index_add_`` timed at (2^20, 770), (2^20,
+   4096), one row of 770 and the 2D guide's shape.
 7. the flagship's training routine at the scale of
    examples/simple_3d_optimize.py through flagship.train() (2025 rays,
    217-vertex surfaces, 3 bounces, 150 steps in three chained phases): K1
@@ -155,18 +160,21 @@ script's own wall time, one JSON line describing each kernel of the path,
 the nvidia-smi line, and as the last line ``{"ok": true, "device":
 {...}}``.
 
-``python3 chip_smoke.py --tune`` runs phases 1 and 2, times K1 alone at
-the soup's and the guide's first bounce at 1 and 4 rays a thread and K4
-alone at the guide's first bounce at every ray block, then sweeps K4's ray
-block and candidate cap on the guide and the sorted soup; times K7 at
-128-1024 rays a block, alone at the 2D guide's first bounce and in its
-``cull=True`` traces; times K9 alone at the 2D guide's first bounce at
-every ray block, then sweeps K9's and K10's ray block and cap on the 2D
-guide (median of 3 traces each, every setting checked against the brute
-trace), and prints no result line.
+``python3 chip_smoke.py --tune`` runs phases 1 and 2, times K2 at phase
+6's timed shapes built at each of ``SEGSUM_VARIANTS`` (its rays a lane,
+columns loaded ahead and blocks an SM, with and without its warp
+aggregation), times K1 alone at the soup's and the guide's first bounce
+at 1 and 4 rays a thread and K4 alone at the guide's first bounce at every ray
+block, then sweeps K4's ray block and candidate cap on the guide and the
+sorted soup; times K7 and K8 at 128-1024 rays a block, alone at the 2D
+guide's first bounce and in its ``cull=True`` traces; times K9 alone at
+the 2D guide's first bounce at every ray block, then sweeps K9's and
+K10's ray block and cap on the 2D guide (median of 3 traces each, every
+setting checked against the brute trace), and prints no result line.
 ``python3 chip_smoke.py --arcs-alone`` runs phases 1 and 2 and times K6
-and K8 launched alone at the 2D guide's first
-bounce (see ``arcs_alone``), and prints no result line either.
+and K8 launched alone at the 2D guide's first bounce (see
+``arcs_alone``); ``--segsum-alone`` times K2 at phase 6's timed shapes
+(see ``segsum_alone``); neither prints a result line.
 """
 
 import collections
@@ -184,19 +192,32 @@ BENCH_RAYS = 1 << 20
 BENCH_BOUNCES = 8
 EPS = 1e-6  # default_epsilon(float32)
 
-# phase 6: (label, rays N, table rows m, idx pattern)
-SEGSUM_K = 13
+# phase 6: (label, rays N, table rows m, columns k, idx pattern); k = 13 is
+# the 3D gather's table (vp, v1, v2, norm, the packed annotation), k = 4
+# the 2D guide's arc table (centre, radius, the packed annotation).  The
+# "guide2d" case is phase 14's own arc gather backward (guide2d_backward).
 SEGSUM_CASES = [
-    ("flagship_example", 2025, 770, "random"),
-    ("flagship_bench", 1 << 20, 770, "random"),
-    ("soup", 1 << 20, 4096, "random"),
-    ("global_random", 5000, 16386, "random"),
-    ("global_coherent", 5000, 16386, "coherent"),
-    ("one_row", 1 << 20, 770, "same"),
-    ("ragged_1x1", 1, 1, "random"),
-    ("ragged", 1000, 333, "random"),
+    ("flagship_example", 2025, 770, 13, "random"),
+    ("flagship_bench", 1 << 20, 770, 13, "random"),
+    ("soup", 1 << 20, 4096, 13, "random"),
+    ("global_random", 5000, 16386, 13, "random"),
+    ("global_coherent", 5000, 16386, 13, "coherent"),
+    ("one_row", 1 << 20, 770, 13, "same"),
+    ("ragged_1x1", 1, 1, 13, "random"),
+    ("ragged", 1000, 333, 13, "random"),
+    ("guide2d_backward", 1 << 20, 512, 4, "guide2d"),
 ]
-SEGSUM_TIMED = ("flagship_bench", "soup", "one_row")
+SEGSUM_TIMED = ("flagship_bench", "soup", "one_row", "guide2d_backward")
+# --tune: K2 rebuilt from segment_sum.cu with its shared branch's rays a
+# lane and the blocks an SM its launch bound asks for (shared_launch's
+# choice) forced to each of these, at 8 or 16 cotangent columns loaded
+# ahead, with and without its warp aggregation (the match where two
+# neighbouring lanes share a row); one build each, timed at SEGSUM_TIMED
+# beside the source as it stands
+SEGSUM_VARIANTS = tuple(
+    {"rays": rays, "min_blocks": blocks, "kCols": cols, "aggregate": agg}
+    for rays, blocks in ((1, 2), (2, 2), (2, 1), (1, 1)) for cols in (8, 16)
+    for agg in (True, False))
 
 # phases 7 and 8: the flagship's training (examples/simple_3d_optimize.py)
 TRAIN_STEPS = 150
@@ -605,12 +626,57 @@ def state_counts(state):
     return torch.bincount(state.long(), minlength=4).tolist()
 
 
-def segsum_inputs(n, m, pattern, device, seed=0):
+def guide2d_backward(device):
+    """The busiest K2 call of phase 14's backward: one forward and backward
+    of the 2D guide design (``scenes2d.guide_design``) under
+    ``TraceConfig.recommended``, every K2 call recorded, and of those at
+    the ``guide2d_backward`` case's (m, k) the one whose rays carry the
+    most nonzero cotangents.  Returns its ``(ct, idx)`` and prints every
+    such call's share of rays with a zero cotangent (a ray that hit no
+    arc at that bounce).  The recorded calls run the kernel, whose
+    launches count nowhere: the main paths reset the counts."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import TraceConfig, scenes2d
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+
+    _, n, m, k, _ = next(c for c in SEGSUM_CASES if c[4] == "guide2d")
+    loss, params, scene = scenes2d.guide_design(GUIDE2D_RAYS, device=device)
+    cfg = TraceConfig.recommended(scene, max_bounces=scenes2d.GUIDE_BOUNCES,
+                                  dead_ray_length=scenes2d.DEAD_RAY_LENGTH)
+    kernel, live, best = sk.segment_sum_kernel, [], None
+
+    def record(ct, idx, rows):
+        nonlocal best
+        if ct.shape == (k, n) and rows == m:
+            hit = int((ct != 0).any(dim=0).sum())
+            live.append(hit)
+            if best is None or hit > best[0]:
+                best = (hit, ct.detach().clone(), idx.clone())
+        return kernel(ct, idx, rows)
+
+    sk.segment_sum_kernel = record
+    try:
+        torch.autograd.grad(loss(params, cfg), params)
+    finally:
+        sk.segment_sum_kernel = kernel
+    check(best is not None, f"phase 14's backward made no K2 call at "
+          f"m={m} k={k} N={n}")
+    zero = sorted(1 - h / n for h in live)
+    print(f"K2 guide2d_backward: {len(live)} calls of phase 14's backward at "
+          f"m={m} k={k}; rays with a zero cotangent min "
+          f"{zero[0]:.4%} median {zero[len(zero) // 2]:.4%} max "
+          f"{zero[-1]:.4%}; timed: the busiest call, {1 - best[0] / n:.4%} "
+          f"zero", flush=True)
+    return best[1], best[2]
+
+
+def segsum_inputs(n, m, k, pattern, device, seed=0):
     """(k, N) float32 cotangents and (N,) int32 rows for phase 6."""
     import torch
 
     gen = torch.Generator(device).manual_seed(seed)
-    ct = torch.randn((SEGSUM_K, n), generator=gen, device=device)
+    ct = torch.randn((k, n), generator=gen, device=device)
     if pattern == "random":
         idx = torch.randint(0, m, (n,), generator=gen, device=device)
     elif pattern == "coherent":  # blocks of 100 rays on nearby rows
@@ -622,16 +688,27 @@ def segsum_inputs(n, m, pattern, device, seed=0):
     return ct, idx.to(torch.int32)
 
 
-def compare_k2(label, n, m, pattern, device):
-    """K2 against float64 index_add_ (phase 6 criterion); returns
-    (max |K2 - ref64|, ct, idx).  These launches are comparisons."""
+def segsum_case(label, device, guide2d=None):
+    """Phase 6's case ``label`` of ``SEGSUM_CASES``: ``(ct, idx, m)``; the
+    "guide2d" case is ``guide2d``, of ``guide2d_backward``."""
+    n, m, k, pattern = {c[0]: c[1:] for c in SEGSUM_CASES}[label]
+    if pattern == "guide2d":
+        return (*guide2d, m)
+    return (*segsum_inputs(n, m, k, pattern, device), m)
+
+
+def compare_k2(label, ct, idx, m, prefix="phase 6 K2", kernel=None):
+    """K2 (or ``kernel``, with its arguments) against float64 index_add_
+    (phase 6 criterion) on the (k, N) cotangents ``ct`` and rows ``idx``;
+    returns max |K2 - ref64|.  These launches are comparisons."""
     import torch
 
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
 
-    ct, idx = segsum_inputs(n, m, pattern, device)
-    got = sk.segment_sum_kernel(ct, idx, m)
-    again = sk.segment_sum_kernel(ct, idx, m)
+    kernel = kernel or sk.segment_sum_kernel
+    (k, n), device = ct.shape, ct.device
+    got = kernel(ct, idx, m)
+    again = kernel(ct, idx, m)
     torch.cuda.synchronize()
     ref64 = sk.segment_sum_plain(ct.double(), idx, m)
     scale = sk.segment_sum_plain(ct.double().abs(), idx, m)
@@ -641,12 +718,202 @@ def compare_k2(label, n, m, pattern, device):
     check(worst <= 0.0, f"K2 {label}: exceeds 1e-5 S + 1e-7 by {worst}")
     max_err = float(err.max())
     plain_err = float((plain32.double() - ref64).abs().max())
-    print(f"phase 6 K2 {label}: N={n} m={m} k={SEGSUM_K} idx={pattern} "
-          f"branch={sk.branch(m, SEGSUM_K, device)} max_abs_err={max_err} "
+    print(f"{prefix} {label}: N={n} m={m} k={k} "
+          f"branch={sk.branch(m, k, device)} max_abs_err={max_err} "
           f"max_rel_to_S={float((err / (scale + 1e-30)).max()):.3e} "
           f"plain_f32_max_abs_err={plain_err} "
           f"two_runs_bitwise_equal={torch.equal(got, again)}", flush=True)
-    return max_err, ct, idx
+    return max_err
+
+
+def time_k2(ct, idx, m, reps=50, kernel=None):
+    """K2's wrapper (or ``kernel``) on ``(ct, idx)``: ms a call by CUDA
+    events, which count the host's issue when it is slower than the
+    kernel, and by device time (its kernel alone, ``kernel_device_ms``)."""
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+
+    kernel = kernel or sk.segment_sum_kernel
+
+    def fn():
+        return kernel(ct, idx, m)
+
+    return cuda_ms(fn, reps), kernel_device_ms(fn, "segment_sum", reps)
+
+
+def segsum_alone(device):
+    """``--segsum-alone``: K2 at phase 6's timed shapes, each checked with
+    phase 6's criterion, by CUDA events and by device time.  It calls
+    ``segsum_kernels``' ``segment_sum_kernel`` and ``branch`` alone, whose
+    arguments are the same in every version of the port: copied into the
+    root of an earlier checkout, the script times that checkout's K2 the
+    same way."""
+    guide2d = guide2d_backward(device)
+    for label in SEGSUM_TIMED:
+        ct, idx, m = segsum_case(label, device, guide2d)
+        compare_k2(label, ct, idx, m, prefix="K2 alone")
+        ms, dev = time_k2(ct, idx, m)
+        dev_ms = "not measured" if dev is None else f"{dev:.5f} ms"
+        print(f"K2 alone {label}: kernel {ms:.5f} ms by CUDA events, "
+              f"device time {dev_ms}", flush=True)
+
+
+def segsum_variant_source(text, variant):
+    """``segment_sum.cu``'s ``text`` with its shared branch's launch, its
+    columns and its aggregation set as ``variant`` (of
+    ``SEGSUM_VARIANTS``) says, or as it stands for None; each replaced
+    piece must occur once."""
+    import re
+
+    def replace(pattern, value):
+        nonlocal text
+        text, count = re.subn(pattern, value, text, flags=re.DOTALL)
+        check(count == 1, f"segment_sum.cu: {pattern!r} found {count} times")
+
+    if variant is None:
+        return text
+    replace(r"(Launch shared_launch\(int k, int fit\) \{\n).*?\n\}",
+            rf"\g<1>  return {{{variant['rays']}, {variant['min_blocks']}}};"
+            "\n}")
+    replace(r"constexpr int kCols = \d+;",
+            f"constexpr int kCols = {variant['kCols']};")
+    if not variant["aggregate"]:
+        replace(r"__ballot_sync\(kFull, key >= 0 && key == beside\)",
+                "__ballot_sync(kFull, false)")
+    return text
+
+
+def ptxas_summary(report):
+    """Each kernel's registers and spills from ``-Xptxas -v`` output, as
+    ``name: N registers, S bytes spill stores, L bytes spill loads`` joined
+    by "; " (a template's arguments in the name's brackets)."""
+    import re
+
+    found, name = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '[^']*?(segment_sum_"
+                          r"[a-z]+)(?:ILi(\d+)ELi(\d+)E)?E", line)
+        if entry:
+            name = entry[1] + (f"<{entry[2]},{entry[3]}>" if entry[2] else "")
+            found[name] = {}
+        elif name and "spill" in line:
+            found[name]["spill"] = ", ".join(
+                part.strip() for part in line.split(",")[1:])
+        elif name and "Used" in line:
+            found[name]["regs"] = re.search(r"Used (\d+) registers", line)[1]
+    return "; ".join(f"{k}: {v.get('regs')} registers, {v.get('spill')}"
+                     for k, v in found.items())
+
+
+def segsum_variants(device):
+    """``--tune``: K2 built from ``segment_sum.cu`` once for each of
+    ``SEGSUM_VARIANTS`` (one nvcc each, started together, with ptxas'
+    registers and spills printed), each checked with phase 6's criterion
+    and timed at ``SEGSUM_TIMED`` by CUDA events and by device time, in
+    the variants' order and then in reverse, so that a drift of the card
+    shows."""
+    import ctypes
+
+    import torch
+
+    from tensorflowraytrace_tpu_torch.ops import cuda_build
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+
+    text = (cuda_build.CSRC_DIR / sk.SOURCE).read_text()
+    folder = cuda_build.BUILD_DIR / "segsum_variants"
+    folder.mkdir(parents=True, exist_ok=True)
+    names, jobs = [], []
+    for v in (None, *SEGSUM_VARIANTS):
+        name = ("as built (shared_launch's choice)" if v is None else
+                f"{v['rays']} rays a lane, {v['min_blocks']} blocks an SM, "
+                f"{v['kCols']} columns, "
+                f"{'aggregated' if v['aggregate'] else 'no aggregation'}")
+        tag = ("built" if v is None else f"r{v['rays']}_b{v['min_blocks']}_"
+               f"c{v['kCols']}_a{int(v['aggregate'])}")
+        src, lib = folder / f"{tag}.cu", folder / f"{tag}.so"
+        src.write_text(segsum_variant_source(text, v))
+        cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+               "-o", str(lib), str(src)]
+        names.append(name)
+        jobs.append((lib, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    kernels = []
+    for name, (lib, cmd, proc) in zip(names, jobs):
+        report = proc.communicate()[0]
+        check(proc.returncode == 0, f"nvcc failed: {' '.join(cmd)}\n{report}")
+        print(f"K2 variant {name}: ptxas {ptxas_summary(report)}",
+              flush=True)
+        clib = ctypes.CDLL(str(lib))
+        clib.segment_sum_launch.argtypes = [ctypes.c_void_p] * 2 \
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        clib.segment_sum_launch.restype = ctypes.c_int
+
+        def launch(ct, idx, m, clib=clib):
+            k, n = ct.shape
+            out = torch.zeros((m, k), dtype=torch.float32, device=ct.device)
+            err = clib.segment_sum_launch(
+                ct.data_ptr(), idx.data_ptr(), n, m, k, out.data_ptr(),
+                torch.cuda.current_stream(ct.device).cuda_stream)
+            check(err == 0, f"K2 variant launch: CUDA error {err}")
+            return out
+
+        kernels.append(launch)
+    guide2d = guide2d_backward(device)
+    for label in SEGSUM_TIMED:
+        ct, idx, m = segsum_case(label, device, guide2d)
+        for order in (range(len(names)), reversed(range(len(names)))):
+            for i in order:
+                compare_k2(f"{label}, {names[i]}", ct, idx, m,
+                           prefix="K2 variant", kernel=kernels[i])
+                ms, dev = time_k2(ct, idx, m, kernel=kernels[i])
+                dev_ms = "not measured" if dev is None else f"{dev:.5f} ms"
+                print(f"K2 variant {label}, {names[i]}: kernel {ms:.5f} ms "
+                      f"by CUDA events, device time {dev_ms}", flush=True)
+
+
+def phase_6(device):
+    """K2 against float64 index_add_ at every case of ``SEGSUM_CASES`` and
+    timed at ``SEGSUM_TIMED``; returns the timed cases' fields."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+
+    guide2d = guide2d_backward(device)
+    k2 = {}
+    for label, n, m, k, _ in SEGSUM_CASES:
+        ct, idx, m = segsum_case(label, device, guide2d)
+        err = compare_k2(label, ct, idx, m)
+        if label not in SEGSUM_TIMED:
+            continue
+        ct_t, idx_l = ct.T, idx.long()
+        buf = torch.zeros((m, k), device=device)
+        bytes_ms = 4 * (k * n + n + m * k) / PEAK_BYTES_S * 1e3
+        ops_ms = k * n / PEAK_FP32_FLOP_S * 1e3
+        k2[label] = f = {
+            "n": n, "m": m, "k": k, "max_abs_err": err,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "ms": cuda_ms(lambda: sk.segment_sum_kernel(ct, idx, m), 50),
+            "plain_ms": cuda_ms(lambda: sk.segment_sum_plain(ct, idx, m), 50),
+            "library_ms": cuda_ms(lambda: buf.index_add_(0, idx_l, ct_t), 50),
+        }
+        print(f"phase 6 K2 {label} timing: kernel {f['ms']:.5f} ms by CUDA "
+              f"events (its device time after phase 14), plain "
+              f"{f['plain_ms']:.5f} ms, index_add_ {f['library_ms']:.5f} ms, "
+              f"bound {f['bound_ms']:.5f} ms ({f['bound_by']})", flush=True)
+    return k2
+
+
+def k2_device_times(k2, device):
+    """Phase 6's timed cases again, K2's device time of each (``time_k2``)
+    into ``k2``.  It runs after phase 14, so that no profiled run comes
+    before the host-bound steps of phases 7 and 8."""
+    guide2d = guide2d_backward(device)
+    for label, f in k2.items():
+        f["device_ms"] = time_k2(*segsum_case(label, device, guide2d))[1]
+        dev_ms = ("not measured" if f["device_ms"] is None
+                  else f"{f['device_ms']:.5f} ms")
+        print(f"phase 6 K2 {label} device time: {dev_ms}", flush=True)
 
 
 def device_profile(prof):
@@ -673,11 +940,13 @@ def device_profile(prof):
 
 
 def kernel_device_ms(fn, name, reps=10):
-    """Mean device time (ms) of the kernels whose name holds ``name`` that
+    """Device time (ms a call) of the kernels whose name holds ``name`` that
     torch.profiler records over ``reps`` calls of ``fn`` after one: the
-    kernel alone, without the gaps that CUDA events around back-to-back
+    kernels alone, without the gaps that CUDA events around back-to-back
     calls also count when a kernel is shorter than the host time that
-    launches it.  None when the profiler records none."""
+    launches it.  Each kernel's mean span, summed over the kernels a call
+    launches: the profiler may miss some spans of a run.  None when the
+    profiler records none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -688,10 +957,12 @@ def kernel_device_ms(fn, name, reps=10):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    spans = [e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and name in e.name]
-    return sum(spans) / len(spans) / 1e3 if spans else None
+    spans = collections.defaultdict(list)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name:
+            spans[e.name].append(e.time_range.end - e.time_range.start)
+    return (sum(sum(v) / len(v) for v in spans.values()) / 1e3 if spans
+            else None)
 
 
 def range_device_us(prof, label):
@@ -1465,12 +1736,13 @@ def first_bounce_2d(rays, seg):
 def arcs_alone(device):
     """``--arcs-alone``: K6 and K8 launched alone at the 2D guide's first
     bounce, apart from their table and boxes, each checked against the
-    plain K6 bit for bit.  It calls ``arc_kernels``' ``arc_table``,
-    ``culled_prepare`` and ``_launch`` and the libraries' C entry points,
-    whose arguments are the same in every version of the port since K8 was
-    ported: copied into the root of an earlier checkout, the script times
-    that checkout's kernels, on that checkout's boxes, the same way (mean
-    of 20 launches each)."""
+    plain K6 bit for bit, by CUDA events (mean of 20 launches) and by
+    device time.  It calls ``arc_kernels``' ``arc_table``,
+    ``culled_prepare`` and ``_launch`` and the libraries' C entry points:
+    K8's takes a ray block (``segment_kernels.CULLED_RAY_BLOCK``) where its
+    declared signature has one (the earlier, warp-voting K8 has none), so
+    copied into the root of an earlier checkout, the script times that
+    checkout's kernels, on that checkout's boxes, the same way."""
     import torch
 
     from tensorflowraytrace_tpu_torch import scenes2d
@@ -1486,22 +1758,29 @@ def arcs_alone(device):
     n, m = p0.shape[0], table.shape[0]
     eps = (float(EPS), float(EPS))
     slack = (1.0 + ak._SLACK, 1.0 - ak._SLACK, ak._SLACK)
+    k8 = ak.load_culled_library().arc_search_culled_launch
+    block = (gk.CULLED_RAY_BLOCK,) if len(k8.argtypes) == 17 else ()
     launches = {
         "K6": lambda: ak._launch(
             ak.load_library().arc_search_launch, "arc_search", p0,
             (p0.data_ptr(), p1.data_ptr(), table.data_ptr(), n, m, *eps)),
         "K8": lambda: ak._launch(
-            ak.load_culled_library().arc_search_culled_launch,
-            "arc_search_culled", p0,
+            k8, "arc_search_culled", p0,
             (p0.data_ptr(), p1.data_ptr(), table.data_ptr(), boxes.data_ptr(),
-             n, m, gk.CULL_CHUNK, *eps, *slack)),
+             n, m, gk.CULL_CHUNK, *block, *eps, *slack)),
     }
     ref = ak.nearest_hit_arcs_plain(p0, p1, *arcs, EPS, EPS)
+    kernels = {"K6": "arc_search_kernel", "K8": "arc_search_culled_kernel"}
     for key, launch in launches.items():
         check(all(torch.equal(a, b) for a, b in zip(launch(), ref)),
               f"{key} launched alone differs from the plain K6")
+        dev = kernel_device_ms(launch, kernels[key])
+        dev_ms = "not measured" if dev is None else f"{dev:.4f} ms"
         print(f"arcs alone {key} at the 2D guide's first bounce {n}x{m}: "
-              f"kernel {cuda_ms(launch, 20):.4f} ms", flush=True)
+              f"kernel {cuda_ms(launch, 20):.4f} ms by CUDA events, device "
+              f"time {dev_ms}"
+              + (f"; ray block {block[0] if block else 256}"
+                 if key == "K8" else ""), flush=True)
 
 
 def alone_2d(kind, args, m):
@@ -1642,14 +1921,17 @@ def phase_14(device):
 
 
 def tune_culled_2d(device):
-    """``--tune``: K7 at 128, 256, 512 and 1024 rays a block: alone at the
-    2D guide's first bounce (checked against K5 bit for bit), then the 2D
-    guide (50 bounces) with ``cull=True`` with and without the re-sort:
-    median of 3 traces after one, each checked against the brute trace bit
-    for bit, the brute trace's median beside them."""
+    """``--tune``: K7 and K8 at 128, 256, 512 and 1024 rays a block
+    (``segment_kernels.CULLED_RAY_BLOCK``, which both read): alone at the
+    2D guide's first bounce (checked against K5 and K6 bit for bit; K8 by
+    CUDA events and by device time), then the 2D guide (50 bounces) with
+    ``cull=True`` with and without the re-sort: median of 3 traces after
+    one, each checked against the brute trace bit for bit, the brute
+    trace's median beside them."""
     import torch
 
     from tensorflowraytrace_tpu_torch import scenes2d, trace
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
     from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 
     rays, scene, materials = scenes2d.light_guide(GUIDE2D_RAYS, device=device)
@@ -1659,6 +1941,9 @@ def tune_culled_2d(device):
     args = surface_args(p0, p1, scene.segments)
     k5 = gk.nearest_hit_segments_kernel(*args, EPS, EPS, EPS)
     prepared = gk.culled_prepare(*args[2:], EPS)
+    arcs = surface_args(p0, p1, scene.arcs)[2:]
+    k6 = ak.nearest_hit_arcs_kernel(p0, p1, *arcs, EPS, EPS)
+    arc_prepared = ak.culled_prepare(*arcs)
     for rb in (128, 256, 512, 1024):
         with override(gk, CULLED_RAY_BLOCK=rb):
             got = gk.culled_launch(p0, p1, prepared, EPS, EPS, EPS)
@@ -1666,6 +1951,14 @@ def tune_culled_2d(device):
                   f"tune K7 alone {rb} differs from K5")
             ms = cuda_ms(lambda: gk.culled_launch(p0, p1, prepared, EPS, EPS,
                                                   EPS), 10)
+
+            def k8():
+                return ak.culled_launch(p0, p1, arc_prepared, EPS, EPS)
+
+            check(all(torch.equal(a, b) for a, b in zip(k8(), k6)),
+                  f"tune K8 alone {rb} differs from K6")
+            k8_ms = cuda_ms(k8, 10)
+            k8_dev = kernel_device_ms(k8, "arc_search_culled_kernel")
             out = {}
             for name in ("brute", "cull", "cull+resort"):
                 times = []
@@ -1682,8 +1975,10 @@ def tune_culled_2d(device):
                     else:
                         times.append(time.perf_counter() - t0)
                 out[name] = statistics.median(times)
-        print(f"tune K7 ray_block={rb}: alone at the 2D guide's first bounce "
-              f"{ms:.4f} ms; 2D guide " + ", ".join(
+        k8_dev = "not measured" if k8_dev is None else f"{k8_dev:.4f} ms"
+        print(f"tune K7 and K8 ray_block={rb}: alone at the 2D guide's first "
+              f"bounce K7 {ms:.4f} ms, K8 {k8_ms:.4f} ms by CUDA events "
+              f"(device time {k8_dev}); 2D guide " + ", ".join(
                   f"{k} {t * 1e3:.3f} ms" for k, t in out.items()),
               flush=True)
 
@@ -1807,6 +2102,7 @@ def main():
           + " ".join(cuda_build.library_path(s).name for s in sources)
           + f" in {time.perf_counter() - t0:.2f} s", flush=True)
     if "--tune" in sys.argv[1:]:
+        segsum_variants(device)
         tune_brute(device)
         tune_twolevel(device)
         tune_culled_2d(device)
@@ -1814,6 +2110,9 @@ def main():
         return 0
     if "--arcs-alone" in sys.argv[1:]:
         arcs_alone(device)
+        return 0
+    if "--segsum-alone" in sys.argv[1:]:
+        segsum_alone(device)
         return 0
 
     # ---- phase 3: K1 against its plain version
@@ -1950,28 +2249,7 @@ def main():
     del rays, scene, res, args
 
     # ---- phase 6: K2 against float64 index_add_
-    k2 = {}
-    for label, n, m, pattern in SEGSUM_CASES:
-        err, ct, idx = compare_k2(label, n, m, pattern, device)
-        if label not in SEGSUM_TIMED:
-            continue
-        ct_t, idx_l = ct.T, idx.long()
-        buf = torch.zeros((m, SEGSUM_K), device=device)
-        bytes_ms = 4 * (SEGSUM_K * n + n + m * SEGSUM_K) / PEAK_BYTES_S * 1e3
-        ops_ms = SEGSUM_K * n / PEAK_FP32_FLOP_S * 1e3
-        k2[label] = {
-            "n": n, "m": m, "max_abs_err": err,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "ms": cuda_ms(lambda: sk.segment_sum_kernel(ct, idx, m), 50),
-            "plain_ms": cuda_ms(lambda: sk.segment_sum_plain(ct, idx, m), 50),
-            "library_ms": cuda_ms(lambda: buf.index_add_(0, idx_l, ct_t), 50),
-        }
-        print(f"phase 6 K2 {label} timing: kernel {k2[label]['ms']:.5f} ms, "
-              f"plain {k2[label]['plain_ms']:.5f} ms, index_add_ "
-              f"{k2[label]['library_ms']:.5f} ms, bound "
-              f"{k2[label]['bound_ms']:.5f} ms ({k2[label]['bound_by']})",
-              flush=True)
+    k2 = phase_6(device)
 
     # ---- phase 7: the flagship's training routine, example scale
     tk.LAUNCHES = sk.LAUNCHES = 0
@@ -2198,6 +2476,7 @@ def main():
     arc_train = phase_12(device)
     k2d = phase_13(device)
     design = phase_14(device)
+    k2_device_times(k2, device)
 
     main_k2 = k2["flagship_bench"]
     print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
@@ -2222,9 +2501,14 @@ def main():
         "replaces": "tensorflowraytrace_tpu/ops/pallas_kernels.py:1664",
         "launches": train_launches["K2"],
         "max_abs_err": main_k2["max_abs_err"], "ms": main_k2["ms"],
+        "device_ms": main_k2["device_ms"],
         "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],
         "bound_by": main_k2["bound_by"], "library_ms": main_k2["library_ms"],
-        "shape": f"{SEGSUM_K}x{main_k2['n']}->{main_k2['m']}x{SEGSUM_K}",
+        "shape": f"{main_k2['k']}x{main_k2['n']}->{main_k2['m']}x"
+                 f"{main_k2['k']}",
+        "timed": {label: {key: f[key] for key in (
+            "n", "m", "k", "ms", "device_ms", "plain_ms", "library_ms",
+            "bound_ms", "max_abs_err")} for label, f in k2.items()},
     }] + [{
         "name": name, "route": "cuda",
         "source": f"tensorflowraytrace_tpu_torch/csrc/{source}",

@@ -1,7 +1,7 @@
 // The compaction of a block's rays that need a tile, and the group fold's
 // reduction, shared by the culled and two-level searches that compute a
 // tile only for the rays whose own gate passes: K3 and K4
-// (triangle_search_common.cuh) and K7, K9 and K10 (search2d_common.cuh).
+// (triangle_search_common.cuh) and K7-K10 (search2d_common.cuh).
 //
 // After the first bounce about a tenth of a block's rays need a given tile,
 // and different ones from tile to tile, so a warp vote would compute most

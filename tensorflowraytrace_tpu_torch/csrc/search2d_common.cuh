@@ -5,14 +5,12 @@
 // arcs' tile and its search, and the listed walk with its folds.
 //
 // K5 and K6 run several rays a thread over tiles staged in shared memory,
-// every thread reading the same surface at once (a broadcast); K8 runs one
-// ray a thread, kThreads rays a block, and computes a tile for a warp when
-// one of its rays passes the slab gate (a warp vote).  K7, K9 and K10 walk
-// chunks of kTile surfaces with compaction.cuh's ray compaction
+// every thread reading the same surface at once (a broadcast).  K7-K10
+// walk chunks of kTile surfaces with compaction.cuh's ray compaction
 // (walk_listed): each ray passes its own gate, and the block computes a
 // chunk for the listed rays only, several threads a ray
-// (fold_listed_segments, fold_listed_arcs); K7 sweeps every chunk, K9 and
-// K10 their candidate lists.  A surface replaces the ray's running best
+// (fold_listed_segments for K7 and K9, fold_listed_arcs for K8 and K10);
+// K7 and K8 sweep every chunk, K9 and K10 their candidate lists.  A surface replaces the ray's running best
 // only under strict <, so a tie keeps the first index.  The arithmetic is
 // the plain versions' (ops/segment_kernels.py, ops/arc_kernels.py): the
 // same float32 operations in the same order, built with --fmad=false and
@@ -34,7 +32,7 @@
 
 namespace search2d {
 
-constexpr int kThreads = 256;     // K5, K6, K8: threads a block
+constexpr int kThreads = 256;     // K5, K6: threads a block
 constexpr int kTile = 256;        // surfaces per tile = culling chunk
 constexpr float kBig = 3.0e38f;   // no-hit sentinel (u < 1.5e38 means a hit)
 constexpr float kTiny = 1.0e-30f;
@@ -152,20 +150,31 @@ constexpr int kArcCols = 8;
 // - edge: cos and sin of the window's start, cos and sin of its end, read
 //   only for a pair that passes it.
 // K10 stages an ArcTile whole from its chunk-major table
-// (ops/arc_kernels.arc_chunk_table, (C, 2, kTile, 4) 4-byte words).
+// (ops/arc_kernels.arc_chunk_table, (C, 2, kTile, 4) 4-byte words), K8
+// row by row from the arc table through registers (arc_search_culled.cu).
 struct ArcTile {
   float4 head[kTile];
   float4 edge[kTile];
 };
+
+// One row of the arc table, its columns 0-3 in `a` and 4-7 in `b`, as an
+// ArcTile's head and edge rows: the radius replaced by its reciprocal, the
+// flags by their int32 bits.
+__device__ __forceinline__ void tile_row(const float4& a, const float4& b,
+                                         float4& head, float4& edge) {
+  head = make_float4(a.x, a.y, 1.0f / a.z,
+                     __int_as_float(static_cast<int>(b.w)));
+  edge = make_float4(a.w, b.x, b.y, b.z);
+}
 
 __device__ __forceinline__ void stage_arcs(ArcTile& tile,
                                            const float* __restrict__ table,
                                            int base, int count) {
   for (int t = threadIdx.x; t < count; t += blockDim.x) {
     const float* row = table + kArcCols * (base + t);
-    tile.head[t] = make_float4(row[0], row[1], 1.0f / row[2],
-                               __int_as_float(static_cast<int>(row[7])));
-    tile.edge[t] = make_float4(row[3], row[4], row[5], row[6]);
+    tile_row(make_float4(row[0], row[1], row[2], row[3]),
+             make_float4(row[4], row[5], row[6], row[7]), tile.head[t],
+             tile.edge[t]);
   }
 }
 
@@ -295,7 +304,7 @@ __device__ __forceinline__ void search_arcs(const ArcTile& tile, int count,
 }
 
 
-// ------------------------------------ the listed walk (K7, K9, K10)
+// ------------------------------------- the listed walk (K7 to K10)
 //
 // One CUDA block per ray block (one thread a ray), chunks of kTile
 // surfaces.  The block's rays keep (ox, oy, dx, dy) in ray_a and (best u,

@@ -12,9 +12,12 @@ same arithmetic written line by line in PyTorch.
 - K8 ``nearest_hit_arcs_culled_kernel`` (``csrc/arc_search_culled.cu``,
   port of ``_arc_kernel_culled``): K6 behind a slab gate on the boxes of
   256-arc chunks (``models/acceleration.chunk_aabbs_arcs``, window-aware,
-  widened to hold every point the pair test accepts: :func:`twolevel_boxes`),
-  computing a chunk for a warp when one of its rays needs it;
-  ``cull=True``.  K8 returns K6's hits bit for bit.
+  widened to hold every point the pair test accepts: :func:`twolevel_boxes`).
+  K7's walk (``segment_kernels.py``) with K10's arc fold: each block of
+  ``segment_kernels.CULLED_RAY_BLOCK`` rays sweeps every chunk in order,
+  and a chunk is computed only for the rays that can hit its box no
+  farther than their own current best; ``cull=True``.  K8 returns K6's
+  hits bit for bit.
 - K10 ``nearest_hit_arcs_twolevel_kernel`` (``csrc/arc_search_twolevel.cu``,
   port of ``_twolevel_arc_kernel``): K9's two-level walk
   (``segment_kernels.py``) over chunks of 256 arcs, each ray gated on its
@@ -64,12 +67,12 @@ from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_arcs
 from tensorflowraytrace_tpu_torch.ops import cuda_build
 from tensorflowraytrace_tpu_torch.ops import segment_kernels
 from tensorflowraytrace_tpu_torch.ops.segment_kernels import (
-    check_cuda_inputs, culled_walk, twolevel_lists,
-    check_twolevel_ray_block,
+    check_cuda_inputs, check_culled_ray_block, check_twolevel_ray_block,
+    culled_walk, twolevel_lists,
 )
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
-    _SLACK, BIG, GATE_RAYS, _raise_on, chunk_major, plain_or_cuda,
-    twolevel_walk, widen_boxes,
+    _SLACK, BIG, _raise_on, chunk_major, plain_or_cuda, twolevel_walk,
+    widen_boxes,
 )
 
 # Launches of each CUDA kernel in this process.  A wrapper adds one where it
@@ -109,7 +112,7 @@ def load_culled_library():
     """The K8 library, built at first use, with its C signature declared."""
     lib = cuda_build.load(SOURCE_CULLED)
     fn = lib.arc_search_culled_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
         + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 4
     fn.restype = ctypes.c_int
     return lib
@@ -217,14 +220,16 @@ def launch(p0, p1, table, intersect_eps, ray_start_eps):
 
 def nearest_hit_arcs_culled_kernel(p0, p1, center, angle_start, angle_end,
                                    radius, intersect_eps, ray_start_eps):
-    """K8: K6's search with the per-chunk slab gate over chunks of
-    ``segment_kernels.CULL_CHUNK`` arcs.  Same arguments, result and device
-    rules as :func:`nearest_hit_arcs_kernel`."""
+    """K8: K6's search with each ray's slab gate over chunks of
+    ``segment_kernels.CULL_CHUNK`` arcs, ``segment_kernels.CULLED_RAY_BLOCK``
+    rays a block (K7's).  Same arguments, result and device rules as
+    :func:`nearest_hit_arcs_kernel`."""
     if plain_or_cuda(p0, "arc"):
         return nearest_hit_arcs_culled_plain(
             p0, p1, center, angle_start, angle_end, radius, intersect_eps,
             ray_start_eps)
     _check_arcs(p0, p1, center, angle_start, angle_end, radius)
+    check_culled_ray_block()
     return culled_launch(p0, p1, culled_prepare(center, angle_start,
                                                 angle_end, radius),
                          intersect_eps, ray_start_eps)
@@ -248,7 +253,8 @@ def culled_launch(p0, p1, prepared, intersect_eps, ray_start_eps):
                   "arc_search_culled", p0,
                   (p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
                    boxes.data_ptr(), p0.shape[0], table.shape[0],
-                   segment_kernels.CULL_CHUNK, float(intersect_eps),
+                   segment_kernels.CULL_CHUNK,
+                   segment_kernels.CULLED_RAY_BLOCK, float(intersect_eps),
                    float(ray_start_eps), 1.0 + _SLACK, 1.0 - _SLACK, _SLACK))
     LAUNCHES_CULLED += 1
     return out
@@ -279,9 +285,8 @@ def twolevel_boxes(center, angle_start, angle_end, radius):
     the boxes of chunks of ``segment_kernels.CULL_CHUNK`` arcs over the
     arcs' window-aware boxes, widened (``triangle_kernels.widen_boxes``) by
     ``SNAP_REACH`` of the chunk's largest |radius| and the rounding margin.
-    K10 gates each ray on its own, so a box must hold every point the pair
-    test accepts, also a tangent pair's snapped point off the circle; K8's
-    warp vote too loses such a hit when no ray of its warp reaches the box
+    K8 and K10 gate each ray on its own, so a box must hold every point the
+    pair test accepts, also a tangent pair's snapped point off the circle
     (tests/test_torch_gate_boxes2d.py)."""
     chunk = segment_kernels.CULL_CHUNK
     boxes = chunk_aabbs_arcs(center, angle_start, angle_end, radius, chunk)
@@ -461,8 +466,8 @@ def nearest_hit_arcs_plain(p0, p1, center, angle_start, angle_end, radius,
 def nearest_hit_arcs_culled_plain(p0, p1, center, angle_start, angle_end,
                                   radius, intersect_eps, ray_start_eps):
     """Plain PyTorch version of K8: the chunks of ``CULL_CHUNK`` arcs in
-    order, each computed for the rays of every ``GATE_RAYS`` group of which
-    some ray passes the slab gate against its running best on its
+    order (``segment_kernels.culled_walk``); a chunk is computed for the
+    rays that pass the slab gate against their own running best on its
     :func:`twolevel_boxes` box, with K6's arithmetic and merge."""
     n, chunk = p0.shape[0], segment_kernels.CULL_CHUNK
     best_u, best_idx, best_minus = _best(n, p0)
@@ -470,7 +475,7 @@ def nearest_hit_arcs_culled_plain(p0, p1, center, angle_start, angle_end,
     eps = (float(intersect_eps), float(ray_start_eps))
     d = p1 - p0
     boxes = twolevel_boxes(center, angle_start, angle_end, radius)
-    for c, rows in culled_walk(p0, p1, boxes, eps[1], best_u, GATE_RAYS):
+    for c, rows in culled_walk(p0, p1, boxes, eps[1], best_u):
         s0 = c * chunk
         u, minus = _arc_pairs(
             *(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
@@ -494,7 +499,7 @@ def nearest_hit_arcs_twolevel_plain(p0, p1, center, angle_start, angle_end,
     table = arc_chunk_table(center, angle_start, angle_end, radius, chunk)
     for c, rows in twolevel_walk(
             p0, p1, boxes, *twolevel_lists(p0, p1, boxes, eps[1]),
-            segment_kernels.TWOLEVEL_RAY_BLOCK, eps[1], best_u, 1):
+            segment_kernels.TWOLEVEL_RAY_BLOCK, eps[1], best_u):
         head, edge = table[c].unbind(1)                      # (R, F, 4) each
         flags = head[..., 3].to(torch.int32)
         u, minus = _arc_pairs(

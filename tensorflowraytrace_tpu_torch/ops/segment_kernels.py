@@ -46,7 +46,7 @@ from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_2d
 from tensorflowraytrace_tpu_torch.ops import cuda_build
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
     _SLACK, BIG, _inverse_direction, _merge, _raise_on, _selected,
-    _slab_gate, _thresholds, _warp_any, chunk_major, plain_or_cuda,
+    _slab_gate, _thresholds, chunk_major, plain_or_cuda,
     twolevel_candidates, twolevel_walk, widen_boxes,
 )
 
@@ -64,7 +64,8 @@ SOURCE_TWOLEVEL = "segment_search_twolevel.cu"
 # kernels' shared-memory tile (kTile in csrc/search2d_common.cuh; the
 # launches refuse another value); read at call time
 CULL_CHUNK = 256
-# K7: rays per block (one thread each; a multiple of 32 in [128, 1024]).
+# K7 and K8: rays per block (one thread each; a multiple of 32 in
+# [128, 1024]).
 # Chosen on the H100 by `chip_smoke.py --tune`: see PERF.md.  Read at call
 # time.
 CULLED_RAY_BLOCK = 1024
@@ -215,7 +216,7 @@ def culled_launch(p0, p1, prepared, intersect_eps, size_eps, ray_start_eps):
 
 
 def check_culled_ray_block():
-    """Raise unless ``CULLED_RAY_BLOCK`` is a block K7 launches."""
+    """Raise unless ``CULLED_RAY_BLOCK`` is a block K7 and K8 launch."""
     rb = CULLED_RAY_BLOCK
     if rb % 32 or not 128 <= rb <= 1024:
         raise ValueError(f"CULLED_RAY_BLOCK {rb} must be a multiple of 32 "
@@ -359,19 +360,17 @@ def nearest_hit_segments_plain(p0, p1, sp0, sp1, intersect_eps, size_eps,
     return best_u < BIG * 0.5, best_idx, best_u
 
 
-def culled_walk(p0, p1, boxes, r_eps, best_u, group):
-    """The chunks and rays the culled kernels compute, as the plain versions
-    walk them: for each chunk ``c`` of ``boxes`` ((C, 4)) in order, after the
-    earlier chunks have been merged into ``best_u``, yields ``(c, rows)`` for
-    each piece of the rays of every ``group`` of consecutive rays of which
-    some ray passes the slab gate against its running best: 1 for K7, whose
-    rays gate on their own, ``GATE_RAYS`` for K8, which keeps the warp
-    vote."""
+def culled_walk(p0, p1, boxes, r_eps, best_u):
+    """The chunks and rays the culled kernels K7 and K8 compute, as their
+    plain versions walk them: for each chunk ``c`` of ``boxes`` ((C, 4)) in
+    order, after the earlier chunks have been merged into ``best_u``,
+    yields ``(c, rows)`` for each piece of the rays that pass the slab gate
+    against their own running best."""
     o2, inv2 = p0.unbind(1), _inverse_direction(p1 - p0).unbind(1)
     for c in range(boxes.shape[0]):
         box = boxes[c]
         need = _slab_gate(o2, inv2, box[:2], box[2:], r_eps, best_u)
-        for rows in _selected(_warp_any(need, group)):
+        for rows in _selected(need):
             yield c, rows
 
 
@@ -388,7 +387,7 @@ def nearest_hit_segments_culled_plain(p0, p1, sp0, sp1, intersect_eps,
     eps = _thresholds(intersect_eps, size_eps, ray_start_eps)
     d = p1 - p0
     boxes = twolevel_boxes(sp0, sp1, size_eps)
-    for c, rows in culled_walk(p0, p1, boxes, eps[3], best_u, 1):
+    for c, rows in culled_walk(p0, p1, boxes, eps[3], best_u):
         s0 = c * chunk
         u = _segment_pairs(*(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
                            *_segment_columns(sp0, sp1, s0, s0 + chunk), *eps)
@@ -413,7 +412,7 @@ def nearest_hit_segments_twolevel_plain(p0, p1, sp0, sp1, intersect_eps,
     table, boxes, counts, cand, cap = twolevel_prepare(
         p0, p1, sp0, sp1, size_eps, eps[3])                  # (C, F, 4)
     for c, rows in twolevel_walk(p0, p1, boxes, counts, cand, cap,
-                                 TWOLEVEL_RAY_BLOCK, eps[3], best_u, 1):
+                                 TWOLEVEL_RAY_BLOCK, eps[3], best_u):
         t = table[c]                                         # (R, F, 4)
         u = _segment_pairs(*(x[rows, None] for x in p0.unbind(1) + d.unbind(1)),
                            *t.unbind(2), *eps)

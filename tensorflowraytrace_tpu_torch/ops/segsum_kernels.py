@@ -9,9 +9,10 @@ launches the hand-written kernel in ``csrc/segment_sum.cu`` (port of
 raises; it never falls back.  On CPU tensors it runs
 ``segment_sum_plain``, one ``index_add_``.
 
-The kernel sums with atomics, whose order changes from run to run: its
-result is not bitwise reproducible, and it differs from the plain version by
-float32 rounding of the partial sums.
+The kernel sums each warp's rays on one row with shuffles and the rest with
+atomics, whose order changes from run to run: its result is not bitwise
+reproducible, and it differs from the plain version by float32 rounding of
+the partial sums.
 """
 
 from __future__ import annotations

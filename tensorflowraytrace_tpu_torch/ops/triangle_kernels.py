@@ -72,10 +72,6 @@ BRUTE_RAYS_PER_THREAD = (1, 4)
 # K3: the culling chunk is the kernel's shared-memory tile (kTile in
 # csrc/triangle_search_culled.cu; the launch refuses another value)
 CULL_CHUNK = 256
-# K8 decides per warp whether to compute a chunk: its plain version gates
-# groups of this many consecutive rays (K3, K4, K7, K9 and K10 gate each
-# ray on its own)
-GATE_RAYS = 32
 # The culling boxes of K3-K4 and K7-K10 (widen_boxes) are widened on
 # every side by GATE_PAD times their largest coordinate magnitude (~64
 # float32 ulps): the float32 arithmetic can accept a hit a
@@ -508,19 +504,6 @@ def _slab_gate(o, inv, lo, hi, r_eps, best_u):
     return gate
 
 
-def _warp_any(need, group=GATE_RAYS):
-    """(N,) -> (N,): True for every ray of a ``group`` of consecutive rays
-    that has a True ray, as the kernels' warp vote decides (``group`` 1:
-    each ray on its own)."""
-    if group == 1:
-        return need
-    n = need.shape[0]
-    pad = -n % group
-    if pad:
-        need = torch.cat([need, need.new_zeros((pad,))])
-    return need.view(-1, group).any(dim=1).repeat_interleave(group)[:n]
-
-
 def _selected(mask, piece=32768):
     """Index tensors of the True entries of ``mask``, in pieces."""
     rows = torch.nonzero(mask)[:, 0]
@@ -611,17 +594,15 @@ def twolevel_candidates(p0, p1, boxes, ray_start_eps, ray_block, max_cand):
 
 
 def twolevel_walk(p0, p1, boxes, counts, cand, cap, ray_block, r_eps,
-                  best_u, group):
+                  best_u):
     """The chunks and rays the two-level kernels (K4, K9, K10) compute, as
     their plain versions walk them: each block of ``ray_block`` rays walks
     its candidate list (``counts``, ``cand`` and ``cap`` of
     :func:`twolevel_candidates`) or, on overflow, every chunk of ``boxes``
     in order.  At each step, after the earlier steps have been merged into
     ``best_u``, yields ``(chunk, rows)`` -- ``chunk`` the (R,) chunk id of
-    each ray of ``rows`` -- for each piece of the rays of every ``group``
-    of consecutive rays of which some ray passes the slab gate against its
-    running best (1 for rays that gate on their own, as K4, K9 and K10 do;
-    ``GATE_RAYS`` for a warp vote)."""
+    each ray of ``rows`` -- for each piece of the rays that pass the slab
+    gate against their own running best."""
     n, dim = p0.shape
     n_chunks, nb = boxes.shape[0], counts.shape[0]
     sweep = counts == n_chunks
@@ -636,7 +617,7 @@ def twolevel_walk(p0, p1, boxes, counts, cand, cap, ray_block, r_eps,
         box = boxes[chunk].T                                  # (2 dim, N)
         need = _slab_gate(o, inv, box[:dim], box[dim:], r_eps, best_u)
         need = need & (step < counts.long())[block]
-        for rows in _selected(_warp_any(need, group)):
+        for rows in _selected(need):
             yield chunk[rows], rows
 
 
@@ -658,7 +639,7 @@ def nearest_hit_triangles_twolevel_plain(p0, p1, vp, v1, v2, intersect_eps,
     d = p1 - p0
     o3, d3 = p0.unbind(1), d.unbind(1)
     for chunk, rows in twolevel_walk(p0, p1, boxes, counts, cand, cap,
-                                     TWOLEVEL_RAY_BLOCK, eps[3], best_u, 1):
+                                     TWOLEVEL_RAY_BLOCK, eps[3], best_u):
         tri = table[chunk].unbind(1)                          # 9 x (R, F)
         a, e1, e2 = tri[0:3], tri[3:6], tri[6:9]
         u = _moller_trumbore(*(x[rows, None] for x in o3 + d3), a, e1, e2,

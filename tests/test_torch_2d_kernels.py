@@ -223,18 +223,34 @@ def test_gate_edge_cases(cuda, label):
 
 @pytest.mark.parametrize("m", [300, 100])
 def test_blocks_that_every_one_or_no_ray_needs(cuda, m):
-    """K7 over blocks of ``sk.CULLED_RAY_BLOCK`` rays and K8 over its 256:
-    a block whose every ray is aimed at a surface, one with a single such
-    ray, one with none and a ragged last block; m = 300 leaves the second
-    chunk ragged, m = 100 is one chunk short of 256."""
+    """K7 and K8 over blocks of ``sk.CULLED_RAY_BLOCK`` rays: a block whose
+    every ray is aimed at a surface, one with a single such ray, one with
+    none and a ragged last block; m = 300 leaves the second chunk ragged,
+    m = 100 is one chunk short of 256."""
     rng = np.random.default_rng(12)
-    for kind, make, to_args, block in (
-            ("segment", scenes2d.random_segments, seg_args,
-             sk.CULLED_RAY_BLOCK),
-            ("arc", scenes2d.random_arcs, arc_args, 256)):
+    block = sk.CULLED_RAY_BLOCK
+    for kind, make, to_args in (
+            ("segment", scenes2d.random_segments, seg_args),
+            ("arc", scenes2d.random_arcs, arc_args)):
         surfaces = make(rng, m, device=cuda)
         p0, p1 = scenes2d.block_rays(rng, surfaces, block, device=cuda)
         valid = check(to_args(p0, p1, surfaces), kind)
+        assert valid[:block].float().mean() > 0.5
+        assert not valid[block + 1:3 * block].any()
+
+
+@pytest.mark.parametrize("block", [128, 256, 512, 1024])
+def test_k8_at_every_ray_block(cuda, monkeypatch, block):
+    """K8's listed walk at each ray block it launches, against its plain
+    version and K6 (``check``): blocks of which every ray, one ray or no
+    ray needs a chunk, over 300 arcs (a ragged second chunk), 100 (one
+    chunk short of 256) and 255."""
+    monkeypatch.setattr(sk, "CULLED_RAY_BLOCK", block)
+    rng = np.random.default_rng(13)
+    for m in (300, 100, 255):
+        arc = scenes2d.random_arcs(rng, m, device=cuda)
+        p0, p1 = scenes2d.block_rays(rng, arc, block, device=cuda)
+        valid = check(arc_args(p0, p1, arc), "arc")
         assert valid[:block].float().mean() > 0.5
         assert not valid[block + 1:3 * block].any()
 
@@ -259,8 +275,9 @@ def test_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
             fn(*args[:2], args[2].clone().requires_grad_(), *args[3:], *eps)
     for rb in (96, 2048):
         monkeypatch.setattr(sk, "CULLED_RAY_BLOCK", rb)
-        with pytest.raises(ValueError, match="CULLED_RAY_BLOCK"):
-            searches[1][0](*seg, EPS, EPS, EPS)
+        for fn, args, eps in (searches[1], searches[3]):
+            with pytest.raises(ValueError, match="CULLED_RAY_BLOCK"):
+                fn(*args, *eps)
     monkeypatch.setattr(sk, "CULLED_RAY_BLOCK", 256)
     # the culled kernels are compiled for one chunk width
     monkeypatch.setattr(sk, "CULL_CHUNK", 128)

@@ -13,8 +13,8 @@
   1e-5, > 99% equal ``idx``: XLA:CPU rounds the interpreted kernels
   differently in the last bit) and equal the plain K1 bit for bit,
   including K4's overflow sweep; both gate each ray on its own, on widened
-  boxes, and ``twolevel_walk`` gates rays one by one (K4, K9, K10) or by
-  32-ray groups (a warp vote).
+  boxes, and so do the walks of the plain versions, ``twolevel_walk`` (K4,
+  K9, K10) and ``segment_kernels.culled_walk`` (K7, K8).
 * ``engine``: traces with ``cull=True`` and with ``cull="grid",
   resort_rays=True`` equal the ``cull=False`` trace exactly, and the
   accelerated trace agrees with JAX's ``use_pallas=True`` trace.
@@ -35,12 +35,15 @@ from tensorflowraytrace_tpu.models import boundaries as j_bd
 from tensorflowraytrace_tpu.models import mesh as j_mesh
 from tensorflowraytrace_tpu.ops import materials as j_mats
 from tensorflowraytrace_tpu.ops import pallas_kernels as pk
-from tensorflowraytrace_tpu_torch import Scene3D, TraceConfig, config, trace
+from tensorflowraytrace_tpu_torch import (
+    Scene3D, TraceConfig, config, scenes2d, trace,
+)
 from tensorflowraytrace_tpu_torch import engine as t_engine
 from tensorflowraytrace_tpu_torch.models import acceleration as t_acc
 from tensorflowraytrace_tpu_torch.models import boundaries as t_bd
 from tensorflowraytrace_tpu_torch.models import mesh as t_mesh
 from tensorflowraytrace_tpu_torch.ops import materials as t_mats
+from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 from tensorflowraytrace_tpu_torch.utils.convert import (
     guide_params_from_numpy, rayset_from_numpy, triangles_from_numpy,
@@ -361,11 +364,9 @@ def test_plain_twolevel_gates_each_ray_and_equals_k1_on_a_guide(rng):
     assert y < raw[1] and wide[1] <= y
 
 
-@pytest.mark.parametrize("group", [1, 32])
-def test_twolevel_walk_gate_group(rng, group):
-    """``twolevel_walk`` yields at its first step the rays that pass their
-    own gate (``group`` 1, K4, K9 and K10) or every ray of a 32-ray group
-    of which one passes (a warp vote)."""
+def test_twolevel_walk_gate_group(rng):
+    """``twolevel_walk`` yields at its first step exactly the rays that pass
+    their own gate, as K4, K9 and K10 gate them."""
     tris, p0, p1 = sorted_soup(rng, 2000, 700)
     p0[::3] = 100.0                       # a third of the rays point away
     p1[::3] = 101.0
@@ -375,20 +376,34 @@ def test_twolevel_walk_gate_group(rng, group):
                                                       EPS)
     best = torch.full((700,), tk.BIG)
     chunk, rows = next(tk.twolevel_walk(p0, p1, boxes, counts, cand, cap,
-                                        tk.TWOLEVEL_RAY_BLOCK, EPS, best,
-                                        group))
+                                        tk.TWOLEVEL_RAY_BLOCK, EPS, best))
     block = torch.arange(700) // tk.TWOLEVEL_RAY_BLOCK
     first = cand.view(-1, cap)[block, 0].long()
     box = boxes[first].T
     need = tk._slab_gate(p0.unbind(1), tk._inverse_direction(p1 - p0).unbind(1),
                          box[:3], box[3:], EPS, best) & (counts > 0)[block]
-    want = tk._warp_any(need, group)
-    assert torch.equal(rows, torch.nonzero(want)[:, 0])
+    assert torch.equal(rows, torch.nonzero(need)[:, 0])
     assert torch.equal(chunk, first[rows])
-    if group == 1:
-        assert torch.equal(want, need) and not need[::3].any()
-    else:
-        assert want[::3].any()
+    assert rows.numel() > 100 and not need[::3].any()
+
+
+def test_culled_walk_gates_each_ray(rng):
+    """``segment_kernels.culled_walk`` yields at its first step chunk 0
+    and exactly the rays that pass their own gate on its box, as K7 and K8
+    gate them; a third of the rays point away and none of them is
+    yielded."""
+    seg = scenes2d.random_segments(rng, 700, device="cpu")
+    p0, p1 = scenes2d.random_rays(rng, 2000, device="cpu")
+    p0[::3] = 100.0
+    p1[::3] = 101.0
+    boxes = gk.twolevel_boxes(seg.p0, seg.p1, EPS)
+    best = torch.full((2000,), tk.BIG)
+    c, rows = next(gk.culled_walk(p0, p1, boxes, EPS, best))
+    box = boxes[0]
+    need = tk._slab_gate(p0.unbind(1), tk._inverse_direction(p1 - p0).unbind(1),
+                         box[:2], box[2:], EPS, best)
+    assert c == 0 and torch.equal(rows, torch.nonzero(need)[:, 0])
+    assert 100 < rows.numel() < 1300 and not need[::3].any()
 
 
 @pytest.mark.parametrize("live", [0, 1, 31, 32, 33, 64, 128])

@@ -6,10 +6,11 @@ Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 ``python -m pytest tests/test_torch_segsum_kernel.py -m cuda --noconftest
 -o addopts="" -q``.
 
-The kernel adds with atomics in an order that changes from run to run, so
-it is held elementwise to the float64 sum: ``|K2 - ref64| <= 1e-5 S +
-1e-7``, where ``S[j] = sum over idx[i] == j of |ct[:, i]|`` bounds the
-rounding of any order of float32 additions.
+The kernel sums the lanes of a warp that share a row with shuffles and
+adds with atomics in an order that changes from run to run, so it is held
+elementwise to the float64 sum: ``|K2 - ref64| <= 1e-5 S + 1e-7``, where
+``S[j] = sum over idx[i] == j of |ct[:, i]|`` bounds the rounding of any
+order of float32 additions.
 """
 
 import numpy as np
@@ -51,8 +52,10 @@ def check(ct, idx, m):
     assert sk.LAUNCHES == before + 1
     ref64 = sk.segment_sum_plain(ct.double(), idx, m)
     bound = sk.segment_sum_plain(ct.double().abs(), idx, m) * 1e-5 + 1e-7
-    assert got.shape == (m, K) and got.dtype == torch.float32
-    assert bool(((got.double() - ref64).abs() <= bound).all())
+    assert got.shape == (m, ct.shape[0]) and got.dtype == torch.float32
+    finite = torch.isfinite(ref64)
+    assert torch.equal(finite, torch.isfinite(got))
+    assert bool(((got.double() - ref64).abs() <= bound)[finite].all())
     return got
 
 
@@ -68,7 +71,66 @@ def test_kernel_matches_float64(cuda, n, m, idx):
 def test_branches(cuda):
     assert sk.branch(770, K, cuda) == "shared"
     assert sk.branch(4096, K, cuda) == "shared"
+    assert sk.branch(512, 4, cuda) == "shared"
     assert sk.branch(16386, K, cuda) == "global"
+
+
+def test_warp_lanes_split_over_two_and_three_rows(cuda):
+    """Warps whose lanes share 2 rows in halves, 3 rows in runs of 11, or
+    3 rows interleaved (lane % 3, lane 1 on lane 0's row, so that
+    neighbouring lanes share a row and the groups are not contiguous):
+    every group sums over several lanes.  The ray count is no multiple of
+    a warp or of 4."""
+    n = 4096 * 8 + 7
+    ct, _ = case(n, 300, cuda)
+    i = torch.arange(n, device=cuda)
+    warp, lane = i // 32, i % 32
+    interleaved = torch.where(lane == 1, 0, lane % 3)
+    split = torch.where(warp % 3 == 0, lane // 16,
+                        torch.where(warp % 3 == 1, lane // 11, interleaved))
+    check(ct, ((warp % 50) * 3 + split).to(torch.int32), 300)
+
+
+def test_shared_limit_and_one_row_past_it(cuda):
+    """The largest table that takes the shared branch (found from
+    ``branch``) and one row more, which takes the global one."""
+    lo, hi = 1, 1 << 16
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if sk.branch(mid, K, cuda) == "shared" else (lo,
+                                                                         mid)
+    assert sk.branch(lo, K, cuda) == "shared"
+    assert sk.branch(lo + 1, K, cuda) == "global"
+    for m in (lo, lo + 1):
+        check(*case(1 << 18, m, cuda), m)
+
+
+def test_all_zero_and_nan_cotangents(cuda):
+    """All-zero cotangents give +0 everywhere; a NaN reaches its row and
+    column and no other, one_row's contention and the random case
+    alike."""
+    for m, idx in ((770, "same"), (770, "random")):
+        ct, ids = case(1 << 16, m, cuda, idx)
+        zero = sk.segment_sum_kernel(torch.zeros_like(ct), ids, m)
+        assert torch.equal(zero, torch.zeros_like(zero))
+        assert not bool(torch.signbit(zero).any())
+        ct[2, 5] = float("nan")
+        got = check(ct, ids, m)
+        nan = torch.zeros_like(got, dtype=torch.bool)
+        nan[int(ids[5]), 2] = True
+        assert torch.equal(torch.isnan(got), nan)
+
+
+def test_guide2d_backward_shape(cuda):
+    """The 2D guide's arc gather backward: 512 rows, k = 4, most rays
+    with a zero cotangent on the clamped last row."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    n, m = 1 << 20, 512
+    ct = torch.randn((4, n), generator=gen, device=cuda)
+    hit = torch.rand((n,), generator=gen, device=cuda) < 0.1
+    rows = torch.randint(0, m, (n,), generator=gen, device=cuda)
+    ct[:, ~hit] = 0.0
+    check(ct, torch.where(hit, rows, m - 1).to(torch.int32), m)
 
 
 def test_zero_cotangents_sum_to_zero(cuda):
