@@ -153,6 +153,27 @@ exits non-zero without printing a result):
    ``early_exit=True`` trace under ``torch.no_grad()``: its final
    ``state``, ``p0`` and ``p1`` equal the 50-bounce trace's bit for bit,
    with its depth and its host synchronisations (one a bounce).
+15. the examples' 3D problems at their sizes, through the entry points
+   that pick the kernels on the card, building nothing new:
+   ``scenes3d.trace_3d`` (examples/trace_3d.py: 200 rays of a static
+   sphere cap through a 6-ring lens and a 12-ring mirror sphere, 4
+   bounces, history kept, float32) launches K1 once a bounce; the same
+   trace with K1 and with its plain version logged call by call: every
+   call's hits, the history and the final rays bit for bit, and the
+   Cramer search's finished count equal; median of 5 traces.  Then the
+   hexalens (``hexalens.problem``: 2000 rays, mesh edge 0.08, 3 bounces,
+   float32) at its initial lens on identical rays: each K1 call bit for
+   bit with its plain version, the loss within rtol 1e-4 and the gradient
+   within 1e-4 of its max norm of the plain path's (Cramer search,
+   ``index_add_`` backward); ``hexalens.train`` at the example's defaults
+   (150 steps in two chained phases): K1 and K2 launch 3 times a step, the
+   error falls (the mean of the last 10 steps below the first 10's, and on
+   a fixed sample of rays), one step profiled for its idle share; both
+   surfaces exported with ``export_boundary_stl`` under build/ and read
+   back with ``load_stl`` (corners within float32 rounding of
+   ``updated_mesh``), ``imaging_test`` of 5 batches into 64 x 64 bins, and
+   one trace's ``landing_histogram_fold`` equal to ``histogram2d`` of its
+   finished landings.
 
 Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
 earlier runs: the brute-force search does not use the order.  Then the
@@ -269,6 +290,14 @@ ARC_STEPS = (30, 50)
 ARC_WIDE_BEAM = 174763
 GUIDE2D_RAYS = 1 << 20
 DESIGN_PASSES = 3
+# phase 15: examples/trace_3d.py and examples/hexalens.py at their sizes
+TRACE3D_BOUNCES = 4
+HEX_RAYS = 2000
+HEX_MESH_STEP = 0.08
+HEX_STEPS = 150
+HEX_BOUNCES = 3
+HEX_IMAGE_BATCHES = 5
+HEX_IMAGE_BINS = 64
 
 
 def check(cond, message):
@@ -2052,6 +2081,274 @@ def tune_twolevel_2d(device):
         run(rb, cap)
 
 
+def logged(fn, log):
+    """``fn``, keeping each call's arguments and result in ``log``."""
+    def call(*args):
+        out = fn(*args)
+        log.append((args, out))
+        return out
+    return call
+
+
+def k1_calls_equal(label, got, ref):
+    """Two logs of K1's wrapper (the kernel's, and its plain version's
+    through the same trace): each call's inputs and its valid, idx and u,
+    bit for bit.  Returns the number of calls."""
+    import torch
+
+    check(len(got) == len(ref) > 0,
+          f"{label}: {len(got)} kernel calls against {len(ref)} plain calls")
+    for k, ((g_args, g_out), (r_args, r_out)) in enumerate(zip(got, ref)):
+        check(all(torch.equal(a, b) for a, b in zip(g_args[:5], r_args[:5])),
+              f"{label}: call {k} searched other rays or triangles")
+        diffs = [int((a != b).sum()) for a, b in zip(g_out, r_out)]
+        check(not any(diffs), f"{label}: call {k}: valid, idx, u differ from "
+              f"the plain version in {diffs} rays")
+    return len(got)
+
+
+def phase_15(device):
+    """The 3D point-source trace and the hexalens design at the examples'
+    sizes, through K1 (and K2 in training) as the entry points choose them
+    on the card.  Returns the main path's launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflowraytrace_tpu_torch import (
+        FINISHED, analysis, hexalens, landing_histogram_fold, scenes3d, trace,
+    )
+    from tensorflowraytrace_tpu_torch.models import mesh as mt
+    from tensorflowraytrace_tpu_torch.ops import cuda_build
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+    from tensorflowraytrace_tpu_torch.optim import Optimizer
+    from tensorflowraytrace_tpu_torch.utils.checkpoint import export_boundary_stl
+
+    f32 = torch.float32
+    t_phase = time.perf_counter()
+
+    # ---- 1. trace_3d: the main path, then K1 and its plain version
+    tk.LAUNCHES = 0
+    res = scenes3d.trace_3d(device=device)
+    torch.cuda.synchronize()
+    trace3d_launches = tk.LAUNCHES
+    check(trace3d_launches == TRACE3D_BOUNCES,
+          f"trace_3d launched K1 {trace3d_launches} times")
+    rays, scene, cfg = scenes3d.point_source_scene(device=device)
+    check(cfg.use_kernel and cfg.keep_history
+          and cfg.max_bounces == TRACE3D_BOUNCES, f"trace_3d config {cfg}")
+    trace_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trace(rays, scene, scenes3d.MATERIALS, cfg)
+        torch.cuda.synchronize()
+        trace_s.append(time.perf_counter() - t0)
+    log_k, log_p = [], []
+    with override(tk, nearest_hit_triangles_kernel=logged(
+            tk.nearest_hit_triangles_kernel, log_k)):
+        res_k = trace(rays, scene, scenes3d.MATERIALS, cfg)
+    with override(tk, nearest_hit_triangles_kernel=logged(
+            tk.nearest_hit_triangles_plain, log_p)):
+        res_p = trace(rays, scene, scenes3d.MATERIALS, cfg)
+    calls = k1_calls_equal("phase 15 trace_3d", log_k, log_p)
+    for name in ("history_p0", "history_p1", "history_state"):
+        check(torch.equal(getattr(res_k, name), getattr(res_p, name)),
+              f"trace_3d {name}: K1 and its plain version differ")
+    check(torch.equal(res_k.rays.state, res_p.rays.state)
+          and torch.equal(res_k.rays.p1, res_p.rays.p1)
+          and torch.equal(res.rays.state, res_k.rays.state),
+          "trace_3d final rays: K1 and its plain version differ")
+    res_c = trace(rays, scene, scenes3d.MATERIALS,
+                  dataclasses.replace(cfg, use_kernel=False))
+    finished = {k: int((r.rays.state == FINISHED).sum())
+                for k, r in (("K1", res_k), ("plain", res_p), ("cramer", res_c))}
+    check(len(set(finished.values())) == 1,
+          f"trace_3d finished counts differ: {finished}")
+    print(f"phase 15 trace_3d: {rays.n_rays} rays x "
+          f"{scene.triangles.n_surfaces} triangles, {TRACE3D_BOUNCES} bounces, "
+          f"float32, ray_start_epsilon {cfg.ray_start_epsilon!r}: K1 "
+          f"launched {trace3d_launches} times; {calls} calls bit for bit with "
+          f"the plain version (states, history, final rays equal); finished "
+          f"{finished}; median {statistics.median(trace_s) * 1e3:.3f} ms a "
+          f"trace over 5 {[round(t * 1e3, 3) for t in trace_s]}", flush=True)
+    del res, res_k, res_p, res_c, log_k, log_p
+
+    # ---- 2. hexalens: K1 and K2 against the plain path, identical rays
+    lens, source, loss = hexalens.problem(HEX_RAYS, HEX_MESH_STEP, f32, device)
+    check(loss.cfg.use_kernel, "hexalens.problem did not choose the kernels")
+    _, _, loss_p = hexalens.problem(HEX_RAYS, HEX_MESH_STEP, f32, device,
+                                    use_kernel=False)
+    rays = source.sample(torch.Generator(device).manual_seed(123), f32, device)
+
+    def value_and_grad(fn, params):
+        leaves = [p.detach().clone().requires_grad_(True) for p in params]
+        value = fn(leaves, rays)
+        return value.detach(), torch.autograd.grad(value, leaves)
+
+    log_k, log_p = [], []
+    tk.LAUNCHES = sk.LAUNCHES = 0
+    with override(tk, nearest_hit_triangles_kernel=logged(
+            tk.nearest_hit_triangles_kernel, log_k)):
+        v_k, g_k = value_and_grad(loss, lens.init_params())
+    step_launches = {"K1": tk.LAUNCHES, "K2": sk.LAUNCHES}
+    check(step_launches == {"K1": HEX_BOUNCES, "K2": HEX_BOUNCES},
+          f"hexalens forward + backward launched {step_launches}")
+    with override(tk, nearest_hit_triangles_kernel=logged(
+            tk.nearest_hit_triangles_plain, log_p)):
+        loss(lens.init_params(), rays)
+    calls = k1_calls_equal("phase 15 hexalens", log_k, log_p)
+    v_p, g_p = value_and_grad(loss_p, lens.init_params())
+    rel = abs(float(v_k) - float(v_p)) / abs(float(v_p))
+    gmax = max(float(g.abs().max()) for g in g_p)
+    gdiff = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p))
+    check(rel <= 1e-4, f"hexalens loss {float(v_k)} vs plain {float(v_p)}")
+    check(gmax > 0 and gdiff <= 1e-4 * gmax,
+          f"hexalens gradient differs from the plain path's by {gdiff} "
+          f"(max {gmax})")
+    n_faces = [s.faces.shape[0] for s in lens.surfaces]
+    print(f"phase 15 hexalens: {HEX_RAYS} rays, mesh edge {HEX_MESH_STEP} "
+          f"({lens.surfaces[0].n_params} vertices, {n_faces} faces), "
+          f"{HEX_BOUNCES} bounces, float32, ray_start_epsilon "
+          f"{loss.cfg.ray_start_epsilon!r}; one forward + backward launches "
+          f"{step_launches}; {calls} K1 calls bit for bit with the plain "
+          f"version; loss {float(v_k)!r} against the plain path's (Cramer "
+          f"search, index_add_ backward) {float(v_p)!r}, rel {rel:.3e}; max "
+          f"|g_kernel - g_plain| {gdiff!r} of max |g_plain| {gmax!r}, ratio "
+          f"{gdiff / gmax:.3e}", flush=True)
+    del log_k, log_p
+
+    # ---- 3. hexalens.train at the example's defaults: the main path
+    tk.LAUNCHES = sk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errors, trained = hexalens.train(steps=HEX_STEPS, ray_count=HEX_RAYS,
+                                     mesh_step=HEX_MESH_STEP, device=device)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    hex_launches = {"K1": tk.LAUNCHES, "K2": sk.LAUNCHES}
+    for name, count in hex_launches.items():
+        check(count == HEX_BOUNCES * HEX_STEPS,
+              f"hexalens training launched {name} {count} times, not "
+              f"{HEX_BOUNCES} a step")
+    check(len(errors) == HEX_STEPS and np.all(np.isfinite(errors)),
+          "hexalens errors are not finite")
+    check(all(bool(torch.isfinite(p).all()) for p in trained),
+          "hexalens parameters are not finite")
+    first, last = float(np.mean(errors[:10])), float(np.mean(errors[-10:]))
+    check(last < first, f"hexalens error did not fall: {first} -> {last}")
+    fixed = source.sample(torch.Generator(device).manual_seed(99), f32, device)
+    with torch.no_grad():
+        e0, e1 = float(loss(lens.init_params(), fixed)), float(loss(trained,
+                                                                    fixed))
+    check(e1 < e0, f"hexalens error on fixed rays did not fall: {e0} -> {e1}")
+
+    # one step, profiled: the idle share (the step of train(), built alike)
+    _, _, accumulator = hexalens.lens_tools(HEX_MESH_STEP)
+    opt = Optimizer(lambda params, gen: loss(params, source.sample(
+        gen, f32, device)), trained, learning_rate=1.0, grad_clip=1e-3,
+        generator=torch.Generator(device).manual_seed(0))
+    accs = [torch.as_tensor(accumulator, dtype=f32, device=device)] * 2
+
+    def step():
+        return opt.run_phase(1, accs, lr_scale=1e-5, momentum=0.5)
+
+    step()
+    step_s = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    step_us = statistics.median(step_s) * 1e6
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, union_us, n_device = device_profile(prof)
+    if union_us > 0:
+        busy_us = sum(by_name.values())
+        idle = (f"device busy {union_us:.1f} us of {prof_wall_us:.1f} us wall "
+                f"(idle share {1 - union_us / prof_wall_us:.4f}; of the "
+                f"untraced median step {step_us:.1f} us, "
+                f"{1 - union_us / step_us:.4f}); {n_device} "
+                f"kernels and copies; K1 "
+                f"{sum(t for n, t in by_name.items() if 'triangle_search' in n):.1f}"
+                f" us, K2 "
+                f"{sum(t for n, t in by_name.items() if 'segment_sum' in n):.1f}"
+                f" us of {busy_us:.1f} us")
+    else:
+        idle = "the profiler recorded no device time: idle share not measured"
+    syncs = count_syncs(step)
+    sample_syncs = count_syncs(lambda: source.sample(opt.generator, f32,
+                                                     device))
+    print(f"phase 15 hexalens train: {HEX_STEPS} steps of {HEX_RAYS} rays in "
+          f"{train_s:.3f} s = {train_s / HEX_STEPS * 1e3:.3f} ms/step (set-up "
+          f"included); launches {hex_launches} = "
+          f"{hex_launches['K1'] / HEX_STEPS:g} K1 and "
+          f"{hex_launches['K2'] / HEX_STEPS:g} K2 a step; error first "
+          f"{errors[0]!r} last {errors[-1]!r}, mean first 10 {first!r} last 10 "
+          f"{last!r}; on fixed rays {e0!r} -> {e1!r}; one step alone: "
+          f"median {step_us / 1e3:.3f} ms over 5 "
+          f"{[round(t * 1e3, 3) for t in step_s]}; one profiled step: "
+          f"{idle}; {syncs} synchronising calls a step, {sample_syncs} of them "
+          f"in the ray sampling", flush=True)
+
+    # ---- 4. STL export, the image and the landing fold
+    p_front, p_back = lens.constrain(trained)
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    worst = 0.0
+    for k, (surface, params) in enumerate(zip(lens.surfaces,
+                                              (p_front, p_back))):
+        path = export_boundary_stl(surface, params, str(
+            cuda_build.BUILD_DIR / f"hexalens_{k}.stl"))
+        back, mesh = mt.load_stl(path), surface.updated_mesh(params)
+        check(back.n_faces == mesh.n_faces,
+              f"STL {path}: {back.n_faces} faces, not {mesh.n_faces}")
+        err = float(np.abs(back.points[back.faces]
+                           - mesh.points[mesh.faces]).max())
+        scale = max(1.0, float(np.abs(mesh.points).max()))
+        check(err <= 2.5e-7 * scale,
+              f"STL {path}: corners off updated_mesh by {err}")
+        worst = max(worst, err)
+    image_gen = torch.Generator(device).manual_seed(7)
+
+    def landings(**trace_kw):
+        batch = source.sample(image_gen, f32, device)
+        with torch.no_grad():
+            res = loss.trace(trained, batch, **trace_kw)
+        fin = res.rays.state == FINISHED
+        return res, res.rays.p1[fin][:, 1:]
+
+    h, _, _, _ = analysis.imaging_test(lambda: landings()[1],
+                                       hexalens.IMAGE_RANGE,
+                                       batch_count=HEX_IMAGE_BATCHES,
+                                       bins=HEX_IMAGE_BINS, verbose=False)
+    check(h.shape == (HEX_IMAGE_BINS, HEX_IMAGE_BINS) and h.sum() > 0,
+          f"imaging_test image {h.shape}, {h.sum()} rays")
+    init, fold = landing_histogram_fold(hexalens.IMAGE_RANGE, 96, 64,
+                                        axes=(1, 2), device=device)
+    res, yz = landings(fold_fn=fold, fold_init=init)
+    ref = analysis.histogram2d(yz[:, 0], yz[:, 1], hexalens.IMAGE_RANGE, 96, 64)
+    check(torch.equal(res.fold, ref),
+          f"the landing fold differs from histogram2d in "
+          f"{int((res.fold != ref).sum())} bins")
+    print(f"phase 15 STL and images: both surfaces exported and read back "
+          f"(max corner error {worst!r}); imaging_test {HEX_IMAGE_BATCHES} "
+          f"batches into {HEX_IMAGE_BINS}x{HEX_IMAGE_BINS} bins: {h.sum():g} "
+          f"rays, {int((h > 0).sum())} bins lit; landing fold 96x64 equals "
+          f"histogram2d of {yz.shape[0]} finished rays exactly; phase 15 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"K1": hex_launches["K1"], "K2": hex_launches["K2"],
+            "K1_trace_3d": trace3d_launches}
+
+
 def main():
     import torch
 
@@ -2478,6 +2775,9 @@ def main():
     design = phase_14(device)
     k2_device_times(k2, device)
 
+    # ---- phase 15: the point-source trace and the hexalens, K1 and K2
+    hexa = phase_15(device)
+
     main_k2 = k2["flagship_bench"]
     print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
           flush=True)
@@ -2486,6 +2786,7 @@ def main():
         "source": "tensorflowraytrace_tpu_torch/csrc/triangle_search.cu",
         "replaces": "tensorflowraytrace_tpu/ops/pallas_kernels.py:76",
         "launches": train_launches["K1"], "launches_forward": forward_launches,
+        "launches_hexalens": hexa["K1"], "launches_trace_3d": hexa["K1_trace_3d"],
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound_ms, "bound_by": "operations", "library_ms": None,
         "floor_no_fma_ms": 2 * k1_bound_ms, "pairs_out_on_tu": k1_tu_out,
@@ -2499,7 +2800,7 @@ def main():
         "name": "segment_sum", "route": "cuda",
         "source": "tensorflowraytrace_tpu_torch/csrc/segment_sum.cu",
         "replaces": "tensorflowraytrace_tpu/ops/pallas_kernels.py:1664",
-        "launches": train_launches["K2"],
+        "launches": train_launches["K2"], "launches_hexalens": hexa["K2"],
         "max_abs_err": main_k2["max_abs_err"], "ms": main_k2["ms"],
         "device_ms": main_k2["device_ms"],
         "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],

@@ -30,6 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from tensorflowraytrace_tpu_torch import config
+from tensorflowraytrace_tpu_torch.analysis import histogram2d
 from tensorflowraytrace_tpu_torch.config import (
     ACTIVE, DEAD, FINISHED, OPTICAL, STOP, STOPPED, default_epsilon,
     resolve_device,
@@ -567,9 +568,9 @@ def trace(rays: RaySet, scene, materials=None, cfg: TraceConfig = TraceConfig(),
     the post-bounce ray ``fields`` as a fifth element when ``fold_fields``;
     the final accumulator lands in ``TraceResult.fold`` (see
     :func:`path_length_fold`, :func:`bounce_count_fold`,
-    :func:`landing_sum_fold`).  Folds compose with ``cfg.remat`` and are
-    differentiable.  ``keep_history`` stacks the records along a leading
-    bounce axis.
+    :func:`landing_sum_fold`, :func:`landing_histogram_fold`).  Folds
+    compose with ``cfg.remat`` and are differentiable.  ``keep_history``
+    stacks the records along a leading bounce axis.
 
     ``cfg.early_exit`` stops once no ray is ACTIVE and reports the depth
     reached in ``TraceResult.n_bounces``, as the JAX package's
@@ -672,5 +673,43 @@ def landing_sum_fold(value_fn, dtype, state_code=FINISHED, device=None):
         _, p1, state, alive = record[:4]
         mask = alive & (state == state_code)
         return acc + torch.sum(torch.where(mask, value_fn(p1), 0.0))
+
+    return init, fn
+
+
+def landing_histogram_fold(value_range, x_bins, y_bins=None,
+                           dtype=torch.float32, axes=(0, 1),
+                           state_code=FINISHED, weight_field=None,
+                           device=None):
+    """``(init, fn)``: a (y_bins, x_bins) histogram of where rays land,
+    accumulated bounce by bounce: every ray counts once, at the bounce it
+    reaches ``state_code``, in O(bins) memory whatever the ray count or
+    depth.  Binned by :func:`analysis.histogram2d` (y on axis 0,
+    out-of-range landings clamped into the edge bins).
+
+    ``axes`` picks the two components of the landing point binned as
+    (x, y).  ``weight_field`` names a ray field that weights each landing;
+    it needs ``trace(..., fold_fields=True)`` so that the record carries
+    the fields."""
+    y_bins = y_bins or x_bins
+    init = torch.zeros((y_bins, x_bins), dtype=dtype,
+                       device=resolve_device(device))
+    ax, ay = axes
+
+    def fn(acc, record):
+        _, p1, state, alive = record[:4]
+        mask = alive & (state == state_code)
+        if weight_field is not None:
+            if len(record) < 5:
+                raise KeyError(
+                    "landing_histogram_fold(weight_field=...) reads a ray "
+                    "field, so the fold record must include the fields: pass "
+                    "fold_fields=True to trace()")
+            w = record[4][weight_field].to(acc.dtype)
+        else:
+            w = torch.ones(p1.shape[:-1], dtype=acc.dtype, device=acc.device)
+        return acc + histogram2d(p1[..., ax], p1[..., ay], value_range,
+                                 x_bins, y_bins, dtype=acc.dtype,
+                                 weights=torch.where(mask, w, 0.0))
 
     return init, fn

@@ -170,6 +170,14 @@ def _masked_gather(vertices, faces, update_map):
     return corners
 
 
+def _host_mesh(boundary, params):
+    """``boundary``'s vertices at ``params`` (None: its own) and faces as a
+    NumPy mesh."""
+    params = boundary.params if params is None else params
+    vertices = boundary.params_to_vertices(params).detach()
+    return mt.TriMesh(vertices.cpu().numpy(), boundary.faces.cpu().numpy())
+
+
 class ParametricTriangleBoundary(nn.Module):
     """A triangle-mesh surface: vertex v = zero_v + param_v * vector_v.
     The optional vertex_update_map limits which faces' gradients reach
@@ -218,6 +226,12 @@ class ParametricTriangleBoundary(nn.Module):
 
     def params_to_vertices(self, params):
         return self.zero + params[:, None] * self.vectors
+
+    def updated_mesh(self, params=None) -> mt.TriMesh:
+        """The surface at ``params`` (None: the module's own) as a host mesh,
+        for STL export and drawing; like ``params_to_vertices`` it applies
+        no constraint."""
+        return _host_mesh(self, params)
 
     def build(self, params=None) -> TriangleSet:
         params = self.params if params is None else params
@@ -361,6 +375,11 @@ class ParametricCylindricalGuide(nn.Module):
 
     def params_to_vertices(self, params):
         return self.zero + self._expand_params(params)[:, None] * self.vectors
+
+    def updated_mesh(self, params=None) -> mt.TriMesh:
+        """The guide at ``params`` (None: the module's own) as a host
+        mesh."""
+        return _host_mesh(self, params)
 
     def build(self, params=None) -> TriangleSet:
         params = self.params if params is None else params

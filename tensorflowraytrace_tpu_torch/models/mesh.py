@@ -2,16 +2,19 @@
 
 A copy of the parts of ``tensorflowraytrace_tpu/models/mesh.py`` the 3D
 lens and light-guide paths need (that package imports JAX when it is
-imported, so nothing is imported from it): the mesh container, the
-hexagonal and cylindrical generators, and the
-vertex-graph tools that make the optimizer's gradient accumulator, smoother
-and vertex update map.  These tools run once at set-up time on the host;
-the matrices they make are applied on the device by ``optim.Optimizer``.
+imported, so nothing is imported from it): the mesh container and its
+binary / ASCII STL I/O, the circular, hexagonal and cylindrical
+generators, and the vertex-graph tools that make the optimizer's gradient
+accumulator, smoother and vertex update map.  These tools run once at
+set-up time on the host; the matrices they make are applied on the device
+by ``optim.Optimizer``.  Generators and STL files match the JAX package's
+exactly: the same faces in the same order, the same records.
 """
 
 from __future__ import annotations
 
 import math
+import struct
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,6 +49,20 @@ class TriMesh:
         """Reverse face orientation (flips all normals)."""
         return TriMesh(self.points.copy(), self.faces[:, ::-1].copy())
 
+    def face_normals(self) -> np.ndarray:
+        """(F, 3) unit normals, cross(v1 - vp, v2 - v1) normalised."""
+        vp = self.points[self.faces[:, 0]]
+        v1 = self.points[self.faces[:, 1]]
+        v2 = self.points[self.faces[:, 2]]
+        n = np.cross(v1 - vp, v2 - v1)
+        return n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-300)
+
+    def save(self, filename: str):
+        """Write the mesh as a binary STL file (the only format)."""
+        if not str(filename).lower().endswith(".stl"):
+            raise ValueError(f"unsupported mesh format: {filename}")
+        save_stl(self, filename)
+
     def unique_edges(self) -> np.ndarray:
         """(E, 2) sorted unique vertex-index pairs."""
         f = self.faces
@@ -74,11 +91,144 @@ def as_trimesh(obj) -> TriMesh:
         if faces.ndim == 1:
             if faces.size % 4 != 0 or (faces.size and (faces[::4] != 3).any()):
                 raise ValueError("as_trimesh: mesh has non-triangle faces")
-            faces = faces.reshape(-1, 4)[:, 1:]
+            faces = unpack_faces(faces)
         return TriMesh(np.asarray(obj.points), faces)
     if isinstance(obj, (tuple, list)) and len(obj) == 2:
         return TriMesh(np.asarray(obj[0]), np.asarray(obj[1]))
     raise TypeError(f"cannot interpret {type(obj).__name__} as a TriMesh")
+
+
+def pack_faces(faces) -> np.ndarray:
+    """(F, 3) -> pyvista's flat format [3, i, j, k, 3, ...]."""
+    faces = np.asarray(faces, dtype=np.int64).reshape(-1, 3)
+    return np.reshape(np.pad(faces, ((0, 0), (1, 0)), constant_values=3), (-1,))
+
+
+def unpack_faces(faces) -> np.ndarray:
+    """pyvista's flat format -> (F, 3), all faces being triangles."""
+    return np.reshape(np.asarray(faces, dtype=np.int64), (-1, 4))[:, 1:]
+
+
+# one binary STL record: a normal, three vertices, an attribute word
+_STL_RECORD = np.dtype([("n", "<f4", 3), ("v", "<f4", (3, 3)), ("attr", "<u2")])
+
+
+def save_stl(mesh: TriMesh, filename: str):
+    """Binary STL: an 80-byte header, a uint32 face count and one 50-byte
+    record a face, in face order (float32 normal and vertices, a zero
+    attribute)."""
+    rec = np.zeros((mesh.n_faces,), dtype=_STL_RECORD)
+    rec["n"] = mesh.face_normals().astype(np.float32)
+    rec["v"] = mesh.points[mesh.faces].astype(np.float32)  # (F, 3, 3)
+    with open(filename, "wb") as f:
+        f.write(b"tensorflowraytrace_tpu_torch binary STL".ljust(80, b"\0"))
+        f.write(struct.pack("<I", mesh.n_faces))
+        f.write(rec.tobytes())
+
+
+def _merged(tris) -> TriMesh:
+    """A mesh from (3F, 3) face-corner coordinates, corners that agree to 7
+    decimals merged into one vertex (so the points come out sorted)."""
+    points, inverse = np.unique(tris.round(decimals=7), axis=0,
+                                return_inverse=True)
+    return TriMesh(points, inverse.reshape(-1, 3))
+
+
+def load_stl(filename: str) -> TriMesh:
+    """Read a binary or ASCII STL file; duplicate vertices are merged."""
+    with open(filename, "rb") as f:
+        head = f.read(80)
+        if head[:5] == b"solid" and b"facet" in (head + f.read(200)):
+            f.seek(0)
+            return _load_stl_ascii(f.read().decode("ascii", errors="ignore"))
+        f.seek(80)
+        (count,) = struct.unpack("<I", f.read(4))
+        rec = np.frombuffer(f.read(count * 50), dtype=_STL_RECORD, count=count)
+    return _merged(rec["v"].astype(np.float64).reshape(-1, 3))
+
+
+def _load_stl_ascii(text: str) -> TriMesh:
+    verts = []
+    for line in text.splitlines():
+        parts = line.split()
+        if parts[:1] == ["vertex"]:
+            verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+    return _merged(np.asarray(verts, dtype=np.float64))
+
+
+# ======================================================================
+# mesh generators
+# ======================================================================
+
+def _weave_rings(inner, inner_angles, outer, outer_angles, faces, join):
+    """Triangulate the band between two concentric vertex rings by an angular
+    two-pointer walk.  Rings are listed CCW; emitted faces are CCW (+z
+    normals).  ``join`` closes the ring (full circle)."""
+    ni, no = len(inner), len(outer)
+    if ni == 0 or no == 0:
+        return
+    i_steps = 0 if ni == 1 else (ni if join else ni - 1)
+    o_steps = no if join else no - 1
+
+    def iang(k):
+        return inner_angles[k % ni] + 2 * PI * (k // ni) if join else inner_angles[k]
+
+    def oang(k):
+        return outer_angles[k % no] + 2 * PI * (k // no) if join else outer_angles[k]
+
+    i = o = 0
+    while i < i_steps or o < o_steps:
+        advance_outer = o < o_steps and (
+            i >= i_steps or oang(o + 1) <= iang(i + 1)
+        )
+        if advance_outer:
+            faces.append((inner[i % ni], outer[o % no], outer[(o + 1) % no]))
+            o += 1
+        else:
+            faces.append((inner[i % ni], outer[o % no], inner[(i + 1) % ni]))
+            i += 1
+
+
+def circular_mesh(radius, target_edge_size, starting_radius=0.0,
+                  theta_start=0.0, theta_end=2 * PI, join=None) -> TriMesh:
+    """Near-uniform disk, annulus or wedge in the x-y plane: concentric
+    vertex rings spaced by edge * sin(60 deg), woven into triangles."""
+    if join is None:
+        join = (theta_start == 0.0) and (theta_end == 2 * PI)
+    if starting_radius >= radius:
+        raise ValueError("circular_mesh: starting_radius must be < radius")
+
+    span = theta_end - theta_start
+    radius_step = target_edge_size * math.sin(PI / 3)
+    n_rings = max(int(1 + (radius - starting_radius) / radius_step), 2)
+    radii = np.linspace(starting_radius, radius, n_rings)
+
+    points = []
+    ring_indices = []
+    ring_angles = []
+    for r in radii:
+        if r == 0.0:
+            n_pts = 1
+            angles = np.asarray([theta_start])
+        else:
+            arc = r * span
+            n_pts = max(int(round(arc / target_edge_size)), 3 if join else 2)
+            if join:
+                angles = theta_start + span * np.arange(n_pts) / n_pts
+            else:
+                angles = np.linspace(theta_start, theta_end, n_pts)
+        idx = np.arange(len(points), len(points) + n_pts)
+        points.extend(
+            (r * math.cos(a), r * math.sin(a), 0.0) for a in angles
+        )
+        ring_indices.append(idx)
+        ring_angles.append(angles)
+
+    faces = []
+    for k in range(1, n_rings):
+        _weave_rings(ring_indices[k - 1], ring_angles[k - 1],
+                     ring_indices[k], ring_angles[k], faces, join)
+    return TriMesh(np.asarray(points), np.asarray(faces, dtype=np.int64))
 
 
 def hexagonal_mesh(radius=1.0, step_count=10) -> TriMesh:

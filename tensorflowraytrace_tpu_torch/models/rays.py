@@ -117,3 +117,22 @@ class RaySet:
     @property
     def dead(self):
         return self.select(self.dead_mask)
+
+
+def concat_rays(ray_sets):
+    """Concatenate ray sets, keeping only the extra fields common to every
+    set (empty and ``None`` sets are skipped)."""
+    ray_sets = [r for r in ray_sets if r is not None and r.n_rays > 0]
+    if not ray_sets:
+        raise ValueError("concat_rays: nothing to concatenate")
+    common = set(ray_sets[0].fields)
+    for r in ray_sets[1:]:
+        common &= set(r.fields)
+    return RaySet(
+        p0=torch.cat([r.p0 for r in ray_sets]),
+        p1=torch.cat([r.p1 for r in ray_sets]),
+        wavelength=torch.cat([r.wavelength for r in ray_sets]),
+        state=torch.cat([r.state for r in ray_sets]),
+        fields={k: torch.cat([r.fields[k] for r in ray_sets])
+                for k in sorted(common)},
+    )

@@ -1,22 +1,28 @@
 """Sources: factories that turn distributions into RaySets.
 
-Counterpart of ``SourceBase``, ``_Aimable`` and ``AngularSource`` in
-``tensorflowraytrace_tpu/models/sources.py``.  A source crosses its domains
-(angle, base_point, wavelength) into one flat ray batch: a *dense* source
-takes every combination (domain order: angle, base_point, wavelength), an
-un-dense one matches equally sized domains 1:1.  Each source attaches a
-``rank`` field taken from its ``rank_domain``'s distribution.
+Counterpart of ``tensorflowraytrace_tpu/models/sources.py``.  A source
+crosses its domains (angle or start_point, base_point or end_point,
+wavelength) into one flat ray batch: a *dense* source takes every
+combination (in that domain order), an un-dense one matches equally sized
+domains 1:1.  Each source attaches a ``rank`` field taken from its
+``rank_domain``'s distribution.
 
 ``sample(generator=None, dtype=None, device=None, uniforms=None)``:
 ``uniforms`` maps a domain name to the (k, n) uniforms its random
-distribution would otherwise draw from ``generator``.
+distribution would otherwise draw from ``generator`` (``PrecompiledSource``
+takes its indices and normal draws the same way).  The domains are sampled
+before the extra fields are resolved, so an extra field read from a
+distribution (a circle's ``polar_ranks``) comes from the same draw as the
+rays.
 """
 
 from __future__ import annotations
 
 import math
+import pickle
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tensorflowraytrace_tpu_torch.config import resolve_device, resolve_dtype
@@ -187,6 +193,39 @@ class _Aimable(SourceBase):
         return quat.rotate_vector(self._rotation(dtype, points.device), points)
 
 
+class PointSource(_Aimable):
+    """Rays from (or, with ``start_on_center=False``, converging to) one
+    point.  In 2D the angular distribution gives scalar angles; in 3D unit
+    direction vectors (a sphere distribution)."""
+
+    rank_domain = "angle"
+
+    def __init__(self, dimension, center, central_angle, angular_distribution,
+                 wavelengths, start_on_center=True, ray_length=1.0,
+                 angle_type="vector", **kw):
+        super().__init__(dimension, center, central_angle, angle_type,
+                         wavelengths=wavelengths, **kw)
+        self.angular_distribution = angular_distribution
+        self.start_on_center = start_on_center
+        self.ray_length = ray_length
+
+    def _domain_vars(self, generator, dtype, device, uniforms):
+        angles, ranks = self.angular_distribution.sample(
+            generator, dtype, device, uniforms.get("angle"))
+        return {"angle": (angles, ranks)}
+
+    def _build_rays(self, expanded, dtype):
+        angles = self._rotate_dirs(expanded["angle"], dtype)
+        center = torch.as_tensor(self.center, dtype=dtype, device=angles.device)
+        start = center.expand(angles.shape[0], self.dimension).contiguous()
+        if self.dimension == 2:
+            direction = torch.stack([torch.cos(angles), torch.sin(angles)], dim=1)
+        else:
+            direction = angles
+        end = start + self.ray_length * direction
+        return (start, end) if self.start_on_center else (end, start)
+
+
 class AngularSource(_Aimable):
     """Rays from several base points in several directions."""
 
@@ -220,3 +259,140 @@ class AngularSource(_Aimable):
             direction = angles
         end = start + self.ray_length * direction
         return (start, end) if self.start_on_base else (end, start)
+
+
+class AperatureSource(SourceBase):
+    """Rays from the points of one distribution to those of another, with
+    no centre or rotation; 2D points are lifted into the y-z plane for a 3D
+    source.  ``uniforms`` is keyed ``"start_point"`` and ``"end_point"``.
+    (The reference's spelling.)"""
+
+    def __init__(self, dimension, start_point_distribution,
+                 end_point_distribution, wavelengths, rank_domain="start_point",
+                 **kw):
+        super().__init__(dimension, wavelengths=wavelengths, **kw)
+        self.start_point_distribution = start_point_distribution
+        self.end_point_distribution = end_point_distribution
+        self.rank_domain = rank_domain
+
+    def _lift(self, points):
+        if self.dimension == 3 and points.shape[-1] == 2:
+            zeros = torch.zeros((points.shape[0], 1), dtype=points.dtype,
+                                device=points.device)
+            return torch.cat([zeros, points], dim=1)
+        return points
+
+    def _domain_vars(self, generator, dtype, device, uniforms):
+        s_points, s_ranks = self.start_point_distribution.sample(
+            generator, dtype, device, uniforms.get("start_point"))
+        e_points, e_ranks = self.end_point_distribution.sample(
+            generator, dtype, device, uniforms.get("end_point"))
+        return {"start_point": (self._lift(s_points), s_ranks),
+                "end_point": (self._lift(e_points), e_ranks)}
+
+    def _build_rays(self, expanded, dtype):
+        return expanded["start_point"], expanded["end_point"]
+
+
+class PrecompiledSource(SourceBase):
+    """A cache of annotated rays, resampled at every ``sample``:
+    ``sample_count`` rays drawn with replacement (``do_downsample``), their
+    start and end points optionally jittered by Gaussian noise of the given
+    per-axis deviations.
+
+    Build it from a RaySet, another source (sampled once with a generator
+    seeded 0) or a pickle file, which holds a dict of NumPy arrays (``p0``,
+    ``p1``, ``wavelength``, ``fields``): the JAX package's layout, so a file
+    saved by either package loads in the other.  Load only files this
+    program or a trusted one wrote: unpickling can run code.
+
+    ``uniforms``: ready-made draws in place of the generator's, a dict with
+    ``"index"`` (``sample_count`` integer indices), ``"start"`` and
+    ``"end"`` (standard normals shaped like the sampled p0 and p1).
+    """
+
+    def __init__(self, dimension, arg=None, sample_count=100,
+                 do_downsample=True, start_perturbation=None,
+                 end_perturbation=None):
+        super().__init__(dimension, dense=False)
+        self.sample_count = sample_count
+        self.do_downsample = do_downsample
+        self.start_perturbation = start_perturbation
+        self.end_perturbation = end_perturbation
+        self._data = None
+        if isinstance(arg, str):
+            with open(arg, "rb") as f:
+                self._data = pickle.load(f)
+        elif isinstance(arg, RaySet):
+            self.from_rays(arg)
+        elif arg is not None and hasattr(arg, "sample"):
+            self.from_rays(arg.sample())
+
+    def from_rays(self, rays: RaySet):
+        """Take ``rays`` (e.g. a trace's output) as the cache."""
+
+        def host(t):
+            return t.detach().cpu().numpy()
+
+        self._data = {
+            "p0": host(rays.p0), "p1": host(rays.p1),
+            "wavelength": host(rays.wavelength),
+            "fields": {k: host(v) for k, v in rays.fields.items()},
+        }
+        return self
+
+    def save(self, filename):
+        with open(filename, "wb") as f:
+            pickle.dump(self._data, f, pickle.HIGHEST_PROTOCOL)
+
+    def sample(self, generator=None, dtype=None, device=None,
+               uniforms=None) -> RaySet:
+        dtype, device = resolve_dtype(dtype), resolve_device(device)
+        if self._data is None:
+            raise ValueError("PrecompiledSource: no ray data loaded")
+        draws = uniforms or {}
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+
+        def tensor(a, dt=dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+        p0, p1 = tensor(self._data["p0"]), tensor(self._data["p1"])
+        wl = tensor(self._data["wavelength"])
+        fields = {k: tensor(v, None) for k, v in self._data["fields"].items()}
+        if self.do_downsample:
+            idx = draws.get("index")
+            idx = (torch.randint(0, p0.shape[0], (self.sample_count,),
+                                 generator=generator, device=device)
+                   if idx is None else tensor(idx, torch.long))
+            p0, p1, wl = p0[idx], p1[idx], wl[idx]
+            fields = {k: v[idx] for k, v in fields.items()}
+
+        def jitter(points, deviation, key):
+            if deviation is None:
+                return points
+            noise = draws.get(key)
+            noise = (torch.randn(points.shape, generator=generator, dtype=dtype,
+                                 device=device)
+                     if noise is None else tensor(noise))
+            return points + noise * tensor(deviation).expand(points.shape[1])
+
+        p0 = jitter(p0, self.start_perturbation, "start")
+        p1 = jitter(p1, self.end_perturbation, "end")
+        return RaySet.make(p0, p1, wl, fields=fields, dtype=dtype, device=device)
+
+
+class ManualSource(SourceBase):
+    """A source of given rays."""
+
+    def __init__(self, dimension, p0, p1, wavelengths=None, fields=None):
+        super().__init__(dimension, wavelengths=wavelengths, dense=False)
+        self._p0 = p0
+        self._p1 = p1
+        self._fields = dict(fields or {})
+
+    def sample(self, generator=None, dtype=None, device=None,
+               uniforms=None) -> RaySet:
+        return RaySet.make(self._p0, self._p1, self.wavelengths,
+                           fields=self._fields, dtype=resolve_dtype(dtype),
+                           device=resolve_device(device))

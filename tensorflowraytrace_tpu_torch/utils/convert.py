@@ -15,6 +15,7 @@ from tensorflowraytrace_tpu_torch.config import (
     OPTICAL, resolve_device, resolve_dtype,
 )
 from tensorflowraytrace_tpu_torch.models.rays import RaySet
+from tensorflowraytrace_tpu_torch.models.sources import PrecompiledSource
 from tensorflowraytrace_tpu_torch.models.surfaces import (
     ArcSet, SegmentSet, TriangleSet,
 )
@@ -116,3 +117,37 @@ def guide_params_from_numpy(guide, params):
     with torch.no_grad():
         guide.params.copy_(torch.as_tensor(params, dtype=guide.params.dtype))
     return guide
+
+
+def hexalens_params_from_numpy(lens, params):
+    """Load a ``ParametricMultiTriangleBoundary``'s per-surface parameters
+    (as ``hexalens.problem`` builds it) from a list of arrays (as
+    ``np.asarray`` of the JAX lens's ``init_params()`` or of trained
+    parameters), in each surface's dtype and on its device.  Returns the
+    lens."""
+    surfaces = lens.param_list()
+    if len(params) != len(surfaces):
+        raise ValueError(f"the lens has {len(surfaces)} surfaces; got "
+                         f"{len(params)} parameter arrays")
+    with torch.no_grad():
+        for p, a in zip(surfaces, params):
+            a = np.array(a)
+            if a.shape != tuple(p.shape):
+                raise ValueError(f"a surface has {p.shape[0]} parameters; "
+                                 f"got an array of shape {a.shape}")
+            p.copy_(torch.as_tensor(a, dtype=p.dtype))
+    return lens
+
+
+def precompiled_from_numpy(data, dimension=3, **kw):
+    """A ``PrecompiledSource`` over ``data``, the dict of NumPy arrays a JAX
+    ``PrecompiledSource`` holds (``p0``, ``p1``, ``wavelength``,
+    ``fields``); ``kw`` are the source's options (``sample_count``,
+    ``do_downsample``, ``start_perturbation``, ``end_perturbation``)."""
+    source = PrecompiledSource(dimension, **kw)
+    source._data = {
+        "p0": np.array(data["p0"]), "p1": np.array(data["p1"]),
+        "wavelength": np.array(data["wavelength"]),
+        "fields": {k: np.array(v) for k, v in data["fields"].items()},
+    }
+    return source

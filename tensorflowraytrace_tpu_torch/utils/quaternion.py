@@ -36,6 +36,17 @@ def quat_normalize(q, eps=1e-12):
                            min=eps)
 
 
+def quat_from_axis_angle(axis, angle):
+    """The quaternion rotating by ``angle`` (radians) about ``axis``
+    (normalised here); ``angle`` has the leading shape of ``axis``."""
+    axis = torch.as_tensor(axis)
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    half = torch.as_tensor(angle, dtype=axis.dtype, device=axis.device) / 2.0
+    w = torch.cos(half)[..., None]
+    xyz = axis * torch.sin(half)[..., None]
+    return torch.cat([w, xyz], dim=-1)
+
+
 def quat_from_u_to_v(u, v, eps=1e-12):
     """The rotation quaternion taking direction u to direction v.
     Antiparallel inputs rotate pi about a perpendicular axis."""
