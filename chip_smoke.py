@@ -174,6 +174,42 @@ exits non-zero without printing a result):
    ``updated_mesh``), ``imaging_test`` of 5 batches into 64 x 64 bins, and
    one trace's ``landing_histogram_fold`` equal to ``histogram2d`` of its
    finished landings.
+16. streaming and data parallelism at the JAX examples' sizes (the port's
+   ``streamed`` module): 16a ``streamed.GuideTrace`` (examples/
+   streamed_trace.py: the 16386-triangle guide, 24 bounces, float32,
+   ``TraceConfig.recommended``, so K3 with the re-sort): one 2^22-ray
+   block's trace alone for its peak memory, then streams of 2^25, 2^26 and
+   2^27 rays in blocks of 2^22, each timed (rays/s, equivalent
+   intersections/s), its state counts summing to its rays, K3 launched 24
+   times a block, the times linear (``streamed.check_linear``), the 2^27
+   stream's peak memory at most 1.25 x the one block's; a 2-block stream
+   of 2^20-ray blocks with a per-ray ``path_length_fold`` under
+   ``merge="concat"`` equal to one trace of the same 2^21 rays bit for bit
+   (states equal, the landing sum within rtol 1e-5).  16b
+   ``streamed.train_guide`` (examples/streamed_training.py: 4 steps of 4
+   blocks of 2^21 rays through the 242-triangle guide, 12 bounces, remat):
+   the first step lowers the loss (whether the last step's loss is below
+   the first's, the example's own test, is printed: its momentum steps
+   rebound after two, in the JAX package as here, which
+   tests/test_torch_train_schedule.py shows on the same rays), K1
+   launched 12 times a block (the backward searches nothing), K2's
+   launches a block, ms a step and the peak memory; at 2 blocks of 2^20
+   ``streamed_value_and_grad`` against autograd of the fused sum: the
+   value within rtol 1e-5, the gradient within 1e-4 of its max norm.  16c ``streamed.sharded_guide``
+   (examples/sharded_light_guide.py: 10 steps of 2^20 rays) through
+   ``Optimizer(mesh=...)`` on a one-rank NCCL group against the
+   single-process optimizer, run twice: step 0's loss equal in all three,
+   one step's parameters within 1e-4 of the update (K2's atomics), a later
+   step's loss below the first, each step's loss difference beside the
+   single process's own from run to run, ms a step; then ``streamed.dryrun`` with two gloo ranks on the
+   one card (size "card": ``parallel_trace`` of the 16386-triangle guide at
+   2^21 rays, ``parallel_trace_streamed``,
+   ``parallel_streamed_value_and_grad`` over 4 blocks of 2^20 through the
+   242-triangle guide, one ``Optimizer(mesh=...)`` step): each rank's trace
+   slots equal the one-process control's trace of its shard bit for bit
+   (hashes of states, endpoints and path lengths), the folds, counts,
+   depth, value, gradient and step within 1e-4 of their largest
+   magnitude.  No multi-GPU speed is measured.
 
 Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
 earlier runs: the brute-force search does not use the order.  Then the
@@ -298,6 +334,21 @@ HEX_STEPS = 150
 HEX_BOUNCES = 3
 HEX_IMAGE_BATCHES = 5
 HEX_IMAGE_BINS = 64
+# phase 16: examples/streamed_trace.py, streamed_training.py and
+# sharded_light_guide.py at their own sizes
+STREAM_RAYS = 1 << 27
+STREAM_BLOCK = 1 << 22
+STREAM_BOUNCES = 24
+STREAM_SIZES = 3          # 2^25, 2^26 and 2^27 rays
+STREAM_EXACT_BLOCK = 1 << 20
+STREAM_PEAK_RATIO = 1.25
+TRAIN_STREAM_RAYS = 1 << 23
+TRAIN_STREAM_BLOCK = 1 << 21
+TRAIN_STREAM_STEPS = 4
+TRAIN_STREAM_BOUNCES = 12
+SHARDED_RAYS = 1 << 20
+SHARDED_STEPS = 10
+SHARDED_BOUNCES = 12
 
 
 def check(cond, message):
@@ -1022,7 +1073,8 @@ def count_syncs(fn):
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
-def profile_guide3d(label, kernel, rays, scene, materials, cfg, device):
+def profile_guide3d(label, kernel, rays, scene, materials, cfg, device,
+                    phase="phase 10"):
     """One profiled trace of the 3D guide: the device-time split (the
     search kernel named ``kernel``, the candidate precompute, the re-sort,
     the rest), the idle share, kernels a bounce, peak memory and host
@@ -1062,7 +1114,7 @@ def profile_guide3d(label, kernel, rays, scene, materials, cfg, device):
     else:
         split = "the profiler recorded no device time: split not measured"
     syncs = count_syncs(lambda: trace(rays, scene, materials, cfg))
-    print(f"phase 10 {label} profiled trace: {split}; peak device memory "
+    print(f"{phase} {label} profiled trace: {split}; peak device memory "
           f"{peak_gib:.3f} GiB; {syncs} synchronising calls", flush=True)
     check(syncs == 0, f"the guide {label} trace synchronised {syncs} times")
 
@@ -2349,6 +2401,280 @@ def phase_15(device):
             "K1_trace_3d": trace3d_launches}
 
 
+def phase_16(device):
+    """Streaming and data parallelism at the JAX examples' sizes: the
+    streamed guide trace, the streamed guide training, the sharded guide
+    training on a one-rank NCCL group and the two-rank gloo dryrun on the
+    one card.  Returns the main paths' launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from tensorflowraytrace_tpu_torch import (
+        concat_rays, path_length_fold, streamed, streamed_value_and_grad,
+        trace,
+    )
+    from tensorflowraytrace_tpu_torch.parallel import sharding as par
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    f32 = torch.float32
+    t_phase = time.perf_counter()
+
+    def peak_above(base):
+        return (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+
+    def start_peak():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        return torch.cuda.memory_allocated(device)
+
+    # ---- 16a. the streamed trace (examples/streamed_trace.py)
+    stream = streamed.GuideTrace(STREAM_BLOCK, STREAM_BOUNCES, device=device)
+    cfg = stream.cfg
+    m = stream.scene.triangles.n_surfaces
+    check(m == 16386 and cfg.use_kernel and cfg.cull is True
+          and cfg.resort_rays and cfg.max_bounces == STREAM_BOUNCES,
+          f"streamed trace: {m} triangles, config {cfg}")
+    # one block's trace alone: the warm-up, and the peak to hold the
+    # stream's against (above what was allocated before, rays included)
+    base = start_peak()
+    init, fn = stream.fold
+    with torch.no_grad():
+        res = trace(stream.block(0), stream.scene, streamed.MATERIALS, cfg,
+                    fold_fn=fn, fold_init=init)
+    block_fold = float(res.fold)
+    block_gib = peak_above(base)
+    del res
+    rows, stream_launches, stream_gib = [], {}, {}
+    total = STREAM_RAYS // STREAM_BLOCK
+    for nb in sorted({total >> k for k in range(STREAM_SIZES)}):
+        tk.LAUNCHES = tk.LAUNCHES_CULLED = tk.LAUNCHES_TWOLEVEL = 0
+        base = start_peak()
+        row = stream.timed(nb)
+        stream_gib[nb] = peak_above(base)
+        stream_launches[nb] = {"K1": tk.LAUNCHES, "K3": tk.LAUNCHES_CULLED,
+                               "K4": tk.LAUNCHES_TWOLEVEL}
+        check(stream_launches[nb] == {"K1": 0, "K3": STREAM_BOUNCES * nb,
+                                      "K4": 0},
+              f"a stream of {nb} blocks launched {stream_launches[nb]}")
+        rows.append(row)
+        print(f"phase 16a stream {row['n_rays']} rays ({nb} blocks of "
+              f"{STREAM_BLOCK}): {row['seconds']:.3f} s = "
+              f"{row['rays_per_s']:.4e} rays/s = {row['equiv_per_s']:.4e} "
+              f"equivalent intersections/s (x {m} triangles x "
+              f"{STREAM_BOUNCES} bounces); states[active,finished,stopped,"
+              f"dead] {row['state_counts']}; fold {row['fold']!r}; K3 "
+              f"launched {stream_launches[nb]['K3']} times; peak "
+              f"{stream_gib[nb]:.3f} GiB above the start", flush=True)
+    streamed.check_linear(rows)
+    full = rows[-1]
+    check(full["n_rays"] == STREAM_RAYS and sum(full["state_counts"])
+          == STREAM_RAYS, f"the full stream counted {full['state_counts']}")
+    check(stream_gib[total] <= STREAM_PEAK_RATIO * block_gib,
+          f"the {STREAM_RAYS}-ray stream peaked at {stream_gib[total]:.3f} "
+          f"GiB, one block's trace at {block_gib:.3f} GiB")
+    print(f"phase 16a memory: one {STREAM_BLOCK}-ray block's trace peaks "
+          f"{block_gib:.3f} GiB above the start (fold {block_fold!r}); the "
+          f"{STREAM_RAYS}-ray stream {stream_gib[total]:.3f} GiB = "
+          f"{stream_gib[total] / block_gib:.4f} of it (limit "
+          f"{STREAM_PEAK_RATIO}); linear scaling holds (time x 1.8 + 1 s a "
+          f"doubling)", flush=True)
+    # one block's trace profiled: where the stream's time goes
+    profile_guide3d(f"one {STREAM_BLOCK}-ray block", "triangle_search_culled",
+                    stream.block(0), stream.scene, streamed.MATERIALS, cfg,
+                    device, phase="phase 16a")
+    del stream
+
+    # exactness at a size one trace holds: 2 blocks of 2^20 against one
+    # trace of the same 2^21 rays
+    small = streamed.GuideTrace(STREAM_EXACT_BLOCK, STREAM_BOUNCES,
+                                device=device)
+    per_ray = path_length_fold(STREAM_EXACT_BLOCK, f32, device)
+    res_c = small(2, fold=per_ray, merge="concat")
+    res_s = small(2)
+    rays = concat_rays([small.block(0), small.block(1)])
+    init_p, fn_p = path_length_fold(2 * STREAM_EXACT_BLOCK, f32, device)
+    init_s, fn_s = small.fold
+    with torch.no_grad():
+        one = trace(rays, small.scene, streamed.MATERIALS, small.cfg,
+                    fold_fn=lambda acc, rec: (fn_p(acc[0], rec),
+                                              fn_s(acc[1], rec)),
+                    fold_init=(init_p, init_s))
+    one_counts = state_counts(one.rays.state)
+    check(torch.equal(res_c.fold, one.fold[0]),
+          f"the 2-block stream's path lengths differ from one trace's in "
+          f"{int((res_c.fold != one.fold[0]).sum())} rays")
+    check(res_c.state_counts.tolist() == one_counts
+          == res_s.state_counts.tolist(),
+          f"state counts: stream {res_c.state_counts.tolist()}, one trace "
+          f"{one_counts}")
+    sum_rel = abs(float(res_s.fold) - float(one.fold[1])) / abs(
+        float(one.fold[1]))
+    check(sum_rel <= 1e-5, f"the 2-block stream's landing sum "
+          f"{float(res_s.fold)} against one trace's {float(one.fold[1])}")
+    print(f"phase 16a exactness: 2 blocks of {STREAM_EXACT_BLOCK} rays "
+          f"against one trace of {2 * STREAM_EXACT_BLOCK}: per-ray path "
+          f"lengths equal bit for bit, states {one_counts} equal, landing "
+          f"sum {float(res_s.fold)!r} against {float(one.fold[1])!r} (rel "
+          f"{sum_rel:.3e})", flush=True)
+    del small, res_c, res_s, rays, one
+
+    # ---- 16b. the streamed training (examples/streamed_training.py)
+    n_blocks = TRAIN_STREAM_RAYS // TRAIN_STREAM_BLOCK
+    tk.LAUNCHES = tk.LAUNCHES_CULLED = sk.LAUNCHES = 0
+    base = start_peak()
+    losses, params, seconds = streamed.train_guide(
+        TRAIN_STREAM_RAYS, TRAIN_STREAM_BLOCK, TRAIN_STREAM_STEPS,
+        TRAIN_STREAM_BOUNCES, device=device, verbose=False)
+    torch.cuda.synchronize()
+    train_gib = peak_above(base)
+    train_launches = {"K1": tk.LAUNCHES, "K2": sk.LAUNCHES,
+                      "K3": tk.LAUNCHES_CULLED}
+    blocks_run = n_blocks * TRAIN_STREAM_STEPS
+    check(train_launches["K1"] == TRAIN_STREAM_BOUNCES * blocks_run
+          and train_launches["K2"] > 0 and train_launches["K3"] == 0,
+          f"the streamed training launched {train_launches}, not K1 "
+          f"{TRAIN_STREAM_BOUNCES} a block")
+    # the first step descends; the example's own test, the last step below
+    # the first, is printed (its momentum steps rebound after two)
+    check(losses[1] < losses[0], f"streamed training loss {losses}")
+    check(bool(torch.isfinite(params).all()), "trained guide not finite")
+    # the streamed gradient against autograd of the fused sum, 2 blocks
+    guide, block_loss = streamed.guide_block_loss(
+        STREAM_EXACT_BLOCK, TRAIN_STREAM_BOUNCES, device=device)
+    check(block_loss.cfg.use_kernel and block_loss.cfg.remat
+          and not block_loss.cfg.cull, f"training config {block_loss.cfg}")
+    p0 = [guide.init_params()]
+    seed = streamed.fold_in(7, 0)
+    leaf = p0[0].clone().requires_grad_(True)
+    fused = block_loss([leaf], 0, seed) + block_loss([leaf], 1, seed)
+    g_fused = torch.autograd.grad(fused, leaf)[0]
+    gmax = float(g_fused.abs().max())
+    fused = float(fused.detach())
+    v, g = streamed_value_and_grad(block_loss, 2)(p0, seed)
+    vag_rel = abs(float(v) - fused) / abs(fused)
+    gdiff = float((g[0] - g_fused).abs().max())
+    check(vag_rel <= 1e-5 and gmax > 0 and gdiff <= 1e-4 * gmax,
+          f"streamed_value_and_grad: value {float(v)} against {fused}, "
+          f"gradient off by {gdiff} of {gmax}")
+    one_block = streamed_value_and_grad(block_loss, 1)
+    one_block(p0, seed)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_block(p0, seed)
+        torch.cuda.synchronize()
+        prof_wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, union_us, n_device = device_profile(prof)
+    if union_us > 0:
+        busy_us = sum(by_name.values())
+        k1_us = sum(t for n, t in by_name.items() if "triangle_search" in n)
+        k2_us = sum(t for n, t in by_name.items() if "segment_sum" in n)
+        block_split = (
+            f"device busy {union_us:.1f} us of {prof_wall_us:.1f} us wall "
+            f"(idle share {1 - union_us / prof_wall_us:.4f}); {n_device} "
+            f"kernels and copies, {busy_us:.1f} us: K1 {k1_us:.1f} us "
+            f"({k1_us / busy_us:.4%}), K2 {k2_us:.1f} us "
+            f"({k2_us / busy_us:.4%}); top: "
+            + "; ".join(f"{k[:50]} {t:.1f} us"
+                        for k, t in by_name.most_common(5)))
+    else:
+        block_split = ("the profiler recorded no device time: split not "
+                       "measured")
+    print(f"phase 16b streamed training: {TRAIN_STREAM_STEPS} steps of "
+          f"{n_blocks} blocks x {TRAIN_STREAM_BLOCK} rays, "
+          f"{TRAIN_STREAM_BOUNCES} bounces, 242 triangles: losses "
+          f"{losses} (the last below the first: {losses[-1] < losses[0]}); "
+          f"{statistics.median(seconds) * 1e3:.3f} ms a step "
+          f"(median of {[round(t * 1e3, 3) for t in seconds]}); peak "
+          f"{train_gib:.3f} GiB above the start; launches {train_launches} "
+          f"= {train_launches['K1'] / blocks_run:g} K1 and "
+          f"{train_launches['K2'] / blocks_run:g} K2 a block; at 2 blocks of "
+          f"{STREAM_EXACT_BLOCK} against autograd of the fused sum: value "
+          f"rel {vag_rel:.3e}, gradient {gdiff / gmax:.3e} of max |g| "
+          f"{gmax!r}; one {STREAM_EXACT_BLOCK}-ray "
+          f"block's forward and backward profiled: {block_split}",
+          flush=True)
+    del guide, block_loss, leaf, fused, g_fused
+
+    # ---- 16c. data parallelism: a one-rank NCCL group on the card
+    kw = dict(rays=SHARDED_RAYS, bounces=SHARDED_BOUNCES, verbose=False)
+    par.init_multihost(
+        "nccl", init_method=f"tcp://localhost:{streamed.free_port()}",
+        world_size=1, rank=0)
+    try:
+        mesh = par.ray_mesh(device=device)
+        backend = torch.distributed.get_backend()
+        tk.LAUNCHES = sk.LAUNCHES = 0
+        errors_m, _, sec_m = streamed.sharded_guide(steps=SHARDED_STEPS,
+                                                    mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        sharded_launches = {"K1": tk.LAUNCHES, "K2": sk.LAUNCHES}
+        _, step_m, _ = streamed.sharded_guide(steps=1, mesh=mesh, **kw)
+    finally:
+        torch.distributed.destroy_process_group()
+    # the single process twice: K2's float atomics add in another order in
+    # every run, and the lost flux's gradient amplifies it step by step
+    errors_s, _, sec_s = streamed.sharded_guide(steps=SHARDED_STEPS,
+                                                device=device, **kw)
+    errors_s2, _, _ = streamed.sharded_guide(steps=SHARDED_STEPS,
+                                             device=device, **kw)
+    _, step_s, _ = streamed.sharded_guide(steps=1, device=device, **kw)
+    p_init = streamed.short_guide(12, 10, f32, device)[0].init_params()
+    update = float((step_s[0] - p_init).abs().max())
+    step_diff = float((step_m[0] - step_s[0]).abs().max())
+    check(backend == "nccl", f"the one-rank group ran over {backend}")
+    check(sharded_launches == {"K1": SHARDED_BOUNCES * SHARDED_STEPS,
+                               "K2": SHARDED_BOUNCES * SHARDED_STEPS},
+          f"the sharded training launched {sharded_launches}")
+    check(errors_m[0] == errors_s[0] == errors_s2[0],
+          f"step 0's loss: NCCL one-rank {errors_m[0]}, single process "
+          f"{errors_s[0]} and {errors_s2[0]}")
+    check(update > 0 and step_diff <= 1e-4 * update,
+          f"one step's parameters: NCCL one-rank and single process differ "
+          f"by {step_diff}, the update is {update}")
+    check(min(errors_m[1:]) < errors_m[0], f"sharded loss {list(errors_m)}")
+    rel_m = np.abs(np.asarray(errors_m) - errors_s) / np.abs(errors_s)
+    rel_s = np.abs(np.asarray(errors_s2) - errors_s) / np.abs(errors_s)
+    print(f"phase 16c sharded training on a one-rank {backend} group: "
+          f"{SHARDED_STEPS} steps of {SHARDED_RAYS} rays, {SHARDED_BOUNCES} "
+          f"bounces: losses {[float(e) for e in errors_m]}; the single "
+          f"process's {[float(e) for e in errors_s]} and "
+          f"{[float(e) for e in errors_s2]}; step 0 equal in all three; one "
+          f"step's parameters differ by {step_diff!r} of an update of "
+          f"{update!r}; relative loss differences step by step, NCCL against "
+          f"the single process {[float(f'{x:.3g}') for x in rel_m]}, the "
+          f"single process against itself "
+          f"{[float(f'{x:.3g}') for x in rel_s]}; "
+          f"{sec_m / SHARDED_STEPS * 1e3:.3f} ms a step (single process "
+          f"{sec_s / SHARDED_STEPS * 1e3:.3f}); launches {sharded_launches}",
+          flush=True)
+
+    # the two-rank dryrun over gloo, both ranks on this card
+    torch.cuda.empty_cache()
+    out = streamed.dryrun(world=2, backend="gloo", device="cuda",
+                          size="card", timeout=600)
+    for r in out["ranks"]:
+        check(r["launches"]["K1"] > 0 and r["launches"]["K2"] > 0
+              and r["launches"]["K3"] > 0,
+              f"dryrun rank {r['rank']} launched {r['launches']}")
+    print(f"phase 16c dryrun: 2 gloo ranks on {out['ranks'][0]['device']}, "
+          f"size 'card' ({streamed.DRYRUN_SIZES['card']}): the ranks' "
+          f"trace slots equal the one-process control's bit for bit (state, "
+          f"p1, path hashes); depth {out['ranks'][0]['trace']['n_bounces']}; "
+          f"relative errors {out['errors']}; rank seconds "
+          f"{[round(r['seconds'], 3) for r in out['ranks']]}, launches "
+          f"{[r['launches'] for r in out['ranks']]}; ranks done in "
+          f"{out['ranks_seconds']:.1f} s, with the control "
+          f"{out['seconds']:.1f} s; phase 16 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"K3_stream": stream_launches[total]["K3"],
+            "K1_train": train_launches["K1"], "K2_train": train_launches["K2"],
+            "K1_sharded": sharded_launches["K1"],
+            "K2_sharded": sharded_launches["K2"]}
+
+
 def main():
     import torch
 
@@ -2778,6 +3104,9 @@ def main():
     # ---- phase 15: the point-source trace and the hexalens, K1 and K2
     hexa = phase_15(device)
 
+    # ---- phase 16: streaming and data parallelism
+    stream16 = phase_16(device)
+
     main_k2 = k2["flagship_bench"]
     print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
           flush=True)
@@ -2787,6 +3116,8 @@ def main():
         "replaces": "tensorflowraytrace_tpu/ops/pallas_kernels.py:76",
         "launches": train_launches["K1"], "launches_forward": forward_launches,
         "launches_hexalens": hexa["K1"], "launches_trace_3d": hexa["K1_trace_3d"],
+        "launches_streamed_training": stream16["K1_train"],
+        "launches_sharded": stream16["K1_sharded"],
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound_ms, "bound_by": "operations", "library_ms": None,
         "floor_no_fma_ms": 2 * k1_bound_ms, "pairs_out_on_tu": k1_tu_out,
@@ -2801,6 +3132,8 @@ def main():
         "source": "tensorflowraytrace_tpu_torch/csrc/segment_sum.cu",
         "replaces": "tensorflowraytrace_tpu/ops/pallas_kernels.py:1664",
         "launches": train_launches["K2"], "launches_hexalens": hexa["K2"],
+        "launches_streamed_training": stream16["K2_train"],
+        "launches_sharded": stream16["K2_sharded"],
         "max_abs_err": main_k2["max_abs_err"], "ms": main_k2["ms"],
         "device_ms": main_k2["device_ms"],
         "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],
@@ -2822,6 +3155,8 @@ def main():
         "brute_bound_ms": brute_bound_ms, "library_ms": None,
         "shape": f"{n}x{m} (first bounce of the guide)",
         "pairs": pairs, "pairs_out_on_tu": tu_out,
+        **({"launches_streamed_trace": stream16["K3_stream"]}
+           if key == "K3" else {}),
     } for name, source, line, key in (
         ("triangle_search_culled", tk.SOURCE_CULLED, 144, "K3"),
         ("triangle_search_twolevel", tk.SOURCE_TWOLEVEL, 979, "K4"))] + [{

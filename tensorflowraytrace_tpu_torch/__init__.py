@@ -7,7 +7,7 @@ package.  Its slices so far are the 3D forward trace, training, the
 acceleration path, the 2D trace, the deep 2D trace (two-level 2D
 searches, remat, early exit, folds, TraceConfig.recommended), and the
 sources, distributions, STL I/O and analysis core that run the hexalens
-design and the 3D point-source trace:
+design and the 3D point-source trace, and streaming and data parallelism:
 
   models/     rays (and concat_rays), surfaces (2D segments and arcs, 3D
               triangles, the merged Scene2D and Scene3D), sources (point,
@@ -29,13 +29,17 @@ design and the 3D point-source trace:
               as a CUDA segment sum (ops/segsum_kernels.py,
               csrc/segment_sum.cu); and their nvcc build (ops/cuda_build.py)
   engine      the multi-bounce trace loop, 2D and 3D, and its folds (the
-              landing histogram among them)
+              landing histogram among them); the streamed trace and the
+              streamed value and gradient
+  parallel/   rays split over torch.distributed ranks (sharding)
   analysis    histograms (hard and differentiable), imaging tests, the
               distribution differential
   optim       the optimizers (gradient pipeline, phases)
   flagship    the parametric-lens imaging problem and its training run
   hexalens    examples/hexalens.py's two-image wedge lens and its design
   scenes2d    the 2D problems; scenes3d: examples/trace_3d.py's scene
+  streamed    the streamed guide trace and training, the sharded guide
+              training and the multi-process dryrun
   utils/      rotations, NumPy conversion, STL export of a surface
 
 Everything is built on CUDA unless a ``device=`` says otherwise
@@ -47,8 +51,9 @@ from tensorflowraytrace_tpu_torch.config import (
     ACTIVE, DEAD, FINISHED, OPTICAL, STOP, STOPPED, TARGET,
 )
 from tensorflowraytrace_tpu_torch.engine import (
-    TraceConfig, TraceResult, bounce_count_fold, landing_histogram_fold,
-    landing_sum_fold, newly_terminated, path_length_fold, trace,
+    StreamedResult, TraceConfig, TraceResult, bounce_count_fold,
+    landing_histogram_fold, landing_sum_fold, newly_terminated,
+    path_length_fold, streamed_value_and_grad, trace, trace_streamed,
 )
 from tensorflowraytrace_tpu_torch.models.acceleration import (
     morton_sort_segments, morton_sort_triangles,

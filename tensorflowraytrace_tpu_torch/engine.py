@@ -1,8 +1,7 @@
 """The trace engine: the multi-bounce trace in 2D and 3D, and the fold
 helpers that reduce it bounce by bounce.
 
-Counterpart of ``tensorflowraytrace_tpu/engine.py`` (without
-``trace_streamed``).  Rays never compact: each keeps its slot and a
+Counterpart of ``tensorflowraytrace_tpu/engine.py``.  Rays never compact: each keeps its slot and a
 ``state`` code (ACTIVE, FINISHED on a target, STOPPED on a stop, DEAD on a
 miss).  When an ACTIVE ray reacts with an OPTICAL surface its child replaces
 it in its slot.  The bounce loop is a Python loop over ``max_bounces``, or,
@@ -17,6 +16,11 @@ backward is a segment sum) and the differentiable refine of the winning hit
 classification and the reaction (Snell's law: the vector form in 3D, the
 angle form in 2D).  With ``remat`` the rest of the bounce is recomputed in
 the backward pass; the search is not.
+
+Past what one trace's memory holds, :func:`trace_streamed` traces the rays
+block by block and merges the blocks' folds, and
+:func:`streamed_value_and_grad` sums the gradients of a loss that is a sum
+over blocks.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from tensorflowraytrace_tpu_torch import config
@@ -589,7 +594,10 @@ def trace(rays: RaySet, scene, materials=None, cfg: TraceConfig = TraceConfig(),
             raise ValueError(
                 f"keep_history at {rays.n_rays} rays x {cfg.max_bounces} "
                 f"bounces would stack ~{hist_bytes / 2 ** 30:.0f} GiB of "
-                "per-bounce history; use a fold (fold_fn/fold_init) instead")
+                "per-bounce history.  Use a fold (fold_fn/fold_init, e.g. "
+                "landing_sum_fold) for the reduction you need, and "
+                "trace_streamed to trace the rays block by block past what "
+                "one trace's memory holds")
 
     if cfg.early_exit and cfg.keep_history:
         raise ValueError("early_exit is incompatible with keep_history (the "
@@ -713,3 +721,237 @@ def landing_histogram_fold(value_range, x_bins, y_bins=None,
                                  weights=torch.where(mask, w, 0.0))
 
     return init, fn
+
+
+# ======================================================================
+# streaming: rays traced block by block, past one trace's memory
+# ======================================================================
+
+@dataclass
+class StreamedResult:
+    """Result of :func:`trace_streamed`: the merged fold and the ray counts
+    by state.  It holds no per-ray tensor unless the fold is per-ray and
+    merged with ``merge="concat"``.
+
+    ``state_counts``: (4,) int64 ray counts indexed by the state codes
+    [ACTIVE, FINISHED, STOPPED, DEAD], the padding slots already taken out.
+    """
+
+    fold: object
+    state_counts: torch.Tensor
+    n_blocks: int = 1
+    block_size: int = 0
+    n_rays: int = 0
+
+    @property
+    def counts_by_name(self):
+        c = self.state_counts
+        return {"active": c[ACTIVE], "finished": c[FINISHED],
+                "stopped": c[STOPPED], "dead": c[DEAD]}
+
+
+def _state_counts(state):
+    """(4,) counts of ``state`` by code; the codes ACTIVE, FINISHED, STOPPED
+    and DEAD are 0-3 in that order."""
+    codes = torch.arange(4, dtype=state.dtype, device=state.device)
+    return (state[None, :] == codes[:, None]).sum(dim=1)
+
+
+def _pad_rays_dead(rays: RaySet, pad: int) -> RaySet:
+    """Grow the ray axis by ``pad`` DEAD slots: edge-replicated coordinates
+    keep every normalisation downstream finite, and the DEAD state keeps
+    them out of every fold, reaction and classification."""
+
+    def edge_pad(a):
+        return torch.cat([a, a[-1:].expand((pad,) + a.shape[1:])])
+
+    return RaySet(p0=edge_pad(rays.p0), p1=edge_pad(rays.p1),
+                  wavelength=edge_pad(rays.wavelength),
+                  state=torch.cat([rays.state,
+                                   rays.state.new_full((pad,), DEAD)]),
+                  fields={k: edge_pad(v) for k, v in rays.fields.items()})
+
+
+def _ray_slice(rays: RaySet, start: int, stop: int) -> RaySet:
+    return RaySet(p0=rays.p0[start:stop], p1=rays.p1[start:stop],
+                  wavelength=rays.wavelength[start:stop],
+                  state=rays.state[start:stop],
+                  fields={k: v[start:stop] for k, v in rays.fields.items()})
+
+
+def _merge_stacked(fn, folds):
+    """``fn(leaves)`` for each leaf position of the (equally structured)
+    ``folds``, rebuilt into their structure."""
+    flat = [pytree.tree_flatten(f) for f in folds]
+    spec = flat[0][1]
+    return pytree.tree_unflatten([fn(list(leaves))
+                                  for leaves in zip(*(f[0] for f in flat))],
+                                 spec)
+
+
+def trace_streamed(rays, scene, materials=None,
+                   cfg: TraceConfig = TraceConfig(),
+                   reaction: Callable = default_reaction,
+                   fold_fn: Callable = None, fold_init=None,
+                   block_size: int = 1 << 20, n_blocks: Optional[int] = None,
+                   merge="sum", remat_blocks: bool = True,
+                   fold_fields: bool = False) -> StreamedResult:
+    """Trace any number of rays in blocks of ``block_size``, one
+    :func:`trace` after the other, and merge the blocks' folds: the device
+    holds one block's trace at a time, so the ray count is bounded by time,
+    not by memory.
+
+    The stream is a host loop that launches block after block.  The JAX
+    package's ``blocks_per_dispatch`` has no counterpart: it splits one
+    ``lax.map`` program into several so that no program outruns the TPU
+    runtime's watchdog, and here every block is already its own launches.
+
+    Parameters
+    ----------
+    rays : RaySet | Callable[[int], RaySet]
+        A ray set, traced in ``ceil(N / block_size)`` blocks (a short last
+        block is padded with DEAD slots that no fold or count sees), or a
+        block generator ``rays(i) -> RaySet`` of exactly ``block_size`` rays,
+        so that the stream's rays never exist at once; it needs
+        ``n_blocks``.  A generated block is drawn outside the checkpoint of
+        ``remat_blocks``, so the backward traces the very rays the forward
+        traced, whatever generator drew them.
+    fold_fn, fold_init : the fold of each block's trace (required)
+        Streaming returns reductions only.  ``fold_init`` is sized for one
+        block (e.g. ``path_length_fold(block_size, dtype)``).
+    merge : "sum" | "concat" | callable
+        ``"sum"`` keeps a running sum of the blocks' folds (memory O(fold)
+        whatever the number of blocks; right for scalar losses, counts and
+        histograms); ``"concat"`` concatenates per-ray folds along their
+        first axis and trims the padding, giving (N, ...) leaves; a callable
+        gets the folds stacked along a new first axis of length n_blocks.
+    remat_blocks : bool
+        When autograd records the stream, trace each block under
+        ``torch.utils.checkpoint``: the backward holds one block's trace at a
+        time (and every block's rays) instead of every block's trace, for
+        one more forward a block.  Under ``torch.no_grad()`` it adds
+        nothing.
+
+    For several devices see ``parallel.sharding.parallel_trace_streamed``.
+    """
+    if fold_fn is None:
+        raise ValueError(
+            "trace_streamed needs a fold (fold_fn/fold_init): streaming "
+            "returns reductions only, since per-ray results of the full "
+            "stream are what does not fit.  See landing_sum_fold / "
+            "path_length_fold, or use trace() for sizes that fit.")
+    if merge not in ("sum", "concat") and not callable(merge):
+        raise ValueError(f"merge must be 'sum', 'concat' or a callable, "
+                         f"got {merge!r}")
+    materials = tuple(materials or ())
+
+    if callable(rays):
+        if n_blocks is None:
+            raise ValueError("trace_streamed(rays=<callable>) needs n_blocks")
+        n_rays, pad = n_blocks * block_size, 0
+        get_block = rays
+    else:
+        n_rays = rays.n_rays
+        n_blocks = -(-n_rays // block_size)
+        pad = n_blocks * block_size - n_rays
+
+        def get_block(i):
+            blk = _ray_slice(rays, i * block_size, (i + 1) * block_size)
+            return _pad_rays_dead(blk, pad) if blk.n_rays < block_size else blk
+
+    def body(blk):
+        res = trace(blk, scene, materials, cfg, reaction, fold_fn=fold_fn,
+                    fold_init=fold_init, fold_fields=fold_fields)
+        return res.fold, _state_counts(res.rays.state)
+
+    remat = remat_blocks and torch.is_grad_enabled()
+    fold = counts = None
+    folds = []
+    for i in range(n_blocks):
+        if remat:
+            block_fold, block_counts = checkpoint(
+                body, get_block(i), use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            block_fold, block_counts = body(get_block(i))
+        counts = block_counts if counts is None else counts + block_counts
+        if merge == "sum":
+            fold = (block_fold if fold is None else
+                    pytree.tree_map(torch.add, fold, block_fold))
+        else:
+            folds.append(block_fold)
+        del block_fold, block_counts
+
+    if merge == "concat":
+        fold = _merge_stacked(lambda a: torch.cat(a)[:n_rays], folds)
+    elif merge != "sum":
+        fold = merge(_merge_stacked(torch.stack, folds))
+    if pad:
+        # the padding slots are DEAD by construction; take them back out
+        counts = counts.clone()
+        counts[DEAD] -= pad
+    return StreamedResult(fold=fold, state_counts=counts,
+                          n_blocks=int(n_blocks), block_size=int(block_size),
+                          n_rays=int(n_rays))
+
+
+def _blocks_value_and_grad(block_loss, blocks, params, aux):
+    """The summed value of ``block_loss(params, i, *aux)`` over the block
+    indices ``blocks`` and its summed gradient with respect to ``params``
+    (zeros where no block reaches a parameter), one block's forward and
+    backward at a time.  The value is None when ``blocks`` is empty."""
+    leaves = [p.detach().requires_grad_(True) for p in params]
+    grads = [torch.zeros_like(p) for p in leaves]
+    value = None
+    with torch.enable_grad():
+        for i in blocks:
+            loss = block_loss(leaves, i, *aux)
+            block_grads = torch.autograd.grad(loss, leaves,
+                                              allow_unused=True)
+            value = loss.detach() if value is None else value + loss.detach()
+            for acc, g in zip(grads, block_grads):
+                if g is not None:
+                    acc += g
+            del loss, block_grads
+    return value, grads
+
+
+def streamed_value_and_grad(block_loss: Callable, n_blocks: int) -> Callable:
+    """The value and gradient of a loss that is a sum over ``n_blocks``
+    blocks, accumulated block by block: its gradient is the sum of the
+    blocks' gradients, so each block's forward and backward run before the
+    next block starts and no block's graph outlives its backward.
+
+    Parameters
+    ----------
+    block_loss : callable ``(params, i, *aux) -> scalar``
+        The loss of block ``i`` (a Python int), typically: draw or slice the
+        block's rays from ``i``, trace with a fold, return the folded scalar.
+        ``params`` is a list of tensors.  A block whose rays come from a
+        generator makes that generator from ``i``
+        (``torch.Generator(device).manual_seed(f(seed, i))``), so that the
+        stream does not depend on the order of its blocks.  ``aux`` are
+        arguments passed through undifferentiated (the step's seed, say).
+    n_blocks : the number of blocks in the stream.
+
+    The JAX package's ``remat_blocks`` and ``blocks_per_dispatch`` have no
+    counterpart: both shape its one ``lax.map`` program, whereas here each
+    block's backward runs right after its forward, so the peak memory is
+    one block's already and a checkpoint would only trace each block twice.
+
+    Returns ``fn(params, *aux) -> (value, grads)``: the summed loss and a
+    list of gradients, equal to autograd of the fused sum up to the order
+    of summation.  For several devices see
+    ``parallel.sharding.parallel_streamed_value_and_grad``.
+    """
+    if n_blocks <= 0:
+        raise ValueError(
+            f"streamed_value_and_grad: n_blocks must be positive, got "
+            f"{n_blocks} (a rays // block computation may have rounded "
+            "to zero -- clamp with max(1, ...))")
+
+    def run(params, *aux):
+        return _blocks_value_and_grad(block_loss, range(n_blocks), params,
+                                      aux)
+
+    return run

@@ -20,8 +20,14 @@ The optimizer's stages keep everything on the device: the learning-rate
 scale, momentum and clip enter as Python numbers, so they copy no scalar to
 the device and read none back (the loss may sync on its own).
 ``run_phase`` (and ``training_routine(chain=True)``) keeps the per-step
-errors on the device and fetches them once at the end of the phase.  Not ported: ``mesh=`` (data parallelism over devices) and
-``optax_tx=``; both raise ``NotImplementedError``.
+errors on the device and fetches them once at the end of the phase.
+
+With ``mesh=`` (a ``parallel.sharding.RayMesh``) the step is data-parallel
+over the ranks of a ``torch.distributed`` group: each rank's loss is that of
+its own rays, and the loss and every gradient are summed over the ranks by
+one all-reduce of one flat buffer a step before the unchanged update runs on
+every rank.  Not ported: ``optax_tx=``, which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ import numpy as np
 import torch
 
 from tensorflowraytrace_tpu_torch.config import resolve_device
+from tensorflowraytrace_tpu_torch.parallel import sharding
 
 
 def _plist(data, n, what):
@@ -131,7 +138,19 @@ class Optimizer:
         Initial parameter values (one entry per optic surface).
     generator : torch.Generator, optional
         The sampling generator handed to ``loss_fn`` (default: one on the
-        first parameter's device, seeded 0).
+        first parameter's device, seeded 0; under ``mesh``,
+        ``split_keys(0, mesh)``, this rank's own, which is seeded 0 on rank
+        0).  Under ``mesh`` a given generator is this rank's, and each rank
+        should pass its own.
+    mesh : parallel.sharding.RayMesh, optional
+        Data parallelism over the mesh's ranks: ``loss_fn(params,
+        generator)`` is the loss of this rank's shard of the rays (sampled
+        from this rank's generator); the loss and the gradients are summed
+        over the ranks by one all-reduce a step, and the update pipeline
+        (finite guard, individual_lr, clip modes, accumulators, smoothers,
+        lr ramps, phases) then runs alike on every rank.  The parameters
+        and the velocity are broadcast from rank 0 at construction and
+        live on the mesh's device.  Needs ``pass_key=True``.
     """
 
     def __init__(self, loss_fn, parameters, learning_rate=1.0, momentum=0.0,
@@ -140,14 +159,15 @@ class Optimizer:
                  optax_tx=None):
         if not isinstance(parameters, (list, tuple)):
             raise ValueError("Optimizer: parameters must be a list of arrays")
-        if mesh is not None:
-            raise NotImplementedError(
-                "Optimizer(mesh=...) (data parallelism over devices) is not "
-                "ported yet")
+        if mesh is not None and not pass_key:
+            raise ValueError(
+                "Optimizer(mesh=...) needs pass_key=True: data parallelism "
+                "works by giving every rank its own sampling generator")
         if optax_tx is not None:
             raise NotImplementedError(
                 "Optimizer(optax_tx=...) is not ported; the builtin Nesterov "
                 "update is")
+        self.mesh = mesh
         self.loss_fn = loss_fn
         self.parameters = [_as_param(p) for p in parameters]
         self.learning_rate = learning_rate
@@ -161,18 +181,28 @@ class Optimizer:
             raise ValueError("clip_mode must be 'common' or 'individual'")
         self.clip_mode = clip_mode
         self.pass_key = pass_key
+        self.iterations = 0
+        self._velocity = [torch.zeros_like(p) for p in self.parameters]
+        if mesh is not None:
+            self.parameters = sharding.replicate(self.parameters, mesh)
+            self._velocity = sharding.replicate(self._velocity, mesh)
+            if generator is None:
+                generator = sharding.split_keys(0, mesh)
         self.generator = (generator if generator is not None else
                           torch.Generator(self.parameters[0].device)
                           .manual_seed(0))
-        self.iterations = 0
-        self._velocity = [torch.zeros_like(p) for p in self.parameters]
 
     def _step(self, accumulators, smoothers, lr_scale, momentum, args,
               kwargs):
-        """One step on the device; returns the error as a device scalar."""
+        """One step on the device; returns the error as a device scalar.
+        Under a mesh the error and the gradients are summed over the ranks
+        (one all-reduce)."""
         error, grads = _value_and_grad(self.loss_fn, self.parameters,
                                        self.pass_key, self.generator, args,
                                        kwargs)
+        if self.mesh is not None:
+            error, *grads = sharding.all_reduce_flat([error, *grads],
+                                                     self.mesh)
         with torch.no_grad():
             for i, (p, g, v) in enumerate(zip(self.parameters, grads,
                                               self._velocity)):

@@ -212,3 +212,72 @@ def test_recommended_guide_config_is_unchanged_apart_from_the_rule():
     cpu = TraceConfig.recommended(scene, max_bounces=50)
     assert dataclasses.replace(card, use_kernel=False,
                                ray_start_epsilon=None) == cpu
+
+
+# ----------------------------------------------------------------------
+# the float32 default off the card: children that re-hit their surface
+# ----------------------------------------------------------------------
+
+def short_guide_rehits(pkg, eps):
+    """Children of ``examples/streamed_training.py``'s float32 guide
+    (coordinates up to 6.05) that hit the surface they start from again:
+    the segments of active rays shorter than the card's start epsilon,
+    over 6 bounces of 2048 of its Lambertian rays (the port draws them;
+    both packages trace the same float32 values).  ``eps`` is the trace's
+    ``ray_start_epsilon`` (None: the float32 default, 1e-6)."""
+    from tensorflowraytrace_tpu import RaySet as JRaySet
+    from tensorflowraytrace_tpu import Scene3D as JScene3D
+    from tensorflowraytrace_tpu import TraceConfig as JTraceConfig
+    from tensorflowraytrace_tpu import TriangleSet as JTriangleSet
+    from tensorflowraytrace_tpu import engine as j_engine
+    from tensorflowraytrace_tpu.models import boundaries as j_bd
+    from tensorflowraytrace_tpu.ops import materials as j_mats
+    from tensorflowraytrace_tpu_torch import streamed
+    import jax.numpy as jnp
+
+    rays = streamed.lambertian_source(2048).sample(
+        torch.Generator().manual_seed(0), F32, "cpu")
+    if pkg == "torch":
+        guide, target = streamed.short_guide(12, 10, F32, "cpu")
+        with torch.no_grad():
+            scene = Scene3D.build(optical=[guide.build()], targets=[target])
+            res = t_engine.trace(rays, scene, streamed.MATERIALS,
+                                 TraceConfig(max_bounces=6, keep_history=True,
+                                             ray_start_epsilon=eps))
+    else:
+        guide = j_bd.ParametricCylindricalGuide(
+            (0.0, 0.0, 0.0), (0.0, 0.0, 6.0), minimum_radius=0.3,
+            theta_res=12, z_res=10, rotationally_symmetric=True,
+            initial_taper=(0.7, 0.0), mat_in=1, mat_out=0, dtype=jnp.float32)
+        half = 0.35
+        target = JTriangleSet.make(
+            [[-half, -half, 6.05], [half, half, 6.05]],
+            [[half, -half, 6.05], [-half, half, 6.05]],
+            [[half, half, 6.05], [-half, -half, 6.05]], dtype=jnp.float32)
+        scene = JScene3D.build(optical=[guide.build(guide.init_params())],
+                               targets=[target])
+        res = j_engine.trace(
+            JRaySet.make(jnp.asarray(rays.p0.numpy()),
+                         jnp.asarray(rays.p1.numpy()), 575.0,
+                         dtype=jnp.float32),
+            scene, (j_mats.vacuum, j_mats.acrylic),
+            JTraceConfig(max_bounces=6, keep_history=True,
+                         ray_start_epsilon=eps))
+    seg = np.linalg.norm(np.asarray(res.history_p1) - np.asarray(
+        res.history_p0), axis=-1)
+    active = np.asarray(res.history_state) == 0
+    return int(((seg < t_engine.float32_start_epsilon(6.05)) & active).sum())
+
+
+def test_float32_default_start_epsilon_rehits_as_the_jax_package_does():
+    """Off the card a float32 trace keeps the 1e-6 default, two float32
+    spacings at coordinates near 6: in both packages some children re-hit
+    the surface they start from (on different rays: the packages part in
+    the last bit), each such ray stays active and its gradient grows by
+    orders of magnitude.  The card's rule, four spacings of the scene's
+    extent, leaves none in either.  A reference behaviour the port copies,
+    recorded in ROADMAP queue 3."""
+    card = t_engine.float32_start_epsilon(6.05)
+    for pkg in ("jax", "torch"):
+        assert short_guide_rehits(pkg, None) > 0
+        assert short_guide_rehits(pkg, card) == 0

@@ -209,8 +209,11 @@ def test_smooth_matches_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_optim.Optimizer(make_loss(torch), initial(), mesh=object())
+    # mesh= is ported (tests/test_torch_sharding.py); as in the JAX package
+    # it needs pass_key=True
+    with pytest.raises(ValueError, match="pass_key"):
+        t_optim.Optimizer(make_loss(torch), initial(), mesh=object(),
+                          pass_key=False)
     with pytest.raises(NotImplementedError, match="optax"):
         t_optim.Optimizer(make_loss(torch), initial(), optax_tx=object())
     with pytest.raises(ValueError):
