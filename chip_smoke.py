@@ -210,6 +210,38 @@ exits non-zero without printing a result):
    (hashes of states, endpoints and path lengths), the folds, counts,
    depth, value, gradient and step within 1e-4 of their largest
    magnitude.  No multi-GPU speed is measured.
+17. the reactions at the JAX examples' sizes: 17a ``scenes3d.caustic_render``
+   (examples/caustic_render.py: 2^27 sun rays in 2^22-ray blocks through
+   the 124,416-triangle water surface and the 2-triangle floor, 2 bounces,
+   float32, ``fresnel_intensity_reaction``, the intensity-weighted 512 x
+   512 landing image, ``TraceConfig.recommended``, so K3 with the
+   re-sort): one block's trace alone for its peak memory, then the stream
+   timed (rays/s, equivalent intersections/s N M B / t), K3 launched 2
+   times a block, its counts summing to its rays, the mean landed weight
+   within 0.02 of 1 - (1/7)^2 (the example's test), its peak memory; one
+   block profiled (K3, the re-sort, the reaction and the fold, the rest,
+   the idle share); 2 blocks against one trace of the same 2^23 rays,
+   the image accumulated in float64 (exact sums of the float32 weights),
+   equal bit for bit with equal state counts; one block's trace with
+   K3's wrapper logged against the same trace with K3's plain version in
+   its place (2^22 rays x 124,418 triangles, 487 chunks): every call, the
+   final states, endpoints, intensities and image bit for bit; one block
+   through brute (K1), ``cull=True`` with and without the re-sort (K3)
+   and ``"grid"`` + re-sort (K4), each timed, states, endpoints,
+   intensities and image equal bit for bit.  17b ``scenes2d.stray_light``
+   (examples/stray_light.py: 4000 rays, 6 (sigma, absorptivity) pairs x 4
+   keys, 12 bounces, K5 and K6 each once a bounce): the example's three
+   assertions; the example again with K5's and K6's plain versions in
+   their place, every search call bit for bit and the same ghost powers;
+   the stream's uniforms over 2^20 positions equal the CPU's bit for bit
+   (float32 and float64) and its float32 normals within 4 ulps.  17c
+   ``scenes2d.ghost_analysis`` (examples/ghost_analysis.py: 801 rays, the
+   16 branch schedules of depth 4, bare and AR-coated, float32, K5 and K6
+   each once a bounce): the analytic T^2, T^2 R^2 and R^2 checks within
+   rtol 1e-5 (float32; the example's 1e-6 is float64's) and the coating
+   cutting the ghost more than 8x; the example again with the plain
+   versions, every call and every schedule's power, landing height and
+   branch counter bit for bit.
 
 Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
 earlier runs: the brute-force search does not use the order.  Then the
@@ -236,6 +268,7 @@ and K8 launched alone at the 2D guide's first bounce (see
 
 import collections
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -288,8 +321,10 @@ CULL_RAYS = 131072
 GUIDE_RAYS = 1 << 20
 GUIDE_BOUNCES = 24
 # profiler ranges the port opens around the candidate precompute and the
-# re-sort; their device-side annotations are not kernels
-RANGES = ("twolevel_candidates", "resort_rays")
+# re-sort, and phase 17 around the caustic's reaction and fold; their
+# device-side annotations are not kernels
+RANGES = ("twolevel_candidates", "resort_rays", "caustic_reaction",
+          "caustic_fold")
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W power limit).  The
 # FP32 peak counts an FMA as two operations; the searches are built with
@@ -349,6 +384,18 @@ TRAIN_STREAM_BOUNCES = 12
 SHARDED_RAYS = 1 << 20
 SHARDED_STEPS = 10
 SHARDED_BOUNCES = 12
+# phase 17: examples/caustic_render.py, stray_light.py, ghost_analysis.py
+CAUSTIC_RAYS = 1 << 27
+CAUSTIC_BLOCK = 1 << 22
+CAUSTIC_RES = 512
+CAUSTIC_MESH_STEPS = 144
+CAUSTIC_TRIANGLES = 124418
+CAUSTIC_BOUNCES = 2
+STRAY_RAYS = 4000
+GHOST_RAYS = 801
+GHOST_DEPTH = 4
+STREAM_DRAWS = 1 << 20
+NORMAL_ULPS = 4
 
 
 def check(cond, message):
@@ -2142,20 +2189,23 @@ def logged(fn, log):
     return call
 
 
-def k1_calls_equal(label, got, ref):
-    """Two logs of K1's wrapper (the kernel's, and its plain version's
-    through the same trace): each call's inputs and its valid, idx and u,
+def calls_equal(label, got, ref):
+    """Two logs of a search wrapper (the kernel's, and its plain version's
+    through the same trace): each call's inputs (rays, surfaces and
+    epsilons) and its outputs (valid, idx, u and, for arcs, the branch),
     bit for bit.  Returns the number of calls."""
     import torch
 
     check(len(got) == len(ref) > 0,
           f"{label}: {len(got)} kernel calls against {len(ref)} plain calls")
     for k, ((g_args, g_out), (r_args, r_out)) in enumerate(zip(got, ref)):
-        check(all(torch.equal(a, b) for a, b in zip(g_args[:5], r_args[:5])),
-              f"{label}: call {k} searched other rays or triangles")
+        check(len(g_args) == len(r_args) and all(
+            torch.equal(a, b) if torch.is_tensor(a) else a == b
+            for a, b in zip(g_args, r_args)),
+              f"{label}: call {k} searched other rays or surfaces")
         diffs = [int((a != b).sum()) for a, b in zip(g_out, r_out)]
-        check(not any(diffs), f"{label}: call {k}: valid, idx, u differ from "
-              f"the plain version in {diffs} rays")
+        check(not any(diffs), f"{label}: call {k}: the outputs differ from "
+              f"the plain version's in {diffs} rays")
     return len(got)
 
 
@@ -2206,7 +2256,7 @@ def phase_15(device):
     with override(tk, nearest_hit_triangles_kernel=logged(
             tk.nearest_hit_triangles_plain, log_p)):
         res_p = trace(rays, scene, scenes3d.MATERIALS, cfg)
-    calls = k1_calls_equal("phase 15 trace_3d", log_k, log_p)
+    calls = calls_equal("phase 15 trace_3d", log_k, log_p)
     for name in ("history_p0", "history_p1", "history_state"):
         check(torch.equal(getattr(res_k, name), getattr(res_p, name)),
               f"trace_3d {name}: K1 and its plain version differ")
@@ -2252,7 +2302,7 @@ def phase_15(device):
     with override(tk, nearest_hit_triangles_kernel=logged(
             tk.nearest_hit_triangles_plain, log_p)):
         loss(lens.init_params(), rays)
-    calls = k1_calls_equal("phase 15 hexalens", log_k, log_p)
+    calls = calls_equal("phase 15 hexalens", log_k, log_p)
     v_p, g_p = value_and_grad(loss_p, lens.init_params())
     rel = abs(float(v_k) - float(v_p)) / abs(float(v_p))
     gmax = max(float(g.abs().max()) for g in g_p)
@@ -2673,6 +2723,363 @@ def phase_16(device):
             "K1_train": train_launches["K1"], "K2_train": train_launches["K2"],
             "K1_sharded": sharded_launches["K1"],
             "K2_sharded": sharded_launches["K2"]}
+
+
+def phase_17(device):
+    """The reactions at the JAX examples' sizes: the 2^27-ray pool caustic
+    (17a), the stray-light barrel (17b) and the ghost tree of a coated
+    singlet (17c), each also held against its searches' plain versions.
+    Returns the main paths' launches."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from tensorflowraytrace_tpu_torch import concat_rays, operations, trace
+    from tensorflowraytrace_tpu_torch import scenes2d, scenes3d
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+    from tensorflowraytrace_tpu_torch.streamed import fold_in
+
+    t_phase = time.perf_counter()
+
+    def peak_above(base):
+        return (torch.cuda.max_memory_allocated(device) - base) / 2 ** 30
+
+    def start_peak():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        return torch.cuda.memory_allocated(device)
+
+    def k134():
+        return {"K1": tk.LAUNCHES, "K3": tk.LAUNCHES_CULLED,
+                "K4": tk.LAUNCHES_TWOLEVEL}
+
+    def reset_3d():
+        tk.LAUNCHES = tk.LAUNCHES_CULLED = tk.LAUNCHES_TWOLEVEL = 0
+
+    # ---- 17a. the caustic (examples/caustic_render.py)
+    render = scenes3d.CausticRender(CAUSTIC_BLOCK, CAUSTIC_RES,
+                                    CAUSTIC_MESH_STEPS, device=device)
+    cfg = render.cfg
+    m = render.scene.triangles.n_surfaces
+    check(m == CAUSTIC_TRIANGLES and cfg.use_kernel and cfg.cull is True
+          and cfg.resort_rays and cfg.max_bounces == CAUSTIC_BOUNCES,
+          f"caustic: {m} triangles, config {cfg}")
+    init, fn = render.fold
+    # one block's trace alone: the warm-up, and the peak to hold the
+    # stream's against
+    base = start_peak()
+    with torch.no_grad():
+        res = trace(render.block(0), render.scene, scenes3d.CAUSTIC_MATERIALS,
+                    cfg, reaction=render.reaction, fold_fn=fn,
+                    fold_init=init, fold_fields=True)
+    torch.cuda.synchronize()
+    block_gib = peak_above(base)
+    del res
+    n_blocks = CAUSTIC_RAYS // CAUSTIC_BLOCK
+    reset_3d()
+    base = start_peak()
+    out = scenes3d.caustic_render(CAUSTIC_RAYS, CAUSTIC_BLOCK, CAUSTIC_RES,
+                                  CAUSTIC_MESH_STEPS, device=device,
+                                  verbose=False)
+    stream_gib = peak_above(base)
+    stream_launches = k134()
+    check(stream_launches == {"K1": 0, "K3": CAUSTIC_BOUNCES * n_blocks,
+                              "K4": 0},
+          f"the caustic stream launched {stream_launches}")
+    img = out["image"]
+    check(img.shape == (CAUSTIC_RES, CAUSTIC_RES)
+          and bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0,
+          "the caustic image is not finite and non-negative")
+    check(sum(out["state_counts"]) == CAUSTIC_RAYS,
+          f"the caustic counted {out['state_counts']}")
+    print(f"phase 17a caustic: {CAUSTIC_RAYS} rays ({n_blocks} blocks of "
+          f"{CAUSTIC_BLOCK}) through {m} triangles, {CAUSTIC_BOUNCES} "
+          f"bounces, into {CAUSTIC_RES}x{CAUSTIC_RES}: {out['seconds']:.3f} s "
+          f"= {out['rays_per_s']:.4e} rays/s = {out['equiv_per_s']:.4e} "
+          f"equivalent intersections/s; states[active,finished,stopped,dead] "
+          f"{out['state_counts']}; landed power {float(img.sum())!r}; mean "
+          f"transmission {out['mean_transmission']!r} (1 - (1/7)^2 = "
+          f"{scenes3d.T_NORMAL!r}, limit 0.02); launches {stream_launches}; "
+          f"peak {stream_gib:.3f} GiB above the start, one block's trace "
+          f"{block_gib:.3f} GiB ({stream_gib / block_gib:.4f} of it); "
+          f"config {cfg}", flush=True)
+
+    # one block profiled: the search, the re-sort, the reaction, the fold
+    reaction, (init, fold) = render.reaction, render.fold
+
+    def timed_reaction(proj, rays, c):
+        with record_function("caustic_reaction"):
+            return reaction(proj, rays, c)
+
+    def timed_fold(acc, record):
+        with record_function("caustic_fold"):
+            return fold(acc, record)
+
+    blk = render.block(1)
+    with torch.no_grad():
+        trace(blk, render.scene, scenes3d.CAUSTIC_MATERIALS, cfg,
+              reaction=timed_reaction, fold_fn=timed_fold, fold_init=init,
+              fold_fields=True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trace(blk, render.scene, scenes3d.CAUSTIC_MATERIALS, cfg,
+                  reaction=timed_reaction, fold_fn=timed_fold,
+                  fold_init=init, fold_fields=True)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, union_us, n_device = device_profile(prof)
+    busy_us = sum(by_name.values())
+    if busy_us > 0:
+        k3_us = sum(t for k, t in by_name.items()
+                    if "triangle_search_culled" in k)
+        parts = {name: range_device_us(prof, name) for name in (
+            "resort_rays", "caustic_reaction", "caustic_fold")}
+        rest_us = busy_us - k3_us - sum(parts.values())
+        block_split = (
+            f"device busy {union_us:.1f} us of {wall_us:.1f} us wall (idle "
+            f"share {1 - union_us / wall_us:.4f}); {n_device} kernels and "
+            f"copies, {busy_us:.1f} us: K3 {k3_us:.1f} us "
+            f"({k3_us / busy_us:.4%}), "
+            + ", ".join(f"{k} {v:.1f} us ({v / busy_us:.4%})"
+                        for k, v in parts.items())
+            + f", rest {rest_us:.1f} us ({rest_us / busy_us:.4%}); top: "
+            + "; ".join(f"{k[:50]} {t:.1f} us"
+                        for k, t in by_name.most_common(6)))
+    else:
+        block_split = ("the profiler recorded no device time: split not "
+                       "measured")
+    print(f"phase 17a one {CAUSTIC_BLOCK}-ray block profiled: {block_split}",
+          flush=True)
+    del render, out, img
+
+    # exactness: 2 blocks against one trace of the same rays, the image in
+    # float64 (an exact sum of the float32 weights, whatever the order)
+    exact = scenes3d.CausticRender(CAUSTIC_BLOCK, CAUSTIC_RES,
+                                   CAUSTIC_MESH_STEPS, device=device,
+                                   image_dtype=torch.float64)
+    two = exact(2)
+    rays = concat_rays([exact.block(0), exact.block(1)])
+    init, fn = exact.fold
+    with torch.no_grad():
+        one = trace(rays, exact.scene, scenes3d.CAUSTIC_MATERIALS, exact.cfg,
+                    reaction=exact.reaction, fold_fn=fn, fold_init=init,
+                    fold_fields=True)
+    one_counts = state_counts(one.rays.state)
+    check(torch.equal(two.fold, one.fold),
+          f"the 2-block caustic's image differs from one trace's in "
+          f"{int((two.fold != one.fold).sum())} bins")
+    check(two.state_counts.tolist() == one_counts,
+          f"state counts: stream {two.state_counts.tolist()}, one trace "
+          f"{one_counts}")
+    print(f"phase 17a exactness: 2 blocks of {CAUSTIC_BLOCK} rays against "
+          f"one trace of {2 * CAUSTIC_BLOCK}: the float64 images equal bit "
+          f"for bit (landed power {float(one.fold.sum())!r}), states "
+          f"{one_counts} equal", flush=True)
+    del two, rays, one
+
+    # K3 against its plain version at the path's shapes: block 0 through
+    # the recommended trace with K3's wrapper logged, then with its plain
+    # version logged in its place; every call and the final rays and image
+    # bit for bit
+    blk = exact.block(0)
+    traced, logs, k3_ms = {}, {}, {}
+    for label, search in (("K3", tk.nearest_hit_triangles_culled_kernel),
+                          ("plain", tk.nearest_hit_triangles_culled_plain)):
+        logs[label] = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad(), override(
+                tk, nearest_hit_triangles_culled_kernel=logged(
+                    search, logs[label])):
+            traced[label] = trace(blk, exact.scene,
+                                  scenes3d.CAUSTIC_MATERIALS, exact.cfg,
+                                  reaction=exact.reaction, fold_fn=fn,
+                                  fold_init=init, fold_fields=True)
+        torch.cuda.synchronize()
+        k3_ms[label] = (time.perf_counter() - t0) * 1e3
+    calls = calls_equal("phase 17a K3", logs["K3"], logs["plain"])
+    rk, rp = traced["K3"], traced["plain"]
+    same = {f: torch.equal(getattr(rk.rays, f), getattr(rp.rays, f))
+            for f in ("state", "p0", "p1")}
+    same["intensity"] = torch.equal(rk.rays.fields["intensity"],
+                                    rp.rays.fields["intensity"])
+    same["image"] = torch.equal(rk.fold, rp.fold)
+    check(all(same.values()), f"caustic block 0: the K3 trace differs from "
+          f"the plain version's: {same}")
+    print(f"phase 17a K3 against its plain version: block 0 ({CAUSTIC_BLOCK} "
+          f"rays x {m} triangles, {-(-m // tk.CULL_CHUNK)} chunks): "
+          f"{calls} calls bit for bit, the final states, "
+          f"endpoints, intensities and image equal; trace with K3 "
+          f"{k3_ms['K3']:.3f} ms, with the plain version "
+          f"{k3_ms['plain']:.3f} ms", flush=True)
+    del traced, logs, rk, rp
+
+    # one block through brute (K1), cull=True with and without the re-sort
+    # (K3) and "grid" + re-sort (K4): hits and states bit for bit, each
+    # timed
+    paths = {"brute": dataclasses.replace(exact.cfg, cull=False,
+                                          resort_rays=False),
+             "cull+resort": exact.cfg,
+             "cull": dataclasses.replace(exact.cfg, resort_rays=False),
+             "grid+resort": dataclasses.replace(exact.cfg, cull="grid",
+                                                resort_rays=True)}
+    kernel_of = {"brute": "K1", "cull+resort": "K3", "cull": "K3",
+                 "grid+resort": "K4"}
+    finals, path_ms, path_launches = {}, {}, {}
+    for name, pcfg in paths.items():
+        with torch.no_grad():
+            trace(blk, exact.scene, scenes3d.CAUSTIC_MATERIALS, pcfg,
+                  reaction=exact.reaction, fold_fn=fn, fold_init=init,
+                  fold_fields=True)
+            reset_3d()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = trace(blk, exact.scene, scenes3d.CAUSTIC_MATERIALS, pcfg,
+                      reaction=exact.reaction, fold_fn=fn, fold_init=init,
+                      fold_fields=True)
+            torch.cuda.synchronize()
+        path_ms[name] = (time.perf_counter() - t0) * 1e3
+        path_launches[name] = k134()
+        want = {k: CAUSTIC_BOUNCES if k == kernel_of[name] else 0
+                for k in ("K1", "K3", "K4")}
+        check(path_launches[name] == want,
+              f"caustic {name}: launches {path_launches[name]}, not {want}")
+        finals[name] = r
+    ref = finals["brute"]
+    pairs = CAUSTIC_BLOCK * m * CAUSTIC_BOUNCES
+    for name, r in finals.items():
+        same = {f: torch.equal(getattr(r.rays, f), getattr(ref.rays, f))
+                for f in ("state", "p0", "p1")}
+        same["intensity"] = torch.equal(r.rays.fields["intensity"],
+                                        ref.rays.fields["intensity"])
+        same["image"] = torch.equal(r.fold, ref.fold)
+        check(all(same.values()), f"caustic {name} differs from brute: "
+              f"{same}")
+    print(f"phase 17a one {CAUSTIC_BLOCK}-ray block x {m} triangles x "
+          f"{CAUSTIC_BOUNCES} bounces: "
+          + "; ".join(f"{k} {v:.3f} ms ({pairs / v * 1e3:.4e} equivalent "
+                      f"intersections/s, launches {path_launches[k]})"
+                      for k, v in path_ms.items())
+          + "; every path's states, endpoints, intensities and image equal "
+          "the brute path's bit for bit", flush=True)
+    del exact, finals, ref, blk
+
+    def run_2d(example, plain):
+        """``example()`` with K5's and K6's wrappers logged call by call,
+        or their plain versions logged in their place; returns its result,
+        the logs and its seconds."""
+        logs = {"K5": [], "K6": []}
+        seg = gk.nearest_hit_segments_plain if plain else \
+            gk.nearest_hit_segments_kernel
+        arc = ak.nearest_hit_arcs_plain if plain else ak.nearest_hit_arcs_kernel
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with override(gk, nearest_hit_segments_kernel=logged(
+                seg, logs["K5"])), override(
+                ak, nearest_hit_arcs_kernel=logged(arc, logs["K6"])):
+            out = example()
+        torch.cuda.synchronize()
+        return out, logs, time.perf_counter() - t0
+
+    def plain_agreement(label, logs, logs_p):
+        return {k: calls_equal(f"phase {label} {k}", logs[k], logs_p[k])
+                for k in logs}
+
+    # ---- 17b. stray light (examples/stray_light.py) on K5 and K6
+    def stray_run():
+        return scenes2d.stray_light(STRAY_RAYS, device=device, verbose=False)
+
+    reset_2d_launches()
+    stray, logs, stray_s = run_2d(stray_run, plain=False)
+    stray_launches = launches_2d()
+    traces = (len(scenes2d.STRAY_SIGMAS) * len(scenes2d.STRAY_ABSORPTIVITIES)
+              * scenes2d.STRAY_KEYS)
+    want = {k: scenes2d.STRAY_BOUNCES * traces if k in ("K5", "K6") else 0
+            for k in stray_launches}
+    check(stray_launches == want,
+          f"stray light launched {stray_launches}, not {want}")
+    # the same example with the plain searches: every call bit for bit
+    stray_p, logs_p, stray_plain_s = run_2d(stray_run, plain=True)
+    stray_calls = plain_agreement("17b", logs, logs_p)
+    check(stray_p == stray, f"stray light: the plain searches give {stray_p}"
+          f", the kernels {stray}")
+    del logs, logs_p
+    # the stream: the same bits on the card as on the CPU
+    ctr = torch.arange(STREAM_DRAWS, dtype=torch.int32) % 7
+    key = fold_in(scenes2d.STRAY_SEED, 0)
+    mix_cpu = operations.ray_mix(ctr)
+    mix_card = operations.ray_mix(ctr.to(device))
+    check(torch.equal(mix_card.cpu(), mix_cpu), "ray_mix differs on the card")
+    for dtype in (torch.float32, torch.float64):
+        u_card = operations.ray_uniform(key, mix_card, dtype).cpu()
+        u_cpu = operations.ray_uniform(key, mix_cpu, dtype)
+        check(torch.equal(u_card, u_cpu),
+              f"ray_uniform ({dtype}) differs on the card in "
+              f"{int((u_card != u_cpu).sum())} of {STREAM_DRAWS} draws")
+    g_card = operations.ray_normal(key, mix_card, 3, torch.float32).cpu()
+    g_cpu = operations.ray_normal(key, mix_cpu, 3, torch.float32)
+    a, b = g_card.numpy(), g_cpu.numpy()
+    ulps = np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b)))
+    worst = float(ulps.max())
+    check(bool(np.isfinite(a).all()) and worst <= NORMAL_ULPS,
+          f"ray_normal differs by {worst} float32 ulps on the card")
+    print(f"phase 17b stray light: {STRAY_RAYS} rays, {traces} traces of "
+          f"{scenes2d.STRAY_BOUNCES} bounces in {stray_s:.3f} s; ghost power "
+          f"a launched ray {{(sigma, absorptivity): mean of "
+          f"{scenes2d.STRAY_KEYS} keys}} "
+          + ", ".join(f"{k}: {v!r}" for k, v in stray.items())
+          + f"; the example's assertions hold; launches {stray_launches}; "
+          f"the stream over {STREAM_DRAWS} draws: uniforms (float32, float64) "
+          f"equal the CPU's bit for bit, normals within {worst:g} float32 "
+          f"ulps (limit {NORMAL_ULPS}; {int((ulps > 0).sum())} differ); "
+          f"with the plain searches in {stray_plain_s:.3f} s, calls bit for "
+          f"bit {stray_calls} and the same ghost powers", flush=True)
+
+    # ---- 17c. the ghost tree (examples/ghost_analysis.py), float32
+    def ghost_run():
+        return scenes2d.ghost_analysis(GHOST_RAYS, GHOST_DEPTH,
+                                       device=device, verbose=False)
+
+    reset_2d_launches()
+    (ghosts, names), logs, ghost_s = run_2d(ghost_run, plain=False)
+    ghost_launches = launches_2d()
+    want = {k: (GHOST_DEPTH + 1) * 2 * len(names) if k in ("K5", "K6")
+            else 0 for k in ghost_launches}
+    check(ghost_launches == want,
+          f"the ghost analysis launched {ghost_launches}, not {want}")
+    # the same example with the plain searches: every call, and every
+    # schedule's landed power, height and branch counter, bit for bit
+    (ghosts_p, _), logs_p, ghost_plain_s = run_2d(ghost_run, plain=True)
+    ghost_calls = plain_agreement("17c", logs, logs_p)
+    for label, r in ghosts.items():
+        for f in ("power", "y", "ctr"):
+            check(np.array_equal(r[f], ghosts_p[label][f]),
+                  f"ghost analysis [{label}] {f}: the plain searches differ")
+    del logs, logs_p, ghosts_p
+    ghost_rtol = scenes2d.GHOST_RTOL[torch.float32]
+    k = names.index("TRRT")
+    bare, coated = ghosts["bare"], ghosts["AR-coated"]
+    print(f"phase 17c ghost analysis: {GHOST_RAYS} rays, {len(names)} "
+          f"schedules of depth {GHOST_DEPTH} x (bare, AR-coated), float32, in "
+          f"{ghost_s:.3f} s; on-axis R bare {bare['R']!r}, coated "
+          f"{coated['R']!r}; analytic checks' relative errors (limit "
+          f"{ghost_rtol}) bare {bare['rel']}, coated {coated['rel']}; beam "
+          f"TRRT power bare {float(bare['tot'][k])!r}, coated "
+          f"{float(coated['tot'][k])!r}: cut "
+          f"{float(bare['tot'][k] / coated['tot'][k]):.2f}x (more than 8x "
+          f"required); launches {ghost_launches}; with the plain searches "
+          f"in {ghost_plain_s:.3f} s, calls bit for bit {ghost_calls} and "
+          f"every schedule's power, height and counter equal; phase 17 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"K1_caustic": path_launches["brute"]["K1"],
+            "K3_caustic": stream_launches["K3"],
+            "K4_caustic": path_launches["grid+resort"]["K4"],
+            "K5_stray": stray_launches["K5"], "K6_stray": stray_launches["K6"],
+            "K5_ghost": ghost_launches["K5"], "K6_ghost": ghost_launches["K6"]}
 
 
 def main():
@@ -3107,6 +3514,9 @@ def main():
     # ---- phase 16: streaming and data parallelism
     stream16 = phase_16(device)
 
+    # ---- phase 17: the reactions (caustic, stray light, ghosts)
+    react17 = phase_17(device)
+
     main_k2 = k2["flagship_bench"]
     print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
           flush=True)
@@ -3118,6 +3528,7 @@ def main():
         "launches_hexalens": hexa["K1"], "launches_trace_3d": hexa["K1_trace_3d"],
         "launches_streamed_training": stream16["K1_train"],
         "launches_sharded": stream16["K1_sharded"],
+        "launches_caustic": react17["K1_caustic"],
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound_ms, "bound_by": "operations", "library_ms": None,
         "floor_no_fma_ms": 2 * k1_bound_ms, "pairs_out_on_tu": k1_tu_out,
@@ -3157,6 +3568,7 @@ def main():
         "pairs": pairs, "pairs_out_on_tu": tu_out,
         **({"launches_streamed_trace": stream16["K3_stream"]}
            if key == "K3" else {}),
+        "launches_caustic": react17[f"{key}_caustic"],
     } for name, source, line, key in (
         ("triangle_search_culled", tk.SOURCE_CULLED, 144, "K3"),
         ("triangle_search_twolevel", tk.SOURCE_TWOLEVEL, 979, "K4"))] + [{
@@ -3166,6 +3578,9 @@ def main():
         **k2d[key], "library_ms": None,
         **({"launches_training": arc_train[key]} if key in arc_train else {}),
         **({"launches_design": design[key]} if key in design else {}),
+        **({"launches_stray_light": react17[f"{key}_stray"],
+            "launches_ghost": react17[f"{key}_ghost"]}
+           if key in ("K5", "K6") else {}),
     } for name, source, line, key in (
         ("segment_search", gk.SOURCE, 705, "K5"),
         ("arc_search", ak.SOURCE, 367, "K6"),

@@ -7,7 +7,8 @@ package.  Its slices so far are the 3D forward trace, training, the
 acceleration path, the 2D trace, the deep 2D trace (two-level 2D
 searches, remat, early exit, folds, TraceConfig.recommended), and the
 sources, distributions, STL I/O and analysis core that run the hexalens
-design and the 3D point-source trace, and streaming and data parallelism:
+design and the 3D point-source trace, streaming and data parallelism, and
+the reactions and trackers:
 
   models/     rays (and concat_rays), surfaces (2D segments and arcs, 3D
               triangles, the merged Scene2D and Scene3D), sources (point,
@@ -17,7 +18,13 @@ design and the 3D point-source trace, and streaming and data parallelism:
               light guide), meshes (circular, hexagonal, cylindrical; STL
               files) and their accumulator / smoother tools, acceleration
               (Morton sorts, chunk boxes)
-  ops/        geometry (2D and 3D), materials, spectrum, the nearest-hit
+  operations  the reactions and trackers: Fresnel intensity, Jones
+              polarization, optical path and ancestry, thin films,
+              gratings, bulk and surface absorption, metasurfaces, rough
+              surfaces, forced branches and Russian roulette, with the
+              counter-based random stream of the stochastic ones
+  ops/        geometry (2D and 3D), materials, spectrum, thin-film stacks
+              (thinfilm), the even-asphere sag (asphere), the nearest-hit
               search and its CUDA kernels: triangles
               (ops/triangle_kernels.py: brute force csrc/triangle_search.cu,
               culled triangle_search_culled.cu, two-level
@@ -37,10 +44,13 @@ design and the 3D point-source trace, and streaming and data parallelism:
   optim       the optimizers (gradient pipeline, phases)
   flagship    the parametric-lens imaging problem and its training run
   hexalens    examples/hexalens.py's two-image wedge lens and its design
-  scenes2d    the 2D problems; scenes3d: examples/trace_3d.py's scene
+  scenes2d    the 2D problems, with examples/stray_light.py and
+              ghost_analysis.py; scenes3d: examples/trace_3d.py's scene
+              and the pool caustic of examples/caustic_render.py
   streamed    the streamed guide trace and training, the sharded guide
               training and the multi-process dryrun
-  utils/      rotations, NumPy conversion, STL export of a surface
+  utils/      rotations, NumPy conversion (rays, surfaces, parameters,
+              reaction tables, JAX keys), STL export of a surface
 
 Everything is built on CUDA unless a ``device=`` says otherwise
 (``config.set_default_device`` changes the default).

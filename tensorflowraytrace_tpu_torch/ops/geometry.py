@@ -266,6 +266,39 @@ def select_eta(n_in, n_out, internal_mask):
     return torch.where(internal_mask, eta_internal, eta_external)
 
 
+def snells_law_3D(x_start, y_start, z_start, x_end, y_end, z_end, norm,
+                  n_in, n_out, new_ray_length):
+    """3D optical reaction, vector formulation, on per-coordinate (N,)
+    tensors: refract, reflect on a mirror (``n_in == 0``) or on total
+    internal reflection.  ``norm`` is an (N, 3) normal (need not be unit).
+    Returns the six child-ray coordinates; :func:`snell_3d_vec` is the same
+    math on (N, 3) endpoints."""
+    p0 = torch.stack([x_start, y_start, z_start], dim=1)
+    p1 = torch.stack([x_end, y_end, z_end], dim=1)
+    n_in = torch.as_tensor(n_in, dtype=p0.dtype, device=p0.device)
+    n_out = torch.as_tensor(n_out, dtype=p0.dtype, device=p0.device)
+    _, new_end = snell_3d_vec(p0, p1, norm, n_in.reshape(-1),
+                              n_out.reshape(-1), new_ray_length)
+    return (x_end, y_end, z_end, new_end[:, 0], new_end[:, 1],
+            new_end[:, 2])
+
+
+def transverse_basis(u):
+    """Orthonormal frame ``(t1, t2)`` transverse to unit directions ``u``
+    (N, 3): ``t1 = normalize(u x e_k)`` with ``e_k`` the coordinate axis
+    least aligned with each ``u`` (the first such axis on a tie),
+    ``t2 = u x t1``.  Shared by polarization basis seeding and rough-surface
+    scattering."""
+    tiny = torch.finfo(u.dtype).tiny
+    axis = torch.nn.functional.one_hot(torch.argmin(torch.abs(u), dim=-1),
+                                       3).to(u.dtype)
+    t1 = torch.linalg.cross(u, axis, dim=-1)
+    t1 = t1 / torch.clamp(torch.linalg.vector_norm(t1, dim=-1, keepdim=True),
+                          min=tiny)
+    t2 = torch.linalg.cross(u, t1, dim=-1)
+    return t1, t2
+
+
 def snell_3d_vec(p0, p1, norm, n_in, n_out, new_ray_length):
     """Vector Snell's law on (N, 3) endpoints: refract, reflect on a mirror
     (``n_in == 0``) or on total internal reflection.  Returns the child ray

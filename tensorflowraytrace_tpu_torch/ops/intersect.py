@@ -80,6 +80,10 @@ def _chunked_search(p0, p1, surf_arrays, chunk_fn, n_surf, surf_chunk,
     and ``extra`` is False where no payload was given.
     """
     n_rays = p0.shape[0]
+    # a set smaller than one chunk is one chunk of its own size: the
+    # result does not depend on the chunking, and padding a handful of
+    # surfaces to a whole chunk multiplies the work
+    surf_chunk = max(1, min(surf_chunk, n_surf))
     n_chunks = -(-n_surf // surf_chunk)
     pad_surf = n_chunks * surf_chunk - n_surf
 

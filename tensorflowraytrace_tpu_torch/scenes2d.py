@@ -1,5 +1,6 @@
 """The 2D problems the port is driven with: one trainable arc, a tapered
-light guide at full width, and the random sets of the kernel checks.
+light guide at full width, two reaction examples, and the random sets of
+the kernel checks.
 
 - ``single_arc``: the problem of ``examples/optimize_single_arc.py`` (the
   reference's dev/optimize_single_arc.py).  A uniform beam at 6 wavelengths
@@ -19,6 +20,15 @@ light guide at full width, and the random sets of the kernel checks.
   centres and radii the parameters and the squared landing heights of the
   rays that finish on the target the loss (``landing_loss_fold``), summed
   bounce by bounce so that a 50-bounce trace keeps no history.
+- ``stray_light``: ``examples/stray_light.py``, a lens in a barrel whose
+  walls scatter (``rough_surface_reaction``) and absorb
+  (``surface_absorber_reaction``); the ghost power outside the nominal
+  image at three roughnesses and two absorptivities, over four stream
+  seeds.
+- ``ghost_analysis``: ``examples/ghost_analysis.py``, a BK7 singlet, bare
+  and MgF2-coated, traced under every forced branch schedule of depth 4
+  (``branch_override_reaction`` under ``thin_film_intensity_reaction``),
+  checked against the analytic ghost powers.
 - ``random_segments``, ``random_arcs``, ``random_rays``: the sets of
   ``examples/tpu_kernel_check.py``, Morton-sorted.
 - ``arc_edge_cases``: ray-arc sets at the edges of the arc searches' exact
@@ -53,8 +63,16 @@ from tensorflowraytrace_tpu_torch.models import sources as src
 from tensorflowraytrace_tpu_torch.models.acceleration import (
     morton_sort_arcs, morton_sort_segments,
 )
+from tensorflowraytrace_tpu_torch.models.rays import RaySet
 from tensorflowraytrace_tpu_torch.models.surfaces import ArcSet, Scene2D, SegmentSet
+from tensorflowraytrace_tpu_torch.operations import (
+    all_branch_schedules, branch_override_reaction, rough_surface_reaction,
+    seed_branch_counter, seed_scatter, surface_absorber_reaction,
+    thin_film_intensity_reaction,
+)
 from tensorflowraytrace_tpu_torch.ops import materials as mats
+from tensorflowraytrace_tpu_torch.ops import thinfilm
+from tensorflowraytrace_tpu_torch.streamed import fold_in
 
 PI = math.pi
 # red, orange, yellow, green, blue, purple (nm)
@@ -212,6 +230,257 @@ def guide_design(n_rays=1 << 20, n_wall=2048, n_lenslets=512,
                      fold_init=init).fold
 
     return loss, params, scene
+
+
+# ----------------------------------------------------------------------
+# examples/stray_light.py: rough, absorbing barrel walls
+# ----------------------------------------------------------------------
+
+STRAY_IMAGE_HALF = 0.6   # the nominal image on the detector
+STRAY_BOUNCES = 12
+STRAY_SIGMAS = (0.0, 0.05, 0.2)
+STRAY_ABSORPTIVITIES = (0.0, 0.9)
+STRAY_KEYS = 4
+STRAY_SEED = 7
+
+
+def stray_light_scene(dtype=torch.float32, device=None):
+    """A biconvex lens (n = 1.5) at x ~ 1 in a barrel whose walls (y = +-1,
+    mirror sentinels facing the inside) scatter and absorb, and a detector
+    at x = 8: ``(scene, materials)``; the merged segments are [top wall,
+    bottom wall, detector]."""
+    device = resolve_device(device)
+    r = 4.0
+    th = math.asin(0.95 / r)
+    kw = dict(dtype=dtype, device=device)
+    front = ArcSet.make([[1.0 + r, 0.0]], [PI - th], [PI + th], [r],
+                        mat_in=1, mat_out=0, **kw)
+    back = ArcSet.make([[1.4 - r, 0.0]], [-th], [th], [r], mat_in=1,
+                       mat_out=0, **kw)
+    top = SegmentSet.make([[7.5, 1.0]], [[0.0, 1.0]], mat_in=2, mat_out=0,
+                          **kw)
+    bot = SegmentSet.make([[0.0, -1.0]], [[7.5, -1.0]], mat_in=2, mat_out=0,
+                          **kw)
+    det = SegmentSet.make([[8.0, -3.0]], [[8.0, 3.0]], **kw)
+    scene = Scene2D.build(optical_arcs=[front, back],
+                          optical_segments=[top, bot],
+                          target_segments=[det])
+    return scene, (mats.vacuum, mats.build_constant_material(1.5),
+                   mats.reflective)
+
+
+def stray_light_rays_np(n):
+    """The example's wide fan, drawn by numpy (seed 0) in float64: ``(p0,
+    p1)``, from x = -0.5 across |y| < 0.95 within +-0.35 rad of +x."""
+    rng = np.random.default_rng(0)
+    ys = rng.uniform(-0.95, 0.95, n)
+    ang = rng.uniform(-0.35, 0.35, n)
+    p0 = np.stack([np.full(n, -0.5), ys], axis=1)
+    return p0, p0 + np.stack([np.cos(ang), np.sin(ang)], axis=1)
+
+
+def stray_light_rays(n, dtype=torch.float32, device=None):
+    """:func:`stray_light_rays_np` as a RaySet at 550 nm with
+    ``scatter_ctr`` and unit ``intensity``."""
+    p0, p1 = stray_light_rays_np(n)
+    rays = seed_scatter(RaySet.make(p0, p1, 550.0, dtype=dtype,
+                                    device=resolve_device(device)))
+    return rays.with_field("intensity", torch.ones_like(rays.wavelength))
+
+
+def ghost_fraction(sigma, absorptivity, key, rays, scene, materials, cfg):
+    """The example's wall-mediated ghost power a launched ray: the power
+    landing outside the nominal image after more than the two lens
+    interactions (``scatter_ctr`` counts every reaction), with the walls
+    scattering by ``sigma`` from the stream ``key`` and absorbing
+    ``absorptivity`` a hit.  Returns a 0-d tensor."""
+    device = rays.p0.device
+    rough_ids = {"segments": torch.tensor([0, 0, -1], dtype=torch.int32,
+                                          device=device)}
+    absorb = {"segments": torch.tensor([absorptivity, absorptivity, 0.0],
+                                       dtype=rays.p0.dtype, device=device)}
+    rx = surface_absorber_reaction(
+        absorb, base_reaction=rough_surface_reaction([sigma], rough_ids, key))
+    with torch.no_grad():
+        res = trace(rays, scene, materials, cfg, reaction=rx)
+    out = res.rays
+    ghost = ((out.state == FINISHED)
+             & (torch.abs(out.p1[:, 1]) > STRAY_IMAGE_HALF)
+             & (out.fields["scatter_ctr"] > 2))
+    return torch.sum(torch.where(ghost, out.fields["intensity"], 0.0)) / (
+        rays.n_rays)
+
+
+def stray_light(rays=4000, dtype=torch.float32, device=None, verbose=True):
+    """Run ``examples/stray_light.py``: the ghost fraction at every wall
+    roughness of ``STRAY_SIGMAS`` and absorptivity of
+    ``STRAY_ABSORPTIVITIES``, averaged over ``STRAY_KEYS`` stream seeds
+    drawn from ``STRAY_SEED``, 12
+    bounces under ``TraceConfig.recommended`` (on the card: K5 and K6).
+    The keys are looped: a trace that launches CUDA kernels cannot be
+    vmapped.  Checks the example's three assertions and returns
+    ``{(sigma, absorptivity): mean ghost fraction}``."""
+    device = resolve_device(device)
+    scene, materials = stray_light_scene(dtype, device)
+    rays0 = stray_light_rays(rays, dtype, device)
+    cfg = TraceConfig.recommended(scene, max_bounces=STRAY_BOUNCES)
+    keys = [fold_in(STRAY_SEED, i) for i in range(STRAY_KEYS)]
+    results = {}
+    for sigma in STRAY_SIGMAS:
+        for absorb in STRAY_ABSORPTIVITIES:
+            vals = [float(ghost_fraction(sigma, absorb, k, rays0, scene,
+                                         materials, cfg)) for k in keys]
+            results[(sigma, absorb)] = float(np.mean(vals))
+            if verbose:
+                print(f"  wall sigma {sigma:4.2f}  absorptivity {absorb:3.1f}"
+                      f"  -> ghost power {results[(sigma, absorb)]:.4f}")
+    # wall-mediated ghost power exists, and black paint suppresses it
+    if not (results[(0.2, 0.0)] > 0.0
+            and results[(0.2, 0.9)] < 0.3 * results[(0.2, 0.0)]
+            and results[(0.0, 0.9)] < 0.3 * results[(0.0, 0.0)]):
+        raise RuntimeError(f"stray light: the example's assertions fail on "
+                           f"{results}")
+    return results
+
+
+# ----------------------------------------------------------------------
+# examples/ghost_analysis.py: the branch tree of a coated singlet
+# ----------------------------------------------------------------------
+
+N_BK7 = 1.5168
+N_MGF2 = 1.38
+GHOST_WAVELENGTH = 550.0
+# the analytic checks' relative tolerance: the example's in float64, and
+# float32's rounding of the complex64 stack and the traced power
+GHOST_RTOL = {torch.float64: 1e-6, torch.float32: 1e-5}
+
+
+def ghost_lens(dtype=torch.float32, device=None):
+    """A symmetric biconvex BK7 singlet (two arcs of radius 6, aperture
+    +-1.5) and a detector at x = 8: ``(scene, materials)``."""
+    device = resolve_device(device)
+    r, half = 6.0, 1.5
+    sag = r - math.sqrt(r * r - half * half)
+    th = math.asin(half / r)
+    kw = dict(dtype=dtype, device=device)
+    entry = ArcSet.make([[sag - r + 1.0, 0.0]], [-th], [th], [r], mat_in=1,
+                        mat_out=0, **kw)
+    exit_ = ArcSet.make([[r - sag + 1.4, 0.0]], [PI - th], [PI + th], [r],
+                        mat_in=1, mat_out=0, **kw)
+    tgt = SegmentSet.make([[8.0, -8.0]], [[8.0, 8.0]], **kw)
+    scene = Scene2D.build(optical_arcs=[entry, exit_], target_segments=[tgt])
+    return scene, (mats.vacuum, mats.build_constant_material(N_BK7))
+
+
+def ghost_beam(n, dtype=torch.float32, device=None):
+    """``n`` parallel rays across |y| <= 1 from x = -1 along +x at 550 nm,
+    with ``branch_ctr`` and unit ``intensity``; ray n // 2 is on axis."""
+    ys = np.linspace(-1.0, 1.0, n)
+    p0 = np.stack([np.full(n, -1.0), ys], axis=1)
+    rays = RaySet.make(p0, p0 + [1.0, 0.0], GHOST_WAVELENGTH, dtype=dtype,
+                       device=resolve_device(device))
+    return seed_branch_counter(rays).with_field(
+        "intensity", torch.ones_like(rays.wavelength))
+
+
+def schedule_name(row):
+    """A branch schedule as letters: T transmit, R reflect."""
+    return "".join("TR"[int(b)] for b in row)
+
+
+def _close(got, want, rtol, what):
+    rel = abs(got - want) / abs(want)
+    if not rel <= rtol:
+        raise RuntimeError(f"ghost analysis: {what} {got!r} against "
+                           f"{want!r} (rel {rel:.3e}, rtol {rtol:g})")
+    return rel
+
+
+def ghost_analysis(rays=801, depth=4, dtype=torch.float32, device=None,
+                   verbose=True):
+    """Run ``examples/ghost_analysis.py``: trace the beam through the bare
+    and the MgF2 quarter-wave AR-coated singlet under every forced branch
+    schedule of ``depth`` interactions (``all_branch_schedules``, one trace
+    a schedule: the JAX example's vmap is a loop here) with
+    ``thin_film_intensity_reaction`` over ``branch_override_reaction``,
+    ``depth + 1`` bounces under ``TraceConfig.recommended`` (on the card:
+    K5 and K6).  Checks, on the on-axis ray, the main path's power against
+    T^2, the double-bounce ghost's (TRRT) against T^2 R^2 and their ratio
+    against R^2, with R from the same stack at normal incidence, within
+    ``GHOST_RTOL`` of the dtype (the example's 1e-6 in float64; 1e-5 in
+    float32), and that the coating cuts the beam's ghost power more than
+    8x.  Returns
+    ``(results, names)``: per coating the landed power of every schedule
+    summed over the beam (``tot``) and by ray (``power``), the landing
+    heights (``y``), the final ``branch_ctr`` (``ctr``), ``R`` and the
+    analytic checks' relative errors (``rel``); ``names`` the schedules'
+    letters."""
+    device = resolve_device(device)
+    rtol = GHOST_RTOL[dtype]
+    scene, materials = ghost_lens(dtype, device)
+    beam = ghost_beam(rays, dtype, device)
+    cfg = TraceConfig.recommended(scene, max_bounces=depth + 1)
+    d_qw = float(thinfilm.quarter_wave_thickness(N_MGF2, GHOST_WAVELENGTH))
+    coatings = {"bare": ([], {}),
+                "AR-coated": ([[(N_MGF2, d_qw)]], {"arcs": torch.tensor(
+                    [0, 0], dtype=torch.int32, device=device)})}
+    schedules = all_branch_schedules(depth, device)
+    names = [schedule_name(r) for r in schedules.cpu().numpy()]
+    main_k, ghost_k = names.index("TT" + "T" * (depth - 2)), names.index(
+        "TRRT")
+
+    results = {}
+    for label, (stacks, coat_ids) in coatings.items():
+        power, y, ctr = [], [], []
+        with torch.no_grad():
+            for sched in schedules:
+                rx = thin_film_intensity_reaction(
+                    stacks, coat_ids,
+                    base_reaction=branch_override_reaction(sched))
+                res = trace(beam, scene, materials, cfg, reaction=rx)
+                landed = res.rays.state == FINISHED
+                power.append(torch.where(landed,
+                                         res.rays.fields["intensity"], 0.0))
+                y.append(res.rays.p1[:, 1])
+                ctr.append(res.rays.fields["branch_ctr"])
+        power = torch.stack(power).cpu().numpy()
+        r = dict(tot=power.sum(axis=1), power=power,
+                 y=torch.stack(y).cpu().numpy(),
+                 ctr=torch.stack(ctr).cpu().numpy())
+
+        # the on-axis ray meets both faces at normal incidence: ghost TRRT
+        # power = T1 R2 R1 T2 with R from the same stack
+        one = torch.ones(1, dtype=dtype, device=device)
+        n_layers = 1 if stacks else 0
+        ln = torch.full((n_layers, 1), N_MGF2, dtype=dtype, device=device)
+        ld = torch.full((n_layers, 1), d_qw, dtype=dtype, device=device)
+        R = float(thinfilm.stack_R_unpolarized(
+            one, N_BK7 * one, one, GHOST_WAVELENGTH * one, ln, ld)[0])
+        T = 1.0 - R
+        i_mid = rays // 2
+        p_main = float(power[main_k, i_mid])
+        p_ghost = float(power[ghost_k, i_mid])
+        r["R"] = R
+        r["rel"] = {
+            "main": _close(p_main, T * T, rtol, f"[{label}] main TT power"),
+            "ghost": _close(p_ghost, T * T * R * R, rtol,
+                            f"[{label}] ghost TRRT power"),
+            "ratio": _close(p_ghost / p_main, R * R, rtol,
+                            f"[{label}] ghost / main")}
+        results[label] = r
+        if verbose:
+            print(f"[{label}] on-axis R = {R:.5f}: main TT {p_main:.6f} "
+                  f"(T^2 {T * T:.6f}), ghost TRRT {p_ghost:.6e} (T^2 R^2 "
+                  f"{T * T * R * R:.6e}), relative errors {r['rel']}")
+    bare_ghost = results["bare"]["tot"][ghost_k]
+    ar_ghost = results["AR-coated"]["tot"][ghost_k]
+    if verbose:
+        print(f"AR coating cut the double-bounce ghost by "
+              f"{bare_ghost / max(ar_ghost, 1e-30):.0f}x")
+    if not ar_ghost < bare_ghost / 8:
+        raise RuntimeError(f"ghost analysis: the coating cut the ghost from "
+                           f"{bare_ghost} to {ar_ghost}, not 8x")
+    return results, names
 
 
 # ----------------------------------------------------------------------

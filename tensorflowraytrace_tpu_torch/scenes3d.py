@@ -1,5 +1,5 @@
-"""The 3D point-source scene: a point source through a curved lens and past
-a mirror sphere onto a target plane.
+"""The 3D scenes of the examples: the point source through a curved lens
+and past a mirror sphere onto a target plane, and the pool caustic.
 
 Counterpart of ``examples/trace_3d.py`` (the reference's dev/3d_trace.py),
 without its drawing: 200 rays of a ``StaticUniformSphere`` cap of half-angle
@@ -13,24 +13,46 @@ hexagonal mesh of radius 1 at x = 0 bent to the profile 0.3 (1 - r^2)
 
 It runs on CUDA unless given ``device=``, with the CUDA kernels there
 (``use_kernel=None``), and in float32 unless given ``dtype=``.
+
+The pool caustic, ``examples/caustic_render.py`` at its defaults:
+collimated sunlight (2^27 rays in blocks of 2^22, 550 nm, over a 6.4 x
+6.4 square at z = 1, straight down) refracts through a wavy air -> water
+surface (``hexagonal_mesh(4.6, 144)`` lifted by three plane waves of
+amplitude 0.08: 124,416 triangles, Morton-sorted) onto the pool floor at
+z = -3 (2 triangles), 2 bounces in float32 under
+``TraceConfig.recommended`` (on the card: ``cull=True`` with the re-sort,
+K3).  Each landing is weighted by its Fresnel transmission
+(``operations.fresnel_intensity_reaction``) into a 512 x 512 image
+(``landing_histogram_fold(weight_field="intensity")``) streamed by
+``trace_streamed``; the mean landed weight must lie within 0.02 of the
+normal-incidence transmission 1 - (1/7)^2.
+
+    out = caustic_render()            # image, state counts, seconds
 """
 
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 import torch
 
-from tensorflowraytrace_tpu_torch.config import resolve_device
-from tensorflowraytrace_tpu_torch.engine import TraceConfig, start_epsilon, trace
+from tensorflowraytrace_tpu_torch.config import FINISHED, resolve_device
+from tensorflowraytrace_tpu_torch.engine import (
+    TraceConfig, landing_histogram_fold, start_epsilon, trace, trace_streamed,
+)
 from tensorflowraytrace_tpu_torch.models import boundaries as bd
 from tensorflowraytrace_tpu_torch.models import distributions as dist
 from tensorflowraytrace_tpu_torch.models import mesh as mt
 from tensorflowraytrace_tpu_torch.models import sources as src
+from tensorflowraytrace_tpu_torch.models.acceleration import morton_sort_triangles
+from tensorflowraytrace_tpu_torch.models.rays import RaySet
 from tensorflowraytrace_tpu_torch.models.surfaces import Scene3D, TriangleSet
+from tensorflowraytrace_tpu_torch.operations import fresnel_intensity_reaction
 from tensorflowraytrace_tpu_torch.ops import materials as mats
 from tensorflowraytrace_tpu_torch.ops.spectrum import YELLOW
+from tensorflowraytrace_tpu_torch.streamed import fold_in
 
 PI = math.pi
 MATERIALS = (mats.vacuum, mats.acrylic)
@@ -116,3 +138,160 @@ def trace_3d(max_bounces=4, keep_history=True, dtype=torch.float32,
     rays, scene, cfg = point_source_scene(max_bounces, keep_history, dtype,
                                           device, use_kernel)
     return trace(rays, scene, MATERIALS, cfg)
+
+
+# ======================================================================
+# examples/caustic_render.py
+# ======================================================================
+
+N_WATER = 4.0 / 3.0
+CAUSTIC_SEED = 20260818
+CAUSTIC_MATERIALS = (mats.vacuum, mats.build_constant_material(N_WATER))
+# the square of the sun's rays, and the image's extent
+SUN_HALF = 3.2
+POOL_HALF = 3.6
+# the Fresnel transmission of water at normal incidence, 1 - (1/7)^2
+T_NORMAL = 1.0 - ((N_WATER - 1.0) / (N_WATER + 1.0)) ** 2
+
+
+def water_surface(mesh_steps, amp, dtype=torch.float32,
+                  device=None) -> TriangleSet:
+    """A wavy air -> water interface: the hexagonal mesh of radius 4.6
+    lifted by a sum of three plane waves of incommensurate directions (an
+    aperiodic caustic network, like real chop); water is ``mat_in``.  It
+    is Morton-sorted, so culling has compact chunks to skip (the image
+    does not depend on the order)."""
+    m = mt.hexagonal_mesh(4.6, mesh_steps)
+    x, y = m.points[:, 0], m.points[:, 1]
+    z = (amp * np.sin(2.6 * x + 0.8 * y + 0.3)
+         + 0.75 * amp * np.sin(1.1 * x - 3.1 * y + 1.7)
+         + 0.55 * amp * np.sin(4.3 * x + 2.2 * y + 4.0))
+    pts = np.stack([x, y, z], axis=1)
+    f = m.faces
+    tri = TriangleSet.make(pts[f[:, 0]], pts[f[:, 1]], pts[f[:, 2]],
+                           mat_in=1, mat_out=0, dtype=dtype,
+                           device=resolve_device(device))
+    return morton_sort_triangles(tri)[0]
+
+
+def pool_floor(half, depth, dtype=torch.float32, device=None) -> TriangleSet:
+    """The target: a 2 half x 2 half square at z = -depth."""
+    return TriangleSet.make(
+        [[-half, -half, -depth], [half, half, -depth]],
+        [[half, -half, -depth], [-half, half, -depth]],
+        [[half, half, -depth], [-half, -half, -depth]], dtype=dtype,
+        device=resolve_device(device))
+
+
+def sun_block(generator, block, half_src, dtype=torch.float32,
+              device=None) -> RaySet:
+    """One block of collimated rays drawn from ``generator``: uniform over
+    the square |x|, |y| <= half_src at z = 1, travelling straight down at
+    550 nm, with unit ``intensity``."""
+    device = resolve_device(device)
+    xy = torch.rand((block, 2), generator=generator, dtype=dtype,
+                    device=device) * (2.0 * half_src) - half_src
+    ones = torch.ones((block, 1), dtype=dtype, device=device)
+    p0 = torch.cat([xy, ones], dim=1)
+    p1 = torch.cat([xy, ones - 1.0], dim=1)   # p0 + (0, 0, -1)
+    return RaySet.make(p0, p1, 550.0, dtype=dtype, device=device).with_field(
+        "intensity", ones[:, 0])
+
+
+def caustic_scene(mesh_steps=144, depth=3.0, amp=0.08, dtype=torch.float32,
+                  device=None) -> Scene3D:
+    """The water surface over the pool floor (half-width 4.6)."""
+    return Scene3D.build(
+        optical=[water_surface(mesh_steps, amp, dtype, device)],
+        targets=[pool_floor(POOL_HALF + 1.0, depth, dtype, device)])
+
+
+class CausticRender:
+    """The streamed caustic of ``examples/caustic_render.py``: ``self(n)``
+    traces ``n`` blocks of ``block`` rays (block ``i`` drawn from a
+    generator seeded ``fold_in(CAUSTIC_SEED, i)``), or a given RaySet in
+    blocks,
+    under ``torch.no_grad()``, and returns the ``engine.StreamedResult`` of
+    the (res, res) landing image and the state counts.
+
+    The image accumulates in ``image_dtype`` (the rays' dtype by default,
+    as the example).  float64 sums float32 weights exactly, so its image
+    does not depend on the order of the additions: a stream and one trace
+    of the same rays then give the same image bit for bit."""
+
+    def __init__(self, block=1 << 22, res=512, mesh_steps=144, depth=3.0,
+                 amp=0.08, dtype=torch.float32, device=None,
+                 image_dtype=None):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.block_size = block
+        self.scene = caustic_scene(mesh_steps, depth, amp, dtype, self.device)
+        self.cfg = TraceConfig.recommended(self.scene, max_bounces=2)
+        extent = ((-SUN_HALF, SUN_HALF), (-SUN_HALF, SUN_HALF))
+        self.fold = landing_histogram_fold(extent, res,
+                                           dtype=image_dtype or dtype,
+                                           axes=(0, 1),
+                                           weight_field="intensity",
+                                           device=self.device)
+        self.reaction = fresnel_intensity_reaction()
+
+    def block(self, i):
+        """Block ``i`` of the stream."""
+        gen = torch.Generator(self.device).manual_seed(
+            fold_in(CAUSTIC_SEED, i))
+        return sun_block(gen, self.block_size, SUN_HALF, self.dtype,
+                         self.device)
+
+    def __call__(self, n_blocks=None, rays=None):
+        init, fn = self.fold
+        with torch.no_grad():
+            return trace_streamed(
+                self.block if rays is None else rays, self.scene,
+                CAUSTIC_MATERIALS, self.cfg, reaction=self.reaction,
+                fold_fn=fn, fold_init=init, fold_fields=True,
+                block_size=self.block_size, n_blocks=n_blocks,
+                remat_blocks=False)
+
+
+def mean_transmission(result):
+    """The mean landed weight of a caustic stream: the image's sum over
+    the finished rays."""
+    finished = int(result.state_counts[FINISHED])
+    return float(result.fold.sum()) / max(finished, 1)
+
+
+def caustic_render(n_rays=1 << 27, block=1 << 22, res=512, mesh_steps=144,
+                   depth=3.0, amp=0.08, dtype=torch.float32, device=None,
+                   rays=None, verbose=True):
+    """Render the caustic (``rays`` given: trace those, in blocks of
+    ``block``; else ``n_rays // block`` generated blocks), check the mean
+    landed weight against the normal-incidence transmission (within 0.02,
+    the example's test) and return ``{"image", "state_counts", "n_rays",
+    "seconds", "rays_per_s", "equiv_per_s", "mean_transmission"}``
+    (equivalent intersections/s: rays x triangles x bounces over the
+    wall time, the stream's first block's set-up included)."""
+    render = CausticRender(block, res, mesh_steps, depth, amp, dtype,
+                           device)
+    n_blocks = None if rays is not None else max(1, n_rays // block)
+    n = rays.n_rays if rays is not None else n_blocks * block
+    if render.device.type == "cuda":
+        torch.cuda.synchronize(render.device)
+    t0 = time.perf_counter()
+    out = render(n_blocks, rays)
+    image = out.fold.cpu()
+    counts = out.state_counts.tolist()
+    seconds = time.perf_counter() - t0
+    mean_t = mean_transmission(out)
+    m = render.scene.triangles.n_surfaces
+    if verbose:
+        print(f"caustic render: {m} triangles, {n:,} rays -> {res}x{res} "
+              f"image in {seconds:.3f} s ({n / seconds / 1e6:.2f} M rays/s); "
+              f"landed power {float(image.sum()):,.1f} over {counts[FINISHED]:,}"
+              f" finished rays (mean transmission {mean_t:.5f})", flush=True)
+    if not abs(mean_t - T_NORMAL) < 0.02:
+        raise RuntimeError(f"caustic render: mean landed weight {mean_t} is "
+                           f"not within 0.02 of {T_NORMAL}")
+    return {"image": image, "state_counts": counts, "n_rays": n,
+            "seconds": seconds, "rays_per_s": n / seconds,
+            "equiv_per_s": n * m * render.cfg.max_bounces / seconds,
+            "mean_transmission": mean_t}

@@ -151,3 +151,68 @@ def precompiled_from_numpy(data, dimension=3, **kw):
         "fields": {k: np.array(v) for k, v in data["fields"].items()},
     }
     return source
+
+
+def surface_tables_from_numpy(tables, dtype=torch.int32, device=None):
+    """Per-surface tables of a reaction (``{"triangles": arr}`` or
+    ``{"segments": arr, "arcs": arr}``: coating, grating, metasurface,
+    roughness or roulette ids, absorptivities, or ``(alpha_in,
+    alpha_out)`` pairs) as tensors of ``dtype`` on ``device``, so that no
+    bounce copies them to the device again."""
+    device = resolve_device(device)
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+    return {kind: (tuple(tensor(a) for a in arr)
+                   if isinstance(arr, (tuple, list)) else tensor(arr))
+            for kind, arr in tables.items()}
+
+
+def _number_or_tensor(v, dtype, device):
+    """A Python number for a scalar, a tensor for an array; callables (a
+    dispersive index ``n(wavelength)``) stay as they are."""
+    if callable(v) or isinstance(v, torch.Tensor):
+        return v
+    a = np.array(v)
+    if a.ndim == 0:
+        return a.item()
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def stacks_from_numpy(stacks, dtype=None, device=None):
+    """Thin-film stacks (sequences of ``(n, d)`` layers, as the JAX
+    ``thin_film_*_reaction`` takes them) for the port's reactions: scalars
+    become Python numbers, arrays tensors on ``device``."""
+    dtype, device = resolve_dtype(dtype), resolve_device(device)
+    return [[(_number_or_tensor(n, dtype, device),
+              _number_or_tensor(d, dtype, device)) for n, d in stack]
+            for stack in stacks]
+
+
+def gratings_from_numpy(gratings, dtype=None, device=None):
+    """Grating specs ``(spacing, order, kind[, groove])`` for the port's
+    ``grating_reaction``: the spacing a number (or a tensor for an array),
+    the groove vector a tensor on ``device``."""
+    dtype, device = resolve_dtype(dtype), resolve_device(device)
+    out = []
+    for spec in gratings:
+        spacing, order, kind = spec[:3]
+        row = (_number_or_tensor(spacing, dtype, device), int(order), kind)
+        if len(spec) > 3:
+            row += (torch.as_tensor(np.array(spec[3]), dtype=dtype,
+                                    device=device),)
+        out.append(row)
+    return out
+
+
+def seed_from_jax_key(key) -> int:
+    """The port's integer stream seed for a JAX PRNG key given as NumPy
+    words (``np.asarray(jax.random.PRNGKey(s))``: two uint32): the words
+    high first.  The stochastic reactions' draws at this seed are the
+    port's own; a test that substitutes JAX's draws recovers the key from
+    it."""
+    words = np.asarray(key, dtype=np.uint64).reshape(-1)
+    if words.shape != (2,):
+        raise ValueError(f"a JAX key is two uint32 words; got {words}")
+    return (int(words[0]) << 32) | int(words[1])
