@@ -243,6 +243,32 @@ exits non-zero without printing a result):
    versions, every call and every schedule's power, landing height and
    branch counter bit for bit.
 
+18. the designs at the JAX examples' sizes (float32, K5 and K2, K1 in
+   18d): 18a ``scenes2d.asphere_singlet`` (examples/asphere_singlet.py: two
+   ParametricAsphereSegments of 256 segments and the screen, 160 rays, 3
+   bounces, the sphere control and the asphere design of 1500 Adam steps
+   each under a cosine LambdaLR, through ``Optimizer(optax_tx=...)``): the
+   example's two checks, the launches (K5 3 a step and one a bounce of the
+   three spot evaluations, K2 the same each step), ms a step by CUDA
+   events over 100 steps, 20 steps profiled (idle share; K5, K2 and the
+   rest), then 5 steps each held against the plain K5 and K2 (every K5
+   call bit for bit, the loss equal, the gradient within 1e-4 of the
+   plain backward's max norm); 18b ``scenes2d.multisegment_lens``
+   (BASELINE config 2: 68 rays, the two-surface multi-segment lens, 4
+   bounces, 61 steps): the test's three checks (the thickness with a
+   1e-6 float32 margin), launches, ms a step, one step against the plain
+   versions; 18c ``scenes2d.strehl_lens`` (examples/strehl_lens.py: 48
+   segments, 128 rays carrying their optical path, 2 bounces, 3 stages of
+   300 Adam steps): the example's check, ms a step a stage, launches, 5
+   steps profiled with the PSF's forward in the range ``strehl_psf``,
+   then 5 steps held against the plain K5 and K2 as in 18a; 18d ``scenes3d.image_quality_3d`` (examples/image_quality_3d.py: the
+   hexalens trained by ``hexalens.train``, exported as STL under build/,
+   reloaded with ``manual_triangle_boundary``; 20 batches of 4000 rays, 3
+   bounces, brute K1): the reloaded faces equal the 7-decimal rounding of
+   ``lens.build(params)`` exactly (the reader's merge rule), K1 3 a
+   batch, both images carry flux, one batch's K1 calls bit for bit with
+   the plain version; 18e ``scenes3d.remesh``: its check.
+
 Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
 earlier runs: the brute-force search does not use the order.  Then the
 script's own wall time, one JSON line describing each kernel of the path,
@@ -324,7 +350,7 @@ GUIDE_BOUNCES = 24
 # re-sort, and phase 17 around the caustic's reaction and fold; their
 # device-side annotations are not kernels
 RANGES = ("twolevel_candidates", "resort_rays", "caustic_reaction",
-          "caustic_fold")
+          "caustic_fold", "strehl_psf")
 
 # H100 SXM peaks (NVIDIA's data sheet, at the 700 W power limit).  The
 # FP32 peak counts an FMA as two operations; the searches are built with
@@ -396,6 +422,20 @@ GHOST_RAYS = 801
 GHOST_DEPTH = 4
 STREAM_DRAWS = 1 << 20
 NORMAL_ULPS = 4
+# phase 18: the designs of the optimizer's torch stage and the analysis
+ASPHERE_STEPS = 1500       # a design; the example runs two
+ASPHERE_RES = 256
+ASPHERE_RAYS = 160
+ASPHERE_TIMED = 100        # steps timed one by one by CUDA events
+ASPHERE_PROFILED = 20
+PLAIN_STEPS = 5            # steps held against the plain K5 and K2
+CONFIG2_STEPS = 60
+STREHL_STEPS = 300         # a stage; three stages
+STREHL_SEGMENTS = 48
+STREHL_RAYS = 128
+STREHL_PROFILED = 5
+IMAGE_BATCHES = 20
+IMAGE_RAYS = 4000
 
 
 def check(cond, message):
@@ -3082,6 +3122,362 @@ def phase_17(device):
             "K5_ghost": ghost_launches["K5"], "K6_ghost": ghost_launches["K6"]}
 
 
+def event_step_ms(step, n):
+    """``n`` calls of ``step`` after one, each followed by a CUDA event and
+    none by a host synchronisation: the ms between consecutive events, the
+    card's timeline a step (the host's issue time when it holds the card
+    back)."""
+    import torch
+
+    step()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    events[0].record()
+    for e in events[1:]:
+        step()
+        e.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+
+
+def profiled_steps(step, n, label, parts):
+    """``n`` calls of ``step`` under torch.profiler: the idle share and the
+    device-time shares of ``parts`` (name: substring of the kernel names)
+    and of the rest, as one report string."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name, union_us, n_device = device_profile(prof)
+    busy_us = sum(by_name.values())
+    if busy_us <= 0:
+        return prof, busy_us, (f"{label}: the profiler recorded no device "
+                               "time: shares not measured")
+    shares = []
+    for name, part in parts.items():
+        t = sum(v for k, v in by_name.items() if part in k)
+        shares.append(f"{name} {t:.1f} us = {t / busy_us:.2%}")
+    rest = busy_us - sum(v for k, v in by_name.items()
+                         if any(p in k for p in parts.values()))
+    shares.append(f"the rest {rest:.1f} us = {rest / busy_us:.2%}")
+    return prof, busy_us, (
+        f"{label}: {n} steps, device busy {union_us:.1f} us of "
+        f"{wall_us:.1f} us wall (idle share {1 - union_us / wall_us:.4f}); "
+        f"{n_device} kernels and copies, {busy_us:.1f} us: "
+        + ", ".join(shares))
+
+
+def gradients(loss, params):
+    """The value and gradients of ``loss`` at detached copies of
+    ``params``."""
+    import torch
+
+    leaves = [p.detach().clone().requires_grad_(True) for p in params]
+    value = loss(leaves)
+    return value.detach(), torch.autograd.grad(value, leaves)
+
+
+def kernel_and_plain_2d(label, loss, params):
+    """One forward + backward of ``loss`` at ``params`` with K5 and K2, then
+    with their plain versions: K5's calls bit for bit with the plain calls,
+    the loss equal, the gradients within 1e-4 of the plain ones' max norm.
+    Returns ``(calls, gdiff, gmax)``."""
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+
+    log_k, log_p = [], []
+    with override(gk, nearest_hit_segments_kernel=logged(
+            gk.nearest_hit_segments_kernel, log_k)):
+        v_k, g_k = gradients(loss, params)
+    with override(gk, nearest_hit_segments_kernel=logged(
+            gk.nearest_hit_segments_plain, log_p)), override(
+                sk, segment_sum_kernel=sk.segment_sum_plain):
+        v_p, g_p = gradients(loss, params)
+    calls = calls_equal(label, log_k, log_p)
+    check(bool(v_k == v_p), f"{label}: loss {float(v_k)!r} with the kernels, "
+          f"{float(v_p)!r} with the plain versions")
+    gmax = max(float(g.abs().max()) for g in g_p)
+    gdiff = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p))
+    check(gmax > 0 and gdiff <= 1e-4 * gmax,
+          f"{label}: the gradient through K2 differs from the plain one by "
+          f"{gdiff} (max {gmax})")
+    return calls, gdiff, gmax
+
+
+def launches_per_step(step):
+    """K5's and K2's launches in one call of ``step``."""
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+
+    k5, k2 = gk.LAUNCHES, sk.LAUNCHES
+    step()
+    return {"K5": gk.LAUNCHES - k5, "K2": sk.LAUNCHES - k2}
+
+
+def phase_18(device):
+    """The asphere singlet, BASELINE config 2, the Strehl lens, the
+    hexalens's image quality through STL and the remesh, at the examples'
+    sizes, through the entry points that pick the kernels on the card.
+    Returns the main paths' launches."""
+    import numpy as np
+    import torch
+
+    from tensorflowraytrace_tpu_torch import FINISHED, hexalens, scenes2d
+    from tensorflowraytrace_tpu_torch import scenes3d, trace
+    from tensorflowraytrace_tpu_torch.models import boundaries as bd
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+    from tensorflowraytrace_tpu_torch.optim import Optimizer
+
+    f32 = torch.float32
+    t_phase = time.perf_counter()
+    k5_name = cuda_kernel_name("segment", "brute")
+    parts = {"K5": k5_name, "K2": "segment_sum"}
+    out = {}
+
+    # ---- 18a. the asphere singlet: the main path, then its steps
+    gk.LAUNCHES = sk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = scenes2d.asphere_singlet(steps=ASPHERE_STEPS,
+                                   resolution=ASPHERE_RES,
+                                   n_rays=ASPHERE_RAYS, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["asphere"] = {"K5": gk.LAUNCHES, "K2": sk.LAUNCHES}
+    spot_sq, start = scenes2d.asphere_problem(ASPHERE_RES, ASPHERE_RAYS, f32,
+                                              device)
+    check(spot_sq.cfg.use_kernel and not spot_sq.cfg.cull,
+          f"asphere config {spot_sq.cfg}")
+    opt = scenes2d.asphere_optimizer(spot_sq, start, scenes2d.ASPHERE_MASK,
+                                     ASPHERE_STEPS, 6e-3)
+
+    def step():
+        opt.single_step(sync=False)
+
+    per_step = launches_per_step(step)
+    steps = 2 * ASPHERE_STEPS
+    bounces = scenes2d.ASPHERE_BOUNCES
+    # every step, and the three spot evaluations (start, sphere, asphere)
+    check(per_step["K5"] == bounces and out["asphere"] == {
+        "K5": bounces * (steps + 3), "K2": per_step["K2"] * steps},
+          f"asphere launches {out['asphere']}, {per_step} a step")
+    for label in ("sphere", "asphere"):
+        check(bool(np.all(np.isfinite(res[f"errors_{label}"]))),
+              f"asphere {label} errors are not finite")
+    step_ms = event_step_ms(step, ASPHERE_TIMED)
+    _, _, shares = profiled_steps(step, ASPHERE_PROFILED, "profiled", parts)
+    print(f"phase 18a asphere singlet: {ASPHERE_RES} segments a surface, "
+          f"{ASPHERE_RAYS} rays, {bounces} bounces, float32, two designs of "
+          f"{ASPHERE_STEPS} steps (Adam, cosine LambdaLR, optax_tx) in "
+          f"{wall:.3f} s (sphere {res['seconds_sphere']:.3f} s, asphere "
+          f"{res['seconds_asphere']:.3f} s = "
+          f"{res['seconds_asphere'] / ASPHERE_STEPS * 1e3:.3f} ms a step); "
+          f"launches {out['asphere']}, {per_step} a step; rms spot start "
+          f"{res['rms_start']!r}, sphere {res['rms_sphere']!r}, asphere "
+          f"{res['rms_asphere']!r}: asphere < sphere / 3 "
+          f"({res['rms_sphere'] / res['rms_asphere']:.2f}x) and < start / 5 "
+          f"({res['rms_start'] / res['rms_asphere']:.2f}x); front (c, k, a4) "
+          f"{res['params_asphere'][:3].tolist()}, back "
+          f"{res['params_asphere'][3:].tolist()}", flush=True)
+    print(f"phase 18a asphere steps: median "
+          f"{statistics.median(step_ms):.3f} ms a step by CUDA events over "
+          f"{ASPHERE_TIMED} (min {min(step_ms):.3f}, max {max(step_ms):.3f}); "
+          f"{shares}", flush=True)
+    worst, calls = 0.0, 0
+    for _ in range(PLAIN_STEPS):
+        n, gdiff, gmax = kernel_and_plain_2d(
+            "phase 18a asphere", lambda p: spot_sq(p), opt.parameters)
+        calls += n
+        worst = max(worst, gdiff / gmax)
+        step()
+    print(f"phase 18a against the plain versions: {PLAIN_STEPS} steps, "
+          f"{calls} K5 calls bit for bit with the plain K5, the losses "
+          f"equal, the gradients through K2 within {worst:.3e} of the plain "
+          f"backward's max norm (limit 1e-4)", flush=True)
+    del opt, res
+
+    # ---- 18b. BASELINE config 2
+    gk.LAUNCHES = sk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = scenes2d.multisegment_lens(steps=CONFIG2_STEPS, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["config2"] = {"K5": gk.LAUNCHES, "K2": sk.LAUNCHES}
+    lens, rays, trace_fn, loss = scenes2d.multisegment_problem(f32, device)
+    check(loss.cfg.use_kernel, f"config 2 config {loss.cfg}")
+    opt = Optimizer(loss, lens.init_params(), learning_rate=1.0,
+                    grad_clip=5e-3)
+
+    def step():
+        opt.single_step(None, lr_scale=2e-3, momentum=0.8, sync=False)
+
+    per_step = launches_per_step(step)
+    steps = CONFIG2_STEPS + 1
+    bounces = scenes2d.CONFIG2_BOUNCES
+    check(per_step["K5"] == bounces and out["config2"] == {
+        "K5": bounces * (steps + 1), "K2": per_step["K2"] * steps},
+          f"config 2 launches {out['config2']}, {per_step} a step")
+    step_ms = event_step_ms(step, 20)
+    calls, gdiff, gmax = kernel_and_plain_2d(
+        "phase 18b config 2", lambda p: loss(p), lens.init_params())
+    k = min(len(res["reds"]), len(res["blues"]))
+    apart = float(np.abs(np.sort(res["reds"])[:k]
+                         - np.sort(res["blues"])[:k]).max())
+    print(f"phase 18b config 2: {rays.n_rays} rays (60 RAINBOW_6 + 8), "
+          f"{lens.surfaces[0].n_params} base points a surface, {bounces} "
+          f"bounces, float32, {steps} steps in {wall:.3f} s; median "
+          f"{statistics.median(step_ms):.3f} ms a step by CUDA events over "
+          f"20; launches {out['config2']}, {per_step} a step; error "
+          f"{res['e0']!r} -> {float(res['errors'][-1])!r} "
+          f"({res['errors'][-1] / res['e0']:.4f}, below 0.5); the 680 nm "
+          f"and 400 nm landings (sorted) apart by up to {apart!r}; least "
+          f"thickness "
+          f"{res['thickness']!r} >= 0.15 - 1e-6; one step against the plain "
+          f"versions: {calls} K5 calls bit for bit, the gradient through K2 "
+          f"within {gdiff / gmax:.3e} of the plain max norm", flush=True)
+    del opt, res
+
+    # ---- 18c. the Strehl lens
+    gk.LAUNCHES = sk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = scenes2d.strehl_lens(steps=STREHL_STEPS, n_segments=STREHL_SEGMENTS,
+                               n_rays=STREHL_RAYS, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["strehl"] = {"K5": gk.LAUNCHES, "K2": sk.LAUNCHES}
+    strehl, _ = scenes2d.strehl_problem(STREHL_SEGMENTS, STREHL_RAYS, f32,
+                                        device)
+    check(strehl.cfg.use_kernel, f"Strehl config {strehl.cfg}")
+    lam, lr, _ = scenes2d.strehl_stages(STREHL_STEPS)[-1]
+    opt = scenes2d.strehl_optimizer(strehl, res["xs"], lam, lr)
+
+    def step():
+        opt.single_step(sync=False)
+
+    per_step = launches_per_step(step)
+    steps = 3 * STREHL_STEPS
+    bounces = scenes2d.STREHL_BOUNCES
+    # every step, and the three Strehl evaluations (start, design, hyperbola)
+    check(per_step["K5"] == bounces and out["strehl"] == {
+        "K5": bounces * (steps + 3), "K2": per_step["K2"] * steps},
+          f"Strehl launches {out['strehl']}, {per_step} a step")
+    prof, busy_us, shares = profiled_steps(step, STREHL_PROFILED, "profiled",
+                                           parts)
+    psf_us = range_device_us(prof, "strehl_psf")
+    psf = (f"the PSF's forward (range strehl_psf) {psf_us:.1f} us = "
+           f"{psf_us / busy_us:.2%} of the device time" if busy_us > 0
+           else "the PSF's share not measured")
+    worst, calls = 0.0, 0
+    for _ in range(PLAIN_STEPS):
+        n, gdiff, gmax = kernel_and_plain_2d(
+            "phase 18c Strehl", lambda p: -strehl(p[0], lam), opt.parameters)
+        calls += n
+        worst = max(worst, gdiff / gmax)
+        step()
+    print(f"phase 18c Strehl lens: {STREHL_SEGMENTS} segments, "
+          f"{STREHL_RAYS} rays, {bounces} bounces, float32, 3 stages of "
+          f"{STREHL_STEPS} Adam steps in {wall:.3f} s ("
+          + ", ".join(f"{t / STREHL_STEPS * 1e3:.3f}"
+                      for t in res["stage_seconds"])
+          + f" ms a step); launches {out['strehl']}, {per_step} a step; "
+          f"Strehl at 550 nm: start {res['strehl_start']!r}, design "
+          f"{res['strehl']!r}, discretised hyperbola "
+          f"{res['strehl_hyperbola']!r} (design > 0.8 x hyperbola and > 0.5); "
+          f"each stage's last {res['stages']}; {shares}; {psf}; against the "
+          f"plain versions: {PLAIN_STEPS} steps, {calls} K5 calls bit for "
+          f"bit with the plain K5, the losses equal, the gradients through "
+          f"K2 within {worst:.3e} of the plain backward's max norm (limit "
+          f"1e-4)", flush=True)
+    del opt, res, prof
+
+    # ---- 18d. the hexalens's image quality through STL
+    t0 = time.perf_counter()
+    _, params = hexalens.train(device=device)
+    first, second, built = scenes3d.hexalens_stls(params, device=device)
+    diffs, worst = 0, 0.0
+    for path, surf in zip((first, second), built):
+        back = bd.manual_triangle_boundary(file_name=path, mat_in=1,
+                                           mat_out=0, device=device)
+        check(back.n_surfaces == surf.n_surfaces,
+              f"{path}: {back.n_surfaces} faces, not {surf.n_surfaces}")
+        for name in ("vp", "v1", "v2"):
+            got = getattr(back, name).cpu().numpy()
+            want = getattr(surf, name).detach().cpu().numpy()
+            # the reader merges corners rounded to 7 decimals (the JAX
+            # package's rule): face for face it gives exactly those values
+            rounded = want.astype(np.float64).round(7).astype(np.float32)
+            check(np.array_equal(got, rounded),
+                  f"{path} {name}: not the 7-decimal rounding of the built "
+                  "surface")
+            diffs += int((got != want).sum())
+            worst = max(worst, float(np.abs(got - want).max()))
+    tk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    img = scenes3d.image_quality_3d(IMAGE_BATCHES, IMAGE_RAYS,
+                                    first_stl=first, second_stl=second,
+                                    device=device)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t1
+    out["image_quality"] = tk.LAUNCHES
+    cfg = img["cfg"]
+    check(cfg.use_kernel and not cfg.cull, f"image-quality config {cfg}")
+    check(out["image_quality"] == IMAGE_BATCHES * scenes3d.IMAGE_BOUNCES,
+          f"image quality launched K1 {out['image_quality']} times")
+    check(img["central"] > 0 and img["displaced"] > 0,
+          f"image fluxes {img['central']}, {img['displaced']}")
+    source = scenes3d.image_quality_source(IMAGE_RAYS)
+    batch = source.sample(torch.Generator(device).manual_seed(8), f32, device)
+    log_k, log_p = [], []
+    with torch.no_grad():
+        with override(tk, nearest_hit_triangles_kernel=logged(
+                tk.nearest_hit_triangles_kernel, log_k)):
+            r_k = trace(batch, img["scene"], scenes3d.MATERIALS, cfg)
+        with override(tk, nearest_hit_triangles_kernel=logged(
+                tk.nearest_hit_triangles_plain, log_p)):
+            r_p = trace(batch, img["scene"], scenes3d.MATERIALS, cfg)
+    calls = calls_equal("phase 18d image quality", log_k, log_p)
+    check(torch.equal(r_k.rays.state, r_p.rays.state)
+          and torch.equal(r_k.rays.p1, r_p.rays.p1),
+          "image quality: K1 and its plain version land differently")
+    print(f"phase 18d image quality: the hexalens trained and exported as "
+          f"STL ({[s.n_surfaces for s in built]} faces), reloaded with "
+          f"manual_triangle_boundary: face for face the 7-decimal rounding "
+          f"of lens.build(params) exactly ({diffs} coordinates differ from "
+          f"it, by at most {worst!r}); "
+          f"{img['scene'].triangles.n_surfaces} triangles, "
+          f"{IMAGE_BATCHES} batches of {IMAGE_RAYS} rays in {image_s:.3f} s "
+          f"(training and export {t1 - t0:.3f} s); K1 launched "
+          f"{out['image_quality']} times; landed {img['landed']} rays, "
+          f"central image {img['central']:.4f}, displaced image "
+          f"{img['displaced']:.4f} of the flux; one batch: {calls} K1 calls "
+          f"bit for bit with the plain version, "
+          f"{int((r_k.rays.state == FINISHED).sum())} finished", flush=True)
+
+    # ---- 18e. the remesh
+    rm = scenes3d.remesh(device=device)
+    check(abs(rm["initial"].max() - 0.4) < 0.02
+          and abs(rm["peak"] - rm["initial"].max()) < 1e-6,
+          f"remesh peak {rm['initial'].max()}, built {rm['peak']}")
+    print(f"phase 18e remesh: {rm['initial'].shape[0]} vertices, initial "
+          f"peak {float(rm['initial'].max())!r} (within 0.02 of 0.4), built "
+          f"on the "
+          f"card {rm['peak']!r}; phase 18 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -3517,6 +3913,10 @@ def main():
     # ---- phase 17: the reactions (caustic, stray light, ghosts)
     react17 = phase_17(device)
 
+    # ---- phase 18: the designs (asphere singlet, config 2, Strehl lens),
+    # the image quality through STL, the remesh
+    design18 = phase_18(device)
+
     main_k2 = k2["flagship_bench"]
     print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
           flush=True)
@@ -3529,6 +3929,7 @@ def main():
         "launches_streamed_training": stream16["K1_train"],
         "launches_sharded": stream16["K1_sharded"],
         "launches_caustic": react17["K1_caustic"],
+        "launches_image_quality": design18["image_quality"],
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound_ms, "bound_by": "operations", "library_ms": None,
         "floor_no_fma_ms": 2 * k1_bound_ms, "pairs_out_on_tu": k1_tu_out,
@@ -3545,6 +3946,8 @@ def main():
         "launches": train_launches["K2"], "launches_hexalens": hexa["K2"],
         "launches_streamed_training": stream16["K2_train"],
         "launches_sharded": stream16["K2_sharded"],
+        **{f"launches_{k}": design18[k]["K2"]
+           for k in ("asphere", "config2", "strehl")},
         "max_abs_err": main_k2["max_abs_err"], "ms": main_k2["ms"],
         "device_ms": main_k2["device_ms"],
         "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],
@@ -3581,6 +3984,9 @@ def main():
         **({"launches_stray_light": react17[f"{key}_stray"],
             "launches_ghost": react17[f"{key}_ghost"]}
            if key in ("K5", "K6") else {}),
+        **({f"launches_{k}": design18[k]["K5"]
+            for k in ("asphere", "config2", "strehl")}
+           if key == "K5" else {}),
     } for name, source, line, key in (
         ("segment_search", gk.SOURCE, 705, "K5"),
         ("arc_search", ak.SOURCE, 367, "K6"),

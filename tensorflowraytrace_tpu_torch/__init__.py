@@ -7,17 +7,23 @@ package.  Its slices so far are the 3D forward trace, training, the
 acceleration path, the 2D trace, the deep 2D trace (two-level 2D
 searches, remat, early exit, folds, TraceConfig.recommended), and the
 sources, distributions, STL I/O and analysis core that run the hexalens
-design and the 3D point-source trace, streaming and data parallelism, and
-the reactions and trackers:
+design and the 3D point-source trace, streaming and data parallelism, the
+reactions and trackers, and the rest of the boundaries and mesh tools,
+the torch-optimizer stage (``Optimizer(optax_tx=...)``) and the
+physical-optics analysis that run the asphere singlet, BASELINE config 2,
+the Strehl lens and the hexalens image-quality test:
 
   models/     rays (and concat_rays), surfaces (2D segments and arcs, 3D
               triangles, the merged Scene2D and Scene3D), sources (point,
               angular, aperture, precompiled, manual), distributions
               (angles, beams, apertures, squares, circles, sphere caps,
-              transformations), boundaries (lens surfaces, the cylindrical
-              light guide), meshes (circular, hexagonal, cylindrical; STL
-              files) and their accumulator / smoother tools, acceleration
-              (Morton sorts, chunk boxes)
+              transformations), boundaries (triangle, segment and
+              even-asphere surfaces, single or several under constraints,
+              master-slave symmetry, the cylindrical light guide, static
+              surfaces from data or STL), meshes (circular, hexagonal,
+              cylindrical; STL files; re-meshing and cleaning) and their
+              accumulator / smoother tools, acceleration (Morton sorts,
+              chunk boxes)
   operations  the reactions and trackers: Fresnel intensity, Jones
               polarization, optical path and ancestry, thin films,
               gratings, bulk and surface absorption, metasurfaces, rough
@@ -38,15 +44,21 @@ the reactions and trackers:
   engine      the multi-bounce trace loop, 2D and 3D, and its folds (the
               landing histogram among them); the streamed trace and the
               streamed value and gradient
-  parallel/   rays split over torch.distributed ranks (sharding)
+  parallel/   rays split over torch.distributed ranks (sharding), the
+              ray-sharded PSF
   analysis    histograms (hard and differentiable), imaging tests, the
-              distribution differential
-  optim       the optimizers (gradient pipeline, phases)
+              distribution differential; the Huygens-Fresnel PSF
+              (monochromatic and polychromatic), Zernike fits, encircled
+              energy and the MTF
+  optim       the optimizers (gradient pipeline, phases; a torch.optim
+              optimizer in place of the Nesterov stage)
   flagship    the parametric-lens imaging problem and its training run
   hexalens    examples/hexalens.py's two-image wedge lens and its design
-  scenes2d    the 2D problems, with examples/stray_light.py and
-              ghost_analysis.py; scenes3d: examples/trace_3d.py's scene
-              and the pool caustic of examples/caustic_render.py
+  scenes2d    the 2D problems, with examples/stray_light.py,
+              ghost_analysis.py, asphere_singlet.py, strehl_lens.py and
+              BASELINE config 2; scenes3d: examples/trace_3d.py's scene,
+              the pool caustic of examples/caustic_render.py,
+              image_quality_3d.py and remesh.py
   streamed    the streamed guide trace and training, the sharded guide
               training and the multi-process dryrun
   utils/      rotations, NumPy conversion (rays, surfaces, parameters,

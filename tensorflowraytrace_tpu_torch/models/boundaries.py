@@ -1,21 +1,24 @@
-"""Parametric triangle boundaries: the trainable surfaces.
+"""Parametric boundaries: the trainable surfaces, and static ones.
 
-Counterpart of the triangle-mesh boundaries of
-``tensorflowraytrace_tpu/models/boundaries.py``.  A boundary is an
-``nn.Module`` that holds its parameters (one per mesh vertex) and builds its
-surface differentiably::
+Counterpart of ``tensorflowraytrace_tpu/models/boundaries.py``.  A
+parametric boundary is an ``nn.Module`` that holds its parameters and
+builds its surface differentiably::
 
-    boundary.build(params=None) -> TriangleSet
+    boundary.build(params=None) -> SegmentSet / TriangleSet
 
 ``params=None`` uses the module's own ``nn.Parameter``s; passing tensors
 builds from those instead.  Constraints are functional parameter
-projections applied inside ``build``, so gradients flow through them.
+projections applied inside ``build`` (``ClipConstraint`` a clamp,
+``ThicknessConstraint`` a shift by a reduction), so gradients flow
+through them.  The ``manual_*_boundary`` functions build static surface
+sets from raw data or an STL file.  The even-asphere surfaces take their
+sag from ``ops/asphere.sag``, the model the sequential tracer shares.
 Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -25,7 +28,10 @@ from tensorflowraytrace_tpu_torch.config import (
     OPTICAL, resolve_device, resolve_dtype,
 )
 from tensorflowraytrace_tpu_torch.models import mesh as mt
-from tensorflowraytrace_tpu_torch.models.surfaces import TriangleSet
+from tensorflowraytrace_tpu_torch.models.surfaces import (
+    ArcSet, SegmentSet, TriangleSet,
+)
+from tensorflowraytrace_tpu_torch.ops import asphere
 
 
 # ======================================================================
@@ -111,6 +117,18 @@ class ThicknessConstraint(Constraint):
         return target + diff
 
 
+class ClipConstraint(Constraint):
+    """Clamp the parameters into [lower, upper]."""
+
+    def __init__(self, lower, upper):
+        super().__init__(parent="zero")
+        self.lower = lower
+        self.upper = upper
+
+    def project(self, target, parent):
+        return torch.clamp(target, self.lower, self.upper)
+
+
 # ======================================================================
 # vector generators
 # ======================================================================
@@ -120,7 +138,44 @@ def _normalize_rows(v, eps=1e-12):
     return torch.where(n > eps, v / torch.clamp(n, min=eps), torch.zeros_like(v))
 
 
-class FromVectorVG:
+class VectorGeneratorBase:
+    """The per-vertex direction field along which parameters move vertices:
+    ``generate(zero) -> (V, 3)`` unit vectors, zero where undefined (on an
+    axis)."""
+
+    def generate(self, zero):
+        raise NotImplementedError
+
+
+class SecondSurfaceVG(VectorGeneratorBase):
+    """Vectors from each zero point to the matching vertex of a second
+    surface (a mesh with ``points``, an STL file name, or a (V, 3)
+    array)."""
+
+    def __init__(self, surface):
+        if isinstance(surface, str):
+            surface = mt.TriMesh.read(surface)
+        self.points = np.asarray(getattr(surface, "points", surface))
+
+    def generate(self, zero):
+        points = torch.as_tensor(self.points, dtype=zero.dtype,
+                                 device=zero.device)
+        return _normalize_rows(points - zero)
+
+
+class FromPointVG(VectorGeneratorBase):
+    """Vectors radiating from one 3D point."""
+
+    def __init__(self, point):
+        self.point = np.asarray(point)
+
+    def generate(self, zero):
+        point = torch.as_tensor(self.point, dtype=zero.dtype,
+                                device=zero.device)
+        return _normalize_rows(zero - point)
+
+
+class FromVectorVG(VectorGeneratorBase):
     """A constant (or per-vertex) vector field along which parameters move
     vertices."""
 
@@ -132,7 +187,7 @@ class FromVectorVG:
         return _normalize_rows(v.expand_as(zero))
 
 
-class FromAxisVG:
+class FromAxisVG(VectorGeneratorBase):
     """Vectors radiating perpendicular from an axis line through ``first``
     (towards ``point``, or along ``direction``); zero for points on the
     axis, such as a cylinder's cap centres."""
@@ -155,8 +210,176 @@ class FromAxisVG:
 
 
 # ======================================================================
+# manual boundaries (static geometry)
+# ======================================================================
+
+def manual_segment_boundary(segments=None, x_start=None, y_start=None,
+                            x_end=None, y_end=None, dtype=None, device=None,
+                            **kw) -> SegmentSet:
+    """Static 2D segments from raw data: ``segments`` (N, 4) rows of
+    (x_start, y_start, x_end, y_end), or the four coordinate arrays."""
+    dtype, device = resolve_dtype(dtype), resolve_device(device)
+    if segments is not None:
+        segments = torch.as_tensor(np.asarray(segments), dtype=dtype,
+                                   device=device)
+        p0, p1 = segments[:, 0:2], segments[:, 2:4]
+    else:
+        def col(a):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+        p0 = torch.stack([col(x_start), col(y_start)], dim=1)
+        p1 = torch.stack([col(x_end), col(y_end)], dim=1)
+    return SegmentSet.make(p0, p1, dtype=dtype, device=device, **kw)
+
+
+def manual_arc_boundary(x_center, y_center, angle_start, angle_end, radius,
+                        dtype=None, device=None, **kw) -> ArcSet:
+    """Static 2D arcs from raw data."""
+    dtype, device = resolve_dtype(dtype), resolve_device(device)
+
+    def col(a):
+        return torch.as_tensor(np.atleast_1d(np.asarray(a)), dtype=dtype,
+                               device=device)
+
+    center = torch.stack([col(x_center), col(y_center)], dim=1)
+    return ArcSet.make(center, angle_start, angle_end, radius, dtype=dtype,
+                       device=device, **kw)
+
+
+def manual_triangle_boundary(mesh=None, file_name=None, flip_norm=False,
+                             dtype=None, device=None, **kw) -> TriangleSet:
+    """A static triangle surface from a TriMesh, a mesh-like object
+    (``mesh.as_trimesh``) or an STL file (``TriMesh.read``)."""
+    dtype, device = resolve_dtype(dtype), resolve_device(device)
+    mesh = (mt.TriMesh.read(file_name) if file_name is not None
+            else mt.as_trimesh(mesh))
+    if flip_norm:
+        mesh = mesh.flip_faces()
+    vertices = torch.as_tensor(mesh.points, dtype=dtype, device=device)
+    faces = torch.as_tensor(mesh.faces, dtype=torch.long, device=device)
+    return TriangleSet.make(vertices[faces[:, 0]], vertices[faces[:, 1]],
+                            vertices[faces[:, 2]], dtype=dtype,
+                            device=device, **kw)
+
+
+# ======================================================================
 # parametric boundaries
 # ======================================================================
+
+def _sample_points(distribution, dtype, device):
+    """A point distribution's sample (or an array of points) as a tensor."""
+    if hasattr(distribution, "sample"):
+        return distribution.sample(dtype=dtype, device=device)[0]
+    return torch.as_tensor(np.asarray(distribution), dtype=dtype,
+                           device=device)
+
+
+class ParametricSegmentBoundary(nn.Module):
+    """A 2D polyline whose vertices slide from the zero points towards the
+    one points: vertex = zero + param * (one - zero), so params = 0 puts
+    the curve through the zero points.  ``flip_norm`` reverses every
+    segment (and so its normal)."""
+
+    def __init__(self, zero_distribution, one_distribution, flip_norm=False,
+                 initial_parameters=0.0, constraint: Optional[Constraint] = None,
+                 mat_in=None, mat_out=None, category=OPTICAL, dtype=None,
+                 device=None):
+        super().__init__()
+        dtype, device = resolve_dtype(dtype), resolve_device(device)
+        self.dtype = dtype
+        zero = _sample_points(zero_distribution, dtype, device)
+        one = _sample_points(one_distribution, dtype, device)
+        if zero.shape != one.shape:
+            raise ValueError("zero and one distributions must match in size")
+        self.register_buffer("zero", zero)
+        self.register_buffer("one", one)
+        self.flip_norm = flip_norm
+        self.initial_parameters = initial_parameters
+        self.constraint = constraint
+        self.mat_in = mat_in
+        self.mat_out = mat_out
+        self.category = category
+        self.params = nn.Parameter(self.init_params())
+
+    @property
+    def n_params(self) -> int:
+        return self.zero.shape[0]
+
+    def init_params(self):
+        return torch.as_tensor(self.initial_parameters, dtype=self.dtype,
+                               device=self.zero.device).expand(
+                                   self.n_params).clone()
+
+    def build(self, params=None) -> SegmentSet:
+        params = self.params if params is None else params
+        if self.constraint is not None:
+            params = self.constraint.apply_literal(params)
+        points = self.zero + params[:, None] * (self.one - self.zero)
+        if self.flip_norm:
+            p0, p1 = points[1:], points[:-1]
+        else:
+            p0, p1 = points[:-1], points[1:]
+        return SegmentSet.make(p0, p1, category=self.category,
+                               mat_in=self.mat_in, mat_out=self.mat_out,
+                               dtype=self.dtype, device=p0.device)
+
+
+class _MultiBoundary(nn.Module):
+    """Several surfaces with inter-surface constraints applied in order,
+    each seeing the already projected parameters of the earlier ones."""
+
+    @property
+    def surface_count(self):
+        return len(self.surfaces)
+
+    def init_params(self):
+        return [s.init_params() for s in self.surfaces]
+
+    def param_list(self):
+        """The module's own parameters, one tensor per surface."""
+        return [s.params for s in self.surfaces]
+
+    def constrain(self, params_list):
+        out = list(params_list)
+        for i, c in enumerate(self.constraints):
+            out[i] = c.apply(i, out)
+        return out
+
+    def build(self, params_list=None):
+        if params_list is None:
+            params_list = self.param_list()
+        out = self.constrain(params_list)
+        return [s.build(p) for s, p in zip(self.surfaces, out)]
+
+
+def _multi_args(constraints, flip_norm, initial_parameters, material_list):
+    n = len(constraints)
+    if len(flip_norm) != n:
+        raise ValueError("constraints and flip_norm must have equal length")
+    if not isinstance(initial_parameters, (list, tuple)):
+        initial_parameters = [initial_parameters] * n
+    return (list(constraints), initial_parameters,
+            material_list or [{}] * n)
+
+
+class ParametricMultiSegmentBoundary(_MultiBoundary):
+    """Several 2D polylines sharing their zero and one points, with
+    inter-surface constraints: ``build(params_list=None)`` returns one
+    SegmentSet per surface."""
+
+    def __init__(self, zero_distribution, one_distribution, constraints,
+                 flip_norm, initial_parameters=0.0, material_list=None,
+                 category=OPTICAL, dtype=None, device=None):
+        super().__init__()
+        self.constraints, initial_parameters, material_list = _multi_args(
+            constraints, flip_norm, initial_parameters, material_list)
+        self.surfaces = nn.ModuleList([
+            ParametricSegmentBoundary(
+                zero_distribution, one_distribution, flip_norm=fn,
+                initial_parameters=ip, category=category, dtype=dtype,
+                device=device, **mat)
+            for fn, ip, mat in zip(flip_norm, initial_parameters, material_list)
+        ])
 
 def _masked_gather(vertices, faces, update_map):
     """Gather face-corner points; corners a face may not move (the vertex
@@ -191,6 +414,8 @@ class ParametricTriangleBoundary(nn.Module):
         super().__init__()
         dtype, device = resolve_dtype(dtype), resolve_device(device)
         self.dtype = dtype
+        if isinstance(zero_points, str):
+            zero_points = mt.TriMesh.read(zero_points)
         mesh = mt.as_trimesh(zero_points).copy()
         if flip_norm:
             mesh = mesh.flip_faces()
@@ -213,16 +438,20 @@ class ParametricTriangleBoundary(nn.Module):
         self.mat_in = mat_in
         self.mat_out = mat_out
         self.category = category
-        self.params = nn.Parameter(self.init_params())
+        self.params = nn.Parameter(self._full_init())
 
     @property
     def n_params(self) -> int:
         return self.zero.shape[0]
 
-    def init_params(self):
+    def _full_init(self):
+        """The initial parameters, one per vertex."""
         return torch.as_tensor(self.initial_parameters, dtype=self.dtype,
                                device=self.zero.device).expand(
-                                   self.n_params).clone()
+                                   self.zero.shape[0]).clone()
+
+    def init_params(self):
+        return self._full_init()
 
     def params_to_vertices(self, params):
         return self.zero + params[:, None] * self.vectors
@@ -244,7 +473,51 @@ class ParametricTriangleBoundary(nn.Module):
                                 dtype=self.dtype, device=vp.device)
 
 
-class ParametricMultiTriangleBoundary(nn.Module):
+class MasterSlaveParametricTriangleBoundary(ParametricTriangleBoundary):
+    """Parameter sharing for symmetry: a few master parameters move every
+    vertex through a gather.  ``filter_masters(vertices)`` (or a list)
+    names the master vertices; ``attach_slaves(vertices, master,
+    unclaimed)`` returns the unclaimed vertices that follow ``master``.
+    The gather is built once on the host from the zero mesh."""
+
+    def __init__(self, filter_masters, attach_slaves, zero_points,
+                 vector_generator, **kw):
+        super().__init__(zero_points, vector_generator, **kw)
+        vertices = self.zero.detach().cpu().numpy()
+        masters = list(filter_masters(vertices) if callable(filter_masters)
+                       else filter_masters)
+        master_index = {m: i for i, m in enumerate(masters)}
+        unclaimed = set(range(vertices.shape[0])) - set(masters)
+        slave_masters = {}
+        for m in masters:
+            slaves = attach_slaves(vertices, m, unclaimed)
+            unclaimed -= set(slaves)
+            for v in slaves:
+                slave_masters[v] = master_index[m]
+        if unclaimed:
+            raise ValueError(
+                f"MasterSlave: {len(unclaimed)} vertices were never attached "
+                "to a master")
+        self.masters = np.asarray(masters, dtype=np.int64)
+        self.register_buffer("gather", torch.as_tensor(
+            [master_index[i] if i in master_index else slave_masters[i]
+             for i in range(vertices.shape[0])],
+            dtype=torch.long, device=self.zero.device))
+        self.params = nn.Parameter(self.init_params())
+
+    @property
+    def n_params(self) -> int:
+        return len(self.masters)
+
+    def init_params(self):
+        return self._full_init()[torch.as_tensor(self.masters,
+                                                 device=self.zero.device)]
+
+    def params_to_vertices(self, params):
+        return self.zero + params[self.gather][:, None] * self.vectors
+
+
+class ParametricMultiTriangleBoundary(_MultiBoundary):
     """Several triangle surfaces sharing zero points and vector field, with
     inter-surface constraints applied in order -- the standard way to build
     a lens (front and back surface with thickness constraints)."""
@@ -253,13 +526,8 @@ class ParametricMultiTriangleBoundary(nn.Module):
                  initial_parameters=0.0, vertex_update_map=None,
                  material_list=None, category=OPTICAL, dtype=None, device=None):
         super().__init__()
-        n = len(constraints)
-        if len(flip_norm) != n:
-            raise ValueError("constraints and flip_norm must have equal length")
-        if not isinstance(initial_parameters, (list, tuple)):
-            initial_parameters = [initial_parameters] * n
-        material_list = material_list or [{}] * n
-        self.constraints = list(constraints)
+        self.constraints, initial_parameters, material_list = _multi_args(
+            constraints, flip_norm, initial_parameters, material_list)
         self.surfaces = nn.ModuleList([
             ParametricTriangleBoundary(
                 zero_points, vector_generator, flip_norm=fn,
@@ -268,29 +536,6 @@ class ParametricMultiTriangleBoundary(nn.Module):
             )
             for fn, ip, mat in zip(flip_norm, initial_parameters, material_list)
         ])
-
-    @property
-    def surface_count(self):
-        return len(self.surfaces)
-
-    def init_params(self):
-        return [s.init_params() for s in self.surfaces]
-
-    def param_list(self):
-        """The module's own parameters, one tensor per surface."""
-        return [s.params for s in self.surfaces]
-
-    def constrain(self, params_list):
-        out = list(params_list)
-        for i, c in enumerate(self.constraints):
-            out[i] = c.apply(i, out)
-        return out
-
-    def build(self, params_list=None) -> List[TriangleSet]:
-        if params_list is None:
-            params_list = self.param_list()
-        out = self.constrain(params_list)
-        return [s.build(p) for s, p in zip(self.surfaces, out)]
 
 
 class ParametricCylindricalGuide(nn.Module):
@@ -388,3 +633,148 @@ class ParametricCylindricalGuide(nn.Module):
         return TriangleSet.make(vp, v1, v2, category=self.category,
                                 mat_in=self.mat_in, mat_out=self.mat_out,
                                 dtype=self.dtype, device=vp.device)
+
+
+# ======================================================================
+# even-asphere surfaces
+# ======================================================================
+
+def _asphere_sag(r2, params, n_aspheric):
+    """The even-asphere sag at squared radius ``r2`` of ``params = [c, k,
+    a4, a6, ...]`` (curvature, conic constant, then ``n_aspheric`` even
+    coefficients from r^4 on).  Delegates to ``ops/asphere.sag``, the model
+    the sequential tracer intersects, so the two never drift apart."""
+    return asphere.sag(r2, params[0], params[1], params[2:2 + n_aspheric])
+
+
+def _perp_frame(axis):
+    """A right-handed orthonormal frame (e1, e2, axis) from an axis."""
+    a = np.asarray(axis, np.float64)
+    a = a / np.linalg.norm(a)
+    helper = np.zeros(3)
+    helper[int(np.argmin(np.abs(a)))] = 1.0
+    e1 = np.cross(helper, a)
+    e1 /= np.linalg.norm(e1)
+    e2 = np.cross(a, e1)
+    return e1, e2, a
+
+
+class _AsphereParams(nn.Module):
+    """The few global parameters of an even asphere, ``[c, k, a4, ...]``
+    (2 + n_aspheric), started at the given curvature and conic."""
+
+    def _init_asphere(self, n_aspheric, initial_curvature, initial_conic,
+                      dtype):
+        self.dtype = dtype
+        self.n_aspheric = int(n_aspheric)
+        self.initial_curvature = initial_curvature
+        self.initial_conic = initial_conic
+        self.params = nn.Parameter(self.init_params())
+
+    @property
+    def n_params(self) -> int:
+        return 2 + self.n_aspheric
+
+    def init_params(self):
+        p = np.zeros(self.n_params)
+        p[0] = self.initial_curvature
+        p[1] = self.initial_conic
+        return torch.as_tensor(p, dtype=self.dtype, device=self._r2.device)
+
+    def sag(self, r2, params):
+        return _asphere_sag(r2, params, self.n_aspheric)
+
+
+class ParametricAsphereBoundary(_AsphereParams):
+    """A 3D rotationally symmetric even asphere with a few global
+    parameters, ``params = [c, k, a4, a6, ...]``:
+
+        sag(r) = c r^2 / (1 + sqrt(1 - (1+k) c^2 r^2)) + a4 r^4 + ...
+
+    applied along ``axis`` over a circular mesh of ``aperture_radius``
+    centred at ``vertex``.  c = 1/R, k = 0 is a sphere of radius R; k = -1
+    a paraboloid, k < -1 a hyperboloid."""
+
+    def __init__(self, vertex, axis, aperture_radius, target_edge_size,
+                 n_aspheric=0, initial_curvature=0.0, initial_conic=0.0,
+                 flip_norm=False, mat_in=None, mat_out=None,
+                 category=OPTICAL, dtype=None, device=None):
+        super().__init__()
+        dtype, device = resolve_dtype(dtype), resolve_device(device)
+        base = mt.circular_mesh(aperture_radius, target_edge_size)
+        if flip_norm:
+            base = base.flip_faces()
+        self.mesh = base
+        e1, e2, a = _perp_frame(axis)
+        xy = base.points[:, :2]
+        self.register_buffer("_r2", torch.as_tensor(
+            (xy ** 2).sum(1), dtype=dtype, device=device))
+        self.register_buffer("_base", torch.as_tensor(
+            np.asarray(vertex, np.float64)[None, :]
+            + xy[:, :1] * e1[None, :] + xy[:, 1:2] * e2[None, :],
+            dtype=dtype, device=device))
+        self.register_buffer("_axis", torch.as_tensor(a, dtype=dtype,
+                                                      device=device))
+        self.register_buffer("faces", torch.as_tensor(
+            base.faces, dtype=torch.long, device=device))
+        self.mat_in = mat_in
+        self.mat_out = mat_out
+        self.category = category
+        self._init_asphere(n_aspheric, initial_curvature, initial_conic,
+                           dtype)
+
+    def params_to_vertices(self, params):
+        s = self.sag(self._r2, params)
+        return self._base + s[:, None] * self._axis[None, :]
+
+    def updated_mesh(self, params=None) -> mt.TriMesh:
+        """The surface at ``params`` (None: the module's own) as a host
+        mesh."""
+        return _host_mesh(self, params)
+
+    def build(self, params=None) -> TriangleSet:
+        params = self.params if params is None else params
+        vertices = self.params_to_vertices(params)
+        vp, v1, v2 = _masked_gather(vertices, self.faces, None)
+        return TriangleSet.make(vp, v1, v2, category=self.category,
+                                mat_in=self.mat_in, mat_out=self.mat_out,
+                                dtype=self.dtype, device=vp.device)
+
+
+class ParametricAsphereSegment(_AsphereParams):
+    """The 2D profile of an even asphere: a polyline of ``resolution``
+    segments over ``y in [-half_aperture, half_aperture]`` at ``x =
+    vertex_x + sag(|y|)``, with :class:`ParametricAsphereBoundary`'s
+    parameters.  A segment's normal is its p0 -> p1 direction turned left;
+    ``flip_norm`` reverses every segment."""
+
+    def __init__(self, vertex_x, half_aperture, resolution=64, n_aspheric=0,
+                 initial_curvature=0.0, initial_conic=0.0, flip_norm=False,
+                 mat_in=None, mat_out=None, category=OPTICAL, dtype=None,
+                 device=None):
+        super().__init__()
+        dtype, device = resolve_dtype(dtype), resolve_device(device)
+        y = np.linspace(-half_aperture, half_aperture, resolution + 1)
+        self.register_buffer("_y", torch.as_tensor(y, dtype=dtype,
+                                                   device=device))
+        self.register_buffer("_r2", torch.as_tensor(y * y, dtype=dtype,
+                                                    device=device))
+        self.register_buffer("_vertex_x", torch.as_tensor(
+            vertex_x, dtype=dtype, device=device))
+        self.flip_norm = flip_norm
+        self.mat_in = mat_in
+        self.mat_out = mat_out
+        self.category = category
+        self._init_asphere(n_aspheric, initial_curvature, initial_conic,
+                           dtype)
+
+    def build(self, params=None) -> SegmentSet:
+        params = self.params if params is None else params
+        x = self._vertex_x + self.sag(self._r2, params)
+        pts = torch.stack([x, self._y], dim=1)
+        p0, p1 = pts[:-1], pts[1:]
+        if self.flip_norm:
+            p0, p1 = p1, p0
+        return SegmentSet.make(p0, p1, category=self.category,
+                               mat_in=self.mat_in, mat_out=self.mat_out,
+                               dtype=self.dtype, device=p0.device)

@@ -1,11 +1,12 @@
 """Triangle meshes for building parametric surfaces, in NumPy.
 
-A copy of the parts of ``tensorflowraytrace_tpu/models/mesh.py`` the 3D
-lens and light-guide paths need (that package imports JAX when it is
-imported, so nothing is imported from it): the mesh container and its
-binary / ASCII STL I/O, the circular, hexagonal and cylindrical
-generators, and the vertex-graph tools that make the optimizer's gradient
-accumulator, smoother and vertex update map.  These tools run once at
+A copy of ``tensorflowraytrace_tpu/models/mesh.py`` without its drawing
+helpers (that package imports JAX when it is imported, so nothing is
+imported from it): the mesh container with its binary / ASCII STL I/O and
+pyvista interchange, the circular, hexagonal and cylindrical generators,
+the vertex-graph tools that make the optimizer's gradient accumulator,
+smoother and vertex update map (and the relationships behind them),
+re-meshing onto a regular base mesh (scipy's ``griddata``) and cleaning.  These tools run once at
 set-up time on the host; the matrices they make are applied on the device
 by ``optim.Optimizer``.  Generators and STL files match the JAX package's
 exactly: the same faces in the same order, the same records.
@@ -63,6 +64,39 @@ class TriMesh:
             raise ValueError(f"unsupported mesh format: {filename}")
         save_stl(self, filename)
 
+    @staticmethod
+    def read(filename: str) -> "TriMesh":
+        """Read an STL file (binary or ASCII; the only format)."""
+        if not str(filename).lower().endswith(".stl"):
+            raise ValueError(f"unsupported mesh format: {filename}")
+        return load_stl(filename)
+
+    @staticmethod
+    def from_pyvista(polydata) -> "TriMesh":
+        """A TriMesh of a pyvista.PolyData (or anything with ``points`` and
+        pyvista's flat [3, i, j, k, 3, ...] ``faces``, or (F, 3) faces).
+        The mesh must be all triangles (``polydata.triangulate()``)."""
+        faces = np.asarray(polydata.faces)
+        if faces.ndim != 1:
+            return TriMesh(np.asarray(polydata.points), faces)
+        if faces.size % 4 != 0 or (faces.size and (faces[::4] != 3).any()):
+            raise ValueError(
+                "from_pyvista: mesh has non-triangle faces; call "
+                ".triangulate() on the PolyData first")
+        return TriMesh(np.asarray(polydata.points), unpack_faces(faces))
+
+    def to_pyvista(self):
+        """The mesh as a pyvista.PolyData; raises ImportError without the
+        optional pyvista package (``save`` writes STL without it)."""
+        try:
+            import pyvista
+        except ImportError as e:
+            raise ImportError(
+                "to_pyvista needs the optional pyvista package; use "
+                ".save('mesh.stl') for dependency-free interchange") from e
+        return pyvista.PolyData(np.asarray(self.points),
+                                pack_faces(self.faces))
+
     def unique_edges(self) -> np.ndarray:
         """(E, 2) sorted unique vertex-index pairs."""
         f = self.faces
@@ -87,12 +121,7 @@ def as_trimesh(obj) -> TriMesh:
     if isinstance(obj, TriMesh):
         return obj
     if hasattr(obj, "points") and hasattr(obj, "faces"):
-        faces = np.asarray(obj.faces)
-        if faces.ndim == 1:
-            if faces.size % 4 != 0 or (faces.size and (faces[::4] != 3).any()):
-                raise ValueError("as_trimesh: mesh has non-triangle faces")
-            faces = unpack_faces(faces)
-        return TriMesh(np.asarray(obj.points), faces)
+        return TriMesh.from_pyvista(obj)
     if isinstance(obj, (tuple, list)) and len(obj) == 2:
         return TriMesh(np.asarray(obj[0]), np.asarray(obj[1]))
     raise TypeError(f"cannot interpret {type(obj).__name__} as a TriMesh")
@@ -466,3 +495,120 @@ def mesh_smoothing_tool(mesh: TriMesh, weights, active_vertices=None):
         smoother = smoother[np.ix_(kept, kept)]
         smoother /= smoother.sum(axis=1, keepdims=True)
     return smoother
+
+
+def find_all_relationships(mesh: TriMesh, top_parent: int):
+    """The BFS vertex relationships from ``top_parent``: ``(descendants,
+    children, parents, ancestors)``, each a list of sets indexed by vertex.
+    A vertex's parents are its neighbours one BFS level up."""
+    generations = find_generations(mesh, top_parent)
+    level = np.full(mesh.n_points, -1, dtype=np.int64)
+    for g, wave in enumerate(generations):
+        for v in wave:
+            level[v] = g
+    level[level < 0] = 0
+    neigh = mesh.vertex_neighbors()
+
+    n = mesh.n_points
+    parents = [set() for _ in range(n)]
+    children = [set() for _ in range(n)]
+    ancestors = [set() for _ in range(n)]
+    order = np.argsort(level, kind="stable")
+    for v in order:
+        p = {u for u in neigh[v] if level[u] == level[v] - 1}
+        parents[v] = p
+        for u in p:
+            children[u].add(v)
+        anc = set(p)
+        for u in p:
+            anc |= ancestors[u]
+        ancestors[v] = anc
+    descendants = [set() for _ in range(n)]
+    for v in order[::-1]:
+        d = set(children[v])
+        for c in children[v]:
+            d |= descendants[c]
+        descendants[v] = d
+    return descendants, children, parents, ancestors
+
+
+def gradient_accumulator(mesh: TriMesh, origin=(0, 0, 0)):
+    """The descendant-based accumulator matrix built around the vertex
+    nearest ``origin``.  Returns ``(accumulator, relationships)``, the
+    latter a dict of the top parent and the four relationship lists."""
+    top_parent = get_closest_point(mesh, origin)
+    descendants, children, parents, ancestors = find_all_relationships(
+        mesh, top_parent)
+    accumulator = connections_to_array(descendants)
+    return accumulator, {
+        "top_parent": top_parent,
+        "descendant": descendants,
+        "child": children,
+        "parent": parents,
+        "ancestor": ancestors,
+    }
+
+
+def get_flat_initial(mesh: TriMesh, axis: int = 0) -> np.ndarray:
+    """Flatten one coordinate of the mesh in place and return the removed
+    values, the initial parameters that re-inflate it."""
+    if axis not in (0, 1, 2):
+        raise ValueError("get_flat_initial: axis must be in {0, 1, 2}")
+    initial = mesh.points[:, axis].copy()
+    mesh.points[:, axis] = 0.0
+    return initial
+
+
+def planar_interpolated_remesh(input_mesh: TriMesh, base_mesh: TriMesh,
+                               range_axis=2, interp_fill_value=0.0,
+                               flatten=True):
+    """Re-mesh an irregular height-field mesh onto a regular base mesh by
+    linear interpolation (``scipy.interpolate.griddata``).  Returns the
+    flattened base copy and the heights (its initial parameters) if
+    ``flatten``, else the base mesh at those heights."""
+    from scipy.interpolate import griddata
+
+    if range_axis not in (0, 1, 2):
+        raise ValueError("planar_interpolated_remesh: axis must be in {0,1,2}")
+    domain_axes = [a for a in (0, 1, 2) if a != range_axis]
+
+    heights = griddata(
+        input_mesh.points[:, domain_axes],
+        input_mesh.points[:, range_axis],
+        base_mesh.points[:, domain_axes],
+        fill_value=interp_fill_value,
+    )
+    out = base_mesh.copy()
+    if flatten:
+        out.points[:, range_axis] = 0.0
+        return out, heights
+    out.points[:, range_axis] = heights
+    return out
+
+
+def clean_mesh(mesh: TriMesh, distance_tolerance=1e-6) -> TriMesh:
+    """Merge vertices that agree after rounding to ``distance_tolerance``
+    and drop degenerate and duplicate faces (a duplicate: the same vertex
+    set; the first occurrence's orientation is kept)."""
+    pts = mesh.points
+    quant = np.round(pts / distance_tolerance).astype(np.int64)
+    _, first_idx, inverse = np.unique(quant, axis=0, return_index=True,
+                                      return_inverse=True)
+    new_points = pts[first_idx]
+    faces = inverse.reshape(-1)[mesh.faces]
+
+    ok = ((faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2])
+          & (faces[:, 0] != faces[:, 2]))
+    faces = faces[ok]
+
+    key = np.sort(faces, axis=1)
+    _, keep = np.unique(key, axis=0, return_index=True)
+    faces = faces[np.sort(keep)]
+    return TriMesh(new_points, faces)
+
+
+def clean_mesh_raw(points, faces, distance_tolerance=1e-6):
+    """``clean_mesh`` on arrays: returns ``(points, faces)``."""
+    m = clean_mesh(TriMesh(np.asarray(points), np.asarray(faces)),
+                   distance_tolerance)
+    return m.points, m.faces

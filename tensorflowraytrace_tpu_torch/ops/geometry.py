@@ -3,7 +3,9 @@
 Counterpart of ``tensorflowraytrace_tpu/ops/geometry.py``: the 2D
 line/line and line/circle solves, the angle form of Snell's law and the
 angular-window test; the 3D Cramer line/triangle solve and vector Snell's
-law.  The "safe divide" discipline is kept exactly: the denominator is
+law; and the N x M wrappers of the three solves (``line_intersect``,
+``line_circle_intersect``, ``line_triangle_intersect``), whose output is
+(M, N), the second set on axis 0.  The "safe divide" discipline is kept exactly: the denominator is
 masked BEFORE dividing, so neither the forward value nor the backward pass
 ever sees a divide by zero on an invalid intersection.
 """
@@ -60,6 +62,24 @@ def raw_line_intersect(x1s, y1s, x1e, y1e, x2s, y2s, x2e, y2e, epsilon=None):
     x = x1s + u * x1
     y = y1s + u * y1
     return x, y, valid, u, v
+
+
+def _first(a):
+    """The first set of an N x M wrapper as a (1, N) row."""
+    return torch.as_tensor(a)[None, :]
+
+
+def _second(a):
+    """The second set of an N x M wrapper as an (M, 1) column."""
+    return torch.as_tensor(a)[:, None]
+
+
+def line_intersect(x1s, y1s, x1e, y1e, x2s, y2s, x2e, y2e, epsilon=None):
+    """Every intersection of N lines (set 1) with M lines (set 2) by
+    :func:`raw_line_intersect`; each output is (M, N), set 2 on axis 0."""
+    return raw_line_intersect(
+        _first(x1s), _first(y1s), _first(x1e), _first(y1e),
+        _second(x2s), _second(y2s), _second(x2e), _second(y2e), epsilon)
 
 
 def raw_line_circle_intersect(xs, ys, xe, ye, xc, yc, r, epsilon=None):
@@ -119,6 +139,21 @@ def raw_line_circle_intersect(xs, ys, xe, ye, xc, yc, r, epsilon=None):
         {"x": xplus, "y": yplus, "valid": valid, "u": uplus, "v": vplus},
         {"x": xminus, "y": yminus, "valid": valid, "u": uminus, "v": vminus},
     )
+
+
+def line_circle_intersect(xs, ys, xe, ye, xc, yc, r, epsilon=None):
+    """Every intersection of N lines with M circles by
+    :func:`raw_line_circle_intersect`; each output is (M, N), the circles
+    on axis 0.
+
+    The radicand is the port's 4 (a - (x_r x d_r)^2), not the JAX
+    package's b^2 - 4ac: the same quantity without the cancellation that
+    costs ~2 log10(D) digits for a line D radii from the centre.  The two
+    agree to rounding only for lines a few radii from the circle; far from
+    it the port's value is the accurate one."""
+    return raw_line_circle_intersect(
+        _first(xs), _first(ys), _first(xe), _first(ye),
+        _second(xc), _second(yc), _second(r), epsilon)
 
 
 def _safe_direction_2d(dx, dy):
@@ -240,6 +275,18 @@ def raw_line_triangle_intersect(
     y = ry1 - ray_u * d
     z = rz1 - ray_u * h
     return x, y, z, valid, ray_u, trig_u, trig_v
+
+
+def line_triangle_intersect(
+    rx1, ry1, rz1, rx2, ry2, rz2, xp, yp, zp, x1, y1, z1, x2, y2, z2, epsilon=None
+):
+    """Every intersection of N lines with M triangles by
+    :func:`raw_line_triangle_intersect`; each output is (M, N), the
+    triangles on axis 0."""
+    f, s = _first, _second
+    return raw_line_triangle_intersect(
+        f(rx1), f(ry1), f(rz1), f(rx2), f(ry2), f(rz2),
+        s(xp), s(yp), s(zp), s(x1), s(y1), s(z1), s(x2), s(y2), s(z2), epsilon)
 
 
 def _safe_unit(v, dim=-1):

@@ -26,8 +26,22 @@ With ``mesh=`` (a ``parallel.sharding.RayMesh``) the step is data-parallel
 over the ranks of a ``torch.distributed`` group: each rank's loss is that of
 its own rays, and the loss and every gradient are summed over the ranks by
 one all-reduce of one flat buffer a step before the unchanged update runs on
-every rank.  Not ported: ``optax_tx=``, which raises
-``NotImplementedError``.
+every rank.
+
+``optax_tx=`` keeps the JAX package's keyword with a PyTorch meaning: a
+factory ``params -> torch.optim.Optimizer`` (or ``params -> (optimizer,
+lr_scheduler)``), e.g. ``functools.partial(torch.optim.Adam, lr=0.2)``.
+The torch optimizer then takes the place of the Nesterov stage, as an
+optax transform does in the JAX package: the finite guard, the clip and
+the accumulator run first on the raw gradient (the clip divided by the
+combined scale s = lr_scale * individual_lr * learning_rate, so that it
+refuses the same gradients as the builtin path), the optimizer steps on a
+copy of the parameters, its update u = p_after - p_before is scaled by s,
+and p = smoother @ (p_before + s u).  The scheduler steps once a step.
+``torch.optim.SGD(lr=a)`` is ``optax.sgd(a)``, ``torch.optim.Adam(lr=a)``
+``optax.adam(a)`` (the same ``eps`` placement), and a ``LambdaLR`` of the
+same formula ``optax.cosine_decay_schedule``.  ``momentum`` arguments are
+then ignored: the optimizer owns its state.
 """
 
 from __future__ import annotations
@@ -58,21 +72,32 @@ def _lr_schedule(lr, steps):
 
 
 def _grad_hygiene(g, lr_scale, ind_lr, learning_rate, clip_mode, clip_scale,
-                  grad_clip, accumulator):
-    """Finite-guard -> lr scale -> clip -> accumulator matmul.  The clip
-    thresholds apply to the lr-premultiplied gradient.  ``lr_scale`` and the
-    clip are Python numbers; the accumulator is in the gradient's dtype."""
+                  grad_clip, accumulator, premultiply_lr=True):
+    """Finite-guard -> lr scale (``premultiply_lr`` only) -> clip ->
+    accumulator matmul.  Returns the gradient and the combined scale s.
+
+    The clip thresholds are set for the lr-premultiplied gradient.  Without
+    the premultiplication (the ``optax_tx`` path, which multiplies s into
+    the optimizer's update instead: a scale-invariant optimizer such as
+    Adam would not see it in the gradient) the threshold is divided by s,
+    so that both paths clip the same raw gradients; s = 0 is held at the
+    dtype's smallest normal, so no inf enters the clip.  ``lr_scale`` and
+    the clip are Python numbers; the accumulator is in the gradient's
+    dtype."""
     scale = lr_scale * ind_lr * learning_rate
     g = torch.where(torch.isfinite(g), g, 0.0)
-    g = g * scale
+    if premultiply_lr:
+        g = g * scale
     if clip_mode == "common":
         clip = grad_clip
     else:
         clip = ind_lr * clip_scale * learning_rate * lr_scale
+    if not premultiply_lr:
+        clip = clip / max(abs(scale), torch.finfo(g.dtype).tiny)
     g = torch.clamp(g, -clip, clip)
     if accumulator is not None:
         g = (accumulator @ g.reshape(-1, 1)).reshape(g.shape)
-    return g
+    return g, scale
 
 
 def _smooth(p, smoother):
@@ -86,11 +111,25 @@ def _apply_param_update(p, g, v, lr_scale, momentum, ind_lr, learning_rate,
                         smoother):
     """One parameter's gradient hygiene + Nesterov update + smoothing.
     Returns the new ``(p, v)``."""
-    g = _grad_hygiene(g, lr_scale, ind_lr, learning_rate, clip_mode,
-                      clip_scale, grad_clip, accumulator)
+    g, _ = _grad_hygiene(g, lr_scale, ind_lr, learning_rate, clip_mode,
+                         clip_scale, grad_clip, accumulator)
     v = momentum * v + g
     p = p - (g + momentum * v)
     return _smooth(p, smoother), v
+
+
+def _torch_tx(factory, params):
+    """The torch optimizer (and scheduler, or None) a ``optax_tx`` factory
+    makes over ``params``."""
+    made = factory(params)
+    if isinstance(made, tuple):
+        optimizer, scheduler = made
+    else:
+        optimizer, scheduler = made, None
+    if not isinstance(optimizer, torch.optim.Optimizer):
+        raise TypeError("optax_tx must return a torch.optim.Optimizer (or "
+                        f"an (optimizer, scheduler) pair), got {made!r}")
+    return optimizer, scheduler
 
 
 def _as_param(p):
@@ -151,6 +190,11 @@ class Optimizer:
         lr ramps, phases) then runs alike on every rank.  The parameters
         and the velocity are broadcast from rank 0 at construction and
         live on the mesh's device.  Needs ``pass_key=True``.
+    optax_tx : callable, optional
+        ``params -> torch.optim.Optimizer`` or ``params -> (optimizer,
+        lr_scheduler)``: the optimizer that takes the Nesterov stage's
+        place (see the module docstring).  It is made over the
+        optimizer's own parameter tensors, which it updates in place.
     """
 
     def __init__(self, loss_fn, parameters, learning_rate=1.0, momentum=0.0,
@@ -163,10 +207,6 @@ class Optimizer:
             raise ValueError(
                 "Optimizer(mesh=...) needs pass_key=True: data parallelism "
                 "works by giving every rank its own sampling generator")
-        if optax_tx is not None:
-            raise NotImplementedError(
-                "Optimizer(optax_tx=...) is not ported; the builtin Nesterov "
-                "update is")
         self.mesh = mesh
         self.loss_fn = loss_fn
         self.parameters = [_as_param(p) for p in parameters]
@@ -191,6 +231,27 @@ class Optimizer:
         self.generator = (generator if generator is not None else
                           torch.Generator(self.parameters[0].device)
                           .manual_seed(0))
+        self._tx = self._scheduler = None
+        if optax_tx is not None:
+            self._tx, self._scheduler = _torch_tx(optax_tx, self.parameters)
+
+    def _apply_tx(self, grads, lr_scale, accumulators, smoothers):
+        """The ``optax_tx`` update of every parameter, in place."""
+        scales = []
+        for i, (p, g) in enumerate(zip(self.parameters, grads)):
+            p.grad, s = _grad_hygiene(
+                g, lr_scale, self.individual_lr[i], self.learning_rate,
+                self.clip_mode, self.clip_scale, self.grad_clip,
+                accumulators[i], premultiply_lr=False)
+            scales.append(s)
+        # the optimizer steps in place: its update is read against a copy
+        before = [p.clone() for p in self.parameters]
+        self._tx.step()
+        for p, b, s, sm in zip(self.parameters, before, scales, smoothers):
+            p.copy_(_smooth(b + s * (p - b), sm))
+            p.grad = None
+        if self._scheduler is not None:
+            self._scheduler.step()
 
     def _step(self, accumulators, smoothers, lr_scale, momentum, args,
               kwargs):
@@ -204,12 +265,16 @@ class Optimizer:
             error, *grads = sharding.all_reduce_flat([error, *grads],
                                                      self.mesh)
         with torch.no_grad():
-            for i, (p, g, v) in enumerate(zip(self.parameters, grads,
-                                              self._velocity)):
-                self.parameters[i], self._velocity[i] = _apply_param_update(
-                    p, g, v, lr_scale, momentum, self.individual_lr[i],
-                    self.learning_rate, self.clip_mode, self.clip_scale,
-                    self.grad_clip, accumulators[i], smoothers[i])
+            if self._tx is not None:
+                self._apply_tx(grads, lr_scale, accumulators, smoothers)
+            else:
+                for i, (p, g, v) in enumerate(zip(self.parameters, grads,
+                                                  self._velocity)):
+                    (self.parameters[i],
+                     self._velocity[i]) = _apply_param_update(
+                        p, g, v, lr_scale, momentum, self.individual_lr[i],
+                        self.learning_rate, self.clip_mode, self.clip_scale,
+                        self.grad_clip, accumulators[i], smoothers[i])
         self.iterations += 1
         return error
 

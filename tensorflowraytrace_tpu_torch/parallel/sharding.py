@@ -16,14 +16,17 @@ on every rank with that rank's part.  The names are the JAX package's:
   ``parallel_streamed_value_and_grad``, ``optim.Optimizer(mesh=...)``).
 
 Collectives run over the group's backend: NCCL between CUDA devices, gloo
-on the CPU (gloo also all-reduces and broadcasts CUDA tensors).  Not ported:
-``parallel_psf``, which needs ``analysis.huygens_psf``.
+on the CPU (gloo also all-reduces and broadcasts CUDA tensors).
+``parallel_psf`` sums the Huygens PSF's field over the ranks' rays with one
+all-reduce of the (G, 2) field, after one of the phase reference's three
+weighted sums.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 import os
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -366,5 +369,39 @@ def parallel_streamed_value_and_grad(block_loss: Callable, n_blocks: int,
                  if value is None else value.to(dtype))
         value, *grads = all_reduce_flat([value, *grads], mesh)
         return value, grads
+
+    return run
+
+
+def parallel_psf(mesh: RayMesh, wavelength, medium_n=1.0,
+                 phase_reduction=True):
+    """The ray-sharded Huygens-Fresnel PSF (:func:`analysis.huygens_psf`).
+    Returns ``f(sources, opl, amplitudes, grid) -> (G,) PSF`` of this
+    rank's shard of the rays and the replicated grid: each rank sums its
+    own rays' (G, 2) field and one all-reduce adds the fields.  With
+    ``phase_reduction`` the reference wavelet must be the same on every
+    rank, so its weighted sums (the weight, the weighted sources and the
+    weighted paths) are all-reduced first, in one buffer.  Forward only:
+    the all-reduces record no gradient."""
+    from tensorflowraytrace_tpu_torch.analysis import _wavelet_field
+
+    def run(sources, opl, amplitudes, grid):
+        dtype = sources.dtype
+        k = 2.0 * math.pi / torch.as_tensor(wavelength, dtype=dtype,
+                                            device=sources.device)
+        origin = path_ref = None
+        if phase_reduction:
+            w = torch.abs(amplitudes)
+            sw, so, sp = all_reduce_flat(
+                [torch.sum(w), torch.sum(w[:, None] * sources, dim=0),
+                 torch.sum(w * opl)], mesh)
+            sw = torch.clamp(sw, min=torch.finfo(dtype).tiny)
+            origin, path_ref = so / sw, sp / sw
+        re, im = _wavelet_field(
+            sources, opl, amplitudes, grid, k,
+            torch.as_tensor(medium_n, dtype=dtype, device=sources.device),
+            origin, path_ref)
+        e_re, e_im = all_reduce_flat([re, im], mesh)
+        return e_re * e_re + e_im * e_im
 
     return run

@@ -1,6 +1,6 @@
 """The 2D problems the port is driven with: one trainable arc, a tapered
-light guide at full width, two reaction examples, and the random sets of
-the kernel checks.
+light guide at full width, two reaction examples, three lens designs, and
+the random sets of the kernel checks.
 
 - ``single_arc``: the problem of ``examples/optimize_single_arc.py`` (the
   reference's dev/optimize_single_arc.py).  A uniform beam at 6 wavelengths
@@ -29,6 +29,17 @@ the kernel checks.
   and MgF2-coated, traced under every forced branch schedule of depth 4
   (``branch_override_reaction`` under ``thin_film_intensity_reaction``),
   checked against the analytic ghost powers.
+- ``asphere_singlet``: ``examples/asphere_singlet.py``, a biconvex
+  singlet of two ``ParametricAsphereSegment``s designed twice by Adam under
+  a cosine schedule (``Optimizer(optax_tx=...)``), curvatures alone and
+  all six parameters, with the example's two checks.
+- ``multisegment_lens``: BASELINE config 2
+  (``tests/test_config2_multisegment.py``), a two-surface
+  ``ParametricMultiSegmentBoundary`` in flint glass under an angular
+  rainbow beam and an aperture source, and the test's three checks.
+- ``strehl_lens``: ``examples/strehl_lens.py``, one polyline surface whose
+  vertices maximise the Huygens PSF's on-axis peak (``analysis.huygens_psf``
+  of an ``optical_path_reaction`` trace) in three annealed stages of Adam.
 - ``random_segments``, ``random_arcs``, ``random_rays``: the sets of
   ``examples/tpu_kernel_check.py``, Morton-sorted.
 - ``arc_edge_cases``: ray-arc sets at the edges of the arc searches' exact
@@ -50,6 +61,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import numpy as np
 import torch
@@ -58,12 +70,13 @@ from tensorflowraytrace_tpu_torch.config import FINISHED, resolve_device
 from tensorflowraytrace_tpu_torch.engine import (
     TraceConfig, landing_sum_fold, start_epsilon, trace,
 )
+from tensorflowraytrace_tpu_torch.models import boundaries as bd
 from tensorflowraytrace_tpu_torch.models import distributions as dist
 from tensorflowraytrace_tpu_torch.models import sources as src
 from tensorflowraytrace_tpu_torch.models.acceleration import (
     morton_sort_arcs, morton_sort_segments,
 )
-from tensorflowraytrace_tpu_torch.models.rays import RaySet
+from tensorflowraytrace_tpu_torch.models.rays import RaySet, concat_rays
 from tensorflowraytrace_tpu_torch.models.surfaces import ArcSet, Scene2D, SegmentSet
 from tensorflowraytrace_tpu_torch.operations import (
     all_branch_schedules, branch_override_reaction, rough_surface_reaction,
@@ -72,6 +85,7 @@ from tensorflowraytrace_tpu_torch.operations import (
 )
 from tensorflowraytrace_tpu_torch.ops import materials as mats
 from tensorflowraytrace_tpu_torch.ops import thinfilm
+from tensorflowraytrace_tpu_torch.optim import Optimizer
 from tensorflowraytrace_tpu_torch.streamed import fold_in
 
 PI = math.pi
@@ -481,6 +495,354 @@ def ghost_analysis(rays=801, depth=4, dtype=torch.float32, device=None,
         raise RuntimeError(f"ghost analysis: the coating cut the ghost from "
                            f"{bare_ghost} to {ar_ghost}, not 8x")
     return results, names
+
+
+# ----------------------------------------------------------------------
+# lens designs: the asphere singlet, BASELINE config 2, the Strehl lens
+# ----------------------------------------------------------------------
+
+def _on_card(device):
+    """Whether a design on ``device`` takes the CUDA kernels: exactly on a
+    CUDA device."""
+    return device.type == "cuda"
+
+
+def cosine_decay(lr, steps, alpha):
+    """``optax.cosine_decay_schedule(lr, steps, alpha)`` as a factory
+    ``params -> (Adam, LambdaLR)`` for ``Optimizer(optax_tx=...)``: the
+    rate at step t is lr ((1 - alpha) (1 + cos(pi min(t, T) / T)) / 2 +
+    alpha)."""
+    def factor(t):
+        decay = 0.5 * (1.0 + math.cos(math.pi * min(t, steps) / steps))
+        return (1.0 - alpha) * decay + alpha
+
+    def factory(params):
+        adam = torch.optim.Adam(params, lr=lr)
+        return adam, torch.optim.lr_scheduler.LambdaLR(adam, factor)
+
+    return factory
+
+
+def masked(p, mask):
+    """``p`` in value whose gradient is multiplied by ``mask`` (0 or 1)."""
+    return p * mask + (p * (1 - mask)).detach()
+
+
+ASPHERE_GLASS = 1.5
+ASPHERE_SCREEN_X = 2.5      # the fixed image plane
+ASPHERE_X = (0.0, 0.35)     # the front and back vertices
+ASPHERE_HALF_AP = 0.8       # the ray bundle's half-aperture
+ASPHERE_SURF_AP = 0.95      # the surfaces' half-aperture
+ASPHERE_BOUNCES = 3
+# the biconvex spherical start [c1, k1, a4_1, c2, k2, a4_2]
+ASPHERE_START = (0.42, 0.0, 0.0, -0.42, 0.0, 0.0)
+SPHERE_MASK = (1.0, 0.0, 0.0, 1.0, 0.0, 0.0)
+ASPHERE_MASK = (1.0,) * 6
+
+
+def asphere_problem(resolution=256, n_rays=160, dtype=torch.float32,
+                    device=None):
+    """``examples/asphere_singlet.py``'s singlet: two
+    ``ParametricAsphereSegment``s of ``resolution`` segments (n = 1.5
+    between them) and a screen at x = 2.5, ``n_rays`` collimated rays over
+    |y| <= 0.8 at 550 nm, 3 bounces.  Returns ``(spot_sq, start)``:
+    ``spot_sq(params)`` the mean squared landing height of every ray with
+    ``params[0]`` = [c1, k1, a4_1, c2, k2, a4_2], and the start."""
+    device = resolve_device(device)
+    materials = (mats.vacuum, mats.build_constant_material(ASPHERE_GLASS))
+    front = bd.ParametricAsphereSegment(
+        ASPHERE_X[0], ASPHERE_SURF_AP, resolution=resolution, n_aspheric=1,
+        mat_in=1, mat_out=0, dtype=dtype, device=device)
+    back = bd.ParametricAsphereSegment(
+        ASPHERE_X[1], ASPHERE_SURF_AP, resolution=resolution, n_aspheric=1,
+        mat_in=0, mat_out=1, dtype=dtype, device=device)
+    screen = SegmentSet.make([[ASPHERE_SCREEN_X, -3.0]],
+                             [[ASPHERE_SCREEN_X, 3.0]], dtype=dtype,
+                             device=device)
+    ys = dist._linspace(-ASPHERE_HALF_AP, ASPHERE_HALF_AP, n_rays, dtype,
+                        device)
+    p0 = torch.stack([torch.full_like(ys, -1.0), ys], dim=1)
+    rays = RaySet.make(p0, p0 + torch.tensor([1.0, 0.0], dtype=dtype,
+                                             device=device), 550.0,
+                       dtype=dtype, device=device)
+    start = torch.tensor(ASPHERE_START, dtype=dtype, device=device)
+
+    def scene(params):
+        return Scene2D.build(
+            optical_segments=[front.build(params[:3]),
+                              back.build(params[3:])],
+            target_segments=[screen])
+
+    cfg = TraceConfig(max_bounces=ASPHERE_BOUNCES,
+                      use_kernel=_on_card(device),
+                      ray_start_epsilon=start_epsilon(scene(start)))
+
+    def spot_sq(params):
+        res = trace(rays, scene(params[0]), materials, cfg)
+        return torch.mean(res.rays.p1[:, 1] ** 2)
+
+    spot_sq.cfg = cfg
+    return spot_sq, start
+
+
+def asphere_optimizer(spot_sq, start, mask, steps, lr):
+    """The example's design step with a freedom ``mask`` over the six
+    parameters: Adam under ``optax.cosine_decay_schedule(lr, steps, 1e-2)``
+    on the masked gradient, through ``Optimizer(optax_tx=...)`` (no clip:
+    the example clips nothing)."""
+    mask = torch.as_tensor(mask, dtype=start.dtype, device=start.device)
+    return Optimizer(lambda params: spot_sq([masked(params[0], mask)]),
+                     [start], learning_rate=1.0, grad_clip=math.inf,
+                     pass_key=False, optax_tx=cosine_decay(lr, steps, 1e-2))
+
+
+def asphere_singlet(steps=1500, resolution=256, n_rays=160, lr=6e-3,
+                    dtype=torch.float32, device=None):
+    """``examples/asphere_singlet.py``: the singlet designed twice from the
+    same spherical start, with the curvatures alone free (the sphere
+    control) and with all six parameters (the asphere), ``steps`` steps
+    each, and the example's two checks: the asphere's RMS spot below a
+    third of the sphere's and a fifth of the start's.  Returns a dict of
+    the three RMS spots, the designed parameters, each design's per-step
+    squared spots and its wall seconds (``run_phase`` ends on a read of
+    its errors)."""
+    spot_sq, start = asphere_problem(resolution, n_rays, dtype, device)
+    with torch.no_grad():
+        rms0 = float(torch.sqrt(spot_sq([start])))
+    out = {"rms_start": rms0}
+    for label, mask in (("sphere", SPHERE_MASK), ("asphere", ASPHERE_MASK)):
+        opt = asphere_optimizer(spot_sq, start, mask, steps, lr)
+        t0 = time.perf_counter()
+        errors = opt.run_phase(steps)
+        out[f"seconds_{label}"] = time.perf_counter() - t0
+        with torch.no_grad():
+            out[f"rms_{label}"] = float(torch.sqrt(spot_sq(opt.parameters)))
+        out[f"params_{label}"] = opt.parameters[0]
+        out[f"errors_{label}"] = errors
+    if not (out["rms_asphere"] < out["rms_sphere"] / 3
+            and out["rms_asphere"] < rms0 / 5):
+        raise AssertionError(f"asphere singlet checks failed: {out}")
+    return out
+
+
+CONFIG2_THICKNESS = 0.15
+CONFIG2_BOUNCES = 4
+
+
+def multisegment_problem(dtype=torch.float32, device=None):
+    """BASELINE config 2 (``tests/test_config2_multisegment.py``): a
+    two-surface ``ParametricMultiSegmentBoundary`` on 21 shared base points
+    (thickness >= 0 and >= 0.15, flint glass), an angular ``RAINBOW_6``
+    beam of 60 rays and an 8-ray aperture source, a target at x = 6, 4
+    bounces.  Returns ``(lens, rays, trace_fn, loss)``: ``trace_fn(params)``
+    traces the rays at the lens's parameters, ``loss(params, generator)``
+    is the sum of the finished rays' squared landing heights."""
+    device = resolve_device(device)
+    zero = dist.StaticUniformAperaturePoints((0.0, -1.2), (0.0, 1.2), 21)
+    one = dist.StaticUniformAperaturePoints((1.0, -1.2), (1.0, 1.2), 21)
+    lens = bd.ParametricMultiSegmentBoundary(
+        zero, one,
+        [bd.ThicknessConstraint(0.0, "min"),
+         bd.ThicknessConstraint(CONFIG2_THICKNESS, "min")],
+        flip_norm=[True, False],
+        material_list=[{"mat_in": 1, "mat_out": 0}] * 2,
+        dtype=dtype, device=device)
+    target = SegmentSet.make([[6.0, -50.0]], [[6.0, 50.0]], dtype=dtype,
+                             device=device)
+    beam = dist.StaticUniformBeam(-1.0, 1.0, 10)
+    angles = dist.StaticUniformAngularDistribution(0.0, 0.0, 1)
+    s1 = src.AngularSource(2, (-2.0, 0.0), 0.0, angles, beam, RAINBOW_6)
+    ap_start = dist.StaticUniformAperaturePoints((-2.0, -0.8), (-2.0, 0.8), 8)
+    ap_end = dist.StaticUniformAperaturePoints((-1.0, -0.8), (-1.0, 0.8), 8)
+    s2 = src.AperatureSource(2, ap_start, ap_end, [575.0] * 8, dense=False)
+    rays = concat_rays([s1.sample(dtype=dtype, device=device),
+                        s2.sample(dtype=dtype, device=device)])
+    materials = (mats.vacuum, mats.flint_glass)
+
+    def scene(params):
+        return Scene2D.build(optical_segments=lens.build(params),
+                             target_segments=[target])
+
+    cfg = TraceConfig(max_bounces=CONFIG2_BOUNCES,
+                      use_kernel=_on_card(device),
+                      ray_start_epsilon=start_epsilon(scene(None)))
+
+    def trace_fn(params):
+        return trace(rays, scene(params), materials, cfg)
+
+    def loss(params, generator=None):
+        res = trace_fn(params)
+        fin = res.rays.state == FINISHED
+        return torch.sum(torch.where(fin, res.rays.p1[:, 1] ** 2, 0.0))
+
+    loss.cfg = cfg
+    return lens, rays, trace_fn, loss
+
+
+def multisegment_lens(steps=60, dtype=torch.float32, device=None):
+    """BASELINE config 2's optimization (``grad_clip=5e-3``, one step then
+    ``steps`` more at ``lr_scale=2e-3``, momentum 0.8) and its test's three
+    checks: the last error below half the first; the 680 nm and 400 nm
+    rays landing apart; the constrained thickness at least 0.15 less a
+    margin (the test's 1e-9 in float64; 1e-6 in float32, a few roundings
+    of the constraint's shift at coordinates of order 1).  Returns a dict
+    of the first error, the per-step errors, the landing heights of the
+    two wavelengths, the least thickness and the parameters."""
+    margin = 1e-9 if dtype == torch.float64 else 1e-6
+    lens, rays, trace_fn, loss = multisegment_problem(dtype, device)
+    opt = Optimizer(loss, lens.init_params(), learning_rate=1.0,
+                    grad_clip=5e-3)
+    e0 = opt.single_step(None, lr_scale=2e-3, momentum=0.8)
+    errors = opt.run_phase(steps, None, lr_scale=2e-3, momentum=0.8)
+    with torch.no_grad():
+        res = trace_fn(opt.parameters)
+        p0, p1 = lens.constrain(opt.parameters)
+        thickness = float(torch.min(p1 - p0))
+    fin = (res.rays.state == FINISHED).cpu().numpy()
+    wl = res.rays.wavelength.cpu().numpy()[fin]
+    y = res.rays.p1[:, 1].cpu().numpy()[fin]
+    reds, blues = y[wl == 680.0], y[wl == 400.0]
+    out = {"e0": e0, "errors": errors, "reds": reds, "blues": blues,
+           "thickness": thickness, "params": opt.parameters}
+    checks = {
+        "error halved": errors[-1] < 0.5 * e0,
+        "dispersion": bool(reds.size and blues.size and not np.allclose(
+            np.sort(reds)[:len(blues)], np.sort(blues)[:len(reds)],
+            atol=1e-9)),
+        "thickness": thickness >= CONFIG2_THICKNESS - margin,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"config 2 checks failed: {checks}, "
+                             f"e0 {e0}, last {errors[-1]}, thickness "
+                             f"{thickness}")
+    return out
+
+
+STREHL_GLASS = 1.5
+STREHL_FOCUS = 3.0
+STREHL_HALF_AP = 0.6
+STREHL_LAUNCH_X = -2.0
+STREHL_LAMBDA = 0.55e-3     # 550 nm in the example's mm units
+STREHL_BOUNCES = 2
+
+
+def strehl_sphere_x(y, f=STREHL_FOCUS, n=STREHL_GLASS):
+    """The paraxial sphere R = f (n - 1) / n: focuses at f to first order,
+    with strong spherical aberration at this aperture."""
+    r = f * (n - 1.0) / n
+    return r - np.sqrt(np.maximum(r * r - y * y, 0.0))
+
+
+def strehl_hyperbola_x(y, f=STREHL_FOCUS, n=STREHL_GLASS):
+    """The analytic hyperbola that focuses a collimated beam at f."""
+    a = 1.0 - 1.0 / n ** 2
+    b = -2.0 * f * (1.0 - 1.0 / n)
+    return (-b - np.sqrt(b * b - 4 * a * y ** 2)) / (2 * a)
+
+
+def strehl_problem(n_segments=48, n_rays=128, dtype=torch.float32,
+                   device=None):
+    """``examples/strehl_lens.py``'s lens: one polyline surface of
+    ``n_segments`` segments (its vertices' x the parameters, glass of
+    n = 1.5 on its left), ``n_rays`` collimated rays carrying their optical
+    path (``optical_path_reaction``), a target at the focus x = 3, 2
+    bounces.  Returns ``(strehl, ys)``: ``strehl(xs, lam)`` the on-axis
+    Huygens PSF peak (``analysis.huygens_psf`` at the focus, in the
+    profiler range ``strehl_psf``) over its ideal (the finished rays'
+    count squared), and the vertices' heights (numpy)."""
+    from tensorflowraytrace_tpu_torch.analysis import huygens_psf
+    from tensorflowraytrace_tpu_torch.operations import (
+        optical_path_reaction, seed_optical_path,
+    )
+
+    device = resolve_device(device)
+    materials = (mats.vacuum, mats.build_constant_material(STREHL_GLASS))
+    reaction = optical_path_reaction()
+    ys_np = np.asarray(dist._linspace(-1.15 * STREHL_HALF_AP,
+                                      1.15 * STREHL_HALF_AP, n_segments + 1,
+                                      torch.float64, "cpu"))
+    ys_v = torch.as_tensor(ys_np, dtype=dtype, device=device)
+    ray_ys = dist._linspace(-STREHL_HALF_AP, STREHL_HALF_AP, n_rays, dtype,
+                            device)
+    p0 = torch.stack([torch.full_like(ray_ys, STREHL_LAUNCH_X), ray_ys], dim=1)
+    rays = seed_optical_path(RaySet.make(
+        p0, p0 + torch.tensor([1.0, 0.0], dtype=dtype, device=device), 550.0,
+        dtype=dtype, device=device))
+    target = SegmentSet.make([[STREHL_FOCUS, -3.0]], [[STREHL_FOCUS, 3.0]],
+                             dtype=dtype, device=device)
+    grid = torch.tensor([[STREHL_FOCUS, 0.0]], dtype=dtype, device=device)
+
+    def scene(xs):
+        verts = torch.stack([xs, ys_v], dim=1)
+        surf = SegmentSet.make(verts[:-1], verts[1:], mat_in=1, mat_out=0,
+                               dtype=dtype, device=device)
+        return Scene2D.build(optical_segments=[surf], target_segments=[target])
+
+    start = torch.as_tensor(strehl_sphere_x(ys_np), dtype=dtype, device=device)
+    cfg = TraceConfig(max_bounces=STREHL_BOUNCES,
+                      use_kernel=_on_card(device),
+                      ray_start_epsilon=start_epsilon(scene(start)))
+
+    def strehl(xs, lam):
+        res = trace(rays, scene(xs), materials, cfg, reaction=reaction)
+        # wavelets at each ray's last refraction point; unfinished rays
+        # (a wild step's misses) are masked out
+        amp = (res.rays.state == FINISHED).to(xs.dtype)
+        with torch.profiler.record_function("strehl_psf"):
+            peak = huygens_psf(res.rays.p0, res.rays.fields["opl"], lam, grid,
+                               amplitudes=amp, medium_n=STREHL_GLASS)[0]
+        return peak / torch.clamp(torch.sum(amp), min=1.0) ** 2
+
+    strehl.cfg = cfg
+    return strehl, ys_np
+
+
+def strehl_stages(steps):
+    """The example's annealed wavelengths (100, 10 and 1 times 550 nm),
+    each with Adam at 0.2 of it, ``steps`` steps a stage."""
+    return [(lam, 0.2 * lam, steps) for lam in
+            (100 * STREHL_LAMBDA, 10 * STREHL_LAMBDA, STREHL_LAMBDA)]
+
+
+def strehl_optimizer(strehl, xs, lam, lr):
+    """One stage's optimizer: Adam at ``lr`` on -Strehl at ``lam`` through
+    ``Optimizer(optax_tx=...)`` (no clip, as in the example)."""
+    return Optimizer(lambda params: -strehl(params[0], lam), [xs],
+                     learning_rate=1.0, grad_clip=math.inf, pass_key=False,
+                     optax_tx=lambda ps: torch.optim.Adam(ps, lr=lr))
+
+
+def strehl_lens(steps=300, n_segments=48, n_rays=128, dtype=torch.float32,
+                device=None):
+    """``examples/strehl_lens.py``: from the paraxial sphere, three stages
+    of ``steps`` Adam steps maximise the Strehl ratio at 100, 10 and 1
+    times 550 nm, and the example's check: the final Strehl at 550 nm above
+    0.8 of the discretised hyperbola's and above 0.5.  Returns a dict of
+    the start's, the design's and the hyperbola's Strehl at 550 nm, each
+    stage's last Strehl and wall seconds, and the designed vertices."""
+    strehl, ys = strehl_problem(n_segments, n_rays, dtype, device)
+    device = resolve_device(device)
+    xs = torch.as_tensor(strehl_sphere_x(ys), dtype=dtype, device=device)
+    with torch.no_grad():
+        s0 = float(strehl(xs, STREHL_LAMBDA))
+    stage_strehl, stage_seconds = [], []
+    for lam, lr, n in strehl_stages(steps):
+        opt = strehl_optimizer(strehl, xs, lam, lr)
+        t0 = time.perf_counter()
+        errors = opt.run_phase(n)
+        stage_seconds.append(time.perf_counter() - t0)
+        xs = opt.parameters[0]
+        stage_strehl.append(-float(errors[-1]))
+    with torch.no_grad():
+        s1 = float(strehl(xs, STREHL_LAMBDA))
+        s_hyp = float(strehl(torch.as_tensor(strehl_hyperbola_x(ys),
+                                             dtype=dtype, device=device),
+                             STREHL_LAMBDA))
+    out = {"strehl_start": s0, "strehl": s1, "strehl_hyperbola": s_hyp,
+           "stages": stage_strehl, "stage_seconds": stage_seconds, "xs": xs}
+    if not (s1 > 0.8 * s_hyp and s1 > 0.5):
+        raise AssertionError(f"Strehl lens check failed: {out}")
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -28,6 +28,22 @@ K3).  Each landing is weighted by its Fresnel transmission
 normal-incidence transmission 1 - (1/7)^2.
 
     out = caustic_render()            # image, state counts, seconds
+
+The image-quality test of a finished lens, ``examples/image_quality_3d.py``:
+the hexalens's two designed surfaces (``hexalens.train``) exported as STL
+(``export_boundary_stl``, under build/ unless told otherwise), loaded back
+as static surfaces (``manual_triangle_boundary``) in front of a 100 x 100
+target at x = 10, and ``analysis.imaging_test`` of 20 batches of 4000
+rays from the object disk to the lens wedge (575 nm, 3 bounces,
+``TraceConfig.recommended``): the landing histogram and the flux of its
+two images.
+
+    out = image_quality_3d()          # histogram, landed rays, fluxes
+
+And ``examples/remesh.py``: a bumpy coarse mesh re-meshed onto a regular
+one on the host (``planar_interpolated_remesh``), the flattened mesh and
+its initial parameters built into a ``ParametricTriangleBoundary`` on the
+device.
 """
 
 from __future__ import annotations
@@ -38,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+from tensorflowraytrace_tpu_torch import analysis
 from tensorflowraytrace_tpu_torch.config import FINISHED, resolve_device
 from tensorflowraytrace_tpu_torch.engine import (
     TraceConfig, landing_histogram_fold, start_epsilon, trace, trace_streamed,
@@ -295,3 +312,162 @@ def caustic_render(n_rays=1 << 27, block=1 << 22, res=512, mesh_steps=144,
             "seconds": seconds, "rays_per_s": n / seconds,
             "equiv_per_s": n * m * render.cfg.max_bounces / seconds,
             "mean_transmission": mean_t}
+
+
+# ----------------------------------------------------------------------
+# the image quality of the finished hexalens
+# ----------------------------------------------------------------------
+
+IMAGE_SOURCE_DISTANCE = 10.0
+IMAGE_OBJECT_SIZE = 0.2
+IMAGE_LENS_APERATURE = 1.0
+IMAGE_THETA = (0.0, PI / 6)
+IMAGE_BOUNCES = 3
+IMAGE_EXTENT = 1.2
+IMAGE_BINS = 96
+IMAGE_SEED = 7
+
+
+def _out_dir(out_dir):
+    """``out_dir``, by default the repository's build/ directory."""
+    from pathlib import Path
+
+    from tensorflowraytrace_tpu_torch.ops import cuda_build
+
+    path = Path(cuda_build.BUILD_DIR if out_dir is None else out_dir)
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+def hexalens_stls(params=None, mesh_step=0.08, out_dir=None, device=None):
+    """Export the hexalens's two surfaces at ``params`` (None: designed by
+    ``hexalens.train()``) after its thickness constraints, as
+    ``examples/hexalens.py`` does, to ``hexalens_first.stl`` and
+    ``hexalens_second.stl`` in ``out_dir``.  Returns ``(first, second,
+    surfaces)``: the two paths and ``lens.build(params)``."""
+    from tensorflowraytrace_tpu_torch import hexalens
+    from tensorflowraytrace_tpu_torch.utils.checkpoint import (
+        export_boundary_stl,
+    )
+
+    device = resolve_device(device)
+    if params is None:
+        _, params = hexalens.train(mesh_step=mesh_step, device=device)
+    lens, _, _ = hexalens.problem(mesh_step=mesh_step, device=device)
+    out = _out_dir(out_dir)
+    paths = []
+    with torch.no_grad():
+        for surface, p, name in zip(lens.surfaces, lens.constrain(params),
+                                    ("first", "second")):
+            paths.append(export_boundary_stl(
+                surface, p, str(out / f"hexalens_{name}.stl")))
+        surfaces = lens.build(params)
+    return paths[0], paths[1], surfaces
+
+
+def image_quality_scene(first_stl, second_stl, dtype=torch.float32,
+                        device=None):
+    """The two STL surfaces (glass inside) and the target: ``(scene,
+    cfg)``, the config ``TraceConfig.recommended``'s."""
+    device = resolve_device(device)
+    first = bd.manual_triangle_boundary(file_name=first_stl, mat_in=1,
+                                        mat_out=0, dtype=dtype, device=device)
+    second = bd.manual_triangle_boundary(file_name=second_stl, mat_in=1,
+                                         mat_out=0, dtype=dtype,
+                                         device=device)
+    half, td = 50.0, IMAGE_SOURCE_DISTANCE
+    target = TriangleSet.make(
+        [[td, -half, -half], [td, half, half]],
+        [[td, half, -half], [td, -half, half]],
+        [[td, half, half], [td, -half, -half]], dtype=dtype, device=device)
+    scene = Scene3D.build(optical=[first, second], targets=[target])
+    return scene, TraceConfig.recommended(scene, max_bounces=IMAGE_BOUNCES)
+
+
+def image_quality_source(rays):
+    """``rays`` rays from the object disk 10 before the lens to its wedge
+    aperture, 575 nm."""
+    start_points = dist.RandomUniformCircle(rays, IMAGE_OBJECT_SIZE)
+    end_points = dist.RandomUniformCircle(
+        rays, 0.98 * IMAGE_LENS_APERATURE, theta_start=IMAGE_THETA[0],
+        theta_end=IMAGE_THETA[1])
+    return src.AperatureSource(
+        3,
+        dist.BasePointTransformation(
+            start_points, translation=(-IMAGE_SOURCE_DISTANCE, 0.0, 0.0),
+            lift_to_3d=True),
+        dist.BasePointTransformation(end_points, lift_to_3d=True),
+        [575.0] * rays, dense=False)
+
+
+def image_fluxes(h, xedges):
+    """The landed rays and the shares of flux within 0.25 of the central
+    image and of the one displaced by 0.6 in +y (the example's report)."""
+    total = h.sum()
+    centers = 0.5 * (np.asarray(xedges)[:-1] + np.asarray(xedges)[1:])
+    near = np.abs(centers) < 0.25
+    central = h[near][:, near].sum()
+    displaced = h[np.abs(centers - 0.6) < 0.25][:, near].sum()
+    return int(total), float(central / total), float(displaced / total)
+
+
+def image_quality_3d(batches=20, rays=4000, params=None, first_stl=None,
+                     second_stl=None, dtype=torch.float32, device=None):
+    """``examples/image_quality_3d.py``: the two hexalens surfaces (the
+    given STL files, or those ``hexalens_stls(params)`` writes to build/)
+    traced in ``batches`` batches of ``rays`` rays from one generator
+    seeded ``IMAGE_SEED``, the finished rays' (y, z) histogrammed by
+    ``analysis.imaging_test`` into 96 x 96 bins over |y|, |z| <= 1.2.
+    Returns a dict of the histogram and its edges, the landed rays, the
+    two images' flux shares, the STL paths, the scene and the config."""
+    device = resolve_device(device)
+    if first_stl is None:
+        first_stl, second_stl, _ = hexalens_stls(params, device=device)
+    scene, cfg = image_quality_scene(first_stl, second_stl, dtype, device)
+    source = image_quality_source(rays)
+    generator = torch.Generator(device).manual_seed(IMAGE_SEED)
+
+    def get_samples():
+        res = trace(source.sample(generator, dtype, device), scene,
+                    MATERIALS, cfg)
+        return res.rays.p1[res.rays.state == FINISHED][:, 1:]
+
+    h, xedges, yedges, _ = analysis.imaging_test(
+        get_samples, [[-IMAGE_EXTENT, IMAGE_EXTENT]] * 2,
+        batch_count=batches, bins=IMAGE_BINS, verbose=False)
+    total, central, displaced = image_fluxes(h, xedges)
+    return {"histogram": h, "xedges": xedges, "yedges": yedges,
+            "landed": total, "central": central, "displaced": displaced,
+            "first_stl": first_stl, "second_stl": second_stl,
+            "scene": scene, "cfg": cfg}
+
+
+def remesh(out_dir=None, dtype=torch.float32, device=None):
+    """``examples/remesh.py``: a 5-ring hexagonal mesh bent to the bump
+    0.4 exp(-3 r^2), re-meshed on the host onto a regular 12-ring one
+    (``planar_interpolated_remesh``); the example's check (the initial
+    parameters' peak within 0.02 of 0.4); the flat mesh and its initial
+    parameters built into a ``ParametricTriangleBoundary`` along +z on the
+    device; the re-inflated mesh saved as ``remeshed.stl`` in ``out_dir``
+    (by default build/).  Returns a dict of the initial parameters, the
+    built surface's peak height, the boundary and the STL path."""
+    device = resolve_device(device)
+    bumpy = mt.hexagonal_mesh(1.0, 5)
+    r2 = np.sum(bumpy.points[:, :2] ** 2, axis=1)
+    bumpy.points[:, 2] = 0.4 * np.exp(-3 * r2)
+    base = mt.hexagonal_mesh(1.0, 12)
+    flat, initial = mt.planar_interpolated_remesh(bumpy, base)
+    if not abs(initial.max() - 0.4) < 0.02:
+        raise AssertionError(f"remesh: initial peak {initial.max()}, not "
+                             "within 0.02 of 0.4")
+    boundary = bd.ParametricTriangleBoundary(
+        flat, bd.FromVectorVG((0.0, 0.0, 1.0)), initial_parameters=0.0,
+        dtype=dtype, device=device)
+    with torch.no_grad():
+        surface = boundary.build(boundary.init_params() + torch.as_tensor(
+            initial, dtype=dtype, device=device))
+        peak = float(surface.vp[:, 2].max())
+    path = str(_out_dir(out_dir) / "remeshed.stl")
+    mt.planar_interpolated_remesh(bumpy, base, flatten=False).save(path)
+    return {"initial": initial, "peak": peak, "boundary": boundary,
+            "surface": surface, "stl": path}

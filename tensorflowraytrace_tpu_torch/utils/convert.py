@@ -91,6 +91,9 @@ def optimizer_state_from_numpy(optimizer, parameters, velocity):
     ``parameters`` and ``_velocity``.  They take the dtype and device of the
     port ``optimizer``'s own parameters, so its next step continues the JAX
     run's Nesterov momentum.  Returns the optimizer."""
+    if getattr(optimizer, "_tx", None) is not None:
+        raise ValueError("optimizer_state_from_numpy loads the Nesterov "
+                         "stage's state; this optimizer runs optax_tx")
     n = len(optimizer.parameters)
     if len(parameters) != n or len(velocity) != n:
         raise ValueError(f"the optimizer has {n} parameters; got "

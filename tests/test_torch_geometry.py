@@ -79,6 +79,20 @@ def test_raw_line_triangle_intersect_explicit_epsilon(rng):
     close(t_out[4], j_out[4])
 
 
+def test_line_triangle_intersect_nxm_matches_jax(rng):
+    """N rays against M triangles, each output (M, N), the triangles on
+    axis 0."""
+    n, m = 40, 30
+    cols = tri_inputs(rng, n, m)
+    flat = [c.reshape(-1) for c in cols]
+    j_out = j_geo.line_triangle_intersect(*[jnp.asarray(a) for a in flat])
+    t_out = t_geo.line_triangle_intersect(*[t64(a) for a in flat])
+    assert t_out[0].shape == (m, n)
+    np.testing.assert_array_equal(t_out[3].numpy(), np.asarray(j_out[3]))
+    for t, j in zip(t_out[:3] + t_out[4:], j_out[:3] + j_out[4:]):
+        close(t, j)
+
+
 def snell_inputs(rng, n):
     p0 = rng.normal(0, 1, (n, 3))
     p1 = p0 + rng.normal(0, 1, (n, 3))

@@ -132,6 +132,33 @@ def test_raw_line_circle_intersect_matches_jax(rng):
     assert not plus["valid"][1] and not plus["valid"][2]
 
 
+def test_nxm_line_wrappers_match_jax(rng):
+    """``line_intersect`` and ``line_circle_intersect``: N lines against M
+    lines or circles, each output (M, N) with the second set on axis 0.
+    The circles lie within a few radii of the lines, where the port's
+    radicand 4 (a - (x_r x d_r)^2) and JAX's b^2 - 4ac agree to rounding
+    (rtol 1e-10); far from a circle only the port's form keeps its
+    digits (tests/test_torch_float32.py)."""
+    n, m = 30, 20
+    lines = line_inputs(rng, n)
+    second = line_inputs(rng, m)[4:]
+    want = j_geo.line_intersect(*[jnp.asarray(a) for a in lines[:4] + second])
+    got = t_geo.line_intersect(*[t64(a) for a in lines[:4] + second])
+    assert got[0].shape == (m, n)
+    for t, j in zip(got, want):
+        close(t, j)
+    circles = circle_inputs(rng, m)[4:]
+    want = j_geo.line_circle_intersect(*[jnp.asarray(a)
+                                         for a in lines[:4] + circles])
+    got = t_geo.line_circle_intersect(*[t64(a) for a in lines[:4] + circles])
+    assert got[0]["x"].shape == (m, n)
+    assert 0 < int(got[0]["valid"].sum()) < n * m
+    for t_branch, j_branch in zip(got, want):
+        for key in ("x", "y", "valid", "u", "v"):
+            close(t_branch[key], j_branch[key])
+    assert "4 (a - (x_r x d_r)^2)" in t_geo.line_circle_intersect.__doc__
+
+
 def test_raw_line_circle_intersect_promotes_dtypes(rng):
     """A float32 circle against float64 rays is solved in float64 (the
     promotion before 1 / r)."""

@@ -214,8 +214,11 @@ def test_unported_options_raise():
     with pytest.raises(ValueError, match="pass_key"):
         t_optim.Optimizer(make_loss(torch), initial(), mesh=object(),
                           pass_key=False)
-    with pytest.raises(NotImplementedError, match="optax"):
-        t_optim.Optimizer(make_loss(torch), initial(), optax_tx=object())
+    # optax_tx= is ported (tests/test_torch_optax.py): a torch optimizer
+    # factory builds an optimizer
+    opt = t_optim.Optimizer(make_loss(torch), initial(), pass_key=False,
+                            optax_tx=lambda ps: torch.optim.SGD(ps, lr=0.1))
+    assert isinstance(opt._tx, torch.optim.SGD)
     with pytest.raises(ValueError):
         t_optim.Optimizer(make_loss(torch), initial(), clip_mode="other")
 
