@@ -268,6 +268,32 @@ exits non-zero without printing a result):
    ``lens.build(params)`` exactly (the reader's merge rule), K1 3 a
    batch, both images carry flux, one batch's K1 calls bit for bit with
    the plain version; 18e ``scenes3d.remesh``: its check.
+19. the classical lens design (``classical.py``; the analytic tracer, the
+   paraxial algebra and the damped least squares are plain torch): 19a
+   examples/sequential_vs_mesh_bench.py: one asphere singlet as a
+   2-surface ``AsphereStack`` and as 35,826 triangles
+   (``ParametricAsphereBoundary`` at edge 0.02, Morton-sorted), float32,
+   3 bounces: the example's 512-ray check (more than 90% finished, every
+   landing within 0.02 of ``trace_sequential``) through its ``"grid"`` +
+   re-sort configuration (K4, each call logged and held bit for bit
+   against the plain K4) and through ``TraceConfig.recommended`` (K3 +
+   re-sort), and one brute bounce of 2^20 rays (K1): the main path's
+   launches; the first bounce at 2^20 rays, K3 and K4 against K1 and
+   their plain versions bit for bit; the analytic trace and both mesh
+   traces at 2^20 rays, median of 5 synchronised runs (ms, rays/s,
+   launches a trace, finished share and landing gap) and one of each
+   profiled (idle share).  19b examples/cooke_triplet.py at its defaults
+   (48 rays x 3 lines x 3 fields, Adam under the cosine schedule): one
+   step by CUDA events and under the profiler (kernels a step, idle
+   share), then the design, cut below 2000 steps only as far as 100 s
+   force (never below 200), and the example's check rms1 < rms0 / 2.
+   19c examples/paraxial_analysis.py and lens_report.py in float32 on the
+   card: their checks, and every number held against the CPU's float64
+   within the tolerances stated at ``FIRST_ORDER_RTOL``.  19d the
+   best-form singlet (tests/test_lsq.py's design through ``lm_solve``) in
+   float64 on the card: ``accepted`` equal to the CPU run's, the cost
+   history within rtol 1e-8, the cost below 1e-2 of the start and the EFL
+   within 1e-3 of 50 (its shape factor stalls, as in the JAX package).
 
 Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
 earlier runs: the brute-force search does not use the order.  Then the
@@ -436,6 +462,29 @@ STREHL_RAYS = 128
 STREHL_PROFILED = 5
 IMAGE_BATCHES = 20
 IMAGE_RAYS = 4000
+# phase 19: the classical lens design (examples/sequential_vs_mesh_bench.py,
+# cooke_triplet.py, paraxial_analysis.py, lens_report.py; the best-form
+# singlet of tests/test_lsq.py)
+SVM_RAYS = 1 << 20
+SVM_TRIANGLES = 35826
+COOKE_STEPS = 2000         # the example's default
+# cut so that phase 19 stays near 120 s: the step is host-bound, ~190 ms on
+# the H100 (11,750 launches), and the loss settles by step 200
+COOKE_CUT_STEPS = 400
+COOKE_BUDGET_S = 120.0     # the most the cut design may take by the probe
+COOKE_TIMED = 20           # steps timed one by one by CUDA events
+COOKE_PROFILED = 3
+# the card's float32 against the CPU's float64 (19c): the CPU's own
+# float32 differs by at most 2.7e-6 relative in the first-order numbers,
+# 4e-5 of each Seidel sum's largest magnitude, 2.4e-5 in the foci, 8e-6
+# relative in the spots and 7.2e-6 in the MTF
+FIRST_ORDER_RTOL = 1e-5
+SEIDEL_SHARE = 1e-3
+FOCUS_ATOL = 5e-4
+DISTORTION_ATOL = 5e-6
+SPOT_RTOL = 1e-4
+MTF_ATOL = 1e-4
+LSQ_RTOL = 1e-8            # the card's float64 solve against the CPU's (19d)
 
 
 def check(cond, message):
@@ -3478,6 +3527,314 @@ def phase_18(device):
     return out
 
 
+def close_to(label, got, want, rtol=0.0, atol=0.0):
+    """``got`` (the card's float32) within ``atol + rtol |want|`` of
+    ``want`` (the CPU's float64), elementwise; returns the largest
+    difference."""
+    import numpy as np
+
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    diff = np.abs(got - want)
+    check(bool(np.all(diff <= atol + rtol * np.abs(want))),
+          f"{label}: {got.tolist()} against the CPU's float64 "
+          f"{want.tolist()} (rtol {rtol}, atol {atol})")
+    return float(diff.max())
+
+
+def svm_first_bounce(rays, tri):
+    """K1, K3 and K4 at the singlet's first bounce (the rays in the
+    re-sort's Morton order): K3 and K4 against K1 and their plain versions,
+    bit for bit.  These launches are comparisons, not the main path."""
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    args = first_bounce_3d(rays, tri)
+    ref = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
+    report = []
+    for name, fn, plain in (
+            ("K3", tk.nearest_hit_triangles_culled_kernel,
+             tk.nearest_hit_triangles_culled_plain),
+            ("K4", tk.nearest_hit_triangles_twolevel_kernel,
+             tk.nearest_hit_triangles_twolevel_plain)):
+        report.append(culled_agreement(name, fn(*args, EPS, EPS, EPS),
+                                       plain(*args, EPS, EPS, EPS), ref)[1])
+    return int(ref[0].sum()), report
+
+
+def phase_19(device):
+    """The classical lens design: the sequential-against-mesh singlet on
+    K4, K3 and K1, the Cooke triplet, the first-order analysis and the
+    lens report, and the best-form singlet's damped least squares.
+    Returns the main path's launches."""
+    import numpy as np
+    import torch
+
+    from tensorflowraytrace_tpu_torch import FINISHED, TraceConfig, classical
+    from tensorflowraytrace_tpu_torch import trace
+    from tensorflowraytrace_tpu_torch.engine import CULL_3D_MIN_TRIANGLES
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    f32 = torch.float32
+    t_phase = time.perf_counter()
+
+    # ---- 19a. sequential against mesh
+    scene = classical.svm_mesh_scene(device=device)
+    m = scene.triangles.n_surfaces
+    check(m == SVM_TRIANGLES, f"the singlet mesh has {m} triangles")
+    cfg_grid = classical.svm_config(device)
+    check(cfg_grid.use_kernel and cfg_grid.cull == "grid"
+          and cfg_grid.resort_rays, f"the example's config {cfg_grid}")
+    cfg_rec = TraceConfig.recommended(scene, max_bounces=classical.SVM_BOUNCES)
+    check(m >= CULL_3D_MIN_TRIANGLES and cfg_rec.use_kernel
+          and cfg_rec.cull is True and cfg_rec.resort_rays,
+          f"recommended for the singlet mesh: {cfg_rec}")
+    bounces = classical.SVM_BOUNCES
+
+    def counts():
+        return {"K1": tk.LAUNCHES, "K3": tk.LAUNCHES_CULLED,
+                "K4": tk.LAUNCHES_TWOLEVEL}
+
+    # the main path: the example's 512-ray check through K4 and through
+    # recommended's K3, each kernel's calls logged, and one bounce through
+    # brute K1
+    launched, checks = {"K1": 0, "K3": 0, "K4": 0}, {}
+    searches = {"K4": ("nearest_hit_triangles_twolevel_kernel",
+                       tk.nearest_hit_triangles_twolevel_plain),
+                "K3": ("nearest_hit_triangles_culled_kernel",
+                       tk.nearest_hit_triangles_culled_plain)}
+    logs = {"K4": [], "K3": []}
+    for label, cfg, kernel in (("grid+resort", cfg_grid, "K4"),
+                               ("recommended", cfg_rec, "K3")):
+        tk.LAUNCHES = tk.LAUNCHES_CULLED = tk.LAUNCHES_TWOLEVEL = 0
+        name = searches[kernel][0]
+        with override(tk, **{name: logged(getattr(tk, name), logs[kernel])}):
+            checks[label] = classical.svm_check(scene, cfg, device=device)
+        torch.cuda.synchronize()
+        got = counts()
+        want = {k: bounces if k == kernel else 0 for k in got}
+        check(got == want, f"19a {label} check: launches {got}, not {want}")
+        launched[kernel] += got[kernel]
+    p, d = classical.svm_bundle(SVM_RAYS, f32, device)
+    rays = classical.svm_rays(p, d, f32)
+    cfg_brute = TraceConfig(max_bounces=1, use_kernel=True,
+                            ray_start_epsilon=cfg_rec.ray_start_epsilon)
+    tk.LAUNCHES = tk.LAUNCHES_CULLED = tk.LAUNCHES_TWOLEVEL = 0
+    with torch.no_grad():
+        brute = trace(rays, scene, classical.SVM_MATERIALS, cfg_brute)
+    torch.cuda.synchronize()
+    check(counts() == {"K1": 1, "K3": 0, "K4": 0},
+          f"19a one brute bounce: launches {counts()}")
+    launched["K1"] += 1
+
+    # every K4 and K3 call of the 512-ray checks against its plain version,
+    # bit for bit
+    n_logged = {}
+    for kernel, (_, plain) in searches.items():
+        for k, (args, out) in enumerate(logs[kernel]):
+            diffs = [int((a != b).sum()) for a, b in zip(out, plain(*args))]
+            check(not any(diffs), f"19a {kernel} call {k} of the check "
+                  f"differs from the plain {kernel} in {diffs} rays")
+        n_logged[kernel] = len(logs[kernel])
+        check(n_logged[kernel] == bounces,
+              f"19a {n_logged[kernel]} {kernel} calls logged in the check")
+    del logs
+    # the first bounce at 2^20 rays: K3 and K4 against K1 bit for bit
+    hits, report = svm_first_bounce(rays, scene.triangles)
+    brute_states = state_counts(brute.rays.state)
+    del brute
+
+    # timed through the example's own entry point: the analytic trace and
+    # the two mesh paths at 2^20 rays
+    configs = {"grid+resort": cfg_grid, "recommended": cfg_rec}
+    kernel_of = {"grid+resort": "K4", "recommended": "K3"}
+    tk.LAUNCHES = tk.LAUNCHES_CULLED = tk.LAUNCHES_TWOLEVEL = 0
+    timed = classical.sequential_vs_mesh(SVM_RAYS, configs=configs,
+                                         device=device)
+    torch.cuda.synchronize()
+    med = timed["seconds"]
+    per_trace = {k: v / (classical.SVM_REPS + 1)
+                 for k, v in counts().items()}
+    check(per_trace == {"K1": 0, "K3": bounces, "K4": bounces},
+          f"19a launches a trace of the mesh paths {per_trace}, not K4 "
+          f"{bounces} under grid+resort and K3 {bounces} under recommended")
+    runs = classical.svm_traces(SVM_RAYS, scene, configs, f32, device)
+    with torch.no_grad():
+        exact = runs["analytic"]()
+        landed = {}
+        for label in ("grid+resort", "recommended"):
+            res = runs[label]()
+            fin = res.rays.state == FINISHED
+            landed[label] = (float(fin.double().mean()), float(
+                (res.rays.p1[:, :2] - exact.p[:, :2]).abs()[fin].max()))
+            del res
+        shares = {}
+        for label, parts in (("analytic", {}),
+                             ("grid+resort", {"K4": "triangle_search_twolevel"}),
+                             ("recommended", {"K3": "triangle_search_culled"})):
+            _, _, shares[label] = profiled_steps(runs[label], 1, "one trace",
+                                                 parts)
+    for label in ("grid+resort", "recommended"):
+        check(landed[label][0] > classical.SVM_FINISHED_MIN
+              and landed[label][1] < classical.SVM_MAX_DEV,
+              f"19a {label} at {SVM_RAYS} rays: finished "
+              f"{landed[label][0]}, largest landing gap {landed[label][1]}")
+    print(f"phase 19a sequential vs mesh: the singlet (c {classical.SVM_C}, "
+          f"k {classical.SVM_K}, plane back at {classical.SVM_Z_BACK}, image "
+          f"at {classical.SVM_Z_IMG}, glass 1.5) as a 2-surface stack and "
+          f"as {m} triangles at edge {classical.SVM_EDGE}, float32, "
+          f"{bounces} bounces; the 512-ray check (finished, largest landing "
+          f"gap; more than 0.9 and below 0.02 required): "
+          + "; ".join(f"{k} {v['finished']!r}, {v['max_dev']!r}"
+                      for k, v in checks.items())
+          + f"; main-path launches {launched} (K4 {bounces} in the grid "
+          f"check, K3 {bounces} in the recommended one, K1 one brute bounce "
+          f"of {SVM_RAYS} rays, states[active,finished,stopped,dead] after "
+          f"it {brute_states}); "
+          f"{n_logged['K4']} K4 and {n_logged['K3']} K3 calls of the checks "
+          f"bit for bit with the plain K4 and K3; "
+          f"the first bounce at {SVM_RAYS} x {m} ({hits} hits): "
+          + "; ".join(report), flush=True)
+    for label in runs:
+        print(f"phase 19a {label} at {SVM_RAYS} rays: median "
+              f"{med[label] * 1e3:.3f} ms over {classical.SVM_REPS} "
+              f"synchronised runs = {SVM_RAYS / med[label]:.4e} rays/s"
+              + (f"; {kernel_of[label]} launched {bounces} times a trace; "
+                 f"finished {landed[label][0]!r}, largest landing gap to "
+                 f"the analytic trace {landed[label][1]!r}"
+                 if label in landed else "")
+              + f"; {shares[label]}", flush=True)
+    del rays, p, d, exact, runs, scene
+
+    # ---- 19b. the Cooke triplet: one step measured, then the cut design
+    _, probe, _ = classical.cooke_design(COOKE_CUT_STEPS, device=device)
+    step_ms = event_step_ms(probe, COOKE_TIMED)
+    probe_ms = statistics.median(step_ms)
+    mean_s = statistics.fmean(step_ms) * 1e-3
+    steps = COOKE_CUT_STEPS
+    check(mean_s * steps <= COOKE_BUDGET_S,
+          f"19b a step takes {mean_s * 1e3:.3f} ms: {steps} steps would "
+          f"take more than {COOKE_BUDGET_S:.0f} s")
+    prof, _, cooke_shares = profiled_steps(probe, COOKE_PROFILED,
+                                           "profiled", {})
+    per_step = device_profile(prof)[2] / COOKE_PROFILED
+    del probe, prof
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cooke = classical.cooke_triplet(steps=steps, device=device)
+    torch.cuda.synchronize()
+    cooke_s = time.perf_counter() - t0
+    check(cooke["rms1"] < 0.5 * cooke["rms0"],
+          f"19b rms {cooke['rms0']} -> {cooke['rms1']}")
+    print(f"phase 19b Cooke triplet: 6 surfaces, 3 lines x 3 fields x 48 "
+          f"rays, float32, Adam under the cosine schedule; one step "
+          f"{probe_ms:.3f} ms (median by CUDA events over {COOKE_TIMED}, "
+          f"mean {mean_s * 1e3:.3f}, min {min(step_ms):.3f}, max "
+          f"{max(step_ms):.3f}); {steps} steps "
+          f"(the example's {COOKE_STEPS} cut) in {cooke_s:.3f} s = "
+          f"{cooke['seconds'] / steps * 1e3:.3f} ms a step; {per_step:.1f} kernels and copies a step; "
+          f"{cooke_shares}; mean RMS spot rms0 "
+          f"{cooke['rms0']!r} -> rms1 {cooke['rms1']!r} (below half: "
+          f"{cooke['rms1'] < 0.5 * cooke['rms0']}); curvatures "
+          f"{cooke['params'].cpu().tolist()}; loss "
+          f"{ {k: round(v, 9) for k, v in cooke['losses'].items()} }",
+          flush=True)
+
+    # ---- 19c. the first-order analysis and the lens report, the card's
+    # float32 against the CPU's float64
+    t0 = time.perf_counter()
+    pa = classical.paraxial_analysis(device=device)
+    pa_s = time.perf_counter() - t0
+    pa64 = classical.paraxial_analysis(dtype=torch.float64, device="cpu")
+    worst = {}
+    for k in ("efl", "bfp", "ffp", "front_principal", "back_principal",
+              "z_cross", "axial_color", "efl_solved", "petzval"):
+        worst[k] = close_to(f"19c {k}", pa[k], pa64[k], rtol=FIRST_ORDER_RTOL)
+    for k in ("S1", "S2", "S3", "S4", "S5", "C1", "C2", "per_surface"):
+        want = pa64["seidel"][k]
+        worst[k] = close_to(f"19c {k}", pa["seidel"][k], want,
+                            atol=SEIDEL_SHARE * float(np.abs(want).max()))
+    print(f"phase 19c paraxial analysis: float32 on the card in {pa_s:.3f} s, "
+          f"its three checks held; EFL {float(pa['efl'])!r}, BFP "
+          f"{float(pa['bfp'])!r} (real ray {float(pa['z_cross'])!r}), "
+          f"Petzval {float(pa['petzval'])!r}, axial colour F/d/C "
+          f"{pa['axial_color'].tolist()}, Seidel S1..S5 "
+          f"{[float(pa['seidel'][k]) for k in ('S1', 'S2', 'S3', 'S4', 'S5')]}"
+          f", C1 {float(pa['seidel']['C1'])!r}, EFL solve "
+          f"{float(pa['efl_solved'])!r}; largest differences from the CPU's "
+          f"float64 {worst}", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = classical.lens_report(device=device)
+    torch.cuda.synchronize()
+    rep_s = time.perf_counter() - t0
+    rep64 = classical.lens_report(dtype=torch.float64, device="cpu")
+    worst = {}
+    for k in ("efl", "bfp", "f_no", "entrance_pupil", "exit_pupil",
+              "axial_color", "lateral_color"):
+        worst[k] = close_to(f"19c report {k}", rep[k], rep64[k],
+                            rtol=FIRST_ORDER_RTOL)
+    for k in ("S1", "S2", "S3", "S4", "S5", "C1", "C2", "per_surface"):
+        want = getattr(rep64["seidel"], k).numpy()
+        worst[k] = close_to(f"19c report {k}",
+                            getattr(rep["seidel"], k).cpu().numpy(), want,
+                            atol=SEIDEL_SHARE * float(np.abs(want).max()))
+    fc, fc64 = rep["field_curves"], rep64["field_curves"]
+    for k, tol in (("tangential", {"atol": FOCUS_ATOL}),
+                   ("sagittal", {"atol": FOCUS_ATOL}),
+                   ("chief_height", {"rtol": FIRST_ORDER_RTOL}),
+                   ("paraxial_height", {"rtol": FIRST_ORDER_RTOL}),
+                   ("distortion", {"atol": DISTORTION_ATOL})):
+        worst[k] = close_to(f"19c report {k}", getattr(fc, k).cpu().numpy(),
+                            getattr(fc64, k).numpy(), **tol)
+    worst["spots"] = close_to(
+        "19c report spots", [rep["spots"][k] for k in sorted(rep["spots"])],
+        [rep64["spots"][k] for k in sorted(rep64["spots"])], rtol=SPOT_RTOL)
+    worst["mtf"] = close_to("19c report MTF", rep["mtf"][1][:8],
+                            rep64["mtf"][1][:8], atol=MTF_ATOL)
+    print(f"phase 19c lens report: float32 on the card in {rep_s:.3f} s "
+          f"(2000 rays a field, 5 fields, a 2048-ray PSF on a 101^2 grid); "
+          f"EFL {rep['efl']!r}, BFP {rep['bfp']!r}, f/{rep['f_no']:.4f}, "
+          f"pupils {rep['entrance_pupil']!r}, {rep['exit_pupil']!r}; Seidel "
+          f"S1..S5, C1, C2 "
+          f"{[float(getattr(rep['seidel'], k)) for k in ('S1', 'S2', 'S3', 'S4', 'S5', 'C1', 'C2')]}"
+          f"; tangential foci {fc.tangential.cpu().tolist()}, sagittal "
+          f"{fc.sagittal.cpu().tolist()}; spots {rep['spots']}; MTF at "
+          f"{rep['mtf'][0][:4].tolist()} cycles/mm: "
+          f"{rep['mtf'][1][:4].tolist()} (|mtf[0] - 1| < 1e-9 held); "
+          f"largest differences from the CPU's float64 {worst}", flush=True)
+
+    # ---- 19d. the best-form singlet, float64 on the card and on the CPU
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf = classical.best_form_singlet(device=device)
+    torch.cuda.synchronize()
+    bf_s = time.perf_counter() - t0
+    bf_cpu = classical.best_form_singlet(device="cpu")
+    hist = bf["result"].cost_history.cpu().numpy()
+    hist_cpu = bf_cpu["result"].cost_history.numpy()
+    acc = bf["result"].accepted.cpu().numpy()
+    check(np.array_equal(acc, bf_cpu["result"].accepted.numpy()),
+          f"19d accepted {acc.tolist()} against the CPU's "
+          f"{bf_cpu['result'].accepted.tolist()}")
+    hist_err = float(np.max(np.abs(hist - hist_cpu) / np.abs(hist_cpu)))
+    check(hist_err <= LSQ_RTOL, f"19d cost history {hist.tolist()} against "
+          f"the CPU's {hist_cpu.tolist()}")
+    check(bool(acc.any()) and float(bf["result"].cost) < 1e-2 * bf["cost0"]
+          and abs(bf["efl"] - classical.SINGLET_EFL) < 1e-3,
+          f"19d cost {float(bf['result'].cost)} (start {bf['cost0']}), EFL "
+          f"{bf['efl']}")
+    print(f"phase 19d best-form singlet: lm_solve, 25 iterations, float64 "
+          f"on the card in {bf_s:.3f} s; accepted {int(acc.sum())} of "
+          f"{acc.size}, equal to the CPU's; cost history within "
+          f"{hist_err:.3e} of the CPU's (rtol limit {LSQ_RTOL}); cost "
+          f"{float(bf['result'].cost)!r} = {float(bf['result'].cost) / bf['cost0']:.4e} "
+          f"of the start {bf['cost0']!r}; EFL {bf['efl']!r}; shape factor q "
+          f"{bf['q']!r} (the stall of the fixed damping; the thin-lens "
+          f"optimum is not reached, as in the JAX package); phase 19 in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
+
+
 def main():
     import torch
 
@@ -3917,6 +4274,10 @@ def main():
     # the image quality through STL, the remesh
     design18 = phase_18(device)
 
+    # ---- phase 19: the classical lens design (sequential against mesh,
+    # the Cooke triplet, the lens report, the best-form singlet)
+    classical19 = phase_19(device)
+
     main_k2 = k2["flagship_bench"]
     print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
           flush=True)
@@ -3930,6 +4291,7 @@ def main():
         "launches_sharded": stream16["K1_sharded"],
         "launches_caustic": react17["K1_caustic"],
         "launches_image_quality": design18["image_quality"],
+        "launches_sequential_vs_mesh": classical19["K1"],
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound_ms, "bound_by": "operations", "library_ms": None,
         "floor_no_fma_ms": 2 * k1_bound_ms, "pairs_out_on_tu": k1_tu_out,
@@ -3972,6 +4334,7 @@ def main():
         **({"launches_streamed_trace": stream16["K3_stream"]}
            if key == "K3" else {}),
         "launches_caustic": react17[f"{key}_caustic"],
+        "launches_sequential_vs_mesh": classical19[key],
     } for name, source, line, key in (
         ("triangle_search_culled", tk.SOURCE_CULLED, 144, "K3"),
         ("triangle_search_twolevel", tk.SOURCE_TWOLEVEL, 979, "K4"))] + [{

@@ -11,7 +11,9 @@ design and the 3D point-source trace, streaming and data parallelism, the
 reactions and trackers, and the rest of the boundaries and mesh tools,
 the torch-optimizer stage (``Optimizer(optax_tx=...)``) and the
 physical-optics analysis that run the asphere singlet, BASELINE config 2,
-the Strehl lens and the hexalens image-quality test:
+the Strehl lens and the hexalens image-quality test, and the classical
+lens design that runs the Cooke triplet, the lens report, the best-form
+singlet and the sequential-against-mesh trace:
 
   models/     rays (and concat_rays), surfaces (2D segments and arcs, 3D
               triangles, the merged Scene2D and Scene3D), sources (point,
@@ -50,6 +52,15 @@ the Strehl lens and the hexalens image-quality test:
               distribution differential; the Huygens-Fresnel PSF
               (monochromatic and polychromatic), Zernike fits, encircled
               energy and the MTF
+  sequential  the analytic tracer of an ordered stack of rotationally
+              symmetric aspheres (classical lens design): exact conic
+              seeds refined by Newton on the sag, no tessellation
+  paraxial    first- and third-order analysis of such a stack: the ABCD
+              system, cardinal points, Petzval and Seidel sums, stop
+              solves, axial and lateral colour, Gaussian beams, real-ray
+              field curves
+  lsq         damped least squares (Levenberg-Marquardt), the classical
+              lens optimizer (not exported here, as in the JAX package)
   optim       the optimizers (gradient pipeline, phases; a torch.optim
               optimizer in place of the Nesterov stage)
   flagship    the parametric-lens imaging problem and its training run
@@ -58,11 +69,15 @@ the Strehl lens and the hexalens image-quality test:
               ghost_analysis.py, asphere_singlet.py, strehl_lens.py and
               BASELINE config 2; scenes3d: examples/trace_3d.py's scene,
               the pool caustic of examples/caustic_render.py,
-              image_quality_3d.py and remesh.py
+              image_quality_3d.py and remesh.py; classical:
+              examples/cooke_triplet.py, paraxial_analysis.py,
+              lens_report.py, sequential_vs_mesh_bench.py and the
+              best-form singlet of tests/test_lsq.py
   streamed    the streamed guide trace and training, the sharded guide
               training and the multi-process dryrun
   utils/      rotations, NumPy conversion (rays, surfaces, parameters,
-              reaction tables, JAX keys), STL export of a surface
+              asphere stacks, reaction tables, JAX keys), STL export of a
+              surface
 
 Everything is built on CUDA unless a ``device=`` says otherwise
 (``config.set_default_device`` changes the default).
@@ -83,6 +98,14 @@ from tensorflowraytrace_tpu_torch.models.acceleration import (
 from tensorflowraytrace_tpu_torch.models.rays import RaySet, concat_rays
 from tensorflowraytrace_tpu_torch.models.surfaces import (
     ArcSet, Scene2D, Scene3D, SegmentSet, TriangleSet,
+)
+from tensorflowraytrace_tpu_torch.paraxial import (
+    FieldCurves, GaussianBeamResult, ParaxialSystem, SeidelSums, StopSolve,
+    axial_color, field_curves, gaussian_beam, lateral_color,
+    paraxial_system, paraxial_trace, petzval_sum, seidel_sums, solve_stop,
+)
+from tensorflowraytrace_tpu_torch.sequential import (
+    AsphereStack, SequentialResult, collimated_bundle, trace_sequential,
 )
 
 __version__ = "0.1.0"

@@ -19,6 +19,7 @@ from tensorflowraytrace_tpu_torch.models.sources import PrecompiledSource
 from tensorflowraytrace_tpu_torch.models.surfaces import (
     ArcSet, SegmentSet, TriangleSet,
 )
+from tensorflowraytrace_tpu_torch.sequential import AsphereStack
 
 
 def params_from_numpy(arrays, dtype=None, device=None):
@@ -28,6 +29,20 @@ def params_from_numpy(arrays, dtype=None, device=None):
     dtype, device = resolve_dtype(dtype), resolve_device(device)
     return [torch.as_tensor(np.array(a), dtype=dtype, device=device)
             for a in arrays]
+
+
+def asphere_stack_from_numpy(vertex_z, c, k=None, coeffs=None, aperture=None,
+                             mat_after=None, mirror=None, dtype=None,
+                             device=None) -> AsphereStack:
+    """An ``AsphereStack`` from the arrays of a JAX ``AsphereStack`` (as
+    ``np.asarray`` of its seven fields) or any per-surface values: the
+    float fields in ``dtype``, ``mat_after`` as int32 and ``mirror`` as
+    bool, on ``device``."""
+    return AsphereStack.make(
+        _arr(vertex_z), _arr(c), k=_arr(k), coeffs=_arr(coeffs),
+        aperture=_arr(aperture), mat_after=_arr(mat_after),
+        mirror=_arr(mirror), dtype=resolve_dtype(dtype),
+        device=resolve_device(device))
 
 
 def rayset_from_numpy(p0, p1, wavelength=None, state=None, fields=None,

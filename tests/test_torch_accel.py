@@ -48,6 +48,7 @@ from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 from tensorflowraytrace_tpu_torch.utils.convert import (
     guide_params_from_numpy, rayset_from_numpy, triangles_from_numpy,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 EPS = 1e-6
 GUIDE = dict(minimum_radius=0.3, theta_res=8, z_res=6, mat_in=1, mat_out=0)

@@ -42,6 +42,7 @@ from tensorflowraytrace_tpu.ops import materials as j_mats
 from tensorflowraytrace_tpu_torch import FINISHED, config, landing_histogram_fold, trace
 from tensorflowraytrace_tpu_torch import analysis as t_an
 from tensorflowraytrace_tpu_torch import scenes3d
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 PI = math.pi
 F64 = torch.float64

@@ -20,6 +20,7 @@ import torch
 from tensorflowraytrace_tpu_torch import config, scenes2d
 from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
 from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 EPS = 1e-6
 EDGE_LABELS = ["tangent", "small a", "far", "wide windows", "ties", "parked"]

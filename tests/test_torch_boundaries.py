@@ -29,6 +29,7 @@ from tensorflowraytrace_tpu_torch import config
 from tensorflowraytrace_tpu_torch.models import boundaries as t_bd
 from tensorflowraytrace_tpu_torch.models import distributions as t_dist
 from tensorflowraytrace_tpu_torch.models import mesh as t_mesh
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 F64 = torch.float64
 TOL = 1e-12       # built surfaces and vector fields

@@ -52,6 +52,7 @@ from tensorflowraytrace_tpu_torch.ops import intersect as t_isect
 from tensorflowraytrace_tpu_torch.ops import materials as t_mats
 from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 PI = math.pi
 F64 = torch.float64

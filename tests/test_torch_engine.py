@@ -29,6 +29,7 @@ from tensorflowraytrace_tpu_torch.ops import materials as t_mats
 from tensorflowraytrace_tpu_torch.utils.convert import (
     rayset_from_numpy, triangles_from_numpy,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 J_DT = {np.float32: jnp.float32, np.float64: jnp.float64}
 T_DT = {np.float32: torch.float32, np.float64: torch.float64}

@@ -33,6 +33,7 @@ from tensorflowraytrace_tpu_torch.models import distributions as t_dist  # noqa:
 from tensorflowraytrace_tpu_torch.models import mesh as t_mesh  # noqa: E402
 from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk  # noqa: E402
 from tensorflowraytrace_tpu_torch.utils.convert import params_from_numpy  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 BP, STEPS, BOUNCES = 6, 2, 4
 F64 = torch.float64

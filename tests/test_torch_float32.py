@@ -29,6 +29,7 @@ from tensorflowraytrace_tpu_torch import engine as t_engine
 from tensorflowraytrace_tpu_torch.models.surfaces import Scene3D, TriangleSet
 from tensorflowraytrace_tpu_torch.ops import geometry as t_geo
 from tensorflowraytrace_tpu_torch.ops import intersect as t_isect
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 F32, F64 = torch.float32, torch.float64
 GUIDE_RAYS = 4096

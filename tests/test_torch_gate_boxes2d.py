@@ -39,6 +39,7 @@ from tensorflowraytrace_tpu_torch.models import acceleration as t_acc
 from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
 from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 EPS = 1e-6
 LABELS = ["segment ends", "segment ends, small size_eps", "tangent snap",

@@ -20,6 +20,7 @@ from tensorflowraytrace_tpu_torch.models import surfaces as t_surf
 from tensorflowraytrace_tpu_torch.ops import geometry as t_geo
 from tensorflowraytrace_tpu_torch.ops import materials as t_mats
 from tensorflowraytrace_tpu_torch.utils import quaternion as t_quat
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 RTOL = 1e-12
 MATERIALS = ["vacuum", "acrylic", "crown_glass", "flint_glass",

@@ -33,6 +33,7 @@ from tensorflowraytrace_tpu_torch.utils import quaternion as t_quat
 from tensorflowraytrace_tpu_torch.utils.convert import (
     arcs_from_numpy, segments_from_numpy,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 F64 = torch.float64
 PI = math.pi

@@ -38,6 +38,7 @@ from tensorflowraytrace_tpu.ops import materials as j_mats
 from tensorflowraytrace_tpu_torch import FINISHED, config, hexalens, scenes3d
 from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 from tensorflowraytrace_tpu_torch.utils.convert import hexalens_params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 F64 = torch.float64
 RAYS, MESH_STEP = 128, 0.3

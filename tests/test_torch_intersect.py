@@ -21,6 +21,7 @@ from tensorflowraytrace_tpu_torch import config
 from tensorflowraytrace_tpu_torch.ops import intersect as t_isect
 from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 from tensorflowraytrace_tpu_torch.utils.convert import triangles_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 EPS32 = 1e-6
 EPS64 = 1e-10

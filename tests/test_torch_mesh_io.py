@@ -28,6 +28,7 @@ from tensorflowraytrace_tpu_torch import config, hexalens
 from tensorflowraytrace_tpu_torch.models import boundaries as t_bd
 from tensorflowraytrace_tpu_torch.models import mesh as t_mesh
 from tensorflowraytrace_tpu_torch.utils.checkpoint import export_boundary_stl
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 PI = math.pi
 F64 = torch.float64

@@ -21,6 +21,7 @@ import torch
 from tensorflowraytrace_tpu.models import mesh as j_mesh
 from tensorflowraytrace_tpu_torch import config, scenes3d
 from tensorflowraytrace_tpu_torch.models import mesh as t_mesh
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 
 @pytest.fixture(autouse=True)

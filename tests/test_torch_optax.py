@@ -33,6 +33,7 @@ from tensorflowraytrace_tpu_torch.scenes2d import cosine_decay
 from tensorflowraytrace_tpu_torch.utils.convert import (
     optimizer_state_from_numpy,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 RTOL = 1e-12
 STEPS = 5

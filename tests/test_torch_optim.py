@@ -22,6 +22,7 @@ from tensorflowraytrace_tpu_torch import config
 from tensorflowraytrace_tpu_torch import optim as t_optim
 from tensorflowraytrace_tpu_torch.models import mesh as t_mesh
 from tensorflowraytrace_tpu_torch.utils.convert import optimizer_state_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 RTOL, ATOL = 1e-12, 1e-14
 

@@ -39,6 +39,7 @@ from tensorflowraytrace_tpu.models.rays import RaySet as JRaySet
 from tensorflowraytrace_tpu_torch import analysis as t_an
 from tensorflowraytrace_tpu_torch import config
 from tensorflowraytrace_tpu_torch.utils.convert import rayset_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 F64 = torch.float64
 RTOL = 1e-9

@@ -23,6 +23,7 @@ from tensorflowraytrace_tpu.ops.pallas_kernels import segment_sum_pallas
 from tensorflowraytrace_tpu_torch import config
 from tensorflowraytrace_tpu_torch.engine import _gather_rows_t
 from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 K, N = 13, 5000
 

@@ -31,6 +31,7 @@ from tensorflowraytrace_tpu_torch.models import mesh as t_mesh
 from tensorflowraytrace_tpu_torch.models import sources as t_src
 from tensorflowraytrace_tpu_torch.utils import quaternion as t_quat
 from tensorflowraytrace_tpu_torch.utils.convert import precompiled_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 PI = math.pi
 F64 = torch.float64

@@ -50,6 +50,7 @@ from tensorflowraytrace_tpu_torch.ops import materials as t_mats
 from tensorflowraytrace_tpu_torch.utils.convert import (
     arcs_from_numpy, segments_from_numpy,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 PI = math.pi
 F64 = torch.float64

@@ -46,6 +46,7 @@ from tensorflowraytrace_tpu_torch.ops import intersect as t_isect
 from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
 from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 from tensorflowraytrace_tpu_torch.utils.convert import params_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 BP, RINGS, BOUNCES = 6, 2, 3
 F64 = torch.float64

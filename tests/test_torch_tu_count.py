@@ -15,6 +15,7 @@ import torch
 
 from tensorflowraytrace_tpu_torch import config
 from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 EPS = 1e-6
 F32 = np.float32

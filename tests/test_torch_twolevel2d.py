@@ -40,6 +40,7 @@ from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 from tensorflowraytrace_tpu_torch.utils.convert import (
     arcs_from_numpy, segments_from_numpy,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 EPS = 1e-6
 PI = np.pi
