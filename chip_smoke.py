@@ -294,6 +294,39 @@ exits non-zero without printing a result):
    float64 on the card: ``accepted`` equal to the CPU run's, the cost
    history within rtol 1e-8, the cost below 1e-2 of the start and the EFL
    within 1e-3 of 50 (its shape factor stalls, as in the JAX package).
+20. the stateful facade (``system.py``, through ``facade.py``), float32:
+   20a examples/facade_tax_bench.py's scene (2^17 rays, 12 bounces, three
+   guide segments and the exit segment, K5) and the 2D light guide of
+   phase 13 (4098 segments, 512 arcs, 2^20 rays, 50 bounces, K5 + K6),
+   each built through ``OpticalSystem2D``: the facade's ``ray_trace``
+   equals ``engine.trace`` of the same rays and scene bit for bit
+   (states, their counts, p0, p1), the four ray views partition the
+   slots, each kernel launches once a bounce, and each of its K5 and K6
+   calls equals the plain version's on the same inputs bit for bit (all
+   rays of the first scene, every 16th of the guide); median of 10
+   synchronised runs, in turns, of the functional trace, of
+   ``ray_trace`` and of ``update()`` + ``ray_trace``, with their ratios.
+   20b the flagship (2025 rays, 770
+   triangles, 3 bounces) in ``OpticalSystem3D``: ``SGD_Optimizer`` and
+   ``optim.Optimizer`` on the same loss built functionally, 10 steps of
+   the design's first phase each from one generator seed: step 0's loss
+   equal, the parameters within 1e-4 of their max norm (K2's atomics), K1
+   and K2 3 times a step, the parameters written back into the lens; one
+   forward + backward of the facade's loss with K1 and K2 and with their
+   plain versions (K1's calls and the loss equal, the gradient within
+   1e-4 of the plain max norm); ms a step (the median of 10 synchronised
+   steps, in turns) and the idle share (``profiled_steps``) of each.
+   20c examples/stepwise_optimize.py (the single arc, K5, K6 and K2)
+   checkpointed every 10 steps, rebuilt, resumed, with the Nesterov stage
+   and with Adam under a LambdaLR: the restored state equal to the saved
+   one bit for bit, the first resumed loss equal to the uninterrupted
+   run's, the final radius EXACT or within 1e-9; at the checkpoint's
+   parameters one forward + backward against the plain K5, K6 and K2, as
+   in 20b.  20d
+   examples/precompile_pipeline.py: the Hungarian matching's mean
+   distance within 1e-12 of the CPU run's (the same host NumPy), the
+   cache pickled to a temporary directory, per-step samples drawn on the
+   card from a CUDA generator.
 
 Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
 earlier runs: the brute-force search does not use the order.  Then the
@@ -485,6 +518,19 @@ DISTORTION_ATOL = 5e-6
 SPOT_RTOL = 1e-4
 MTF_ATOL = 1e-4
 LSQ_RTOL = 1e-8            # the card's float64 solve against the CPU's (19d)
+
+# phase 20: the facade, the goals and the checkpoint
+FACADE_TIMED = 10          # synchronised runs a way, after one warm-up
+FACADE_STEPS = 10          # 20b's steps of each optimizer
+FACADE_PROFILED = 5
+FACADE_PARAM_RTOL = 1e-4   # 20b: K2's atomics, as phase 16c
+STEPWISE_DRIFT = 1e-9      # 20c: the example's own bound
+PIPELINE_ATOL = 1e-12      # 20d: host NumPy on the same inputs
+# 20a replays the guide trace's 50 K5 and 50 K6 calls through the plain
+# versions on every 16th ray (65,536 rays a call): on all rays they take
+# ~27 s on an H100 (phase 13's plain K5 and K6 at the first bounce: 381.9
+# and 159.4 ms), half of phase 20's 60 s
+GUIDE_PLAIN_STRIDE = 16
 
 
 def check(cond, message):
@@ -3233,23 +3279,77 @@ def gradients(loss, params):
     return value.detach(), torch.autograd.grad(value, leaves)
 
 
-def kernel_and_plain_2d(label, loss, params):
-    """One forward + backward of ``loss`` at ``params`` with K5 and K2, then
-    with their plain versions: K5's calls bit for bit with the plain calls,
-    the loss equal, the gradients within 1e-4 of the plain ones' max norm.
-    Returns ``(calls, gdiff, gmax)``."""
-    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+# the search wrappers that a main path reaches through its module, by
+# kernel: (module under ops, the wrappers' common stem)
+SEARCH_WRAPPERS = {"K1": ("triangle_kernels", "nearest_hit_triangles"),
+                   "K5": ("segment_kernels", "nearest_hit_segments"),
+                   "K6": ("arc_kernels", "nearest_hit_arcs")}
+
+
+def search_module(kernel):
+    """The ops module of ``kernel`` (a key of SEARCH_WRAPPERS) and its
+    wrappers' stem."""
+    import importlib
+
+    name, stem = SEARCH_WRAPPERS[kernel]
+    return importlib.import_module(
+        f"tensorflowraytrace_tpu_torch.ops.{name}"), stem
+
+
+@contextlib.contextmanager
+def logged_searches(logs, plain=False):
+    """A context in which the search wrapper of each kernel in ``logs``
+    (kernel: list) is logged call by call into its list, or its plain
+    version is logged in its place and K2's plain version runs for K2
+    where ``plain``."""
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
 
-    log_k, log_p = [], []
-    with override(gk, nearest_hit_segments_kernel=logged(
-            gk.nearest_hit_segments_kernel, log_k)):
+    with contextlib.ExitStack() as stack:
+        for kernel, log in logs.items():
+            mod, stem = search_module(kernel)
+            fn = getattr(mod, f"{stem}_plain" if plain else f"{stem}_kernel")
+            stack.enter_context(override(
+                mod, **{f"{stem}_kernel": logged(fn, log)}))
+        if plain:
+            stack.enter_context(override(
+                sk, segment_sum_kernel=sk.segment_sum_plain))
+        yield
+
+
+def replayed_plain(label, kernel, log, stride=1):
+    """Each logged call of ``kernel``'s wrapper replayed through its plain
+    version on the same surfaces and epsilons and on every ``stride``-th
+    ray of the same rays (a search answers each ray alone): the outputs
+    bit for bit.  Returns the number of calls."""
+    import torch
+
+    mod, stem = search_module(kernel)
+    plain = getattr(mod, f"{stem}_plain")
+    check(len(log) > 0, f"{label}: no {kernel} call to replay")
+    for k, (args, out) in enumerate(log):
+        rays = [a[::stride].contiguous() for a in args[:2]]
+        ref = plain(*rays, *args[2:])
+        diffs = [int((a[::stride] != b).sum()) for a, b in zip(out, ref)]
+        check(not any(diffs), f"{label}: {kernel} call {k}: the outputs "
+              f"differ from the plain version's in {diffs} rays")
+    torch.cuda.synchronize()
+    return len(log)
+
+
+def kernel_and_plain(label, loss, params, searches=("K5",)):
+    """One forward + backward of ``loss`` at ``params`` with the kernels,
+    then with their plain versions (the ``searches`` and K2): each search
+    call bit for bit with the plain call, the loss equal, the gradients
+    within 1e-4 of the plain ones' max norm.  Returns ``(calls, gdiff,
+    gmax)``, ``calls`` the search calls compared."""
+    log_k = {k: [] for k in searches}
+    log_p = {k: [] for k in searches}
+    with logged_searches(log_k):
         v_k, g_k = gradients(loss, params)
-    with override(gk, nearest_hit_segments_kernel=logged(
-            gk.nearest_hit_segments_plain, log_p)), override(
-                sk, segment_sum_kernel=sk.segment_sum_plain):
+    with logged_searches(log_p, plain=True):
         v_p, g_p = gradients(loss, params)
-    calls = calls_equal(label, log_k, log_p)
+    calls = sum(calls_equal(f"{label} {k}", log_k[k], log_p[k])
+                for k in searches)
     check(bool(v_k == v_p), f"{label}: loss {float(v_k)!r} with the kernels, "
           f"{float(v_p)!r} with the plain versions")
     gmax = max(float(g.abs().max()) for g in g_p)
@@ -3260,14 +3360,20 @@ def kernel_and_plain_2d(label, loss, params):
     return calls, gdiff, gmax
 
 
-def launches_per_step(step):
-    """K5's and K2's launches in one call of ``step``."""
-    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+def launches_of(run):
+    """Zero K1's, K2's, K5's and K6's launch counts, call ``run``, and
+    return its result and the counts just after it."""
+    import torch
+
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
 
-    k5, k2 = gk.LAUNCHES, sk.LAUNCHES
-    step()
-    return {"K5": gk.LAUNCHES - k5, "K2": sk.LAUNCHES - k2}
+    mods = {k: search_module(k)[0] for k in SEARCH_WRAPPERS}
+    mods["K2"] = sk
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {k: mods[k].LAUNCHES for k in ("K1", "K2", "K5", "K6")}
 
 
 def phase_18(device):
@@ -3312,7 +3418,7 @@ def phase_18(device):
     def step():
         opt.single_step(sync=False)
 
-    per_step = launches_per_step(step)
+    _, per_step = launches_of(step)
     steps = 2 * ASPHERE_STEPS
     bounces = scenes2d.ASPHERE_BOUNCES
     # every step, and the three spot evaluations (start, sphere, asphere)
@@ -3343,7 +3449,7 @@ def phase_18(device):
           f"{shares}", flush=True)
     worst, calls = 0.0, 0
     for _ in range(PLAIN_STEPS):
-        n, gdiff, gmax = kernel_and_plain_2d(
+        n, gdiff, gmax = kernel_and_plain(
             "phase 18a asphere", lambda p: spot_sq(p), opt.parameters)
         calls += n
         worst = max(worst, gdiff / gmax)
@@ -3370,14 +3476,14 @@ def phase_18(device):
     def step():
         opt.single_step(None, lr_scale=2e-3, momentum=0.8, sync=False)
 
-    per_step = launches_per_step(step)
+    _, per_step = launches_of(step)
     steps = CONFIG2_STEPS + 1
     bounces = scenes2d.CONFIG2_BOUNCES
     check(per_step["K5"] == bounces and out["config2"] == {
         "K5": bounces * (steps + 1), "K2": per_step["K2"] * steps},
           f"config 2 launches {out['config2']}, {per_step} a step")
     step_ms = event_step_ms(step, 20)
-    calls, gdiff, gmax = kernel_and_plain_2d(
+    calls, gdiff, gmax = kernel_and_plain(
         "phase 18b config 2", lambda p: loss(p), lens.init_params())
     k = min(len(res["reds"]), len(res["blues"]))
     apart = float(np.abs(np.sort(res["reds"])[:k]
@@ -3414,7 +3520,7 @@ def phase_18(device):
     def step():
         opt.single_step(sync=False)
 
-    per_step = launches_per_step(step)
+    _, per_step = launches_of(step)
     steps = 3 * STREHL_STEPS
     bounces = scenes2d.STREHL_BOUNCES
     # every step, and the three Strehl evaluations (start, design, hyperbola)
@@ -3429,7 +3535,7 @@ def phase_18(device):
            else "the PSF's share not measured")
     worst, calls = 0.0, 0
     for _ in range(PLAIN_STEPS):
-        n, gdiff, gmax = kernel_and_plain_2d(
+        n, gdiff, gmax = kernel_and_plain(
             "phase 18c Strehl", lambda p: -strehl(p[0], lam), opt.parameters)
         calls += n
         worst = max(worst, gdiff / gmax)
@@ -3833,6 +3939,271 @@ def phase_19(device):
           f"optimum is not reached, as in the JAX package); phase 19 in "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launched
+
+
+def interleaved_ms(runs, n=FACADE_TIMED):
+    """Median ms of each of ``runs`` (name: callable) over ``n``
+    synchronised calls, after one each, taken in turns so that a drift of
+    the shared host falls on all of them alike."""
+    import torch
+
+    times = {name: [] for name in runs}
+    for fn in runs.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(n):
+        for name, fn in runs.items():
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def facade_traces(label, system, engine, bounces, kernels, plain_stride,
+                  profiled):
+    """20a on one scene: the facade's ``ray_trace`` against the functional
+    trace of the same rays and scene, each of its K5 and K6 calls against
+    the plain version (on every ``plain_stride``-th ray), the ray views,
+    the launches of the facade's trace, the three ways timed, and
+    ``profiled`` functional traces profiled.  Returns the launches."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import trace
+
+    cfg = engine.trace_config(bounces)
+    rays, scene = system.sources, system.scene
+    materials = system.material_callables()
+    check(cfg.use_kernel and not cfg.cull,
+          f"20a {label}: recommended chose {cfg}")
+    logs = {k: [] for k in kernels}
+    with logged_searches(logs):
+        res, launches = launches_of(lambda: engine.ray_trace(bounces))
+    for k in ("K5", "K6"):
+        want = bounces if k in kernels else 0
+        check(launches[k] == want, f"20a {label}: the facade's trace "
+              f"launched {k} {launches[k]} times, not {want}")
+    t0 = time.perf_counter()
+    replayed = {k: replayed_plain(f"20a {label}", k, logs[k], plain_stride)
+                for k in kernels}
+    replay_s = time.perf_counter() - t0
+    del logs
+    with torch.no_grad():
+        ref = trace(rays, scene, materials, cfg)
+    got, want = res.rays, ref.rays
+    check(torch.equal(got.state, want.state) and torch.equal(got.p1, want.p1)
+          and torch.equal(got.p0, want.p0),
+          f"20a {label}: the facade's trace differs from engine.trace")
+    counts = state_counts(got.state)
+    check(counts == state_counts(want.state), f"20a {label}: state counts")
+    views = [engine.finished_rays.n_rays, engine.stopped_rays.n_rays,
+             engine.dead_rays.n_rays, engine.active_rays.n_rays]
+    check(sum(views) == got.n_rays and views == [counts[1], counts[2],
+                                                  counts[3], counts[0]],
+          f"20a {label}: the ray views {views} do not partition "
+          f"{got.n_rays} slots ({counts})")
+
+    def functional():
+        with torch.no_grad():
+            trace(rays, scene, materials, cfg)
+
+    def step():
+        system.update()
+        engine.ray_trace(bounces)
+
+    ms = interleaved_ms({"functional": functional,
+                         "ray_trace": lambda: engine.ray_trace(bounces),
+                         "update": step})
+    parts = {k: cuda_kernel_name(kind, "brute")
+             for k, kind in (("K5", "segment"), ("K6", "arc"))}
+    _, _, shares = profiled_steps(functional, profiled,
+                                  "the functional trace profiled", parts)
+    t_fn = ms["functional"]
+    print(f"phase 20a {label}: {got.n_rays} rays x {bounces} bounces, "
+          f"state counts (active, finished, stopped, dead) {counts}; the "
+          f"facade's ray_trace equals engine.trace bit for bit (states, "
+          f"counts, p0, p1) and its four views partition the slots; "
+          f"its calls {replayed} bit for bit with the plain versions on "
+          f"the same inputs (every {plain_stride} ray(s), "
+          f"{replay_s:.1f} s); launches of one facade trace {launches}; "
+          f"median of "
+          f"{FACADE_TIMED} in turns: functional {t_fn:.3f} ms, facade "
+          f"ray_trace {ms['ray_trace']:.3f} ms "
+          f"({ms['ray_trace'] / t_fn:.3f}x), update() + ray_trace "
+          f"{ms['update']:.3f} ms ({ms['update'] / t_fn:.3f}x); {shares}",
+          flush=True)
+    return launches
+
+
+def phase_20(device):
+    """The stateful facade, the goals and the checkpoint on the card.
+    Returns the facade's launches of K1, K2, K5 and K6."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tensorflowraytrace_tpu_torch import facade, scenes2d
+    from tensorflowraytrace_tpu_torch.optim import Optimizer
+    from tensorflowraytrace_tpu_torch.system import SGD_Optimizer
+
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    laps = {}
+
+    def lap(name):
+        laps[name] = time.perf_counter() - t_phase - sum(laps.values())
+
+    # ---- 20a. the facade's traces
+    system, engine = facade.tax_bench_system(device=device)
+    total.update(facade_traces("facade_tax_bench scene", system, engine,
+                               facade.TAX_BOUNCES, ("K5",), 1, 2))
+    del system, engine
+    lap("20a facade-tax")
+    system, engine = facade.guide_system(device=device)
+    total.update(facade_traces("2D light guide", system, engine,
+                               scenes2d.GUIDE_BOUNCES, ("K5", "K6"),
+                               GUIDE_PLAIN_STRIDE, 1))
+    del system, engine
+    torch.cuda.empty_cache()
+    lap("20a guide")
+
+    # ---- 20b. the flagship design through OpticalSystem3D
+    problem = facade.flagship_system(device=device)
+    kw = dict(learning_rate=1.0, grad_clip=1e-3)
+    sgd = SGD_Optimizer(problem["engine"], trace_depth=TRAIN_BOUNCES,
+                        error_function=problem["error_function"],
+                        generator=torch.Generator(device).manual_seed(0),
+                        **kw)
+    ref = Optimizer(problem["loss"], problem["init_params"],
+                    generator=torch.Generator(device).manual_seed(0), **kw)
+    accumulators = [problem["accumulator"]] * 2
+    phase = dict(lr_scale=2e-4, momentum=0.8,
+                 smoothers=[problem["smoother"]] * 2)
+    sgd_errors, launches = launches_of(lambda: [
+        sgd.single_step(accumulators, **phase)
+        for _ in range(FACADE_STEPS)])
+    total.update(launches)
+    for k in ("K1", "K2"):
+        check(launches[k] == TRAIN_BOUNCES * FACADE_STEPS,
+              f"20b SGD_Optimizer launched {k} {launches[k]} times in "
+              f"{FACADE_STEPS} steps")
+    ref_errors = [ref.single_step(accumulators, **phase)
+                  for _ in range(FACADE_STEPS)]
+    check(sgd_errors[0] == ref_errors[0],
+          f"20b step 0's loss {sgd_errors[0]!r} through the facade, "
+          f"{ref_errors[0]!r} functionally")
+    pmax = max(float(p.abs().max()) for p in ref.parameters)
+    pdiff = max(float((a - b).abs().max())
+                for a, b in zip(sgd.parameters, ref.parameters))
+    check(pdiff <= FACADE_PARAM_RTOL * pmax,
+          f"20b parameters after {FACADE_STEPS} steps differ by {pdiff} "
+          f"(max {pmax})")
+    lens = problem["system"].optical[0]._obj
+    check(all(torch.equal(a.detach(), b)
+              for a, b in zip(lens.param_list(), sgd.parameters)),
+          "20b SGD_Optimizer did not write its parameters back")
+    steps = {name: (lambda opt=opt: opt.single_step(accumulators, **phase))
+             for name, opt in (("SGD_Optimizer", sgd), ("Optimizer", ref))}
+    ms = interleaved_ms(steps, FACADE_STEPS)
+    parts = {"K1": "triangle_search", "K2": "segment_sum"}
+    timed = {name: (ms[name], profiled_steps(step, FACADE_PROFILED,
+                                             "profiled", parts)[2])
+             for name, step in steps.items()}
+    facade_loss, _ = problem["engine"].make_loss(problem["error_function"],
+                                                 TRAIN_BOUNCES)
+    plain_calls, gdiff, gmax = kernel_and_plain(
+        "phase 20b flagship", lambda p: facade_loss(
+            p, torch.Generator(device).manual_seed(0)), sgd.parameters,
+        ("K1",))
+    print(f"phase 20b flagship through OpticalSystem3D: "
+          f"{problem['system'].sources.n_rays} rays, "
+          f"{problem['system'].scene.triangles.n_surfaces} triangles, "
+          f"{TRAIN_BOUNCES} bounces; step 0's loss {sgd_errors[0]!r} equal "
+          f"through the facade and functionally; after {FACADE_STEPS} "
+          f"steps the losses {sgd_errors[-1]!r} and {ref_errors[-1]!r}, "
+          f"the parameters within {pdiff:.3e} (max {pmax:.3e}, limit "
+          f"{FACADE_PARAM_RTOL} of it); one forward + backward of the "
+          f"facade's loss against the plain versions: {plain_calls} K1 calls "
+          f"bit for bit, the loss equal, the gradient through K2 within "
+          f"{gdiff / gmax:.3e} of the plain max norm (limit 1e-4); "
+          f"launches of the facade's steps "
+          f"{launches}; ms a step (median of {FACADE_STEPS} synchronised "
+          f"steps, in turns): "
+          + "; ".join(f"{name} {ms:.3f} ms, {shares}"
+                      for name, (ms, shares) in timed.items()), flush=True)
+    del problem, sgd, ref, lens, facade_loss
+    lap("20b")
+
+    # ---- 20c. checkpoint and resume of the single arc, K5, K6 and K2
+    arc_loss, _ = scenes2d.single_arc(dtype=torch.float32, device=device,
+                                      use_kernel=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, tx in (("Nesterov", None), ("Adam + LambdaLR",
+                                               facade.adam_lambda())):
+            out, launches = launches_of(lambda: facade.stepwise_optimize(
+                os.path.join(tmp, "stepwise"), device=device,
+                use_kernel=True, optax_tx=tx))
+            total.update(launches)
+            check(all(launches[k] > 0 for k in ("K5", "K6", "K2")),
+                  f"20c {label}: launches {launches}")
+            at = out["saved"]["iterations"]
+            check(facade.states_equal(out["restored"], out["saved"]),
+                  f"20c {label}: the restored state differs from the saved")
+            check(out["resumed_errors"][0] == out["errors"][at],
+                  f"20c {label}: the first resumed loss "
+                  f"{out['resumed_errors'][0]!r}, uninterrupted "
+                  f"{out['errors'][at]!r}")
+            plain_calls, gdiff, gmax = kernel_and_plain(
+                f"phase 20c {label}", arc_loss, out["saved"]["parameters"],
+                ("K5", "K6"))
+            drift = out["drift"]
+            check(drift < STEPWISE_DRIFT,
+                  f"20c {label}: the final radius drifted {drift!r}")
+            print(f"phase 20c stepwise single arc, {label}: checkpoint at "
+                  f"step {at} restored bit for bit (parameters, momentum, "
+                  f"generator, iterations"
+                  f"{', torch optimizer and scheduler' if tx else ''}); "
+                  f"first resumed loss {out['resumed_errors'][0]!r} equal "
+                  f"to the uninterrupted run's; final radius "
+                  f"{out['param']!r}: "
+                  f"{'EXACT' if drift == 0 else f'drift {drift!r}'}; loss "
+                  f"{out['errors'][0]!r} -> {out['errors'][-1]!r}; "
+                  f"launches {launches}; at the checkpoint's parameters "
+                  f"one forward + backward against the plain versions: "
+                  f"{plain_calls} K5 and K6 calls bit for bit, the loss "
+                  f"equal, the gradient through K2 within "
+                  f"{gdiff / gmax:.3e} of the plain max norm (limit 1e-4)",
+                  flush=True)
+
+        lap("20c")
+        # ---- 20d. the goal pipeline: offline on the host, per step on
+        # the card
+        cpu = facade.precompile_pipeline(os.path.join(tmp), device="cpu")
+        card = facade.precompile_pipeline(
+            os.path.join(tmp), device=device,
+            generator=torch.Generator(device).manual_seed(0))
+    gap = abs(card["mean_distance"] - cpu["mean_distance"])
+    check(gap <= PIPELINE_ATOL, f"20d mean distance {card['mean_distance']!r}"
+          f" on the card's run, {cpu['mean_distance']!r} on the CPU's")
+    rows = {tuple(r) for r in card["matched"].tolist()}
+    for points, ranks in card["samples"]:
+        check(points.device.type == "cuda" and points.shape == (64, 2)
+              and bool(torch.isfinite(points).all())
+              and {tuple(r) for r in ranks.cpu().tolist()} <= rows,
+              "20d a per-step sample is not drawn from the cache")
+    print(f"phase 20d precompile pipeline: {card['goal_points'].shape[0]} "
+          f"goals matched to {card['source_points'].shape[0]} sources "
+          f"(Hungarian), mean distance {card['mean_distance']!r} (the CPU "
+          f"run's {cpu['mean_distance']!r}, gap {gap!r}); cache pickled and "
+          f"reloaded; {len(card['samples'])} per-step samples of 64 drawn "
+          f"on the card from a CUDA generator", flush=True)
+    lap("20d")
+    print(f"phase 20 in {time.perf_counter() - t_phase:.1f} s: "
+          + ", ".join(f"{name} {t:.1f} s" for name, t in laps.items()),
+          flush=True)
+    return dict(total)
 
 
 def main():
@@ -4278,6 +4649,9 @@ def main():
     # the Cooke triplet, the lens report, the best-form singlet)
     classical19 = phase_19(device)
 
+    # ---- phase 20: the stateful facade, the checkpoint and the goals
+    facade20 = phase_20(device)
+
     main_k2 = k2["flagship_bench"]
     print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
           flush=True)
@@ -4292,6 +4666,7 @@ def main():
         "launches_caustic": react17["K1_caustic"],
         "launches_image_quality": design18["image_quality"],
         "launches_sequential_vs_mesh": classical19["K1"],
+        "launches_facade": facade20["K1"],
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound_ms, "bound_by": "operations", "library_ms": None,
         "floor_no_fma_ms": 2 * k1_bound_ms, "pairs_out_on_tu": k1_tu_out,
@@ -4310,6 +4685,7 @@ def main():
         "launches_sharded": stream16["K2_sharded"],
         **{f"launches_{k}": design18[k]["K2"]
            for k in ("asphere", "config2", "strehl")},
+        "launches_facade": facade20["K2"],
         "max_abs_err": main_k2["max_abs_err"], "ms": main_k2["ms"],
         "device_ms": main_k2["device_ms"],
         "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],
@@ -4345,7 +4721,8 @@ def main():
         **({"launches_training": arc_train[key]} if key in arc_train else {}),
         **({"launches_design": design[key]} if key in design else {}),
         **({"launches_stray_light": react17[f"{key}_stray"],
-            "launches_ghost": react17[f"{key}_ghost"]}
+            "launches_ghost": react17[f"{key}_ghost"],
+            "launches_facade": facade20[key]}
            if key in ("K5", "K6") else {}),
         **({f"launches_{k}": design18[k]["K5"]
             for k in ("asphere", "config2", "strehl")}

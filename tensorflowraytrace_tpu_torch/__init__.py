@@ -13,13 +13,19 @@ the torch-optimizer stage (``Optimizer(optax_tx=...)``) and the
 physical-optics analysis that run the asphere singlet, BASELINE config 2,
 the Strehl lens and the hexalens image-quality test, and the classical
 lens design that runs the Cooke triplet, the lens report, the best-form
-singlet and the sequential-against-mesh trace:
+singlet and the sequential-against-mesh trace, and the goals, the
+checkpoint and the reference's stateful facade:
 
+  system      the stateful facade (OpticalSystem2D / OpticalSystem3D,
+              OpticalEngine, SGD_Optimizer) over update.RecursivelyUpdatable;
+              drawing.history_rays flattens a trace's history
   models/     rays (and concat_rays), surfaces (2D segments and arcs, 3D
               triangles, the merged Scene2D and Scene3D), sources (point,
               angular, aperture, precompiled, manual), distributions
               (angles, beams, apertures, squares, circles, sphere caps,
-              transformations), boundaries (triangle, segment and
+              transformations; the goals of models/goals: density warps,
+              CDFs, the Hungarian matching, image and precompiled point
+              sets), boundaries (triangle, segment and
               even-asphere surfaces, single or several under constraints,
               master-slave symmetry, the cylindrical light guide, static
               surfaces from data or STL), meshes (circular, hexagonal,
@@ -67,7 +73,10 @@ singlet and the sequential-against-mesh trace:
   hexalens    examples/hexalens.py's two-image wedge lens and its design
   scenes2d    the 2D problems, with examples/stray_light.py,
               ghost_analysis.py, asphere_singlet.py, strehl_lens.py and
-              BASELINE config 2; scenes3d: examples/trace_3d.py's scene,
+              BASELINE config 2; facade: the facade-tax scene, the 2D
+              guide and the flagship through the facade,
+              examples/stepwise_optimize.py and precompile_pipeline.py;
+              scenes3d: examples/trace_3d.py's scene,
               the pool caustic of examples/caustic_render.py,
               image_quality_3d.py and remesh.py; classical:
               examples/cooke_triplet.py, paraxial_analysis.py,
@@ -76,8 +85,9 @@ singlet and the sequential-against-mesh trace:
   streamed    the streamed guide trace and training, the sharded guide
               training and the multi-process dryrun
   utils/      rotations, NumPy conversion (rays, surfaces, parameters,
-              asphere stacks, reaction tables, JAX keys), STL export of a
-              surface
+              asphere stacks, reaction tables, JAX keys, a JAX
+              checkpoint's state), checkpoint and resume of an optimizer
+              (its generator too), STL export of a surface
 
 Everything is built on CUDA unless a ``device=`` says otherwise
 (``config.set_default_device`` changes the default).

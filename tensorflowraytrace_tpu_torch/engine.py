@@ -114,10 +114,11 @@ class TraceConfig:
         )
 
     @staticmethod
-    def recommended(scene, max_bounces=25, **overrides):
-        """A TraceConfig for ``scene`` where the port would run: on its
-        default device (``config.default_device()``, as the JAX package
-        reads its first device).
+    def recommended(scene, max_bounces=25, device=None, **overrides):
+        """A TraceConfig for ``scene`` where the port would run: on
+        ``device``, by default the port's default device
+        (``config.default_device()``, as the JAX package reads its first
+        device).
 
         * Off the card, the JAX package's policy off the TPU: no kernels,
           no culling, no re-sort.
@@ -135,7 +136,9 @@ class TraceConfig:
         Morton-sort the scene once at build time so culling has compact
         chunks to skip.  Any field can be overridden by keyword.
         """
-        on_card = config.default_device().type == "cuda"
+        device = (config.default_device() if device is None
+                  else torch.device(device))
+        on_card = device.type == "cuda"
         if isinstance(scene, Scene3D):
             culled = on_card and (scene.triangles.n_surfaces
                                   >= CULL_3D_MIN_TRIANGLES)
@@ -143,8 +146,7 @@ class TraceConfig:
             culled = False
         cfg = dict(max_bounces=max_bounces, use_kernel=on_card, cull=culled,
                    resort_rays=culled, remat=max_bounces > 16,
-                   ray_start_epsilon=start_epsilon(scene,
-                                                   config.default_device()))
+                   ray_start_epsilon=start_epsilon(scene, device))
         cfg.update(overrides)
         return TraceConfig(**cfg)
 

@@ -1,7 +1,8 @@
 """Base-point and angle samplers for building sources.
 
-Counterpart of ``tensorflowraytrace_tpu/models/distributions.py`` (without
-the goal-building distributions it re-exports from ``models.goals``).  Each
+Counterpart of ``tensorflowraytrace_tpu/models/distributions.py``; the
+goal-building distributions live in ``models.goals`` and are re-exported
+here, as the JAX module re-exports them.  Each
 sampler has one method::
 
     sample(generator=None, dtype=None, device=None, uniforms=None)
@@ -543,6 +544,19 @@ class RandomLambertianSphere(_SphereBase):
 # ----------------------------------------------------------------------
 # transformations
 # ----------------------------------------------------------------------
+
+def __getattr__(name):
+    """Re-export the goal-building distributions (ArbitraryDistribution,
+    ArbitraryBasePoints, ImageBasePoints, PrecompiledBasePoints,
+    SquareRankLambertianSphere, CumulativeDensityFunction,
+    flatten_distribution, transform_map) from ``models.goals``, which
+    imports this module: hence the lazy lookup."""
+    from tensorflowraytrace_tpu_torch.models import goals
+
+    if hasattr(goals, name):
+        return getattr(goals, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 class BasePointTransformation(BasePointDistribution):
     """A base-point distribution lifted, then scaled, rotated and translated,

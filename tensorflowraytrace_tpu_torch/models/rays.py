@@ -70,6 +70,20 @@ class RaySet:
     def __len__(self) -> int:
         return self.n_rays
 
+    # ---------------- reference-style field access ----------------
+
+    def __getitem__(self, key):
+        """``x_start`` ... ``z_end`` (a coordinate column of ``p0`` or
+        ``p1``), ``wavelength``, or an extra field."""
+        axes = "xyz"[:self.dim]
+        for suffix, points in (("_start", self.p0), ("_end", self.p1)):
+            if len(key) == len(suffix) + 1 and key.endswith(suffix) \
+                    and key[0] in axes:
+                return points[:, axes.index(key[0])]
+        if key == "wavelength":
+            return self.wavelength
+        return self.fields[key]
+
     def with_field(self, name, value):
         fields = dict(self.fields)
         fields[name] = torch.as_tensor(value, device=self.p0.device)

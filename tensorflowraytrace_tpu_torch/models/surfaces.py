@@ -82,6 +82,9 @@ class SegmentSet:
     mat_in: torch.Tensor
     mat_out: torch.Tensor
     fields: Dict[str, torch.Tensor] = field(default_factory=dict)
+    # whether mat_in / mat_out were given (ids default to 0, so the arrays
+    # cannot tell): the facade's signature audit reads it
+    mats_specified: bool = True
 
     @staticmethod
     def make(p0, p1, category=OPTICAL, mat_in=None, mat_out=None, fields=None,
@@ -95,7 +98,8 @@ class SegmentSet:
             p0=p0, p1=p1, category=_as_cat(category, m, device),
             mat_in=_as_mat(mat_in, m, device),
             mat_out=_as_mat(mat_out, m, device),
-            fields=_fields(fields, device))
+            fields=_fields(fields, device),
+            mats_specified=mat_in is not None or mat_out is not None)
 
     @property
     def n_surfaces(self) -> int:
@@ -109,6 +113,17 @@ class SegmentSet:
     def norm_angle(self):
         d = self.p1 - self.p0
         return torch.atan2(d[:, 1], d[:, 0]) + math.pi / 2
+
+    def __getitem__(self, key):
+        """Reference-style field access: ``x_start`` ... ``y_end``,
+        ``category`` (or ``catagory``), or an extra field."""
+        coord = {"x_start": (self.p0, 0), "y_start": (self.p0, 1),
+                 "x_end": (self.p1, 0), "y_end": (self.p1, 1)}.get(key)
+        if coord is not None:
+            return coord[0][:, coord[1]]
+        if key in ("category", "catagory"):
+            return self.category
+        return self.fields[key]
 
 
 @dataclass
@@ -125,6 +140,7 @@ class ArcSet:
     mat_in: torch.Tensor
     mat_out: torch.Tensor
     fields: Dict[str, torch.Tensor] = field(default_factory=dict)
+    mats_specified: bool = True
 
     @staticmethod
     def make(center, angle_start, angle_end, radius, category=OPTICAL,
@@ -147,7 +163,8 @@ class ArcSet:
             category=_as_cat(category, m, device),
             mat_in=_as_mat(mat_in, m, device),
             mat_out=_as_mat(mat_out, m, device),
-            fields=_fields(fields, device))
+            fields=_fields(fields, device),
+            mats_specified=mat_in is not None or mat_out is not None)
 
     @property
     def n_surfaces(self) -> int:
@@ -156,6 +173,21 @@ class ArcSet:
     @property
     def device(self):
         return self.center.device
+
+    def __getitem__(self, key):
+        """Reference-style field access: ``x_center``, ``y_center``,
+        ``angle_start``, ``angle_end``, ``radius``, ``category`` (or
+        ``catagory``), or an extra field."""
+        simple = {"angle_start": self.angle_start,
+                  "angle_end": self.angle_end, "radius": self.radius,
+                  "category": self.category, "catagory": self.category}
+        if key == "x_center":
+            return self.center[:, 0]
+        if key == "y_center":
+            return self.center[:, 1]
+        if key in simple:
+            return simple[key]
+        return self.fields[key]
 
 
 def concat_segments(sets):
@@ -169,6 +201,7 @@ def concat_segments(sets):
         mat_in=torch.cat([s.mat_in for s in sets]),
         mat_out=torch.cat([s.mat_out for s in sets]),
         fields=_concat_fields(sets),
+        mats_specified=any(s.mats_specified for s in sets),
     )
 
 
@@ -185,6 +218,7 @@ def concat_arcs(sets):
         mat_in=torch.cat([s.mat_in for s in sets]),
         mat_out=torch.cat([s.mat_out for s in sets]),
         fields=_concat_fields(sets),
+        mats_specified=any(s.mats_specified for s in sets),
     )
 
 
@@ -227,6 +261,7 @@ class TriangleSet:
     mat_in: torch.Tensor
     mat_out: torch.Tensor
     fields: Dict[str, torch.Tensor] = field(default_factory=dict)
+    mats_specified: bool = True
 
     @staticmethod
     def make(vp, v1, v2, norm=None, category=OPTICAL, mat_in=None, mat_out=None,
@@ -247,6 +282,7 @@ class TriangleSet:
             mat_in=_as_mat(mat_in, m, device),
             mat_out=_as_mat(mat_out, m, device),
             fields=_fields(fields, device),
+            mats_specified=mat_in is not None or mat_out is not None,
         )
 
     @property
@@ -256,6 +292,18 @@ class TriangleSet:
     @property
     def device(self):
         return self.vp.device
+
+    def __getitem__(self, key):
+        """Reference-style field access: ``xp`` ... ``z2`` (the vertices),
+        ``norm``, ``category`` (or ``catagory``), or an extra field."""
+        corners = {"p": self.vp, "1": self.v1, "2": self.v2}
+        if len(key) == 2 and key[0] in "xyz" and key[1] in corners:
+            return corners[key[1]][:, "xyz".index(key[0])]
+        if key == "norm":
+            return self.norm
+        if key in ("category", "catagory"):
+            return self.category
+        return self.fields[key]
 
 
 def compute_face_normals(vp, v1, v2):
@@ -278,6 +326,7 @@ def concat_triangles(sets):
         mat_in=torch.cat([s.mat_in for s in sets]),
         mat_out=torch.cat([s.mat_out for s in sets]),
         fields=_concat_fields(sets),
+        mats_specified=any(s.mats_specified for s in sets),
     )
 
 

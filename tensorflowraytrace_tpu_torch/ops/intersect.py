@@ -13,8 +13,10 @@ is split in two phases:
    triangles (``ops/triangle_kernels.py``); K5, K7 (``cull=True``) or K9
    (``cull="grid"``) for segments (``ops/segment_kernels.py``); K6, K8 or
    K10 for arcs (``ops/arc_kernels.py``).
-2. **Refine** (``refine_*_hit_from``): the one chosen intersection
-   recomputed per ray -- O(N) and fully differentiable.
+2. **Refine** (``refine_*_hit_from`` on rows the engine has gathered,
+   ``refine_*_hit`` on a surface set and the search's indices): the one
+   chosen intersection recomputed per ray -- O(N) and fully
+   differentiable.
 
 Validity pruning:
   segments:  seg_u in [-size_eps, 1 + size_eps], ray_u >= ray_start_eps
@@ -177,6 +179,17 @@ def nearest_hit_triangles(
                      branch=torch.zeros_like(valid))
 
 
+def refine_triangle_hit(p0, p1, tri: TriangleSet, idx, intersect_eps):
+    """Differentiable recompute of each ray's chosen intersection with the
+    triangles ``idx`` of ``tri``: their rows gathered, then
+    :func:`refine_triangle_hit_from`.  Gradients reach the gathered
+    vertices and the ray endpoints, not the (discrete) index.  Returns
+    ``(point (N, 3), ray_u, trig_u, trig_v)``."""
+    idx = idx.detach()
+    return refine_triangle_hit_from(p0, p1, tri.vp[idx], tri.v1[idx],
+                                    tri.v2[idx], intersect_eps)
+
+
 def refine_triangle_hit_from(p0, p1, vp, v1, v2, intersect_eps):
     """Differentiable recompute of each ray's chosen intersection against
     already-gathered per-ray triangle vertices.  Returns
@@ -234,6 +247,16 @@ def nearest_hit_segments(
     return HitRecord(valid=valid, idx=idx, ray_u=ray_u,
                      kind=torch.full_like(idx, KIND_SEGMENT),
                      branch=torch.zeros_like(valid))
+
+
+def refine_segment_hit(p0, p1, seg: SegmentSet, idx, intersect_eps):
+    """Differentiable recompute of each ray's chosen intersection with the
+    segments ``idx`` of ``seg``: their endpoints gathered, then
+    :func:`refine_segment_hit_from`.  Returns ``(point (N, 2), ray_u,
+    seg_u, norm_angle)``."""
+    idx = idx.detach()
+    return refine_segment_hit_from(p0, p1, seg.p0[idx], seg.p1[idx],
+                                   intersect_eps)
 
 
 def refine_segment_hit_from(p0, p1, sp0, sp1, intersect_eps):
@@ -300,6 +323,17 @@ def nearest_hit_arcs(
             surf_chunk, ray_block)
     return HitRecord(valid=valid, idx=idx, ray_u=ray_u,
                      kind=torch.full_like(idx, KIND_ARC), branch=branch)
+
+
+def refine_arc_hit(p0, p1, arc: ArcSet, idx, branch, intersect_eps):
+    """Differentiable recompute of each ray's chosen hit with the arcs
+    ``idx`` of ``arc`` on the quadratic branch ``branch``: their centres
+    and radii gathered, then :func:`refine_arc_hit_from` (whose radicand
+    is 4(a - (x_r x d_r)^2)).  Returns ``(point (N, 2), ray_u, arc_u,
+    norm_angle)``."""
+    idx = idx.detach()
+    return refine_arc_hit_from(p0, p1, arc.center[idx], arc.radius[idx],
+                               branch.detach(), intersect_eps)
 
 
 def refine_arc_hit_from(p0, p1, center, radius, branch, intersect_eps):

@@ -234,3 +234,32 @@ def seed_from_jax_key(key) -> int:
     if words.shape != (2,):
         raise ValueError(f"a JAX key is two uint32 words; got {words}")
     return (int(words[0]) << 32) | int(words[1])
+
+
+def checkpoint_state_from_numpy(state, generator_seed, device=None):
+    """The port's checkpoint state (``utils.checkpoint.state_dict``'s
+    layout) from the JAX package's ``checkpoint.state_dict(optimizer)`` of
+    an optimizer on its built-in Nesterov stage: its parameters and
+    velocity (lists of arrays) and its iteration count, so that
+    ``checkpoint.restore_into`` resumes the JAX run in the port.
+
+    A JAX threefry key has no ``torch.Generator`` counterpart, so the
+    state's key is not carried: the port's generator starts afresh from
+    ``generator_seed``, a generator on ``device`` (the device of the
+    optimizer's own generator; the default device when None).  A loss that
+    draws random rays therefore draws other rays after the resume than the
+    JAX run would have."""
+    parameters = [np.array(p) for p in state["parameters"]]
+    velocity = [np.array(v) for v in state["velocity"]]
+    if len(velocity) != len(parameters) or any(
+            v.shape != p.shape for v, p in zip(velocity, parameters)):
+        raise ValueError(
+            "checkpoint_state_from_numpy carries the Nesterov stage's state "
+            "(one velocity per parameter); this state's velocity leaves "
+            f"{[v.shape for v in velocity]} belong to an optax transform")
+    generator = torch.Generator(resolve_device(device))
+    generator.manual_seed(int(generator_seed))
+    return {"parameters": [torch.as_tensor(p) for p in parameters],
+            "velocity": [torch.as_tensor(v) for v in velocity],
+            "generator": generator.get_state(),
+            "iterations": int(np.asarray(state["iterations"]))}
