@@ -327,6 +327,25 @@ exits non-zero without printing a result):
    distance within 1e-12 of the CPU run's (the same host NumPy), the
    cache pickled to a temporary directory, per-step samples drawn on the
    card from a CUDA generator.
+21. export, profiling and drawing (``utils/export.py``,
+   ``utils/profiling.py``, ``drawing.py``): 21a ``torch.library.opcheck``
+   of the ten ``tfrt_torch`` operators (``ops/custom_ops.py``) on CUDA
+   inputs; 21b programs exported, saved under build/export/, loaded from
+   the file and run, each held against the live trace with the launch
+   counts read while the loaded program runs: the flagship forward (2025
+   rays, 770 triangles, 3 bounces; K1) bit for bit, a half-size call
+   refused; the flagship loss's value and gradient through
+   ``export.value_and_grad`` (a joint program; K1, K2): the loss equal,
+   the gradient within 1e-4 of the live max norm; phase 13's 2D guide at
+   full width, brute at 4 bounces (K5, K6), ``cull=True`` and ``"grid"``
+   at 2 (K7, K8; K9, K10); phase 10's 3D guide under ``recommended`` (K3)
+   and ``"grid"`` (K4) at 2: each bit for bit; each export's seconds and
+   bytes, the served run against the live one by ``interleaved_ms``; 21c
+   three flagship steps under ``profile_trace`` (build/profile/): the
+   trace names the K1 and K2 kernels, ``StepTimer.report()``; 21d where
+   matplotlib is installed, the 2D guide's ``history_rays`` (4096 rays, 3
+   bounces) drawn from CUDA tensors into build/guide_2d.png, else one line
+   saying it did not run.
 
 Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
 earlier runs: the brute-force search does not use the order.  Then the
@@ -349,12 +368,17 @@ setting checked against the brute trace), and prints no result line.
 and K8 launched alone at the 2D guide's first bounce (see
 ``arcs_alone``); ``--segsum-alone`` times K2 at phase 6's timed shapes
 (see ``segsum_alone``); neither prints a result line.
+``python3 chip_smoke.py --dispatch-cost`` runs phases 1 and 2 and prints
+one JSON line: the facade-tax trace and a flagship step by
+``interleaved_ms`` (``dispatch_cost``); copied into the root of an
+earlier checkout it times that checkout the same way.
 """
 
 import collections
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -501,9 +525,10 @@ IMAGE_RAYS = 4000
 SVM_RAYS = 1 << 20
 SVM_TRIANGLES = 35826
 COOKE_STEPS = 2000         # the example's default
-# cut so that phase 19 stays near 120 s: the step is host-bound, ~190 ms on
-# the H100 (11,750 launches), and the loss settles by step 200
-COOKE_CUT_STEPS = 400
+# cut so that the script stays inside its time limit: the step is
+# host-bound, ~190-290 ms on the H100 (11,750 launches), and the loss
+# settles by step 200, the floor of the cut
+COOKE_CUT_STEPS = 200
 COOKE_BUDGET_S = 120.0     # the most the cut design may take by the probe
 COOKE_TIMED = 20           # steps timed one by one by CUDA events
 COOKE_PROFILED = 3
@@ -531,6 +556,16 @@ PIPELINE_ATOL = 1e-12      # 20d: host NumPy on the same inputs
 # ~27 s on an H100 (phase 13's plain K5 and K6 at the first bounce: 381.9
 # and 159.4 ms), half of phase 20's 60 s
 GUIDE_PLAIN_STRIDE = 16
+# phase 21: export, profiling, drawing
+EXPORT_TIMED = 5            # served and live runs a program, in turns
+EXPORT_GUIDE2D_BOUNCES = 4  # the brute 2D guide's export depth (export
+                            # time grows with the bounces: ~1.2 s a bounce)
+EXPORT_SHALLOW_BOUNCES = 2  # the culled and two-level guides' depth
+DRAW_RAYS = 4096
+DRAW_BOUNCES = 3
+# --dispatch-cost: rounds of interleaved_ms, and runs a round
+DISPATCH_ROUNDS = 3
+DISPATCH_TIMED = 10
 
 
 def check(cond, message):
@@ -4206,6 +4241,369 @@ def phase_20(device):
     return dict(total)
 
 
+def export_counts():
+    """Every kernel's launch count, K1 to K10."""
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    return {"K1": tk.LAUNCHES, "K2": sk.LAUNCHES, "K3": tk.LAUNCHES_CULLED,
+            "K4": tk.LAUNCHES_TWOLEVEL, **launches_2d()}
+
+
+def reset_counts():
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    tk.LAUNCHES = tk.LAUNCHES_CULLED = tk.LAUNCHES_TWOLEVEL = sk.LAUNCHES = 0
+    reset_2d_launches()
+
+
+def opcheck_inputs(kernel, device):
+    """Small float32 inputs of each operator on the card: 300 rays against
+    600 surfaces (three 256-chunks, two of K4's 512), some missing."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(int(kernel[1:]))
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    n, m = 300, 600
+    if kernel == "K2":
+        return (t(rng.normal(size=(4, n))),
+                t(rng.integers(0, 50, n), torch.int32), 50)
+    if kernel in ("K1", "K3", "K4"):
+        p0 = rng.uniform(-1, 1, (n, 3))
+        vp = rng.uniform(-2, 2, (m, 3))
+        return (t(p0), t(p0 + rng.normal(size=(n, 3))), t(vp),
+                t(vp + rng.normal(0, 0.3, (m, 3))),
+                t(vp + rng.normal(0, 0.3, (m, 3))), EPS, EPS, EPS)
+    p0 = rng.uniform(-1, 1, (n, 2))
+    p1 = p0 + rng.normal(size=(n, 2))
+    if kernel in ("K5", "K7", "K9"):
+        sp0 = rng.uniform(-3, 3, (m, 2))
+        return (t(p0), t(p1), t(sp0), t(sp0 + rng.normal(0, 0.4, (m, 2))),
+                EPS, EPS, EPS)
+    a0 = rng.uniform(-np.pi, np.pi, m)
+    return (t(p0), t(p1), t(rng.uniform(-3, 3, (m, 2))), t(a0),
+            t(a0 + rng.uniform(0.1, 6.0, m)), t(rng.uniform(0.1, 0.5, m)),
+            EPS, EPS)
+
+
+def same_rays(label, got, want):
+    """The loaded program's rays against the live trace's: bit for bit."""
+    import torch
+
+    for name in ("state", "p0", "p1"):
+        a, b = getattr(got, name), getattr(want, name)
+        check(torch.equal(a, b), f"{label}: the loaded program's {name} "
+              f"differs from the live trace's in "
+              f"{int((a != b).reshape(a.shape[0], -1).any(1).sum())} rays")
+
+
+def served(label, folder, blob, call, live, compare, kernels):
+    """Save ``blob`` under ``folder``, load it from the file, run it on
+    ``call``'s arguments with the launch counts reset, hold its result
+    against ``live()`` (``compare``) and time the two in turns.  Fails
+    unless each of ``kernels`` launched from the loaded program.  Returns
+    the counts of that run and a report."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch.utils import export as ex
+
+    path = folder / f"{label}.pt2"
+    path.write_bytes(blob)
+    t0 = time.perf_counter()
+    program = ex.load_exported(str(path))
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    reset_counts()
+    got = program(*call)
+    torch.cuda.synchronize()
+    counts = export_counts()
+    for k in kernels:
+        check(counts[k] > 0, f"{label}: the loaded program launched no {k}")
+    compare(got, live())
+    ms = interleaved_ms({"served": lambda: program(*call), "live": live},
+                        n=EXPORT_TIMED)
+    return counts, program, (
+        f"{len(blob)} bytes, loaded in {load_s:.2f} s; launches from the "
+        f"artifact "
+        + ", ".join(f"{k} {counts[k]}" for k in kernels)
+        + f"; served {ms['served']:.3f} ms, live {ms['live']:.3f} ms "
+        f"(median of {EXPORT_TIMED} in turns)")
+
+
+def phase_21(device):
+    """Export, profiling and drawing on the card.  Returns each kernel's
+    launches from the loaded programs of 21b."""
+    import importlib.util
+
+    import torch
+
+    from tensorflowraytrace_tpu_torch import (
+        Scene3D, TraceConfig, drawing, flagship, scenes2d, trace,
+    )
+    from tensorflowraytrace_tpu_torch.engine import start_epsilon
+    from tensorflowraytrace_tpu_torch.ops import cuda_build, custom_ops
+    from tensorflowraytrace_tpu_torch.ops import materials as mats
+    from tensorflowraytrace_tpu_torch.optim import Optimizer
+    from tensorflowraytrace_tpu_torch.utils import export as ex
+    from tensorflowraytrace_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+
+    # ---- 21a. each operator's fake implementation against its CUDA one
+    for kernel, op in custom_ops.OPS.items():
+        torch.library.opcheck(op, opcheck_inputs(kernel, device))
+    ct, idx, m = opcheck_inputs("K2", device)
+    table = torch.randn((m, ct.shape[0]), device=device, requires_grad=True)
+    torch.library.opcheck(custom_ops.gather_rows_t, (table, idx, True))
+    torch.cuda.synchronize()
+    print(f"phase 21a opcheck: all {len(custom_ops.OPS)} kernel operators "
+          f"and the gather (its backward K2's operator) on CUDA inputs pass "
+          f"(schema, autograd registration, fake against CUDA, AOT "
+          f"dispatch) in {time.perf_counter() - t_phase:.2f} s", flush=True)
+
+    folder = cuda_build.BUILD_DIR / "export"
+    folder.mkdir(parents=True, exist_ok=True)
+    launched = collections.Counter()
+
+    def export_s(make):
+        t0 = time.perf_counter()
+        blob = make()
+        return blob, time.perf_counter() - t0
+
+    # ---- 21b. the flagship forward and its loss's value and gradient
+    lens, source, loss = flagship._flagship(f32, TRAIN_BP, TRAIN_RINGS,
+                                            TRAIN_BOUNCES, True, device)
+    rays = source.sample(torch.Generator(device).manual_seed(0), f32, device)
+    with torch.no_grad():
+        scene = Scene3D.build(optical=lens.build(),
+                              targets=[flagship.target_plane(f32, device)])
+    cfg = TraceConfig(max_bounces=TRAIN_BOUNCES, use_kernel=True,
+                      ray_start_epsilon=start_epsilon(scene))
+    materials = (mats.vacuum, mats.acrylic)
+    blob, sec = export_s(lambda: ex.export_trace(scene, materials, cfg, rays))
+    counts, program, report = served(
+        "flagship_forward", folder, blob, (rays,),
+        lambda: trace(rays, scene, materials, cfg).rays,
+        lambda got, want: same_rays("21b flagship forward", got, want),
+        ("K1",))
+    launched.update(counts)
+    half = dataclasses.replace(rays, **{f: getattr(rays, f)[::2] for f in
+                                        ("p0", "p1", "wavelength", "state")},
+                               fields={k: v[::2]
+                                       for k, v in rays.fields.items()})
+    try:
+        program(half)
+    except Exception as e:  # noqa: BLE001 (any refusal will do)
+        refusal = f"{type(e).__name__}"
+    else:
+        refusal = None
+    check(refusal is not None, "21b: the flagship program ran on half the "
+          "rays")
+    print(f"phase 21b flagship forward ({rays.n_rays} rays, "
+          f"{scene.triangles.n_surfaces} triangles, {TRAIN_BOUNCES} bounces): "
+          f"exported in {sec:.2f} s, {report}; state, p0, p1 bit for bit; "
+          f"half the rays refused ({refusal})", flush=True)
+
+    sizes = [p.numel() for p in lens.init_params()]
+    shapes = [p.shape for p in lens.init_params()]
+
+    def flat_loss(x, r):
+        return loss([c.reshape(s) for c, s in zip(x.split(sizes), shapes)], r)
+
+    x0 = torch.cat([p.detach().reshape(-1) for p in lens.init_params()])
+    vag = ex.value_and_grad(flat_loss)
+    blob, sec = export_s(lambda: ex.export_fn(vag, x0, rays))
+
+    def same_value_and_grad(got, want):
+        gmax = float(want[1].abs().max())
+        gdiff = float((got[1] - want[1]).abs().max())
+        check(bool(got[0] == want[0]), f"21b flagship loss {float(got[0])!r} "
+              f"served, {float(want[0])!r} live")
+        check(gmax > 0 and gdiff <= 1e-4 * gmax,
+              f"21b flagship gradient differs by {gdiff} (max {gmax})")
+        grad_gap.append((gdiff, gmax))
+
+    grad_gap = []
+    counts, _, report = served("flagship_value_and_grad", folder, blob,
+                               (x0, rays), lambda: vag(x0, rays),
+                               same_value_and_grad, ("K1", "K2"))
+    launched.update(counts)
+    gdiff, gmax = grad_gap[0]
+    print(f"phase 21b flagship value and gradient (a joint program): "
+          f"exported in {sec:.2f} s, {report}; loss equal, max |g_served - "
+          f"g_live| {gdiff!r} of max |g| {gmax!r} ({gdiff / gmax:.3e}: K2's "
+          f"atomics)", flush=True)
+    del program, blob
+
+    # ---- the 2D guide at full width, and the 3D guide
+    g_rays, g_scene, g_mats = scenes2d.light_guide(device=device)
+    for label, bounces, cull, kernels in (
+            ("guide2d_brute", EXPORT_GUIDE2D_BOUNCES, False, ("K5", "K6")),
+            ("guide2d_cull", EXPORT_SHALLOW_BOUNCES, True, ("K7", "K8")),
+            ("guide2d_grid", EXPORT_SHALLOW_BOUNCES, "grid", ("K9", "K10"))):
+        cfg = scenes2d.guide_config(g_scene, max_bounces=bounces,
+                                    use_kernel=True, cull=cull)
+        blob, sec = export_s(lambda: ex.export_trace(g_scene, g_mats, cfg,
+                                                     g_rays))
+        counts, _, report = served(
+            label, folder, blob, (g_rays,),
+            lambda: trace(g_rays, g_scene, g_mats, cfg).rays,
+            lambda got, want: same_rays(f"21b {label}", got, want), kernels)
+        launched.update(counts)
+        print(f"phase 21b 2D guide ({g_rays.n_rays} rays, "
+              f"{g_scene.segments.n_surfaces} segments, "
+              f"{g_scene.arcs.n_surfaces} arcs, {bounces} bounces, cull="
+              f"{cull!r}): exported in {sec:.2f} s, {report}; bit for bit",
+              flush=True)
+    del g_rays, g_scene
+    torch.cuda.empty_cache()
+
+    t_rays, t_scene = guide_scene(GUIDE_RAYS, device)
+    t_mats = (mats.vacuum, mats.acrylic)
+    for label, cfg, kernels in (
+            ("guide3d_recommended", TraceConfig.recommended(
+                t_scene, max_bounces=EXPORT_SHALLOW_BOUNCES), ("K3",)),
+            ("guide3d_grid", dataclasses.replace(TraceConfig.recommended(
+                t_scene, max_bounces=EXPORT_SHALLOW_BOUNCES), cull="grid",
+                resort_rays=False), ("K4",))):
+        check(cfg.use_kernel, f"21b {label}: no kernel under {cfg}")
+        blob, sec = export_s(lambda: ex.export_trace(t_scene, t_mats, cfg,
+                                                     t_rays))
+        counts, _, report = served(
+            label, folder, blob, (t_rays,),
+            lambda: trace(t_rays, t_scene, t_mats, cfg).rays,
+            lambda got, want: same_rays(f"21b {label}", got, want), kernels)
+        launched.update(counts)
+        print(f"phase 21b 3D guide ({t_rays.n_rays} rays, "
+              f"{t_scene.triangles.n_surfaces} triangles, "
+              f"{EXPORT_SHALLOW_BOUNCES} bounces, cull={cfg.cull!r}, "
+              f"resort_rays={cfg.resort_rays}): exported in {sec:.2f} s, "
+              f"{report}; bit for bit", flush=True)
+    del t_rays, t_scene
+    torch.cuda.empty_cache()
+    missing = [k for k in custom_ops.OPS if launched[k] == 0]
+    check(not missing, f"21b: no loaded program launched {missing}")
+    t_b = time.perf_counter() - t_phase
+
+    # ---- 21c. three flagship steps under profile_trace
+    vum, acc, smoother = flagship.training_tools(TRAIN_RINGS)
+    lens, source, step_loss = flagship._flagship(
+        f32, TRAIN_BP, TRAIN_RINGS, TRAIN_BOUNCES, True, device, vum)
+    opt = Optimizer(lambda p, g: step_loss(p, source.sample(g, f32, device)),
+                    lens.init_params(), learning_rate=1.0, grad_clip=1e-3,
+                    generator=torch.Generator(device).manual_seed(0))
+    accs = [torch.as_tensor(acc, dtype=f32, device=device)] * 2
+    smoothers = [torch.as_tensor(smoother, dtype=f32, device=device)] * 2
+    timer = profiling.StepTimer()
+    logdir = cuda_build.BUILD_DIR / "profile"
+    with profiling.profile_trace(str(logdir)):
+        for _ in range(3):
+            with timer:
+                opt.run_phase(1, accs, lr_scale=1.0, momentum=0.8,
+                              smoothers=smoothers)
+                torch.cuda.synchronize()
+    files = sorted(logdir.glob("*.pt.trace.json"),
+                   key=lambda p: p.stat().st_mtime)
+    check(len(files) > 0, f"21c: no trace under {logdir}")
+    events = json.loads(files[-1].read_text())["traceEvents"]
+    kernel_names = {e.get("name", "") for e in events
+                    if e.get("cat") == "kernel"}
+    named = {k: sorted(n for n in kernel_names if part in n)
+             for k, part in (("K1", "triangle_search"),
+                             ("K2", "segment_sum"))}
+    check(all(named.values()), f"21c: the trace names no K1 or K2 kernel: "
+          f"{named}")
+    # an operator is a host range; on the device timeline it would be
+    # counted as a kernel by device_profile
+    on_device = sum(1 for e in events if e.get("cat") != "cpu_op"
+                    and str(e.get("name", "")).startswith("tfrt_torch::"))
+    print(f"phase 21c profile_trace: {files[-1].name} "
+          f"({files[-1].stat().st_size} bytes, {len(kernel_names)} kernel "
+          f"names) names K1 {named['K1']} and K2 {named['K2']}; "
+          f"{on_device} tfrt_torch events off the host's op list; "
+          f"StepTimer: {timer.report()}", flush=True)
+
+    # ---- 21d. drawing straight from CUDA tensors
+    if importlib.util.find_spec("matplotlib") is None:
+        print("phase 21d drawing: matplotlib is not installed on this "
+              "machine; 21d did not run", flush=True)
+    else:
+        d_rays, d_scene, d_mats = scenes2d.light_guide(DRAW_RAYS,
+                                                       device=device)
+        res = trace(d_rays, d_scene, d_mats, scenes2d.guide_config(
+            d_scene, max_bounces=DRAW_BOUNCES, use_kernel=True,
+            keep_history=True))
+        flat = drawing.history_rays(res)
+        fig = drawing.figure(figsize=(12, 4))
+        ax = fig.subplots()
+        drawing.SegmentDrawer(ax, d_scene.segments,
+                              draw_norm_arrows=False).draw()
+        drawing.ArcDrawer(ax, d_scene.arcs, draw_norm_arrows=False).draw()
+        drawing.RayDrawer2D(ax, flat).draw()
+        ax.set_xlim(-1, 41)
+        ax.set_ylim(-1.1, 1.1)
+        png = cuda_build.BUILD_DIR / "guide_2d.png"
+        fig.savefig(png, dpi=100)
+        check(png.stat().st_size > 0, "21d: the PNG is empty")
+        print(f"phase 21d drawing: {len(flat['x_start'])} ray segments of "
+              f"{d_rays.n_rays} rays x {DRAW_BOUNCES} bounces drawn from "
+              f"CUDA tensors with RayDrawer2D, SegmentDrawer and ArcDrawer "
+              f"into {png.name} ({png.stat().st_size} bytes)", flush=True)
+    t_phase = time.perf_counter() - t_phase
+    print(f"phase 21 in {t_phase:.1f} s (21a + 21b {t_b:.1f} s)", flush=True)
+    return launched
+
+
+def dispatch_cost(device):
+    """The facade-tax trace (2^17 rays, 12 bounces, K5: launch-bound) and
+    one flagship step (2025 rays, K1 and K2) timed by ``interleaved_ms``;
+    one JSON line.  Runs in any checkout that has ``facade.py``, so that a
+    call can time an earlier tree beside this one (copied into its root)."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import facade, flagship, trace
+    from tensorflowraytrace_tpu_torch.optim import Optimizer
+
+    f32 = torch.float32
+    system, engine = facade.tax_bench_system(device=device)
+    cfg = engine.trace_config(facade.TAX_BOUNCES)
+    materials = system.material_callables()
+
+    def tax():
+        trace(system.sources, system.scene, materials, cfg)
+
+    vum, acc, smoother = flagship.training_tools(TRAIN_RINGS)
+    lens, source, step_loss = flagship._flagship(
+        f32, TRAIN_BP, TRAIN_RINGS, TRAIN_BOUNCES, True, device, vum)
+    opt = Optimizer(lambda p, g: step_loss(p, source.sample(g, f32, device)),
+                    lens.init_params(), learning_rate=1.0, grad_clip=1e-3,
+                    generator=torch.Generator(device).manual_seed(0))
+    accs = [torch.as_tensor(acc, dtype=f32, device=device)] * 2
+    smoothers = [torch.as_tensor(smoother, dtype=f32, device=device)] * 2
+
+    def step():
+        opt.run_phase(1, accs, lr_scale=1.0, momentum=0.8,
+                      smoothers=smoothers)
+
+    rounds = []
+    for _ in range(DISPATCH_ROUNDS):
+        rounds.append(interleaved_ms({"tax": tax, "step": step},
+                                     n=DISPATCH_TIMED))
+    print(json.dumps({"dispatch_cost": {
+        name: {"median_ms": statistics.median(r[name] for r in rounds),
+               "rounds_ms": [r[name] for r in rounds]}
+        for name in ("tax", "step")},
+        "root": os.path.dirname(os.path.abspath(__file__))}), flush=True)
+
+
 def main():
     import torch
 
@@ -4267,6 +4665,9 @@ def main():
         return 0
     if "--segsum-alone" in sys.argv[1:]:
         segsum_alone(device)
+        return 0
+    if "--dispatch-cost" in sys.argv[1:]:
+        dispatch_cost(device)
         return 0
 
     # ---- phase 3: K1 against its plain version
@@ -4652,6 +5053,10 @@ def main():
     # ---- phase 20: the stateful facade, the checkpoint and the goals
     facade20 = phase_20(device)
 
+    # ---- phase 21: export (every kernel through its tfrt_torch operator
+    # from a loaded program), profiling, drawing
+    export21 = phase_21(device)
+
     main_k2 = k2["flagship_bench"]
     print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
           flush=True)
@@ -4667,6 +5072,7 @@ def main():
         "launches_image_quality": design18["image_quality"],
         "launches_sequential_vs_mesh": classical19["K1"],
         "launches_facade": facade20["K1"],
+        "launches_export": export21["K1"],
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound_ms, "bound_by": "operations", "library_ms": None,
         "floor_no_fma_ms": 2 * k1_bound_ms, "pairs_out_on_tu": k1_tu_out,
@@ -4686,6 +5092,7 @@ def main():
         **{f"launches_{k}": design18[k]["K2"]
            for k in ("asphere", "config2", "strehl")},
         "launches_facade": facade20["K2"],
+        "launches_export": export21["K2"],
         "max_abs_err": main_k2["max_abs_err"], "ms": main_k2["ms"],
         "device_ms": main_k2["device_ms"],
         "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],
@@ -4711,13 +5118,14 @@ def main():
            if key == "K3" else {}),
         "launches_caustic": react17[f"{key}_caustic"],
         "launches_sequential_vs_mesh": classical19[key],
+        "launches_export": export21[key],
     } for name, source, line, key in (
         ("triangle_search_culled", tk.SOURCE_CULLED, 144, "K3"),
         ("triangle_search_twolevel", tk.SOURCE_TWOLEVEL, 979, "K4"))] + [{
         "name": name, "route": "cuda",
         "source": f"tensorflowraytrace_tpu_torch/csrc/{source}",
         "replaces": f"tensorflowraytrace_tpu/ops/pallas_kernels.py:{line}",
-        **k2d[key], "library_ms": None,
+        **k2d[key], "library_ms": None, "launches_export": export21[key],
         **({"launches_training": arc_train[key]} if key in arc_train else {}),
         **({"launches_design": design[key]} if key in design else {}),
         **({"launches_stray_light": react17[f"{key}_stray"],

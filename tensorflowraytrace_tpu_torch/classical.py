@@ -48,6 +48,7 @@ import torch
 
 from tensorflowraytrace_tpu_torch import analysis, lsq, scenes2d
 from tensorflowraytrace_tpu_torch.config import FINISHED, resolve_device
+from tensorflowraytrace_tpu_torch.drawing import figure, host_array
 from tensorflowraytrace_tpu_torch.engine import TraceConfig, trace
 from tensorflowraytrace_tpu_torch.models.acceleration import (
     morton_sort_triangles,
@@ -367,13 +368,15 @@ def onaxis_psf_mtf(stack, z_image, psf_rays, grid_pts, f_no, dtype,
 
 
 def lens_report(n_rays=2000, psf_rays=2048, grid_pts=101, n_fields=5,
-                dtype=torch.float32, device=None):
+                dtype=torch.float32, device=None, png=None):
     """The report of the triplet's start, items 1-6 of the example as a
     dict: ``efl``, ``bfp``, ``f_no``, ``entrance_pupil``, ``exit_pupil``,
     ``seidel`` (a ``SeidelSums``), ``field_curves`` (a ``FieldCurves``),
     ``axial_color``, ``lateral_color`` (F, d, C), ``spots`` (RMS radius by
     field), ``mtf`` (frequencies, values) and ``psf``.  Raises when
-    ``|mtf[0] - 1| >= 1e-9`` (the example's check)."""
+    ``|mtf[0] - 1| >= 1e-9`` (the example's check).  ``png``: a path to
+    write the example's figure to (field curves, distortion, spot diagrams,
+    the MTF)."""
     device = resolve_device(device)
     stack = cooke_stack(P_INIT, dtype, device, apertures=None)
 
@@ -406,20 +409,59 @@ def lens_report(n_rays=2000, psf_rays=2048, grid_pts=101, n_fields=5,
                                   REPORT_Z_START, bfp))
 
     # 5. the real-ray spots
-    spots = {float(th): _spot(stack, bfp, n_rays, dtype, device,
-                              float(th))[0] for th in _host(fields)}
+    spot_points = {float(th): _spot(stack, bfp, n_rays, dtype, device,
+                                    float(th)) for th in _host(fields)}
+    spots = {th: rms for th, (rms, _) in spot_points.items()}
 
     # 6. the PSF and the MTF
     psf2d, psf_ax, freqs, mtf = onaxis_psf_mtf(stack, bfp, psf_rays,
                                                grid_pts, f_no, dtype, device)
     if not abs(float(mtf[0]) - 1.0) < 1e-9:
         raise RuntimeError(f"lens report: the MTF at 0 is {mtf[0]}, not 1")
+    if png is not None:
+        _report_figure(png, fc, _host(fields), bfp, spot_points, freqs, mtf)
     return {"efl": efl, "bfp": bfp, "f_no": f_no,
             "entrance_pupil": float(sol.entrance_pupil),
             "exit_pupil": float(sol.exit_pupil), "seidel": seidel,
             "field_curves": fc, "axial_color": ax_col,
             "lateral_color": lat_col, "spots": spots, "mtf": (freqs, mtf),
             "psf": (psf2d, psf_ax)}
+
+
+def _report_figure(path, fc, fields, bfp, spot_points, freqs, mtf):
+    """The lens report's figure, as the example draws it, into ``path``."""
+    fig = figure(figsize=(10, 8))
+    axes = fig.subplots(2, 2)
+    a = axes[0, 0]
+    a.plot(1e3 * (host_array(fc.tangential) - bfp), fields, "-o",
+           label="tangential")
+    a.plot(1e3 * (host_array(fc.sagittal) - bfp), fields, "-s",
+           label="sagittal")
+    a.set_xlabel("focus shift (um)")
+    a.set_ylabel("field (rad)")
+    a.set_title("astigmatic field curves")
+    a.legend()
+    a = axes[0, 1]
+    a.plot(100 * host_array(fc.distortion), fields, "-o")
+    a.set_xlabel("distortion (%)")
+    a.set_title("distortion")
+    a = axes[1, 0]
+    for th, (_, pts) in spot_points.items():
+        c = pts.mean(0)
+        a.plot(1e3 * (pts[:, 0] - c[0]), 1e3 * (pts[:, 1] - c[1]), ".", ms=1,
+               label=f"{th:.3f} rad")
+    a.set_xlabel("um")
+    a.set_aspect("equal")
+    a.set_title("spot diagrams (centroid-relative)")
+    a.legend(markerscale=8, fontsize=7)
+    a = axes[1, 1]
+    a.plot(host_array(freqs), host_array(mtf), "-")
+    a.set_xlabel("spatial frequency (cycles/mm)")
+    a.set_ylabel("MTF")
+    a.set_ylim(0, 1.02)
+    a.set_title("on-axis MTF (d line)")
+    fig.tight_layout()
+    fig.savefig(path, dpi=110)
 
 
 # ----------------------------------------------------------------------

@@ -43,8 +43,8 @@ from tensorflowraytrace_tpu_torch.config import (
 from tensorflowraytrace_tpu_torch.models.acceleration import morton_codes_device
 from tensorflowraytrace_tpu_torch.models.rays import RaySet
 from tensorflowraytrace_tpu_torch.models.surfaces import Scene2D, Scene3D
+from tensorflowraytrace_tpu_torch.ops import custom_ops
 from tensorflowraytrace_tpu_torch.ops import intersect as isect
-from tensorflowraytrace_tpu_torch.ops import segsum_kernels as segsum
 from tensorflowraytrace_tpu_torch.ops.geometry import snell_3d_vec, snells_law_2D
 from tensorflowraytrace_tpu_torch.ops.materials import material_index_lookup
 
@@ -257,33 +257,18 @@ def _unpack_annotation(rows, o, value_mode, materials, wavelength):
     return category, n_in, n_out
 
 
-class _GatherRowsT(torch.autograd.Function):
+def _gather_rows_t(table, idx, use_kernel=False):
     """``table[idx].T``: one gather of every per-surface column per bounce,
     transposed so each column is an (N,) tensor.  Its backward sums the
     (k, N) cotangent into the (M, k) table gradient: K2
-    (``ops/segsum_kernels.py``) when ``use_kernel`` and the cotangent lies
-    on CUDA, the plain ``index_add_`` otherwise.  ``idx`` gets no
-    gradient."""
-
-    @staticmethod
-    def forward(ctx, table, idx, use_kernel):
-        ctx.save_for_backward(idx)
-        ctx.m = table.shape[0]
-        ctx.use_kernel = use_kernel
-        return table[idx.long()].T
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, ct):
-        (idx,) = ctx.saved_tensors
-        # the kernel's wrapper runs the plain version on CPU tensors
-        segment_sum = (segsum.segment_sum_kernel if ctx.use_kernel
-                       else segsum.segment_sum_plain)
-        return segment_sum(ct, idx, ctx.m), None, None
-
-
-def _gather_rows_t(table, idx, use_kernel=False):
-    return _GatherRowsT.apply(table, idx, use_kernel)
+    (``ops/segsum_kernels.py``, the ``tfrt_torch::segment_sum`` operator)
+    when ``use_kernel`` and the cotangent lies on CUDA, the plain
+    ``index_add_`` otherwise; ``idx`` gets no gradient, and the backward is
+    not differentiable.  The ``tfrt_torch::gather_rows_t`` operator
+    (``ops/custom_ops.py``), so that ``torch.func.grad`` and
+    ``grad_and_value`` pass through a trace and an exported gradient
+    program launches K2."""
+    return custom_ops.gather_rows_t(table, idx, use_kernel)
 
 
 def _search(rays, cfg, box, search):

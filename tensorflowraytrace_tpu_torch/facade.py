@@ -17,6 +17,10 @@ example's size, on CUDA unless given ``device=``.
   single-arc problem (``scenes2d.single_arc``) under the self-scaling
   schedule, checkpointed every 10 steps, rebuilt from scratch, resumed
   and run to the end beside the uninterrupted run.
+* ``interactive_optimize``: ``examples/interactive_optimize.py`` driven
+  headless: synthetic key events step the single-arc design (space or
+  enter one step, ``b`` ten, ``s`` a checkpoint, ``q`` the end) and redraw
+  its rays, arc, target and loss curve on a figure made outside pyplot.
 * ``precompile_pipeline``: ``examples/precompile_pipeline.py``: goal
   points from a ring image, source points from a Gaussian density, the
   Hungarian matching, the cache pickled and reloaded, and per-step
@@ -25,6 +29,7 @@ example's size, on CUDA unless given ``device=``.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 import os
@@ -34,6 +39,7 @@ import torch
 
 from tensorflowraytrace_tpu_torch import flagship, scenes2d
 from tensorflowraytrace_tpu_torch.config import FINISHED, resolve_device
+from tensorflowraytrace_tpu_torch.engine import trace
 from tensorflowraytrace_tpu_torch.models import distributions as dist
 from tensorflowraytrace_tpu_torch.models import goals
 from tensorflowraytrace_tpu_torch.models import sources as src
@@ -169,6 +175,17 @@ def adam_lambda(lr=0.1, decay=0.98):
     return factory
 
 
+def single_arc_optimizer(arc_loss, params, device, optax_tx=None):
+    """The stepwise example's optimizer of ``scenes2d.single_arc``'s loss
+    (``make_optimizer``: learning rate 1, gradient clip 0.1)."""
+    def loss(params, generator):
+        return arc_loss(params)
+
+    return Optimizer(loss, params, learning_rate=1.0, grad_clip=0.1,
+                     generator=torch.Generator(device).manual_seed(0),
+                     optax_tx=optax_tx)
+
+
 def stepwise_optimize(path, steps=25, dtype=torch.float32, device=None,
                       use_kernel=None, optax_tx=None):
     """``examples/stepwise_optimize.py``: the single arc, ``steps`` steps
@@ -192,13 +209,8 @@ def stepwise_optimize(path, steps=25, dtype=torch.float32, device=None,
     arc_loss, params = scenes2d.single_arc(dtype=dtype, device=device,
                                            use_kernel=use_kernel)
 
-    def loss(params, generator):
-        return arc_loss(params)
-
     def make():
-        return Optimizer(loss, params, learning_rate=1.0, grad_clip=0.1,
-                         generator=torch.Generator(device).manual_seed(0),
-                         optax_tx=optax_tx)
+        return single_arc_optimizer(arc_loss, params, device, optax_tx)
 
     opt = make()
     errors = []
@@ -223,6 +235,105 @@ def stepwise_optimize(path, steps=25, dtype=torch.float32, device=None,
             "resumed_errors": resumed_errors, "param": param,
             "resumed_param": resumed_param,
             "drift": abs(resumed_param - param)}
+
+
+class InteractiveLoop:
+    """``examples/interactive_optimize.py``'s loop: the single-arc design
+    (``scenes2d.single_arc_parts``, the stepwise example's optimizer and
+    schedule) on a figure, stepped by key events.  The figure is made
+    outside pyplot (``drawing.figure``), so the loop runs headless; its
+    ``on_key`` takes matplotlib ``KeyEvent``s, and :meth:`simulate_key`
+    makes them.  ``s`` saves a checkpoint into ``checkpoint_dir`` (nothing
+    without one)."""
+
+    def __init__(self, dtype=torch.float32, device=None, use_kernel=None,
+                 checkpoint_dir=None):
+        from tensorflowraytrace_tpu_torch import drawing
+
+        device = resolve_device(device)
+        if use_kernel is None:
+            use_kernel = device.type == "cuda"
+        self.parts = scenes2d.single_arc_parts(dtype=dtype, device=device,
+                                               use_kernel=use_kernel)
+        self.opt = single_arc_optimizer(self.parts["loss"],
+                                        [self.parts["init"]], device)
+        self.checkpoint_dir = checkpoint_dir
+        self.saved = []
+        self.losses = []
+        self.closed = False
+        self.fig = drawing.figure(figsize=(10, 4.5))
+        self.ax, self.ax_loss = self.fig.subplots(1, 2, width_ratios=[3, 2])
+        self.fig.canvas.mpl_connect("key_press_event", self.on_key)
+        self.redraw()
+
+    def on_key(self, event):
+        if event.key in (" ", "enter"):
+            self.step()
+        elif event.key == "b":
+            for _ in range(10):
+                self.step(redraw=False)
+            self.redraw()
+        elif event.key == "s" and self.checkpoint_dir is not None:
+            path = os.path.join(self.checkpoint_dir, f"interactive_ckpt_"
+                                f"{self.opt.iterations:04d}")
+            self.saved.append(checkpoint.save_checkpoint(path, self.opt))
+        elif event.key in ("q", "escape"):
+            self.closed = True
+
+    def step(self, redraw=True):
+        self.losses.append(float(self_scaling_step(self.opt)))
+        if redraw:
+            self.redraw()
+
+    def redraw(self):
+        from tensorflowraytrace_tpu_torch import drawing
+
+        parts, p = self.parts, self.opt.parameters[0][0]
+        with torch.no_grad():
+            scene = parts["build_scene"](p)
+            res = trace(parts["rays"], scene, parts["materials"],
+                        dataclasses.replace(parts["cfg"], keep_history=True))
+        self.ax.clear()
+        drawing.SegmentDrawer(self.ax, parts["target"], color="black",
+                              draw_norm_arrows=False).draw()
+        drawing.ArcDrawer(self.ax, scene.arcs, color="cyan").draw()
+        drawing.RayDrawer2D(self.ax, drawing.history_rays(res)).draw()
+        n_fin = int((res.rays.state == FINISHED).sum())
+        self.ax.set_title(
+            f"step {self.opt.iterations}  radius {float(p):.3f}  "
+            f"{n_fin}/{res.rays.n_rays} land  "
+            "(space: step, b: x10, s: save, q: quit)", fontsize=9)
+        self.ax.set_xlim(-2, 11)
+        self.ax.set_ylim(-6, 6)
+        self.ax_loss.clear()
+        if self.losses:
+            self.ax_loss.semilogy(self.losses)
+        self.ax_loss.set_xlabel("step")
+        self.ax_loss.set_ylabel("loss")
+        self.fig.canvas.draw()
+
+    def simulate_key(self, key):
+        """Drive :meth:`on_key` with a synthetic event."""
+        from matplotlib.backend_bases import KeyEvent
+
+        self.on_key(KeyEvent("key_press_event", self.fig.canvas, key))
+
+
+def interactive_optimize(simulate, dtype=torch.float32, device=None,
+                         use_kernel=None, checkpoint_dir=None, png=None):
+    """Run ``examples/interactive_optimize.py``'s headless path: the keys
+    of ``simulate`` through :class:`InteractiveLoop`; the loss must fall.
+    Returns the loop (``losses``, ``opt``, ``saved``).  ``png``: a path to
+    write the last drawn figure to."""
+    loop = InteractiveLoop(dtype, device, use_kernel, checkpoint_dir)
+    for key in simulate:
+        loop.simulate_key(key)
+    if not (loop.losses and loop.losses[-1] < loop.losses[0]):
+        raise RuntimeError(f"interactive optimize: the simulated steps did "
+                           f"not reduce the loss: {loop.losses}")
+    if png is not None:
+        loop.fig.savefig(png, dpi=100)
+    return loop
 
 
 def states_equal(a, b):

@@ -1,12 +1,14 @@
 """Triangle meshes for building parametric surfaces, in NumPy.
 
-A copy of ``tensorflowraytrace_tpu/models/mesh.py`` without its drawing
-helpers (that package imports JAX when it is imported, so nothing is
-imported from it): the mesh container with its binary / ASCII STL I/O and
+A copy of ``tensorflowraytrace_tpu/models/mesh.py`` (that package imports
+JAX when it is imported, so nothing is imported from it): the mesh
+container with its binary / ASCII STL I/O and
 pyvista interchange, the circular, hexagonal and cylindrical generators,
 the vertex-graph tools that make the optimizer's gradient accumulator,
 smoother and vertex update map (and the relationships behind them),
-re-meshing onto a regular base mesh (scipy's ``griddata``) and cleaning.  These tools run once at
+re-meshing onto a regular base mesh (scipy's ``griddata``) and cleaning,
+and the drawing helpers ``visualize_*`` (matplotlib, imported by the
+axis they are given).  These tools run once at
 set-up time on the host; the matrices they make are applied on the device
 by ``optim.Optimizer``.  Generators and STL files match the JAX package's
 exactly: the same faces in the same order, the same records.
@@ -530,6 +532,52 @@ def find_all_relationships(mesh: TriMesh, top_parent: int):
             d |= descendants[c]
         descendants[v] = d
     return descendants, children, parents, ancestors
+
+
+def _quiver_3d(ax, starts, ends, color):
+    if not starts:
+        return None
+    starts = np.asarray(starts)
+    dirs = np.asarray(ends) - starts
+    return ax.quiver(starts[:, 0], starts[:, 1], starts[:, 2],
+                     dirs[:, 0], dirs[:, 1], dirs[:, 2], color=color)
+
+
+def visualize_connections(ax, mesh: TriMesh, connection_list, color="orange"):
+    """Draw a vertex-relationship graph (``connection_list[i]``: the
+    vertices vertex i points to) as arrows on an mplot3d axis."""
+    pairs = [(i, j) for i, conns in enumerate(connection_list) for j in conns]
+    return _quiver_3d(ax, [mesh.points[i] for i, _ in pairs],
+                      [mesh.points[j] for _, j in pairs], color)
+
+
+def visualize_generations(ax, mesh: TriMesh, generations,
+                          colors=("red", "yellow", "green", "blue", "purple")):
+    """Colour the vertices by breadth-first generation on an mplot3d axis;
+    returns the scatter artists, one a generation."""
+    artists = []
+    for k, generation in enumerate(generations):
+        pts = mesh.points[sorted(generation)]
+        artists.append(ax.scatter(pts[:, 0], pts[:, 1], pts[:, 2],
+                                  color=colors[k % len(colors)], s=30))
+    return artists
+
+
+def visualize_face_updates(ax, mesh: TriMesh, face_updates, color="red"):
+    """Draw arrows from each face's centre to the vertices it may move
+    (``face_updates``: (F, 3) booleans, an array or a tensor) on an mplot3d
+    axis."""
+    if hasattr(face_updates, "detach"):
+        face_updates = face_updates.detach().cpu().numpy()
+    starts, ends = [], []
+    for face, mask in zip(mesh.faces, np.asarray(face_updates)):
+        verts = mesh.points[face]
+        center = verts.mean(axis=0)
+        for v, movable in zip(verts, mask):
+            if movable:
+                starts.append(center)
+                ends.append(v)
+    return _quiver_3d(ax, starts, ends, color)
 
 
 def gradient_accumulator(mesh: TriMesh, origin=(0, 0, 0)):

@@ -1,10 +1,13 @@
 """The nearest ray-arc searches on Hopper: brute force (K6), culled (K8) and
 two-level (K10).
 
-Each search has a wrapper the engine calls with ``use_kernel=True``.  On CUDA
-tensors the wrapper launches its hand-written kernel or raises; it never
-falls back.  On CPU tensors it runs the plain PyTorch version beside it, the
-same arithmetic written line by line in PyTorch.
+Each search has a wrapper the engine calls with ``use_kernel=True``: a
+call of its ``tfrt_torch`` operator (``ops/custom_ops.py``), which
+dispatches on the tensors' device.  On CUDA tensors it launches the
+hand-written kernel (``*_cuda`` here) or raises; it never falls back.  On
+CPU tensors it runs the plain PyTorch version beside it, the same
+arithmetic written line by line in PyTorch.  Any other device raises in the
+wrapper.
 
 - K6 ``nearest_hit_arcs_kernel`` (``csrc/arc_search.cu``, port of
   ``_arc_kernel`` in ``tensorflowraytrace_tpu/ops/pallas_kernels.py``):
@@ -71,7 +74,7 @@ from tensorflowraytrace_tpu_torch.ops.segment_kernels import (
     culled_walk, twolevel_lists,
 )
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
-    _SLACK, BIG, _raise_on, chunk_major, plain_or_cuda, twolevel_walk,
+    _SLACK, BIG, _raise_on, check_device, chunk_major, twolevel_walk,
     widen_boxes,
 )
 
@@ -189,13 +192,21 @@ def nearest_hit_arcs_kernel(p0, p1, center, angle_start, angle_end, radius,
     (M, 2); ``angle_start``, ``angle_end``, ``radius`` (M,)).  Returns
     ``(valid, idx, ray_u, branch)``.
 
-    CPU tensors go to the plain version.  CUDA tensors launch the kernel,
-    which takes contiguous, detached float32 tensors on one device and raises
-    on anything else.
+    The ``tfrt_torch::arc_search`` operator: CPU tensors go to the plain
+    version.  CUDA tensors launch the kernel (:func:`arc_search_cuda`),
+    which takes contiguous, detached float32 tensors on one device and
+    raises on anything else.
     """
-    if plain_or_cuda(p0, "arc"):
-        return nearest_hit_arcs_plain(p0, p1, center, angle_start, angle_end,
-                                      radius, intersect_eps, ray_start_eps)
+    check_device(p0, "arc")
+    return torch.ops.tfrt_torch.arc_search(
+        p0, p1, center, angle_start, angle_end, radius, float(intersect_eps),
+        float(ray_start_eps))
+
+
+def arc_search_cuda(p0, p1, center, angle_start, angle_end, radius,
+                    intersect_eps, ray_start_eps):
+    """K6's operator on CUDA tensors: the input checks, the arc table
+    (:func:`prepare`) and the launch."""
     _check_arcs(p0, p1, center, angle_start, angle_end, radius)
     return launch(p0, p1, prepare(center, angle_start, angle_end, radius),
                   intersect_eps, ray_start_eps)
@@ -223,11 +234,17 @@ def nearest_hit_arcs_culled_kernel(p0, p1, center, angle_start, angle_end,
     """K8: K6's search with each ray's slab gate over chunks of
     ``segment_kernels.CULL_CHUNK`` arcs, ``segment_kernels.CULLED_RAY_BLOCK``
     rays a block (K7's).  Same arguments, result and device rules as
-    :func:`nearest_hit_arcs_kernel`."""
-    if plain_or_cuda(p0, "arc"):
-        return nearest_hit_arcs_culled_plain(
-            p0, p1, center, angle_start, angle_end, radius, intersect_eps,
-            ray_start_eps)
+    :func:`nearest_hit_arcs_kernel` (``tfrt_torch::arc_search_culled``)."""
+    check_device(p0, "arc")
+    return torch.ops.tfrt_torch.arc_search_culled(
+        p0, p1, center, angle_start, angle_end, radius, float(intersect_eps),
+        float(ray_start_eps))
+
+
+def arc_search_culled_cuda(p0, p1, center, angle_start, angle_end, radius,
+                           intersect_eps, ray_start_eps):
+    """K8's operator on CUDA tensors: the input checks, the table and gate
+    boxes (:func:`culled_prepare`) and the launch."""
     _check_arcs(p0, p1, center, angle_start, angle_end, radius)
     check_culled_ray_block()
     return culled_launch(p0, p1, culled_prepare(center, angle_start,
@@ -266,11 +283,18 @@ def nearest_hit_arcs_twolevel_kernel(p0, p1, center, angle_start, angle_end,
     rays a block, chunks of ``segment_kernels.CULL_CHUNK`` arcs, lists
     capped at ``segment_kernels.TWOLEVEL_MAX_CAND``) with K6's arithmetic.
     Same arguments, result and device rules as
-    :func:`nearest_hit_arcs_kernel`."""
-    if plain_or_cuda(p0, "arc"):
-        return nearest_hit_arcs_twolevel_plain(
-            p0, p1, center, angle_start, angle_end, radius, intersect_eps,
-            ray_start_eps)
+    :func:`nearest_hit_arcs_kernel` (``tfrt_torch::arc_search_twolevel``)."""
+    check_device(p0, "arc")
+    return torch.ops.tfrt_torch.arc_search_twolevel(
+        p0, p1, center, angle_start, angle_end, radius, float(intersect_eps),
+        float(ray_start_eps))
+
+
+def arc_search_twolevel_cuda(p0, p1, center, angle_start, angle_end, radius,
+                             intersect_eps, ray_start_eps):
+    """K10's operator on CUDA tensors: the input checks, the preparation
+    (:func:`twolevel_prepare`, with the tunables read now) and the
+    launch."""
     _check_arcs(p0, p1, center, angle_start, angle_end, radius)
     check_twolevel_ray_block()
     return twolevel_launch(

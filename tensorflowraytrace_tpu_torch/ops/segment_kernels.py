@@ -1,10 +1,13 @@
 """The nearest ray-segment searches on Hopper: brute force (K5), culled
 (K7) and two-level (K9).
 
-Each search has a wrapper the engine calls with ``use_kernel=True``.  On CUDA
-tensors the wrapper launches its hand-written kernel or raises; it never
-falls back.  On CPU tensors it runs the plain PyTorch version beside it, the
-same arithmetic written line by line in PyTorch.
+Each search has a wrapper the engine calls with ``use_kernel=True``: a
+call of its ``tfrt_torch`` operator (``ops/custom_ops.py``), which
+dispatches on the tensors' device.  On CUDA tensors it launches the
+hand-written kernel (``*_cuda`` here) or raises; it never falls back.  On
+CPU tensors it runs the plain PyTorch version beside it, the same
+arithmetic written line by line in PyTorch.  Any other device raises in the
+wrapper.
 
 - K5 ``nearest_hit_segments_kernel`` (``csrc/segment_search.cu``, port of
   ``_segment_kernel`` in ``tensorflowraytrace_tpu/ops/pallas_kernels.py``):
@@ -46,7 +49,7 @@ from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_2d
 from tensorflowraytrace_tpu_torch.ops import cuda_build
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
     _SLACK, BIG, _inverse_direction, _merge, _raise_on, _selected,
-    _slab_gate, _thresholds, chunk_major, plain_or_cuda,
+    _slab_gate, _thresholds, check_device, chunk_major,
     twolevel_candidates, twolevel_walk, widen_boxes,
 )
 
@@ -149,14 +152,21 @@ def nearest_hit_segments_kernel(p0, p1, sp0, sp1, intersect_eps, size_eps,
     """K5: nearest hit of each ray (p0 -> p1, (N, 2)) among segments
     (sp0 -> sp1, (M, 2)).  Returns ``(valid, idx, ray_u)``.
 
-    CPU tensors go to the plain version.  CUDA tensors launch the kernel,
-    which takes contiguous, detached float32 tensors on one device and raises
-    on anything else.
+    The ``tfrt_torch::segment_search`` operator: CPU tensors go to the
+    plain version.  CUDA tensors launch the kernel
+    (:func:`segment_search_cuda`), which takes contiguous, detached float32
+    tensors on one device and raises on anything else.
     """
+    check_device(p0, "segment")
+    return torch.ops.tfrt_torch.segment_search(
+        p0, p1, sp0, sp1, float(intersect_eps), float(size_eps),
+        float(ray_start_eps))
+
+
+def segment_search_cuda(p0, p1, sp0, sp1, intersect_eps, size_eps,
+                        ray_start_eps):
+    """K5's operator on CUDA tensors: the input checks and the launch."""
     global LAUNCHES
-    if plain_or_cuda(p0, "segment"):
-        return nearest_hit_segments_plain(p0, p1, sp0, sp1, intersect_eps,
-                                          size_eps, ray_start_eps)
     _check_segments(p0, p1, sp0, sp1)
     fn = load_library().segment_search_launch
     n, m = p0.shape[0], sp0.shape[0]
@@ -177,10 +187,18 @@ def nearest_hit_segments_culled_kernel(p0, p1, sp0, sp1, intersect_eps,
     """K7: K5's search with each ray's slab gate over chunks of
     ``CULL_CHUNK`` segments, ``CULLED_RAY_BLOCK`` rays a block.  Same
     arguments, result and device rules as
-    :func:`nearest_hit_segments_kernel`."""
-    if plain_or_cuda(p0, "segment"):
-        return nearest_hit_segments_culled_plain(
-            p0, p1, sp0, sp1, intersect_eps, size_eps, ray_start_eps)
+    :func:`nearest_hit_segments_kernel`
+    (``tfrt_torch::segment_search_culled``)."""
+    check_device(p0, "segment")
+    return torch.ops.tfrt_torch.segment_search_culled(
+        p0, p1, sp0, sp1, float(intersect_eps), float(size_eps),
+        float(ray_start_eps))
+
+
+def segment_search_culled_cuda(p0, p1, sp0, sp1, intersect_eps, size_eps,
+                               ray_start_eps):
+    """K7's operator on CUDA tensors: the input checks, the gate boxes
+    (:func:`culled_prepare`) and the launch."""
     _check_segments(p0, p1, sp0, sp1)
     check_culled_ray_block()
     return culled_launch(p0, p1, culled_prepare(sp0, sp1, size_eps),
@@ -267,10 +285,19 @@ def nearest_hit_segments_twolevel_kernel(p0, p1, sp0, sp1, intersect_eps,
     """K9: the two-level search over chunks of ``CULL_CHUNK`` segments,
     ``TWOLEVEL_RAY_BLOCK`` rays a block, lists capped at
     ``TWOLEVEL_MAX_CAND``.  Same arguments, result and device rules as
-    :func:`nearest_hit_segments_kernel`."""
-    if plain_or_cuda(p0, "segment"):
-        return nearest_hit_segments_twolevel_plain(
-            p0, p1, sp0, sp1, intersect_eps, size_eps, ray_start_eps)
+    :func:`nearest_hit_segments_kernel`
+    (``tfrt_torch::segment_search_twolevel``)."""
+    check_device(p0, "segment")
+    return torch.ops.tfrt_torch.segment_search_twolevel(
+        p0, p1, sp0, sp1, float(intersect_eps), float(size_eps),
+        float(ray_start_eps))
+
+
+def segment_search_twolevel_cuda(p0, p1, sp0, sp1, intersect_eps, size_eps,
+                                 ray_start_eps):
+    """K9's operator on CUDA tensors: the input checks, the preparation
+    (:func:`twolevel_prepare`, with the tunables read now) and the
+    launch."""
     _check_segments(p0, p1, sp0, sp1)
     check_twolevel_ray_block()
     return twolevel_launch(p0, p1, sp0.shape[0],

@@ -7,7 +7,9 @@ and the result the (m, k) gradient of the table.  On CUDA tensors it
 launches the hand-written kernel in ``csrc/segment_sum.cu`` (port of
 ``_segsum_kernel`` in ``tensorflowraytrace_tpu/ops/pallas_kernels.py``) or
 raises; it never falls back.  On CPU tensors it runs
-``segment_sum_plain``, one ``index_add_``.
+``segment_sum_plain``, one ``index_add_``.  The dispatch is that of the
+``tfrt_torch::segment_sum`` operator (``ops/custom_ops.py``), so that an
+exported gradient program launches the kernel.
 
 The kernel sums each warp's rays on one row with shuffles and the rest with
 atomics, whose order changes from run to run: its result is not bitwise
@@ -85,11 +87,14 @@ def segment_sum_kernel(ct, idx, m):
     outside [0, m) adds nothing on the card, where the plain version
     raises.
     """
-    global LAUNCHES
-    if ct.device.type == "cpu":
-        return segment_sum_plain(ct, idx, m)
-    if ct.device.type != "cuda":
+    if ct.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no segment sum for device {ct.device}")
+    return torch.ops.tfrt_torch.segment_sum(ct, idx, int(m))
+
+
+def segment_sum_cuda(ct, idx, m):
+    """K2's operator on CUDA tensors: the input checks and the launch."""
+    global LAUNCHES
     _check_cuda_inputs(ct, idx, m)
     ct = ct.detach().contiguous()
     idx = idx.contiguous()

@@ -1,10 +1,14 @@
 """The nearest ray-triangle searches on Hopper: brute force (K1), culled
 (K3) and two-level (K4).
 
-Each search has a wrapper the engine calls with ``use_kernel=True``.  On CUDA
-tensors the wrapper launches its hand-written kernel or raises; it never
-falls back.  On CPU tensors it runs the plain PyTorch version beside it, the
-same arithmetic written line by line in PyTorch.
+Each search has a wrapper the engine calls with ``use_kernel=True``: a
+call of its ``tfrt_torch`` operator (``ops/custom_ops.py``), so that a
+trace that launches the kernel can be exported (``utils/export.py``).  The
+operator dispatches on the tensors' device.  On CUDA tensors it launches the
+hand-written kernel (``*_cuda`` here: the input checks, the preparation and
+the launch) or raises; it never falls back.  On CPU tensors it runs the
+plain PyTorch version beside it, the same arithmetic written line by line
+in PyTorch.  Any other device raises in the wrapper.
 
 - K1 ``nearest_hit_triangles_kernel`` (``csrc/triangle_search.cu``, port of
   ``_triangle_kernel`` in ``tensorflowraytrace_tpu/ops/pallas_kernels.py``):
@@ -39,7 +43,9 @@ hit and ``valid`` is ``ray_u < BIG / 2``; the nearest hit wins and a tie
 goes to the first triangle index; there is no gradient.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/`` and loaded with ``ctypes`` (``ops/cuda_build.py``).  Nothing here
+``build/`` and loaded with ``ctypes`` (``ops/cuda_build.py``); their
+operators take the pointers of the tensors they are given, so a fake
+tensor (an export's tracing) never reaches them.  Nothing here
 imports JAX or the JAX package.
 """
 
@@ -159,14 +165,12 @@ def _check_cuda_inputs(p0, p1, vp, v1, v2):
         raise ValueError("too many rays or triangles for 32-bit indexing")
 
 
-def plain_or_cuda(p0, what="triangle"):
-    """True for CPU tensors (the plain version runs); raises for devices
-    that have no ``what`` search."""
-    if p0.device.type == "cpu":
-        return True
-    if p0.device.type != "cuda":
+def check_device(p0, what="triangle"):
+    """Raise for devices that have no ``what`` search: the operators run
+    the plain version on the CPU and the kernel on CUDA, and nothing
+    else."""
+    if p0.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no {what} search for device {p0.device}")
-    return False
 
 
 def _thresholds(intersect_eps, size_eps, ray_start_eps):
@@ -186,13 +190,20 @@ def nearest_hit_triangles_kernel(p0, p1, vp, v1, v2, intersect_eps, size_eps,
     """K1: nearest hit of each ray (p0 -> p1, (N, 3)) among triangles
     (vp, v1, v2, (M, 3)).  Returns ``(valid, idx, ray_u)``.
 
-    CPU tensors go to the plain version.  CUDA tensors launch the kernel,
-    which takes contiguous, detached float32 tensors on one device and raises
-    on anything else.
+    The ``tfrt_torch::triangle_search`` operator: CPU tensors go to the
+    plain version.  CUDA tensors launch the kernel
+    (:func:`triangle_search_cuda`), which takes contiguous, detached float32
+    tensors on one device and raises on anything else.
     """
-    if plain_or_cuda(p0):
-        return nearest_hit_triangles_plain(p0, p1, vp, v1, v2, intersect_eps,
-                                           size_eps, ray_start_eps)
+    check_device(p0)
+    return torch.ops.tfrt_torch.triangle_search(
+        p0, p1, vp, v1, v2, float(intersect_eps), float(size_eps),
+        float(ray_start_eps))
+
+
+def triangle_search_cuda(p0, p1, vp, v1, v2, intersect_eps, size_eps,
+                         ray_start_eps):
+    """K1's operator on CUDA tensors: the input checks and the launch."""
     _check_cuda_inputs(p0, p1, vp, v1, v2)
     return brute_launch(p0, p1, vp, v1, v2, intersect_eps, size_eps,
                         ray_start_eps)
@@ -233,12 +244,20 @@ def brute_launch(p0, p1, vp, v1, v2, intersect_eps, size_eps, ray_start_eps,
 def nearest_hit_triangles_culled_kernel(p0, p1, vp, v1, v2, intersect_eps,
                                         size_eps, ray_start_eps):
     """K3: K1's search with the per-chunk slab gate over chunks of
-    ``CULL_CHUNK`` triangles.  Same arguments, result and device rules as
+    ``CULL_CHUNK`` triangles (``tfrt_torch::triangle_search_culled``).
+    Same arguments, result and device rules as
     :func:`nearest_hit_triangles_kernel`."""
+    check_device(p0)
+    return torch.ops.tfrt_torch.triangle_search_culled(
+        p0, p1, vp, v1, v2, float(intersect_eps), float(size_eps),
+        float(ray_start_eps))
+
+
+def triangle_search_culled_cuda(p0, p1, vp, v1, v2, intersect_eps, size_eps,
+                                ray_start_eps):
+    """K3's operator on CUDA tensors: the input checks, the gate boxes and
+    the launch."""
     global LAUNCHES_CULLED
-    if plain_or_cuda(p0):
-        return nearest_hit_triangles_culled_plain(
-            p0, p1, vp, v1, v2, intersect_eps, size_eps, ray_start_eps)
     _check_cuda_inputs(p0, p1, vp, v1, v2)
     fn = load_culled_library().triangle_search_culled_launch
     n, m = p0.shape[0], vp.shape[0]
@@ -315,11 +334,20 @@ def nearest_hit_triangles_twolevel_kernel(p0, p1, vp, v1, v2, intersect_eps,
                                           size_eps, ray_start_eps):
     """K4: the two-level search with ``TWOLEVEL_RAY_BLOCK`` rays per block,
     ``FINE_CHUNK`` triangles per chunk and lists capped at
-    ``TWOLEVEL_MAX_CAND``.  Same arguments, result and device rules as
+    ``TWOLEVEL_MAX_CAND`` (``tfrt_torch::triangle_search_twolevel``).  Same
+    arguments, result and device rules as
     :func:`nearest_hit_triangles_kernel`."""
-    if plain_or_cuda(p0):
-        return nearest_hit_triangles_twolevel_plain(
-            p0, p1, vp, v1, v2, intersect_eps, size_eps, ray_start_eps)
+    check_device(p0)
+    return torch.ops.tfrt_torch.triangle_search_twolevel(
+        p0, p1, vp, v1, v2, float(intersect_eps), float(size_eps),
+        float(ray_start_eps))
+
+
+def triangle_search_twolevel_cuda(p0, p1, vp, v1, v2, intersect_eps,
+                                  size_eps, ray_start_eps):
+    """K4's operator on CUDA tensors: the input checks, the preparation
+    (:func:`twolevel_prepare`, with the tunables read now) and the
+    launch."""
     _check_cuda_inputs(p0, p1, vp, v1, v2)
     rb = TWOLEVEL_RAY_BLOCK
     if rb % 32 or not 32 <= rb <= 1024:

@@ -40,6 +40,10 @@ the random sets of the kernel checks.
 - ``strehl_lens``: ``examples/strehl_lens.py``, one polyline surface whose
   vertices maximise the Huygens PSF's on-axis peak (``analysis.huygens_psf``
   of an ``optical_path_reaction`` trace) in three annealed stages of Adam.
+- ``engine_internals``: ``examples/engine_internals.py``, one
+  ``single_pass`` through an arc (every ray refracted), the projection of
+  a wide beam onto a short segment (misses stretched) and a parametric
+  two-surface lens's normal and parameter arrows, drawn when given a path.
 - ``random_segments``, ``random_arcs``, ``random_rays``: the sets of
   ``examples/tpu_kernel_check.py``, Morton-sorted.
 - ``arc_edge_cases``: ray-arc sets at the edges of the arc searches' exact
@@ -66,9 +70,12 @@ import time
 import numpy as np
 import torch
 
-from tensorflowraytrace_tpu_torch.config import FINISHED, resolve_device
+from tensorflowraytrace_tpu_torch.drawing import figure
+from tensorflowraytrace_tpu_torch.config import (
+    ACTIVE, DEAD, FINISHED, resolve_device,
+)
 from tensorflowraytrace_tpu_torch.engine import (
-    TraceConfig, landing_sum_fold, start_epsilon, trace,
+    TraceConfig, landing_sum_fold, single_pass, start_epsilon, trace,
 )
 from tensorflowraytrace_tpu_torch.models import boundaries as bd
 from tensorflowraytrace_tpu_torch.models import distributions as dist
@@ -103,13 +110,15 @@ DEAD_RAY_LENGTH = 10.0
 # one trainable arc
 # ----------------------------------------------------------------------
 
-def single_arc(beam_count=10, dtype=torch.float32, device=None,
-               max_bounces=2, use_kernel=False):
-    """The single-arc focusing problem.  Returns ``(loss, params)``:
-    ``loss(params) -> scalar``, the squared landing heights of the finished
-    rays with the arc built from ``params[0][0]``, and the initial
-    ``params`` ``[tensor([5.0])]``.  ``beam_count`` beam points times the 6
-    wavelengths are traced (10 in the example)."""
+def single_arc_parts(beam_count=10, dtype=torch.float32, device=None,
+                     max_bounces=2, use_kernel=False):
+    """The pieces of the single-arc focusing problem
+    (``examples/stepwise_optimize.py``'s ``build_problem``): a dict of
+    ``rays`` (``beam_count`` beam points times the 6 wavelengths),
+    ``target`` (the landing segment), ``materials``, ``build_scene(p)``
+    (the scene with the arc of radius ``p``), ``cfg``, ``init`` (the
+    initial radius, ``tensor([5.0])``) and ``loss`` (:func:`single_arc`'s
+    loss)."""
     device = resolve_device(device)
     beam = dist.StaticUniformBeam(-1.5, 1.5, beam_count)
     angles = dist.StaticUniformAngularDistribution(0.0, 0.0, 1)
@@ -117,7 +126,6 @@ def single_arc(beam_count=10, dtype=torch.float32, device=None,
     rays = source.sample(dtype=dtype, device=device)
     target = SegmentSet.make([[10.0, -5.0]], [[10.0, 5.0]], dtype=dtype,
                              device=device)
-    materials = (mats.vacuum, mats.acrylic)
 
     def build_scene(p):
         arc = ArcSet.make(torch.stack([torch.stack([p, torch.zeros_like(p)])]),
@@ -129,13 +137,119 @@ def single_arc(beam_count=10, dtype=torch.float32, device=None,
     # ray_start_epsilon at the initial arc
     cfg = TraceConfig(max_bounces=max_bounces, use_kernel=use_kernel,
                       ray_start_epsilon=start_epsilon(build_scene(init[0])))
+    materials = (mats.vacuum, mats.acrylic)
 
     def loss(params):
         res = trace(rays, build_scene(params[0][0]), materials, cfg)
         finished = res.rays.state == FINISHED
         return torch.sum(torch.where(finished, res.rays.p1[:, 1] ** 2, 0.0))
 
-    return loss, [init]
+    return {"rays": rays, "target": target, "materials": materials,
+            "build_scene": build_scene, "cfg": cfg, "init": init,
+            "loss": loss}
+
+
+def single_arc(beam_count=10, dtype=torch.float32, device=None,
+               max_bounces=2, use_kernel=False):
+    """The single-arc focusing problem.  Returns ``(loss, params)``:
+    ``loss(params) -> scalar``, the squared landing heights of the finished
+    rays with the arc built from ``params[0][0]``, and the initial
+    ``params`` ``[tensor([5.0])]``.  ``beam_count`` beam points times the 6
+    wavelengths are traced (10 in the example); :func:`single_arc_parts`
+    makes the pieces."""
+    parts = single_arc_parts(beam_count, dtype, device, max_bounces,
+                             use_kernel)
+    return parts["loss"], [parts["init"]]
+
+
+def engine_internals(dtype=torch.float32, device=None, png=None):
+    """Run ``examples/engine_internals.py``: one :func:`single_pass` of a
+    9-point beam at the 6 wavelengths through an acrylic arc (each ray
+    must refract), and one of an 11-point beam onto a short segment with
+    ``dead_ray_length=10`` (some, not all, must miss).  Returns the
+    printed counts ``rays``, ``refracted``, ``beam`` and ``missed``.
+    ``png``: a path to write the three panels to (the parents projected
+    onto the arc and their children, the projection with the misses
+    stretched, and the example's parametric lens with its normal and
+    parameter arrows through ``drawing.TriangleDrawer``)."""
+    from tensorflowraytrace_tpu_torch import drawing
+    from tensorflowraytrace_tpu_torch.models import mesh as mt
+
+    device = resolve_device(device)
+    materials = (mats.vacuum, mats.acrylic)
+    angles = dist.StaticUniformAngularDistribution(0.0, 0.0, 1)
+    source = src.AngularSource(2, (-1.0, 0.0), 0.0, angles,
+                               dist.StaticUniformBeam(-1.5, 1.5, 9),
+                               RAINBOW_6)
+    rays = source.sample(dtype=dtype, device=device)
+    arc = ArcSet.make([[5.0, 0.0]], 3 * PI / 4, 5 * PI / 4, 5.0, mat_in=1,
+                      mat_out=0, dtype=dtype, device=device)
+    new_rays, (p0, p1, state, _) = single_pass(
+        rays, Scene2D.build(optical_arcs=[arc]), materials,
+        TraceConfig(max_bounces=1))
+    n_active = int((state == ACTIVE).sum())
+
+    source2 = src.AngularSource(2, (-1.0, 0.0), 0.0, angles,
+                                dist.StaticUniformBeam(-4.0, 4.0, 11),
+                                [575.0] * 11)
+    rays2 = source2.sample(dtype=dtype, device=device)
+    short_seg = SegmentSet.make([[3.0, -2.0]], [[3.0, 2.0]], mat_in=1,
+                                mat_out=0, dtype=dtype, device=device)
+    _, (q0, q1, state2, _) = single_pass(
+        rays2, Scene2D.build(optical_segments=[short_seg]), materials,
+        TraceConfig(max_bounces=1, dead_ray_length=10.0))
+    n_dead = int((state2 == DEAD).sum())
+    out = {"rays": rays.n_rays, "refracted": n_active,
+           "beam": rays2.n_rays, "missed": n_dead}
+    if not (n_active == rays.n_rays and 0 < n_dead < rays2.n_rays):
+        raise RuntimeError(f"engine internals: the checks fail on {out}")
+
+    if png is not None:
+        def ray_dict(a, b, wavelength):
+            a, b = drawing.host_array(a), drawing.host_array(b)
+            return {"x_start": a[:, 0], "y_start": a[:, 1],
+                    "x_end": b[:, 0], "y_end": b[:, 1],
+                    "wavelength": wavelength}
+
+        fig = figure(figsize=(16, 6))
+        ax1 = fig.add_subplot(1, 3, 1)
+        ax2 = fig.add_subplot(1, 3, 2)
+        ax3 = fig.add_subplot(1, 3, 3, projection="3d")
+        ax1.set_title("single_pass: parents projected onto arc + children")
+        ax1.set_aspect("equal")
+        drawing.ArcDrawer(ax1, arc, color="cyan", draw_norm_arrows=True).draw()
+        drawing.RayDrawer2D(ax1, ray_dict(p0, p1, rays.wavelength)).draw()
+        drawing.RayDrawer2D(ax1, ray_dict(new_rays.p0, new_rays.p1,
+                                          new_rays.wavelength)).draw()
+        ax2.set_title("projection: hits projected, misses stretched")
+        ax2.set_aspect("equal")
+        drawing.SegmentDrawer(ax2, short_seg, color="black",
+                              draw_norm_arrows=True).draw()
+        drawing.RayDrawer2D(ax2, ray_dict(q0, q1, rays2.wavelength)).draw()
+
+        zm = mt.hexagonal_mesh(1.0, 3)
+        pts = zm.points.copy()
+        zm.points = np.stack([pts[:, 2], pts[:, 0], pts[:, 1]], axis=1)
+        lens = bd.ParametricMultiTriangleBoundary(
+            zm, bd.FromVectorVG((1.0, 0.0, 0.0)),
+            [bd.ThicknessConstraint(0.0, "min"),
+             bd.ThicknessConstraint(0.3, "min")],
+            [True, False], material_list=[{"mat_in": 1, "mat_out": 0}] * 2,
+            dtype=dtype, device=device)
+        params = lens.init_params()
+        ax3.set_title("parametric lens: norm (cyan) + parameter (red) arrows")
+        for surf, boundary, sub in zip(lens.build(params), lens.surfaces,
+                                       params):
+            drawing.TriangleDrawer(
+                ax3, surf, show_edges=True, alpha=0.25,
+                draw_norm_arrows=True, norm_arrow_length=0.2,
+                draw_parameter_arrows=True, parameter_arrow_length=0.3,
+                boundary=boundary, params=sub).draw()
+        ax3.set_xlim(-1, 1.5)
+        ax3.set_ylim(-1.2, 1.2)
+        ax3.set_zlim(-1.2, 1.2)
+        fig.savefig(png, dpi=100)
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -411,7 +525,7 @@ def _close(got, want, rtol, what):
 
 
 def ghost_analysis(rays=801, depth=4, dtype=torch.float32, device=None,
-                   verbose=True):
+                   verbose=True, png=None):
     """Run ``examples/ghost_analysis.py``: trace the beam through the bare
     and the MgF2 quarter-wave AR-coated singlet under every forced branch
     schedule of ``depth`` interactions (``all_branch_schedules``, one trace
@@ -428,7 +542,8 @@ def ghost_analysis(rays=801, depth=4, dtype=torch.float32, device=None,
     summed over the beam (``tot``) and by ray (``power``), the landing
     heights (``y``), the final ``branch_ctr`` (``ctr``), ``R`` and the
     analytic checks' relative errors (``rel``); ``names`` the schedules'
-    letters."""
+    letters.  ``png``: a path to write the example's figure to (the bare
+    singlet's landed power by height, main path and ghost x100)."""
     device = resolve_device(device)
     rtol = GHOST_RTOL[dtype]
     scene, materials = ghost_lens(dtype, device)
@@ -494,6 +609,22 @@ def ghost_analysis(rays=801, depth=4, dtype=torch.float32, device=None,
     if not ar_ghost < bare_ghost / 8:
         raise RuntimeError(f"ghost analysis: the coating cut the ghost from "
                            f"{bare_ghost} to {ar_ghost}, not 8x")
+    if png is not None:
+        fig = figure(figsize=(7, 4))
+        ax = fig.subplots()
+        r = results["bare"]
+        bins = np.linspace(-6, 6, 241)
+        ax.hist(r["y"][main_k], bins=bins, weights=r["power"][main_k],
+                label="main (TT)", alpha=0.8)
+        ax.hist(r["y"][ghost_k], bins=bins, weights=r["power"][ghost_k] * 100,
+                label="ghost (TRRT) x100", alpha=0.8)
+        ax.set_xlabel("detector y")
+        ax.set_ylabel("landed power / bin")
+        ax.set_yscale("log")
+        ax.legend()
+        ax.set_title("bare singlet: ghost spread vs main focus")
+        fig.tight_layout()
+        fig.savefig(png, dpi=110)
     return results, names
 
 

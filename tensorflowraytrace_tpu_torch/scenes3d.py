@@ -44,6 +44,14 @@ And ``examples/remesh.py``: a bumpy coarse mesh re-meshed onto a regular
 one on the host (``planar_interpolated_remesh``), the flattened mesh and
 its initial parameters built into a ``ParametricTriangleBoundary`` on the
 device.
+
+And ``examples/mesh_graph_tools.py``: a hexagonal mesh's vertex
+relationships from its centre, its breadth-first generations, the
+gradient accumulator (a unit gradient on the centre reaches every vertex,
+one on the rim only itself) and the smoother (a spike relaxes), on the
+host; the four panels drawn when given a path.
+
+    out = mesh_graph_tools("mesh_graph_tools.png")
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ import numpy as np
 import torch
 
 from tensorflowraytrace_tpu_torch import analysis
+from tensorflowraytrace_tpu_torch.drawing import figure, host_array
 from tensorflowraytrace_tpu_torch.config import FINISHED, resolve_device
 from tensorflowraytrace_tpu_torch.engine import (
     TraceConfig, landing_histogram_fold, start_epsilon, trace, trace_streamed,
@@ -279,14 +288,15 @@ def mean_transmission(result):
 
 def caustic_render(n_rays=1 << 27, block=1 << 22, res=512, mesh_steps=144,
                    depth=3.0, amp=0.08, dtype=torch.float32, device=None,
-                   rays=None, verbose=True):
+                   rays=None, verbose=True, png=None):
     """Render the caustic (``rays`` given: trace those, in blocks of
     ``block``; else ``n_rays // block`` generated blocks), check the mean
     landed weight against the normal-incidence transmission (within 0.02,
     the example's test) and return ``{"image", "state_counts", "n_rays",
     "seconds", "rays_per_s", "equiv_per_s", "mean_transmission"}``
     (equivalent intersections/s: rays x triangles x bounces over the
-    wall time, the stream's first block's set-up included)."""
+    wall time, the stream's first block's set-up included).  ``png``: a
+    path to write the example's figure to (the image, gamma-compressed)."""
     render = CausticRender(block, res, mesh_steps, depth, amp, dtype,
                            device)
     n_blocks = None if rays is not None else max(1, n_rays // block)
@@ -308,6 +318,17 @@ def caustic_render(n_rays=1 << 27, block=1 << 22, res=512, mesh_steps=144,
     if not abs(mean_t - T_NORMAL) < 0.02:
         raise RuntimeError(f"caustic render: mean landed weight {mean_t} is "
                            f"not within 0.02 of {T_NORMAL}")
+    if png is not None:
+        fig = figure(figsize=(7, 7))
+        axp = fig.subplots()
+        # gamma-compressed: the caustic's peaks are ~50x the mean
+        axp.imshow(image.numpy() ** 0.45, origin="lower", cmap="cividis",
+                   extent=(-SUN_HALF, SUN_HALF, -SUN_HALF, SUN_HALF))
+        axp.set_title(f"pool-floor caustics, {n:,} rays")
+        axp.set_xlabel("x")
+        axp.set_ylabel("y")
+        fig.tight_layout()
+        fig.savefig(png, dpi=140)
     return {"image": image, "state_counts": counts, "n_rays": n,
             "seconds": seconds, "rays_per_s": n / seconds,
             "equiv_per_s": n * m * render.cfg.max_bounces / seconds,
@@ -471,3 +492,66 @@ def remesh(out_dir=None, dtype=torch.float32, device=None):
     mt.planar_interpolated_remesh(bumpy, base, flatten=False).save(path)
     return {"initial": initial, "peak": peak, "boundary": boundary,
             "surface": surface, "stl": path}
+
+
+# ----------------------------------------------------------------------
+# the mesh-graph tools (examples/mesh_graph_tools.py)
+# ----------------------------------------------------------------------
+
+def mesh_graph_tools(png=None):
+    """Run ``examples/mesh_graph_tools.py`` on the hexagonal mesh of radius
+    1 and 4 steps, with its checks (every vertex reached by the
+    generations; the accumulator's reach from the centre and from a rim
+    vertex; the smoothed spike falling after one and three passes).
+    Returns the example's printed values: ``top``, ``children`` (the
+    parent-to-child edges), ``generations``, ``reached``, ``n_points``,
+    ``reach_top``, ``reach_rim``, ``spike_1`` and ``spike_3``.  ``png``: a
+    path to write the four panels to (``models/mesh.visualize_*``)."""
+    mesh = mt.hexagonal_mesh(1.0, 4)
+    top = mt.get_closest_point(mesh, (0.0, 0.0, 0.0))
+    generations = mt.find_generations(mesh, top)
+    _, children, _, _ = mt.find_all_relationships(mesh, top)
+    _, accumulator = mt.mesh_parametrization_tools(mesh, top)
+    smoother = host_array(mt.mesh_smoothing_tool(mesh,
+                                                 mt.gaussian_weights(0.5, 3)))
+    reached = sum(len(w) for w in generations)
+    acc = host_array(accumulator)
+    reach_top = int((acc[:, top] != 0).sum())
+    rim = int(next(iter(generations[-1])))
+    reach_rim = int((acc[:, rim] != 0).sum())
+    z = np.zeros(mesh.n_points)
+    z[top] = 1.0
+    z1 = smoother @ z
+    z3 = np.linalg.matrix_power(smoother, 3) @ z
+    out = {"top": top, "children": sum(len(v) for v in children),
+           "generations": len(generations), "reached": reached,
+           "n_points": mesh.n_points, "reach_top": reach_top,
+           "reach_rim": reach_rim, "spike_1": float(z1[top]),
+           "spike_3": float(z3[top])}
+    if not (reached == mesh.n_points and reach_top == acc.shape[0]
+            and reach_rim == 1 and z3[top] < z1[top] < 1.0):
+        raise RuntimeError(f"mesh graph tools: the checks fail on {out}")
+    if png is not None:
+        fig = figure(figsize=(14, 14))
+        ax1 = fig.add_subplot(2, 2, 1, projection="3d")
+        ax2 = fig.add_subplot(2, 2, 2, projection="3d")
+        ax3 = fig.add_subplot(2, 2, 3)
+        ax4 = fig.add_subplot(2, 2, 4)
+        ax1.set_title("vertex relationships (BFS from the center vertex)")
+        mt.visualize_connections(ax1, mesh, children)
+        ax2.set_title("BFS generations")
+        mt.visualize_generations(ax2, mesh, generations)
+        ax3.set_title("gradient accumulator (ancestor matrix)")
+        ax3.imshow(acc, cmap="Blues", interpolation="nearest")
+        ax4.set_title("smoother: spiked vertex after 0/1/3 passes")
+        level = np.zeros(mesh.n_points, dtype=int)
+        for g, wave in enumerate(generations):
+            for v in wave:
+                level[v] = g
+        order = np.argsort(level, kind="stable")
+        ax4.plot(z[order], label="spike")
+        ax4.plot(z1[order], label="1 pass")
+        ax4.plot(z3[order], label="3 passes")
+        ax4.legend()
+        fig.savefig(png, dpi=100)
+    return out

@@ -5,8 +5,8 @@
   the cases of tests/test_pallas.py: k = 13, n = 5000, m in {242, 2048,
   16386}, random and coherent idx; rtol 1e-5 and atol 1e-5 (float32 sums
   taken in different orders).
-* ``engine._gather_rows_t`` (a ``torch.autograd.Function`` whose backward
-  is K2 on the card) against autograd of the plain gather, and against the
+* ``engine._gather_rows_t`` (the ``tfrt_torch::gather_rows_t`` operator,
+  whose registered backward is K2 on the card) against autograd of the plain gather, and against the
   JAX package's custom VJP, in float64: rtol 1e-12.
 
 The kernel itself runs only on the card: tests/test_torch_segsum_kernel.py.
