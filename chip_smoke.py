@@ -346,6 +346,27 @@ exits non-zero without printing a result):
    matplotlib is installed, the 2D guide's ``history_rays`` (4096 rays, 3
    bounces) drawn from CUDA tensors into build/guide_2d.png, else one line
    saying it did not run.
+22. the last examples at their defaults, float32 (``physics2d.py``,
+   ``populations.py``, ``source_demos.py``, ``scenes3d.guide_trace_bench``):
+   22a the source demos (``source_rotation_roll``, ``cdf_demo``,
+   ``source_gallery``, its figure only where matplotlib is installed; no
+   kernel); 22b the 2D reaction examples (``fresnel_intensity`` 2000
+   rays, ``fresnel_rhomb`` 150 steps, ``wavefront_lens`` 400 of its 800
+   steps, ``achromat`` 200 of its 400 steps a lens, ``ar_coating`` 300
+   steps and 512 rays, ``spectrometer`` 400 steps, ``hybrid_achromat``
+   400 of its 600 steps a design), ``tolerancing`` (512 builds, 200 of
+   its 400 design steps) and ``design_sweep`` (64 candidates, 60 steps of
+   the best 8), each with its own checks, its wall seconds and its
+   launches: K5 in every trace (each scene has a segment), K6 where the
+   scene has arcs, K2 where a design takes a gradient through a trace;
+   ms a step and the idle share (torch.profiler) of the three cut
+   designs, each a probe that fails the phase where the cut design
+   would pass its budget, and of the sweep's refinement; one forward and
+   backward of the hybrid design with the kernels and with their plain
+   versions, every K5 and K6 call bit for bit; 22c ``guide_trace_bench``
+   (2^20 rays, 16,386 triangles, 24 bounces: ``"grid"`` + re-sort on K4,
+   ``cull=True`` ± re-sort on K3, brute on K1), its four checksums equal.
+   The kernels line gives K1-K6 ``launches_examples``.
 
 Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
 earlier runs: the brute-force search does not use the order.  Then the
@@ -563,6 +584,21 @@ EXPORT_GUIDE2D_BOUNCES = 4  # the brute 2D guide's export depth (export
 EXPORT_SHALLOW_BOUNCES = 2  # the culled and two-level guides' depth
 DRAW_RAYS = 4096
 DRAW_BOUNCES = 3
+# phase 22: the last examples.  Phase 22 alone took 266.0 s uncut (PR 18's
+# first chip call, against 180 s allowed), so four designs are cut, each
+# still meeting its example's checks (PERF.md §4); a one-step probe fails
+# the phase where a cut design would pass its budget
+WAVEFRONT_STEPS = 800       # the example's default
+WAVEFRONT_CUT_STEPS = 400
+ACHROMAT_STEPS = 400        # a lens; the example designs two
+ACHROMAT_CUT_STEPS = 200
+HYBRID_STEPS = 600          # a design; the example runs two
+HYBRID_CUT_STEPS = 400
+TOL_DESIGN_CUT_STEPS = 200  # the nominal design's 400 (populations.py)
+CUT_BUDGET_S = {"wavefront_lens": 20.0, "achromat": 60.0,
+                "hybrid_achromat": 100.0}
+EXAMPLE_TIMED = 5           # steps timed one by one by CUDA events
+EXAMPLE_PROFILED = 2
 # --dispatch-cost: rounds of interleaved_ms, and runs a round
 DISPATCH_ROUNDS = 3
 DISPATCH_TIMED = 10
@@ -614,48 +650,6 @@ def soup_scene(n_rays, device, sort=False):
     d = rng.normal(0, 1, (n_rays, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     rays = RaySet.make(p0, p0 + d, 575.0, dtype=f32, device=device)
-    return rays, scene
-
-
-def guide_scene(n_rays, device):
-    """bench.py's structured scene: a 16k-triangle cylindrical light guide
-    (Morton-sorted) with a small target past its end, rays from a disc near
-    the start heading down the guide."""
-    import math
-
-    import numpy as np
-    import torch
-
-    from tensorflowraytrace_tpu_torch import RaySet, Scene3D, TriangleSet
-    from tensorflowraytrace_tpu_torch.models import boundaries as bd
-    from tensorflowraytrace_tpu_torch.models.acceleration import (
-        morton_sort_triangles,
-    )
-
-    f32 = torch.float32
-    guide = bd.ParametricCylindricalGuide(
-        (0.0, 0.0, 0.0), (0.0, 0.0, 40.0), minimum_radius=0.3,
-        theta_res=64, z_res=128, rotationally_symmetric=True,
-        initial_taper=(0.7, 0.0), mat_in=1, mat_out=0, dtype=f32,
-        device=device)
-    with torch.no_grad():
-        surf, _ = morton_sort_triangles(guide.build())
-    half = 0.35
-    target = TriangleSet.make(
-        [[-half, -half, 40.05], [half, half, 40.05]],
-        [[half, -half, 40.05], [-half, half, 40.05]],
-        [[half, half, 40.05], [-half, -half, 40.05]], dtype=f32, device=device)
-    scene = Scene3D.build(optical=[surf], targets=[target])
-    rng = np.random.default_rng(0)
-    r = 0.2 * np.sqrt(rng.uniform(0, 1, n_rays))
-    th = rng.uniform(0, 2 * math.pi, n_rays)
-    p0 = np.stack([r * np.cos(th), r * np.sin(th), np.full(n_rays, 0.1)],
-                  1).astype(np.float32)
-    d = rng.normal(0, 1, (n_rays, 3))
-    d[:, 2] = np.abs(d[:, 2]) * 3 + 1
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = RaySet.make(p0, p0 + d.astype(np.float32), 575.0, dtype=f32,
-                       device=device)
     return rays, scene
 
 
@@ -1360,10 +1354,11 @@ def tune_brute(device):
     import torch
 
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+    from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
 
     rays, scene = soup_scene(BENCH_RAYS, device)
     tri = scene.triangles
-    g_rays, g_scene = guide_scene(GUIDE_RAYS, device)
+    g_rays, g_scene = structured_guide(GUIDE_RAYS, device=device)
     cases = {"soup": [t.contiguous() for t in (rays.p0, rays.p1, tri.vp,
                                                tri.v1, tri.v2)],
              "guide": first_bounce_3d(g_rays, g_scene.triangles)}
@@ -1391,10 +1386,11 @@ def tune_twolevel(device):
     from tensorflowraytrace_tpu_torch import TraceConfig, trace
     from tensorflowraytrace_tpu_torch.ops import materials as mats
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+    from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
 
     scenes = {
-        "guide": guide_scene(GUIDE_RAYS, device) + ((mats.vacuum, mats.acrylic),
-                                                    GUIDE_BOUNCES),
+        "guide": structured_guide(GUIDE_RAYS, device=device)
+        + ((mats.vacuum, mats.acrylic), GUIDE_BOUNCES),
         "soup": soup_scene(BENCH_RAYS, device, sort=True)
         + ((mats.vacuum, mats.reflective), BENCH_BOUNCES),
     }
@@ -3396,19 +3392,23 @@ def kernel_and_plain(label, loss, params, searches=("K5",)):
 
 
 def launches_of(run):
-    """Zero K1's, K2's, K5's and K6's launch counts, call ``run``, and
-    return its result and the counts just after it."""
+    """Zero K1's to K6's launch counts, call ``run``, and return its result
+    and the counts just after it."""
     import torch
 
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 
     mods = {k: search_module(k)[0] for k in SEARCH_WRAPPERS}
     mods["K2"] = sk
     for mod in mods.values():
         mod.LAUNCHES = 0
+    tk.LAUNCHES_CULLED = tk.LAUNCHES_TWOLEVEL = 0
     out = run()
     torch.cuda.synchronize()
-    return out, {k: mods[k].LAUNCHES for k in ("K1", "K2", "K5", "K6")}
+    counts = {k: mods[k].LAUNCHES for k in ("K1", "K2", "K5", "K6")}
+    counts.update(K3=tk.LAUNCHES_CULLED, K4=tk.LAUNCHES_TWOLEVEL)
+    return out, counts
 
 
 def phase_18(device):
@@ -4351,6 +4351,7 @@ def phase_21(device):
     from tensorflowraytrace_tpu_torch.ops import cuda_build, custom_ops
     from tensorflowraytrace_tpu_torch.ops import materials as mats
     from tensorflowraytrace_tpu_torch.optim import Optimizer
+    from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
     from tensorflowraytrace_tpu_torch.utils import export as ex
     from tensorflowraytrace_tpu_torch.utils import profiling
 
@@ -4466,7 +4467,7 @@ def phase_21(device):
     del g_rays, g_scene
     torch.cuda.empty_cache()
 
-    t_rays, t_scene = guide_scene(GUIDE_RAYS, device)
+    t_rays, t_scene = structured_guide(GUIDE_RAYS, device=device)
     t_mats = (mats.vacuum, mats.acrylic)
     for label, cfg, kernels in (
             ("guide3d_recommended", TraceConfig.recommended(
@@ -4562,6 +4563,230 @@ def phase_21(device):
     return launched
 
 
+def phase_22(device):
+    """The last examples at their defaults in float32, each through its
+    port function, with its checks, wall seconds and launches.  Returns
+    the launches by example."""
+    import importlib.util
+    import math
+
+    import torch
+
+    from tensorflowraytrace_tpu_torch import physics2d, populations
+    from tensorflowraytrace_tpu_torch import scenes3d, source_demos
+    from tensorflowraytrace_tpu_torch.ops import cuda_build
+
+    t_phase = time.perf_counter()
+    parts = {"K5": cuda_kernel_name("segment", "brute"),
+             "K6": cuda_kernel_name("arc", "brute"), "K2": "segment_sum"}
+    launched = {}
+
+    def run(label, fn, kernels):
+        """``fn()`` timed, its launches counted: each of ``kernels`` must
+        launch, no other kernel may."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, counts = launches_of(fn)
+        wall = time.perf_counter() - t0
+        launched[label] = counts
+        ran = {k for k, n in counts.items() if n}
+        check(ran == set(kernels), f"phase 22 {label}: launched {counts}, "
+              f"not exactly {sorted(kernels)}")
+        return out, wall, counts
+
+    def timed_steps(label, step, profiled=EXAMPLE_PROFILED):
+        ms = event_step_ms(step, EXAMPLE_TIMED)
+        _, _, shares = profiled_steps(step, profiled, "profiled", parts)
+        return ms, (f"phase 22 {label} steps: median "
+                    f"{statistics.median(ms):.3f} ms a step by CUDA events "
+                    f"over {EXAMPLE_TIMED} (min {min(ms):.3f}, max "
+                    f"{max(ms):.3f}); {shares}")
+
+    def probe(label, step, steps):
+        """One design step timed and profiled before the cut design runs:
+        ``steps`` of them must fit ``CUT_BUDGET_S[label]``."""
+        ms, report = timed_steps(label, step)
+        budget = CUT_BUDGET_S[label]
+        mean_s = statistics.fmean(ms) * 1e-3
+        check(mean_s * steps <= budget, f"phase 22 {label}: a step takes "
+              f"{mean_s * 1e3:.3f} ms: {steps} steps would take more than "
+              f"{budget:.0f} s")
+        print(report + f"; {steps} steps predicted "
+              f"{mean_s * steps:.1f} s (budget {budget:.0f} s)", flush=True)
+
+    # ---- 22a. the source demos: the host and the sources, no kernel
+    out, wall, _ = run("source_rotation_roll", lambda: (
+        source_demos.source_rotation_roll(device=device, verbose=False)), ())
+    print(f"phase 22a source_rotation_roll: worst roll vector aiming "
+          f"{out['worst_vector']!r} deg (> 1), quaternion aiming "
+          f"{out['worst_quaternion']!r} deg (< 1e-5), in {wall:.3f} s",
+          flush=True)
+    out, wall, _ = run("cdf_demo", lambda: source_demos.cdf_demo(
+        verbose=False), ())
+    print(f"phase 22a cdf_demo: forward std {out['mapped_std'].tolist()}, "
+          f"inverse cv {float(out['icdf_cv'])!r}, flatten cv "
+          f"{float(out['flatten_cv'])!r} "
+          f"in {wall:.3f} s", flush=True)
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    png = cuda_build.BUILD_DIR / "source_gallery.png" if has_mpl else None
+    out, wall, _ = run("source_gallery", lambda: source_demos.source_gallery(
+        png=png, device=device, verbose=False), ())
+    print(f"phase 22a source_gallery: {out['angular_rays']} rays of the "
+          f"dense AngularSource, circle density uniformity "
+          f"{out['uniformity']!r}, aimed mean direction "
+          f"{out['mean_direction'].tolist()}, in {wall:.3f} s; "
+          + (f"figure {png.name} ({png.stat().st_size} bytes)" if has_mpl
+             else "matplotlib is not installed on this machine: the figure "
+             "was not drawn"), flush=True)
+
+    # ---- 22b. the 2D reaction examples and the populations
+    out, wall, n = run("fresnel_intensity", lambda: (
+        physics2d.fresnel_intensity(device=device, verbose=False)),
+        ("K5", "K6", "K2"))
+    mid = len(out["ratio"]) // 2
+    print(f"phase 22b fresnel_intensity: 2000 rays, {out['finished']} land "
+          f"carrying {out['power']!r} of the power; power/count centre, "
+          f"edges {out['ratio'][[mid, 0, -1]].tolist()}; d(power)/d(radius) "
+          f"{out['grad']!r}; in "
+          f"{wall:.3f} s, launches {n}", flush=True)
+    out, wall, n = run("fresnel_rhomb", lambda: physics2d.fresnel_rhomb(
+        device=device, verbose=False), ("K5", "K2"))
+    print(f"phase 22b fresnel_rhomb: 150 steps, theta "
+          f"{math.degrees(out['theta'])!r} deg, TIR phase "
+          f"{math.degrees(out['delta'])!r} deg, Stokes {out['stokes']}; in "
+          f"{wall:.3f} s ({wall / 150 * 1e3:.3f} ms a step), launches {n}",
+          flush=True)
+    wavefront, _, _ = physics2d.wavefront_problem(device=device)
+    check(wavefront.cfg.use_kernel, f"wavefront config {wavefront.cfg}")
+    opt = physics2d.adam_design(physics2d.wavefront_loss(wavefront),
+                                torch.zeros(65, device=device), 1e-2)
+    probe("wavefront_lens", lambda: opt.single_step(sync=False),
+          WAVEFRONT_CUT_STEPS)
+    del opt, wavefront
+    steps = WAVEFRONT_CUT_STEPS
+    out, wall, n = run("wavefront_lens", lambda: physics2d.wavefront_lens(
+        steps, device=device, verbose=False), ("K5", "K2"))
+    print(f"phase 22b wavefront_lens: {steps} steps (the example's "
+          f"{WAVEFRONT_STEPS} cut), 64 segments, 192 rays: RMS "
+          f"wavefront {out['rms_wf0']!r} -> {out['rms_wf']!r}, spot "
+          f"{out['rms_spot0']!r} -> {out['rms_spot']!r}, surface off the "
+          f"hyperbola by {out['hyperbola_dev']!r}, (Z4, Z11) "
+          f"{out['zernike0'][[3, 10]].tolist()} -> "
+          f"{out['zernike'][[3, 10]].tolist()}; in {wall:.3f} s (design "
+          f"{out['seconds'] / steps * 1e3:.3f} ms a step), launches {n}",
+          flush=True)
+    del out
+    rays = physics2d.achromat_rays(device=device)
+    opt, cfg = physics2d.achromat_design(
+        physics2d.build_doublet, physics2d.DOUBLET_START, rays, 4, 2e-3,
+        10.0)
+    check(cfg.use_kernel, f"achromat config {cfg}")
+    probe("achromat", lambda: opt.single_step(None, momentum=0.9,
+                                              sync=False),
+          2 * ACHROMAT_CUT_STEPS)
+    del opt, rays
+    steps = ACHROMAT_CUT_STEPS
+    out, wall, n = run("achromat", lambda: physics2d.achromat(
+        steps, device=device, verbose=False), ("K5", "K6", "K2"))
+    print(f"phase 22b achromat: 21 heights x 3 lines, {steps} steps a lens "
+          f"(the example's {ACHROMAT_STEPS} cut): "
+          f"chromatic shift C - F singlet {out['singlet_shift']!r}, doublet "
+          f"{out['doublet_shift']!r} ({out['improvement']:.2f}x), errors "
+          f"{out['singlet_error']!r} / {out['doublet_error']!r}; in "
+          f"{wall:.3f} s ({wall / (2 * steps) * 1e3:.3f} ms a step), "
+          f"launches {n}",
+          flush=True)
+    out, wall, n = run("ar_coating", lambda: physics2d.ar_coating(
+        device=device, verbose=False), ("K5", "K6"))
+    print(f"phase 22b ar_coating: mean R bare {out['r_bare']!r}, start "
+          f"{out['r_start']!r}, designed {out['r_designed']!r} (quarter-wave "
+          f"{out['r_quarter_wave']!r}), d {out['thickness'].tolist()} nm; "
+          f"512 rays, {out['landed']} land: power bare "
+          f"{out['power_bare']!r}, coated {out['power_coated']!r}; in "
+          f"{wall:.3f} s, launches {n}", flush=True)
+    out, wall, n = run("spectrometer", lambda: physics2d.spectrometer(
+        device=device, verbose=False), ("K5", "K2"))
+    print(f"phase 22b spectrometer: 400 steps: spacing {out['spacing']!r} "
+          f"nm, detector {out['dist']!r}, anchor loss "
+          f"{out['anchor_loss']!r}; band relative error "
+          f"{out['band_rel_err']!r}, throughput relative error "
+          f"{out['throughput_rel_err']!r}; in {wall:.3f} s, launches {n}",
+          flush=True)
+    landings, _ = physics2d.hybrid_problem(device=device)
+    check(landings.cfg.use_kernel, f"hybrid config {landings.cfg}")
+    opt = physics2d.hybrid_design(landings, True, device=device)
+    probe("hybrid_achromat", lambda: opt.single_step(sync=False),
+          2 * HYBRID_CUT_STEPS)
+    steps = HYBRID_CUT_STEPS
+    out, wall, n = run("hybrid_achromat", lambda: physics2d.hybrid_achromat(
+        steps, device=device, verbose=False), ("K5", "K6", "K2"))
+    print(f"phase 22b hybrid_achromat: 13 heights, {steps} steps a design "
+          f"(the example's {HYBRID_STEPS} cut): "
+          f"polychromatic RMS {out['refractive_rms']!r} -> "
+          f"{out['hybrid_rms']!r} ({out['gain']:.3f}x, above 2); per line "
+          f"{out['refractive_spots']} -> {out['hybrid_spots']}; in "
+          f"{wall:.3f} s (refractive {out['refractive_seconds']:.3f} s, "
+          f"hybrid {out['hybrid_seconds']:.3f} s = "
+          f"{out['hybrid_seconds'] / steps * 1e3:.3f} ms a step), launches "
+          f"{n}", flush=True)
+    opt = physics2d.hybrid_design(landings, True, torch.as_tensor(
+        out["hybrid_q"], device=device), device=device)
+    calls, gdiff, gmax = kernel_and_plain(
+        "phase 22 hybrid", opt.loss_fn, opt.parameters, searches=("K5", "K6"))
+    print(f"phase 22b hybrid against the plain versions: {calls} K5 and K6 "
+          f"calls bit for bit, the loss equal, the gradient through K2 "
+          f"within {gdiff / gmax:.3e} of the plain backward's max norm "
+          f"(limit 1e-4)", flush=True)
+    del opt, out
+    out, wall, n = run("tolerancing", lambda: populations.tolerancing(
+        design_steps=TOL_DESIGN_CUT_STEPS, device=device, verbose=False),
+        ("K5", "K6", "K2"))
+    print(f"phase 22b tolerancing: {TOL_DESIGN_CUT_STEPS} design steps (the "
+          f"example's {populations.TOL_DESIGN_STEPS} cut), nominal spot "
+          f"{out['nominal']!r} (c1, c2 "
+          f"{out['params'][:2]}), sensitivities "
+          f"{out['sensitivities'].tolist()}; 512 builds: median "
+          f"{out['median']!r}, 95th {out['p95']!r}, yield "
+          f"{out['yield']!r} at {out['spec']!r}; linear sigma "
+          f"{out['linear_sigma']!r}, MC sigma {out['mc_sigma']!r}; in "
+          f"{wall:.3f} s (design {out['design_seconds']:.3f} s, "
+          f"Monte-Carlo {out['mc_seconds']:.3f} s = "
+          f"{out['mc_seconds'] / 512 * 1e3:.3f} ms a build), launches {n}",
+          flush=True)
+    out, wall, n = run("design_sweep", lambda: populations.design_sweep(
+        device=device, verbose=False), ("K5", "K6", "K2"))
+    print(f"phase 22b design_sweep: 64 candidates ({out['sweep_seconds']:.3f}"
+          f" s), best coarse r {out['coarse_radius']!r} loss "
+          f"{out['coarse_loss']!r}; 60 steps of the best 8 "
+          f"({out['refine_seconds']:.3f} s = "
+          f"{out['refine_seconds'] / 60 * 1e3:.3f} ms a step): best r "
+          f"{out['best_radius']!r} loss {out['best_loss']!r}; in "
+          f"{wall:.3f} s, launches {n}", flush=True)
+    loss = populations.sweep_problem(device=device)
+    pop = populations.MomentumPopulation(loss, torch.as_tensor(
+        out["pool"][:-1], device=device))
+    print(timed_steps("design_sweep", pop.step, 1)[1], flush=True)
+    del pop, out
+
+    # ---- 22c. guide_trace_bench: the 3D guide through K4, K3 and K1
+    out, wall, n = run("guide_trace_bench", lambda: (
+        scenes3d.guide_trace_bench(device=device, verbose=False)),
+        ("K1", "K3", "K4"))
+    b = out["bounces"]
+    check(n == {"K1": 4 * b, "K2": 0, "K3": 8 * b, "K4": 4 * b, "K5": 0,
+                "K6": 0}, f"phase 22c launches {n}")
+    print(f"phase 22c guide_trace_bench: {out['n_rays']} rays x "
+          f"{out['triangles']} triangles x {b} bounces: " + "; ".join(
+              f"{name} {v['ms']:.3f} ms = {v['equiv_per_s']:.4e} equivalent "
+              f"intersections/s" for name, v in out["modes"].items())
+          + f"; every checksum {out['modes']['brute']['checksum']!r}; in "
+          f"{wall:.3f} s, launches {n}", flush=True)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter() - t_phase
+    print(f"phase 22 in {t_phase:.1f} s", flush=True)
+    return launched
+
+
 def dispatch_cost(device):
     """The facade-tax trace (2^17 rays, 12 bounces, K5: launch-bound) and
     one flagship step (2025 rays, K1 and K2) timed by ``interleaved_ms``;
@@ -4636,6 +4861,7 @@ def main():
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
     from tensorflowraytrace_tpu_torch.optim import Optimizer
+    from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
 
     # ---- phase 2: build, one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -4705,7 +4931,7 @@ def main():
     rays, scene = soup_scene(K1_RAYS, device, sort=True)
     tri = scene.triangles
     compare_culled("sorted soup", rays.p0, rays.p1, tri.vp, tri.v1, tri.v2)
-    g_rays, g_scene = guide_scene(GUIDE_RAYS, device)
+    g_rays, g_scene = structured_guide(GUIDE_RAYS, device=device)
     g_tri = g_scene.triangles
     check(g_tri.n_surfaces == 16386, f"guide has {g_tri.n_surfaces} triangles")
     compare_culled("guide first bounce", g_rays.p0[:CULL_RAYS],
@@ -5057,6 +5283,15 @@ def main():
     # from a loaded program), profiling, drawing
     export21 = phase_21(device)
 
+    # ---- phase 22: the last examples (the reaction designs, tolerancing
+    # and the design sweep, the source demos, guide_trace_bench)
+    examples22 = phase_22(device)
+
+    def by_example(key):
+        per = {k: v[key] for k, v in examples22.items() if v[key]}
+        return {"launches_examples": sum(per.values()),
+                "launches_examples_by_example": per}
+
     main_k2 = k2["flagship_bench"]
     print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
           flush=True)
@@ -5072,7 +5307,7 @@ def main():
         "launches_image_quality": design18["image_quality"],
         "launches_sequential_vs_mesh": classical19["K1"],
         "launches_facade": facade20["K1"],
-        "launches_export": export21["K1"],
+        "launches_export": export21["K1"], **by_example("K1"),
         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bound_ms, "bound_by": "operations", "library_ms": None,
         "floor_no_fma_ms": 2 * k1_bound_ms, "pairs_out_on_tu": k1_tu_out,
@@ -5092,7 +5327,7 @@ def main():
         **{f"launches_{k}": design18[k]["K2"]
            for k in ("asphere", "config2", "strehl")},
         "launches_facade": facade20["K2"],
-        "launches_export": export21["K2"],
+        "launches_export": export21["K2"], **by_example("K2"),
         "max_abs_err": main_k2["max_abs_err"], "ms": main_k2["ms"],
         "device_ms": main_k2["device_ms"],
         "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],
@@ -5118,7 +5353,7 @@ def main():
            if key == "K3" else {}),
         "launches_caustic": react17[f"{key}_caustic"],
         "launches_sequential_vs_mesh": classical19[key],
-        "launches_export": export21[key],
+        "launches_export": export21[key], **by_example(key),
     } for name, source, line, key in (
         ("triangle_search_culled", tk.SOURCE_CULLED, 144, "K3"),
         ("triangle_search_twolevel", tk.SOURCE_TWOLEVEL, 979, "K4"))] + [{
@@ -5135,6 +5370,7 @@ def main():
         **({f"launches_{k}": design18[k]["K5"]
             for k in ("asphere", "config2", "strehl")}
            if key == "K5" else {}),
+        **(by_example(key) if key in ("K5", "K6") else {}),
     } for name, source, line, key in (
         ("segment_search", gk.SOURCE, 705, "K5"),
         ("arc_search", ak.SOURCE, 367, "K6"),

@@ -13,8 +13,10 @@ the torch-optimizer stage (``Optimizer(optax_tx=...)``) and the
 physical-optics analysis that run the asphere singlet, BASELINE config 2,
 the Strehl lens and the hexalens image-quality test, and the classical
 lens design that runs the Cooke triplet, the lens report, the best-form
-singlet and the sequential-against-mesh trace, and the goals, the
-checkpoint and the reference's stateful facade:
+singlet and the sequential-against-mesh trace, the goals, the
+checkpoint and the reference's stateful facade, and the last examples
+(the reaction designs, tolerancing and the design sweep, the source
+demos, the guide benchmark):
 
   system      the stateful facade (OpticalSystem2D / OpticalSystem3D,
               OpticalEngine, SGD_Optimizer) over update.RecursivelyUpdatable;
@@ -84,6 +86,13 @@ checkpoint and the reference's stateful facade:
               best-form singlet of tests/test_lsq.py
   streamed    the streamed guide trace and training, the sharded guide
               training and the multi-process dryrun
+  physics2d   the 2D reaction examples: examples/fresnel_intensity.py,
+              spectrometer.py, fresnel_rhomb.py, ar_coating.py,
+              wavefront_lens.py, achromat.py, hybrid_achromat.py;
+              populations: tolerancing.py and design_sweep.py (each
+              candidate traced in turn); source_demos:
+              source_rotation_roll.py, cdf_demo.py, source_gallery.py;
+              scenes3d.guide_trace_bench: guide_trace_bench.py
   utils/      rotations, NumPy conversion (rays, surfaces, parameters,
               asphere stacks, reaction tables, JAX keys, a JAX
               checkpoint's state), checkpoint and resume of an optimizer

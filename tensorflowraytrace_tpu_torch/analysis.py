@@ -499,7 +499,8 @@ def zernike_fit(pupil_points, opd, n_terms=15, pupil_radius=None,
     there.  Coordinates are normalised by ``pupil_radius`` (default: the
     largest radius present) about ``center`` (default: the centroid).
     Returns ``(coeffs, residual_rms)``, the Noll-ordered coefficients in
-    the OPD's units and the RMS left unexplained.  Differentiable: the
+    the OPD's units (the least-squares solution of least norm) and the
+    RMS left unexplained.  Differentiable: the
     squared radius is clamped and atan2 given a safe x at the pupil's
     exact centre."""
     pts = torch.as_tensor(pupil_points)
@@ -517,7 +518,11 @@ def zernike_fit(pupil_points, opd, n_terms=15, pupil_radius=None,
     theta = torch.atan2(torch.where(at_center, torch.zeros_like(rel[:, 1]),
                                     rel[:, 1]), safe_x)
     basis = zernike_basis(rho, theta, n_terms)
-    coeffs = torch.linalg.lstsq(basis, opd[:, None]).solution[:, 0]
+    # the minimum-norm solution, as jnp.linalg.lstsq gives it (singular
+    # values below eps max(N, n_terms) of the largest cut): a pupil that
+    # leaves terms undetermined, such as a 2D scene's line of rays, still
+    # has one answer, on the CPU and on CUDA (whose lstsq assumes full rank)
+    coeffs = torch.linalg.pinv(basis) @ opd
     residual = opd - basis @ coeffs
     return coeffs, torch.sqrt(torch.mean(residual * residual))
 

@@ -394,8 +394,8 @@ def connections_to_array(connection_list, dtype=np.float64) -> np.ndarray:
     n = len(connection_list)
     arr = np.eye(n, dtype=dtype)
     for i, row in enumerate(connection_list):
-        for j in row:
-            arr[i, j] += 1.0
+        # a row's indices are distinct (a set), so one fancy add is exact
+        arr[i, np.fromiter(row, dtype=np.intp, count=len(row))] += 1.0
     return arr
 
 

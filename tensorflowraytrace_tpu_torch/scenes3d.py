@@ -52,6 +52,13 @@ one on the rim only itself) and the smoother (a spike relaxes), on the
 host; the four panels drawn when given a path.
 
     out = mesh_graph_tools("mesh_graph_tools.png")
+
+And ``examples/guide_trace_bench.py``: ``bench.py``'s structured guide
+(``structured_guide``: 16,386 triangles, 2^20 rays) traced 24 bounces
+deep through the ``"grid"`` + re-sort (K4), ``cull=True`` ± re-sort (K3)
+and brute (K1) searches, each timed, their checksums equal.
+
+    out = guide_trace_bench()         # ms, rates and checksums by mode
 """
 
 from __future__ import annotations
@@ -554,4 +561,100 @@ def mesh_graph_tools(png=None):
         ax4.plot(z3[order], label="3 passes")
         ax4.legend()
         fig.savefig(png, dpi=100)
+    return out
+
+
+# ----------------------------------------------------------------------
+# the structured guide of bench.py and examples/guide_trace_bench.py
+# ----------------------------------------------------------------------
+
+GUIDE_MODES = (("grid+resort", dict(cull="grid", resort_rays=True)),
+               ("block+resort", dict(cull=True, resort_rays=True)),
+               ("block", dict(cull=True, resort_rays=False)),
+               ("brute", dict(cull=False, resort_rays=False)))
+
+
+def structured_guide(n_rays=1 << 20, theta_res=64, z_res=128,
+                     dtype=torch.float32, device=None):
+    """``bench.py``'s and ``examples/guide_trace_bench.py``'s structured
+    scene: a cylindrical light guide from z = 0 to 40 (radius tapering
+    0.7 -> 0.3; ``theta_res`` x ``z_res`` facets, capped: 16,386
+    triangles at the defaults), Morton-sorted, acrylic inside, a
+    0.7 x 0.7 target at z = 40.05, and ``n_rays`` rays from a disc of
+    radius 0.2 at z = 0.1, forward-biased down the guide (575 nm; numpy
+    seed 0).  Returns ``(rays, scene)``."""
+    device = resolve_device(device)
+    guide = bd.ParametricCylindricalGuide(
+        (0.0, 0.0, 0.0), (0.0, 0.0, 40.0), minimum_radius=0.3,
+        theta_res=theta_res, z_res=z_res, rotationally_symmetric=True,
+        initial_taper=(0.7, 0.0), mat_in=1, mat_out=0, dtype=dtype,
+        device=device)
+    with torch.no_grad():
+        surf, _ = morton_sort_triangles(guide.build())
+    half = 0.35
+    target = TriangleSet.make(
+        [[-half, -half, 40.05], [half, half, 40.05]],
+        [[half, -half, 40.05], [-half, half, 40.05]],
+        [[half, half, 40.05], [-half, -half, 40.05]], dtype=dtype,
+        device=device)
+    scene = Scene3D.build(optical=[surf], targets=[target])
+    rng = np.random.default_rng(0)
+    r = 0.2 * np.sqrt(rng.uniform(0, 1, n_rays))
+    th = rng.uniform(0, 2 * math.pi, n_rays)
+    p0 = np.stack([r * np.cos(th), r * np.sin(th), np.full(n_rays, 0.1)],
+                  1).astype(np.float32)
+    d = rng.normal(0, 1, (n_rays, 3))
+    d[:, 2] = np.abs(d[:, 2]) * 3 + 1   # forward-biased: down the guide
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = RaySet.make(p0, p0 + d.astype(np.float32), 575.0, dtype=dtype,
+                       device=device)
+    return rays, scene
+
+
+def guide_trace_bench(n_rays=1 << 20, bounces=24, theta_res=64, z_res=128,
+                      reps=3, use_kernel=None, dtype=torch.float32,
+                      device=None, verbose=True):
+    """``examples/guide_trace_bench.py``: the structured guide traced to
+    ``bounces`` under each of ``GUIDE_MODES`` (``"grid"`` + re-sort: K4;
+    ``cull=True`` ± re-sort: K3; brute: K1; the kernels where
+    ``use_kernel``, by default exactly on the card), each timed by the
+    median of ``reps`` synchronised traces after one, and the example's
+    check: the four checksums (the sum of the final endpoints, at full
+    precision) equal.  Children start ``start_epsilon`` past their surface.
+    Returns ``{mode: {"ms", "equiv_per_s", "checksum"}}`` and the
+    scene's size."""
+    device = resolve_device(device)
+    rays, scene = structured_guide(n_rays, theta_res, z_res, dtype, device)
+    m = scene.triangles.n_surfaces
+    if use_kernel is None:
+        use_kernel = device.type == "cuda"
+    eps = start_epsilon(scene)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    out = {"n_rays": n_rays, "triangles": m, "bounces": bounces, "modes": {}}
+    with torch.no_grad():
+        for name, kw in GUIDE_MODES:
+            cfg = TraceConfig(max_bounces=bounces, use_kernel=use_kernel,
+                              ray_start_epsilon=eps, **kw)
+            times = []
+            for rep in range(reps + 1):   # the first is not timed
+                sync()
+                t0 = time.perf_counter()
+                checksum = float(trace(rays, scene, MATERIALS,
+                                       cfg).rays.p1.sum())
+                times.append(time.perf_counter() - t0)
+            per = float(np.median(times[1:])) if reps else times[0]
+            out["modes"][name] = {"ms": per * 1e3, "checksum": checksum,
+                                  "equiv_per_s": n_rays * m * bounces / per}
+            if verbose:
+                print(f"{name:14s}: {per * 1e3:9.3f} ms -> "
+                      f"{n_rays * m * bounces / per / 1e9:7.2f} G equiv int/s "
+                      f"(checksum {checksum!r})", flush=True)
+    checksums = {repr(v["checksum"]) for v in out["modes"].values()}
+    if len(checksums) != 1:
+        raise AssertionError(f"guide_trace_bench: modes disagree: "
+                             f"{checksums}")
     return out

@@ -1,8 +1,8 @@
 """The rest of the mesh tools (``models/mesh.py``) against the JAX package:
 host-side NumPy and SciPy, so every result is exactly equal.
 
-* ``find_all_relationships`` and ``gradient_accumulator`` on a hexagon and
-  a capped cylinder;
+* ``find_all_relationships``, ``gradient_accumulator`` and
+  ``mesh_parametrization_tools`` on a hexagon and a capped cylinder;
 * ``get_flat_initial``, ``planar_interpolated_remesh`` (flattened and
   inflated), ``clean_mesh`` and ``clean_mesh_raw`` on a mesh with
   duplicated vertices and degenerate and repeated faces;
@@ -58,6 +58,19 @@ def test_relationships_and_accumulator_match_jax(name):
     t_acc, t_data = t_mesh.gradient_accumulator(port(mesh), (0.1, 0.0, 0.2))
     np.testing.assert_array_equal(t_acc, j_acc)
     assert t_data == j_data
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_parametrization_tools_match_jax(name):
+    """The vertex update map and the ancestor accumulator (the dense matrix
+    ``connections_to_array`` fills row by row) equal the JAX package's
+    loop, entry for entry."""
+    mesh = MESHES[name]()
+    j_map, j_acc = j_mesh.mesh_parametrization_tools(mesh, 0)
+    t_map, t_acc = t_mesh.mesh_parametrization_tools(port(mesh), 0)
+    np.testing.assert_array_equal(t_map, j_map)
+    np.testing.assert_array_equal(t_acc, j_acc)
+    assert t_acc.sum() > t_acc.shape[0]  # some vertex has an ancestor
 
 
 def dirty_mesh(rng):

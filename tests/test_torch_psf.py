@@ -195,6 +195,21 @@ def test_zernike_basis_and_fit_match_jax(rng):
     assert torch.isfinite(g).all()
 
 
+def test_zernike_fit_of_a_pupil_line_is_the_least_norm_one(rng):
+    """A 2D scene's pupil is a line of points (x = 0): 11 Zernike terms are
+    not all determined there, and the fit is the least-norm solution that
+    ``jnp.linalg.lstsq`` returns (examples/wavefront_lens.py's fit)."""
+    ys = np.linspace(-1.0, 1.0, 48)
+    pts = np.stack([np.zeros_like(ys), ys], axis=1)
+    opd = 0.02 * ys ** 2 - 0.005 * ys ** 4 + 1e-3 * rng.normal(size=48)
+    j_c, j_r = jax.jit(j_an.zernike_fit, static_argnums=(2, 3, 4))(
+        jnp.asarray(pts), jnp.asarray(opd), 11, 1.0, (0.0, 0.0))
+    t_c, t_r = t_an.zernike_fit(torch.as_tensor(pts), torch.as_tensor(opd),
+                                11, pupil_radius=1.0, center=(0.0, 0.0))
+    close(t_c, j_c, 1e-9, 1e-13)
+    close(t_r, j_r, 1e-9, 1e-14)
+
+
 def test_encircled_energy_and_mtf_from_psf_match_jax():
     src, opl, amp, _ = wavefront()
     gy, gx = np.meshgrid(np.linspace(-8e-3, 8e-3, 16),
