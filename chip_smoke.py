@@ -40,16 +40,19 @@ exits non-zero without printing a result):
    work these inputs need, the pairs that fail on tu alone
    (``triangle_kernels.pairs_out_on_tu``) charged the 24 operations before
    the reject test refuses them; each with its floor without FMAs.
-6. K2 (the segment sum) against float64 ``index_add_`` at the flagship's,
-   the soup's and ragged shapes, with k = 13, and at the 2D guide
-   backward's (2^20 rays, the 512-arc table, k = 4: the cotangents and
-   rows of the K2 call of phase 14's backward whose rays hit the most
-   arcs, and each call's share of rays with a zero cotangent, printed):
-   elementwise
-   ``|K2 - ref64| <= 1e-5 S + 1e-7``, ``S[j] = sum over idx[i] == j of
-   |ct[:, i]|``; K2 (by CUDA events, and by device time after phase 14),
-   its plain version and ``index_add_`` timed at (2^20, 770), (2^20,
-   4096), one row of 770 and the 2D guide's shape.
+6. K2 (the segment sum, which adds in a fixed order: tiles of 1024 rays,
+   each row's rays in order, then its tile sums in order) against its
+   plain version at the flagship's, the soup's, the global tables' and
+   ragged shapes, with k = 13, and at the 2D guide backward's (2^20 rays,
+   the 512-arc table, k = 4: the cotangents and rows of the K2 call of
+   phase 14's backward whose rays hit the most arcs, and each call's share
+   of rays with a zero cotangent, printed): bit for bit in float32, and 10
+   launches on the same inputs bit for bit; beside that elementwise
+   ``|K2 - ref64| <= 1e-5 S + 1e-7`` against float64, ``S[j] = sum over
+   idx[i] == j of |ct[:, i]|``; K2 (by CUDA events, and by device time
+   after phase 14), its plain version (on the host), ``index_add_`` and
+   ``index_add_`` under ``torch.use_deterministic_algorithms`` timed at
+   (2^20, 770), (2^20, 4096), one row of 770 and the 2D guide's shape.
 7. the flagship's training routine at the scale of
    examples/simple_3d_optimize.py through flagship.train() (2025 rays,
    217-vertex surfaces, 3 bounces, 150 steps in three chained phases): K1
@@ -57,8 +60,8 @@ exits non-zero without printing a result):
    mean error of the last 10 steps is below that of the first 10.
 8. one training step of the flagship at bench width (1024 x 1024 = 2^20
    rays, 3 bounces): median of 5 synchronised steps; the gradient through
-   K2 against the plain ``index_add_`` backward of the same forward within
-   1e-4 of its max norm; the loss against the all-plain path (Cramer search)
+   K2 against the plain backward of the same forward bit for bit; the
+   loss against the all-plain path (Cramer search)
    within rtol 1e-4; K2's share of device time (torch.profiler) and the
    peak device memory.
 
@@ -146,8 +149,8 @@ exits non-zero without printing a result):
    dead_ray_length=10)``: the configuration it chose; one forward and
    backward pass of the landing loss (a ``landing_sum_fold``) with respect
    to the lenslets' centres and radii with ``remat=True`` and with
-   ``remat=False``: the two gradients within 1e-4 of their max norm (K2's
-   atomics make them differ), each search kernel of the chosen path
+   ``remat=False``: the two gradients bit for bit (the recomputed forward
+   and K2 repeat their bits), each search kernel of the chosen path
    launched exactly 50 times in each (the backward searched nothing), the
    median of 3 synchronised passes and the peak memory of each; then one
    ``early_exit=True`` trace under ``torch.no_grad()``: its final
@@ -164,8 +167,9 @@ exits non-zero without printing a result):
    hexalens (``hexalens.problem``: 2000 rays, mesh edge 0.08, 3 bounces,
    float32) at its initial lens on identical rays: each K1 call bit for
    bit with its plain version, the loss within rtol 1e-4 and the gradient
-   within 1e-4 of its max norm of the plain path's (Cramer search,
-   ``index_add_`` backward); ``hexalens.train`` at the example's defaults
+   within 1e-4 of its max norm of the plain path's (its Cramer search
+   computes the hits another way; the plain K2); ``hexalens.train`` at the
+   example's defaults
    (150 steps in two chained phases): K1 and K2 launch 3 times a step, the
    error falls (the mean of the last 10 steps below the first 10's, and on
    a fixed sample of rays), one step profiled for its idle share; both
@@ -178,11 +182,12 @@ exits non-zero without printing a result):
    ``streamed`` module): 16a ``streamed.GuideTrace`` (examples/
    streamed_trace.py: the 16386-triangle guide, 24 bounces, float32,
    ``TraceConfig.recommended``, so K3 with the re-sort): one 2^22-ray
-   block's trace alone for its peak memory, then streams of 2^25, 2^26 and
-   2^27 rays in blocks of 2^22, each timed (rays/s, equivalent
-   intersections/s), its state counts summing to its rays, K3 launched 24
-   times a block, the times linear (``streamed.check_linear``), the 2^27
-   stream's peak memory at most 1.25 x the one block's; a 2-block stream
+   block's trace alone for its peak memory, then streams of 2^24, 2^25 and
+   2^26 rays (the example's 2^27 cut for the time limit) in blocks of
+   2^22, each timed (rays/s, equivalent intersections/s), its state counts
+   summing to its rays, K3 launched 24 times a block, the times linear
+   (``streamed.check_linear``), the 2^26 stream's peak memory at most 1.25
+   x the one block's; a 2-block stream
    of 2^20-ray blocks with a per-ray ``path_length_fold`` under
    ``merge="concat"`` equal to one trace of the same 2^21 rays bit for bit
    (states equal, the landing sum within rtol 1e-5).  16b
@@ -195,13 +200,14 @@ exits non-zero without printing a result):
    launched 12 times a block (the backward searches nothing), K2's
    launches a block, ms a step and the peak memory; at 2 blocks of 2^20
    ``streamed_value_and_grad`` against autograd of the fused sum: the
-   value within rtol 1e-5, the gradient within 1e-4 of its max norm.  16c ``streamed.sharded_guide``
+   value and the gradient bit for bit.  16c ``streamed.sharded_guide``
    (examples/sharded_light_guide.py: 10 steps of 2^20 rays) through
    ``Optimizer(mesh=...)`` on a one-rank NCCL group against the
-   single-process optimizer, run twice: step 0's loss equal in all three,
-   one step's parameters within 1e-4 of the update (K2's atomics), a later
-   step's loss below the first, each step's loss difference beside the
-   single process's own from run to run, ms a step; then ``streamed.dryrun`` with two gloo ranks on the
+   single-process optimizer, run twice: every step's loss and the final
+   parameters bit for bit in all three (K2 adds in a fixed order; the
+   one-rank all-reduce is a copy), one step's parameters bit for bit, a
+   later step's loss below the first, ms a step; then
+   ``streamed.dryrun`` with two gloo ranks on the
    one card (size "card": ``parallel_trace`` of the 16386-triangle guide at
    2^21 rays, ``parallel_trace_streamed``,
    ``parallel_streamed_value_and_grad`` over 4 blocks of 2^20 through the
@@ -211,7 +217,8 @@ exits non-zero without printing a result):
    depth, value, gradient and step within 1e-4 of their largest
    magnitude.  No multi-GPU speed is measured.
 17. the reactions at the JAX examples' sizes: 17a ``scenes3d.caustic_render``
-   (examples/caustic_render.py: 2^27 sun rays in 2^22-ray blocks through
+   (examples/caustic_render.py: 2^26 sun rays, the example's 2^27 cut for
+   the time limit, in 2^22-ray blocks through
    the 124,416-triangle water surface and the 2-triangle floor, 2 bounces,
    float32, ``fresnel_intensity_reaction``, the intensity-weighted 512 x
    512 landing image, ``TraceConfig.recommended``, so K3 with the
@@ -252,8 +259,8 @@ exits non-zero without printing a result):
    three spot evaluations, K2 the same each step), ms a step by CUDA
    events over 100 steps, 20 steps profiled (idle share; K5, K2 and the
    rest), then 5 steps each held against the plain K5 and K2 (every K5
-   call bit for bit, the loss equal, the gradient within 1e-4 of the
-   plain backward's max norm); 18b ``scenes2d.multisegment_lens``
+   call bit for bit, the loss and the gradient bit for bit); 18b
+   ``scenes2d.multisegment_lens``
    (BASELINE config 2: 68 rays, the two-surface multi-segment lens, 4
    bounces, 61 steps): the test's three checks (the thickness with a
    1e-6 float32 margin), launches, ms a step, one step against the plain
@@ -309,13 +316,13 @@ exits non-zero without printing a result):
    20b the flagship (2025 rays, 770
    triangles, 3 bounces) in ``OpticalSystem3D``: ``SGD_Optimizer`` and
    ``optim.Optimizer`` on the same loss built functionally, 10 steps of
-   the design's first phase each from one generator seed: step 0's loss
-   equal, the parameters within 1e-4 of their max norm (K2's atomics), K1
-   and K2 3 times a step, the parameters written back into the lens; one
-   forward + backward of the facade's loss with K1 and K2 and with their
-   plain versions (K1's calls and the loss equal, the gradient within
-   1e-4 of the plain max norm); ms a step (the median of 10 synchronised
-   steps, in turns) and the idle share (``profiled_steps``) of each.
+   the design's first phase each from one generator seed: every step's
+   loss equal and the parameters bit for bit, K1 and K2 3 times a step,
+   the parameters written back into the lens; one forward + backward of
+   the facade's loss with K1 and K2 and with their plain versions (K1's
+   calls, the loss and the gradient bit for bit); ms a step (the median
+   of 10 synchronised steps, in turns) and the idle share
+   (``profiled_steps``) of each.
    20c examples/stepwise_optimize.py (the single arc, K5, K6 and K2)
    checkpointed every 10 steps, rebuilt, resumed, with the Nesterov stage
    and with Adam under a LambdaLR: the restored state equal to the saved
@@ -336,7 +343,9 @@ exits non-zero without printing a result):
    rays, 770 triangles, 3 bounces; K1) bit for bit, a half-size call
    refused; the flagship loss's value and gradient through
    ``export.value_and_grad`` (a joint program; K1, K2): the loss equal,
-   the gradient within 1e-4 of the live max norm; phase 13's 2D guide at
+   the gradient within 1e-4 of the live max norm (the program decomposes
+   ``torch.linalg.cross``, whose backward adds in another order than
+   eager's); phase 13's 2D guide at
    full width, brute at 4 bounces (K5, K6), ``cull=True`` and ``"grid"``
    at 2 (K7, K8; K9, K10); phase 10's 3D guide under ``recommended`` (K3)
    and ``"grid"`` (K4) at 2: each bit for bit; each export's seconds and
@@ -363,7 +372,8 @@ exits non-zero without printing a result):
    designs, each a probe that fails the phase where the cut design
    would pass its budget, and of the sweep's refinement; one forward and
    backward of the hybrid design with the kernels and with their plain
-   versions, every K5 and K6 call bit for bit; 22c ``guide_trace_bench``
+   versions, every K5 and K6 call, the loss and the gradient bit for bit;
+   22c ``guide_trace_bench``
    (2^20 rays, 16,386 triangles, 24 bounces: ``"grid"`` + re-sort on K4,
    ``cull=True`` ± re-sort on K3, brute on K1), its four checksums equal.
    The kernels line gives K1-K6 ``launches_examples``.
@@ -375,16 +385,17 @@ the nvidia-smi line, and as the last line ``{"ok": true, "device":
 {...}}``.
 
 ``python3 chip_smoke.py --tune`` runs phases 1 and 2, times K2 at phase
-6's timed shapes built at each of ``SEGSUM_VARIANTS`` (its rays a lane,
-columns loaded ahead and blocks an SM, with and without its warp
-aggregation), times K1 alone at the soup's and the guide's first bounce
-at 1 and 4 rays a thread and K4 alone at the guide's first bounce at every ray
-block, then sweeps K4's ray block and candidate cap on the guide and the
-sorted soup; times K7 and K8 at 128-1024 rays a block, alone at the 2D
-guide's first bounce and in its ``cull=True`` traces; times K9 alone at
-the 2D guide's first bounce at every ray block, then sweeps K9's and
-K10's ray block and cap on the 2D guide (median of 3 traces each, every
-setting checked against the brute trace), and prints no result line.
+6's timed shapes built at each of ``SEGSUM_VARIANTS`` (the columns a tile
+stages, its tile pass's launch bound, the loads issued ahead of their adds
+and the threads a row, none of which changes its bits), times K1 alone at
+the soup's and the guide's first bounce at 1 and 4 rays a thread and K4
+alone at the guide's first bounce at every ray block, then sweeps K4's ray
+block and candidate cap on the guide and the sorted soup; times K7 and
+K8 at 128-1024 rays a block, alone at the 2D guide's first bounce and in
+its ``cull=True`` traces; times K9 alone at the 2D guide's first bounce
+at every ray block, then sweeps K9's and K10's ray block and cap on the
+2D guide (median of 3 traces each, every setting checked against the
+brute trace), and prints no result line.
 ``python3 chip_smoke.py --arcs-alone`` runs phases 1 and 2 and times K6
 and K8 launched alone at the 2D guide's first bounce (see
 ``arcs_alone``); ``--segsum-alone`` times K2 at phase 6's timed shapes
@@ -428,16 +439,20 @@ SEGSUM_CASES = [
     ("guide2d_backward", 1 << 20, 512, 4, "guide2d"),
 ]
 SEGSUM_TIMED = ("flagship_bench", "soup", "one_row", "guide2d_backward")
-# --tune: K2 rebuilt from segment_sum.cu with its shared branch's rays a
-# lane and the blocks an SM its launch bound asks for (shared_launch's
-# choice) forced to each of these, at 8 or 16 cotangent columns loaded
-# ahead, with and without its warp aggregation (the match where two
-# neighbouring lanes share a row); one build each, timed at SEGSUM_TIMED
-# beside the source as it stands
+# calls timed of K2's plain version (on the host) and of index_add_ under
+# torch.use_deterministic_algorithms (up to 0.26 s a call on one row)
+K2_SLOW_REPS = 3
+# --tune: K2 rebuilt from segment_sum.cu with its columns a tile stages at
+# a time (kStageCols), the blocks an SM its tile pass's launch bound asks
+# for (kTileMinBlocks), the loads issued ahead of their adds (kUnroll) and
+# the threads of its pass over the rows (kRowThreads) set to each of these;
+# none changes the order of the adds.  One build each, timed at
+# SEGSUM_TIMED beside the source as it stands
 SEGSUM_VARIANTS = tuple(
-    {"rays": rays, "min_blocks": blocks, "kCols": cols, "aggregate": agg}
-    for rays, blocks in ((1, 2), (2, 2), (2, 1), (1, 1)) for cols in (8, 16)
-    for agg in (True, False))
+    {"kStageCols": cols, "kTileMinBlocks": blocks, "kUnroll": unroll,
+     "kRowThreads": threads}
+    for cols in (8, 16) for blocks in (2, 3) for unroll in (4, 8)
+    for threads in (128, 256))
 
 # phases 7 and 8: the flagship's training (examples/simple_3d_optimize.py)
 TRAIN_STEPS = 150
@@ -501,10 +516,10 @@ HEX_IMAGE_BATCHES = 5
 HEX_IMAGE_BINS = 64
 # phase 16: examples/streamed_trace.py, streamed_training.py and
 # sharded_light_guide.py at their own sizes
-STREAM_RAYS = 1 << 27
+STREAM_RAYS = 1 << 26     # the example's 2^27, cut for the time limit
 STREAM_BLOCK = 1 << 22
 STREAM_BOUNCES = 24
-STREAM_SIZES = 3          # 2^25, 2^26 and 2^27 rays
+STREAM_SIZES = 3          # 2^24, 2^25 and 2^26 rays
 STREAM_EXACT_BLOCK = 1 << 20
 STREAM_PEAK_RATIO = 1.25
 TRAIN_STREAM_RAYS = 1 << 23
@@ -515,7 +530,7 @@ SHARDED_RAYS = 1 << 20
 SHARDED_STEPS = 10
 SHARDED_BOUNCES = 12
 # phase 17: examples/caustic_render.py, stray_light.py, ghost_analysis.py
-CAUSTIC_RAYS = 1 << 27
+CAUSTIC_RAYS = 1 << 26    # the example's 2^27, cut for the time limit
 CAUSTIC_BLOCK = 1 << 22
 CAUSTIC_RES = 512
 CAUSTIC_MESH_STEPS = 144
@@ -569,7 +584,6 @@ LSQ_RTOL = 1e-8            # the card's float64 solve against the CPU's (19d)
 FACADE_TIMED = 10          # synchronised runs a way, after one warm-up
 FACADE_STEPS = 10          # 20b's steps of each optimizer
 FACADE_PROFILED = 5
-FACADE_PARAM_RTOL = 1e-4   # 20b: K2's atomics, as phase 16c
 STEPWISE_DRIFT = 1e-9      # 20c: the example's own bound
 PIPELINE_ATOL = 1e-12      # 20d: host NumPy on the same inputs
 # 20a replays the guide trace's 50 K5 and 50 K6 calls through the plain
@@ -607,6 +621,24 @@ DISPATCH_TIMED = 10
 def check(cond, message):
     if not cond:
         raise RuntimeError(f"chip_smoke: {message}")
+
+
+def same_bits(a, b):
+    """``a`` and ``b`` of one shape and dtype hold the same bits (-0 is not
+    +0; two NaNs match only with one payload)."""
+    import torch
+
+    def raw(t):
+        return t.detach().contiguous().reshape(-1).view(torch.uint8)
+
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        raw(a), raw(b))
+
+
+def grads_same_bits(got, want):
+    """Every tensor of ``got`` holds the bits of its partner in ``want``."""
+    return len(got) == len(want) and all(
+        same_bits(a, b) for a, b in zip(got, want))
 
 
 def card():
@@ -988,39 +1020,51 @@ def segsum_case(label, device, guide2d=None):
     return (*segsum_inputs(n, m, k, pattern, device), m)
 
 
-def compare_k2(label, ct, idx, m, prefix="phase 6 K2", kernel=None):
-    """K2 (or ``kernel``, with its arguments) against float64 index_add_
-    (phase 6 criterion) on the (k, N) cotangents ``ct`` and rows ``idx``;
-    returns max |K2 - ref64|.  These launches are comparisons."""
+def compare_k2(label, ct, idx, m, prefix="phase 6 K2", kernel=None,
+               exact=True):
+    """K2 (or ``kernel``, with its arguments) against its plain version on
+    the (k, N) cotangents ``ct`` and rows ``idx``: bit for bit in float32,
+    and 10 launches on the same inputs give the same bits (both printed,
+    and checked where ``exact``); its distance to float64 ``index_add_``
+    within ``1e-5 S + 1e-7``.  Returns max |K2 - ref64|.  These launches
+    are comparisons."""
     import torch
 
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
 
     kernel = kernel or sk.segment_sum_kernel
-    (k, n), device = ct.shape, ct.device
+    k, n = ct.shape
     got = kernel(ct, idx, m)
-    again = kernel(ct, idx, m)
+    runs = [kernel(ct, idx, m) for _ in range(9)]
     torch.cuda.synchronize()
+    repeated = all(same_bits(r, got) for r in runs)
+    plain32 = sk.segment_sum_plain(ct, idx, m)
+    equal = same_bits(got, plain32)
     ref64 = sk.segment_sum_plain(ct.double(), idx, m)
     scale = sk.segment_sum_plain(ct.double().abs(), idx, m)
-    plain32 = sk.segment_sum_plain(ct, idx, m)
     err = (got.double() - ref64).abs()
     worst = float((err - (1e-5 * scale + 1e-7)).max())
-    check(worst <= 0.0, f"K2 {label}: exceeds 1e-5 S + 1e-7 by {worst}")
     max_err = float(err.max())
-    plain_err = float((plain32.double() - ref64).abs().max())
     print(f"{prefix} {label}: N={n} m={m} k={k} "
-          f"branch={sk.branch(m, k, device)} max_abs_err={max_err} "
-          f"max_rel_to_S={float((err / (scale + 1e-30)).max()):.3e} "
-          f"plain_f32_max_abs_err={plain_err} "
-          f"two_runs_bitwise_equal={torch.equal(got, again)}", flush=True)
+          f"equal_to_plain_bit_for_bit={equal} "
+          f"ten_launches_bit_for_bit={repeated} max_abs_err={max_err} "
+          f"max_rel_to_S={float((err / (scale + 1e-30)).max()):.3e}",
+          flush=True)
+    check(equal or not exact, f"K2 {label}: differs from its plain version "
+          f"in {int((got != plain32).sum())} entries")
+    check(repeated or not exact,
+          f"K2 {label}: 10 launches on the same inputs differ")
+    check(worst <= 0.0, f"K2 {label}: exceeds 1e-5 S + 1e-7 by {worst}")
     return max_err
 
 
 def time_k2(ct, idx, m, reps=50, kernel=None):
     """K2's wrapper (or ``kernel``) on ``(ct, idx)``: ms a call by CUDA
     events, which count the host's issue when it is slower than the
-    kernel, and by device time (its kernel alone, ``kernel_device_ms``)."""
+    kernel, and by device time (its kernels alone, ``kernel_device_ms``;
+    None if not measured), and the device time split by kernel (a text)."""
+    import re
+
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
 
     kernel = kernel or sk.segment_sum_kernel
@@ -1028,48 +1072,45 @@ def time_k2(ct, idx, m, reps=50, kernel=None):
     def fn():
         return kernel(ct, idx, m)
 
-    return cuda_ms(fn, reps), kernel_device_ms(fn, "segment_sum", reps)
+    split = kernel_device_split(fn, "segment_sum", reps)
+    short = {k: (re.search(r"segment_sum_([a-z]+)(?:E|\()", k) or [k, k])[1]
+             for k in split}
+    parts = ", ".join(f"{short[k]} {v:.5f}" for k, v in split.items())
+    return (cuda_ms(fn, reps), sum(split.values()) if split else None,
+            parts or "not measured")
 
 
 def segsum_alone(device):
     """``--segsum-alone``: K2 at phase 6's timed shapes, each checked with
     phase 6's criterion, by CUDA events and by device time.  It calls
-    ``segsum_kernels``' ``segment_sum_kernel`` and ``branch`` alone, whose
-    arguments are the same in every version of the port: copied into the
-    root of an earlier checkout, the script times that checkout's K2 the
-    same way."""
+    ``segsum_kernels``' ``segment_sum_kernel`` and ``segment_sum_plain``
+    alone, whose arguments are the same in every version of the port:
+    copied into the root of an earlier checkout, the script times that
+    checkout's K2 the same way (a K2 from before the fixed order, without
+    ``segsum_kernels.TILE``, is held to the float64 bound alone)."""
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+
     guide2d = guide2d_backward(device)
     for label in SEGSUM_TIMED:
         ct, idx, m = segsum_case(label, device, guide2d)
-        compare_k2(label, ct, idx, m, prefix="K2 alone")
-        ms, dev = time_k2(ct, idx, m)
+        compare_k2(label, ct, idx, m, prefix="K2 alone",
+                   exact=hasattr(sk, "TILE"))
+        ms, dev, parts = time_k2(ct, idx, m)
         dev_ms = "not measured" if dev is None else f"{dev:.5f} ms"
         print(f"K2 alone {label}: kernel {ms:.5f} ms by CUDA events, "
-              f"device time {dev_ms}", flush=True)
+              f"device time {dev_ms} (ms by kernel: {parts})", flush=True)
 
 
 def segsum_variant_source(text, variant):
-    """``segment_sum.cu``'s ``text`` with its shared branch's launch, its
-    columns and its aggregation set as ``variant`` (of
-    ``SEGSUM_VARIANTS``) says, or as it stands for None; each replaced
-    piece must occur once."""
+    """``segment_sum.cu``'s ``text`` with the constants of ``variant`` (of
+    ``SEGSUM_VARIANTS``) set, or as it stands for None; each replaced
+    constant must occur once."""
     import re
 
-    def replace(pattern, value):
-        nonlocal text
-        text, count = re.subn(pattern, value, text, flags=re.DOTALL)
-        check(count == 1, f"segment_sum.cu: {pattern!r} found {count} times")
-
-    if variant is None:
-        return text
-    replace(r"(Launch shared_launch\(int k, int fit\) \{\n).*?\n\}",
-            rf"\g<1>  return {{{variant['rays']}, {variant['min_blocks']}}};"
-            "\n}")
-    replace(r"constexpr int kCols = \d+;",
-            f"constexpr int kCols = {variant['kCols']};")
-    if not variant["aggregate"]:
-        replace(r"__ballot_sync\(kFull, key >= 0 && key == beside\)",
-                "__ballot_sync(kFull, false)")
+    for name, value in (variant or {}).items():
+        text, count = re.subn(rf"constexpr int {name} = \d+;",
+                              f"constexpr int {name} = {value};", text)
+        check(count == 1, f"segment_sum.cu: {name} found {count} times")
     return text
 
 
@@ -1103,8 +1144,7 @@ def segsum_variants(device):
     the variants' order and then in reverse, so that a drift of the card
     shows."""
     import ctypes
-
-    import torch
+    import functools
 
     from tensorflowraytrace_tpu_torch.ops import cuda_build
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
@@ -1114,12 +1154,11 @@ def segsum_variants(device):
     folder.mkdir(parents=True, exist_ok=True)
     names, jobs = [], []
     for v in (None, *SEGSUM_VARIANTS):
-        name = ("as built (shared_launch's choice)" if v is None else
-                f"{v['rays']} rays a lane, {v['min_blocks']} blocks an SM, "
-                f"{v['kCols']} columns, "
-                f"{'aggregated' if v['aggregate'] else 'no aggregation'}")
-        tag = ("built" if v is None else f"r{v['rays']}_b{v['min_blocks']}_"
-               f"c{v['kCols']}_a{int(v['aggregate'])}")
+        name = ("as built" if v is None else
+                ", ".join(f"{k} {x}" for k, x in v.items()))
+        tag = ("built" if v is None else
+               f"c{v['kStageCols']}_b{v['kTileMinBlocks']}_u{v['kUnroll']}_"
+               f"t{v['kRowThreads']}")
         src, lib = folder / f"{tag}.cu", folder / f"{tag}.so"
         src.write_text(segsum_variant_source(text, v))
         cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
@@ -1134,21 +1173,8 @@ def segsum_variants(device):
         check(proc.returncode == 0, f"nvcc failed: {' '.join(cmd)}\n{report}")
         print(f"K2 variant {name}: ptxas {ptxas_summary(report)}",
               flush=True)
-        clib = ctypes.CDLL(str(lib))
-        clib.segment_sum_launch.argtypes = [ctypes.c_void_p] * 2 \
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-        clib.segment_sum_launch.restype = ctypes.c_int
-
-        def launch(ct, idx, m, clib=clib):
-            k, n = ct.shape
-            out = torch.zeros((m, k), dtype=torch.float32, device=ct.device)
-            err = clib.segment_sum_launch(
-                ct.data_ptr(), idx.data_ptr(), n, m, k, out.data_ptr(),
-                torch.cuda.current_stream(ct.device).cuda_stream)
-            check(err == 0, f"K2 variant launch: CUDA error {err}")
-            return out
-
-        kernels.append(launch)
+        kernels.append(functools.partial(sk.launch,
+                                         sk.declare(ctypes.CDLL(str(lib)))))
     guide2d = guide2d_backward(device)
     for label in SEGSUM_TIMED:
         ct, idx, m = segsum_case(label, device, guide2d)
@@ -1156,15 +1182,28 @@ def segsum_variants(device):
             for i in order:
                 compare_k2(f"{label}, {names[i]}", ct, idx, m,
                            prefix="K2 variant", kernel=kernels[i])
-                ms, dev = time_k2(ct, idx, m, kernel=kernels[i])
+                ms, dev, _ = time_k2(ct, idx, m, kernel=kernels[i])
                 dev_ms = "not measured" if dev is None else f"{dev:.5f} ms"
                 print(f"K2 variant {label}, {names[i]}: kernel {ms:.5f} ms "
                       f"by CUDA events, device time {dev_ms}", flush=True)
 
 
+def deterministic_ms(fn, reps):
+    """``cuda_ms`` of ``fn`` under ``torch.use_deterministic_algorithms``,
+    reset afterwards."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        return cuda_ms(fn, reps)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
 def phase_6(device):
-    """K2 against float64 index_add_ at every case of ``SEGSUM_CASES`` and
-    timed at ``SEGSUM_TIMED``; returns the timed cases' fields."""
+    """K2 against its plain version bit for bit at every case of
+    ``SEGSUM_CASES`` and timed at ``SEGSUM_TIMED``; returns the timed
+    cases' fields."""
     import torch
 
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
@@ -1185,13 +1224,20 @@ def phase_6(device):
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "ms": cuda_ms(lambda: sk.segment_sum_kernel(ct, idx, m), 50),
-            "plain_ms": cuda_ms(lambda: sk.segment_sum_plain(ct, idx, m), 50),
+            # on the host, where the plain version computes for CUDA
+            "plain_ms": cuda_ms(lambda: sk.segment_sum_plain(ct, idx, m),
+                                K2_SLOW_REPS),
             "library_ms": cuda_ms(lambda: buf.index_add_(0, idx_l, ct_t), 50),
+            # the library's fixed-order counterpart
+            "library_deterministic_ms": deterministic_ms(
+                lambda: buf.index_add_(0, idx_l, ct_t), K2_SLOW_REPS),
         }
         print(f"phase 6 K2 {label} timing: kernel {f['ms']:.5f} ms by CUDA "
               f"events (its device time after phase 14), plain "
-              f"{f['plain_ms']:.5f} ms, index_add_ {f['library_ms']:.5f} ms, "
-              f"bound {f['bound_ms']:.5f} ms ({f['bound_by']})", flush=True)
+              f"{f['plain_ms']:.5f} ms (on the host), index_add_ "
+              f"{f['library_ms']:.5f} ms, deterministic index_add_ "
+              f"{f['library_deterministic_ms']:.5f} ms, bound "
+              f"{f['bound_ms']:.5f} ms ({f['bound_by']})", flush=True)
     return k2
 
 
@@ -1201,10 +1247,12 @@ def k2_device_times(k2, device):
     before the host-bound steps of phases 7 and 8."""
     guide2d = guide2d_backward(device)
     for label, f in k2.items():
-        f["device_ms"] = time_k2(*segsum_case(label, device, guide2d))[1]
+        _, f["device_ms"], parts = time_k2(*segsum_case(label, device,
+                                                        guide2d))
         dev_ms = ("not measured" if f["device_ms"] is None
                   else f"{f['device_ms']:.5f} ms")
-        print(f"phase 6 K2 {label} device time: {dev_ms}", flush=True)
+        print(f"phase 6 K2 {label} device time: {dev_ms} (ms by kernel: "
+              f"{parts})", flush=True)
 
 
 def device_profile(prof):
@@ -1238,6 +1286,13 @@ def kernel_device_ms(fn, name, reps=10):
     launches it.  Each kernel's mean span, summed over the kernels a call
     launches: the profiler may miss some spans of a run.  None when the
     profiler records none."""
+    split = kernel_device_split(fn, name, reps)
+    return sum(split.values()) if split else None
+
+
+def kernel_device_split(fn, name, reps=10):
+    """``kernel_device_ms``'s kernels one by one: {kernel name: mean ms of
+    its spans}, empty when the profiler records none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1252,8 +1307,7 @@ def kernel_device_ms(fn, name, reps=10):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name:
             spans[e.name].append(e.time_range.end - e.time_range.start)
-    return (sum(sum(v) / len(v) for v in spans.values()) / 1e3 if spans
-            else None)
+    return {k: sum(v) / len(v) / 1e3 for k, v in spans.items()}
 
 
 def range_device_us(prof, label):
@@ -2190,10 +2244,11 @@ def phase_14(device):
     gmax = max(float(g.abs().max()) for g in result[False][1])
     gdiff = max(float((a - b).abs().max())
                 for a, b in zip(result[True][1], result[False][1]))
-    check(gmax > 0 and gdiff <= 1e-4 * gmax,
+    # the recomputed forward and K2 repeat their bits
+    check(gmax > 0 and grads_same_bits(result[True][1], result[False][1]),
           f"remat gradient differs by {gdiff} (max {gmax})")
-    print(f"phase 14 gradient: max |g_remat - g| = {gdiff!r}, max |g| = "
-          f"{gmax!r}, ratio {gdiff / gmax:.3e}; loss remat "
+    print(f"phase 14 gradient: with and without remat bit for bit (max "
+          f"|g_remat - g| = {gdiff!r}), max |g| = {gmax!r}; loss remat "
           f"{float(result[True][0])!r}, without {float(result[False][0])!r}",
           flush=True)
 
@@ -2484,7 +2539,7 @@ def phase_15(device):
           f"{loss.cfg.ray_start_epsilon!r}; one forward + backward launches "
           f"{step_launches}; {calls} K1 calls bit for bit with the plain "
           f"version; loss {float(v_k)!r} against the plain path's (Cramer "
-          f"search, index_add_ backward) {float(v_p)!r}, rel {rel:.3e}; max "
+          f"search, plain K2) {float(v_p)!r}, rel {rel:.3e}; max "
           f"|g_kernel - g_plain| {gdiff!r} of max |g_plain| {gmax!r}, ratio "
           f"{gdiff / gmax:.3e}", flush=True)
     del log_k, log_p
@@ -2622,7 +2677,6 @@ def phase_16(device):
     streamed guide trace, the streamed guide training, the sharded guide
     training on a one-rank NCCL group and the two-rank gloo dryrun on the
     one card.  Returns the main paths' launches."""
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2767,13 +2821,13 @@ def phase_16(device):
     fused = block_loss([leaf], 0, seed) + block_loss([leaf], 1, seed)
     g_fused = torch.autograd.grad(fused, leaf)[0]
     gmax = float(g_fused.abs().max())
-    fused = float(fused.detach())
     v, g = streamed_value_and_grad(block_loss, 2)(p0, seed)
-    vag_rel = abs(float(v) - fused) / abs(fused)
     gdiff = float((g[0] - g_fused).abs().max())
-    check(vag_rel <= 1e-5 and gmax > 0 and gdiff <= 1e-4 * gmax,
-          f"streamed_value_and_grad: value {float(v)} against {fused}, "
-          f"gradient off by {gdiff} of {gmax}")
+    # the blocks' sums in the fused sum's order, and K2 in a fixed order
+    check(same_bits(torch.as_tensor(v).reshape(()), fused.detach())
+          and gmax > 0 and same_bits(g[0], g_fused),
+          f"streamed_value_and_grad: value {float(v)!r} against "
+          f"{float(fused)!r}, gradient off by {gdiff} of {gmax}")
     one_block = streamed_value_and_grad(block_loss, 1)
     one_block(p0, seed)
     with profile(activities=[ProfilerActivity.CPU,
@@ -2808,8 +2862,8 @@ def phase_16(device):
           f"= {train_launches['K1'] / blocks_run:g} K1 and "
           f"{train_launches['K2'] / blocks_run:g} K2 a block; at 2 blocks of "
           f"{STREAM_EXACT_BLOCK} against autograd of the fused sum: value "
-          f"rel {vag_rel:.3e}, gradient {gdiff / gmax:.3e} of max |g| "
-          f"{gmax!r}; one {STREAM_EXACT_BLOCK}-ray "
+          f"and gradient bit for bit (max |g| {gmax!r}); one "
+          f"{STREAM_EXACT_BLOCK}-ray "
           f"block's forward and backward profiled: {block_split}",
           flush=True)
     del guide, block_loss, leaf, fused, g_fused
@@ -2823,19 +2877,20 @@ def phase_16(device):
         mesh = par.ray_mesh(device=device)
         backend = torch.distributed.get_backend()
         tk.LAUNCHES = sk.LAUNCHES = 0
-        errors_m, _, sec_m = streamed.sharded_guide(steps=SHARDED_STEPS,
-                                                    mesh=mesh, **kw)
+        errors_m, params_m, sec_m = streamed.sharded_guide(
+            steps=SHARDED_STEPS, mesh=mesh, **kw)
         torch.cuda.synchronize()
         sharded_launches = {"K1": tk.LAUNCHES, "K2": sk.LAUNCHES}
         _, step_m, _ = streamed.sharded_guide(steps=1, mesh=mesh, **kw)
     finally:
         torch.distributed.destroy_process_group()
-    # the single process twice: K2's float atomics add in another order in
-    # every run, and the lost flux's gradient amplifies it step by step
-    errors_s, _, sec_s = streamed.sharded_guide(steps=SHARDED_STEPS,
-                                                device=device, **kw)
-    errors_s2, _, _ = streamed.sharded_guide(steps=SHARDED_STEPS,
-                                             device=device, **kw)
+    # the single process twice: K2 adds in a fixed order, so the runs repeat
+    # every step's loss and the final parameters bit for bit, and the
+    # one-rank group's all-reduce is a copy, so it runs the same arithmetic
+    errors_s, params_s, sec_s = streamed.sharded_guide(steps=SHARDED_STEPS,
+                                                       device=device, **kw)
+    errors_s2, params_s2, _ = streamed.sharded_guide(steps=SHARDED_STEPS,
+                                                     device=device, **kw)
     _, step_s, _ = streamed.sharded_guide(steps=1, device=device, **kw)
     p_init = streamed.short_guide(12, 10, f32, device)[0].init_params()
     update = float((step_s[0] - p_init).abs().max())
@@ -2844,25 +2899,25 @@ def phase_16(device):
     check(sharded_launches == {"K1": SHARDED_BOUNCES * SHARDED_STEPS,
                                "K2": SHARDED_BOUNCES * SHARDED_STEPS},
           f"the sharded training launched {sharded_launches}")
-    check(errors_m[0] == errors_s[0] == errors_s2[0],
-          f"step 0's loss: NCCL one-rank {errors_m[0]}, single process "
-          f"{errors_s[0]} and {errors_s2[0]}")
-    check(update > 0 and step_diff <= 1e-4 * update,
-          f"one step's parameters: NCCL one-rank and single process differ "
-          f"by {step_diff}, the update is {update}")
+    repeats = (same_bits(torch.as_tensor(errors_s2), torch.as_tensor(errors_s))
+               and grads_same_bits(params_s2, params_s))
+    check(repeats, f"the single process's two runs: losses "
+          f"{list(errors_s)} and {list(errors_s2)}, the final parameters "
+          f"apart by {float((params_s2[0] - params_s[0]).abs().max())!r}")
+    check(same_bits(torch.as_tensor(errors_m), torch.as_tensor(errors_s))
+          and grads_same_bits(params_m, params_s)
+          and grads_same_bits(step_m, step_s),
+          f"NCCL one-rank against the single process: losses "
+          f"{list(errors_m)} and {list(errors_s)}, one step's parameters "
+          f"apart by {step_diff} of an update of {update}")
+    check(update > 0, "one sharded step left the parameters as they were")
     check(min(errors_m[1:]) < errors_m[0], f"sharded loss {list(errors_m)}")
-    rel_m = np.abs(np.asarray(errors_m) - errors_s) / np.abs(errors_s)
-    rel_s = np.abs(np.asarray(errors_s2) - errors_s) / np.abs(errors_s)
     print(f"phase 16c sharded training on a one-rank {backend} group: "
           f"{SHARDED_STEPS} steps of {SHARDED_RAYS} rays, {SHARDED_BOUNCES} "
           f"bounces: losses {[float(e) for e in errors_m]}; the single "
-          f"process's {[float(e) for e in errors_s]} and "
-          f"{[float(e) for e in errors_s2]}; step 0 equal in all three; one "
-          f"step's parameters differ by {step_diff!r} of an update of "
-          f"{update!r}; relative loss differences step by step, NCCL against "
-          f"the single process {[float(f'{x:.3g}') for x in rel_m]}, the "
-          f"single process against itself "
-          f"{[float(f'{x:.3g}') for x in rel_s]}; "
+          f"process's two runs and the one-rank group equal bit for bit at "
+          f"every step's loss and in the final parameters, and in one "
+          f"step's parameters (an update of {update!r}); "
           f"{sec_m / SHARDED_STEPS * 1e3:.3f} ms a step (single process "
           f"{sec_s / SHARDED_STEPS * 1e3:.3f}); launches {sharded_launches}",
           flush=True)
@@ -2892,9 +2947,10 @@ def phase_16(device):
 
 
 def phase_17(device):
-    """The reactions at the JAX examples' sizes: the 2^27-ray pool caustic
-    (17a), the stray-light barrel (17b) and the ghost tree of a coated
-    singlet (17c), each also held against its searches' plain versions.
+    """The reactions at the JAX examples' sizes: the pool caustic at 2^26
+    rays, the example's 2^27 cut (17a), the stray-light barrel (17b) and
+    the ghost tree of a coated singlet (17c), each also held against its
+    searches' plain versions.
     Returns the main paths' launches."""
     import numpy as np
     import torch
@@ -3370,9 +3426,8 @@ def replayed_plain(label, kernel, log, stride=1):
 def kernel_and_plain(label, loss, params, searches=("K5",)):
     """One forward + backward of ``loss`` at ``params`` with the kernels,
     then with their plain versions (the ``searches`` and K2): each search
-    call bit for bit with the plain call, the loss equal, the gradients
-    within 1e-4 of the plain ones' max norm.  Returns ``(calls, gdiff,
-    gmax)``, ``calls`` the search calls compared."""
+    call bit for bit with the plain call, the loss equal, the gradients bit
+    for bit.  Returns the number of search calls compared."""
     log_k = {k: [] for k in searches}
     log_p = {k: [] for k in searches}
     with logged_searches(log_k):
@@ -3385,10 +3440,10 @@ def kernel_and_plain(label, loss, params, searches=("K5",)):
           f"{float(v_p)!r} with the plain versions")
     gmax = max(float(g.abs().max()) for g in g_p)
     gdiff = max(float((a - b).abs().max()) for a, b in zip(g_k, g_p))
-    check(gmax > 0 and gdiff <= 1e-4 * gmax,
+    check(gmax > 0 and grads_same_bits(g_k, g_p),
           f"{label}: the gradient through K2 differs from the plain one by "
           f"{gdiff} (max {gmax})")
-    return calls, gdiff, gmax
+    return calls
 
 
 def launches_of(run):
@@ -3482,17 +3537,14 @@ def phase_18(device):
           f"{statistics.median(step_ms):.3f} ms a step by CUDA events over "
           f"{ASPHERE_TIMED} (min {min(step_ms):.3f}, max {max(step_ms):.3f}); "
           f"{shares}", flush=True)
-    worst, calls = 0.0, 0
+    calls = 0
     for _ in range(PLAIN_STEPS):
-        n, gdiff, gmax = kernel_and_plain(
+        calls += kernel_and_plain(
             "phase 18a asphere", lambda p: spot_sq(p), opt.parameters)
-        calls += n
-        worst = max(worst, gdiff / gmax)
         step()
     print(f"phase 18a against the plain versions: {PLAIN_STEPS} steps, "
           f"{calls} K5 calls bit for bit with the plain K5, the losses "
-          f"equal, the gradients through K2 within {worst:.3e} of the plain "
-          f"backward's max norm (limit 1e-4)", flush=True)
+          f"equal, the gradients through K2 bit for bit", flush=True)
     del opt, res
 
     # ---- 18b. BASELINE config 2
@@ -3518,7 +3570,7 @@ def phase_18(device):
         "K5": bounces * (steps + 1), "K2": per_step["K2"] * steps},
           f"config 2 launches {out['config2']}, {per_step} a step")
     step_ms = event_step_ms(step, 20)
-    calls, gdiff, gmax = kernel_and_plain(
+    calls = kernel_and_plain(
         "phase 18b config 2", lambda p: loss(p), lens.init_params())
     k = min(len(res["reds"]), len(res["blues"]))
     apart = float(np.abs(np.sort(res["reds"])[:k]
@@ -3534,7 +3586,7 @@ def phase_18(device):
           f"thickness "
           f"{res['thickness']!r} >= 0.15 - 1e-6; one step against the plain "
           f"versions: {calls} K5 calls bit for bit, the gradient through K2 "
-          f"within {gdiff / gmax:.3e} of the plain max norm", flush=True)
+          f"bit for bit", flush=True)
     del opt, res
 
     # ---- 18c. the Strehl lens
@@ -3568,12 +3620,10 @@ def phase_18(device):
     psf = (f"the PSF's forward (range strehl_psf) {psf_us:.1f} us = "
            f"{psf_us / busy_us:.2%} of the device time" if busy_us > 0
            else "the PSF's share not measured")
-    worst, calls = 0.0, 0
+    calls = 0
     for _ in range(PLAIN_STEPS):
-        n, gdiff, gmax = kernel_and_plain(
+        calls += kernel_and_plain(
             "phase 18c Strehl", lambda p: -strehl(p[0], lam), opt.parameters)
-        calls += n
-        worst = max(worst, gdiff / gmax)
         step()
     print(f"phase 18c Strehl lens: {STREHL_SEGMENTS} segments, "
           f"{STREHL_RAYS} rays, {bounces} bounces, float32, 3 stages of "
@@ -3587,8 +3637,7 @@ def phase_18(device):
           f"each stage's last {res['stages']}; {shares}; {psf}; against the "
           f"plain versions: {PLAIN_STEPS} steps, {calls} K5 calls bit for "
           f"bit with the plain K5, the losses equal, the gradients through "
-          f"K2 within {worst:.3e} of the plain backward's max norm (limit "
-          f"1e-4)", flush=True)
+          f"K2 bit for bit", flush=True)
     del opt, res, prof
 
     # ---- 18d. the hexalens's image quality through STL
@@ -4126,13 +4175,14 @@ def phase_20(device):
               f"{FACADE_STEPS} steps")
     ref_errors = [ref.single_step(accumulators, **phase)
                   for _ in range(FACADE_STEPS)]
-    check(sgd_errors[0] == ref_errors[0],
-          f"20b step 0's loss {sgd_errors[0]!r} through the facade, "
-          f"{ref_errors[0]!r} functionally")
+    check(sgd_errors == ref_errors,
+          f"20b losses {sgd_errors!r} through the facade, {ref_errors!r} "
+          f"functionally")
     pmax = max(float(p.abs().max()) for p in ref.parameters)
     pdiff = max(float((a - b).abs().max())
                 for a, b in zip(sgd.parameters, ref.parameters))
-    check(pdiff <= FACADE_PARAM_RTOL * pmax,
+    # the same arithmetic, and K2 in a fixed order: the same bits
+    check(grads_same_bits(sgd.parameters, ref.parameters),
           f"20b parameters after {FACADE_STEPS} steps differ by {pdiff} "
           f"(max {pmax})")
     lens = problem["system"].optical[0]._obj
@@ -4148,21 +4198,20 @@ def phase_20(device):
              for name, step in steps.items()}
     facade_loss, _ = problem["engine"].make_loss(problem["error_function"],
                                                  TRAIN_BOUNCES)
-    plain_calls, gdiff, gmax = kernel_and_plain(
+    plain_calls = kernel_and_plain(
         "phase 20b flagship", lambda p: facade_loss(
             p, torch.Generator(device).manual_seed(0)), sgd.parameters,
         ("K1",))
     print(f"phase 20b flagship through OpticalSystem3D: "
           f"{problem['system'].sources.n_rays} rays, "
           f"{problem['system'].scene.triangles.n_surfaces} triangles, "
-          f"{TRAIN_BOUNCES} bounces; step 0's loss {sgd_errors[0]!r} equal "
-          f"through the facade and functionally; after {FACADE_STEPS} "
-          f"steps the losses {sgd_errors[-1]!r} and {ref_errors[-1]!r}, "
-          f"the parameters within {pdiff:.3e} (max {pmax:.3e}, limit "
-          f"{FACADE_PARAM_RTOL} of it); one forward + backward of the "
+          f"{TRAIN_BOUNCES} bounces; every step's loss equal through the "
+          f"facade and functionally ({sgd_errors[0]!r} -> "
+          f"{sgd_errors[-1]!r}), the parameters after {FACADE_STEPS} steps "
+          f"bit for bit (max {pmax:.3e}); one forward + backward of the "
           f"facade's loss against the plain versions: {plain_calls} K1 calls "
-          f"bit for bit, the loss equal, the gradient through K2 within "
-          f"{gdiff / gmax:.3e} of the plain max norm (limit 1e-4); "
+          f"bit for bit, the loss equal, the gradient through K2 bit for "
+          f"bit; "
           f"launches of the facade's steps "
           f"{launches}; ms a step (median of {FACADE_STEPS} synchronised "
           f"steps, in turns): "
@@ -4190,7 +4239,7 @@ def phase_20(device):
                   f"20c {label}: the first resumed loss "
                   f"{out['resumed_errors'][0]!r}, uninterrupted "
                   f"{out['errors'][at]!r}")
-            plain_calls, gdiff, gmax = kernel_and_plain(
+            plain_calls = kernel_and_plain(
                 f"phase 20c {label}", arc_loss, out["saved"]["parameters"],
                 ("K5", "K6"))
             drift = out["drift"]
@@ -4208,8 +4257,7 @@ def phase_20(device):
                   f"launches {launches}; at the checkpoint's parameters "
                   f"one forward + backward against the plain versions: "
                   f"{plain_calls} K5 and K6 calls bit for bit, the loss "
-                  f"equal, the gradient through K2 within "
-                  f"{gdiff / gmax:.3e} of the plain max norm (limit 1e-4)",
+                  f"equal, the gradient through K2 bit for bit",
                   flush=True)
 
         lap("20c")
@@ -4428,6 +4476,10 @@ def phase_21(device):
         gdiff = float((got[1] - want[1]).abs().max())
         check(bool(got[0] == want[0]), f"21b flagship loss {float(got[0])!r} "
               f"served, {float(want[0])!r} live")
+        # not bit for bit: the joint program decomposes torch.linalg.cross
+        # (the triangle normals, models/surfaces.py), whose backward then
+        # adds its products in another order than eager autograd's cross
+        # kernel does (ROADMAP queue 3); K2 is the same on both sides
         check(gmax > 0 and gdiff <= 1e-4 * gmax,
               f"21b flagship gradient differs by {gdiff} (max {gmax})")
         grad_gap.append((gdiff, gmax))
@@ -4440,8 +4492,8 @@ def phase_21(device):
     gdiff, gmax = grad_gap[0]
     print(f"phase 21b flagship value and gradient (a joint program): "
           f"exported in {sec:.2f} s, {report}; loss equal, max |g_served - "
-          f"g_live| {gdiff!r} of max |g| {gmax!r} ({gdiff / gmax:.3e}: K2's "
-          f"atomics)", flush=True)
+          f"g_live| {gdiff!r} of max |g| {gmax!r} ({gdiff / gmax:.3e}: the "
+          f"cross product's decomposed backward)", flush=True)
     del program, blob
 
     # ---- the 2D guide at full width, and the 3D guide
@@ -4731,12 +4783,11 @@ def phase_22(device):
           f"{n}", flush=True)
     opt = physics2d.hybrid_design(landings, True, torch.as_tensor(
         out["hybrid_q"], device=device), device=device)
-    calls, gdiff, gmax = kernel_and_plain(
+    calls = kernel_and_plain(
         "phase 22 hybrid", opt.loss_fn, opt.parameters, searches=("K5", "K6"))
     print(f"phase 22b hybrid against the plain versions: {calls} K5 and K6 "
           f"calls bit for bit, the loss equal, the gradient through K2 "
-          f"within {gdiff / gmax:.3e} of the plain backward's max norm "
-          f"(limit 1e-4)", flush=True)
+          f"bit for bit", flush=True)
     del opt, out
     out, wall, n = run("tolerancing", lambda: populations.tolerancing(
         design_steps=TOL_DESIGN_CUT_STEPS, device=device, verbose=False),
@@ -5143,7 +5194,9 @@ def main():
     check(sk.LAUNCHES == TRAIN_BOUNCES, "the plain backward launched K2")
     gmax = max(float(g.abs().max()) for g in grad_p)
     gdiff = max(float((a - b).abs().max()) for a, b in zip(grad_k, grad_p))
-    check(gmax > 0 and gdiff <= 1e-4 * gmax,
+    # K2 adds in its plain version's order: the same bits
+    check(gmax > 0 and bool(loss_k == loss_p)
+          and grads_same_bits(grad_k, grad_p),
           f"K2 gradient differs from the plain backward by {gdiff} (max {gmax})")
     _, _, plain_loss = flagship._flagship(f32, WIDE_BP, TRAIN_RINGS,
                                           TRAIN_BOUNCES, False, device, vum)
@@ -5158,8 +5211,9 @@ def main():
           f"{peak_gib:.3f} GiB; {syncs} synchronising calls per step, "
           f"{sample_syncs} of them in the ray sampling; "
           f"{shares}", flush=True)
-    print(f"phase 8 gradient: max |g_K2 - g_plain| = {gdiff!r}, max |g_plain| "
-          f"= {gmax!r}, ratio {gdiff / gmax:.3e}; loss {float(loss_k)!r}, "
+    print(f"phase 8 gradient: through K2 and through the plain backward bit "
+          f"for bit (max |g_K2 - g_plain| = {gdiff!r}), max |g_plain| = "
+          f"{gmax!r}; loss {float(loss_k)!r}, "
           f"all-plain loss {float(loss_all_plain)!r}, rel {rel:.3e}", flush=True)
 
     # ---- phase 9: the sorted soup through the accelerated paths
@@ -5334,9 +5388,14 @@ def main():
         "bound_by": main_k2["bound_by"], "library_ms": main_k2["library_ms"],
         "shape": f"{main_k2['k']}x{main_k2['n']}->{main_k2['m']}x"
                  f"{main_k2['k']}",
+        "library_deterministic_ms": main_k2["library_deterministic_ms"],
+        "order": "fixed: tiles of 1024 rays, each row's rays in order, "
+                 "then its tile sums in order; bit for bit with the plain "
+                 "version and from launch to launch",
         "timed": {label: {key: f[key] for key in (
             "n", "m", "k", "ms", "device_ms", "plain_ms", "library_ms",
-            "bound_ms", "max_abs_err")} for label, f in k2.items()},
+            "library_deterministic_ms", "bound_ms", "max_abs_err")}
+            for label, f in k2.items()},
     }] + [{
         "name": name, "route": "cuda",
         "source": f"tensorflowraytrace_tpu_torch/csrc/{source}",

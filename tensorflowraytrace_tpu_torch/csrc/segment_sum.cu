@@ -1,270 +1,476 @@
 // Segment sum (the backward of the engine's per-surface row gather), float32,
-// for sm_90a.
+// for sm_90a, added in a fixed order.
 //
 // Replaces: tensorflowraytrace_tpu/ops/pallas_kernels.py, _segsum_kernel
 // (launched through segment_sum_pallas from engine._gather_rows_t_bwd).
 //
 // What it computes: out[j][c] = sum over i with idx[i] == j of ct[c][i], for
 // ct (k, n) float32 row-major (the cotangent of the gathered, transposed
-// rows), idx (n,) int32 and out (m, k) float32, which the caller zeroes.  An
-// idx outside [0, m) adds nothing (as the scatter of the JAX package drops
-// it).  Zero cotangents are skipped: adding +0 or -0 to a sum that starts at
-// +0 never changes it, and NaN is not zero, so NaN still propagates.
+// rows), idx (n,) int32 and out (m, k) float32.  An idx outside [0, m) adds
+// nothing (as the scatter of the JAX package drops it).
 //
-// The TPU kernel turns the scatter into one-hot matrix products on the MXU,
-// gated by each ray block's idx range, because the TPU serialises scatters.
-// Hopper has atomics in shared memory and warp-wide matching instead, so
-// the design is:
+// The order of the adds is a function of (ct, idx, m) alone, and it is that
+// of segsum_kernels.segment_sum_plain: the rays are cut into tiles of kTile
+// consecutive rays (the Pallas kernel's ray block, SEGSUM_RAY_BLOCK); within
+// a tile each row's contributions are added in ascending ray order from +0;
+// then each row's tile sums are added in ascending tile order from +0.  So
+// the result is the same bits from run to run, on any card, and equal to
+// the plain version's.  No float atomic is used; integer atomics only mark
+// which tiles hold a row, and their result is exact.
 //
-//   the adds (add_rays, add_group): a warp takes 32 Rays consecutive rays
-//   a step, Rays a lane, and issues all their loads of idx and of kCols
-//   columns of ct before any add (the loads of ct do not wait for idx).  A
-//   lane whose cotangents are all zero, or whose idx is out of range, adds
-//   nothing.  In a warp in which two neighbouring lanes add into the same
-//   row (one shuffle and one __ballot_sync, so that random rows, which
-//   match rarely, pay no match), each group of lanes on one row
-//   (__match_any_sync) sums every column by shuffles (a suffix sum in lane
-//   order, by pointer jumping: log2 of the largest group steps,
-//   __reduce_max_sync), and only its lowest lane adds the sums: 32 rays on
-//   one row cost one atomic a column, not 32 that collide.  Hopper has no
-//   float atomic add in shared memory: atomicAdd on a shared float is a
-//   compare-and-swap loop, which lanes on one word repeat one after
-//   another.
+// The TPU kernel adds one-hot matrix products of each ray block into the
+// output over a sequential grid.  Blocks on Hopper run in no order, so the
+// sequential grid becomes a second pass over a table of tile sums:
 //
-//   shared branch (the m x k table fits in a block's shared memory, up to the
-//   227 KB opt-in): each block of one wave of resident blocks zeroes a
-//   private copy of the table, walks its share of the rays (a grid-stride
-//   loop of whole warps) adding into it, and then adds every nonzero entry
-//   into `out` with one global atomic.  Those atomics add in L2 without a
-//   round trip; on the H100 a flush through a thread-block cluster's
-//   distributed shared memory and one in two passes were both slower
-//   (PERF.md).  Its rays a lane and the blocks an SM its launch bound asks
-//   for follow the table's shape (shared_launch).  The flagship's 770 x 13
-//   table is 40 KB, the 4096-triangle soup's 213 KB.
+//   segment_sum_clear: zeroes the tile masks.
 //
-//   global branch (larger tables, e.g. 16386 rows): every group's sums go
-//   straight to `out` with global atomics.
+//   segment_sum_tiles (pass 1, one block per tile): issues the loads of the
+//   tile's cotangents (kStageCols columns at a time, coalesced), and while
+//   they fly loads the tile's rows as 64-bit keys (row, ray) into shared
+//   memory and orders them with a bitonic sort (skipped where the rows
+//   already ascend; an idx out of range sorts last and is dropped); stores
+//   the cotangents in shared memory in key order, so that each run of one
+//   row lies side by side; then one thread per (run, column) adds its run
+//   in ray order from +0, its loads issued kUnroll ahead of the dependent
+//   adds.  It writes one record a run, the row and k sums at slot
+//   tile * kTile + run, and sets the tile's bit in the row's mask word of
+//   its group of 32 tiles (integer atomicOr).
+//
+//   segment_sum_count (one thread a row): the number of records of each
+//   row before each group of 32 tiles, and the row's count.  The masks are
+//   laid out group by group, so that a tile's rows, which ascend, and a
+//   warp's rows read side by side.
+//
+//   segment_sum_scan: the exclusive scan of the counts over the rows (one
+//   block), the start of each row's list.
+//
+//   segment_sum_place: each record's id to its place in its row's list: the
+//   row's start, its records in earlier groups, and the bits below the
+//   tile's in its group's mask.  So each list runs in tile order.
+//
+//   segment_sum_rows (pass 2, one block per row): stages the records' sums
+//   in list order in shared memory, and adds them in tile order from +0,
+//   one thread a column.
 //
 // What bounds it: bytes, 4 k n of ct and 4 n of idx read once and 4 m k of
-// out written; the adds are k n flops, far below the FP32 peak.  The reads
-// are coalesced: lane i reads ct[c][i], so a warp reads 128 contiguous
-// bytes a column.  On random rows the compare-and-swap loops, not the
-// bytes, set the pace.
-//
-// Atomics add in an order that changes from run to run, so the result is not
-// bitwise reproducible; it equals the exact sum to float32 rounding of the
-// partial sums.
+// out written; the adds are k n flops, far below the FP32 peak.  The design
+// moves more: the tile sums (up to 4 k n bytes written and read again, fewer
+// where a tile's rays share rows) and the masks (m n / 8192 bytes); and it
+// waits on its two sequential folds: a tile's longest run and a row's count
+// of tiles.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kSharedThreads = 1024;
-constexpr int kGlobalThreads = 256;
-constexpr int kGlobalRays = 2;  // the global branch's rays a lane
-constexpr int kCols = 8;  // cotangent columns loaded ahead of their adds
+constexpr int kTileBits = 10;
+constexpr int kTile = 1 << kTileBits;   // rays a tile
+constexpr int kTileThreads = 512;       // pass 1: two keys a thread
+constexpr int kTileMinBlocks = 2;       // pass 1: blocks an SM, at least
+constexpr int kKeys = kTile / kTileThreads;
+constexpr int kStageCols = 16;          // pass 1: columns staged at a time
+constexpr int kStageStride = kTile + 1; // a staged column, padded
+constexpr int kGroupTiles = 32;         // tiles a mask word covers
+constexpr int kRowThreads = 256;        // pass 2
+constexpr int kRowStage = 8192;         // pass 2: floats staged at a time
+constexpr int kRowIds = 2048;           // pass 2: ids staged at a time
+constexpr int kRowLoads = 16;           // pass 2: loads issued at once
+constexpr int kUnroll = 8;              // loads issued ahead of their adds
+constexpr uint64_t kDroppedRow = 0xffffffffull << 32;  // sorts last
 
-// Adds one ray a lane into `table` (row-major m x k, shared or global
-// memory): columns c0 .. c0 + kCols - 1 (those below k) of ray row j, held
-// in v, where `ok` (a ray in [0, n) with j in [0, m)).  Every lane of the
-// warp calls it.
-__device__ __forceinline__ void add_group(float (&v)[kCols], int j, bool ok,
-                                          int c0, int k, float* table) {
-  const int lane = threadIdx.x & 31;
-  bool live = false;
+// Sequential sum of terms[0], terms[stride], ..., terms[(count - 1) stride]
+// onto s: the loads of kUnroll terms are issued before their adds.
+__device__ __forceinline__ float fold(const float* terms, int count,
+                                      int stride = 1, float s = 0.f) {
+  int i = 0;
+  for (; i + kUnroll <= count; i += kUnroll) {
+    float v[kUnroll];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) live |= v[c] != 0.f;
-  live = live && ok;
-  const int key = live ? j : -1;  // lanes that add nothing: -1
-  // match only where two neighbouring lanes share a row
-  const int beside = __shfl_xor_sync(kFull, key, 1);
-  if (__ballot_sync(kFull, key >= 0 && key == beside)) {
-    // the lanes that add into the same row
-    const unsigned peers = __match_any_sync(kFull, key);
-    const int longest = __reduce_max_sync(
-        kFull, live ? static_cast<unsigned>(__popc(peers)) : 1u);
-    // `next`: the lane d places above this one in its group (32: none).
-    // After the step of d each lane holds the sum over the 2 d lanes from
-    // itself up, so the group's lowest lane ends with the group's sum.
-    const unsigned above = peers & ~((2u << lane) - 1u);
-    int next = above ? __ffs(above) - 1 : 32;
-    for (int d = 1; d < longest; d <<= 1) {
+    for (int u = 0; u < kUnroll; ++u) v[u] = terms[(i + u) * stride];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) {
-        if (c0 + c < k) {  // the same in the whole warp
-          const float other = __shfl_sync(kFull, v[c], next & 31);
-          if (next < 32) v[c] += other;
+    for (int u = 0; u < kUnroll; ++u) s += v[u];
+  }
+  for (; i < count; ++i) s += terms[i * stride];
+  return s;
+}
+
+// The exclusive scan of one int a thread over the block (blockDim.x a
+// multiple of 32, at most 1024); `warp_sums` holds 32 ints.  Returns the
+// thread's prefix and sets *total.
+__device__ __forceinline__ int block_exclusive_scan(int value, int* warp_sums,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  int x = value;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < warps ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, d);
+      if (lane >= d) w += y;
+    }
+    warp_sums[lane] = w;  // inclusive
+  }
+  __syncthreads();
+  const int before = (warp > 0 ? warp_sums[warp - 1] : 0) + x - value;
+  *total = warp_sums[warps - 1];
+  __syncthreads();  // warp_sums may be reused
+  return before;
+}
+
+__global__ void segment_sum_clear(unsigned* words, long long count) {
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < count; i += static_cast<long long>(gridDim.x) * blockDim.x)
+    words[i] = 0u;
+}
+
+// The cotangents of columns c0 .. c0 + cols - 1 at the tile's rays p =
+// threadIdx.x + q kTileThreads (0 past the rays), coalesced.
+__device__ __forceinline__ void load_columns(
+    const float* __restrict__ ct, int n, int t0, int rays, int c0, int cols,
+    float (&v)[kKeys][kStageCols]) {
+#pragma unroll
+  for (int q = 0; q < kKeys; ++q) {
+    const int p = threadIdx.x + q * kTileThreads;
+#pragma unroll
+    for (int c = 0; c < kStageCols; ++c)
+      v[q][c] = (c < cols && p < rays)
+                    ? ct[static_cast<size_t>(c0 + c) * n + t0 + p] : 0.f;
+  }
+}
+
+// Pass 1.  Dynamic shared memory: min(k, kStageCols) staged columns.
+__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
+segment_sum_tiles(const float* __restrict__ ct, const int* __restrict__ idx,
+                  int n, int m, int k, float* __restrict__ rec_sum,
+                  int* __restrict__ rec_row, int* __restrict__ tile_runs,
+                  unsigned* __restrict__ mask) {
+  __shared__ uint64_t keys[kTile];
+  __shared__ int run_begin[kTile + 1];
+  __shared__ int sorted_at[kTile];  // a ray's place in key order
+  __shared__ int warp_sums[32];
+  extern __shared__ float stage[];  // [column][kStageStride], key order
+
+  const int tile = blockIdx.x;
+  const int t0 = tile * kTile;
+  const int rays = min(kTile, n - t0);
+  const int group = min(k, kStageCols);
+  // the first columns' loads fly while the keys are sorted
+  float v[kKeys][kStageCols];
+  load_columns(ct, n, t0, rays, 0, group, v);
+
+  for (int p = threadIdx.x; p < kTile; p += kTileThreads) {
+    const int j = p < rays ? idx[t0 + p] : -1;
+    const uint64_t row = (j >= 0 && j < m) ? static_cast<uint64_t>(j) << 32
+                                           : kDroppedRow;
+    keys[p] = row | static_cast<unsigned>(p);
+  }
+  __syncthreads();
+  // bitonic sort of the kTile keys, ascending: by row, then by ray (skipped
+  // where the rows already ascend, as on coherent rays)
+  bool ascending_rows = true;
+  for (int p = threadIdx.x; p + 1 < kTile; p += kTileThreads)
+    ascending_rows = ascending_rows && keys[p] <= keys[p + 1];
+  if (!__syncthreads_and(ascending_rows)) {
+    // a stride of 32 or less pairs keys within the 64 a warp holds, so
+    // such a stage waits for its warp alone
+    int last = kTile;
+    for (int size = 2; size <= kTile; size <<= 1) {
+      for (int stride = size >> 1; stride > 0; stride >>= 1) {
+        if (stride > 32 || last > 32) {
+          __syncthreads();
+        } else {
+          __syncwarp();
+        }
+        last = stride;
+        const int t = threadIdx.x;
+        const int lo = 2 * t - (t & (stride - 1));
+        const int hi = lo + stride;
+        const bool ascending = (lo & size) == 0;
+        const uint64_t a = keys[lo], b = keys[hi];
+        if ((a > b) == ascending) {
+          keys[lo] = b;
+          keys[hi] = a;
         }
       }
-      const int further = __shfl_sync(kFull, next, next & 31);
-      next = next < 32 ? further : 32;
     }
-    live = live && (peers & ((1u << lane) - 1u)) == 0;  // the lowest lane
   }
-  if (!live) return;
-  float* row = table + static_cast<size_t>(j) * k + c0;
+  __syncthreads();
+
+  // the runs: a key starts one where its row differs from the key before;
+  // the dropped keys sort last, so the valid ones are a prefix
+  int starts = 0, kept = 0;
+  bool start[kKeys];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    if (c0 + c < k && v[c] != 0.f) atomicAdd(row + c, v[c]);
+  for (int q = 0; q < kKeys; ++q) {
+    const int p = threadIdx.x * kKeys + q;
+    const uint64_t key = keys[p];
+    const bool valid = (key & kDroppedRow) != kDroppedRow;
+    start[q] = valid && (p == 0 || (keys[p - 1] >> 32) != (key >> 32));
+    starts += start[q];
+    kept += valid;
+    sorted_at[static_cast<int>(key & 0xffffffffu)] = p;
+  }
+  int runs = 0, valid = 0;
+  int r = block_exclusive_scan(starts, warp_sums, &runs);
+  block_exclusive_scan(kept, warp_sums, &valid);
+#pragma unroll
+  for (int q = 0; q < kKeys; ++q)
+    if (start[q]) run_begin[r++] = threadIdx.x * kKeys + q;
+  if (threadIdx.x == 0) {
+    run_begin[runs] = valid;
+    tile_runs[tile] = runs;
+  }
+  __syncthreads();
+
+  const int word = tile / kGroupTiles;
+  const unsigned bit = 1u << (tile % kGroupTiles);
+  for (int q = threadIdx.x; q < runs; q += kTileThreads) {
+    const int row = static_cast<int>(keys[run_begin[q]] >> 32);
+    rec_row[t0 + q] = row;
+    atomicOr(&mask[static_cast<size_t>(word) * m + row], bit);
+  }
+
+  for (int c0 = 0; c0 < k; c0 += group) {
+    const int cols = min(group, k - c0);
+    if (c0 > 0) load_columns(ct, n, t0, rays, c0, cols, v);
+    // into key order (the dropped rays' places lie past `valid`)
+#pragma unroll
+    for (int q = 0; q < kKeys; ++q) {
+      const int at = sorted_at[threadIdx.x + q * kTileThreads];
+#pragma unroll
+      for (int c = 0; c < kStageCols; ++c)
+        if (c < cols) stage[c * kStageStride + at] = v[q][c];
+    }
+    __syncthreads();
+    for (int q = threadIdx.x; q < runs * cols; q += kTileThreads) {
+      const int run = q / cols, c = q - run * cols;
+      const int b = run_begin[run];
+      const float s = fold(stage + c * kStageStride + b,
+                           run_begin[run + 1] - b);
+      rec_sum[static_cast<size_t>(t0 + run) * k + c0 + c] = s;
+    }
+    __syncthreads();
   }
 }
 
-// The grid-stride loop over whole warps of rays: a warp takes 32 Rays
-// consecutive rays a step, Rays a lane (lane + 32 r), loads all their
-// rows and kCols of their cotangents (the loads of ct do not wait for
-// idx), then adds them 32 at a time (add_group).
-template <int Rays>
-__device__ __forceinline__ void add_rays(const float* __restrict__ ct,
-                                         const int* __restrict__ idx, int n,
-                                         int m, int k, float* table) {
-  const int lane = threadIdx.x & 31;
-  const int warps = gridDim.x * (blockDim.x >> 5);
-  const int warp = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  for (int base = warp * 32 * Rays; base < n; base += warps * 32 * Rays) {
-    int j[Rays];
-    bool in[Rays];
+// For each row j: before[g][j] = its records in the groups below g, and
+// count[j] = all of them.  A thread a row: a warp reads 32 rows of a group
+// side by side, kUnroll groups at a time.
+__global__ void segment_sum_count(const unsigned* __restrict__ mask, int m,
+                                  int groups, int* __restrict__ before,
+                                  int* __restrict__ count) {
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < m;
+       j += gridDim.x * blockDim.x) {
+    int s = 0;
+    for (int g0 = 0; g0 < groups; g0 += kUnroll) {
+      int bits[kUnroll];
 #pragma unroll
-    for (int r = 0; r < Rays; ++r) {
-      const int i = base + 32 * r + lane;
-      in[r] = i < n;
-      j[r] = in[r] ? idx[i] : -1;
-    }
-    for (int c0 = 0; c0 < k; c0 += kCols) {
-      float v[Rays][kCols];
+      for (int u = 0; u < kUnroll; ++u)
+        bits[u] = g0 + u < groups
+                      ? __popc(mask[static_cast<size_t>(g0 + u) * m + j]) : 0;
 #pragma unroll
-      for (int r = 0; r < Rays; ++r) {
-        const float* col = ct + base + 32 * r + lane;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c)
-          v[r][c] = (in[r] && c0 + c < k)
-                        ? col[static_cast<size_t>(c0 + c) * n] : 0.f;
+      for (int u = 0; u < kUnroll; ++u) {
+        if (g0 + u < groups) before[static_cast<size_t>(g0 + u) * m + j] = s;
+        s += bits[u];
       }
-#pragma unroll
-      for (int r = 0; r < Rays; ++r)
-        add_group(v[r], j[r],
-                  static_cast<unsigned>(j[r]) < static_cast<unsigned>(m), c0,
-                  k, table);
     }
+    count[j] = s;
   }
 }
 
-// MinBlocks 2 holds it to 32 registers, so that two blocks fit an SM.
-template <int Rays, int MinBlocks>
-__global__ void __launch_bounds__(kSharedThreads, MinBlocks)
-segment_sum_shared(const float* __restrict__ ct, const int* __restrict__ idx,
-                   int n, int m, int k, float* __restrict__ out) {
-  extern __shared__ float table[];  // m x k, row-major like `out`
-  const int entries = m * k;
-  for (int t = threadIdx.x; t < entries; t += blockDim.x) table[t] = 0.f;
-  __syncthreads();
+// The exclusive scan of count[0 .. m) into start[0 .. m]; one block.
+__global__ void __launch_bounds__(1024)
+segment_sum_scan(const int* __restrict__ count, int m,
+                 int* __restrict__ start) {
+  __shared__ int warp_sums[32];
+  const int per = (m + blockDim.x - 1) / blockDim.x;
+  const int lo = min(m, static_cast<int>(threadIdx.x) * per);
+  const int hi = min(m, lo + per);
+  int mine = 0;
+  for (int j = lo; j < hi; ++j) mine += count[j];
+  int total = 0;
+  int before = block_exclusive_scan(mine, warp_sums, &total);
+  for (int j = lo; j < hi; ++j) {
+    start[j] = before;
+    before += count[j];
+  }
+  if (threadIdx.x == 0) start[m] = total;
+}
 
-  add_rays<Rays>(ct, idx, n, m, k, table);
-  __syncthreads();
-
-  for (int t = threadIdx.x; t < entries; t += blockDim.x) {
-    const float v = table[t];
-    if (v != 0.f) atomicAdd(out + t, v);
+// Each record's id (tile * kTile + run) to its place in its row's list, in
+// tile order.
+__global__ void segment_sum_place(const int* __restrict__ tile_runs,
+                                  const int* __restrict__ rec_row,
+                                  const unsigned* __restrict__ mask,
+                                  const int* __restrict__ before,
+                                  const int* __restrict__ start, int m,
+                                  unsigned* __restrict__ list) {
+  const int tile = blockIdx.x;
+  const int runs = tile_runs[tile];
+  const int word = tile / kGroupTiles;
+  const unsigned below = (1u << (tile % kGroupTiles)) - 1u;
+  for (int q = threadIdx.x; q < runs; q += blockDim.x) {
+    const unsigned id = static_cast<unsigned>(tile) * kTile + q;
+    const int row = rec_row[id];
+    const size_t at = static_cast<size_t>(word) * m + row;
+    list[start[row] + before[at] + __popc(mask[at] & below)] = id;
   }
 }
 
-__global__ void __launch_bounds__(kGlobalThreads)
-segment_sum_global(const float* __restrict__ ct, const int* __restrict__ idx,
-                   int n, int m, int k, float* __restrict__ out) {
-  add_rays<kGlobalRays>(ct, idx, n, m, k, out);
+// Pass 2: row j's records, which its list holds in tile order, added from
+// +0, kRowThreads columns at a time.
+__global__ void __launch_bounds__(kRowThreads)
+segment_sum_rows(const int* __restrict__ start,
+                 const unsigned* __restrict__ list,
+                 const float* __restrict__ rec_sum, int k,
+                 float* __restrict__ out) {
+  __shared__ float stage[kRowStage];
+  __shared__ unsigned ids[kRowIds];
+
+  const int j = blockIdx.x;
+  const int base = start[j];
+  const int count = start[j + 1] - base;
+  float* row_out = out + static_cast<size_t>(j) * k;
+  for (int c0 = 0; c0 < k; c0 += kRowThreads) {
+    const int cols = min(kRowThreads, k - c0);
+    const int per_round = min(kRowIds, max(1, kRowStage / cols));
+    float s = 0.f;
+    for (int i0 = 0; i0 < count; i0 += per_round) {
+      const int terms = min(per_round, count - i0);
+      for (int i = threadIdx.x; i < terms; i += kRowThreads)
+        ids[i] = list[base + i0 + i];
+      __syncthreads();
+      // kRowLoads loads a thread at once, then their stores
+      const int entries = terms * cols;
+      for (int q0 = 0; q0 < entries; q0 += kRowLoads * kRowThreads) {
+        float v[kRowLoads];
+#pragma unroll
+        for (int u = 0; u < kRowLoads; ++u) {
+          const int q = q0 + u * kRowThreads + threadIdx.x;
+          const int i = q / cols, c = q - i * cols;
+          v[u] = q < entries
+                     ? rec_sum[static_cast<size_t>(ids[i]) * k + c0 + c]
+                     : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < kRowLoads; ++u) {
+          const int q = q0 + u * kRowThreads + threadIdx.x;
+          if (q < entries) stage[q] = v[u];
+        }
+      }
+      __syncthreads();
+      // continues the sum of the rounds before: the same left fold
+      if (static_cast<int>(threadIdx.x) < cols)
+        s = fold(stage + threadIdx.x, terms, cols, s);
+      __syncthreads();
+    }
+    if (static_cast<int>(threadIdx.x) < cols) row_out[c0 + threadIdx.x] = s;
+  }
 }
 
-int shared_limit(int device) {
-  int bytes = 0;
-  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         device);
-  return bytes;
-}
-
-struct Launch {
-  int rays, min_blocks;
+struct Workspace {
+  float* rec_sum;      // [slots][k]: the records' sums
+  unsigned* mask;      // [groups][m]: the tiles holding each row
+  int* before;         // [groups][m]: a row's records in earlier groups
+  int* count;          // [m]
+  int* start;          // [m + 1]
+  int* tile_runs;      // [tiles]
+  int* rec_row;        // [slots]
+  unsigned* list;      // [slots]: each row's record ids, in tile order
+  long long bytes;
 };
 
-// The shared branch's rays a lane and launch bound for a k-column table of
-// which `fit` blocks of 32 registers a thread fit an SM, from the H100's
-// times (PERF.md): one ray a lane where two blocks fit and k takes two
-// column passes (the flagship's 770 x 13), two where one pass holds k
-// (the 2D guide's 512 x 4); where one block fits (the soup's 4096 x 13),
-// two rays a lane and the registers a single block may take.
-Launch shared_launch(int k, int fit) {
-  if (fit < 2) return {2, 1};
-  return k > kCols ? Launch{1, 2} : Launch{2, 2};
-}
-
-// Launches the shared branch at Rays a lane and MinBlocks: one wave of
-// resident blocks, no more than the rays need.  MinBlocks 2 holds a thread
-// to the 32 registers of segment_sum_shared<1, 2>, so `fit` blocks (that
-// kernel's) fit an SM; MinBlocks 1 lets a thread take more, and one block
-// an SM is counted.
-template <int Rays, int MinBlocks>
-cudaError_t launch_shared(const float* ct, const int* idx, int n, int m,
-                          int k, float* out, cudaStream_t s, int fit,
-                          int sms) {
-  const auto kernel = segment_sum_shared<Rays, MinBlocks>;
-  const int bytes = m * k * static_cast<int>(sizeof(float));
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  const int per_sm = MinBlocks == 1 ? 1 : max(fit, 1);
-  const int wanted = (n + kSharedThreads * Rays - 1) / (kSharedThreads * Rays);
-  const int blocks = min(wanted, per_sm * sms);
-  kernel<<<blocks, kSharedThreads, bytes, s>>>(ct, idx, n, m, k, out);
-  return cudaGetLastError();
+// The workspace's parts from its base address `base` (0 to size it).
+Workspace carve(uintptr_t base, int n, int m, int k) {
+  const long long tiles = (static_cast<long long>(n) + kTile - 1) / kTile;
+  const long long slots = tiles * kTile;
+  const long long groups = (tiles + kGroupTiles - 1) / kGroupTiles;
+  long long offset = 0;
+  const auto take = [&](long long ints) {
+    const uintptr_t at = base + static_cast<uintptr_t>(offset);
+    offset += 4 * ints;
+    return at;
+  };
+  Workspace w;
+  w.rec_sum = reinterpret_cast<float*>(take(slots * k));
+  w.mask = reinterpret_cast<unsigned*>(take(m * groups));
+  w.before = reinterpret_cast<int*>(take(m * groups));
+  w.count = reinterpret_cast<int*>(take(m));
+  w.start = reinterpret_cast<int*>(take(m + 1LL));
+  w.tile_runs = reinterpret_cast<int*>(take(tiles));
+  w.rec_row = reinterpret_cast<int*>(take(slots));
+  w.list = reinterpret_cast<unsigned*>(take(slots));
+  w.bytes = offset;
+  return w;
 }
 
 }  // namespace
 
-// 0 when an (m, k) table takes the shared branch on the current device,
-// 1 when it takes the global one.
-extern "C" int segment_sum_branch(int m, int k) {
-  int device = 0;
-  cudaGetDevice(&device);
-  const size_t bytes = static_cast<size_t>(m) * k * sizeof(float);
-  return bytes <= static_cast<size_t>(shared_limit(device)) ? 0 : 1;
+// The workspace segment_sum_launch needs for n rays over m rows of k
+// columns, in bytes.
+extern "C" long long segment_sum_workspace(int n, int m, int k) {
+  return carve(0, n, m, k).bytes;
 }
 
-// ct: (k, n) float32 row-major; idx: (n,) int32; out: (m, k) float32, zeroed
-// by the caller.  Needs n >= 1, m >= 1, 1 <= k and m * k < 2^31.  Launches on
-// `stream` and returns the CUDA error code (0 = launched).
+// ct: (k, n) float32 row-major; idx: (n,) int32; out: (m, k) float32 (every
+// entry written); work: segment_sum_workspace(n, m, k) bytes, 4-byte
+// aligned.  `tile` must be kTile, the caller's tile: else nothing runs and
+// cudaErrorInvalidValue is returned.  Needs n >= 1, m >= 1, 1 <= k and
+// m * k < 2^31.  Launches on `stream` and returns the CUDA error code (0 =
+// launched).
 extern "C" int segment_sum_launch(const float* ct, const int* idx, int n,
-                                  int m, int k, float* out, void* stream) {
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+                                  int m, int k, int tile, float* out,
+                                  void* work, void* stream) {
+  if (tile != kTile) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = (n + kTile - 1) / kTile;
+  const int groups = (tiles + kGroupTiles - 1) / kGroupTiles;
+  const Workspace w = carve(reinterpret_cast<uintptr_t>(work), n, m, k);
+  const long long words = static_cast<long long>(m) * groups;
 
-  if (segment_sum_branch(m, k) == 0) {
-    // how many blocks of 32 registers a thread fit an SM
-    const auto probe = segment_sum_shared<1, 2>;
-    const int bytes = m * k * static_cast<int>(sizeof(float));
-    err = cudaFuncSetAttribute(
-        probe, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int fit = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, probe,
-                                                        kSharedThreads, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const Launch l = shared_launch(k, fit);
-    if (l.rays == 1) {
-      err = l.min_blocks == 1
-                ? launch_shared<1, 1>(ct, idx, n, m, k, out, s, fit, sms)
-                : launch_shared<1, 2>(ct, idx, n, m, k, out, s, fit, sms);
-    } else {
-      err = l.min_blocks == 1
-                ? launch_shared<2, 1>(ct, idx, n, m, k, out, s, fit, sms)
-                : launch_shared<2, 2>(ct, idx, n, m, k, out, s, fit, sms);
-    }
-    return static_cast<int>(err);
-  }
-  const int wanted =
-      (n + kGlobalThreads * kGlobalRays - 1) / (kGlobalThreads * kGlobalRays);
-  const int blocks = min(wanted, 16 * sms);
-  segment_sum_global<<<blocks, kGlobalThreads, 0, s>>>(ct, idx, n, m, k, out);
+  const int clear_blocks = static_cast<int>(min(1024LL, (words + 255) / 256));
+  segment_sum_clear<<<clear_blocks, 256, 0, s>>>(w.mask, words);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int stage_bytes = min(k, kStageCols) * kStageStride *
+                          static_cast<int>(sizeof(float));
+  err = cudaFuncSetAttribute(segment_sum_tiles,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             stage_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  segment_sum_tiles<<<tiles, kTileThreads, stage_bytes, s>>>(
+      ct, idx, n, m, k, w.rec_sum, w.rec_row, w.tile_runs, w.mask);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  segment_sum_count<<<min(1024, (m + 255) / 256), 256, 0, s>>>(
+      w.mask, m, groups, w.before, w.count);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  segment_sum_scan<<<1, 1024, 0, s>>>(w.count, m, w.start);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  segment_sum_place<<<tiles, 256, 0, s>>>(w.tile_runs, w.rec_row, w.mask,
+                                          w.before, w.start, m, w.list);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  segment_sum_rows<<<m, kRowThreads, 0, s>>>(w.start, w.list, w.rec_sum, k,
+                                             out);
   return static_cast<int>(cudaGetLastError());
 }

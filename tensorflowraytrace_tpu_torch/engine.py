@@ -262,9 +262,10 @@ def _gather_rows_t(table, idx, use_kernel=False):
     transposed so each column is an (N,) tensor.  Its backward sums the
     (k, N) cotangent into the (M, k) table gradient: K2
     (``ops/segsum_kernels.py``, the ``tfrt_torch::segment_sum`` operator)
-    when ``use_kernel`` and the cotangent lies on CUDA, the plain
-    ``index_add_`` otherwise; ``idx`` gets no gradient, and the backward is
-    not differentiable.  The ``tfrt_torch::gather_rows_t`` operator
+    when ``use_kernel`` and the cotangent lies on CUDA, its plain version
+    otherwise, both adding in one fixed order, so that a training repeats
+    its bits; ``idx`` gets no gradient, and the backward is not
+    differentiable.  The ``tfrt_torch::gather_rows_t`` operator
     (``ops/custom_ops.py``), so that ``torch.func.grad`` and
     ``grad_and_value`` pass through a trace and an exported gradient
     program launches K2."""

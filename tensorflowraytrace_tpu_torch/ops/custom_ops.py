@@ -34,11 +34,13 @@ by name.  Nothing falls back to the plain version on CUDA tensors.
 A search returns ``(valid bool, idx int32, ray_u)`` per ray, and an arc
 search ``branch bool`` after them; ``ray_u`` is in the rays' dtype (float32
 on CUDA, where the kernels take nothing else).  ``segment_sum`` returns the
-(m, k) sum in the cotangent's dtype.  No kernel operator has a gradient.
+(m, k) sum in the cotangent's dtype, added in the fixed order of
+``segsum_kernels`` on either device, so the two give the same bits.  No
+kernel operator has a gradient.
 
 One more operator, ``gather_rows_t``, is the engine's per-bounce gather
 ``table[idx].T`` (``engine._gather_rows_t``) with its backward registered:
-K2's operator under ``use_kernel``, the plain ``index_add_`` otherwise.
+K2's operator under ``use_kernel``, its plain version otherwise.
 
 This module is imported by ``ops/__init__.py``, so importing any module of
 the port registers the operators.
@@ -154,7 +156,7 @@ def _gather_backward(ctx, ct):
 
 
 # The engine's per-bounce gather, ``table[idx].T``, whose backward is K2's
-# operator under ``use_kernel`` (the plain index_add_ otherwise).  An
+# operator under ``use_kernel`` (its plain version otherwise).  An
 # operator with its backward registered, not an autograd.Function: an
 # exported gradient program traces an operator's registered backward, but
 # derives a Function's from the ops of its forward, which would leave K2

@@ -7,14 +7,16 @@ and the result the (m, k) gradient of the table.  On CUDA tensors it
 launches the hand-written kernel in ``csrc/segment_sum.cu`` (port of
 ``_segsum_kernel`` in ``tensorflowraytrace_tpu/ops/pallas_kernels.py``) or
 raises; it never falls back.  On CPU tensors it runs
-``segment_sum_plain``, one ``index_add_``.  The dispatch is that of the
+``segment_sum_plain``.  The dispatch is that of the
 ``tfrt_torch::segment_sum`` operator (``ops/custom_ops.py``), so that an
 exported gradient program launches the kernel.
 
-The kernel sums each warp's rays on one row with shuffles and the rest with
-atomics, whose order changes from run to run: its result is not bitwise
-reproducible, and it differs from the plain version by float32 rounding of
-the partial sums.
+The order of the adds is fixed by ``(ct, idx, m)`` alone: the rays are cut
+into tiles of ``TILE`` consecutive rays (the Pallas kernel's ray block);
+within a tile each row's contributions are added in ascending ray order
+from +0, then each row's tile sums in ascending tile order from +0.  The
+kernel and the plain version both add in that order, so they give the same
+bits, and a training repeats itself bit for bit from run to run.
 """
 
 from __future__ import annotations
@@ -31,32 +33,48 @@ LAUNCHES = 0
 
 SOURCE = "segment_sum.cu"
 
+# Rays a tile: the Pallas kernel's SEGSUM_RAY_BLOCK, and the kernel's kTile,
+# which the launch checks.
+TILE = 1024
+
+
+def declare(lib):
+    """``lib``, a build of ``SOURCE``, with its C signatures declared."""
+    lib.segment_sum_launch.argtypes = [ctypes.c_void_p] * 2 \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+    lib.segment_sum_launch.restype = ctypes.c_int
+    lib.segment_sum_workspace.argtypes = [ctypes.c_int] * 3
+    lib.segment_sum_workspace.restype = ctypes.c_longlong
+    return lib
+
 
 def load_library():
     """The kernel library, built at first use, with its C signatures
     declared."""
-    lib = cuda_build.load(SOURCE)
-    lib.segment_sum_launch.argtypes = [ctypes.c_void_p] * 2 \
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
-    lib.segment_sum_launch.restype = ctypes.c_int
-    lib.segment_sum_branch.argtypes = [ctypes.c_int] * 2
-    lib.segment_sum_branch.restype = ctypes.c_int
-    return lib
-
-
-def branch(m: int, k: int, device) -> str:
-    """Which branch of the kernel an (m, k) table takes on ``device``:
-    ``"shared"`` (a private table per block) or ``"global"``."""
-    with torch.cuda.device(device):
-        code = load_library().segment_sum_branch(m, k)
-    return ("shared", "global")[code]
+    return declare(cuda_build.load(SOURCE))
 
 
 def segment_sum_plain(ct, idx, m):
-    """The plain PyTorch version: ``zeros(m, k).index_add_(0, idx, ct.T)``
-    in ``ct``'s dtype."""
-    return torch.zeros((m, ct.shape[0]), dtype=ct.dtype,
-                       device=ct.device).index_add_(0, idx.long(), ct.T)
+    """The plain PyTorch version, in ``ct``'s dtype and K2's order: one
+    ``index_add_`` a tile of ``TILE`` rays into an (m, k) partial, which adds
+    each row's rays in ascending order from +0, and the partials added into
+    the result in tile order.  A row a tile misses adds +0 there, which
+    changes no sum that starts at +0.  On CUDA tensors it computes on the
+    host and copies the result back (only the tests and the all-plain
+    comparison paths call it there)."""
+    if ct.device.type != "cpu":
+        return segment_sum_plain(ct.cpu(), idx.cpu(), m).to(ct.device)
+    k, n = ct.shape
+    rows = idx.long()
+    out = torch.zeros((m, k), dtype=ct.dtype)
+    if n <= TILE:
+        return out.index_add_(0, rows, ct.T)
+    part = torch.empty_like(out)
+    for start in range(0, n, TILE):
+        part.zero_().index_add_(0, rows[start:start + TILE],
+                                ct[:, start:start + TILE].T)
+        out += part
+    return out
 
 
 def _check_cuda_inputs(ct, idx, m):
@@ -92,21 +110,33 @@ def segment_sum_kernel(ct, idx, m):
     return torch.ops.tfrt_torch.segment_sum(ct, idx, int(m))
 
 
+def launch(lib, ct, idx, m):
+    """The (m, k) sum by the kernel of ``lib`` (``declare``) on checked,
+    contiguous CUDA inputs with N >= 1, on the current stream; counts
+    nothing."""
+    k, n = ct.shape
+    out = torch.empty((m, k), dtype=torch.float32, device=ct.device)
+    with torch.cuda.device(ct.device):
+        work = torch.empty(lib.segment_sum_workspace(n, m, k),
+                           dtype=torch.uint8, device=ct.device)
+        stream = torch.cuda.current_stream(ct.device).cuda_stream
+        err = lib.segment_sum_launch(
+            ct.data_ptr(), idx.data_ptr(), n, m, k, TILE, out.data_ptr(),
+            work.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
+    return out
+
+
 def segment_sum_cuda(ct, idx, m):
     """K2's operator on CUDA tensors: the input checks and the launch."""
     global LAUNCHES
     _check_cuda_inputs(ct, idx, m)
     ct = ct.detach().contiguous()
     idx = idx.contiguous()
-    k, n = ct.shape
-    out = torch.zeros((m, k), dtype=torch.float32, device=ct.device)
-    if n == 0:
-        return out
-    with torch.cuda.device(ct.device):
-        stream = torch.cuda.current_stream(ct.device).cuda_stream
-        err = load_library().segment_sum_launch(
-            ct.data_ptr(), idx.data_ptr(), n, m, k, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
+    if ct.shape[1] == 0:
+        return torch.zeros((m, ct.shape[0]), dtype=torch.float32,
+                           device=ct.device)
+    out = launch(load_library(), ct, idx, m)
     LAUNCHES += 1
     return out

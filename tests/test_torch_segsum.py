@@ -1,6 +1,12 @@
 """K2, the segment sum, and the gather it is the backward of, on the CPU.
 
-* K2's plain version (``index_add_``) against the JAX package's Pallas
+* K2's plain version against a numpy model of K2's order, bit for bit in
+  float32: ``np.add.at`` (sequential and unbuffered) a tile of
+  ``segsum_kernels.TILE`` rays into a zeroed partial, and the partials
+  added in tile order; at rays below, at and past a tile, one row, empty
+  rows, k = 1, 4 and 13, -0 cotangents and a NaN; two calls give the same
+  bits.
+* K2's plain version against the JAX package's Pallas
   kernel in interpret mode and against its scatter (``.at[idx].add``), at
   the cases of tests/test_pallas.py: k = 13, n = 5000, m in {242, 2048,
   16386}, random and coherent idx; rtol 1e-5 and atol 1e-5 (float32 sums
@@ -60,6 +66,55 @@ def test_plain_matches_pallas_and_scatter(rng, m, coherent):
     for want in (pallas, scatter):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-5)
+
+
+def tiled_model(ct, idx, m):
+    """K2's order in numpy: np.add.at a tile into a zeroed partial, then
+    the partials added in tile order from +0."""
+    k, n = ct.shape
+    out = np.zeros((m, k), ct.dtype)
+    for start in range(0, n, sk.TILE):
+        part = np.zeros((m, k), ct.dtype)
+        np.add.at(part, idx[start:start + sk.TILE],
+                  ct[:, start:start + sk.TILE].T)
+        out = out + part
+    return out
+
+
+@pytest.mark.parametrize("n,m,k,case", [
+    (700, 50, 13, "random"),          # fewer rays than a tile
+    (2 * 1024, 50, 13, "random"),     # an exact multiple of a tile
+    (5000, 242, 13, "random"),        # ragged
+    (3333, 770, 4, "random"),
+    (4100, 1, 1, "random"),           # one row
+    (3000, 770, 13, "one_row"),       # every ray on one row of many
+    (2500, 16386, 13, "random"),      # most rows empty
+    (4096, 60, 4, "negative_zero"),   # -0 cotangents
+    (2600, 90, 13, "nan"),            # a NaN reaches its row and column
+])
+def test_plain_adds_in_the_tiles_order(rng, n, m, k, case):
+    ct = rng.normal(0, 1, (k, n)).astype(np.float32)
+    idx = rng.integers(0, m, n).astype(np.int32)
+    if case == "one_row":
+        idx[:] = m // 2
+    elif case == "negative_zero":
+        ct[:, ::3] = -0.0
+        ct[:, idx == 7] = -0.0  # a row of -0 alone sums to +0
+    elif case == "nan":
+        ct[2, 1500] = np.nan
+    want = tiled_model(ct, idx, m)
+    got = sk.segment_sum_plain(torch.as_tensor(ct), torch.as_tensor(idx), m)
+    again = sk.segment_sum_plain(torch.as_tensor(ct), torch.as_tensor(idx), m)
+    assert got.dtype == torch.float32 and got.shape == (m, k)
+    assert np.array_equal(got.numpy().view(np.uint32), want.view(np.uint32))
+    assert np.array_equal(again.numpy().view(np.uint32),
+                          got.numpy().view(np.uint32))
+    if case == "negative_zero":
+        assert not np.signbit(got.numpy()[7]).any()
+    if case == "nan":
+        nan = np.zeros((m, k), bool)
+        nan[idx[1500], 2] = True
+        assert np.array_equal(np.isnan(got.numpy()), nan)
 
 
 def test_wrapper_runs_the_plain_version_on_cpu(rng):

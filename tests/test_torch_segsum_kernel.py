@@ -6,11 +6,13 @@ Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 ``python -m pytest tests/test_torch_segsum_kernel.py -m cuda --noconftest
 -o addopts="" -q``.
 
-The kernel sums the lanes of a warp that share a row with shuffles and
-adds with atomics in an order that changes from run to run, so it is held
-elementwise to the float64 sum: ``|K2 - ref64| <= 1e-5 S + 1e-7``, where
-``S[j] = sum over idx[i] == j of |ct[:, i]|`` bounds the rounding of any
-order of float32 additions.
+The kernel adds in the fixed order of its plain version (tiles of
+``segsum_kernels.TILE`` rays, each row's rays in order within a tile, then
+the tile sums in order), so it is held to the plain version bit for bit,
+and two launches on the same inputs to each other.  Its distance to the
+float64 sum stays within ``1e-5 S + 1e-7``, where ``S[j] = sum over
+idx[i] == j of |ct[:, i]|`` bounds the rounding of any order of float32
+additions.
 """
 
 import numpy as np
@@ -45,16 +47,25 @@ def case(n, m, device, idx="random", seed=0):
     return ct, ids.to(torch.int32)
 
 
+def same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def check(ct, idx, m):
     before = sk.LAUNCHES
     got = sk.segment_sum_kernel(ct, idx, m)
+    again = sk.segment_sum_kernel(ct, idx, m)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == before + 1
+    assert sk.LAUNCHES == before + 2
+    assert got.shape == (m, ct.shape[0]) and got.dtype == torch.float32
+    plain = sk.segment_sum_plain(ct, idx, m)
+    finite = torch.isfinite(plain)
+    assert torch.equal(finite, torch.isfinite(got))
+    assert torch.equal(torch.isnan(plain), torch.isnan(got))
+    assert same_bits(got[finite], plain[finite])
+    assert same_bits(got, again) or not bool(finite.all())
     ref64 = sk.segment_sum_plain(ct.double(), idx, m)
     bound = sk.segment_sum_plain(ct.double().abs(), idx, m) * 1e-5 + 1e-7
-    assert got.shape == (m, ct.shape[0]) and got.dtype == torch.float32
-    finite = torch.isfinite(ref64)
-    assert torch.equal(finite, torch.isfinite(got))
     assert bool(((got.double() - ref64).abs() <= bound)[finite].all())
     return got
 
@@ -69,10 +80,22 @@ def test_kernel_matches_float64(cuda, n, m, idx):
 
 
 def test_branches(cuda):
-    assert sk.branch(770, K, cuda) == "shared"
-    assert sk.branch(4096, K, cuda) == "shared"
-    assert sk.branch(512, 4, cuda) == "shared"
-    assert sk.branch(16386, K, cuda) == "global"
+    """Small and large tables, k = 1 to 40 (past the 16 columns a tile
+    stages at a time), and rays below, at and past a tile: every shape
+    adds in the same order."""
+    for n, m, k in ((1023, 770, 13), (1024, 770, 4), (1025, 16386, 13),
+                    (70000, 3, 1), (9000, 100, 17), (5000, 64, 40)):
+        gen = torch.Generator(cuda).manual_seed(n + m + k)
+        ct = torch.randn((k, n), generator=gen, device=cuda)
+        idx = torch.randint(0, m, (n,), generator=gen, device=cuda)
+        check(ct, idx.to(torch.int32), m)
+
+
+def test_ten_launches_are_identical(cuda):
+    ct, idx = case(1 << 20, 770, cuda)
+    first = sk.segment_sum_kernel(ct, idx, 770)
+    for _ in range(9):
+        assert same_bits(sk.segment_sum_kernel(ct, idx, 770), first)
 
 
 def test_warp_lanes_split_over_two_and_three_rows(cuda):
@@ -92,17 +115,20 @@ def test_warp_lanes_split_over_two_and_three_rows(cuda):
 
 
 def test_shared_limit_and_one_row_past_it(cuda):
-    """The largest table that takes the shared branch (found from
-    ``branch``) and one row more, which takes the global one."""
-    lo, hi = 1, 1 << 16
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if sk.branch(mid, K, cuda) == "shared" else (lo,
-                                                                         mid)
-    assert sk.branch(lo, K, cuda) == "shared"
-    assert sk.branch(lo + 1, K, cuda) == "global"
-    for m in (lo, lo + 1):
+    """The tables either side of the old kernel's shared-memory limit at
+    k = 13 (4470 rows of 52 bytes in 232,448), and rows out of range,
+    which add nothing."""
+    for m in (4470, 4471):
         check(*case(1 << 18, m, cuda), m)
+    ct, idx = case(1 << 16, 500, cuda)
+    idx[::7] = -1
+    idx[3::7] = 500
+    got = sk.segment_sum_kernel(ct, idx, 500)
+    # the same tiles, with the dropped rays' cotangents +0 on row 0
+    keep = (idx >= 0) & (idx < 500)
+    want = sk.segment_sum_plain(torch.where(keep, ct, 0.0),
+                                torch.where(keep, idx, 0), 500)
+    assert same_bits(got, want)
 
 
 def test_all_zero_and_nan_cotangents(cuda):
@@ -158,7 +184,7 @@ def test_gather_backward_launches_the_kernel(cuda):
         torch.sum(w * _gather_rows_t(t, idx, use_kernel) ** 2).backward()
         assert sk.LAUNCHES == before + int(use_kernel)
         grads.append(t.grad)
-    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-5)
+    assert same_bits(grads[0], grads[1])
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):
