@@ -35,7 +35,8 @@ exits non-zero without printing a result):
    launched exactly once per bounce.
 5. the bench-scale trace: 2^20 rays x 4096 triangles x 8 bounces of the
    soup, kernel path against the plain path: per-state ray counts within
-   0.1% of N; median of 5 synchronised runs of each.  Then K1 alone at its
+   0.1% of N; median of 5 synchronised runs of the kernel path, one of
+   the plain path (~14 s a trace).  Then K1 alone at its
    first bounce, with two bounds: the flat 46 operations a pair, and the
    work these inputs need, the pairs that fail on tu alone
    (``triangle_kernels.pairs_out_on_tu``) charged the 24 operations before
@@ -46,13 +47,16 @@ exits non-zero without printing a result):
    ragged shapes, with k = 13, and at the 2D guide backward's (2^20 rays,
    the 512-arc table, k = 4: the cotangents and rows of the K2 call of
    phase 14's backward whose rays hit the most arcs, and each call's share
-   of rays with a zero cotangent, printed): bit for bit in float32, and 10
-   launches on the same inputs bit for bit; beside that elementwise
+   of rays with a zero cotangent, printed), and at the caustic image's
+   histogram (2^22 rays, 512 x 512 bins, k = 1): bit for bit in float32
+   and in float64, 10 launches on the same inputs bit for bit each;
+   beside that elementwise
    ``|K2 - ref64| <= 1e-5 S + 1e-7`` against float64, ``S[j] = sum over
    idx[i] == j of |ct[:, i]|``; K2 (by CUDA events, and by device time
    after phase 14), its plain version (on the host), ``index_add_`` and
-   ``index_add_`` under ``torch.use_deterministic_algorithms`` timed at
-   (2^20, 770), (2^20, 4096), one row of 770 and the 2D guide's shape.
+   ``index_add_`` under ``torch.use_deterministic_algorithms`` timed in
+   float32 and float64 at (2^20, 770), (2^20, 4096), one row of 770, the
+   2D guide's shape and the histogram's.
 7. the flagship's training routine at the scale of
    examples/simple_3d_optimize.py through flagship.train() (2025 rays,
    217-vertex surfaces, 3 bounces, 150 steps in three chained phases): K1
@@ -224,12 +228,14 @@ exits non-zero without printing a result):
    512 landing image, ``TraceConfig.recommended``, so K3 with the
    re-sort): one block's trace alone for its peak memory, then the stream
    timed (rays/s, equivalent intersections/s N M B / t), K3 launched 2
+   times a block and K2 (the image's fold, ``analysis.histogram2d``) 2
    times a block, its counts summing to its rays, the mean landed weight
    within 0.02 of 1 - (1/7)^2 (the example's test), its peak memory; one
    block profiled (K3, the re-sort, the reaction and the fold, the rest,
    the idle share); 2 blocks against one trace of the same 2^23 rays,
    the image accumulated in float64 (exact sums of the float32 weights),
-   equal bit for bit with equal state counts; one block's trace with
+   equal bit for bit with equal state counts; K3 alone at block 0's first
+   bounce and its admitted-work bound there; one block's trace with
    K3's wrapper logged against the same trace with K3's plain version in
    its place (2^22 rays x 124,418 triangles, 487 chunks): every call, the
    final states, endpoints, intensities and image bit for bit; one block
@@ -253,11 +259,13 @@ exits non-zero without printing a result):
 18. the designs at the JAX examples' sizes (float32, K5 and K2, K1 in
    18d): 18a ``scenes2d.asphere_singlet`` (examples/asphere_singlet.py: two
    ParametricAsphereSegments of 256 segments and the screen, 160 rays, 3
-   bounces, the sphere control and the asphere design of 1500 Adam steps
-   each under a cosine LambdaLR, through ``Optimizer(optax_tx=...)``): the
-   example's two checks, the launches (K5 3 a step and one a bounce of the
-   three spot evaluations, K2 the same each step), ms a step by CUDA
-   events over 100 steps, 20 steps profiled (idle share; K5, K2 and the
+   bounces, the sphere control and the asphere design of 200 of the
+   example's 1500 Adam steps each under a cosine LambdaLR, through
+   ``Optimizer(optax_tx=...)``): ms a step by CUDA events over 100 steps,
+   a probe that fails the phase where the cut designs would pass their
+   budget, the example's two checks, the launches (K5 3 a step and one a
+   bounce of the three spot evaluations, K2 the same each step), 20
+   steps profiled (idle share; K5, K2 and the
    rest), then 5 steps each held against the plain K5 and K2 (every K5
    call bit for bit, the loss and the gradient bit for bit); 18b
    ``scenes2d.multisegment_lens``
@@ -266,7 +274,8 @@ exits non-zero without printing a result):
    1e-6 float32 margin), launches, ms a step, one step against the plain
    versions; 18c ``scenes2d.strehl_lens`` (examples/strehl_lens.py: 48
    segments, 128 rays carrying their optical path, 2 bounces, 3 stages of
-   300 Adam steps): the example's check, ms a step a stage, launches, 5
+   100 of the example's 300 Adam steps, behind the same probe): the
+   example's check, ms a step a stage, launches, 5
    steps profiled with the PSF's forward in the range ``strehl_psf``,
    then 5 steps held against the plain K5 and K2 as in 18a; 18d ``scenes3d.image_quality_3d`` (examples/image_quality_3d.py: the
    hexalens trained by ``hexalens.train``, exported as STL under build/,
@@ -337,18 +346,19 @@ exits non-zero without printing a result):
 21. export, profiling and drawing (``utils/export.py``,
    ``utils/profiling.py``, ``drawing.py``): 21a ``torch.library.opcheck``
    of the ten ``tfrt_torch`` operators (``ops/custom_ops.py``) on CUDA
-   inputs; 21b programs exported, saved under build/export/, loaded from
-   the file and run, each held against the live trace with the launch
+   inputs; 21b programs exported by a process of its own started before
+   phase 19 (``--export-programs``, ``export_all``: the exports' host
+   tracing runs beside phases 19 and 20), saved under build/export/,
+   loaded from the file and run, each held against the live trace with the launch
    counts read while the loaded program runs: the flagship forward (2025
    rays, 770 triangles, 3 bounces; K1) bit for bit, a half-size call
    refused; the flagship loss's value and gradient through
-   ``export.value_and_grad`` (a joint program; K1, K2): the loss equal,
-   the gradient within 1e-4 of the live max norm (the program decomposes
-   ``torch.linalg.cross``, whose backward adds in another order than
-   eager's); phase 13's 2D guide at
-   full width, brute at 4 bounces (K5, K6), ``cull=True`` and ``"grid"``
-   at 2 (K7, K8; K9, K10); phase 10's 3D guide under ``recommended`` (K3)
-   and ``"grid"`` (K4) at 2: each bit for bit; each export's seconds and
+   ``export.value_and_grad`` (a joint program; K1, K2): the loss and the
+   gradient bit for bit (the normals' cross product is written out, so
+   the program's backward and eager autograd's add in one order); phase
+   13's 2D guide at full width, brute (K5, K6), ``cull=True`` and
+   ``"grid"`` (K7, K8; K9, K10), each at 1 bounce; phase 10's 3D guide
+   under ``recommended`` (K3) and ``"grid"`` (K4) at 1: each bit for bit; each export's seconds and
    bytes, the served run against the live one by ``interleaved_ms``; 21c
    three flagship steps under ``profile_trace`` (build/profile/): the
    trace names the K1 and K2 kernels, ``StepTimer.report()``; 21d where
@@ -377,10 +387,22 @@ exits non-zero without printing a result):
    (2^20 rays, 16,386 triangles, 24 bounces: ``"grid"`` + re-sort on K4,
    ``cull=True`` ± re-sort on K3, brute on K1), its four checksums equal.
    The kernels line gives K1-K6 ``launches_examples``.
+23. every design path run twice from the same seeds and generators, in
+   one process, ``REPEAT_STEPS`` (5) steps each, the streamed training's
+   4 whole: the flagship and the hexalens trainings (and the hexalens's
+   landing image), one float32 caustic block image (2 K2 launches a
+   trace), the 2D guide design's loss and gradient, the streamed
+   training, the asphere singlet, config 2, the Strehl lens, a Cooke
+   step, the stepwise single arc, and phase 22b's designs (the rhomb, the
+   wavefront lens, the achromat, the AR coating and its coated trace, the
+   spectrometer, the hybrid achromat, the tolerancing design and the
+   sweep's refinement): every step's loss, the final parameters and the
+   images bit for bit (``differing``); the seconds of each path.
 
 Phase 5 keeps the soup unsorted, so its numbers stay comparable with the
-earlier runs: the brute-force search does not use the order.  Then the
-script's own wall time, one JSON line describing each kernel of the path,
+earlier runs: the brute-force search does not use the order.  Each phase
+prints its seconds.  Then the script's own wall time with the seconds by
+phase, one JSON line describing each kernel of the path,
 the nvidia-smi line, and as the last line ``{"ok": true, "device":
 {...}}``.
 
@@ -395,7 +417,15 @@ K8 at 128-1024 rays a block, alone at the 2D guide's first bounce and in
 its ``cull=True`` traces; times K9 alone at the 2D guide's first bounce
 at every ray block, then sweeps K9's and K10's ray block and cap on the
 2D guide (median of 3 traces each, every setting checked against the
-brute trace), and prints no result line.
+brute trace), and prints no result line.  ``--tune-rows`` times K2 the
+same way with its row pass one warp a row and one block a row at every
+table (``SEGSUM_ROW_VARIANTS``), at ``SEGSUM_ROW_TIMED``.
+``python3 chip_smoke.py --export-programs`` runs phases 1 and 2 and
+writes phase 21b's programs under build/export/ (the script runs it
+itself).
+``python3 chip_smoke.py --caustic-block`` runs phases 1 and 2 and times
+one caustic block with its image folded (``caustic_block``); copied into
+the root of an earlier checkout, it times that checkout's.
 ``python3 chip_smoke.py --arcs-alone`` runs phases 1 and 2 and times K6
 and K8 launched alone at the 2D guide's first bounce (see
 ``arcs_alone``); ``--segsum-alone`` times K2 at phase 6's timed shapes
@@ -410,6 +440,7 @@ import collections
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -421,12 +452,18 @@ N_SOUP_TRIS = 4094
 K1_RAYS = 131072
 BENCH_RAYS = 1 << 20
 BENCH_BOUNCES = 8
+# the plain (Cramer) path's traces timed after its warm-up: ~14 s each on
+# an H100
+PLAIN_TRACE_TIMED = 1
 EPS = 1e-6  # default_epsilon(float32)
 
 # phase 6: (label, rays N, table rows m, columns k, idx pattern); k = 13 is
 # the 3D gather's table (vp, v1, v2, norm, the packed annotation), k = 4
 # the 2D guide's arc table (centre, radius, the packed annotation).  The
-# "guide2d" case is phase 14's own arc gather backward (guide2d_backward).
+# "guide2d" case is phase 14's own arc gather backward (guide2d_backward);
+# "histogram" the caustic image's sum of one 2^22-ray block (k = 1, the
+# 512 x 512 bins of a blurred spot).  Every case runs in float32 and in
+# float64.
 SEGSUM_CASES = [
     ("flagship_example", 2025, 770, 13, "random"),
     ("flagship_bench", 1 << 20, 770, 13, "random"),
@@ -437,8 +474,10 @@ SEGSUM_CASES = [
     ("ragged_1x1", 1, 1, 13, "random"),
     ("ragged", 1000, 333, 13, "random"),
     ("guide2d_backward", 1 << 20, 512, 4, "guide2d"),
+    ("histogram", 1 << 22, 512 * 512, 1, "spot"),
 ]
-SEGSUM_TIMED = ("flagship_bench", "soup", "one_row", "guide2d_backward")
+SEGSUM_TIMED = ("flagship_bench", "soup", "one_row", "guide2d_backward",
+                "histogram")
 # calls timed of K2's plain version (on the host) and of index_add_ under
 # torch.use_deterministic_algorithms (up to 0.26 s a call on one row)
 K2_SLOW_REPS = 3
@@ -453,6 +492,11 @@ SEGSUM_VARIANTS = tuple(
      "kRowThreads": threads}
     for cols in (8, 16) for blocks in (2, 3) for unroll in (4, 8)
     for threads in (128, 256))
+# --tune-rows: K2's row pass one warp a row at every table (kWarpRowsMin 1)
+# and one block a row at every table (kWarpRowsMin 2^30), timed at
+# SEGSUM_ROW_TIMED beside the source as it stands
+SEGSUM_ROW_VARIANTS = ({"kWarpRowsMin": 1}, {"kWarpRowsMin": 1 << 30})
+SEGSUM_ROW_TIMED = ("flagship_example", *SEGSUM_TIMED)
 
 # phases 7 and 8: the flagship's training (examples/simple_3d_optimize.py)
 TRAIN_STEPS = 150
@@ -476,6 +520,7 @@ RANGES = ("twolevel_candidates", "resort_rays", "caustic_reaction",
 # --fmad=false, so their floor without FMAs is twice the operation bound.
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_FLOP_S = 67e12
+PEAK_FP64_FLOP_S = 34e12  # off the tensor cores (NVIDIA's data sheet, SXM)
 # FP32 operations of one ray-triangle pair (K1, K3 and K4 do the same
 # exact arithmetic, behind a cheaper test): two cross products
 # (2 x 9), two dot products against P (2 x 6 with the scaling by inv),
@@ -543,13 +588,15 @@ STREAM_DRAWS = 1 << 20
 NORMAL_ULPS = 4
 # phase 18: the designs of the optimizer's torch stage and the analysis
 ASPHERE_STEPS = 1500       # a design; the example runs two
+ASPHERE_CUT_STEPS = 100    # PERF.md 4: its checks' margins at the cut
 ASPHERE_RES = 256
 ASPHERE_RAYS = 160
-ASPHERE_TIMED = 100        # steps timed one by one by CUDA events
+ASPHERE_TIMED = 30         # steps timed one by one by CUDA events
 ASPHERE_PROFILED = 20
 PLAIN_STEPS = 5            # steps held against the plain K5 and K2
 CONFIG2_STEPS = 60
 STREHL_STEPS = 300         # a stage; three stages
+STREHL_CUT_STEPS = 100
 STREHL_SEGMENTS = 48
 STREHL_RAYS = 128
 STREHL_PROFILED = 5
@@ -593,9 +640,10 @@ PIPELINE_ATOL = 1e-12      # 20d: host NumPy on the same inputs
 GUIDE_PLAIN_STRIDE = 16
 # phase 21: export, profiling, drawing
 EXPORT_TIMED = 5            # served and live runs a program, in turns
-EXPORT_GUIDE2D_BOUNCES = 4  # the brute 2D guide's export depth (export
-                            # time grows with the bounces: ~1.2 s a bounce)
-EXPORT_SHALLOW_BOUNCES = 2  # the culled and two-level guides' depth
+EXPORTER_WAIT_S = 900       # the most phase 21 waits for the exporter
+EXPORT_GUIDE2D_BOUNCES = 1  # the brute 2D guide's export depth (export
+                            # time grows with the bounces: ~5 s a bounce)
+EXPORT_SHALLOW_BOUNCES = 1  # the culled and two-level guides' depth
 DRAW_RAYS = 4096
 DRAW_BOUNCES = 3
 # phase 22: the last examples.  Phase 22 alone took 266.0 s uncut (PR 18's
@@ -610,12 +658,15 @@ HYBRID_STEPS = 600          # a design; the example runs two
 HYBRID_CUT_STEPS = 400
 TOL_DESIGN_CUT_STEPS = 200  # the nominal design's 400 (populations.py)
 CUT_BUDGET_S = {"wavefront_lens": 20.0, "achromat": 60.0,
-                "hybrid_achromat": 100.0}
+                "hybrid_achromat": 100.0, "asphere_singlet": 30.0,
+                "strehl_lens": 20.0}
 EXAMPLE_TIMED = 5           # steps timed one by one by CUDA events
 EXAMPLE_PROFILED = 2
 # --dispatch-cost: rounds of interleaved_ms, and runs a round
 DISPATCH_ROUNDS = 3
 DISPATCH_TIMED = 10
+# phase 23: the steps each design path is run for, twice
+REPEAT_STEPS = 5
 
 
 def check(cond, message):
@@ -1000,6 +1051,12 @@ def segsum_inputs(n, m, k, pattern, device, seed=0):
 
     gen = torch.Generator(device).manual_seed(seed)
     ct = torch.randn((k, n), generator=gen, device=device)
+    if pattern == "spot":  # weights in [0, 1) on a square image's bins
+        side = math.isqrt(m)
+        ct = torch.rand((k, n), generator=gen, device=device)
+        xy = (torch.randn((2, n), generator=gen, device=device) * side / 6
+              + side / 2).long().clamp(0, side - 1)
+        return ct, (xy[0] * side + xy[1]).to(torch.int32)
     if pattern == "random":
         idx = torch.randint(0, m, (n,), generator=gen, device=device)
     elif pattern == "coherent":  # blocks of 100 rays on nearby rows
@@ -1023,11 +1080,11 @@ def segsum_case(label, device, guide2d=None):
 def compare_k2(label, ct, idx, m, prefix="phase 6 K2", kernel=None,
                exact=True):
     """K2 (or ``kernel``, with its arguments) against its plain version on
-    the (k, N) cotangents ``ct`` and rows ``idx``: bit for bit in float32,
-    and 10 launches on the same inputs give the same bits (both printed,
-    and checked where ``exact``); its distance to float64 ``index_add_``
-    within ``1e-5 S + 1e-7``.  Returns max |K2 - ref64|.  These launches
-    are comparisons."""
+    the (k, N) cotangents ``ct`` and rows ``idx``: bit for bit in ``ct``'s
+    dtype, and 10 launches on the same inputs give the same bits (both
+    printed, and checked where ``exact``); its distance to the float64
+    plain version within ``1e-5 S + 1e-7``.  Returns max |K2 - ref64|.
+    These launches are comparisons."""
     import torch
 
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
@@ -1073,8 +1130,8 @@ def time_k2(ct, idx, m, reps=50, kernel=None):
         return kernel(ct, idx, m)
 
     split = kernel_device_split(fn, "segment_sum", reps)
-    short = {k: (re.search(r"segment_sum_([a-z]+)(?:E|\()", k) or [k, k])[1]
-             for k in split}
+    short = {k: (re.search(r"segment_sum_([a-z_]+?)(?:<|E|I|\()", k)
+                 or [k, k])[1] for k in split}
     parts = ", ".join(f"{short[k]} {v:.5f}" for k, v in split.items())
     return (cuda_ms(fn, reps), sum(split.values()) if split else None,
             parts or "not measured")
@@ -1123,9 +1180,9 @@ def ptxas_summary(report):
     found, name = {}, None
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '[^']*?(segment_sum_"
-                          r"[a-z]+)(?:ILi(\d+)ELi(\d+)E)?E", line)
+                          r"[a-z_]+?)(?:I([fd])E)?E", line)
         if entry:
-            name = entry[1] + (f"<{entry[2]},{entry[3]}>" if entry[2] else "")
+            name = entry[1] + (f"<{entry[2]}>" if entry[2] else "")
             found[name] = {}
         elif name and "spill" in line:
             found[name]["spill"] = ", ".join(
@@ -1136,13 +1193,12 @@ def ptxas_summary(report):
                      for k, v in found.items())
 
 
-def segsum_variants(device):
+def segsum_variants(device, variants=SEGSUM_VARIANTS, timed=SEGSUM_TIMED):
     """``--tune``: K2 built from ``segment_sum.cu`` once for each of
-    ``SEGSUM_VARIANTS`` (one nvcc each, started together, with ptxas'
-    registers and spills printed), each checked with phase 6's criterion
-    and timed at ``SEGSUM_TIMED`` by CUDA events and by device time, in
-    the variants' order and then in reverse, so that a drift of the card
-    shows."""
+    ``variants`` (one nvcc each, started together, with ptxas' registers
+    and spills printed), each checked with phase 6's criterion and timed
+    at ``timed`` by CUDA events and by device time, in the variants' order
+    and then in reverse, so that a drift of the card shows."""
     import ctypes
     import functools
 
@@ -1153,12 +1209,11 @@ def segsum_variants(device):
     folder = cuda_build.BUILD_DIR / "segsum_variants"
     folder.mkdir(parents=True, exist_ok=True)
     names, jobs = [], []
-    for v in (None, *SEGSUM_VARIANTS):
+    for v in (None, *variants):
         name = ("as built" if v is None else
                 ", ".join(f"{k} {x}" for k, x in v.items()))
         tag = ("built" if v is None else
-               f"c{v['kStageCols']}_b{v['kTileMinBlocks']}_u{v['kUnroll']}_"
-               f"t{v['kRowThreads']}")
+               "_".join(f"{k}{x}" for k, x in v.items()))
         src, lib = folder / f"{tag}.cu", folder / f"{tag}.so"
         src.write_text(segsum_variant_source(text, v))
         cmd = [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
@@ -1176,7 +1231,7 @@ def segsum_variants(device):
         kernels.append(functools.partial(sk.launch,
                                          sk.declare(ctypes.CDLL(str(lib)))))
     guide2d = guide2d_backward(device)
-    for label in SEGSUM_TIMED:
+    for label in timed:
         ct, idx, m = segsum_case(label, device, guide2d)
         for order in (range(len(names)), reversed(range(len(names)))):
             for i in order:
@@ -1200,44 +1255,59 @@ def deterministic_ms(fn, reps):
         torch.use_deterministic_algorithms(False)
 
 
-def phase_6(device):
-    """K2 against its plain version bit for bit at every case of
-    ``SEGSUM_CASES`` and timed at ``SEGSUM_TIMED``; returns the timed
-    cases' fields."""
+def k2_timing(label, ct, idx, m, err):
+    """Phase 6's fields of one timed case in ``ct``'s dtype: K2 by CUDA
+    events, its plain version (on the host), ``index_add_`` and
+    ``index_add_`` under ``torch.use_deterministic_algorithms``, and the
+    bound; printed."""
     import torch
 
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
 
+    k, n = ct.shape
+    e = ct.element_size()
+    ct_t, idx_l = ct.T, idx.long()
+    buf = torch.zeros((m, k), device=ct.device, dtype=ct.dtype)
+    bytes_ms = (e * (k * n + m * k) + 4 * n) / PEAK_BYTES_S * 1e3
+    peak = PEAK_FP32_FLOP_S if e == 4 else PEAK_FP64_FLOP_S
+    ops_ms = k * n / peak * 1e3
+    f = {
+        "n": n, "m": m, "k": k, "dtype": str(ct.dtype).split(".")[-1],
+        "max_abs_err": err, "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "ms": cuda_ms(lambda: sk.segment_sum_kernel(ct, idx, m), 50),
+        # on the host, where the plain version computes for CUDA
+        "plain_ms": cuda_ms(lambda: sk.segment_sum_plain(ct, idx, m),
+                            K2_SLOW_REPS),
+        "library_ms": cuda_ms(lambda: buf.index_add_(0, idx_l, ct_t), 50),
+        # the library's fixed-order counterpart
+        "library_deterministic_ms": deterministic_ms(
+            lambda: buf.index_add_(0, idx_l, ct_t), K2_SLOW_REPS),
+    }
+    print(f"phase 6 K2 {label} {f['dtype']} timing: kernel {f['ms']:.5f} ms "
+          f"by CUDA events (its device time after phase 14), plain "
+          f"{f['plain_ms']:.5f} ms (on the host), index_add_ "
+          f"{f['library_ms']:.5f} ms, deterministic index_add_ "
+          f"{f['library_deterministic_ms']:.5f} ms, bound "
+          f"{f['bound_ms']:.5f} ms ({f['bound_by']})", flush=True)
+    return f
+
+
+def phase_6(device):
+    """K2 against its plain version bit for bit at every case of
+    ``SEGSUM_CASES``, in float32 and in float64 (10 launches each), and
+    timed at ``SEGSUM_TIMED``; returns the timed cases' fields, the
+    float64 ones under the label + " float64"."""
     guide2d = guide2d_backward(device)
     k2 = {}
-    for label, n, m, k, _ in SEGSUM_CASES:
+    for label, *_ in SEGSUM_CASES:
         ct, idx, m = segsum_case(label, device, guide2d)
         err = compare_k2(label, ct, idx, m)
-        if label not in SEGSUM_TIMED:
-            continue
-        ct_t, idx_l = ct.T, idx.long()
-        buf = torch.zeros((m, k), device=device)
-        bytes_ms = 4 * (k * n + n + m * k) / PEAK_BYTES_S * 1e3
-        ops_ms = k * n / PEAK_FP32_FLOP_S * 1e3
-        k2[label] = f = {
-            "n": n, "m": m, "k": k, "max_abs_err": err,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "ms": cuda_ms(lambda: sk.segment_sum_kernel(ct, idx, m), 50),
-            # on the host, where the plain version computes for CUDA
-            "plain_ms": cuda_ms(lambda: sk.segment_sum_plain(ct, idx, m),
-                                K2_SLOW_REPS),
-            "library_ms": cuda_ms(lambda: buf.index_add_(0, idx_l, ct_t), 50),
-            # the library's fixed-order counterpart
-            "library_deterministic_ms": deterministic_ms(
-                lambda: buf.index_add_(0, idx_l, ct_t), K2_SLOW_REPS),
-        }
-        print(f"phase 6 K2 {label} timing: kernel {f['ms']:.5f} ms by CUDA "
-              f"events (its device time after phase 14), plain "
-              f"{f['plain_ms']:.5f} ms (on the host), index_add_ "
-              f"{f['library_ms']:.5f} ms, deterministic index_add_ "
-              f"{f['library_deterministic_ms']:.5f} ms, bound "
-              f"{f['bound_ms']:.5f} ms ({f['bound_by']})", flush=True)
+        ct64 = ct.double()
+        err64 = compare_k2(label, ct64, idx, m, prefix="phase 6 K2 float64")
+        if label in SEGSUM_TIMED:
+            k2[label] = k2_timing(label, ct, idx, m, err)
+            k2[f"{label} float64"] = k2_timing(label, ct64, idx, m, err64)
     return k2
 
 
@@ -1246,12 +1316,15 @@ def k2_device_times(k2, device):
     into ``k2``.  It runs after phase 14, so that no profiled run comes
     before the host-bound steps of phases 7 and 8."""
     guide2d = guide2d_backward(device)
-    for label, f in k2.items():
-        _, f["device_ms"], parts = time_k2(*segsum_case(label, device,
-                                                        guide2d))
+    for key, f in k2.items():
+        label = key.removesuffix(" float64")
+        ct, idx, m = segsum_case(label, device, guide2d)
+        if key != label:
+            ct = ct.double()
+        _, f["device_ms"], parts = time_k2(ct, idx, m)
         dev_ms = ("not measured" if f["device_ms"] is None
                   else f"{f['device_ms']:.5f} ms")
-        print(f"phase 6 K2 {label} device time: {dev_ms} (ms by kernel: "
+        print(f"phase 6 K2 {key} device time: {dev_ms} (ms by kernel: "
               f"{parts})", flush=True)
 
 
@@ -2960,6 +3033,7 @@ def phase_17(device):
     from tensorflowraytrace_tpu_torch import scenes2d, scenes3d
     from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
     from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
     from tensorflowraytrace_tpu_torch.streamed import fold_in
 
@@ -3001,14 +3075,16 @@ def phase_17(device):
     del res
     n_blocks = CAUSTIC_RAYS // CAUSTIC_BLOCK
     reset_3d()
+    sk.LAUNCHES = 0
     base = start_peak()
     out = scenes3d.caustic_render(CAUSTIC_RAYS, CAUSTIC_BLOCK, CAUSTIC_RES,
                                   CAUSTIC_MESH_STEPS, device=device,
                                   verbose=False)
     stream_gib = peak_above(base)
-    stream_launches = k134()
+    # the image's fold bins each bounce's landings through K2
+    stream_launches = {**k134(), "K2": sk.LAUNCHES}
     check(stream_launches == {"K1": 0, "K3": CAUSTIC_BOUNCES * n_blocks,
-                              "K4": 0},
+                              "K4": 0, "K2": CAUSTIC_BOUNCES * n_blocks},
           f"the caustic stream launched {stream_launches}")
     img = out["image"]
     check(img.shape == (CAUSTIC_RES, CAUSTIC_RES)
@@ -3139,6 +3215,29 @@ def phase_17(device):
           f"{k3_ms['K3']:.3f} ms, with the plain version "
           f"{k3_ms['plain']:.3f} ms", flush=True)
     del traced, logs, rk, rp
+
+    # K3 alone at block 0's first bounce (the rays in the re-sort's order)
+    # and its admitted-work bound there: the pairs of the chunks its slab
+    # test admits up to each ray's final hit, those refused on tu at their
+    # cost so far
+    t0 = time.perf_counter()
+    args = first_bounce_3d(blk, exact.scene.triangles)
+    hit = {}
+    k3_alone_ms = cuda_ms(lambda: hit.update(k3=(
+        tk.nearest_hit_triangles_culled_kernel(*args, EPS, EPS, EPS))), 5)
+    k3_pairs, tu_out = triangle_pairs(*args, hit["k3"][2], tk.CULL_CHUNK)
+    k3_bound_ms = ((k3_pairs - tu_out) * K1_FLOPS_PER_PAIR
+                   + tu_out * TU_FLOPS_PER_PAIR) / PEAK_FP32_FLOP_S * 1e3
+    n_pairs = args[0].shape[0] * m
+    print(f"phase 17a K3 alone at block 0's first bounce ({CAUSTIC_BLOCK} "
+          f"rays x {m} triangles): kernel {k3_alone_ms:.4f} ms; admitted "
+          f"pairs {k3_pairs} at {tk.CULL_CHUNK}-triangle chunks "
+          f"({k3_pairs / n_pairs:.4%} of brute; "
+          f"{tu_out / max(k3_pairs, 1):.4%} "
+          f"of them out on tu), bound {k3_bound_ms:.4f} ms (operations; "
+          f"without FMAs {2 * k3_bound_ms:.4f} ms; counted in "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    del args, hit
 
     # one block through brute (K1), cull=True with and without the re-sort
     # (K3) and "grid" + re-sort (K4): hits and states bit for bit, each
@@ -3297,11 +3396,28 @@ def phase_17(device):
           f"in {ghost_plain_s:.3f} s, calls bit for bit {ghost_calls} and "
           f"every schedule's power, height and counter equal; phase 17 in "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {"K1_caustic": path_launches["brute"]["K1"],
+    return {"K2_caustic": stream_launches["K2"],
+            "K3_caustic_ms": k3_alone_ms, "K3_caustic_bound_ms": k3_bound_ms,
+            "K3_caustic_pairs": k3_pairs,
+            "K1_caustic": path_launches["brute"]["K1"],
             "K3_caustic": stream_launches["K3"],
             "K4_caustic": path_launches["grid+resort"]["K4"],
             "K5_stray": stray_launches["K5"], "K6_stray": stray_launches["K6"],
             "K5_ghost": ghost_launches["K5"], "K6_ghost": ghost_launches["K6"]}
+
+
+def cut_probe(label, step_ms, steps):
+    """A design cut in steps: ``steps`` steps at the mean of ``step_ms``
+    (its steps timed before the design runs) must fit
+    ``CUT_BUDGET_S[label]``, or the phase fails."""
+    budget = CUT_BUDGET_S[label]
+    mean_s = statistics.fmean(step_ms) * 1e-3
+    check(mean_s * steps <= budget, f"{label}: a step takes "
+          f"{mean_s * 1e3:.3f} ms: {steps} steps would take more than "
+          f"{budget:.0f} s")
+    print(f"{label} cut: {steps} steps predicted {mean_s * steps:.1f} s "
+          f"from {len(step_ms)} timed steps (budget {budget:.0f} s)",
+          flush=True)
 
 
 def event_step_ms(step, n):
@@ -3488,28 +3604,31 @@ def phase_18(device):
     parts = {"K5": k5_name, "K2": "segment_sum"}
     out = {}
 
-    # ---- 18a. the asphere singlet: the main path, then its steps
-    gk.LAUNCHES = sk.LAUNCHES = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = scenes2d.asphere_singlet(steps=ASPHERE_STEPS,
-                                   resolution=ASPHERE_RES,
-                                   n_rays=ASPHERE_RAYS, device=device)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    out["asphere"] = {"K5": gk.LAUNCHES, "K2": sk.LAUNCHES}
+    # ---- 18a. the asphere singlet: a probe of its step, the main path (cut
+    # in steps), then its steps
     spot_sq, start = scenes2d.asphere_problem(ASPHERE_RES, ASPHERE_RAYS, f32,
                                               device)
     check(spot_sq.cfg.use_kernel and not spot_sq.cfg.cull,
           f"asphere config {spot_sq.cfg}")
     opt = scenes2d.asphere_optimizer(spot_sq, start, scenes2d.ASPHERE_MASK,
-                                     ASPHERE_STEPS, 6e-3)
+                                     ASPHERE_CUT_STEPS, 6e-3)
 
     def step():
         opt.single_step(sync=False)
 
+    steps = 2 * ASPHERE_CUT_STEPS
+    step_ms = event_step_ms(step, ASPHERE_TIMED)
+    cut_probe("asphere_singlet", step_ms, steps)
+    gk.LAUNCHES = sk.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = scenes2d.asphere_singlet(steps=ASPHERE_CUT_STEPS,
+                                   resolution=ASPHERE_RES,
+                                   n_rays=ASPHERE_RAYS, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out["asphere"] = {"K5": gk.LAUNCHES, "K2": sk.LAUNCHES}
     _, per_step = launches_of(step)
-    steps = 2 * ASPHERE_STEPS
     bounces = scenes2d.ASPHERE_BOUNCES
     # every step, and the three spot evaluations (start, sphere, asphere)
     check(per_step["K5"] == bounces and out["asphere"] == {
@@ -3518,14 +3637,15 @@ def phase_18(device):
     for label in ("sphere", "asphere"):
         check(bool(np.all(np.isfinite(res[f"errors_{label}"]))),
               f"asphere {label} errors are not finite")
-    step_ms = event_step_ms(step, ASPHERE_TIMED)
     _, _, shares = profiled_steps(step, ASPHERE_PROFILED, "profiled", parts)
     print(f"phase 18a asphere singlet: {ASPHERE_RES} segments a surface, "
           f"{ASPHERE_RAYS} rays, {bounces} bounces, float32, two designs of "
-          f"{ASPHERE_STEPS} steps (Adam, cosine LambdaLR, optax_tx) in "
+          f"{ASPHERE_CUT_STEPS} steps (the example's {ASPHERE_STEPS} cut; "
+          f"Adam, cosine LambdaLR, optax_tx) in "
           f"{wall:.3f} s (sphere {res['seconds_sphere']:.3f} s, asphere "
           f"{res['seconds_asphere']:.3f} s = "
-          f"{res['seconds_asphere'] / ASPHERE_STEPS * 1e3:.3f} ms a step); "
+          f"{res['seconds_asphere'] / ASPHERE_CUT_STEPS * 1e3:.3f} ms a "
+          f"step); "
           f"launches {out['asphere']}, {per_step} a step; rms spot start "
           f"{res['rms_start']!r}, sphere {res['rms_sphere']!r}, asphere "
           f"{res['rms_asphere']!r}: asphere < sphere / 3 "
@@ -3533,7 +3653,7 @@ def phase_18(device):
           f"({res['rms_start'] / res['rms_asphere']:.2f}x); front (c, k, a4) "
           f"{res['params_asphere'][:3].tolist()}, back "
           f"{res['params_asphere'][3:].tolist()}", flush=True)
-    print(f"phase 18a asphere steps: median "
+    print(f"phase 18a asphere steps (before the design): median "
           f"{statistics.median(step_ms):.3f} ms a step by CUDA events over "
           f"{ASPHERE_TIMED} (min {min(step_ms):.3f}, max {max(step_ms):.3f}); "
           f"{shares}", flush=True)
@@ -3589,26 +3709,33 @@ def phase_18(device):
           f"bit for bit", flush=True)
     del opt, res
 
-    # ---- 18c. the Strehl lens
+    # ---- 18c. the Strehl lens: a probe of a first stage's step, the main
+    # path (cut in steps), then the last stage's steps
+    strehl, ys = scenes2d.strehl_problem(STREHL_SEGMENTS, STREHL_RAYS, f32,
+                                         device)
+    check(strehl.cfg.use_kernel, f"Strehl config {strehl.cfg}")
+    lam, lr, _ = scenes2d.strehl_stages(STREHL_CUT_STEPS)[0]
+    opt = scenes2d.strehl_optimizer(strehl, torch.as_tensor(
+        scenes2d.strehl_sphere_x(ys), dtype=f32, device=device), lam, lr)
+    cut_probe("strehl_lens", event_step_ms(
+        lambda: opt.single_step(sync=False), 20), 3 * STREHL_CUT_STEPS)
     gk.LAUNCHES = sk.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = scenes2d.strehl_lens(steps=STREHL_STEPS, n_segments=STREHL_SEGMENTS,
+    res = scenes2d.strehl_lens(steps=STREHL_CUT_STEPS,
+                               n_segments=STREHL_SEGMENTS,
                                n_rays=STREHL_RAYS, device=device)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out["strehl"] = {"K5": gk.LAUNCHES, "K2": sk.LAUNCHES}
-    strehl, _ = scenes2d.strehl_problem(STREHL_SEGMENTS, STREHL_RAYS, f32,
-                                        device)
-    check(strehl.cfg.use_kernel, f"Strehl config {strehl.cfg}")
-    lam, lr, _ = scenes2d.strehl_stages(STREHL_STEPS)[-1]
+    lam, lr, _ = scenes2d.strehl_stages(STREHL_CUT_STEPS)[-1]
     opt = scenes2d.strehl_optimizer(strehl, res["xs"], lam, lr)
 
     def step():
         opt.single_step(sync=False)
 
     _, per_step = launches_of(step)
-    steps = 3 * STREHL_STEPS
+    steps = 3 * STREHL_CUT_STEPS
     bounces = scenes2d.STREHL_BOUNCES
     # every step, and the three Strehl evaluations (start, design, hyperbola)
     check(per_step["K5"] == bounces and out["strehl"] == {
@@ -3627,8 +3754,9 @@ def phase_18(device):
         step()
     print(f"phase 18c Strehl lens: {STREHL_SEGMENTS} segments, "
           f"{STREHL_RAYS} rays, {bounces} bounces, float32, 3 stages of "
-          f"{STREHL_STEPS} Adam steps in {wall:.3f} s ("
-          + ", ".join(f"{t / STREHL_STEPS * 1e3:.3f}"
+          f"{STREHL_CUT_STEPS} Adam steps (the example's {STREHL_STEPS} "
+          f"cut) in {wall:.3f} s ("
+          + ", ".join(f"{t / STREHL_CUT_STEPS * 1e3:.3f}"
                       for t in res["stage_seconds"])
           + f" ms a step); launches {out['strehl']}, {per_step} a step; "
           f"Strehl at 550 nm: start {res['strehl_start']!r}, design "
@@ -4385,22 +4513,187 @@ def served(label, folder, blob, call, live, compare, kernels):
         f"(median of {EXPORT_TIMED} in turns)")
 
 
-def phase_21(device):
-    """Export, profiling and drawing on the card.  Returns each kernel's
-    launches from the loaded programs of 21b."""
+def export_dir():
+    """The folder of phase 21b's programs: build/export/."""
+    from tensorflowraytrace_tpu_torch.ops import cuda_build
+
+    return cuda_build.BUILD_DIR / "export"
+
+
+def export_programs(device):
+    """Phase 21b's programs, in order: yields ``(label, make, serve)``.
+    ``make()`` exports the program and returns its bytes; ``serve`` holds
+    what ``served`` runs the loaded program on (``call``) and against
+    (``live``, ``compare``, ``kernels``), the line's ``text``, and
+    ``program``: None, or a further check of the loaded program that
+    returns its words for the line.  The inputs are made here from seeds,
+    the same in every process, so that the exporter (``export_all``)
+    exports what phase 21b serves."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import (
+        Scene3D, TraceConfig, flagship, scenes2d, trace,
+    )
+    from tensorflowraytrace_tpu_torch.engine import start_epsilon
+    from tensorflowraytrace_tpu_torch.ops import materials as mats
+    from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
+    from tensorflowraytrace_tpu_torch.utils import export as ex
+
+    f32 = torch.float32
+    # ---- the flagship forward and its loss's value and gradient
+    lens, source, loss = flagship._flagship(f32, TRAIN_BP, TRAIN_RINGS,
+                                            TRAIN_BOUNCES, True, device)
+    rays = source.sample(torch.Generator(device).manual_seed(0), f32, device)
+    with torch.no_grad():
+        scene = Scene3D.build(optical=lens.build(),
+                              targets=[flagship.target_plane(f32, device)])
+    cfg = TraceConfig(max_bounces=TRAIN_BOUNCES, use_kernel=True,
+                      ray_start_epsilon=start_epsilon(scene))
+    materials = (mats.vacuum, mats.acrylic)
+
+    def half_refused(program):
+        half = dataclasses.replace(
+            rays, **{f: getattr(rays, f)[::2] for f in
+                     ("p0", "p1", "wavelength", "state")},
+            fields={k: v[::2] for k, v in rays.fields.items()})
+        try:
+            program(half)
+        except Exception as e:  # noqa: BLE001 (any refusal will do)
+            refusal = f"{type(e).__name__}"
+        else:
+            refusal = None
+        check(refusal is not None, "21b: the flagship program ran on half "
+              "the rays")
+        return f"state, p0, p1 bit for bit; half the rays refused ({refusal})"
+
+    yield "flagship_forward", (
+        lambda: ex.export_trace(scene, materials, cfg, rays)), {
+        "call": (rays,), "live": lambda: trace(rays, scene, materials,
+                                               cfg).rays,
+        "compare": lambda got, want: same_rays("21b flagship forward", got,
+                                               want),
+        "kernels": ("K1",), "program": half_refused,
+        "text": f"flagship forward ({rays.n_rays} rays, "
+                f"{scene.triangles.n_surfaces} triangles, {TRAIN_BOUNCES} "
+                f"bounces)"}
+
+    sizes = [p.numel() for p in lens.init_params()]
+    shapes = [p.shape for p in lens.init_params()]
+
+    def flat_loss(x, r):
+        return loss([c.reshape(s) for c, s in zip(x.split(sizes), shapes)], r)
+
+    x0 = torch.cat([p.detach().reshape(-1) for p in lens.init_params()])
+    vag = ex.value_and_grad(flat_loss)
+    grad_gap = []
+
+    def same_value_and_grad(got, want):
+        gmax = float(want[1].abs().max())
+        gdiff = float((got[1] - want[1]).abs().max())
+        check(bool(got[0] == want[0]), f"21b flagship loss {float(got[0])!r} "
+              f"served, {float(want[0])!r} live")
+        # the triangle normals' cross product is written out
+        # (models/surfaces.py), so the joint program's backward and eager
+        # autograd's add in one order
+        check(gmax > 0 and torch.equal(got[1], want[1]),
+              f"21b flagship gradient differs by {gdiff} (max {gmax})")
+        grad_gap.append((gdiff, gmax))
+
+    yield "flagship_value_and_grad", (lambda: ex.export_fn(vag, x0, rays)), {
+        "call": (x0, rays), "live": lambda: vag(x0, rays),
+        "compare": same_value_and_grad, "kernels": ("K1", "K2"),
+        "program": lambda _: (f"loss and gradient bit for bit (max "
+                              f"|g_served - g_live| {grad_gap[0][0]!r} of "
+                              f"max |g| {grad_gap[0][1]!r})"),
+        "text": "flagship value and gradient (a joint program)"}
+
+    # ---- the 2D guide at full width, and the 3D guide
+    g_rays, g_scene, g_mats = scenes2d.light_guide(device=device)
+    for label, bounces, cull, kernels in (
+            ("guide2d_brute", EXPORT_GUIDE2D_BOUNCES, False, ("K5", "K6")),
+            ("guide2d_cull", EXPORT_SHALLOW_BOUNCES, True, ("K7", "K8")),
+            ("guide2d_grid", EXPORT_SHALLOW_BOUNCES, "grid", ("K9", "K10"))):
+        g_cfg = scenes2d.guide_config(g_scene, max_bounces=bounces,
+                                      use_kernel=True, cull=cull)
+        yield label, (lambda c=g_cfg: ex.export_trace(g_scene, g_mats, c,
+                                                      g_rays)), {
+            "call": (g_rays,),
+            "live": lambda c=g_cfg: trace(g_rays, g_scene, g_mats, c).rays,
+            "compare": lambda got, want, lb=label: same_rays(f"21b {lb}", got,
+                                                             want),
+            "kernels": kernels, "program": lambda _: "bit for bit",
+            "text": f"2D guide ({g_rays.n_rays} rays, "
+                    f"{g_scene.segments.n_surfaces} segments, "
+                    f"{g_scene.arcs.n_surfaces} arcs, {bounces} bounces, "
+                    f"cull={cull!r})"}
+    del g_rays, g_scene
+    torch.cuda.empty_cache()
+
+    t_rays, t_scene = structured_guide(GUIDE_RAYS, device=device)
+    t_mats = (mats.vacuum, mats.acrylic)
+    for label, t_cfg, kernels in (
+            ("guide3d_recommended", TraceConfig.recommended(
+                t_scene, max_bounces=EXPORT_SHALLOW_BOUNCES), ("K3",)),
+            ("guide3d_grid", dataclasses.replace(TraceConfig.recommended(
+                t_scene, max_bounces=EXPORT_SHALLOW_BOUNCES), cull="grid",
+                resort_rays=False), ("K4",))):
+        check(t_cfg.use_kernel, f"21b {label}: no kernel under {t_cfg}")
+        yield label, (lambda c=t_cfg: ex.export_trace(t_scene, t_mats, c,
+                                                      t_rays)), {
+            "call": (t_rays,),
+            "live": lambda c=t_cfg: trace(t_rays, t_scene, t_mats, c).rays,
+            "compare": lambda got, want, lb=label: same_rays(f"21b {lb}", got,
+                                                             want),
+            "kernels": kernels, "program": lambda _: "bit for bit",
+            "text": f"3D guide ({t_rays.n_rays} rays, "
+                    f"{t_scene.triangles.n_surfaces} triangles, "
+                    f"{EXPORT_SHALLOW_BOUNCES} bounces, cull={t_cfg.cull!r}, "
+                    f"resort_rays={t_cfg.resort_rays})"}
+    del t_rays, t_scene
+    torch.cuda.empty_cache()
+
+
+def export_all(device):
+    """``--export-programs``: every program of ``export_programs``
+    exported and written under ``export_dir()`` (``<label>.pt2``, and its
+    export's seconds in ``<label>.json``) for phase 21b to load.  The
+    script starts it as a process of its own before phase 19, so that the
+    exports' host tracing runs beside phases 19 and 20."""
+    for label, make, _ in export_programs(device):
+        t0 = time.perf_counter()
+        blob = make()
+        sec = time.perf_counter() - t0
+        (export_dir() / f"{label}.pt2").write_bytes(blob)
+        (export_dir() / f"{label}.json").write_text(
+            json.dumps({"seconds": sec}))
+        print(f"exported {label} in {sec:.2f} s, {len(blob)} bytes",
+              flush=True)
+
+
+def start_exporter():
+    """``chip_smoke.py --export-programs`` started as a process of its
+    own, its output in ``export_dir()``/exporter.log, the folder's earlier
+    programs removed first."""
+    export_dir().mkdir(parents=True, exist_ok=True)
+    for old in export_dir().glob("*.pt2"):
+        old.unlink()
+    with open(export_dir() / "exporter.log", "w") as log:
+        return subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--export-programs"],
+            stdout=log, stderr=subprocess.STDOUT)
+
+
+def phase_21(device, exporter):
+    """Export, profiling and drawing on the card; ``exporter`` is the
+    process ``start_exporter`` started.  Returns each kernel's launches
+    from the loaded programs of 21b."""
     import importlib.util
 
     import torch
 
-    from tensorflowraytrace_tpu_torch import (
-        Scene3D, TraceConfig, drawing, flagship, scenes2d, trace,
-    )
-    from tensorflowraytrace_tpu_torch.engine import start_epsilon
+    from tensorflowraytrace_tpu_torch import drawing, flagship, scenes2d, trace
     from tensorflowraytrace_tpu_torch.ops import cuda_build, custom_ops
-    from tensorflowraytrace_tpu_torch.ops import materials as mats
     from tensorflowraytrace_tpu_torch.optim import Optimizer
-    from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
-    from tensorflowraytrace_tpu_torch.utils import export as ex
     from tensorflowraytrace_tpu_torch.utils import profiling
 
     t_phase = time.perf_counter()
@@ -4418,129 +4711,32 @@ def phase_21(device):
           f"(schema, autograd registration, fake against CUDA, AOT "
           f"dispatch) in {time.perf_counter() - t_phase:.2f} s", flush=True)
 
-    folder = cuda_build.BUILD_DIR / "export"
-    folder.mkdir(parents=True, exist_ok=True)
-    launched = collections.Counter()
-
-    def export_s(make):
-        t0 = time.perf_counter()
-        blob = make()
-        return blob, time.perf_counter() - t0
-
-    # ---- 21b. the flagship forward and its loss's value and gradient
-    lens, source, loss = flagship._flagship(f32, TRAIN_BP, TRAIN_RINGS,
-                                            TRAIN_BOUNCES, True, device)
-    rays = source.sample(torch.Generator(device).manual_seed(0), f32, device)
-    with torch.no_grad():
-        scene = Scene3D.build(optical=lens.build(),
-                              targets=[flagship.target_plane(f32, device)])
-    cfg = TraceConfig(max_bounces=TRAIN_BOUNCES, use_kernel=True,
-                      ray_start_epsilon=start_epsilon(scene))
-    materials = (mats.vacuum, mats.acrylic)
-    blob, sec = export_s(lambda: ex.export_trace(scene, materials, cfg, rays))
-    counts, program, report = served(
-        "flagship_forward", folder, blob, (rays,),
-        lambda: trace(rays, scene, materials, cfg).rays,
-        lambda got, want: same_rays("21b flagship forward", got, want),
-        ("K1",))
-    launched.update(counts)
-    half = dataclasses.replace(rays, **{f: getattr(rays, f)[::2] for f in
-                                        ("p0", "p1", "wavelength", "state")},
-                               fields={k: v[::2]
-                                       for k, v in rays.fields.items()})
+    # ---- 21b. the programs the exporter wrote beside phases 19 and 20
+    t_wait = time.perf_counter()
     try:
-        program(half)
-    except Exception as e:  # noqa: BLE001 (any refusal will do)
-        refusal = f"{type(e).__name__}"
-    else:
-        refusal = None
-    check(refusal is not None, "21b: the flagship program ran on half the "
-          "rays")
-    print(f"phase 21b flagship forward ({rays.n_rays} rays, "
-          f"{scene.triangles.n_surfaces} triangles, {TRAIN_BOUNCES} bounces): "
-          f"exported in {sec:.2f} s, {report}; state, p0, p1 bit for bit; "
-          f"half the rays refused ({refusal})", flush=True)
-
-    sizes = [p.numel() for p in lens.init_params()]
-    shapes = [p.shape for p in lens.init_params()]
-
-    def flat_loss(x, r):
-        return loss([c.reshape(s) for c, s in zip(x.split(sizes), shapes)], r)
-
-    x0 = torch.cat([p.detach().reshape(-1) for p in lens.init_params()])
-    vag = ex.value_and_grad(flat_loss)
-    blob, sec = export_s(lambda: ex.export_fn(vag, x0, rays))
-
-    def same_value_and_grad(got, want):
-        gmax = float(want[1].abs().max())
-        gdiff = float((got[1] - want[1]).abs().max())
-        check(bool(got[0] == want[0]), f"21b flagship loss {float(got[0])!r} "
-              f"served, {float(want[0])!r} live")
-        # not bit for bit: the joint program decomposes torch.linalg.cross
-        # (the triangle normals, models/surfaces.py), whose backward then
-        # adds its products in another order than eager autograd's cross
-        # kernel does (ROADMAP queue 3); K2 is the same on both sides
-        check(gmax > 0 and gdiff <= 1e-4 * gmax,
-              f"21b flagship gradient differs by {gdiff} (max {gmax})")
-        grad_gap.append((gdiff, gmax))
-
-    grad_gap = []
-    counts, _, report = served("flagship_value_and_grad", folder, blob,
-                               (x0, rays), lambda: vag(x0, rays),
-                               same_value_and_grad, ("K1", "K2"))
-    launched.update(counts)
-    gdiff, gmax = grad_gap[0]
-    print(f"phase 21b flagship value and gradient (a joint program): "
-          f"exported in {sec:.2f} s, {report}; loss equal, max |g_served - "
-          f"g_live| {gdiff!r} of max |g| {gmax!r} ({gdiff / gmax:.3e}: the "
-          f"cross product's decomposed backward)", flush=True)
-    del program, blob
-
-    # ---- the 2D guide at full width, and the 3D guide
-    g_rays, g_scene, g_mats = scenes2d.light_guide(device=device)
-    for label, bounces, cull, kernels in (
-            ("guide2d_brute", EXPORT_GUIDE2D_BOUNCES, False, ("K5", "K6")),
-            ("guide2d_cull", EXPORT_SHALLOW_BOUNCES, True, ("K7", "K8")),
-            ("guide2d_grid", EXPORT_SHALLOW_BOUNCES, "grid", ("K9", "K10"))):
-        cfg = scenes2d.guide_config(g_scene, max_bounces=bounces,
-                                    use_kernel=True, cull=cull)
-        blob, sec = export_s(lambda: ex.export_trace(g_scene, g_mats, cfg,
-                                                     g_rays))
-        counts, _, report = served(
-            label, folder, blob, (g_rays,),
-            lambda: trace(g_rays, g_scene, g_mats, cfg).rays,
-            lambda got, want: same_rays(f"21b {label}", got, want), kernels)
+        rc = exporter.wait(timeout=EXPORTER_WAIT_S)
+    except subprocess.TimeoutExpired:
+        exporter.kill()
+        exporter.wait()
+        rc = "killed"
+    wait_s = time.perf_counter() - t_wait
+    log = (export_dir() / "exporter.log").read_text()
+    check(rc == 0, f"21b: the exporter ended with {rc}:\n{log[-4000:]}")
+    print(f"phase 21b exporter (chip_smoke.py --export-programs, started "
+          f"before phase 19) done; waited {wait_s:.2f} s for it", flush=True)
+    launched = collections.Counter()
+    for label, _, serve in export_programs(device):
+        blob = (export_dir() / f"{label}.pt2").read_bytes()
+        sec = json.loads((export_dir() / f"{label}.json").read_text())[
+            "seconds"]
+        counts, program, report = served(
+            label, export_dir(), blob, serve["call"], serve["live"],
+            serve["compare"], serve["kernels"])
         launched.update(counts)
-        print(f"phase 21b 2D guide ({g_rays.n_rays} rays, "
-              f"{g_scene.segments.n_surfaces} segments, "
-              f"{g_scene.arcs.n_surfaces} arcs, {bounces} bounces, cull="
-              f"{cull!r}): exported in {sec:.2f} s, {report}; bit for bit",
-              flush=True)
-    del g_rays, g_scene
-    torch.cuda.empty_cache()
-
-    t_rays, t_scene = structured_guide(GUIDE_RAYS, device=device)
-    t_mats = (mats.vacuum, mats.acrylic)
-    for label, cfg, kernels in (
-            ("guide3d_recommended", TraceConfig.recommended(
-                t_scene, max_bounces=EXPORT_SHALLOW_BOUNCES), ("K3",)),
-            ("guide3d_grid", dataclasses.replace(TraceConfig.recommended(
-                t_scene, max_bounces=EXPORT_SHALLOW_BOUNCES), cull="grid",
-                resort_rays=False), ("K4",))):
-        check(cfg.use_kernel, f"21b {label}: no kernel under {cfg}")
-        blob, sec = export_s(lambda: ex.export_trace(t_scene, t_mats, cfg,
-                                                     t_rays))
-        counts, _, report = served(
-            label, folder, blob, (t_rays,),
-            lambda: trace(t_rays, t_scene, t_mats, cfg).rays,
-            lambda got, want: same_rays(f"21b {label}", got, want), kernels)
-        launched.update(counts)
-        print(f"phase 21b 3D guide ({t_rays.n_rays} rays, "
-              f"{t_scene.triangles.n_surfaces} triangles, "
-              f"{EXPORT_SHALLOW_BOUNCES} bounces, cull={cfg.cull!r}, "
-              f"resort_rays={cfg.resort_rays}): exported in {sec:.2f} s, "
-              f"{report}; bit for bit", flush=True)
-    del t_rays, t_scene
+        extra = serve["program"](program) if serve["program"] else ""
+        print(f"phase 21b {serve['text']}: exported in {sec:.2f} s (by the "
+              f"exporter), {report}; {extra}", flush=True)
+        del program, blob
     torch.cuda.empty_cache()
     missing = [k for k in custom_ops.OPS if launched[k] == 0]
     check(not missing, f"21b: no loaded program launched {missing}")
@@ -4658,13 +4854,8 @@ def phase_22(device):
         """One design step timed and profiled before the cut design runs:
         ``steps`` of them must fit ``CUT_BUDGET_S[label]``."""
         ms, report = timed_steps(label, step)
-        budget = CUT_BUDGET_S[label]
-        mean_s = statistics.fmean(ms) * 1e-3
-        check(mean_s * steps <= budget, f"phase 22 {label}: a step takes "
-              f"{mean_s * 1e3:.3f} ms: {steps} steps would take more than "
-              f"{budget:.0f} s")
-        print(report + f"; {steps} steps predicted "
-              f"{mean_s * steps:.1f} s (budget {budget:.0f} s)", flush=True)
+        print(report, flush=True)
+        cut_probe(label, ms, steps)
 
     # ---- 22a. the source demos: the host and the sources, no kernel
     out, wall, _ = run("source_rotation_roll", lambda: (
@@ -4838,6 +5029,299 @@ def phase_22(device):
     return launched
 
 
+def differing(a, b, path="result"):
+    """The places where ``a`` and ``b`` (tensors, NumPy arrays, numbers,
+    strings, or dicts, lists and tuples of them) do not hold the same
+    bits: a list of paths, empty where every leaf is bit for bit."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            return [f"{path} keys"]
+        return [d for k in a for d in differing(a[k], b[k], f"{path}[{k!r}]")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in differing(x, y, f"{path}[{i}]")]
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return [] if same_bits(a, b) else [path]
+    if isinstance(a, (np.ndarray, np.generic, float, int, bool)) \
+            and isinstance(b, (np.ndarray, np.generic, float, int, bool)):
+        x, y = np.asarray(a), np.asarray(b)
+        same = (x.dtype == y.dtype and x.shape == y.shape
+                and x.tobytes() == y.tobytes())
+        return [] if same else [path]
+    return [] if a == b else [path]
+
+
+def phase_23(device):
+    """Every design path run twice from the same seeds and generators, in
+    one process: every step's loss, the final parameters (or the image)
+    bit for bit.  ``REPEAT_STEPS`` steps a path, the whole path where it
+    is shorter.  Returns K2's launches and the seconds by path."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import (
+        TraceConfig, classical, facade, flagship, hexalens,
+        landing_histogram_fold, physics2d, populations, scenes2d, scenes3d,
+        streamed, trace,
+    )
+    from tensorflowraytrace_tpu_torch.models import distributions as dist
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+    from tensorflowraytrace_tpu_torch.operations import (
+        thin_film_intensity_reaction,
+    )
+    from tensorflowraytrace_tpu_torch.optim import Optimizer
+
+    f32 = torch.float32
+    t_phase = time.perf_counter()
+    n = REPEAT_STEPS
+    seconds, k2 = {}, {}
+
+    def twice(label, run):
+        """``run()`` twice, the global generator seeded alike before each:
+        its two results must hold the same bits."""
+        t0 = time.perf_counter()
+        sk.LAUNCHES = 0
+        results = []
+        for _ in range(2):
+            torch.manual_seed(0)
+            results.append(run())
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        k2[label] = sk.LAUNCHES
+        diff = differing(*results)
+        check(not diff, f"phase 23 {label}: the second run differs from the "
+              f"first in {diff}")
+        return results[0]
+
+    def steps_of(opt, **kw):
+        return {"losses": [opt.single_step(None, sync=False, **kw)
+                           for _ in range(n)],
+                "params": list(opt.parameters)}
+
+    # ---- the 3D designs and their images
+    twice("flagship", lambda: flagship.train(
+        steps=n, bp_count=TRAIN_BP, mesh_steps=TRAIN_RINGS,
+        max_bounces=TRAIN_BOUNCES, device=device))
+
+    def hexalens_run():
+        errors, params = hexalens.train(steps=n, ray_count=HEX_RAYS,
+                                        mesh_step=HEX_MESH_STEP, device=device)
+        _, source, loss = hexalens.problem(HEX_RAYS, HEX_MESH_STEP, f32,
+                                           device)
+        init, fold = landing_histogram_fold(hexalens.IMAGE_RANGE, 96, 64,
+                                            axes=(1, 2), device=device)
+        batch = source.sample(torch.Generator(device).manual_seed(7), f32,
+                              device)
+        with torch.no_grad():
+            image = loss.trace(params, batch, fold_fn=fold,
+                               fold_init=init).fold
+        check(float(image.sum()) > 0, "phase 23: the hexalens image is empty")
+        return {"errors": errors, "params": params, "image": image}
+
+    twice("hexalens", hexalens_run)
+
+    render = scenes3d.CausticRender(CAUSTIC_BLOCK, CAUSTIC_RES,
+                                    CAUSTIC_MESH_STEPS, device=device)
+    check(render.fold[0].dtype == f32, "the caustic image is not float32")
+
+    def caustic_run():
+        init, fn = render.fold
+        with torch.no_grad():
+            res = trace(render.block(0), render.scene,
+                        scenes3d.CAUSTIC_MATERIALS, render.cfg,
+                        reaction=render.reaction, fold_fn=fn, fold_init=init,
+                        fold_fields=True)
+        return {"image": res.fold, "state": res.rays.state}
+
+    image = twice("caustic block image", caustic_run)["image"]
+    check(k2["caustic block image"] == 2 * CAUSTIC_BOUNCES,
+          f"phase 23: the caustic block's folds launched K2 "
+          f"{k2['caustic block image']} times, not {CAUSTIC_BOUNCES} a trace")
+    del render
+
+    # ---- the 2D guide's design and the streamed training
+    def guide_run():
+        loss, params, scene = scenes2d.guide_design(GUIDE2D_RAYS,
+                                                    device=device)
+        cfg = TraceConfig.recommended(
+            scene, max_bounces=scenes2d.GUIDE_BOUNCES,
+            dead_ray_length=scenes2d.DEAD_RAY_LENGTH)
+        value = loss(params, cfg)
+        return {"loss": value.detach(),
+                "grad": torch.autograd.grad(value, params)}
+
+    twice("guide design", guide_run)
+    twice("streamed training", lambda: streamed.train_guide(
+        TRAIN_STREAM_RAYS, TRAIN_STREAM_BLOCK, TRAIN_STREAM_STEPS,
+        TRAIN_STREAM_BOUNCES, device=device, verbose=False)[:2])
+
+    # ---- phase 18's designs, a Cooke step, the stepwise single arc
+    def asphere_run():
+        spot_sq, start = scenes2d.asphere_problem(ASPHERE_RES, ASPHERE_RAYS,
+                                                  f32, device)
+        return steps_of(scenes2d.asphere_optimizer(
+            spot_sq, start, scenes2d.ASPHERE_MASK, ASPHERE_STEPS, 6e-3))
+
+    def config2_run():
+        lens, _, _, loss = scenes2d.multisegment_problem(f32, device)
+        return steps_of(Optimizer(loss, lens.init_params(), learning_rate=1.0,
+                                  grad_clip=5e-3), lr_scale=2e-3,
+                        momentum=0.8)
+
+    def strehl_run():
+        strehl, ys = scenes2d.strehl_problem(STREHL_SEGMENTS, STREHL_RAYS,
+                                             f32, device)
+        xs = torch.as_tensor(scenes2d.strehl_sphere_x(ys), dtype=f32,
+                             device=device)
+        lam, lr, _ = scenes2d.strehl_stages(STREHL_STEPS)[-1]
+        return steps_of(scenes2d.strehl_optimizer(strehl, xs, lam, lr))
+
+    def cooke_run():
+        params, step, _ = classical.cooke_design(COOKE_STEPS, device=device)
+        return {"losses": [step() for _ in range(n)], "params": params}
+
+    def stepwise_run():
+        arc_loss, params = scenes2d.single_arc(device=device, use_kernel=True)
+        opt = facade.single_arc_optimizer(arc_loss, params, device)
+        return {"losses": [facade.self_scaling_step(opt) for _ in range(n)],
+                "params": list(opt.parameters)}
+
+    for label, run in (("asphere singlet", asphere_run),
+                       ("config 2", config2_run), ("Strehl lens", strehl_run),
+                       ("Cooke triplet", cooke_run),
+                       ("stepwise single arc", stepwise_run)):
+        twice(label, run)
+
+    # ---- phase 22b's designs
+    def rhomb_run():
+        stokes = physics2d.rhomb_problem(f32, device)
+        theta = torch.tensor(0.80, dtype=f32, device=device)
+        losses = []
+        for _ in range(n):
+            t = theta.detach().requires_grad_(True)
+            loss = physics2d.rhomb_loss(stokes, t)
+            g, = torch.autograd.grad(loss, t)
+            losses.append(loss.detach())
+            theta = (t - 0.03 * g).detach()
+        return {"losses": losses, "theta": theta}
+
+    def wavefront_run():
+        wavefront, _, _ = physics2d.wavefront_problem(device=device)
+        return steps_of(physics2d.adam_design(
+            physics2d.wavefront_loss(wavefront),
+            torch.zeros(65, device=device), 1e-2))
+
+    def achromat_run():
+        rays = physics2d.achromat_rays(device=device)
+        opt, _ = physics2d.achromat_design(
+            physics2d.build_doublet, physics2d.DOUBLET_START, rays, 4, 2e-3,
+            10.0)
+        return steps_of(opt, momentum=0.9)
+
+    def coating_run():
+        d, *rs = physics2d.design_coating(n, f32, device)
+        scene, materials = physics2d.coated_lens(f32, device)
+        cfg = physics2d._config(scene, 3, device)
+        fan = physics2d.white_fan(512, f32, device)
+        stack = [(physics2d.N_MGF2, d[0]), (physics2d.N_AL2O3, d[1])]
+        with torch.no_grad():
+            coated = trace(fan, scene, materials, cfg,
+                           reaction=thin_film_intensity_reaction(
+                               [stack], {"arcs": torch.tensor(
+                                   [0, 0], device=device)}))
+        return {"thickness": d, "reflectance": rs,
+                "state": coated.rays.state,
+                "intensity": coated.rays.fields["intensity"]}
+
+    def spectrometer_run():
+        landings = physics2d.spectrometer_problem(f32, device)
+        _, opt = physics2d.spectrometer_design(landings, f32, device)
+        return steps_of(opt)
+
+    def hybrid_run():
+        landings, _ = physics2d.hybrid_problem(device=device)
+        return steps_of(physics2d.hybrid_design(landings, True,
+                                                device=device))
+
+    def tolerancing_run():
+        spot = populations.tolerancing_problem(64, f32, device)
+        params = populations.tolerance_design(spot, torch.tensor(
+            populations.TOL_START, dtype=f32, device=device), n)
+        return {"params": params, "spot_and_gradient":
+                populations._gradient(spot, params)}
+
+    def sweep_run():
+        loss = populations.sweep_problem(device=device)
+        radii = dist._linspace(2.0, 12.0, 64, f32, device)
+        losses = populations.population_losses(loss, radii)
+        order = torch.argsort(losses, stable=True)
+        pop = populations.MomentumPopulation(loss, radii[order[:8]])
+        history = []
+        for _ in range(n):
+            pop.step()
+            history.append(pop.params)
+        return {"coarse": losses, "params": history}
+
+    for label, run in (("fresnel_rhomb", rhomb_run),
+                       ("wavefront_lens", wavefront_run),
+                       ("achromat", achromat_run),
+                       ("ar_coating", coating_run),
+                       ("spectrometer", spectrometer_run),
+                       ("hybrid_achromat", hybrid_run),
+                       ("tolerancing design", tolerancing_run),
+                       ("design_sweep refinement", sweep_run)):
+        twice(label, run)
+
+    total = time.perf_counter() - t_phase
+    print(f"phase 23 every design path run twice ({n} steps a path, the "
+          f"streamed training's {TRAIN_STREAM_STEPS} whole): every step's "
+          f"loss, the final parameters, the float32 caustic block image "
+          f"(landed {float(image.sum())!r}) and the hexalens image bit for "
+          f"bit; K2 launches by path {k2}; seconds by path "
+          + ", ".join(f"{k} {v:.2f}" for k, v in seconds.items())
+          + f"; phase 23 in {total:.1f} s", flush=True)
+    return {"K2": sum(k2.values()), "seconds": seconds}
+
+
+def caustic_block(device, reps=5):
+    """One caustic block (``CAUSTIC_BLOCK`` rays, ``CAUSTIC_BOUNCES``
+    bounces, the float32 intensity image folded): the median ms of
+    ``reps`` synchronised traces after a warm-up, printed with K2's
+    launches and the landed sum.  Runs in any checkout that has
+    ``scenes3d.CausticRender``, so that a call can time an earlier tree
+    beside this one (copied into its root)."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import scenes3d, trace
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+
+    render = scenes3d.CausticRender(CAUSTIC_BLOCK, CAUSTIC_RES,
+                                    CAUSTIC_MESH_STEPS, device=device)
+    init, fn = render.fold
+    block = render.block(0)
+    times = []
+    sk.LAUNCHES = 0
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            res = trace(block, render.scene, scenes3d.CAUSTIC_MATERIALS,
+                        render.cfg, reaction=render.reaction, fold_fn=fn,
+                        fold_init=init, fold_fields=True)
+        torch.cuda.synchronize()
+        if rep:
+            times.append((time.perf_counter() - t0) * 1e3)
+    check(float(res.fold.sum()) > 0, "the caustic block landed nothing")
+    print(f"caustic block: median {statistics.median(times):.3f} ms over "
+          f"{reps} traces {[round(t, 3) for t in times]}; K2 launches "
+          f"{sk.LAUNCHES} in {reps + 1} traces; landed "
+          f"{float(res.fold.sum())!r}", flush=True)
+
+
 def dispatch_cost(device):
     """The facade-tax trace (2^17 rays, 12 bounces, K5: launch-bound) and
     one flagship step (2025 rays, K1 and K2) timed by ``interleaved_ms``;
@@ -4884,6 +5368,15 @@ def main():
     import torch
 
     wall_t0 = time.perf_counter()
+    phase_s = {}
+    phase_end = [wall_t0]
+
+    def done(label):
+        """The seconds since the last phase ended, printed and kept."""
+        now = time.perf_counter()
+        phase_s[label] = round(now - phase_end[0], 1)
+        phase_end[0] = now
+        print(f"phase {label} seconds {phase_s[label]}", flush=True)
     # ---- phase 1: device
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4930,6 +5423,7 @@ def main():
     print(f"phase 2 build: "
           + " ".join(cuda_build.library_path(s).name for s in sources)
           + f" in {time.perf_counter() - t0:.2f} s", flush=True)
+    done("1-2")
     if "--tune" in sys.argv[1:]:
         segsum_variants(device)
         tune_brute(device)
@@ -4937,11 +5431,20 @@ def main():
         tune_culled_2d(device)
         tune_twolevel_2d(device)
         return 0
+    if "--tune-rows" in sys.argv[1:]:
+        segsum_variants(device, SEGSUM_ROW_VARIANTS, SEGSUM_ROW_TIMED)
+        return 0
     if "--arcs-alone" in sys.argv[1:]:
         arcs_alone(device)
         return 0
     if "--segsum-alone" in sys.argv[1:]:
         segsum_alone(device)
+        return 0
+    if "--export-programs" in sys.argv[1:]:
+        export_all(device)
+        return 0
+    if "--caustic-block" in sys.argv[1:]:
+        caustic_block(device)
         return 0
     if "--dispatch-cost" in sys.argv[1:]:
         dispatch_cost(device)
@@ -5003,6 +5506,8 @@ def main():
         tk.TWOLEVEL_MAX_CAND = cap
     del rays, scene, tri
 
+    done("3")
+
     # ---- phase 4: the flagship forward, through the kernel
     forward, (params, generator) = flagship.entry(device=device)
     tk.LAUNCHES = 0
@@ -5023,6 +5528,8 @@ def main():
     print(f"phase 4 flagship: loss={loss.item()!r} plain_loss={loss_p.item()!r} "
           f"rel_diff={rel:.3e} launches={forward_launches}", flush=True)
 
+    done("4")
+
     # ---- phase 5: the bench-scale trace
     rays, scene = soup_scene(BENCH_RAYS, device)
     n, m = rays.n_rays, scene.triangles.n_surfaces
@@ -5032,8 +5539,11 @@ def main():
     times = {k: [] for k in cfgs}
     counts = {}
     tk.LAUNCHES = 0
+    reps = {"kernel": 5, "plain": PLAIN_TRACE_TIMED}
     for rep in range(6):  # rep 0 warms up and gives the state counts
         for name, cfg in cfgs.items():
+            if rep > reps[name]:
+                continue
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = trace(rays, scene, materials, cfg)
@@ -5057,7 +5567,8 @@ def main():
           f"plain={counts['plain']} finished={counts['kernel'][FINISHED]}",
           flush=True)
     for k in cfgs:
-        print(f"phase 5 {k} path: median {med[k] * 1e3:.3f} ms over 5 runs "
+        print(f"phase 5 {k} path: median {med[k] * 1e3:.3f} ms over "
+              f"{reps[k]} runs "
               f"{[round(t * 1e3, 3) for t in times[k]]} = "
               f"{pairs / med[k]:.4e} intersections/s", flush=True)
 
@@ -5080,8 +5591,11 @@ def main():
           f"FMAs {2 * k1_flat_ms:.4f} ms)", flush=True)
     del rays, scene, res, args
 
-    # ---- phase 6: K2 against float64 index_add_
+    done("5")
+
+    # ---- phase 6: K2 against its plain version, float32 and float64
     k2 = phase_6(device)
+    done("6")
 
     # ---- phase 7: the flagship's training routine, example scale
     tk.LAUNCHES = sk.LAUNCHES = 0
@@ -5111,6 +5625,8 @@ def main():
     print("phase 7 error every 10 steps: "
           + " ".join(f"{i}:{errors[i]:.6g}" for i in range(0, TRAIN_STEPS, 10))
           + f" {TRAIN_STEPS - 1}:{errors[-1]:.6g}", flush=True)
+
+    done("7")
 
     # ---- phase 8: one training step at bench width
     f32 = torch.float32
@@ -5216,6 +5732,8 @@ def main():
           f"{gmax!r}; loss {float(loss_k)!r}, "
           f"all-plain loss {float(loss_all_plain)!r}, rel {rel:.3e}", flush=True)
 
+    done("8")
+
     # ---- phase 9: the sorted soup through the accelerated paths
     launched = {}
     rays, scene = soup_scene(BENCH_RAYS, device, sort=True)
@@ -5223,6 +5741,8 @@ def main():
                               (mats.vacuum, mats.reflective), BENCH_BOUNCES,
                               launched)
     del rays, scene
+
+    done("9")
 
     # ---- phase 10: the structured guide, children starting the card's
     # float32 ray_start_epsilon past their surface (TraceConfig.recommended)
@@ -5306,40 +5826,67 @@ def main():
         profile_guide3d(label, kernel, g_rays, g_scene, g_mats, g_cfgs[label],
                         device)
 
+    done("10")
+
     # ---- phases 11-14: the 2D path
     phase_11(device)
+    done("11")
     arc_train = phase_12(device)
+    done("12")
     k2d = phase_13(device)
+    done("13")
     design = phase_14(device)
+    done("14")
     k2_device_times(k2, device)
+    done("6 device times")
 
     # ---- phase 15: the point-source trace and the hexalens, K1 and K2
     hexa = phase_15(device)
+    done("15")
 
     # ---- phase 16: streaming and data parallelism
     stream16 = phase_16(device)
+    done("16")
 
     # ---- phase 17: the reactions (caustic, stray light, ghosts)
     react17 = phase_17(device)
+    done("17")
 
     # ---- phase 18: the designs (asphere singlet, config 2, Strehl lens),
     # the image quality through STL, the remesh
     design18 = phase_18(device)
+    done("18")
 
-    # ---- phase 19: the classical lens design (sequential against mesh,
-    # the Cooke triplet, the lens report, the best-form singlet)
-    classical19 = phase_19(device)
+    # phase 21b's programs are exported by a process of its own, whose
+    # host tracing runs beside phases 19 and 20
+    exporter = start_exporter()
+    try:
+        # ---- phase 19: the classical lens design (sequential against
+        # mesh, the Cooke triplet, the lens report, the best-form singlet)
+        classical19 = phase_19(device)
+        done("19")
 
-    # ---- phase 20: the stateful facade, the checkpoint and the goals
-    facade20 = phase_20(device)
+        # ---- phase 20: the stateful facade, the checkpoint and the goals
+        facade20 = phase_20(device)
+        done("20")
 
-    # ---- phase 21: export (every kernel through its tfrt_torch operator
-    # from a loaded program), profiling, drawing
-    export21 = phase_21(device)
+        # ---- phase 21: export (every kernel through its tfrt_torch
+        # operator from a loaded program), profiling, drawing
+        export21 = phase_21(device, exporter)
+        done("21")
+    finally:
+        if exporter.poll() is None:
+            exporter.kill()
+            exporter.wait()
 
     # ---- phase 22: the last examples (the reaction designs, tolerancing
     # and the design sweep, the source demos, guide_trace_bench)
     examples22 = phase_22(device)
+    done("22")
+
+    # ---- phase 23: every design path run twice, bit for bit
+    repeat23 = phase_23(device)
+    done("23")
 
     def by_example(key):
         per = {k: v[key] for k, v in examples22.items() if v[key]}
@@ -5347,8 +5894,8 @@ def main():
                 "launches_examples_by_example": per}
 
     main_k2 = k2["flagship_bench"]
-    print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s",
-          flush=True)
+    print(f"chip_smoke wall time {time.perf_counter() - wall_t0:.1f} s; "
+          f"seconds by phase {json.dumps(phase_s)}", flush=True)
     print(json.dumps({"kernels": [{
         "name": "triangle_search", "route": "cuda",
         "source": "tensorflowraytrace_tpu_torch/csrc/triangle_search.cu",
@@ -5382,6 +5929,8 @@ def main():
            for k in ("asphere", "config2", "strehl")},
         "launches_facade": facade20["K2"],
         "launches_export": export21["K2"], **by_example("K2"),
+        "launches_caustic_histograms": react17["K2_caustic"],
+        "launches_repeat": repeat23["K2"],
         "max_abs_err": main_k2["max_abs_err"], "ms": main_k2["ms"],
         "device_ms": main_k2["device_ms"],
         "plain_ms": main_k2["plain_ms"], "bound_ms": main_k2["bound_ms"],
@@ -5391,10 +5940,11 @@ def main():
         "library_deterministic_ms": main_k2["library_deterministic_ms"],
         "order": "fixed: tiles of 1024 rays, each row's rays in order, "
                  "then its tile sums in order; bit for bit with the plain "
-                 "version and from launch to launch",
+                 "version and from launch to launch, float32 and float64",
         "timed": {label: {key: f[key] for key in (
             "n", "m", "k", "ms", "device_ms", "plain_ms", "library_ms",
-            "library_deterministic_ms", "bound_ms", "max_abs_err")}
+            "library_deterministic_ms", "bound_ms", "bound_by",
+            "max_abs_err", "dtype")}
             for label, f in k2.items()},
     }] + [{
         "name": name, "route": "cuda",
@@ -5408,7 +5958,12 @@ def main():
         "brute_bound_ms": brute_bound_ms, "library_ms": None,
         "shape": f"{n}x{m} (first bounce of the guide)",
         "pairs": pairs, "pairs_out_on_tu": tu_out,
-        **({"launches_streamed_trace": stream16["K3_stream"]}
+        **({"launches_streamed_trace": stream16["K3_stream"],
+            "caustic_ms": react17["K3_caustic_ms"],
+            "caustic_bound_ms": react17["K3_caustic_bound_ms"],
+            "caustic_pairs": react17["K3_caustic_pairs"],
+            "caustic_shape": f"{CAUSTIC_BLOCK}x{CAUSTIC_TRIANGLES} (first "
+                             f"bounce of a caustic block)"}
            if key == "K3" else {}),
         "launches_caustic": react17[f"{key}_caustic"],
         "launches_sequential_vs_mesh": classical19[key],

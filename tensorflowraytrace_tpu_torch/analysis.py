@@ -3,12 +3,15 @@ histogram losses.
 
 Counterpart of ``tensorflowraytrace_tpu/analysis.py``.
 
-* ``histogram2d`` bins by one scatter-add.  y is the first index of the
-  output and x the second; a bin index is the scaled coordinate truncated
-  toward zero, then clamped into [0, bins - 1], so out-of-range points land
-  in the edge bins.
+* ``histogram2d`` bins by one segment sum (K2, ``segsum_kernels``, with
+  k = 1), which adds in a fixed order on the card as on the CPU, so an
+  image or a histogram loss repeats its bits from run to run.  y is the
+  first index of the output and x the second; a bin index is the scaled
+  coordinate truncated toward zero, then clamped into [0, bins - 1], so
+  out-of-range points land in the edge bins.
 * ``soft_histogram2d`` splats each point bilinearly onto its four
-  neighbouring bin centres, so autograd gives d(hist)/d(points).
+  neighbouring bin centres, all four corners in one segment sum, so
+  autograd gives d(hist)/d(points).
 * ``imaging_test`` traces batches on the host's request and histograms them
   with NumPy: one read-back per batch, by design.
 * ``DistributionDifferential`` compares a point cloud with a goal density,
@@ -30,6 +33,7 @@ import torch
 import torch.utils.checkpoint
 
 from tensorflowraytrace_tpu_torch.config import FINISHED
+from tensorflowraytrace_tpu_torch.ops import segsum_kernels
 
 
 def _host(a):
@@ -48,12 +52,26 @@ def _bin_index(v, lo, hi, bins):
     return torch.clamp(f.to(torch.int64), 0, bins - 1)
 
 
+def _bin_sum(weights, flat, bins):
+    """The (bins,) sums of ``weights`` over the flat bin indices ``flat``:
+    K2 on CUDA tensors, its plain version on CPU tensors, both in K2's
+    order, with a gradient to ``weights``."""
+    ct = weights.reshape(1, -1)
+    rows = flat.reshape(-1).to(torch.int32)
+    return segsum_kernels.segment_sum_kernel(ct, rows, bins).reshape(bins)
+
+
 def histogram2d(x, y, value_range, x_bins=100, y_bins=None, dtype=None,
                 weights=None):
-    """2D histogram by scatter-add: (y_bins, x_bins) counts (or summed
+    """2D histogram by one segment sum: (y_bins, x_bins) counts (or summed
     ``weights``) of the points, y on axis 0.  ``value_range`` is
     ``((x0, x1), (y0, y1))``; points outside it count in the edge bins.
-    No gradient reaches the points; one reaches ``weights``."""
+    No gradient reaches the points; one reaches ``weights``.
+
+    On the card K2 takes a workspace beside the image: its masks and
+    counts, m N / 4096 bytes for m bins and N points, at most 256 MiB (past
+    that it sums the points in chunks, which gives the same bits), plus
+    about 12 bytes a point of a chunk and 12 bytes a bin."""
     y_bins = y_bins or x_bins
     dtype = dtype or torch.float32
     x = torch.as_tensor(x).detach()
@@ -63,16 +81,17 @@ def histogram2d(x, y, value_range, x_bins=100, y_bins=None, dtype=None,
             + _bin_index(x, x0, x1, x_bins))
     w = (torch.ones(x.shape, dtype=dtype, device=x.device) if weights is None
          else torch.as_tensor(weights, device=x.device).to(dtype))
-    counts = torch.zeros((y_bins * x_bins,), dtype=dtype, device=x.device)
-    return counts.index_add(0, flat, w).reshape(y_bins, x_bins)
+    return _bin_sum(w, flat, y_bins * x_bins).reshape(y_bins, x_bins)
 
 
 def soft_histogram2d(x, y, value_range, x_bins=100, y_bins=None,
                      weights=None):
     """Differentiable 2D histogram: each point adds its weight to the four
     bin centres around it, bilinearly; a point outside the range splats onto
-    the edge.  Autograd gives the gradient with respect to the points and
-    the weights."""
+    the edge.  The four corners go into one segment sum, corner by corner
+    ((iy, ix), (iy, ix1), (iy1, ix), (iy1, ix1)), in a fixed order.
+    Autograd gives the gradient with respect to the points and the
+    weights."""
     y_bins = y_bins or x_bins
     (x0, x1), (y0, y1) = value_range
     x = torch.as_tensor(x)
@@ -89,12 +108,15 @@ def soft_histogram2d(x, y, value_range, x_bins=100, y_bins=None,
     ix1 = torch.clamp(ix + 1, max=x_bins - 1)
     iy1 = torch.clamp(iy + 1, max=y_bins - 1)
 
-    h = torch.zeros((y_bins * x_bins,), dtype=x.dtype, device=x.device)
-    h = h.index_add(0, iy * x_bins + ix, weights * (1 - wx) * (1 - wy))
-    h = h.index_add(0, iy * x_bins + ix1, weights * wx * (1 - wy))
-    h = h.index_add(0, iy1 * x_bins + ix, weights * (1 - wx) * wy)
-    h = h.index_add(0, iy1 * x_bins + ix1, weights * wx * wy)
-    return h.reshape(y_bins, x_bins)
+    flat = torch.cat([(iy * x_bins + ix).reshape(-1),
+                      (iy * x_bins + ix1).reshape(-1),
+                      (iy1 * x_bins + ix).reshape(-1),
+                      (iy1 * x_bins + ix1).reshape(-1)])
+    splats = torch.cat([(weights * (1 - wx) * (1 - wy)).reshape(-1),
+                        (weights * wx * (1 - wy)).reshape(-1),
+                        (weights * (1 - wx) * wy).reshape(-1),
+                        (weights * wx * wy).reshape(-1)]).to(x.dtype)
+    return _bin_sum(splats, flat, y_bins * x_bins).reshape(y_bins, x_bins)
 
 
 def inner_product(first, second):

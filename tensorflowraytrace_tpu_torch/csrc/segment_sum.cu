@@ -1,13 +1,16 @@
-// Segment sum (the backward of the engine's per-surface row gather), float32,
-// for sm_90a, added in a fixed order.
+// Segment sum (the backward of the engine's per-surface row gather, and the
+// histograms' binning), float32 and float64, for sm_90a, added in a fixed
+// order.
 //
 // Replaces: tensorflowraytrace_tpu/ops/pallas_kernels.py, _segsum_kernel
 // (launched through segment_sum_pallas from engine._gather_rows_t_bwd).
 //
 // What it computes: out[j][c] = sum over i with idx[i] == j of ct[c][i], for
-// ct (k, n) float32 row-major (the cotangent of the gathered, transposed
-// rows), idx (n,) int32 and out (m, k) float32.  An idx outside [0, m) adds
-// nothing (as the scatter of the JAX package drops it).
+// ct (k, n) row-major (the cotangent of the gathered, transposed rows, or a
+// histogram's weights with k = 1), idx (n,) int32 and out (m, k), ct and out
+// both float32 or both float64 (one instance each of the two passes that
+// touch them).  An idx outside [0, m) adds nothing (as the scatter of the
+// JAX package drops it).
 //
 // The order of the adds is a function of (ct, idx, m) alone, and it is that
 // of segsum_kernels.segment_sum_plain: the rays are cut into tiles of kTile
@@ -39,10 +42,12 @@
 //   segment_sum_count (one thread a row): the number of records of each
 //   row before each group of 32 tiles, and the row's count.  The masks are
 //   laid out group by group, so that a tile's rows, which ascend, and a
-//   warp's rows read side by side.
+//   warp's rows read side by side.  Each block also scans its rows' counts
+//   (the row's place among its block's records) and writes its total.
 //
-//   segment_sum_scan: the exclusive scan of the counts over the rows (one
-//   block), the start of each row's list.
+//   segment_sum_scan: the exclusive scan of the blocks' totals (one block),
+//   and segment_sum_start: each row's list starts at its block's start
+//   plus its place in the block.
 //
 //   segment_sum_place: each record's id to its place in its row's list: the
 //   row's start, its records in earlier groups, and the bits below the
@@ -50,14 +55,30 @@
 //
 //   segment_sum_rows (pass 2, one block per row): stages the records' sums
 //   in list order in shared memory, and adds them in tile order from +0,
-//   one thread a column.
+//   one thread a column.  Where the table has kWarpRowsMin rows or more
+//   (a histogram's bins: many short rows), segment_sum_rows_warp does the
+//   same with one warp a row: its lanes load 32 records at a time, and the
+//   fold takes them in list order (for k = 1 through warp shuffles).
 //
-// What bounds it: bytes, 4 k n of ct and 4 n of idx read once and 4 m k of
-// out written; the adds are k n flops, far below the FP32 peak.  The design
-// moves more: the tile sums (up to 4 k n bytes written and read again, fewer
-// where a tile's rays share rows) and the masks (m n / 8192 bytes); and it
-// waits on its two sequential folds: a tile's longest run and a row's count
-// of tiles.
+// The float64 instance stages half as many columns and terms at a time
+// (the same shared memory and registers), which changes no order.
+//
+// The masks and counts take 8 bytes a row for each group of 32 tiles, m n /
+// 4096 bytes in all: 256 MiB for a 512 x 512 image of 2^22 rays.  So the
+// launch cuts the rays into chunks of whole groups that keep them within
+// kChunkMaskBytes (one chunk at every shape the port runs) and runs the
+// passes chunk by chunk, each chunk's row pass continuing every row's sum
+// from the chunks before: the same left fold over the tiles, so the same
+// bits.  The workspace is then at most kChunkMaskBytes, plus (e k + 8)
+// bytes a ray of a chunk and 12 bytes a row.
+//
+// What bounds it: bytes, e k n of ct (e = 4 or 8 bytes an element) and 4 n
+// of idx read once and e m k of out written; the adds are k n flops, far
+// below the peak.  The design moves more: the tile sums (up to e k n bytes
+// written and read again, fewer where a tile's rays share rows), the masks
+// and counts (2 m n / 8192 bytes) and, past one chunk, out read again a
+// chunk; and it waits on its two sequential folds: a tile's longest run
+// and a row's count of tiles.
 
 #include <cuda_runtime.h>
 
@@ -74,20 +95,33 @@ constexpr int kKeys = kTile / kTileThreads;
 constexpr int kStageCols = 16;          // pass 1: columns staged at a time
 constexpr int kStageStride = kTile + 1; // a staged column, padded
 constexpr int kGroupTiles = 32;         // tiles a mask word covers
+constexpr int kCountThreads = 256;      // rows a block of the count
 constexpr int kRowThreads = 256;        // pass 2
 constexpr int kRowStage = 8192;         // pass 2: floats staged at a time
 constexpr int kRowIds = 2048;           // pass 2: ids staged at a time
+constexpr int kWarpRowsMin = 8192;      // pass 2 a warp a row from here
+constexpr int kWarpRowBlock = 256;      // pass 2 a warp a row: its threads
 constexpr int kRowLoads = 16;           // pass 2: loads issued at once
 constexpr int kUnroll = 8;              // loads issued ahead of their adds
 constexpr uint64_t kDroppedRow = 0xffffffffull << 32;  // sorts last
+constexpr long long kChunkMaskBytes = 1LL << 28;  // a chunk's masks, counts
+
+// The columns pass 1 stages at a time and the terms pass 2 stages at a
+// time, in elements of T: the same bytes for float and double.
+template <typename T>
+struct Staging {
+  static constexpr int kCols = kStageCols * 4 / static_cast<int>(sizeof(T));
+  static constexpr int kRow = kRowStage * 4 / static_cast<int>(sizeof(T));
+};
 
 // Sequential sum of terms[0], terms[stride], ..., terms[(count - 1) stride]
 // onto s: the loads of kUnroll terms are issued before their adds.
-__device__ __forceinline__ float fold(const float* terms, int count,
-                                      int stride = 1, float s = 0.f) {
+template <typename T>
+__device__ __forceinline__ T fold(const T* terms, int count, int stride = 1,
+                                  T s = T(0)) {
   int i = 0;
   for (; i + kUnroll <= count; i += kUnroll) {
-    float v[kUnroll];
+    T v[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) v[u] = terms[(i + u) * stride];
 #pragma unroll
@@ -136,39 +170,47 @@ __global__ void segment_sum_clear(unsigned* words, long long count) {
 }
 
 // The cotangents of columns c0 .. c0 + cols - 1 at the tile's rays p =
-// threadIdx.x + q kTileThreads (0 past the rays), coalesced.
+// threadIdx.x + q kTileThreads (0 past the rays), coalesced; a column is
+// ld elements long.
+template <typename T>
 __device__ __forceinline__ void load_columns(
-    const float* __restrict__ ct, int n, int t0, int rays, int c0, int cols,
-    float (&v)[kKeys][kStageCols]) {
+    const T* __restrict__ ct, int ld, int t0, int rays, int c0, int cols,
+    T (&v)[kKeys][Staging<T>::kCols]) {
 #pragma unroll
   for (int q = 0; q < kKeys; ++q) {
     const int p = threadIdx.x + q * kTileThreads;
 #pragma unroll
-    for (int c = 0; c < kStageCols; ++c)
+    for (int c = 0; c < Staging<T>::kCols; ++c)
       v[q][c] = (c < cols && p < rays)
-                    ? ct[static_cast<size_t>(c0 + c) * n + t0 + p] : 0.f;
+                    ? ct[static_cast<size_t>(c0 + c) * ld + t0 + p] : T(0);
   }
 }
 
-// Pass 1.  Dynamic shared memory: min(k, kStageCols) staged columns.
+// Pass 1 over the n rays of a chunk (columns of ct ld long).  Dynamic
+// shared memory: min(k, Staging<T>::kCols) staged columns.
+template <typename T>
 __global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
-segment_sum_tiles(const float* __restrict__ ct, const int* __restrict__ idx,
-                  int n, int m, int k, float* __restrict__ rec_sum,
+segment_sum_tiles(const T* __restrict__ ct, int ld,
+                  const int* __restrict__ idx, int n, int m, int k,
+                  T* __restrict__ rec_sum,
                   int* __restrict__ rec_row, int* __restrict__ tile_runs,
                   unsigned* __restrict__ mask) {
+  constexpr int kCols = Staging<T>::kCols;
   __shared__ uint64_t keys[kTile];
   __shared__ int run_begin[kTile + 1];
   __shared__ int sorted_at[kTile];  // a ray's place in key order
   __shared__ int warp_sums[32];
-  extern __shared__ float stage[];  // [column][kStageStride], key order
+  // [column][kStageStride], key order
+  extern __shared__ __align__(8) unsigned char stage_bytes[];
+  T* stage = reinterpret_cast<T*>(stage_bytes);
 
   const int tile = blockIdx.x;
   const int t0 = tile * kTile;
   const int rays = min(kTile, n - t0);
-  const int group = min(k, kStageCols);
+  const int group = min(k, kCols);
   // the first columns' loads fly while the keys are sorted
-  float v[kKeys][kStageCols];
-  load_columns(ct, n, t0, rays, 0, group, v);
+  T v[kKeys][kCols];
+  load_columns(ct, ld, t0, rays, 0, group, v);
 
   for (int p = threadIdx.x; p < kTile; p += kTileThreads) {
     const int j = p < rays ? idx[t0 + p] : -1;
@@ -244,21 +286,20 @@ segment_sum_tiles(const float* __restrict__ ct, const int* __restrict__ idx,
 
   for (int c0 = 0; c0 < k; c0 += group) {
     const int cols = min(group, k - c0);
-    if (c0 > 0) load_columns(ct, n, t0, rays, c0, cols, v);
+    if (c0 > 0) load_columns(ct, ld, t0, rays, c0, cols, v);
     // into key order (the dropped rays' places lie past `valid`)
 #pragma unroll
     for (int q = 0; q < kKeys; ++q) {
       const int at = sorted_at[threadIdx.x + q * kTileThreads];
 #pragma unroll
-      for (int c = 0; c < kStageCols; ++c)
+      for (int c = 0; c < kCols; ++c)
         if (c < cols) stage[c * kStageStride + at] = v[q][c];
     }
     __syncthreads();
     for (int q = threadIdx.x; q < runs * cols; q += kTileThreads) {
       const int run = q / cols, c = q - run * cols;
       const int b = run_begin[run];
-      const float s = fold(stage + c * kStageStride + b,
-                           run_begin[run + 1] - b);
+      const T s = fold(stage + c * kStageStride + b, run_begin[run + 1] - b);
       rec_sum[static_cast<size_t>(t0 + run) * k + c0 + c] = s;
     }
     __syncthreads();
@@ -266,14 +307,17 @@ segment_sum_tiles(const float* __restrict__ ct, const int* __restrict__ idx,
 }
 
 // For each row j: before[g][j] = its records in the groups below g, and
-// count[j] = all of them.  A thread a row: a warp reads 32 rows of a group
-// side by side, kUnroll groups at a time.
-__global__ void segment_sum_count(const unsigned* __restrict__ mask, int m,
-                                  int groups, int* __restrict__ before,
-                                  int* __restrict__ count) {
-  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < m;
-       j += gridDim.x * blockDim.x) {
-    int s = 0;
+// local[j] = the records of the rows before it in its block of
+// kCountThreads rows, whose total goes to block_total.  A thread a row: a
+// warp reads 32 rows of a group side by side, kUnroll groups at a time.
+__global__ void __launch_bounds__(kCountThreads)
+segment_sum_count(const unsigned* __restrict__ mask, int m, int groups,
+                  int* __restrict__ before, int* __restrict__ local,
+                  int* __restrict__ block_total) {
+  __shared__ int warp_sums[32];
+  const int j = blockIdx.x * kCountThreads + threadIdx.x;
+  int s = 0;
+  if (j < m) {
     for (int g0 = 0; g0 < groups; g0 += kUnroll) {
       int bits[kUnroll];
 #pragma unroll
@@ -286,27 +330,37 @@ __global__ void segment_sum_count(const unsigned* __restrict__ mask, int m,
         s += bits[u];
       }
     }
-    count[j] = s;
   }
+  int total = 0;
+  const int place = block_exclusive_scan(s, warp_sums, &total);
+  if (j < m) local[j] = place;
+  if (threadIdx.x == 0) block_total[blockIdx.x] = total;
 }
 
-// The exclusive scan of count[0 .. m) into start[0 .. m]; one block.
+// The exclusive scan of block_total[0 .. blocks) into block_start, 1024 at
+// a time, and every record's count into start[m]; one block.
 __global__ void __launch_bounds__(1024)
-segment_sum_scan(const int* __restrict__ count, int m,
-                 int* __restrict__ start) {
+segment_sum_scan(const int* __restrict__ block_total, int blocks, int m,
+                 int* __restrict__ block_start, int* __restrict__ start) {
   __shared__ int warp_sums[32];
-  const int per = (m + blockDim.x - 1) / blockDim.x;
-  const int lo = min(m, static_cast<int>(threadIdx.x) * per);
-  const int hi = min(m, lo + per);
-  int mine = 0;
-  for (int j = lo; j < hi; ++j) mine += count[j];
-  int total = 0;
-  int before = block_exclusive_scan(mine, warp_sums, &total);
-  for (int j = lo; j < hi; ++j) {
-    start[j] = before;
-    before += count[j];
+  int carry = 0;
+  for (int b0 = 0; b0 < blocks; b0 += blockDim.x) {
+    const int b = b0 + static_cast<int>(threadIdx.x);
+    int total = 0;
+    const int before = block_exclusive_scan(b < blocks ? block_total[b] : 0,
+                                            warp_sums, &total);
+    if (b < blocks) block_start[b] = carry + before;
+    carry += total;
   }
-  if (threadIdx.x == 0) start[m] = total;
+  if (threadIdx.x == 0) start[m] = carry;
+}
+
+// start[j] = its block's start + its place in the block.
+__global__ void segment_sum_start(const int* __restrict__ local,
+                                  const int* __restrict__ block_start, int m,
+                                  int* __restrict__ start) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j < m) start[j] = block_start[j / kCountThreads] + local[j];
 }
 
 // Each record's id (tile * kTile + run) to its place in its row's list, in
@@ -330,23 +384,27 @@ __global__ void segment_sum_place(const int* __restrict__ tile_runs,
 }
 
 // Pass 2: row j's records, which its list holds in tile order, added from
-// +0, kRowThreads columns at a time.
+// +0 (onto out's row where `onto`, a later chunk), kRowThreads columns at
+// a time.
+template <typename T>
 __global__ void __launch_bounds__(kRowThreads)
 segment_sum_rows(const int* __restrict__ start,
                  const unsigned* __restrict__ list,
-                 const float* __restrict__ rec_sum, int k,
-                 float* __restrict__ out) {
-  __shared__ float stage[kRowStage];
+                 const T* __restrict__ rec_sum, int k, bool onto,
+                 T* __restrict__ out) {
+  constexpr int kStage = Staging<T>::kRow;
+  __shared__ T stage[kStage];
   __shared__ unsigned ids[kRowIds];
 
   const int j = blockIdx.x;
   const int base = start[j];
   const int count = start[j + 1] - base;
-  float* row_out = out + static_cast<size_t>(j) * k;
+  T* row_out = out + static_cast<size_t>(j) * k;
   for (int c0 = 0; c0 < k; c0 += kRowThreads) {
     const int cols = min(kRowThreads, k - c0);
-    const int per_round = min(kRowIds, max(1, kRowStage / cols));
-    float s = 0.f;
+    const int per_round = min(kRowIds, max(1, kStage / cols));
+    T s = onto && static_cast<int>(threadIdx.x) < cols
+              ? row_out[c0 + threadIdx.x] : T(0);
     for (int i0 = 0; i0 < count; i0 += per_round) {
       const int terms = min(per_round, count - i0);
       for (int i = threadIdx.x; i < terms; i += kRowThreads)
@@ -355,14 +413,14 @@ segment_sum_rows(const int* __restrict__ start,
       // kRowLoads loads a thread at once, then their stores
       const int entries = terms * cols;
       for (int q0 = 0; q0 < entries; q0 += kRowLoads * kRowThreads) {
-        float v[kRowLoads];
+        T v[kRowLoads];
 #pragma unroll
         for (int u = 0; u < kRowLoads; ++u) {
           const int q = q0 + u * kRowThreads + threadIdx.x;
           const int i = q / cols, c = q - i * cols;
           v[u] = q < entries
                      ? rec_sum[static_cast<size_t>(ids[i]) * k + c0 + c]
-                     : 0.f;
+                     : T(0);
         }
 #pragma unroll
         for (int u = 0; u < kRowLoads; ++u) {
@@ -380,11 +438,56 @@ segment_sum_rows(const int* __restrict__ start,
   }
 }
 
+// Pass 2 for tables of many rows: one warp a row, the same order (onto
+// out's row where `onto`).  The lanes load the ids of 32 records at a
+// time; for k = 1 each lane loads one record's sum and the fold takes lane
+// 0's, lane 1's, ... through shuffles (every lane holds the same sum),
+// else lane c folds column c0 + c over the 32 records in order.
+template <typename T>
+__global__ void __launch_bounds__(kWarpRowBlock)
+segment_sum_rows_warp(const int* __restrict__ start,
+                      const unsigned* __restrict__ list,
+                      const T* __restrict__ rec_sum, int m, int k, bool onto,
+                      T* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int j = (blockIdx.x * kWarpRowBlock + threadIdx.x) >> 5;
+  if (j >= m) return;
+  const int base = start[j];
+  const int count = start[j + 1] - base;
+  T* row_out = out + static_cast<size_t>(j) * k;
+  for (int c0 = 0; c0 < k; c0 += 32) {
+    const int c = c0 + lane;
+    T s = onto && c < k ? row_out[c] : T(0);
+    for (int i0 = 0; i0 < count; i0 += 32) {
+      const int terms = min(32, count - i0);
+      const unsigned id = lane < terms ? list[base + i0 + lane] : 0u;
+      if (k == 1) {
+        const T v = lane < terms ? rec_sum[id] : T(0);
+        for (int t = 0; t < terms; ++t) s += __shfl_sync(kFull, v, t);
+      } else {
+        T v[32];
+#pragma unroll
+        for (int t = 0; t < 32; ++t) {
+          const unsigned at = __shfl_sync(kFull, id, t);
+          v[t] = (t < terms && c < k)
+                     ? rec_sum[static_cast<size_t>(at) * k + c] : T(0);
+        }
+#pragma unroll
+        for (int t = 0; t < 32; ++t)
+          if (t < terms) s += v[t];
+      }
+    }
+    if (c < k && (k > 1 || lane == 0)) row_out[c] = s;
+  }
+}
+
 struct Workspace {
-  float* rec_sum;      // [slots][k]: the records' sums
+  void* rec_sum;       // [slots][k] of T: the records' sums
   unsigned* mask;      // [groups][m]: the tiles holding each row
   int* before;         // [groups][m]: a row's records in earlier groups
-  int* count;          // [m]
+  int* local;          // [m]: a row's place among its block's records
+  int* block_total;    // [count blocks]
+  int* block_start;    // [count blocks]
   int* start;          // [m + 1]
   int* tile_runs;      // [tiles]
   int* rec_row;        // [slots]
@@ -392,9 +495,19 @@ struct Workspace {
   long long bytes;
 };
 
-// The workspace's parts from its base address `base` (0 to size it).
-Workspace carve(uintptr_t base, int n, int m, int k) {
-  const long long tiles = (static_cast<long long>(n) + kTile - 1) / kTile;
+// The rays of a chunk: whole groups of kGroupTiles tiles, as many as keep
+// the masks and counts (8 m bytes a group) within kChunkMaskBytes, and one
+// group at least; all n where they fit.
+int chunk_rays(int n, int m) {
+  const long long groups = max(1LL, kChunkMaskBytes / (8LL * m));
+  return static_cast<int>(
+      min(static_cast<long long>(n), groups * kGroupTiles * kTile));
+}
+
+// The workspace's parts from its base address `base` (0 to size it), for a
+// chunk of the n rays, and elements of `elem_bytes` (4 or 8) bytes.
+Workspace carve(uintptr_t base, int n, int m, int k, int elem_bytes) {
+  const long long tiles = (chunk_rays(n, m) + kTile - 1LL) / kTile;
   const long long slots = tiles * kTile;
   const long long groups = (tiles + kGroupTiles - 1) / kGroupTiles;
   long long offset = 0;
@@ -404,10 +517,14 @@ Workspace carve(uintptr_t base, int n, int m, int k) {
     return at;
   };
   Workspace w;
-  w.rec_sum = reinterpret_cast<float*>(take(slots * k));
+  // first, so that the float64 sums lie on the base's 8-byte alignment
+  w.rec_sum = reinterpret_cast<void*>(take(slots * k * (elem_bytes / 4)));
   w.mask = reinterpret_cast<unsigned*>(take(m * groups));
   w.before = reinterpret_cast<int*>(take(m * groups));
-  w.count = reinterpret_cast<int*>(take(m));
+  const long long count_blocks = (m + kCountThreads - 1LL) / kCountThreads;
+  w.local = reinterpret_cast<int*>(take(m));
+  w.block_total = reinterpret_cast<int*>(take(count_blocks));
+  w.block_start = reinterpret_cast<int*>(take(count_blocks));
   w.start = reinterpret_cast<int*>(take(m + 1LL));
   w.tile_runs = reinterpret_cast<int*>(take(tiles));
   w.rec_row = reinterpret_cast<int*>(take(slots));
@@ -416,28 +533,14 @@ Workspace carve(uintptr_t base, int n, int m, int k) {
   return w;
 }
 
-}  // namespace
-
-// The workspace segment_sum_launch needs for n rays over m rows of k
-// columns, in bytes.
-extern "C" long long segment_sum_workspace(int n, int m, int k) {
-  return carve(0, n, m, k).bytes;
-}
-
-// ct: (k, n) float32 row-major; idx: (n,) int32; out: (m, k) float32 (every
-// entry written); work: segment_sum_workspace(n, m, k) bytes, 4-byte
-// aligned.  `tile` must be kTile, the caller's tile: else nothing runs and
-// cudaErrorInvalidValue is returned.  Needs n >= 1, m >= 1, 1 <= k and
-// m * k < 2^31.  Launches on `stream` and returns the CUDA error code (0 =
-// launched).
-extern "C" int segment_sum_launch(const float* ct, const int* idx, int n,
-                                  int m, int k, int tile, float* out,
-                                  void* work, void* stream) {
-  if (tile != kTile) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The passes over the chunk of n rays at ct (columns ld long) and idx,
+// into out, from +0 or, where `onto`, onto out.
+template <typename T>
+int launch_chunk(const T* ct, int ld, const int* idx, int n, int m, int k,
+                 bool onto, T* out, const Workspace& w, cudaStream_t s) {
   const int tiles = (n + kTile - 1) / kTile;
   const int groups = (tiles + kGroupTiles - 1) / kGroupTiles;
-  const Workspace w = carve(reinterpret_cast<uintptr_t>(work), n, m, k);
+  T* rec_sum = static_cast<T*>(w.rec_sum);
   const long long words = static_cast<long long>(m) * groups;
 
   const int clear_blocks = static_cast<int>(min(1024LL, (words + 255) / 256));
@@ -445,23 +548,30 @@ extern "C" int segment_sum_launch(const float* ct, const int* idx, int n,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int stage_bytes = min(k, kStageCols) * kStageStride *
-                          static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(segment_sum_tiles,
+  const int stage_bytes = min(k, Staging<T>::kCols) * kStageStride *
+                          static_cast<int>(sizeof(T));
+  err = cudaFuncSetAttribute(segment_sum_tiles<T>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              stage_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  segment_sum_tiles<<<tiles, kTileThreads, stage_bytes, s>>>(
-      ct, idx, n, m, k, w.rec_sum, w.rec_row, w.tile_runs, w.mask);
+  segment_sum_tiles<T><<<tiles, kTileThreads, stage_bytes, s>>>(
+      ct, ld, idx, n, m, k, rec_sum, w.rec_row, w.tile_runs, w.mask);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  segment_sum_count<<<min(1024, (m + 255) / 256), 256, 0, s>>>(
-      w.mask, m, groups, w.before, w.count);
+  const int count_blocks = (m + kCountThreads - 1) / kCountThreads;
+  segment_sum_count<<<count_blocks, kCountThreads, 0, s>>>(
+      w.mask, m, groups, w.before, w.local, w.block_total);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  segment_sum_scan<<<1, 1024, 0, s>>>(w.count, m, w.start);
+  segment_sum_scan<<<1, 1024, 0, s>>>(w.block_total, count_blocks, m,
+                                      w.block_start, w.start);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  segment_sum_start<<<count_blocks, kCountThreads, 0, s>>>(
+      w.local, w.block_start, m, w.start);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -470,7 +580,60 @@ extern "C" int segment_sum_launch(const float* ct, const int* idx, int n,
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  segment_sum_rows<<<m, kRowThreads, 0, s>>>(w.start, w.list, w.rec_sum, k,
-                                             out);
+  if (m >= kWarpRowsMin) {
+    const long long threads = 32LL * m;
+    segment_sum_rows_warp<T><<<static_cast<int>(
+        (threads + kWarpRowBlock - 1) / kWarpRowBlock), kWarpRowBlock, 0,
+        s>>>(w.start, w.list, rec_sum, m, k, onto, out);
+  } else {
+    segment_sum_rows<T><<<m, kRowThreads, 0, s>>>(w.start, w.list, rec_sum,
+                                                  k, onto, out);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch(const T* ct, const int* idx, int n, int m, int k, int tile,
+           T* out, void* work, void* stream) {
+  if (tile != kTile) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Workspace w = carve(reinterpret_cast<uintptr_t>(work), n, m, k,
+                            static_cast<int>(sizeof(T)));
+  const int chunk = chunk_rays(n, m);
+  for (long long r0 = 0; r0 < n; r0 += chunk) {
+    const int err = launch_chunk(
+        ct + r0, n, idx + r0, static_cast<int>(min(1LL * chunk, n - r0)), m,
+        k, r0 > 0, out, w, s);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+}  // namespace
+
+// The workspace segment_sum_launch (elem_bytes 4) or segment_sum_launch_f64
+// (elem_bytes 8) needs for n rays over m rows of k columns, in bytes.
+extern "C" long long segment_sum_workspace(int n, int m, int k,
+                                           int elem_bytes) {
+  return carve(0, n, m, k, elem_bytes).bytes;
+}
+
+// ct: (k, n) float32 row-major; idx: (n,) int32; out: (m, k) float32 (every
+// entry written); work: segment_sum_workspace(n, m, k, 4) bytes, 8-byte
+// aligned.  `tile` must be kTile, the caller's tile: else nothing runs and
+// cudaErrorInvalidValue is returned.  Needs n >= 1, m >= 1, 1 <= k and
+// m * k < 2^31.  Launches on `stream` and returns the CUDA error code (0 =
+// launched).
+extern "C" int segment_sum_launch(const float* ct, const int* idx, int n,
+                                  int m, int k, int tile, float* out,
+                                  void* work, void* stream) {
+  return launch<float>(ct, idx, n, m, k, tile, out, work, stream);
+}
+
+// segment_sum_launch in float64: ct and out double, work
+// segment_sum_workspace(n, m, k, 8) bytes; the same order of the adds.
+extern "C" int segment_sum_launch_f64(const double* ct, const int* idx, int n,
+                                      int m, int k, int tile, double* out,
+                                      void* work, void* stream) {
+  return launch<double>(ct, idx, n, m, k, tile, out, work, stream);
 }

@@ -19,6 +19,12 @@ from tensorflowraytrace_tpu_torch.config import (
 )
 
 
+def _coord_keys(dim):
+    """``x_start``, ``y_start`` (, ``z_start``), ``x_end``, ... in order."""
+    axes = "xyz"[:dim]
+    return [f"{a}{suffix}" for suffix in ("_start", "_end") for a in axes]
+
+
 @dataclass
 class RaySet:
     """A batch of rays.
@@ -59,6 +65,30 @@ class RaySet:
         return RaySet(p0=p0, p1=p1, wavelength=wavelength, state=state,
                       fields=fields)
 
+    @staticmethod
+    def from_dict(d, dtype=None, device=None):
+        """Build from a reference-style field dict (``x_start``,
+        ``y_start``, ... ``z_end``, ``wavelength``): 3D where it has
+        ``z_start``; every other key becomes an extra field."""
+        dtype = resolve_dtype(dtype)
+        axes = "xyz" if "z_start" in d else "xy"
+        if device is None:
+            first = d[f"{axes[0]}_start"]
+            if isinstance(first, torch.Tensor):
+                device = first.device
+        device = resolve_device(device)
+
+        def column(key):
+            return torch.as_tensor(d[key], dtype=dtype, device=device)
+
+        p0 = torch.stack([column(f"{a}_start") for a in axes], dim=1)
+        p1 = torch.stack([column(f"{a}_end") for a in axes], dim=1)
+        coords = _coord_keys(len(axes))
+        extras = {k: v for k, v in d.items()
+                  if k not in coords and k != "wavelength"}
+        return RaySet.make(p0, p1, d.get("wavelength"), fields=extras,
+                           dtype=dtype, device=device)
+
     @property
     def dim(self) -> int:
         return self.p0.shape[-1]
@@ -83,6 +113,11 @@ class RaySet:
         if key == "wavelength":
             return self.wavelength
         return self.fields[key]
+
+    def keys(self):
+        """The reference-style keys ``__getitem__`` takes: the coordinate
+        columns, ``wavelength``, then the extra fields."""
+        return _coord_keys(self.dim) + ["wavelength"] + list(self.fields)
 
     def with_field(self, name, value):
         fields = dict(self.fields)

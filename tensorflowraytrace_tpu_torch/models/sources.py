@@ -152,6 +152,12 @@ class SourceBase:
         return RaySet.make(p0, p1, wavelength, fields=fields, dtype=dtype,
                            device=device)
 
+    def snapshot(self, generator=None, dtype=None, device=None):
+        """A reference-style dict of one sample: ``{key: rays[key]}`` over
+        ``RaySet.keys()``."""
+        rays = self.sample(generator, dtype, device)
+        return {k: rays[k] for k in rays.keys()}
+
 
 class _Aimable(SourceBase):
     """center + central_angle aiming.  In 2D, ``central_angle`` is an angle

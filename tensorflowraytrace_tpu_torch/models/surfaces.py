@@ -285,6 +285,17 @@ class TriangleSet:
             mats_specified=mat_in is not None or mat_out is not None,
         )
 
+    @staticmethod
+    def from_vertices_faces(vertices, faces, **kwargs):
+        """Gather (V, 3) vertices through (F, 3) integer faces: a set
+        differentiable with respect to ``vertices`` (the path a gradient
+        takes into mesh parameters).  ``kwargs`` go to ``make``."""
+        vertices = torch.as_tensor(
+            vertices, device=_device_of(vertices, kwargs.get("device")))
+        faces = torch.as_tensor(faces, device=vertices.device).long()
+        return TriangleSet.make(vertices[faces[:, 0]], vertices[faces[:, 1]],
+                                vertices[faces[:, 2]], **kwargs)
+
     @property
     def n_surfaces(self) -> int:
         return self.vp.shape[0]
@@ -308,8 +319,16 @@ class TriangleSet:
 
 def compute_face_normals(vp, v1, v2):
     """Unit face normals with the reference's orientation:
-    normalize(cross(v1 - vp, v2 - v1))."""
-    n = torch.linalg.cross(v1 - vp, v2 - v1)
+    normalize(cross(v1 - vp, v2 - v1)).  The cross product is written out
+    as products and differences, one operation each, so that autograd and
+    an exported program (which decomposes ``torch.linalg.cross`` into the
+    same operations) take its backward in one order and agree bit for
+    bit."""
+    a, b = v1 - vp, v2 - v1
+    a0, a1, a2 = a.unbind(-1)
+    b0, b1, b2 = b.unbind(-1)
+    n = torch.stack((a1 * b2 - a2 * b1, a2 * b0 - a0 * b2,
+                     a0 * b1 - a1 * b0), dim=-1)
     return n / torch.linalg.vector_norm(n, dim=-1, keepdim=True)
 
 

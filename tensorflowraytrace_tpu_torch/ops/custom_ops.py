@@ -35,8 +35,12 @@ A search returns ``(valid bool, idx int32, ray_u)`` per ray, and an arc
 search ``branch bool`` after them; ``ray_u`` is in the rays' dtype (float32
 on CUDA, where the kernels take nothing else).  ``segment_sum`` returns the
 (m, k) sum in the cotangent's dtype, added in the fixed order of
-``segsum_kernels`` on either device, so the two give the same bits.  No
-kernel operator has a gradient.
+``segsum_kernels`` on either device, so the two give the same bits.  Its
+gradient with respect to the cotangent is the gather ``g[idx].T`` (zero
+where idx lies outside [0, m), which adds nothing), registered on the
+operator, so that the histograms that bin through it
+(``analysis.histogram2d``, ``soft_histogram2d``) pass a gradient to their
+weights.  No search operator has a gradient.
 
 One more operator, ``gather_rows_t``, is the engine's per-bounce gather
 ``table[idx].T`` (``engine._gather_rows_t``) with its backward registered:
@@ -129,6 +133,24 @@ arc_search_twolevel = _define(
 segment_sum = _define(
     "segment_sum", "(Tensor ct, Tensor idx, int m) -> Tensor",
     sk.segment_sum_plain, sk.segment_sum_cuda, _fake_segment_sum)
+
+
+def _segment_sum_setup_context(ctx, inputs, output):
+    _, idx, m = inputs
+    ctx.save_for_backward(idx)
+    ctx.m = m
+
+
+def _segment_sum_backward(ctx, g):
+    (idx,) = ctx.saved_tensors
+    rows = idx.long()
+    kept = (rows >= 0) & (rows < ctx.m)
+    ct_grad = g[torch.where(kept, rows, 0)].T
+    return torch.where(kept, ct_grad, 0.0), None, None
+
+
+segment_sum.register_autograd(_segment_sum_backward,
+                              setup_context=_segment_sum_setup_context)
 
 
 def _gather_rows_t(table, idx, use_kernel):

@@ -48,6 +48,7 @@ from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 from tensorflowraytrace_tpu_torch.utils.convert import (
     guide_params_from_numpy, rayset_from_numpy, triangles_from_numpy,
 )
+from torch_normals import assert_near_jax_normals, written_out_normals
 from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 EPS = 1e-6
@@ -142,9 +143,15 @@ def test_morton_sort_permutation_matches_jax(rng, scene):
     j_sorted, j_perm = j_acc.morton_sort_triangles(jt)
     t_sorted, t_perm = t_acc.morton_sort_triangles(tt)
     np.testing.assert_array_equal(t_perm, j_perm)
-    for name in ("vp", "v1", "v2", "norm", "mat_in"):
+    for name in ("vp", "v1", "v2", "mat_in"):
         np.testing.assert_array_equal(getattr(t_sorted, name).detach().numpy(),
                                       np.asarray(getattr(j_sorted, name)))
+    # the normals of the cross product written out, on JAX's sorted corners,
+    # and near JAX's own (XLA fuses its cross product)
+    t_norm = t_sorted.norm.detach().numpy()
+    corners = (j_sorted.vp, j_sorted.v1, j_sorted.v2)
+    np.testing.assert_array_equal(t_norm, written_out_normals(*corners))
+    assert_near_jax_normals(t_norm, j_sorted.norm, *corners)
     np.testing.assert_array_equal(t_sorted.fields["w"].numpy(), t_perm)
 
 

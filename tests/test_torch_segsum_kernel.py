@@ -9,10 +9,15 @@ Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 The kernel adds in the fixed order of its plain version (tiles of
 ``segsum_kernels.TILE`` rays, each row's rays in order within a tile, then
 the tile sums in order), so it is held to the plain version bit for bit,
-and two launches on the same inputs to each other.  Its distance to the
-float64 sum stays within ``1e-5 S + 1e-7``, where ``S[j] = sum over
-idx[i] == j of |ct[:, i]|`` bounds the rounding of any order of float32
-additions.
+and two launches on the same inputs to each other (ten at the histogram
+shape and in float64).  Its float32 distance to the float64 sum stays
+within ``1e-5 S + 1e-7``, where ``S[j] = sum over idx[i] == j of
+|ct[:, i]|`` bounds the rounding of any order of float32 additions.  The
+float64 instance is held at every shape of the float32 cases and at the
+caustic image's histogram shape (k = 1, 512 x 512 bins, 2^22 rays), and
+past the workspace's limit, where the kernel sums its rays in chunks; the
+histograms (``analysis.histogram2d``, ``soft_histogram2d``) launch it and
+equal their CPU results bit for bit.
 """
 
 import numpy as np
@@ -33,9 +38,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def case(n, m, device, idx="random", seed=0):
+def case(n, m, device, idx="random", seed=0, dtype=torch.float32, k=K):
     gen = torch.Generator(device).manual_seed(seed)
-    ct = torch.randn((K, n), generator=gen, device=device)
+    ct = torch.randn((k, n), generator=gen, device=device, dtype=dtype)
     if idx == "random":
         ids = torch.randint(0, m, (n,), generator=gen, device=device)
     elif idx == "coherent":
@@ -48,35 +53,107 @@ def case(n, m, device, idx="random", seed=0):
 
 
 def same_bits(a, b):
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    raw = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return a.dtype == b.dtype and torch.equal(a.view(raw), b.view(raw))
 
 
-def check(ct, idx, m):
+def check(ct, idx, m, launches=2):
     before = sk.LAUNCHES
     got = sk.segment_sum_kernel(ct, idx, m)
-    again = sk.segment_sum_kernel(ct, idx, m)
+    runs = [sk.segment_sum_kernel(ct, idx, m) for _ in range(launches - 1)]
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == before + 2
-    assert got.shape == (m, ct.shape[0]) and got.dtype == torch.float32
+    assert sk.LAUNCHES == before + launches
+    assert got.shape == (m, ct.shape[0]) and got.dtype == ct.dtype
     plain = sk.segment_sum_plain(ct, idx, m)
     finite = torch.isfinite(plain)
     assert torch.equal(finite, torch.isfinite(got))
     assert torch.equal(torch.isnan(plain), torch.isnan(got))
     assert same_bits(got[finite], plain[finite])
-    assert same_bits(got, again) or not bool(finite.all())
-    ref64 = sk.segment_sum_plain(ct.double(), idx, m)
-    bound = sk.segment_sum_plain(ct.double().abs(), idx, m) * 1e-5 + 1e-7
-    assert bool(((got.double() - ref64).abs() <= bound)[finite].all())
+    assert all(same_bits(got, r) for r in runs) or not bool(finite.all())
+    if ct.dtype == torch.float32:
+        ref64 = sk.segment_sum_plain(ct.double(), idx, m)
+        bound = sk.segment_sum_plain(ct.double().abs(), idx, m) * 1e-5 + 1e-7
+        assert bool(((got.double() - ref64).abs() <= bound)[finite].all())
     return got
 
 
-@pytest.mark.parametrize("n,m,idx", [
+SHAPES = [
     (2025, 770, "random"), (1 << 20, 770, "random"), (1 << 20, 4096, "random"),
     (5000, 16386, "random"), (5000, 16386, "coherent"), (1 << 20, 770, "same"),
     (1, 1, "random"), (1000, 333, "random"),
-])
+]
+
+
+@pytest.mark.parametrize("n,m,idx", SHAPES)
 def test_kernel_matches_float64(cuda, n, m, idx):
     check(*case(n, m, cuda, idx), m)
+
+
+@pytest.mark.parametrize("n,m,idx", SHAPES)
+def test_float64_instance_matches_plain(cuda, n, m, idx):
+    check(*case(n, m, cuda, idx, dtype=torch.float64), m, launches=10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_histogram_shape(cuda, dtype):
+    """The caustic image's sum: 2^22 weights into 512 x 512 bins, the bins
+    of a blurred spot (many rays a bin, some bins empty), ten launches."""
+    n, m = 1 << 22, 512 * 512
+    gen = torch.Generator(cuda).manual_seed(7)
+    w = torch.rand((1, n), generator=gen, device=cuda, dtype=dtype)
+    xy = (torch.randn((2, n), generator=gen, device=cuda) * 90 + 256).long()
+    idx = (xy.clamp(0, 511) * torch.tensor([[512], [1]], device=cuda)).sum(0)
+    check(w, idx.to(torch.int32), m, launches=10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_chunks_past_the_mask_limit(cuda, dtype):
+    """A table whose masks and counts would pass the kernel's 256 MiB
+    (2^24 bins, 2^18 rays: m N / 4096 = 1 GiB) is summed in four chunks
+    of 2^16 rays, each continuing the rows' sums of the one before: the
+    same bits as the plain version, with half the rays on 1000 rows spread
+    over the table, so that rows recur in every chunk.  The workspace stays
+    within 256 MiB and 16 bytes a ray of a chunk and a row."""
+    n, m = 1 << 18, 1 << 24
+    gen = torch.Generator(cuda).manual_seed(3)
+    w = torch.randn((1, n), generator=gen, device=cuda, dtype=dtype)
+    spread = torch.randint(0, 1000, (n // 2,), generator=gen, device=cuda)
+    idx = torch.cat([spread * (m // 1000),
+                     torch.randint(0, m, (n - n // 2,), generator=gen,
+                                   device=cuda)])
+    idx = idx[torch.randperm(n, generator=gen, device=cuda)]
+    check(w, idx.to(torch.int32), m, launches=3)
+    lib = sk.load_library()
+    for n_big, m_big in ((n, m), (1 << 22, 1 << 20)):
+        chunk = max(1, (1 << 28) // (8 * m_big)) * 32 * sk.TILE
+        assert lib.segment_sum_workspace(n_big, m_big, 1, 8) <= (
+            (1 << 28) + 16 * min(chunk, n_big) + 16 * m_big)
+
+
+def test_histograms_launch_the_kernel(cuda):
+    """histogram2d and soft_histogram2d on CUDA tensors launch K2, once
+    each, and equal the same histograms with K2's plain version swapped in
+    bit for bit; their gradients reach the weights."""
+    from tensorflowraytrace_tpu_torch import analysis
+
+    gen = torch.Generator(cuda).manual_seed(1)
+    x, y = torch.randn((2, 100_000), generator=gen, device=cuda) * 0.3
+    w = torch.rand(100_000, generator=gen, device=cuda).requires_grad_(True)
+    rng = ((-1.0, 1.0), (-1.0, 1.0))
+    for fn in (analysis.histogram2d, analysis.soft_histogram2d):
+        before = sk.LAUNCHES
+        h = fn(x, y, rng, 64, 48, weights=w)
+        assert sk.LAUNCHES == before + 1
+        kernel, sk.segment_sum_kernel = (sk.segment_sum_kernel,
+                                         sk.segment_sum_plain)
+        try:
+            h_plain = fn(x, y, rng, 64, 48, weights=w.detach())
+        finally:
+            sk.segment_sum_kernel = kernel
+        assert sk.LAUNCHES == before + 1
+        assert same_bits(h.detach(), h_plain)
+        (g,) = torch.autograd.grad(torch.sum(h * h), w)
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
 
 
 def test_branches(cuda):
@@ -190,7 +267,7 @@ def test_gather_backward_launches_the_kernel(cuda):
 def test_kernel_refuses_what_it_cannot_take(cuda):
     ct, idx = case(64, 10, cuda)
     with pytest.raises(TypeError):
-        sk.segment_sum_kernel(ct.double(), idx, 10)
+        sk.segment_sum_kernel(ct.half(), idx, 10)
     with pytest.raises(TypeError):
         sk.segment_sum_kernel(ct, idx.long(), 10)
     with pytest.raises(ValueError, match="is on"):
