@@ -407,19 +407,21 @@ the nvidia-smi line, and as the last line ``{"ok": true, "device":
 {...}}``.
 
 ``python3 chip_smoke.py --tune`` runs phases 1 and 2, times K2 at phase
-6's timed shapes built at each of ``SEGSUM_VARIANTS`` (the columns a tile
-stages, its tile pass's launch bound, the loads issued ahead of their adds
-and the threads a row, none of which changes its bits), times K1 alone at
-the soup's and the guide's first bounce at 1 and 4 rays a thread and K4
-alone at the guide's first bounce at every ray block, then sweeps K4's ray
+6's timed shapes built at each of ``SEGSUM_VARIANTS`` (the columns its
+tile pass stages, its order pass's blocks an SM, its row pass's launch
+bound and the loads issued ahead of their adds, none of which changes its
+bits), times K1 alone at the soup's and the guide's first bounce at 1 and
+4 rays a thread and K4 alone at the guide's first bounce at every ray
+block, then sweeps K4's ray
 block and candidate cap on the guide and the sorted soup; times K7 and
 K8 at 128-1024 rays a block, alone at the 2D guide's first bounce and in
 its ``cull=True`` traces; times K9 alone at the 2D guide's first bounce
 at every ray block, then sweeps K9's and K10's ray block and cap on the
 2D guide (median of 3 traces each, every setting checked against the
-brute trace), and prints no result line.  ``--tune-rows`` times K2 the
-same way with its row pass one warp a row and one block a row at every
-table (``SEGSUM_ROW_VARIANTS``), at ``SEGSUM_ROW_TIMED``.
+brute trace), and prints no result line.  ``--tune-switches`` times K2
+the same way with each of its design switches forced one way at every
+table (``SEGSUM_SWITCH_VARIANTS``), at ``SEGSUM_SWITCH_TIMED`` (with the
+32,768-row tables of ``SEGSUM_ALONE_CASES``).
 ``python3 chip_smoke.py --export-programs`` runs phases 1 and 2 and
 writes phase 21b's programs under build/export/ (the script runs it
 itself).
@@ -429,7 +431,8 @@ the root of an earlier checkout, it times that checkout's.
 ``python3 chip_smoke.py --arcs-alone`` runs phases 1 and 2 and times K6
 and K8 launched alone at the 2D guide's first bounce (see
 ``arcs_alone``); ``--segsum-alone`` times K2 at phase 6's timed shapes
-(see ``segsum_alone``); neither prints a result line.
+and two 32,768-row tables, in float32 and float64 (see
+``segsum_alone``); neither prints a result line.
 ``python3 chip_smoke.py --dispatch-cost`` runs phases 1 and 2 and prints
 one JSON line: the facade-tax trace and a flagship step by
 ``interleaved_ms`` (``dispatch_cost``); copied into the root of an
@@ -478,25 +481,37 @@ SEGSUM_CASES = [
 ]
 SEGSUM_TIMED = ("flagship_bench", "soup", "one_row", "guide2d_backward",
                 "histogram")
+# --segsum-alone and --tune-switches only: a table between the soup's 4096
+# rows and the histogram's 262,144, on both sides of the row pass's switch
+# from a block a row to a warp a row (kWarpRowsMin)
+SEGSUM_ALONE_CASES = [
+    ("table_32k_k1", 1 << 20, 32768, 1, "random"),
+    ("table_32k_k13", 1 << 20, 32768, 13, "random"),
+]
 # calls timed of K2's plain version (on the host) and of index_add_ under
 # torch.use_deterministic_algorithms (up to 0.26 s a call on one row)
 K2_SLOW_REPS = 3
-# --tune: K2 rebuilt from segment_sum.cu with its columns a tile stages at
-# a time (kStageCols), the blocks an SM its tile pass's launch bound asks
-# for (kTileMinBlocks), the loads issued ahead of their adds (kUnroll) and
-# the threads of its pass over the rows (kRowThreads) set to each of these;
-# none changes the order of the adds.  One build each, timed at
-# SEGSUM_TIMED beside the source as it stands
+# --tune: K2 rebuilt from segment_sum.cu with the float columns its tile
+# pass stages at a time (kStageCols), the blocks an SM of its cooperative
+# order pass (kOrderBlocksPerSm), the blocks an SM its block-a-row pass's
+# launch bound asks for (kRowMinBlocks) and the loads issued ahead of
+# their adds (kUnroll) set to each of these; none changes the order of the
+# adds.  One build each, timed at SEGSUM_TIMED beside the source as it
+# stands
 SEGSUM_VARIANTS = tuple(
-    {"kStageCols": cols, "kTileMinBlocks": blocks, "kUnroll": unroll,
-     "kRowThreads": threads}
-    for cols in (8, 16) for blocks in (2, 3) for unroll in (4, 8)
-    for threads in (128, 256))
-# --tune-rows: K2's row pass one warp a row at every table (kWarpRowsMin 1)
-# and one block a row at every table (kWarpRowsMin 2^30), timed at
-# SEGSUM_ROW_TIMED beside the source as it stands
-SEGSUM_ROW_VARIANTS = ({"kWarpRowsMin": 1}, {"kWarpRowsMin": 1 << 30})
-SEGSUM_ROW_TIMED = ("flagship_example", *SEGSUM_TIMED)
+    {"kStageCols": cols, "kOrderBlocksPerSm": order,
+     "kRowMinBlocks": rows, "kUnroll": unroll}
+    for cols in (8, 16) for order in (2, 4) for rows in (4, 6)
+    for unroll in (4, 8))
+# --tune-switches: K2 with each of its switches forced one way at every
+# table: the row pass a warp a row (kWarpRowsMin 1) or a block a row
+# (kWarpRowsMin 2^30), 64-bit sort keys (kNarrowRows 0), the order pass on
+# its whole grid (kOrderHalfRows 0); timed at SEGSUM_SWITCH_TIMED beside
+# the source as it stands
+SEGSUM_SWITCH_VARIANTS = ({"kWarpRowsMin": 1}, {"kWarpRowsMin": 1 << 30},
+                          {"kNarrowRows": 0}, {"kOrderHalfRows": 0})
+SEGSUM_SWITCH_TIMED = ("flagship_example", *SEGSUM_TIMED,
+                    *(c[0] for c in SEGSUM_ALONE_CASES))
 
 # phases 7 and 8: the flagship's training (examples/simple_3d_optimize.py)
 TRAIN_STEPS = 150
@@ -1069,9 +1084,11 @@ def segsum_inputs(n, m, k, pattern, device, seed=0):
 
 
 def segsum_case(label, device, guide2d=None):
-    """Phase 6's case ``label`` of ``SEGSUM_CASES``: ``(ct, idx, m)``; the
-    "guide2d" case is ``guide2d``, of ``guide2d_backward``."""
-    n, m, k, pattern = {c[0]: c[1:] for c in SEGSUM_CASES}[label]
+    """Phase 6's case ``label`` of ``SEGSUM_CASES`` (or of
+    ``SEGSUM_ALONE_CASES``): ``(ct, idx, m)``; the "guide2d" case is
+    ``guide2d``, of ``guide2d_backward``."""
+    n, m, k, pattern = {c[0]: c[1:] for c in (*SEGSUM_CASES,
+                                              *SEGSUM_ALONE_CASES)}[label]
     if pattern == "guide2d":
         return (*guide2d, m)
     return (*segsum_inputs(n, m, k, pattern, device), m)
@@ -1119,7 +1136,8 @@ def time_k2(ct, idx, m, reps=50, kernel=None):
     """K2's wrapper (or ``kernel``) on ``(ct, idx)``: ms a call by CUDA
     events, which count the host's issue when it is slower than the
     kernel, and by device time (its kernels alone, ``kernel_device_ms``;
-    None if not measured), and the device time split by kernel (a text)."""
+    None if not measured), and the device time split by kernel with the
+    launches a call (a text)."""
     import re
 
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
@@ -1129,33 +1147,41 @@ def time_k2(ct, idx, m, reps=50, kernel=None):
     def fn():
         return kernel(ct, idx, m)
 
-    split = kernel_device_split(fn, "segment_sum", reps)
+    launches = {}
+    split = kernel_device_split(fn, "segment_sum", reps, launches)
     short = {k: (re.search(r"segment_sum_([a-z_]+?)(?:<|E|I|\()", k)
                  or [k, k])[1] for k in split}
     parts = ", ".join(f"{short[k]} {v:.5f}" for k, v in split.items())
+    if launches:
+        parts += f"; {sum(launches.values()):g} launches a call"
     return (cuda_ms(fn, reps), sum(split.values()) if split else None,
             parts or "not measured")
 
 
 def segsum_alone(device):
-    """``--segsum-alone``: K2 at phase 6's timed shapes, each checked with
-    phase 6's criterion, by CUDA events and by device time.  It calls
-    ``segsum_kernels``' ``segment_sum_kernel`` and ``segment_sum_plain``
-    alone, whose arguments are the same in every version of the port:
-    copied into the root of an earlier checkout, the script times that
-    checkout's K2 the same way (a K2 from before the fixed order, without
+    """``--segsum-alone``: K2 at phase 6's timed shapes and at
+    ``SEGSUM_ALONE_CASES``, in float32 and float64, each checked with
+    phase 6's criterion, by CUDA events and by device time (with the
+    kernels a call launches).  It calls ``segsum_kernels``'
+    ``segment_sum_kernel`` and ``segment_sum_plain`` alone, whose
+    arguments are the same in every version of the port: copied into the
+    root of an earlier checkout, the script times that checkout's K2 the
+    same way (a K2 from before the fixed order, without
     ``segsum_kernels.TILE``, is held to the float64 bound alone)."""
     from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
 
     guide2d = guide2d_backward(device)
-    for label in SEGSUM_TIMED:
+    for label in (*SEGSUM_TIMED, *(c[0] for c in SEGSUM_ALONE_CASES)):
         ct, idx, m = segsum_case(label, device, guide2d)
-        compare_k2(label, ct, idx, m, prefix="K2 alone",
-                   exact=hasattr(sk, "TILE"))
-        ms, dev, parts = time_k2(ct, idx, m)
-        dev_ms = "not measured" if dev is None else f"{dev:.5f} ms"
-        print(f"K2 alone {label}: kernel {ms:.5f} ms by CUDA events, "
-              f"device time {dev_ms} (ms by kernel: {parts})", flush=True)
+        for data in (ct, ct.double()):
+            name = label + ("" if data is ct else " float64")
+            compare_k2(name, data, idx, m, prefix="K2 alone",
+                       exact=hasattr(sk, "TILE"))
+            ms, dev, parts = time_k2(data, idx, m)
+            dev_ms = "not measured" if dev is None else f"{dev:.5f} ms"
+            print(f"K2 alone {name}: kernel {ms:.5f} ms by CUDA events, "
+                  f"device time {dev_ms} (ms by kernel: {parts})",
+                  flush=True)
 
 
 def segsum_variant_source(text, variant):
@@ -1180,9 +1206,10 @@ def ptxas_summary(report):
     found, name = {}, None
     for line in report.splitlines():
         entry = re.search(r"Compiling entry function '[^']*?(segment_sum_"
-                          r"[a-z_]+?)(?:I([fd])E)?E", line)
+                          r"[a-z_]+?)(?:I([fd])([jy]?)E)?E", line)
         if entry:
-            name = entry[1] + (f"<{entry[2]}>" if entry[2] else "")
+            args = ", ".join(a for a in entry.groups()[1:] if a)
+            name = entry[1] + (f"<{args}>" if args else "")
             found[name] = {}
         elif name and "spill" in line:
             found[name]["spill"] = ", ".join(
@@ -1237,10 +1264,11 @@ def segsum_variants(device, variants=SEGSUM_VARIANTS, timed=SEGSUM_TIMED):
             for i in order:
                 compare_k2(f"{label}, {names[i]}", ct, idx, m,
                            prefix="K2 variant", kernel=kernels[i])
-                ms, dev, _ = time_k2(ct, idx, m, kernel=kernels[i])
+                ms, dev, parts = time_k2(ct, idx, m, kernel=kernels[i])
                 dev_ms = "not measured" if dev is None else f"{dev:.5f} ms"
                 print(f"K2 variant {label}, {names[i]}: kernel {ms:.5f} ms "
-                      f"by CUDA events, device time {dev_ms}", flush=True)
+                      f"by CUDA events, device time {dev_ms} (ms by kernel: "
+                      f"{parts})", flush=True)
 
 
 def deterministic_ms(fn, reps):
@@ -1363,9 +1391,10 @@ def kernel_device_ms(fn, name, reps=10):
     return sum(split.values()) if split else None
 
 
-def kernel_device_split(fn, name, reps=10):
+def kernel_device_split(fn, name, reps=10, launches=None):
     """``kernel_device_ms``'s kernels one by one: {kernel name: mean ms of
-    its spans}, empty when the profiler records none."""
+    its spans}, empty when the profiler records none; ``launches``, a
+    dict, gets each kernel's spans a call of ``fn``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1380,6 +1409,8 @@ def kernel_device_split(fn, name, reps=10):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name:
             spans[e.name].append(e.time_range.end - e.time_range.start)
+    if launches is not None:
+        launches.update({k: len(v) / reps for k, v in spans.items()})
     return {k: sum(v) / len(v) / 1e3 for k, v in spans.items()}
 
 
@@ -5431,8 +5462,8 @@ def main():
         tune_culled_2d(device)
         tune_twolevel_2d(device)
         return 0
-    if "--tune-rows" in sys.argv[1:]:
-        segsum_variants(device, SEGSUM_ROW_VARIANTS, SEGSUM_ROW_TIMED)
+    if "--tune-switches" in sys.argv[1:]:
+        segsum_variants(device, SEGSUM_SWITCH_VARIANTS, SEGSUM_SWITCH_TIMED)
         return 0
     if "--arcs-alone" in sys.argv[1:]:
         arcs_alone(device)

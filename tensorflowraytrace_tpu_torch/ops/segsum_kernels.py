@@ -22,10 +22,14 @@ from +0, then each row's tile sums in ascending tile order from +0.  The
 kernel and the plain version both add in that order, so they give the same
 bits, and a training repeats itself bit for bit from run to run.
 
-The kernel's workspace holds masks and counts of m N / 4096 bytes; where
-that passes 256 MiB (a large histogram of many rays) the kernel sums the
-rays in chunks of whole tiles, each continuing the rows' sums of the one
-before, which keeps the order and the bits.
+The kernel sorts each tile's rays by row, folds each row's rays into one
+record a tile, places the records in their rows' lists by integer atomics
+and folds each list in tile order.  Its workspace (``segment_sum_workspace``)
+grows with the rays and the rows, not their product: (e k + 6) bytes a
+ray, 8 a row, e the element's bytes (42 MiB for a float32 512 x 512
+histogram of 2^22 rays).  Past 2^23 rays it sums the rays in chunks of
+whole tiles, each continuing the rows' sums of the one before, which keeps
+the order and the bits.
 """
 
 from __future__ import annotations

@@ -3,9 +3,11 @@
 * K2's plain version against a numpy model of K2's order, bit for bit in
   float32: ``np.add.at`` (sequential and unbuffered) a tile of
   ``segsum_kernels.TILE`` rays into a zeroed partial, and the partials
-  added in tile order; at rays below, at and past a tile, one row, empty
-  rows, k = 1, 4 and 13, -0 cotangents and a NaN; two calls give the same
-  bits.
+  added in tile order; at rays below, at and past a tile, a last tile of
+  one ray, one row, empty rows, more rows than a tile's rays, a row in
+  every tile, rows in 31-33 tiles, rows descending within tiles, k = 1,
+  2, 3, 4 and 13, -0 cotangents, +inf and -inf, and a NaN; two calls give
+  the same bits.  The plain version refuses rows out of range.
 * K2's plain version against the JAX package's Pallas
   kernel in interpret mode and against its scatter (``.at[idx].add``), at
   the cases of tests/test_pallas.py: k = 13, n = 5000, m in {242, 2048,
@@ -91,6 +93,13 @@ def tiled_model(ct, idx, m):
     (2500, 16386, 13, "random"),      # most rows empty
     (4096, 60, 4, "negative_zero"),   # -0 cotangents
     (2600, 90, 13, "nan"),            # a NaN reaches its row and column
+    (3 * 1024 + 1, 40, 4, "random"),  # a last tile of one ray
+    (40 * 1024 + 3, 50, 1, "every_tile"),    # a row in each of 41 tiles
+    (33 * 1024 + 1, 60, 2, "every_tile"),    # past a bitmap word of tiles
+    (34 * 1024, 300, 3, "tile_counts"),      # rows in 31-33 tiles
+    (2 * 1024 + 5, 20, 3, "inf"),     # +inf, -inf, and NaN where they meet
+    (5 * 1024 + 17, 9000, 1, "random"),      # more rows than a tile's rays
+    (4 * 1024, 30, 2, "descending"),  # rows descending within each tile
 ])
 def test_plain_adds_in_the_tiles_order(rng, n, m, k, case):
     ct = rng.normal(0, 1, (k, n)).astype(np.float32)
@@ -102,6 +111,20 @@ def test_plain_adds_in_the_tiles_order(rng, n, m, k, case):
         ct[:, idx == 7] = -0.0  # a row of -0 alone sums to +0
     elif case == "nan":
         ct[2, 1500] = np.nan
+    elif case == "every_tile":
+        idx[5::sk.TILE] = m - 1
+    elif case == "tile_counts":
+        # row 11 in 31 tiles, 12 in 32, 13 in 33, no other ray on them
+        idx[np.isin(idx, (11, 12, 13))] = 0
+        for row, tiles in ((11, 31), (12, 32), (13, 33)):
+            idx[row::sk.TILE][:tiles] = row
+    elif case == "inf":
+        ct[1, 100] = ct[1, 1500] = np.inf
+        ct[2, 300], ct[2, 301] = np.inf, -np.inf
+        idx[301] = idx[300]
+    elif case == "descending":
+        idx = np.concatenate([np.sort(t)[::-1] for t in
+                              np.split(idx, n // sk.TILE)]).astype(np.int32)
     want = tiled_model(ct, idx, m)
     got = sk.segment_sum_plain(torch.as_tensor(ct), torch.as_tensor(idx), m)
     again = sk.segment_sum_plain(torch.as_tensor(ct), torch.as_tensor(idx), m)
@@ -115,6 +138,24 @@ def test_plain_adds_in_the_tiles_order(rng, n, m, k, case):
         nan = np.zeros((m, k), bool)
         nan[idx[1500], 2] = True
         assert np.array_equal(np.isnan(got.numpy()), nan)
+    if case == "inf":
+        assert got[idx[100], 1] == np.inf
+        assert np.isnan(got[idx[300], 2].item())
+    if case == "tile_counts":
+        for row in (11, 12, 13):
+            np.testing.assert_allclose(got[row].numpy(), want[row])
+
+
+def test_plain_raises_on_rows_out_of_range(rng):
+    """The plain version refuses an idx outside [0, m) (the kernel drops
+    such rays; tests/test_torch_segsum_kernel.py holds it to this version
+    with their cotangents zeroed)."""
+    ct = torch.as_tensor(rng.normal(0, 1, (2, 3000)).astype(np.float32))
+    for bad in (-1, 50):
+        idx = torch.as_tensor(rng.integers(0, 50, 3000), dtype=torch.int32)
+        idx[1234] = bad
+        with pytest.raises((IndexError, RuntimeError)):
+            sk.segment_sum_plain(ct, idx, 50)
 
 
 def test_wrapper_runs_the_plain_version_on_cpu(rng):
