@@ -12,7 +12,8 @@ exits non-zero without printing a result):
 2. build: compiles the ten kernels (csrc/triangle_search.cu,
    triangle_search_culled.cu, triangle_search_twolevel.cu, segment_sum.cu,
    segment_search.cu, segment_search_culled.cu, segment_search_twolevel.cu,
-   arc_search.cu, arc_search_culled.cu and arc_search_twolevel.cu), one
+   arc_search.cu, arc_search_culled.cu and arc_search_twolevel.cu; K1,
+   K2, K3, K5 and K6 with a float32 and a float64 instance each), one
    nvcc each, started together, into build/.
 3. K1 against its plain PyTorch version on the card, bit for bit (equal
    ``valid``, ``idx`` and ``ray_u``), at the rays a thread its launch
@@ -387,6 +388,29 @@ exits non-zero without printing a result):
    (2^20 rays, 16,386 triangles, 24 bounces: ``"grid"`` + re-sort on K4,
    ``cull=True`` ± re-sort on K3, brute on K1), its four checksums equal.
    The kernels line gives K1-K6 ``launches_examples``.
+24. float64 on the card, the JAX package's reference dtype (phases 1-23
+   run float32): 24a K1, K3, K5 and K6 in float64 at the soup's first
+   bounce (2^20 x 4096, K1), the 3D guide's (2^20 x 16,386, K3) and the
+   2D guide's (2^20 x 4098 segments and 512 arcs, K5 and K6), 10 launches
+   each, timed by CUDA events, every launch bit for bit with the plain
+   version on the same tensors, K3 bit for bit with K1, each bound at the
+   FP64 peak; then parked and ragged rays (every third of 131035), an
+   all-miss batch and ties (the surfaces twice over: the first index
+   wins), K1 at 1 and 4 rays a thread.  24b two float64 traces at full
+   width under ``TraceConfig.recommended``: the 3D guide (24 bounces,
+   K3 + re-sort, K3 24 launches) bit for bit with the brute K1 float64
+   trace (K1 24 launches), and the 2D guide (50 bounces, K5 and K6 50
+   launches each), every search call replayed through its plain version
+   on every 64th ray, bit for bit.  24c one flagship training step at
+   bench width in float64 (2^20 rays, 3 bounces; K1 and K2 3 launches),
+   run twice from one generator: errors and parameters bit for bit; the
+   gradient through K2 against the plain backward bit for bit and the
+   loss against the all-plain path within rtol 1e-4, as phase 8.  24d
+   five steps of examples/achromat.py's doublet in float64, the
+   example's dtype (K5, K6 and K2): every loss within rtol 1e-9 of the
+   CPU port's float64 run, every ray landing.  The kernels line gives
+   K1, K3, K5 and K6 ``dtypes`` and their float64 ``max_abs_err``, ``ms``
+   (by CUDA events), ``plain_ms``, ``bound_ms`` and launches.
 23. every design path run twice from the same seeds and generators, in
    one process, ``REPEAT_STEPS`` (5) steps each, the streamed training's
    4 whole: the flagship and the hexalens trainings (and the hexalens's
@@ -433,6 +457,13 @@ and K8 launched alone at the 2D guide's first bounce (see
 ``arcs_alone``); ``--segsum-alone`` times K2 at phase 6's timed shapes
 and two 32,768-row tables, in float32 and float64 (see
 ``segsum_alone``); neither prints a result line.
+``python3 chip_smoke.py --float64-alone`` runs phases 1 and 2 and times
+K1, K3, K5 and K6 alone at phase 24a's shapes in float32 and float64, by
+CUDA events and device time, beside each dtype's bound, then the 3D and 2D
+guides' traces under ``TraceConfig.recommended`` in both dtypes, in
+turns (see ``float64_alone``); copied into the root of an earlier
+checkout, it times that checkout's float32 kernels the same way.  It
+prints no result line.
 ``python3 chip_smoke.py --dispatch-cost`` runs phases 1 and 2 and prints
 one JSON line: the facade-tax trace and a flagship step by
 ``interleaved_ms`` (``dispatch_cost``); copied into the root of an
@@ -714,11 +745,11 @@ def card():
     return torch.device("cuda:0")
 
 
-def soup_scene(n_rays, device, sort=False):
+def soup_scene(n_rays, device, sort=False, dtype=None):
     """bench.py's random soup: a box of reflective triangles around the
     origin, a distant target plane, rays from inside in random directions.
     ``sort`` Morton-sorts the soup before the target is added, as bench.py
-    does."""
+    does.  In ``dtype``, float32 by default, from the same draws."""
     import numpy as np
     import torch
 
@@ -727,27 +758,29 @@ def soup_scene(n_rays, device, sort=False):
         morton_sort_triangles,
     )
 
-    f32 = torch.float32
+    dtype = dtype or torch.float32
+    real = np.float32 if dtype == torch.float32 else np.float64
     rng = np.random.default_rng(0)
     center = rng.uniform(-3, 3, (N_SOUP_TRIS, 3))
     vp = center + rng.normal(0, 0.5, center.shape)
     v1 = center + rng.normal(0, 0.5, center.shape)
     v2 = center + rng.normal(0, 0.5, center.shape)
-    guide = TriangleSet.make(vp.astype(np.float32), v1.astype(np.float32),
-                             v2.astype(np.float32), mat_in=1, mat_out=0,
-                             dtype=f32, device=device)
+    guide = TriangleSet.make(vp.astype(real), v1.astype(real),
+                             v2.astype(real), mat_in=1, mat_out=0,
+                             dtype=dtype, device=device)
     if sort:
         guide, _ = morton_sort_triangles(guide)
     half = 500.0
     target = TriangleSet.make(
         [[50.0, -half, -half], [50.0, half, half]],
         [[50.0, half, -half], [50.0, -half, half]],
-        [[50.0, half, half], [50.0, -half, -half]], dtype=f32, device=device)
+        [[50.0, half, half], [50.0, -half, -half]], dtype=dtype,
+        device=device)
     scene = Scene3D.build(optical=[guide], targets=[target])
-    p0 = rng.uniform(-4, 4, (n_rays, 3)).astype(np.float32)
-    d = rng.normal(0, 1, (n_rays, 3)).astype(np.float32)
+    p0 = rng.uniform(-4, 4, (n_rays, 3)).astype(real)
+    d = rng.normal(0, 1, (n_rays, 3)).astype(real)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = RaySet.make(p0, p0 + d, 575.0, dtype=f32, device=device)
+    rays = RaySet.make(p0, p0 + d, 575.0, dtype=dtype, device=device)
     return rays, scene
 
 
@@ -3516,6 +3549,7 @@ def gradients(loss, params):
 # the search wrappers that a main path reaches through its module, by
 # kernel: (module under ops, the wrappers' common stem)
 SEARCH_WRAPPERS = {"K1": ("triangle_kernels", "nearest_hit_triangles"),
+                   "K3": ("triangle_kernels", "nearest_hit_triangles_culled"),
                    "K5": ("segment_kernels", "nearest_hit_segments"),
                    "K6": ("arc_kernels", "nearest_hit_arcs")}
 
@@ -5318,6 +5352,557 @@ def phase_23(device):
     return {"K2": sum(k2.values()), "seconds": seconds}
 
 
+# ---------------------------------------------------------------------
+# phase 24: float64 on the card
+# ---------------------------------------------------------------------
+
+# the searches with a float64 instance (their wrappers in SEARCH_WRAPPERS):
+# the CUDA kernel's name in float32 and in float64, its launch counter
+F64_SEARCHES = {
+    "K1": ("triangle_search_kernel", "triangle_search_f64_kernel",
+           "LAUNCHES"),
+    "K3": ("triangle_search_culled_kernel",
+           "triangle_search_culled_f64_kernel", "LAUNCHES_CULLED"),
+    "K5": ("segment_search_kernel", "segment_search_f64_kernel", "LAUNCHES"),
+    "K6": ("arc_search_kernel", "arc_search_f64_kernel", "LAUNCHES"),
+}
+F64_LAUNCHES = 10        # 24a: launches of each search, each bit for bit
+F64_EDGE_RAYS = 131035   # 24a's parked rays: no multiple of a block's
+F64_SMALL_RAYS = 4096    # 24a's all-miss and tie batches
+F64_STEPS = 5            # 24d: the achromat doublet's steps
+F64_ACHROMAT_RTOL = 1e-9  # 24d: the card's losses against the CPU's
+F64_REPLAY_STRIDE = 64   # 24b: every 64th ray of each 2D call replayed
+F64_TRACE_REPS = 3       # --float64-alone: traces a dtype, after one
+
+
+def f64_search(key, plain=False):
+    """Search ``key`` of ``F64_SEARCHES`` (its wrapper, or its plain
+    version) as a function of its tensor arguments."""
+    mod, stem = search_module(key)
+    fn = getattr(mod, stem + ("_plain" if plain else "_kernel"))
+    eps = (EPS, EPS) if key == "K6" else (EPS, EPS, EPS)
+    return lambda args: fn(*args, *eps)
+
+
+def f64_launches():
+    """The launch counts of K1, K3, K5 and K6 since their last reset."""
+    return {key: getattr(search_module(key)[0], counter)
+            for key, (*_, counter) in F64_SEARCHES.items()}
+
+
+def reset_f64_launches():
+    for key, (*_, counter) in F64_SEARCHES.items():
+        setattr(search_module(key)[0], counter, 0)
+
+
+def search_shapes(dtype, device):
+    """Phase 24a's shapes in ``dtype``, ``{key: tensor arguments}``: K1 at
+    the soup's first bounce (2^20 rays x 4096 triangles, unsorted as in
+    phase 5), K3 at the 3D guide's (2^20 x 16,386), K5 and K6 at the 2D
+    guide's (2^20 x 4098 segments, x 512 arcs), the guides' rays in the
+    re-sort's Morton order as in phases 10 and 13."""
+    from tensorflowraytrace_tpu_torch import scenes2d
+    from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
+
+    rays, scene = soup_scene(BENCH_RAYS, device, dtype=dtype)
+    t = scene.triangles
+    cases = {"K1": [a.detach().contiguous()
+                    for a in (rays.p0, rays.p1, t.vp, t.v1, t.v2)]}
+    g_rays, g_scene = structured_guide(GUIDE_RAYS, dtype=dtype, device=device)
+    cases["K3"] = [a.detach() for a in first_bounce_3d(g_rays,
+                                                       g_scene.triangles)]
+    r2, s2, _ = scenes2d.light_guide(GUIDE2D_RAYS, dtype=dtype, device=device)
+    p0, p1 = first_bounce_2d(r2, s2.segments)
+    cases["K5"] = surface_args(p0, p1, s2.segments)
+    cases["K6"] = surface_args(p0, p1, s2.arcs)
+    return cases
+
+
+def search_bound(key, args, u, peak):
+    """The least time of search ``key`` on ``args`` (final hits ``u``), as
+    phases 5, 10 and 13 count it: the operations these inputs need at
+    ``peak`` (FP32 or FP64) against the bytes read and written once at
+    PEAK_BYTES_S.  Returns ``(bound ms, "operations" or "bytes",
+    pairs)``."""
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    n, m = args[0].shape[0], args[2].shape[0]
+    size = args[0].element_size()
+    if key in ("K1", "K3"):
+        if key == "K1":
+            pairs = n * m
+            out = tk.pairs_out_on_tu(*args, EPS, EPS)
+        else:
+            pairs, out = triangle_pairs(*args, u,
+                                        min(tk.CULL_CHUNK, tk.FINE_CHUNK))
+        ops = (pairs - out) * K1_FLOPS_PER_PAIR + out * TU_FLOPS_PER_PAIR
+    elif key == "K5":
+        pairs = n * m
+        ops = pairs * SEG_FLOPS_PER_PAIR
+    else:
+        pairs = n * m
+        past = ak.admitted_arc_pairs(args[0], args[1], args[2], args[5], EPS)
+        ops = past * ARC_FLOPS_PER_PAIR + (pairs - past) * ARC_REJECT_FLOPS
+    moved = (sum(a.numel() for a in args) * size
+             + n * (size + 4 + (1 if key == "K6" else 0)))
+    ops_ms, bytes_ms = ops / peak * 1e3, moved / PEAK_BYTES_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", pairs)
+
+
+def timed_once(fn):
+    """``(fn(), ms)`` of one call by CUDA events, no warm-up: the plain
+    versions' host loops, too slow to run twice here."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def f64_edge_cases(key, args):
+    """24a's small cases of search ``key`` on its main shape's tensors:
+    every third ray parked (p0 = 1e30) among the first F64_EDGE_RAYS; a
+    batch that misses everything; the surfaces twice over, so that every
+    hit ties with its copy and the first index must win."""
+    import torch
+
+    p0, p1, *surf = args
+    n = min(F64_EDGE_RAYS, p0.shape[0])
+    third = (torch.arange(n, device=p0.device) % 3 == 0)[:, None]
+    parked = [torch.where(third, torch.full_like(p0[:n], 1e30), p0[:n]),
+              torch.where(third, torch.full_like(p1[:n], 1e30 * (1 + 1e-6)),
+                          p1[:n])]
+    far = torch.full_like(p0[:F64_SMALL_RAYS], 1000.0)
+    twice = [torch.cat([a, a]) for a in surf]
+    return {"parked and ragged": [a.contiguous() for a in parked] + surf,
+            "all-miss": [far, far + 1.0] + surf,
+            "ties": [p0[:F64_SMALL_RAYS].contiguous(),
+                     p1[:F64_SMALL_RAYS].contiguous()] + twice}
+
+
+def differ(got, want):
+    """How many elements of each output of ``got`` differ in their bits
+    from ``want``'s (-1 where the dtypes or shapes differ)."""
+    import torch
+
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+
+    def bits(t):
+        return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+    return [int((bits(a) != bits(b)).sum())
+            if a.dtype == b.dtype and a.shape == b.shape else -1
+            for a, b in zip(got, want)]
+
+
+def check_f64_case(key, label, args):
+    """Search ``key`` on ``args`` (float64) against its plain version bit
+    for bit (K1 also at each rays a thread it is compiled for; K3 also
+    against K1), the outputs in the rays' dtype.  Returns the plain
+    output.  These launches are comparisons, not the main path."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    plain = f64_search(key, plain=True)(args)
+    got = {"kernel": f64_search(key)(args)}
+    if key == "K1":
+        for rpt in tk.BRUTE_RAYS_PER_THREAD:
+            got[f"{rpt} rays a thread"] = tk.brute_launch(
+                *args, EPS, EPS, EPS, rays_per_thread=rpt)
+    if key == "K3":
+        got["K1"] = f64_search("K1")(args)
+    torch.cuda.synchronize()
+    for name, out in got.items():
+        diffs = differ(out, plain)
+        check(out[2].dtype == torch.float64 and not any(diffs),
+              f"phase 24a {key} {label} ({name}): {diffs} elements differ "
+              f"from the plain version (u is {out[2].dtype})")
+    print(f"phase 24a {key} {label}: N={args[0].shape[0]} "
+          f"M={args[2].shape[0]} hits={int(plain[0].sum())}; bit for bit "
+          f"with the plain version: {', '.join(got)}", flush=True)
+    return plain
+
+
+def phase_24a(device):
+    """K1, K3, K5 and K6 in float64 at their main shapes: F64_LAUNCHES
+    launches each, timed by CUDA events, every one bit for bit with the
+    plain version on the same tensors; K3 against K1; the bounds at the
+    FP64 peak; then the parked, all-miss and tie cases.  Returns the
+    kernels-line fields by key."""
+    import torch
+
+    fields = {}
+    for key, args in search_shapes(torch.float64, device).items():
+        fn = f64_search(key)
+        plain, plain_ms = timed_once(lambda: f64_search(key, plain=True)(args))
+        fn(args)  # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = [fn(args) for _ in range(F64_LAUNCHES)]
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) / F64_LAUNCHES
+        for k, out in enumerate(outs):
+            diffs = differ(out, plain)
+            check(out[2].dtype == torch.float64 and not any(diffs),
+                  f"phase 24a {key} launch {k}: {diffs} elements differ from "
+                  "the plain version")
+        u = outs[0][2]
+        valid = outs[0][0]
+        err = max(float((out[2] - plain[2])[valid].abs().max())
+                  if valid.any() else 0.0 for out in outs)
+        extra = ""
+        if key == "K3":
+            k1 = f64_search("K1")(args)
+            diffs = differ(outs[0], k1)
+            check(not any(diffs), f"phase 24a K3 differs from K1: {diffs}")
+            extra = "; bit for bit with K1"
+        del outs
+        bound_ms, bound_by, pairs = search_bound(key, args, u,
+                                                 PEAK_FP64_FLOP_S)
+        fields[key] = {
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs,
+            "shape": f"{args[0].shape[0]}x{args[2].shape[0]}"}
+        print(f"phase 24a {key} float64 {args[0].shape[0]}x"
+              f"{args[2].shape[0]}: {F64_LAUNCHES} launches, each bit for "
+              f"bit with the plain version{extra}; hits {int(valid.sum())}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.5f} ms ({bound_by} at the FP64 peak; {pairs} "
+              f"pairs)", flush=True)
+        for label, edge in f64_edge_cases(key, args).items():
+            valid, idx = check_f64_case(key, label, edge)[:2]
+            if label == "ties":
+                ok = bool(valid.any()) and int(idx.max()) < args[2].shape[0]
+            elif label == "all-miss":
+                ok = not bool(valid.any())
+            else:
+                ok = bool(valid.any()) and not bool(valid[::3].any())
+            check(ok, f"phase 24a {key} {label}: the hits are not as the "
+                  "case needs (ties: a hit on the first copy; all-miss: no "
+                  "hit; parked: none on a parked ray)")
+        del args, plain, u, valid
+    return fields
+
+
+def phase_24b(device):
+    """Two float64 traces at full width under TraceConfig.recommended on
+    the card: the 3D guide (24 bounces: K3 + re-sort) against the brute
+    K1 float64 trace, bit for bit; the 2D guide (50 bounces: K5 + K6),
+    every search call replayed through its plain version on every
+    F64_REPLAY_STRIDE-th ray, bit for bit.  Each search launches once a
+    bounce.  Returns the launch counts."""
+    import dataclasses
+
+    import torch
+
+    from tensorflowraytrace_tpu_torch import TraceConfig, scenes2d, trace
+    from tensorflowraytrace_tpu_torch.ops import materials as mats
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+    from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
+
+    f64 = torch.float64
+    launched = {}
+    rays, scene = structured_guide(GUIDE_RAYS, dtype=f64, device=device)
+    cfg = TraceConfig.recommended(scene, max_bounces=GUIDE_BOUNCES,
+                                  device=device)
+    check(cfg.use_kernel and cfg.cull is True and cfg.resort_rays
+          and cfg.ray_start_epsilon is None,
+          f"recommended on the float64 3D guide: {cfg}")
+    finals = {}
+    for name, c in (("recommended", cfg),
+                    ("brute", dataclasses.replace(cfg, cull=False,
+                                                  resort_rays=False))):
+        reset_f64_launches()
+        tk.LAUNCHES_TWOLEVEL = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            finals[name] = trace(rays, scene, (mats.vacuum, mats.acrylic),
+                                 c).rays
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = f64_launches()
+        want = "K3" if name == "recommended" else "K1"
+        check(counts[want] == GUIDE_BOUNCES and tk.LAUNCHES_TWOLEVEL == 0
+              and sum(counts.values()) == GUIDE_BOUNCES,
+              f"phase 24b 3D guide {name}: launches {counts}")
+        launched[f"{want}_guide3d"] = counts[want]
+        print(f"phase 24b 3D guide float64 {name} ({want}): {dt * 1e3:.3f} "
+              f"ms, launches {counts}, states[active,finished,stopped,dead] "
+              f"{state_counts(finals[name].state)}", flush=True)
+    got, ref = finals["recommended"], finals["brute"]
+    same = {f: same_bits(getattr(got, f), getattr(ref, f))
+            for f in ("state", "p0", "p1")}
+    check(all(same.values()) and got.p1.dtype == f64
+          and bool(torch.isfinite(ref.p1).all()),
+          f"phase 24b 3D guide: recommended against brute {same}")
+    print(f"phase 24b 3D guide: recommended (K3 + re-sort) bit for bit with "
+          f"the brute K1 trace {same}", flush=True)
+    del rays, scene, finals, got, ref
+
+    rays, scene, materials = scenes2d.light_guide(GUIDE2D_RAYS, dtype=f64,
+                                                  device=device)
+    cfg = TraceConfig.recommended(scene, max_bounces=50, dead_ray_length=10.0,
+                                  device=device)
+    check(cfg.use_kernel and not cfg.cull and cfg.ray_start_epsilon is None,
+          f"recommended on the float64 2D guide: {cfg}")
+    logs = {"K5": [], "K6": []}
+    reset_f64_launches()
+    reset_2d_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), logged_searches(logs):
+        res = trace(rays, scene, materials, cfg).rays
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = f64_launches()
+    check(counts == {"K1": 0, "K3": 0, "K5": 50, "K6": 50}
+          and sum(launches_2d().values()) == 100,
+          f"phase 24b 2D guide: launches {counts}, {launches_2d()}")
+    launched.update(K5_guide2d=counts["K5"], K6_guide2d=counts["K6"])
+    check(res.p1.dtype == f64 and bool(torch.isfinite(res.p1).all()),
+          "phase 24b 2D guide: non-finite endpoints")
+    calls = {k: replayed_plain(f"phase 24b 2D guide {k}", k, log,
+                               stride=F64_REPLAY_STRIDE)
+             for k, log in logs.items()}
+    print(f"phase 24b 2D guide float64 recommended (K5 + K6): {dt * 1e3:.3f} "
+          f"ms with every call logged, launches {counts}, states"
+          f"[active,finished,stopped,dead] {state_counts(res.state)}; "
+          f"{calls} calls, each bit for bit with the plain version on every "
+          f"{F64_REPLAY_STRIDE}th ray", flush=True)
+    return launched
+
+
+def phase_24c(device):
+    """One flagship training step at bench width in float64 (2^20 rays, 3
+    bounces, K1 + K2), run twice from the same generator: the losses and
+    parameters bit for bit, K1 and K2 3 launches a step; the gradient
+    through K2 against the plain backward of the same forward bit for bit
+    and the loss against the all-plain path within rtol 1e-4, as phase 8
+    checks float32.  Returns the launch counts."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import flagship
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+    from tensorflowraytrace_tpu_torch.optim import Optimizer
+
+    f64 = torch.float64
+    vum, acc, smoother = flagship.training_tools(TRAIN_RINGS)
+    lens, source, wide_loss = flagship._flagship(
+        f64, WIDE_BP, TRAIN_RINGS, TRAIN_BOUNCES, True, device, vum)
+
+    def error(params, gen):
+        return wide_loss(params, source.sample(gen, f64, device))
+
+    accs = [torch.as_tensor(acc, dtype=f64, device=device)] * 2
+    smoothers = [torch.as_tensor(smoother, dtype=f64, device=device)] * 2
+    runs = []
+    for _ in range(2):
+        opt = Optimizer(error, lens.init_params(), learning_rate=1.0,
+                        grad_clip=1e-3,
+                        generator=torch.Generator(device).manual_seed(0))
+        tk.LAUNCHES = sk.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        errors = opt.run_phase(1, accs, lr_scale=1.0, momentum=0.8,
+                               smoothers=smoothers)
+        torch.cuda.synchronize()
+        runs.append((errors, [p.detach().clone() for p in opt.parameters],
+                     {"K1": tk.LAUNCHES, "K2": sk.LAUNCHES},
+                     time.perf_counter() - t0))
+    (e0, p0, n0, s0), (e1, p1, n1, s1) = runs
+    check(n0 == n1 == {"K1": TRAIN_BOUNCES, "K2": TRAIN_BOUNCES},
+          f"phase 24c launches {n0}, {n1}")
+    check(e0.dtype == e1.dtype == "float64" and e0.tobytes() == e1.tobytes()
+          and grads_same_bits(p0, p1) and bool(all(
+              torch.isfinite(p).all() for p in p0)),
+          f"phase 24c: the two steps differ (errors {e0!r}, {e1!r})")
+    rays = source.sample(torch.Generator(device).manual_seed(1), f64, device)
+
+    def value_and_grad():
+        leaves = [p.detach().clone().requires_grad_(True) for p in p0]
+        value = wide_loss(leaves, rays)
+        return value.detach(), torch.autograd.grad(value, leaves)
+
+    loss_k, grad_k = value_and_grad()
+    with override(sk, segment_sum_kernel=sk.segment_sum_plain):
+        loss_p, grad_p = value_and_grad()
+    gmax = max(float(g.abs().max()) for g in grad_p)
+    check(gmax > 0 and same_bits(loss_k, loss_p)
+          and grads_same_bits(grad_k, grad_p),
+          "phase 24c: the gradient through K2 differs from the plain "
+          "backward's")
+    _, _, plain_loss = flagship._flagship(f64, WIDE_BP, TRAIN_RINGS,
+                                          TRAIN_BOUNCES, False, device, vum)
+    with torch.no_grad():
+        loss_all_plain = plain_loss(p0, rays)
+    rel = abs(float(loss_k) - float(loss_all_plain)) / abs(float(loss_all_plain))
+    check(rel <= 1e-4, f"phase 24c loss {float(loss_k)!r} against the "
+          f"all-plain {float(loss_all_plain)!r}")
+    print(f"phase 24c flagship step float64: {WIDE_BP ** 2} rays, "
+          f"{TRAIN_BOUNCES} bounces, two runs from one seed bit for bit "
+          f"(error {float(e0[0])!r}; {s0 * 1e3:.3f} and {s1 * 1e3:.3f} ms); "
+          f"launches {n0} a step; the gradient through K2 and through the "
+          f"plain backward bit for bit (max |g| {gmax!r}); loss "
+          f"{float(loss_k)!r}, all-plain {float(loss_all_plain)!r}, rel "
+          f"{rel:.3e}", flush=True)
+    return {"K1_flagship": n0["K1"] + n1["K1"]}
+
+
+def phase_24d(device):
+    """Five steps of examples/achromat.py's doublet in float64, the
+    example's own dtype (``physics2d.achromat_optimize``; K5, K6 and K2):
+    every step's loss against the CPU port's float64 run within
+    F64_ACHROMAT_RTOL, every ray landing.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from tensorflowraytrace_tpu_torch import physics2d
+    from tensorflowraytrace_tpu_torch.ops import segsum_kernels as sk
+
+    f64 = torch.float64
+    runs = {}
+    for run, where in (("card", device), ("cpu", torch.device("cpu"))):
+        rays = physics2d.achromat_rays(dtype=f64, device=where)
+        reset_f64_launches()
+        sk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        params, _, _, errors = physics2d.achromat_optimize(
+            physics2d.build_doublet, physics2d.DOUBLET_START, rays, 4,
+            F64_STEPS, 2e-3, 10.0)
+        runs[run] = (errors, params.cpu().numpy(), {
+            **f64_launches(), "K2": sk.LAUNCHES}, time.perf_counter() - t0)
+    errors, params, counts, card_s = runs["card"]
+    cpu_errors, cpu_params, _, cpu_s = runs["cpu"]
+    bounces = 4 * (F64_STEPS + 1)  # the steps' traces and the final one
+    check(counts["K5"] == counts["K6"] == bounces and counts["K2"] > 0
+          and counts["K1"] == counts["K3"] == 0,
+          f"phase 24d launches {counts}")
+    rel = float(np.max(np.abs(errors - cpu_errors) / np.abs(cpu_errors)))
+    check(errors.dtype == np.float64 and len(errors) == F64_STEPS
+          and rel <= F64_ACHROMAT_RTOL,
+          f"phase 24d losses {errors!r} against the CPU's {cpu_errors!r}")
+    print(f"phase 24d achromat doublet float64, {F64_STEPS} steps: losses "
+          f"{[float(e) for e in errors]}, the CPU's within rtol {rel:.3e} "
+          f"(at most {F64_ACHROMAT_RTOL}); curvatures {params.tolist()} "
+          f"(CPU {cpu_params.tolist()}); launches {counts}; card "
+          f"{card_s:.3f} s, CPU {cpu_s:.3f} s", flush=True)
+    return {k: counts[k] for k in ("K5", "K6")}
+
+
+def phase_24(device):
+    """Float64 on the card: 24a-24d.  Returns the kernels-line fields of
+    K1, K3, K5 and K6 in float64, with the main paths' launches."""
+    fields = phase_24a(device)
+    launched = phase_24b(device)
+    launched.update(phase_24c(device))
+    achromat = phase_24d(device)
+    fields["K1"]["launches"] = {"guide3d_brute": launched["K1_guide3d"],
+                                "flagship_steps": launched["K1_flagship"]}
+    fields["K3"]["launches"] = {"guide3d_recommended":
+                                launched["K3_guide3d"]}
+    for key in ("K5", "K6"):
+        fields[key]["launches"] = {"guide2d_recommended":
+                                   launched[f"{key}_guide2d"],
+                                   "achromat": achromat[key]}
+    return fields
+
+
+def float64_alone(device):
+    """``--float64-alone``: K1, K3, K5 and K6 launched alone at phase 24a's
+    shapes in float32 and, where the checkout has float64 instances, in
+    float64: by CUDA events (the wrapper, mean of 10 launches after one;
+    K6's launch apart from its table) and by device time, each checked
+    against its first launch bit for bit, with each dtype's bound
+    (operations at the FP32 or FP64 peak, or bytes); then the 3D guide
+    (24 bounces) and the 2D guide (50) under TraceConfig.recommended in
+    both dtypes, in turns (float32, float64, float64, float32), median of
+    F64_TRACE_REPS synchronised traces after one.  Copied into the root of
+    an earlier checkout, it times that checkout's float32 kernels the same
+    way and prints that it has no float64 instances."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import TraceConfig, scenes2d, trace
+    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import materials as mats
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+    from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
+
+    has_f64 = hasattr(tk, "LAUNCH_CULLED")
+    dtypes = [torch.float32] + ([torch.float64] if has_f64 else [])
+    if not has_f64:
+        print("float64 alone: this checkout has no float64 searches; "
+              "float32 only", flush=True)
+    for dtype in dtypes:
+        name = str(dtype).removeprefix("torch.")
+        peak = PEAK_FP32_FLOP_S if dtype == torch.float32 else PEAK_FP64_FLOP_S
+        for key, args in search_shapes(dtype, device).items():
+            fn = f64_search(key)
+            first = fn(args)
+            if key == "K6":
+                table = ak.prepare(*args[2:])
+                launch = lambda: ak.launch(args[0], args[1], table, EPS, EPS)
+            else:
+                launch = lambda: fn(args)
+            ms = cuda_ms(launch, 10)
+            kernel = F64_SEARCHES[key][0 if dtype == torch.float32 else 1]
+            dev = kernel_device_ms(launch, kernel)
+            diffs = differ(launch(), first)
+            check(not any(diffs), f"float64 alone {key} {name}: a launch "
+                  f"differs from the first: {diffs}")
+            bound_ms, bound_by, pairs = search_bound(key, args, first[2], peak)
+            dev_ms = "not measured" if dev is None else f"{dev:.4f} ms"
+            print(f"float64 alone {key} {name} {args[0].shape[0]}x"
+                  f"{args[2].shape[0]}: kernel {ms:.4f} ms by CUDA events, "
+                  f"device time {dev_ms}; bound {bound_ms:.5f} ms "
+                  f"({bound_by}; {pairs} pairs)", flush=True)
+            del args, first
+    scenes = {}
+    for dtype in dtypes:
+        rays, scene = structured_guide(GUIDE_RAYS, dtype=dtype, device=device)
+        scenes["3D guide", dtype] = (rays, scene, (mats.vacuum, mats.acrylic),
+                                     TraceConfig.recommended(
+                                         scene, max_bounces=GUIDE_BOUNCES,
+                                         device=device))
+        rays, scene, materials = scenes2d.light_guide(GUIDE2D_RAYS,
+                                                      dtype=dtype,
+                                                      device=device)
+        scenes["2D guide", dtype] = (rays, scene, materials,
+                                     TraceConfig.recommended(
+                                         scene, max_bounces=50,
+                                         dead_ray_length=10.0, device=device))
+    order = dtypes + dtypes[::-1]
+    for label in ("3D guide", "2D guide"):
+        times = collections.defaultdict(list)
+        for dtype in order:
+            rays, scene, materials, cfg = scenes[label, dtype]
+            with torch.no_grad():
+                trace(rays, scene, materials, cfg)
+                for _ in range(F64_TRACE_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trace(rays, scene, materials, cfg)
+                    torch.cuda.synchronize()
+                    times[dtype].append(time.perf_counter() - t0)
+        for dtype in dtypes:
+            print(f"float64 alone {label} recommended "
+                  f"{str(dtype).removeprefix('torch.')}: median "
+                  f"{statistics.median(times[dtype]) * 1e3:.3f} ms over "
+                  f"{len(times[dtype])} traces (in turns "
+                  f"{[str(d).removeprefix('torch.') for d in order]}) "
+                  f"{[round(t * 1e3, 3) for t in times[dtype]]}", flush=True)
+
+
 def caustic_block(device, reps=5):
     """One caustic block (``CAUSTIC_BLOCK`` rays, ``CAUSTIC_BOUNCES``
     bounces, the float32 intensity image folded): the median ms of
@@ -5479,6 +6064,9 @@ def main():
         return 0
     if "--dispatch-cost" in sys.argv[1:]:
         dispatch_cost(device)
+        return 0
+    if "--float64-alone" in sys.argv[1:]:
+        float64_alone(device)
         return 0
 
     # ---- phase 3: K1 against its plain version
@@ -5919,6 +6507,15 @@ def main():
     repeat23 = phase_23(device)
     done("23")
 
+    # ---- phase 24: float64 on the card (K1, K3, K5, K6; K2)
+    f64 = phase_24(device)
+    done("24")
+
+    def float64(key):
+        """The kernels-line fields of ``key``'s float64 instance."""
+        return {"dtypes": ["float32", "float64"],
+                **{f"float64_{k}": v for k, v in f64[key].items()}}
+
     def by_example(key):
         per = {k: v[key] for k, v in examples22.items() if v[key]}
         return {"launches_examples": sum(per.values()),
@@ -5949,6 +6546,7 @@ def main():
         "guide_flat_bound_ms": brute_bound_ms,
         "guide_pairs_out_on_tu": k1_guide_tu_out,
         "guide_shape": f"{n}x{m} (first bounce of the guide)",
+        **float64("K1"),
     }, {
         "name": "segment_sum", "route": "cuda",
         "source": "tensorflowraytrace_tpu_torch/csrc/segment_sum.cu",
@@ -5972,6 +6570,7 @@ def main():
         "order": "fixed: tiles of 1024 rays, each row's rays in order, "
                  "then its tile sums in order; bit for bit with the plain "
                  "version and from launch to launch, float32 and float64",
+        "dtypes": ["float32", "float64"],
         "timed": {label: {key: f[key] for key in (
             "n", "m", "k", "ms", "device_ms", "plain_ms", "library_ms",
             "library_deterministic_ms", "bound_ms", "bound_by",
@@ -5999,6 +6598,7 @@ def main():
         "launches_caustic": react17[f"{key}_caustic"],
         "launches_sequential_vs_mesh": classical19[key],
         "launches_export": export21[key], **by_example(key),
+        **(float64(key) if key == "K3" else {"dtypes": ["float32"]}),
     } for name, source, line, key in (
         ("triangle_search_culled", tk.SOURCE_CULLED, 144, "K3"),
         ("triangle_search_twolevel", tk.SOURCE_TWOLEVEL, 979, "K4"))] + [{
@@ -6016,6 +6616,7 @@ def main():
             for k in ("asphere", "config2", "strehl")}
            if key == "K5" else {}),
         **(by_example(key) if key in ("K5", "K6") else {}),
+        **(float64(key) if key in ("K5", "K6") else {"dtypes": ["float32"]}),
     } for name, source, line, key in (
         ("segment_search", gk.SOURCE, 705, "K5"),
         ("arc_search", ak.SOURCE, 367, "K6"),

@@ -1,4 +1,5 @@
-// Nearest ray-arc hit search (brute force, K6), float32, for sm_90a.
+// Nearest ray-arc hit search (brute force, K6), float32 and float64, for
+// sm_90a.
 //
 // Replaces: tensorflowraytrace_tpu/ops/pallas_kernels.py, _arc_kernel
 // (launched through _nearest_hit_arcs_impl / nearest_hit_arcs_pallas with
@@ -48,6 +49,14 @@
 //   offset k kThreads, so loads and stores stay coalesced.
 // - Tiles of kTile = 256 arcs (8 KB), the ragged last one masked by its
 //   count (the TPU kernel's "dead" padding column does not carry over).
+//
+// The float64 instance (arc_search_launch_f64) keeps the launch, the rays
+// a thread and the exact reject, and reads the float64 arc table
+// (arc_kernels.arc_table in the arcs' dtype, its flags float values),
+// staged as search2d::f64::ArcTile (15 KB): centre and 1 / r, the flags
+// as ints, the edge vectors.  Each pair runs the plain version's float64
+// arithmetic (search2d::f64::fold_arc), which ends at the exact reject
+// for most pairs.  What bounds it: FP64 issue slots.
 
 #include <cuda_runtime.h>
 
@@ -94,6 +103,51 @@ arc_search_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+arc_search_f64_kernel(const double* __restrict__ p0,
+                      const double* __restrict__ p1,
+                      const double* __restrict__ table, int n, int m,
+                      const search2d::f64::Limits lim,
+                      double* __restrict__ u_out, int* __restrict__ idx_out,
+                      unsigned char* __restrict__ branch_out) {
+  __shared__ search2d::f64::ArcTile tile;
+
+  const int first = blockIdx.x * (kThreads * kRays) + threadIdx.x;
+  search2d::f64::Ray r[kRays];
+  double best_u[kRays];
+  int best_idx[kRays];
+  bool best_minus[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int ray = first + k * kThreads;
+    r[k] = search2d::f64::load_ray(p0, p1, ray, ray < n);
+    best_u[k] = search2d::f64::kBig;
+    best_idx[k] = 0;
+    best_minus[k] = false;
+  }
+  for (int base = 0; base < m; base += kTile) {
+    const int count = min(kTile, m - base);
+    __syncthreads();  // the previous tile is no longer read
+    search2d::f64::stage_arcs(tile, table, base, count);
+    __syncthreads();
+    for (int t = 0; t < count; ++t) {
+#pragma unroll
+      for (int k = 0; k < kRays; ++k)
+        search2d::f64::fold_arc(tile, t, base + t, r[k], lim, best_u[k],
+                                best_idx[k], best_minus[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int ray = first + k * kThreads;
+    if (ray < n) {
+      u_out[ray] = best_u[k];
+      idx_out[ray] = best_idx[k];
+      branch_out[ray] = best_minus[k] ? 1 : 0;
+    }
+  }
+}
+
 }  // namespace
 
 // p0, p1: (n, 2) float32 row-major; table: (m, 8) float32 row-major (see
@@ -109,5 +163,22 @@ extern "C" int arc_search_launch(const float* p0, const float* p1,
   arc_search_kernel<<<blocks, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       p0, p1, table, n, m, i_eps, r_eps, u_out, idx_out, branch_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 instance: p0, p1, table and u_out float64 (the table as
+// arc_kernels.arc_table builds it in float64), i_eps and r_eps the float64
+// values the plain version compares with.
+extern "C" int arc_search_launch_f64(const double* p0, const double* p1,
+                                     const double* table, int n, int m,
+                                     double i_eps, double r_eps,
+                                     double* u_out, int* idx_out,
+                                     unsigned char* branch_out,
+                                     void* stream) {
+  const int blocks = (n + kThreads * kRays - 1) / (kThreads * kRays);
+  arc_search_f64_kernel<<<blocks, kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      p0, p1, table, n, m, search2d::f64::Limits{i_eps, 0.0, 0.0, r_eps},
+      u_out, idx_out, branch_out);
   return static_cast<int>(cudaGetLastError());
 }

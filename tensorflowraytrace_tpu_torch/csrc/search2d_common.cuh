@@ -20,7 +20,8 @@
 // skips only pairs the exact arithmetic rejects, and the culled and
 // two-level kernels only skip chunks whose box a ray cannot reach no
 // farther than its best, so they return the brute kernels' hits bit for
-// bit.
+// bit.  The float64 instances of K5 and K6 share the float64 ray load and
+// pairs at the end (namespace search2d::f64).
 
 #pragma once
 
@@ -475,5 +476,136 @@ __device__ __forceinline__ void twolevel_walk_listed(
       aabb, r, live, r_eps, slack_hi, slack_lo, slack, best_u, list,
       warp_count, fold);
 }
+
+// ------------------------------------------------------------ float64
+//
+// The float64 instances of K5 and K6: the plain versions' float64
+// operations in their order.  K5's pair has no reject test
+// (reject_test.cuh's margins are float32's): every pair with |den| >=
+// i_eps pays the division.  K6's exact reject (ArcPair's `ok`) carries
+// over as written.  A pair ends early only where an exact compare of the
+// plain version refuses it, so the results are the plain versions' bit
+// for bit.
+
+namespace f64 {
+
+constexpr double kBig = 3.0e38;   // the plain versions' BIG, in float64
+
+struct Ray {
+  double ox, oy, dx, dy;
+};
+
+// The thresholds as the plain versions compare with them (Python floats).
+struct Limits {
+  double i_eps, s_lo, s_hi, r_eps;
+};
+
+// p0, p1: (n, 2) float64 row-major; rays past n stay zero.
+__device__ __forceinline__ Ray load_ray(const double* __restrict__ p0,
+                                        const double* __restrict__ p1,
+                                        int ray, bool live) {
+  Ray r{0.0, 0.0, 0.0, 0.0};
+  if (live) {
+    r.ox = p0[2 * ray + 0];
+    r.oy = p0[2 * ray + 1];
+    r.dx = p1[2 * ray + 0] - r.ox;
+    r.dy = p1[2 * ray + 1] - r.oy;
+  }
+  return r;
+}
+
+// One ray-segment pair (start x2, y2, direction dx2, dy2) folded into the
+// ray's running best (u, idx) as segment idx: SegmentPair's formulas
+// without its reject test; a segment replaces the best only under strict
+// <.
+__device__ __forceinline__ void fold_segment(const double2& start,
+                                             const double2& dir, int idx,
+                                             const Ray& r, const Limits& L,
+                                             double& best_u, int& best_idx) {
+  const double den = r.dx * dir.y - r.dy * dir.x;
+  if (!(fabs(den) >= L.i_eps)) return;
+  const double inv = 1.0 / den;  // 1 / (ok ? den : 1)
+  const double tx = r.ox - start.x, ty = r.oy - start.y;
+  const double u = (dir.x * ty - dir.y * tx) * inv;
+  const double s = (r.dx * ty - r.dy * tx) * inv;
+  if ((s >= L.s_lo) && (s <= L.s_hi) && (u >= L.r_eps) && u < best_u) {
+    best_u = u;
+    best_idx = idx;
+  }
+}
+
+// A tile of arcs in shared memory: what ArcPair's test reads (centre, 1 /
+// radius) apart from what only a pair that passes it reads (the flags as
+// an int, the window's edge vectors).
+struct ArcTile {
+  double2 centre[kTile];
+  double inv_r[kTile];
+  int flags[kTile];
+  double2 start[kTile];  // cos, sin of the window's start
+  double2 end[kTile];    // cos, sin of its end
+};
+
+// Arcs base .. base + count - 1 of the (m, 8) float64 arc table into the
+// tile, the radius replaced by its reciprocal.  Every thread of the block
+// calls it.
+__device__ __forceinline__ void stage_arcs(ArcTile& tile,
+                                           const double* __restrict__ table,
+                                           int base, int count) {
+  for (int t = threadIdx.x; t < count; t += blockDim.x) {
+    const double* row = table + kArcCols * (base + t);
+    tile.centre[t] = make_double2(row[0], row[1]);
+    tile.inv_r[t] = 1.0 / row[2];
+    tile.start[t] = make_double2(row[3], row[4]);
+    tile.end[t] = make_double2(row[5], row[6]);
+    tile.flags[t] = static_cast<int>(row[7]);
+  }
+}
+
+// Arc t of a staged tile folded into the ray's running best as arc idx:
+// ArcPair's arithmetic in float64, its exact reject first.
+__device__ __forceinline__ void fold_arc(const ArcTile& tile, int t, int idx,
+                                         const Ray& r, const Limits& L,
+                                         double& best_u, int& best_idx,
+                                         bool& best_minus) {
+  const double2 c = tile.centre[t];
+  const double inv_r = tile.inv_r[t];
+  const double xr = (r.ox - c.x) * inv_r;
+  const double yr = (r.oy - c.y) * inv_r;
+  const double xd = r.dx * inv_r;
+  const double yd = r.dy * inv_r;
+  const double a = xd * xd + yd * yd;
+  const double cross = xr * yd - yr * xd;
+  const double d = 4.0 * (a - cross * cross);
+  const double disc = fabs(d) < L.i_eps ? 0.0 : d;
+  if (!((disc >= 0.0) & (fabs(a) >= L.i_eps))) return;  // no valid branch
+
+  const double b = 2.0 * (xr * xd + yr * yd);
+  const double inv2a = 1.0 / (2.0 * a);
+  const double sq = sqrt(disc);
+  const double u_plus = (-b + sq) * inv2a;
+  const double u_minus = (-b - sq) * inv2a;
+  const double2 e0 = tile.start[t], e1 = tile.end[t];
+  const int flags = tile.flags[t];
+  // ArcPair::in_window in float64
+  auto in_window = [&](double u) {
+    const double px = (r.ox + r.dx * u) - c.x;
+    const double py = (r.oy + r.dy * u) - c.y;
+    const double c1 = e0.x * py - e0.y * px;
+    const double c2 = px * e1.y - py * e1.x;
+    const bool wide = !((c1 < 0.0) & (c2 < 0.0));
+    const bool narrow = (c1 >= 0.0) & (c2 >= 0.0);
+    return ((flags & 2) != 0) | ((flags & 1) ? wide : narrow);
+  };
+  const double up = (u_plus >= L.r_eps) & in_window(u_plus) ? u_plus : kBig;
+  const double um = (u_minus >= L.r_eps) & in_window(u_minus) ? u_minus : kBig;
+  const double u = fmin(um, up);
+  if (u < best_u) {
+    best_u = u;
+    best_idx = idx;
+    best_minus = um < up;
+  }
+}
+
+}  // namespace f64
 
 }  // namespace search2d

@@ -1,4 +1,5 @@
-// Nearest ray-segment hit search (brute force, K5), float32, for sm_90a.
+// Nearest ray-segment hit search (brute force, K5), float32 and float64,
+// for sm_90a.
 //
 // Replaces: tensorflowraytrace_tpu/ops/pallas_kernels.py, _segment_kernel
 // (launched through _nearest_hit_segments_impl / nearest_hit_segments_pallas
@@ -33,6 +34,13 @@
 //   loads and stores stay coalesced; 2^20 rays make 1024 blocks.
 // - Tiles of kSegTile segments (16 KB) in shared memory, the ragged last
 //   one masked by its count.
+//
+// The float64 instance (segment_search_launch_f64) keeps the launch, the
+// rays a thread and the tiles (two rows of double2 a segment: start,
+// direction; 32 KB) and has no reject test: every pair runs the plain
+// version's float64 arithmetic (search2d::f64::fold_segment), so every
+// pair with |den| >= i_eps pays the IEEE float64 division.  What bounds
+// it: FP64 issue slots, at half the FP32 rate on the H100.
 
 #include <cuda_runtime.h>
 
@@ -99,6 +107,56 @@ segment_search_kernel(const float* __restrict__ p0,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+segment_search_f64_kernel(const double* __restrict__ p0,
+                          const double* __restrict__ p1,
+                          const double* __restrict__ sp0,
+                          const double* __restrict__ sp1, int n, int m,
+                          const search2d::f64::Limits lim,
+                          double* __restrict__ u_out,
+                          int* __restrict__ idx_out) {
+  __shared__ double2 start[kSegTile], dir[kSegTile];
+
+  const int first = blockIdx.x * (kThreads * kRays) + threadIdx.x;
+  search2d::f64::Ray r[kRays];
+  double best_u[kRays];
+  int best_idx[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int ray = first + k * kThreads;
+    r[k] = search2d::f64::load_ray(p0, p1, ray, ray < n);
+    best_u[k] = search2d::f64::kBig;
+    best_idx[k] = 0;
+  }
+
+  for (int base = 0; base < m; base += kSegTile) {
+    const int count = min(kSegTile, m - base);
+    __syncthreads();  // the previous tile is no longer read
+    for (int t = threadIdx.x; t < count; t += kThreads) {
+      const int g = 2 * (base + t);
+      const double x = sp0[g + 0], y = sp0[g + 1];
+      start[t] = make_double2(x, y);
+      dir[t] = make_double2(sp1[g + 0] - x, sp1[g + 1] - y);
+    }
+    __syncthreads();
+    for (int t = 0; t < count; ++t) {
+      const double2 a = start[t], d = dir[t];
+#pragma unroll
+      for (int k = 0; k < kRays; ++k)
+        search2d::f64::fold_segment(a, d, base + t, r[k], lim, best_u[k],
+                                    best_idx[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int ray = first + k * kThreads;
+    if (ray < n) {
+      u_out[ray] = best_u[k];
+      idx_out[ray] = best_idx[k];
+    }
+  }
+}
+
 }  // namespace
 
 // p0, p1: (n, 2) float32 row-major; sp0, sp1: (m, 2) float32 row-major.
@@ -115,5 +173,21 @@ extern "C" int segment_search_launch(const float* p0, const float* p1,
                           static_cast<cudaStream_t>(stream)>>>(
       p0, p1, sp0, sp1, n, m, reject::limits(i_eps, s_lo, s_hi, r_eps), u_out,
       idx_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 instance: every pointer float64 but idx_out (int32), the
+// thresholds the float64 values the plain version compares with.
+extern "C" int segment_search_launch_f64(const double* p0, const double* p1,
+                                         const double* sp0, const double* sp1,
+                                         int n, int m, double i_eps,
+                                         double s_lo, double s_hi,
+                                         double r_eps, double* u_out,
+                                         int* idx_out, void* stream) {
+  const int blocks = (n + kThreads * kRays - 1) / (kThreads * kRays);
+  segment_search_f64_kernel<<<blocks, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      p0, p1, sp0, sp1, n, m, search2d::f64::Limits{i_eps, s_lo, s_hi, r_eps},
+      u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-// Nearest ray-triangle hit search (brute force, K1), float32, for sm_90a.
+// Nearest ray-triangle hit search (brute force, K1), float32 and float64,
+// for sm_90a.
 //
 // Replaces: tensorflowraytrace_tpu/ops/pallas_kernels.py, _triangle_kernel
 // (launched through _nearest_hit_triangles_impl / nearest_hit_triangles_pallas
@@ -53,6 +54,16 @@
 // is one correctly rounded IEEE float32 operation in the plain version's
 // order, so the validity tests at the s_eps / r_eps edges can never
 // disagree between the two.
+//
+// The float64 instance (triangle_search_launch_f64; the JAX package's
+// Pallas kernel computes in its inputs' dtype, and its reference is
+// float64) keeps the launch, the rays a thread and the ray layout, and
+// stages five rows of double2 a triangle (tsearch::f64::stage_triangles).
+// It has no reject test: each pair runs the plain version's float64
+// arithmetic (tsearch::f64::fold_triangle), ending early only where an
+// exact compare refuses it.  What bounds it: FP64 issue slots, at half
+// the FP32 rate on the H100; every pair that passes |det| >= i_eps pays
+// the IEEE float64 division.
 
 #include <cuda_runtime.h>
 
@@ -139,6 +150,55 @@ cudaError_t launch(const float* p0, const float* p1, const float* vp,
   return cudaGetLastError();
 }
 
+template <int kRays>
+__global__ void __launch_bounds__(kThreads)
+triangle_search_f64_kernel(const double* __restrict__ p0,
+                           const double* __restrict__ p1,
+                           const double* __restrict__ vp,
+                           const double* __restrict__ v1,
+                           const double* __restrict__ v2, int n, int m,
+                           const tsearch::f64::Limits lim,
+                           double* __restrict__ u_out,
+                           int* __restrict__ idx_out) {
+  constexpr int kTile64 = 512;  // triangles a tile: 40 KB of shared memory
+  __shared__ double2 tile[5 * kTile64];
+
+  const int first = blockIdx.x * (kThreads * kRays) + threadIdx.x;
+  tsearch::f64::Ray r[kRays];
+  double best_u[kRays];
+  int best_idx[kRays];
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int ray = first + k * kThreads;
+    r[k] = tsearch::f64::load_ray(p0, p1, ray, ray < n);
+    best_u[k] = tsearch::f64::kBig;
+    best_idx[k] = 0;
+  }
+
+  for (int base = 0; base < m; base += kTile64) {
+    const int count = min(kTile64, m - base);
+    __syncthreads();  // the previous tile is no longer read
+    tsearch::f64::stage_triangles<kTile64>(tile, base, count, vp, v1, v2);
+    __syncthreads();
+    for (int t = 0; t < count; ++t) {
+      const tsearch::f64::Triangle g =
+          tsearch::f64::load_triangle<kTile64>(tile, t);
+#pragma unroll
+      for (int k = 0; k < kRays; ++k)
+        tsearch::f64::fold_triangle(g, base + t, r[k], lim, best_u[k],
+                                    best_idx[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kRays; ++k) {
+    const int ray = first + k * kThreads;
+    if (ray < n) {
+      u_out[ray] = best_u[k];
+      idx_out[ray] = best_idx[k];
+    }
+  }
+}
+
 }  // namespace
 
 // p0, p1: (n, 3) float32 row-major; vp, v1, v2: (m, 3) float32 row-major.
@@ -164,4 +224,29 @@ extern "C" int triangle_search_launch(const float* p0, const float* p1,
     return static_cast<int>(
         launch<1>(p0, p1, vp, v1, v2, n, m, lim, u_out, idx_out, s));
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The float64 instance: every pointer float64 but idx_out (int32), the
+// thresholds the float64 values the plain version compares with;
+// rays_per_thread 1 or 4 as above.
+extern "C" int triangle_search_launch_f64(const double* p0, const double* p1,
+                                          const double* vp, const double* v1,
+                                          const double* v2, int n, int m,
+                                          double i_eps, double s_lo,
+                                          double s_hi, double r_eps,
+                                          int rays_per_thread, double* u_out,
+                                          int* idx_out, void* stream) {
+  const tsearch::f64::Limits lim{i_eps, s_lo, s_hi, r_eps};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rays_per_thread != 1 && rays_per_thread != 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rays = kThreads * rays_per_thread;
+  const int blocks = (n + rays - 1) / rays;
+  if (rays_per_thread == 4)
+    triangle_search_f64_kernel<4><<<blocks, kThreads, 0, s>>>(
+        p0, p1, vp, v1, v2, n, m, lim, u_out, idx_out);
+  else
+    triangle_search_f64_kernel<1><<<blocks, kThreads, 0, s>>>(
+        p0, p1, vp, v1, v2, n, m, lim, u_out, idx_out);
+  return static_cast<int>(cudaGetLastError());
 }

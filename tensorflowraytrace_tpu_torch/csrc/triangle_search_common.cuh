@@ -7,7 +7,9 @@
 // The arithmetic is the plain version's (ops/triangle_kernels.py): the same
 // float32 operations in the same order, built with --fmad=false, behind
 // reject_test.cuh's test, so that every kernel returns the plain version's
-// valid, idx and u bit for bit.
+// valid, idx and u bit for bit.  The float64 instances of K1 and K3 share
+// the float64 ray load, slab gate, tile and pair at the end (namespace
+// tsearch::f64).
 
 #pragma once
 
@@ -215,5 +217,133 @@ __device__ __forceinline__ void fold_listed(const float4* tile, int count,
   if (j < total && part == 0)
     ray_b[slot] = make_float4(b.x, b.y, best.u, __int_as_float(best.idx));
 }
+
+// ------------------------------------------------------------ float64
+//
+// The float64 instances of K1 and K3: the plain version's float64
+// operations in its order, with no reject test (reject_test.cuh's margins
+// are float32's).  A pair ends early only where an exact compare of the
+// plain version refuses it (|det| < i_eps, or tu < s_lo before Q is
+// formed), so the result is the plain version's bit for bit.
+
+namespace f64 {
+
+constexpr double kBig = 3.0e38;   // the plain version's BIG, in float64
+constexpr double kTiny = 1.0e-30;
+
+struct Ray {
+  double ox, oy, oz, dx, dy, dz, ix, iy, iz;
+};
+
+// The thresholds as the plain version compares with them: Python floats,
+// so float64.
+struct Limits {
+  double i_eps, s_lo, s_hi, r_eps;
+};
+
+__device__ __forceinline__ double safe_inverse(double d) {
+  return 1.0 / (fabs(d) < kTiny ? (d < 0.0 ? -kTiny : kTiny) : d);
+}
+
+// One ray with its inverse direction (K1 leaves it unread); rays past n
+// stay zero.
+__device__ __forceinline__ Ray load_ray(const double* __restrict__ p0,
+                                        const double* __restrict__ p1,
+                                        int ray, bool live) {
+  Ray r{0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0};
+  if (live) {
+    r.ox = p0[3 * ray + 0];
+    r.oy = p0[3 * ray + 1];
+    r.oz = p0[3 * ray + 2];
+    r.dx = p1[3 * ray + 0] - r.ox;
+    r.dy = p1[3 * ray + 1] - r.oy;
+    r.dz = p1[3 * ray + 2] - r.oz;
+  }
+  r.ix = safe_inverse(r.dx);
+  r.iy = safe_inverse(r.dy);
+  r.iz = safe_inverse(r.dz);
+  return r;
+}
+
+// tsearch::slab_gate in float64, on (C, 6) float64 boxes.
+__device__ __forceinline__ bool slab_gate(const double* __restrict__ box,
+                                          const Ray& r, double r_eps,
+                                          double slack_hi, double slack_lo,
+                                          double slack, double best_u) {
+  double t1 = (box[0] - r.ox) * r.ix, t2 = (box[3] - r.ox) * r.ix;
+  double tmin = fmin(t1, t2), tmax = fmax(t1, t2);
+  t1 = (box[1] - r.oy) * r.iy;
+  t2 = (box[4] - r.oy) * r.iy;
+  tmin = fmax(tmin, fmin(t1, t2));
+  tmax = fmin(tmax, fmax(t1, t2));
+  t1 = (box[2] - r.oz) * r.iz;
+  t2 = (box[5] - r.oz) * r.iz;
+  tmin = fmax(tmin, fmin(t1, t2));
+  tmax = fmin(tmax, fmax(t1, t2));
+  return (tmax * slack_hi + slack >= fmax(tmin, r_eps)) &&
+         (tmin * slack_lo - slack <= best_u);
+}
+
+// A tile of triangles in shared memory, five rows of kRow double2:
+// (v0x, v0y), (v0z, E1x), (E1y, E1z), (E2x, E2y), (E2z, -); the edges
+// computed once while staging.  Every thread of the block calls it.
+template <int kRow>
+__device__ __forceinline__ void stage_triangles(
+    double2* tile, int base, int count, const double* __restrict__ vp,
+    const double* __restrict__ v1, const double* __restrict__ v2) {
+  for (int t = threadIdx.x; t < count; t += blockDim.x) {
+    const int g = 3 * (base + t);
+    const double ax = vp[g + 0], ay = vp[g + 1], az = vp[g + 2];
+    tile[t] = make_double2(ax, ay);
+    tile[kRow + t] = make_double2(az, v1[g + 0] - ax);
+    tile[2 * kRow + t] = make_double2(v1[g + 1] - ay, v1[g + 2] - az);
+    tile[3 * kRow + t] = make_double2(v2[g + 0] - ax, v2[g + 1] - ay);
+    tile[4 * kRow + t] = make_double2(v2[g + 2] - az, 0.0);
+  }
+}
+
+// A triangle's vertex v0 and edges E1, E2.
+struct Triangle {
+  double v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+};
+
+// Triangle t of a tile staged by stage_triangles.
+template <int kRow>
+__device__ __forceinline__ Triangle load_triangle(const double2* tile, int t) {
+  const double2 a = tile[t], b = tile[kRow + t], c = tile[2 * kRow + t],
+                d = tile[3 * kRow + t];
+  return Triangle{a.x, a.y, b.x, b.y, c.x, c.y, d.x, d.y,
+                  tile[4 * kRow + t].x};
+}
+
+// One ray-triangle pair folded into the ray's running best (u, idx) as
+// triangle idx: the plain version's arithmetic (TrianglePair's formulas
+// without its reject test); it replaces the best only under strict <.
+__device__ __forceinline__ void fold_triangle(const Triangle& g, int idx,
+                                              const Ray& r, const Limits& L,
+                                              double& best_u, int& best_idx) {
+  // P = D x E2
+  const double px = r.dy * g.e2z - r.dz * g.e2y;
+  const double py = r.dz * g.e2x - r.dx * g.e2z;
+  const double pz = r.dx * g.e2y - r.dy * g.e2x;
+  const double det = g.e1x * px + g.e1y * py + g.e1z * pz;
+  if (!(fabs(det) >= L.i_eps)) return;
+  const double inv = 1.0 / det;  // 1 / (ok ? det : 1)
+  const double tx = r.ox - g.v0x, ty = r.oy - g.v0y, tz = r.oz - g.v0z;
+  const double tu = (tx * px + ty * py + tz * pz) * inv;
+  if (!(tu >= L.s_lo)) return;
+  // Q = T x E1
+  const double qx = ty * g.e1z - tz * g.e1y;
+  const double qy = tz * g.e1x - tx * g.e1z;
+  const double qz = tx * g.e1y - ty * g.e1x;
+  const double tv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv;
+  const double u = (g.e2x * qx + g.e2y * qy + g.e2z * qz) * inv;
+  if ((tv >= L.s_lo) && (tu + tv <= L.s_hi) && (u >= L.r_eps) && u < best_u) {
+    best_u = u;
+    best_idx = idx;
+  }
+}
+
+}  // namespace f64
 
 }  // namespace tsearch

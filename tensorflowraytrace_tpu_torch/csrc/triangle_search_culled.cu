@@ -1,4 +1,5 @@
-// Nearest ray-triangle hit search with chunk culling (K3), float32, sm_90a.
+// Nearest ray-triangle hit search with chunk culling (K3), float32 and
+// float64, sm_90a.
 //
 // Replaces: tensorflowraytrace_tpu/ops/pallas_kernels.py,
 // _triangle_kernel_culled (launched through
@@ -54,6 +55,20 @@
 //   put 128 within 1.3% of 256 and both ahead of 512 and 1024.  The shared
 //   memory (12 KB of tile and 36 bytes a ray) is one dynamic array: the
 //   same arrays declared static ran slower on the H100 (PERF.md).
+//
+// The float64 instance (triangle_search_culled_launch_f64), simpler: no
+// compaction and no reject test.  Each thread keeps its ray and running
+// best in registers and gates its own ray on the chunk's float64 box
+// (tsearch::f64::slab_gate); a block stages the chunk (five rows of
+// double2 a triangle) when one of its rays passes (__syncthreads_or), and
+// each ray that passed folds the whole chunk with K1's float64 pair
+// (tsearch::f64::fold_triangle), the plain version's arithmetic.  The
+// boxes are culled_boxes in float64, widened by float32's rounding margin
+// GATE_PAD, far more than float64's rounding needs, so they still hold
+// every point the float64 pair test accepts, and K3 returns K1's hits bit
+// for bit.  What bounds it: FP64 issue slots on the admitted pairs and
+// the warps' idle lanes (a warp runs a chunk for all 32 of its rays when
+// one needs it).
 
 #include <cuda_runtime.h>
 
@@ -122,6 +137,47 @@ triangle_search_culled_kernel(const float* __restrict__ p0,
   }
 }
 
+__global__ void __launch_bounds__(kBlock)
+triangle_search_culled_f64_kernel(const double* __restrict__ p0,
+                                  const double* __restrict__ p1,
+                                  const double* __restrict__ vp,
+                                  const double* __restrict__ v1,
+                                  const double* __restrict__ v2,
+                                  const double* __restrict__ aabb, int n,
+                                  int m, const tsearch::f64::Limits lim,
+                                  double slack_hi, double slack_lo,
+                                  double slack, double* __restrict__ u_out,
+                                  int* __restrict__ idx_out) {
+  __shared__ double2 tile[5 * kTile];  // 20 KB
+
+  const int ray = blockIdx.x * kBlock + threadIdx.x;
+  const bool live = ray < n;
+  const tsearch::f64::Ray r = tsearch::f64::load_ray(p0, p1, ray, live);
+  double best_u = tsearch::f64::kBig;
+  int best_idx = 0;
+
+  for (int base = 0, chunk = 0; base < m; base += kTile, ++chunk) {
+    const bool need = live && tsearch::f64::slab_gate(aabb + 6 * chunk, r,
+                                                      lim.r_eps, slack_hi,
+                                                      slack_lo, slack, best_u);
+    // also the barrier after the previous tile's last read
+    if (!__syncthreads_or(need)) continue;  // the same in every thread
+    const int count = min(kTile, m - base);
+    tsearch::f64::stage_triangles<kTile>(tile, base, count, vp, v1, v2);
+    __syncthreads();
+    if (need) {
+      for (int t = 0; t < count; ++t)
+        tsearch::f64::fold_triangle(
+            tsearch::f64::load_triangle<kTile>(tile, t), base + t, r, lim,
+            best_u, best_idx);
+    }
+  }
+  if (live) {
+    u_out[ray] = best_u;
+    idx_out[ray] = best_idx;
+  }
+}
+
 }  // namespace
 
 // p0, p1: (n, 3) float32 row-major; vp, v1, v2: (m, 3) float32 row-major;
@@ -142,5 +198,24 @@ extern "C" int triangle_search_culled_launch(
                                   static_cast<cudaStream_t>(stream)>>>(
       p0, p1, vp, v1, v2, aabb, n, m, reject::limits(i_eps, s_lo, s_hi, r_eps),
       slack_hi, slack_lo, slack, u_out, idx_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 instance: every pointer float64 but idx_out (int32), the
+// thresholds and slack as the float64 values the plain version compares
+// with; chunk as above.
+extern "C" int triangle_search_culled_launch_f64(
+    const double* p0, const double* p1, const double* vp, const double* v1,
+    const double* v2, const double* aabb, int n, int m, int chunk,
+    double i_eps, double s_lo, double s_hi, double r_eps, double slack_hi,
+    double slack_lo, double slack, double* u_out, int* idx_out,
+    void* stream) {
+  if (chunk != kTile) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + kBlock - 1) / kBlock;
+  triangle_search_culled_f64_kernel<<<blocks, kBlock, 0,
+                                      static_cast<cudaStream_t>(stream)>>>(
+      p0, p1, vp, v1, v2, aabb, n, m,
+      tsearch::f64::Limits{i_eps, s_lo, s_hi, r_eps}, slack_hi, slack_lo,
+      slack, u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

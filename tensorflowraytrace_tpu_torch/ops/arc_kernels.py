@@ -48,9 +48,15 @@ it admits, the work a kernel's bound is charged for.
 Each wrapper is two halves, a preparation (the arc table, the gate boxes,
 the candidate lists) and the launch, so that the launch can be timed alone.
 
-Contract: per ray ``(valid, idx int32, ray_u, branch)``; ``ray_u`` is
-``BIG = 3e38`` where nothing is hit, ``valid`` is ``ray_u < BIG / 2`` and
-``branch`` is True where the winning arc's minus branch gave the hit.  The
+K6 has a float32 and a float64 instance (``LAUNCH``), launched by the
+rays' dtype, each reading the table in its dtype (the flags as float
+values, which the kernel turns into ints as it stages a tile); K8 and K10
+take float32 only.
+
+Contract: per ray ``(valid, idx int32, ray_u, branch)``, ``ray_u`` in the
+rays' dtype; ``ray_u`` is ``BIG = 3e38`` where nothing is hit, ``valid``
+is ``ray_u < BIG / 2`` and ``branch`` is True where the winning arc's minus
+branch gave the hit.  The
 nearest hit wins and a tie goes to the first arc, which carries its own
 branch choice (minus iff its minus root is strictly nearer).  The TPU
 kernel instead takes the branch of the tile's minima, which differs only
@@ -88,6 +94,11 @@ SOURCE = "arc_search.cu"
 SOURCE_CULLED = "arc_search_culled.cu"
 SOURCE_TWOLEVEL = "arc_search_twolevel.cu"
 
+# K6's instances by the rays' dtype: the C symbol and the ctypes type of its
+# thresholds
+LAUNCH = {torch.float32: ("arc_search_launch", ctypes.c_float),
+          torch.float64: ("arc_search_launch_f64", ctypes.c_double)}
+
 # the table's flag bits
 _BIG_WINDOW = 1     # the window spans more than pi
 _FULL_CIRCLE = 2    # the window is the whole circle
@@ -102,12 +113,14 @@ SNAP_REACH = 0.14
 
 
 def load_library():
-    """The K6 library, built at first use, with its C signature declared."""
+    """The K6 library, built at first use, with the C signatures of its
+    float32 and float64 launches declared."""
     lib = cuda_build.load(SOURCE)
-    fn = lib.arc_search_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
-        + [ctypes.c_float] * 2 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
+    for name, real in LAUNCH.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 \
+            + [real] * 2 + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -161,9 +174,15 @@ def arc_chunk_table(center, angle_start, angle_end, radius, chunk):
         .contiguous()
 
 
-def _check_arcs(p0, p1, center, angle_start, angle_end, radius):
-    check_cuda_inputs("arc", p0, p1, center=center, angle_start=angle_start,
-                      angle_end=angle_end, radius=radius)
+def _check_arcs(p0, p1, center, angle_start, angle_end, radius,
+                kernel=None):
+    """K6's inputs (float32 or float64), or with ``kernel`` ("K8", "K10")
+    a float32-only search's."""
+    check_cuda_inputs("arc", p0, p1,
+                      dtypes=tuple(LAUNCH) if kernel is None
+                      else (torch.float32,), kernel=kernel, center=center,
+                      angle_start=angle_start, angle_end=angle_end,
+                      radius=radius)
     m = center.shape[0]
     if center.shape != (m, 2) or not (angle_start.shape == angle_end.shape
                                       == radius.shape == (m,)):
@@ -175,7 +194,7 @@ def _launch(fn, name, p0, args):
     """Outputs for ``p0``'s rays, the launch of ``fn(p0, p1, *args, u, idx,
     branch, stream)``, and the error check."""
     n = p0.shape[0]
-    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    u = torch.empty((n,), dtype=p0.dtype, device=p0.device)
     idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
     branch = torch.empty((n,), dtype=torch.bool, device=p0.device)
     with torch.cuda.device(p0.device):
@@ -194,8 +213,8 @@ def nearest_hit_arcs_kernel(p0, p1, center, angle_start, angle_end, radius,
 
     The ``tfrt_torch::arc_search`` operator: CPU tensors go to the plain
     version.  CUDA tensors launch the kernel (:func:`arc_search_cuda`),
-    which takes contiguous, detached float32 tensors on one device and
-    raises on anything else.
+    which takes contiguous, detached tensors of one dtype, float32 or
+    float64, on one device and raises on anything else.
     """
     check_device(p0, "arc")
     return torch.ops.tfrt_torch.arc_search(
@@ -218,10 +237,11 @@ def prepare(center, angle_start, angle_end, radius):
 
 
 def launch(p0, p1, table, intersect_eps, ray_start_eps):
-    """Launch K6 on checked CUDA inputs and :func:`prepare`'s table; the
-    wrapper's second half."""
+    """Launch K6's instance of ``p0``'s dtype on checked CUDA inputs and
+    :func:`prepare`'s table; the wrapper's second half."""
     global LAUNCHES
-    out = _launch(load_library().arc_search_launch, "arc_search", p0,
+    out = _launch(getattr(load_library(), LAUNCH[p0.dtype][0]), "arc_search",
+                  p0,
                   (p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
                    p0.shape[0], table.shape[0], float(intersect_eps),
                    float(ray_start_eps)))
@@ -245,7 +265,7 @@ def arc_search_culled_cuda(p0, p1, center, angle_start, angle_end, radius,
                            intersect_eps, ray_start_eps):
     """K8's operator on CUDA tensors: the input checks, the table and gate
     boxes (:func:`culled_prepare`) and the launch."""
-    _check_arcs(p0, p1, center, angle_start, angle_end, radius)
+    _check_arcs(p0, p1, center, angle_start, angle_end, radius, kernel="K8")
     check_culled_ray_block()
     return culled_launch(p0, p1, culled_prepare(center, angle_start,
                                                 angle_end, radius),
@@ -295,7 +315,8 @@ def arc_search_twolevel_cuda(p0, p1, center, angle_start, angle_end, radius,
     """K10's operator on CUDA tensors: the input checks, the preparation
     (:func:`twolevel_prepare`, with the tunables read now) and the
     launch."""
-    _check_arcs(p0, p1, center, angle_start, angle_end, radius)
+    _check_arcs(p0, p1, center, angle_start, angle_end, radius,
+                kernel="K10")
     check_twolevel_ray_block()
     return twolevel_launch(
         p0, p1, center.shape[0],
@@ -371,7 +392,7 @@ def _arc_columns(table, s0, s1):
 
 
 def _arc_discriminant(ox, oy, dx, dy, xc, yc, inv_r, i_eps):
-    """The kernels' float32 operations up to the exact reject
+    """The kernels' operations up to the exact reject
     (``search2d::ArcPair``): the scaled ray ``xr, yr, xd, yd``, ``a``, the
     discriminant snapped to 0 below ``i_eps``, and ``ok``, False where it is
     negative or |a| is below ``i_eps``."""
@@ -391,8 +412,9 @@ def _arc_discriminant(ox, oy, dx, dy, xc, yc, inv_r, i_eps):
 def _arc_pairs(ox, oy, dx, dy, xc, yc, inv_r, sx, sy, ex, ey, big, full,
                i_eps, r_eps):
     """Ray parameter of every ray-arc pair (``BIG`` where neither branch is
-    a valid hit) and whether the minus branch gave it: the kernels' float32
-    operations in their order.  Ray and arc components broadcast."""
+    a valid hit) and whether the minus branch gave it: the kernels'
+    operations in their order, in the inputs' dtype.  Ray and arc
+    components broadcast."""
     xr, yr, xd, yd, a, disc, ok = _arc_discriminant(ox, oy, dx, dy, xc, yc,
                                                     inv_r, i_eps)
     b = 2.0 * (xr * xd + yr * yd)

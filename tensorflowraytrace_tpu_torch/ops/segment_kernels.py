@@ -29,9 +29,11 @@ wrapper.
   hits bit for bit.
 
 Contract (shared with every search kernel of the JAX package): per ray
-``(valid, idx int32, ray_u)``; ``ray_u`` is ``BIG = 3e38`` where nothing is
-hit and ``valid`` is ``ray_u < BIG / 2``; the nearest hit wins and a tie
-goes to the first segment; there is no gradient.
+``(valid, idx int32, ray_u)``, ``ray_u`` in the rays' dtype; ``ray_u`` is
+``BIG = 3e38`` where nothing is hit and ``valid`` is ``ray_u < BIG / 2``;
+the nearest hit wins and a tie goes to the first segment; there is no
+gradient.  K5 has a float32 and a float64 instance (``LAUNCH``), launched
+by the rays' dtype; K7 and K9 take float32 only.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` and loaded with ``ctypes`` (``ops/cuda_build.py``); the two
@@ -49,7 +51,7 @@ from tensorflowraytrace_tpu_torch.models.acceleration import chunk_aabbs_2d
 from tensorflowraytrace_tpu_torch.ops import cuda_build
 from tensorflowraytrace_tpu_torch.ops.triangle_kernels import (
     _SLACK, BIG, _inverse_direction, _merge, _raise_on, _selected,
-    _slab_gate, _thresholds, check_device, chunk_major,
+    _slab_gate, _thresholds, check_device, check_dtypes, chunk_major,
     twolevel_candidates, twolevel_walk, widen_boxes,
 )
 
@@ -62,6 +64,11 @@ LAUNCHES_TWOLEVEL = 0   # K9
 SOURCE = "segment_search.cu"
 SOURCE_CULLED = "segment_search_culled.cu"
 SOURCE_TWOLEVEL = "segment_search_twolevel.cu"
+
+# K5's instances by the rays' dtype: the C symbol and the ctypes type of its
+# thresholds
+LAUNCH = {torch.float32: ("segment_search_launch", ctypes.c_float),
+          torch.float64: ("segment_search_launch_f64", ctypes.c_double)}
 
 # the culling chunk of K7 and K8 and the fine chunk of K9 and K10 is the 2D
 # kernels' shared-memory tile (kTile in csrc/search2d_common.cuh; the
@@ -82,12 +89,14 @@ TWOLEVEL_MAX_CAND = 32
 
 
 def load_library():
-    """The K5 library, built at first use, with its C signature declared."""
+    """The K5 library, built at first use, with the C signatures of its
+    float32 and float64 launches declared."""
     lib = cuda_build.load(SOURCE)
-    fn = lib.segment_search_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
-        + [ctypes.c_float] * 4 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    for name, real in LAUNCH.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
+            + [real] * 4 + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -111,18 +120,20 @@ def load_twolevel_library():
     return lib
 
 
-def check_cuda_inputs(what, p0, p1, **surfaces):
+def check_cuda_inputs(what, p0, p1, dtypes=(torch.float32,), kernel=None,
+                      **surfaces):
     """What a 2D kernel takes: (N, 2) rays ``p0``/``p1`` and the per-surface
-    tensors ``surfaces`` (each with M rows), all float32, contiguous,
-    detached and on one device, with 1 <= N and N, M < 2^31 / 8."""
+    tensors ``surfaces`` (each with M rows), all of one of ``dtypes``,
+    contiguous, detached and on one device, with 1 <= N and N, M < 2^31 /
+    8; ``kernel`` names the search in a dtype's refusal."""
     device = p0.device
     m = None
-    for name, t in {"p0": p0, "p1": p1, **surfaces}.items():
+    named = {"p0": p0, "p1": p1, **surfaces}
+    check_dtypes(f"{what} search" + (f" ({kernel})" if kernel else ""),
+                 dtypes, named)
+    for name, t in named.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, p0 on {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA {what} search takes float32 only; "
-                            f"{name} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.requires_grad:
@@ -141,8 +152,12 @@ def check_cuda_inputs(what, p0, p1, **surfaces):
         raise ValueError(f"too many rays or {what}s for 32-bit indexing")
 
 
-def _check_segments(p0, p1, sp0, sp1):
-    check_cuda_inputs("segment", p0, p1, sp0=sp0, sp1=sp1)
+def _check_segments(p0, p1, sp0, sp1, kernel=None):
+    """K5's inputs (float32 or float64), or with ``kernel`` ("K7", "K9")
+    a float32-only search's."""
+    check_cuda_inputs("segment", p0, p1,
+                      dtypes=tuple(LAUNCH) if kernel is None
+                      else (torch.float32,), kernel=kernel, sp0=sp0, sp1=sp1)
     if sp0.dim() != 2 or sp0.shape[1] != 2 or sp1.shape != sp0.shape:
         raise ValueError("sp0 and sp1 must be (segments, 2) and equal in shape")
 
@@ -154,8 +169,9 @@ def nearest_hit_segments_kernel(p0, p1, sp0, sp1, intersect_eps, size_eps,
 
     The ``tfrt_torch::segment_search`` operator: CPU tensors go to the
     plain version.  CUDA tensors launch the kernel
-    (:func:`segment_search_cuda`), which takes contiguous, detached float32
-    tensors on one device and raises on anything else.
+    (:func:`segment_search_cuda`), which takes contiguous, detached tensors
+    of one dtype, float32 or float64, on one device and raises on anything
+    else.
     """
     check_device(p0, "segment")
     return torch.ops.tfrt_torch.segment_search(
@@ -168,9 +184,9 @@ def segment_search_cuda(p0, p1, sp0, sp1, intersect_eps, size_eps,
     """K5's operator on CUDA tensors: the input checks and the launch."""
     global LAUNCHES
     _check_segments(p0, p1, sp0, sp1)
-    fn = load_library().segment_search_launch
+    fn = getattr(load_library(), LAUNCH[p0.dtype][0])
     n, m = p0.shape[0], sp0.shape[0]
-    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    u = torch.empty((n,), dtype=p0.dtype, device=p0.device)
     idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream
@@ -199,7 +215,7 @@ def segment_search_culled_cuda(p0, p1, sp0, sp1, intersect_eps, size_eps,
                                ray_start_eps):
     """K7's operator on CUDA tensors: the input checks, the gate boxes
     (:func:`culled_prepare`) and the launch."""
-    _check_segments(p0, p1, sp0, sp1)
+    _check_segments(p0, p1, sp0, sp1, kernel="K7")
     check_culled_ray_block()
     return culled_launch(p0, p1, culled_prepare(sp0, sp1, size_eps),
                          intersect_eps, size_eps, ray_start_eps)
@@ -298,7 +314,7 @@ def segment_search_twolevel_cuda(p0, p1, sp0, sp1, intersect_eps, size_eps,
     """K9's operator on CUDA tensors: the input checks, the preparation
     (:func:`twolevel_prepare`, with the tunables read now) and the
     launch."""
-    _check_segments(p0, p1, sp0, sp1)
+    _check_segments(p0, p1, sp0, sp1, kernel="K9")
     check_twolevel_ray_block()
     return twolevel_launch(p0, p1, sp0.shape[0],
                            twolevel_prepare(p0, p1, sp0, sp1, size_eps,
@@ -345,7 +361,8 @@ def twolevel_launch(p0, p1, m, prepared, intersect_eps, size_eps,
 def _segment_pairs(ox, oy, dx, dy, x2, y2, dx2, dy2, i_eps, s_lo, s_hi,
                    r_eps):
     """Ray parameter of every ray-segment pair, ``BIG`` where the pair is not
-    a valid hit: the kernels' float32 operations in their order.  Ray
+    a valid hit: the kernels' operations in their order, in the inputs'
+    dtype.  Ray
     components (origin, direction) and segment components (start,
     direction) broadcast against each other."""
     den = dx * dy2 - dy * dx2

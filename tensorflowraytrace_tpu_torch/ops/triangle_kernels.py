@@ -38,9 +38,15 @@ give a nearer hit, and K3 and K4 return K1's hits bit for bit.
 Parked rays (p0 = 1e30, see ``engine.project_3d``) fail every slab test.
 
 Contract (shared with every search kernel of the JAX package): per ray
-``(valid, idx int32, ray_u)``; ``ray_u`` is ``BIG = 3e38`` where nothing is
-hit and ``valid`` is ``ray_u < BIG / 2``; the nearest hit wins and a tie
-goes to the first triangle index; there is no gradient.
+``(valid, idx int32, ray_u)``, ``ray_u`` in the rays' dtype; ``ray_u`` is
+``BIG = 3e38`` where nothing is hit and ``valid`` is ``ray_u < BIG / 2``;
+the nearest hit wins and a tie goes to the first triangle index; there is
+no gradient.
+
+Dtypes, as the JAX package's Pallas searches compute in their inputs'
+dtype: K1 and K3 have a float32 and a float64 instance, launched by the
+rays' dtype (``LAUNCH``, ``LAUNCH_CULLED``); K4 takes float32 only, and
+every kernel refuses mixed dtypes and any other dtype.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` and loaded with ``ctypes`` (``ops/cuda_build.py``); their
@@ -71,6 +77,17 @@ SOURCE = "triangle_search.cu"
 SOURCE_CULLED = "triangle_search_culled.cu"
 SOURCE_TWOLEVEL = "triangle_search_twolevel.cu"
 
+# each kernel's instances by the rays' dtype: the C symbol and the ctypes
+# type of its thresholds
+LAUNCH = {torch.float32: ("triangle_search_launch", ctypes.c_float),
+          torch.float64: ("triangle_search_launch_f64", ctypes.c_double)}
+LAUNCH_CULLED = {
+    torch.float32: ("triangle_search_culled_launch", ctypes.c_float),
+    torch.float64: ("triangle_search_culled_launch_f64", ctypes.c_double)}
+# what a float32-only kernel's refusal of float64 names
+FLOAT64_SEARCHES = ("float64 runs in K1 (cull=False) and K3 (cull=True) in "
+                    "3D and in K5 and K6 (cull=False) in 2D")
+
 # K1: threads a block (kThreads in csrc/triangle_search.cu) and the rays a
 # thread it is compiled for; see brute_rays_per_thread
 BRUTE_THREADS = 256
@@ -83,7 +100,9 @@ CULL_CHUNK = 256
 # float32 ulps): the float32 arithmetic can accept a hit a
 # few ulps outside the exact surface, and the gate must not refuse it.  The
 # slab test's own slack (1 +- 1e-6 and 1e-6 in t) does not cover that far
-# from the origin: at x ~ 40 one ulp is 3.8e-6.
+# from the origin: at x ~ 40 one ulp is 3.8e-6.  Float64 boxes (K3's float64
+# instance) keep the same pad: float64 rounds 2^29 times finer, so they
+# hold every accepted point with that much room to spare.
 GATE_PAD = 2.0 ** -17
 # K4: rays per block (one thread each, a multiple of 32 up to 1024),
 # triangles per fine chunk (the kernel is compiled for 512; the launch
@@ -110,22 +129,26 @@ def library_path() -> Path:
 
 
 def load_library():
-    """The K1 library, built at first use, with its C signature declared."""
+    """The K1 library, built at first use, with the C signatures of its
+    float32 and float64 launches declared."""
     lib = cuda_build.load(SOURCE)
-    fn = lib.triangle_search_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
-        + [ctypes.c_float] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    for name, real in LAUNCH.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
+            + [real] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
     return lib
 
 
 def load_culled_library():
-    """The K3 library, built at first use, with its C signature declared."""
+    """The K3 library, built at first use, with the C signatures of its
+    float32 and float64 launches declared."""
     lib = cuda_build.load(SOURCE_CULLED)
-    fn = lib.triangle_search_culled_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-        + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    for name, real in LAUNCH_CULLED.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+            + [real] * 7 + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -139,15 +162,33 @@ def load_twolevel_library():
     return lib
 
 
-def _check_cuda_inputs(p0, p1, vp, v1, v2):
+def check_dtypes(what, dtypes, named):
+    """Raise ``TypeError`` unless every tensor of ``named`` (the first the
+    rays' ``p0``) has one dtype and a ``what`` kernel has an instance of it
+    (``dtypes``: float32 alone, or float32 and float64)."""
+    dtype = next(iter(named.values())).dtype
+    for name, t in named.items():
+        if t.dtype != dtype:
+            raise TypeError(f"the CUDA {what} takes one dtype; {name} is "
+                            f"{t.dtype}, p0 {dtype}")
+    if dtype not in dtypes:
+        kinds = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        note = ("" if torch.float64 in dtypes or dtype != torch.float64
+                else f" ({FLOAT64_SEARCHES})")
+        raise TypeError(f"the CUDA {what} takes {kinds}; p0 is {dtype}{note}")
+
+
+def _check_cuda_inputs(p0, p1, vp, v1, v2, dtypes=tuple(LAUNCH),
+                       what="triangle search"):
+    """What a triangle kernel takes: (N, 3) rays and (M, 3) triangles of
+    one of ``dtypes`` (K1's and K3's float32 and float64 by default),
+    contiguous, detached and on one device."""
     named = {"p0": p0, "p1": p1, "vp": vp, "v1": v1, "v2": v2}
+    check_dtypes(what, dtypes, named)
     device = p0.device
     for name, t in named.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, p0 on {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"the CUDA triangle search takes float32 only; "
-                            f"{name} is {t.dtype}")
         if t.dim() != 2 or t.shape[1] != 3:
             raise ValueError(f"{name} must be (rows, 3), got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -174,8 +215,9 @@ def check_device(p0, what="triangle"):
 
 
 def _thresholds(intersect_eps, size_eps, ray_start_eps):
-    """The float32 thresholds the kernels compare with, computed once in
-    Python as the plain versions compute them."""
+    """The thresholds the kernels compare with, computed once in Python as
+    the plain versions compute them: Python floats, passed to a float32
+    instance as float32 and to a float64 instance as they are."""
     return (float(intersect_eps), -float(size_eps), 1.0 + float(size_eps),
             float(ray_start_eps))
 
@@ -192,8 +234,9 @@ def nearest_hit_triangles_kernel(p0, p1, vp, v1, v2, intersect_eps, size_eps,
 
     The ``tfrt_torch::triangle_search`` operator: CPU tensors go to the
     plain version.  CUDA tensors launch the kernel
-    (:func:`triangle_search_cuda`), which takes contiguous, detached float32
-    tensors on one device and raises on anything else.
+    (:func:`triangle_search_cuda`), which takes contiguous, detached
+    tensors of one dtype, float32 or float64, on one device and raises on
+    anything else.
     """
     check_device(p0)
     return torch.ops.tfrt_torch.triangle_search(
@@ -220,15 +263,15 @@ def brute_rays_per_thread(n, device):
 
 def brute_launch(p0, p1, vp, v1, v2, intersect_eps, size_eps, ray_start_eps,
                  rays_per_thread=None):
-    """Launch K1 on checked CUDA inputs, ``rays_per_thread`` (1 or 4) rays
-    a thread, :func:`brute_rays_per_thread`'s choice when None; the
-    wrapper's second half."""
+    """Launch K1's instance of ``p0``'s dtype on checked CUDA inputs,
+    ``rays_per_thread`` (1 or 4) rays a thread, :func:`brute_rays_per_thread`'s
+    choice when None; the wrapper's second half."""
     global LAUNCHES
     n, m = p0.shape[0], vp.shape[0]
     if rays_per_thread is None:
         rays_per_thread = brute_rays_per_thread(n, p0.device)
-    fn = load_library().triangle_search_launch
-    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    fn = getattr(load_library(), LAUNCH[p0.dtype][0])
+    u = torch.empty((n,), dtype=p0.dtype, device=p0.device)
     idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream
@@ -259,10 +302,10 @@ def triangle_search_culled_cuda(p0, p1, vp, v1, v2, intersect_eps, size_eps,
     the launch."""
     global LAUNCHES_CULLED
     _check_cuda_inputs(p0, p1, vp, v1, v2)
-    fn = load_culled_library().triangle_search_culled_launch
+    fn = getattr(load_culled_library(), LAUNCH_CULLED[p0.dtype][0])
     n, m = p0.shape[0], vp.shape[0]
     boxes = culled_boxes(vp, v1, v2, size_eps).contiguous()
-    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    u = torch.empty((n,), dtype=p0.dtype, device=p0.device)
     idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream
@@ -348,7 +391,8 @@ def triangle_search_twolevel_cuda(p0, p1, vp, v1, v2, intersect_eps,
     """K4's operator on CUDA tensors: the input checks, the preparation
     (:func:`twolevel_prepare`, with the tunables read now) and the
     launch."""
-    _check_cuda_inputs(p0, p1, vp, v1, v2)
+    _check_cuda_inputs(p0, p1, vp, v1, v2, dtypes=(torch.float32,),
+                       what="two-level triangle search (K4)")
     rb = TWOLEVEL_RAY_BLOCK
     if rb % 32 or not 32 <= rb <= 1024:
         raise ValueError(f"TWOLEVEL_RAY_BLOCK {rb} must be a multiple of 32 "
@@ -400,8 +444,8 @@ def twolevel_launch(p0, p1, m, prepared, intersect_eps, size_eps,
 def _tu(ox, oy, oz, dx, dy, dz, a, e1, e2, i_eps):
     """The first half of every ray-triangle pair, up to tu:
     ``(ok, inv, T, tu)``, ``ok`` false where |det| < i_eps.  The kernels'
-    float32 operations in their order; ray components and triangle
-    components (``a``, ``e1``, ``e2``: three tensors each) broadcast
+    operations in their order, in the inputs' dtype; ray components and
+    triangle components (``a``, ``e1``, ``e2``: three tensors each) broadcast
     against each other."""
     e2x, e2y, e2z = e2
     px = dy * e2z - dz * e2y
@@ -428,9 +472,9 @@ def _out_on_tu(ok, tu, s_lo, s_hi):
 def _moller_trumbore(ox, oy, oz, dx, dy, dz, a, e1, e2, i_eps, s_lo, s_hi,
                      r_eps):
     """Ray parameter of every ray-triangle pair, ``BIG`` where the pair is
-    not a valid hit: the kernels' float32 operations in their order.  Ray
-    components and triangle components (``a``, ``e1``, ``e2``: three
-    tensors each) broadcast against each other."""
+    not a valid hit: the kernels' operations in their order, in the inputs'
+    dtype.  Ray components and triangle components (``a``, ``e1``,
+    ``e2``: three tensors each) broadcast against each other."""
     e1x, e1y, e1z = e1
     e2x, e2y, e2z = e2
     ok, inv, (tx, ty, tz), tu = _tu(ox, oy, oz, dx, dy, dz, a, e1, e2, i_eps)

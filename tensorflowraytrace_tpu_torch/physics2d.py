@@ -7,10 +7,10 @@ one of the example's checks fails (naming every failed check) and returns
 the numbers the example prints.  On the card every trace runs the CUDA
 searches (K5 for segments, K6 for arcs) and every backward the CUDA
 segment sum (K2), children starting ``engine.start_epsilon`` of the start
-scene past their surface; elsewhere the plain searches.  The card takes
-float32 only; the CPU runs either dtype.  ``optax.adam`` becomes
-``torch.optim.Adam`` through ``Optimizer(optax_tx=...)``
-(:func:`adam_design`).  Every check keeps the example's own limit, in
+scene past their surface; elsewhere the plain searches.  Both devices
+run either dtype: K5, K6 and K2 have float32 and float64 instances.
+``optax.adam`` becomes ``torch.optim.Adam`` through
+``Optimizer(optax_tx=...)`` (:func:`adam_design`).  Every check keeps the example's own limit, in
 float32 too: the card met each of them (PERF.md, PR 18).
 """
 
@@ -807,9 +807,10 @@ def achromat(steps=400, n_heights=21, dtype=torch.float32, device=None,
     crown/flint doublet (4 bounces, chromatic weight 10) designed by the
     same optimizer (lr 2e-3) at the F, d and C lines, each lens's
     per-line foci and the chromatic focal shift C - F; the check: every
-    ray lands after each design.  The example's float64 is the CPU's; the
-    card runs float32.  The doublet's rays are drawn into ``png`` when
-    one is given.  Returns a dict."""
+    ray lands after each design.  The example runs float64, which either
+    device runs (K5, K6 and K2 have float64 instances); ``dtype`` defaults
+    to float32.  The doublet's rays are drawn into ``png`` when one is
+    given.  Returns a dict."""
     device = resolve_device(device)
     rays = achromat_rays(n_heights, dtype, device)
     out = {}

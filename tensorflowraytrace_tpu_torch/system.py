@@ -44,8 +44,9 @@ Where the port departs from the JAX facade:
 * ``trace_config`` starts from ``TraceConfig.recommended`` on the system's
   device, and ``trace_overrides`` take the port's field names
   (``use_kernel``, not ``use_pallas``).  A float64 system keeps the plain
-  searches (``use_kernel=False, cull=False, resort_rays=False``), the
-  JAX facade's dtype rule: the CUDA searches take float32 only.
+  searches (``use_kernel=False, cull=False, resort_rays=False``): the
+  JAX facade keeps float64 systems off its Pallas kernels, and so does
+  this one, though K1, K3, K5 and K6 have float64 instances.
 
 Two faults of the JAX facade are not copied:
 
@@ -783,7 +784,7 @@ class OpticalEngine:
             # float32 scene on the card, recommended's start epsilon) only
             # where the system sets one
             **{k: v for k, v in epsilons.items() if v is not None},
-            # the CUDA searches take float32 only
+            # the JAX facade's rule: a float64 system on the plain searches
             **({} if sys_.dtype == torch.float32 else
                {"use_kernel": False, "cull": False, "resort_rays": False}),
             **self.trace_overrides,

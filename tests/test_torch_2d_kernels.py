@@ -13,9 +13,10 @@ Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 -o addopts=""`` (this file imports no JAX).
 
 The kernels are built with --fmad=false and evaluate their plain versions'
-float32 operations in the same order, and the culled kernels' gate only
-skips pairs that cannot give a nearer hit, so every output is equal
-exactly.
+operations in the same order, and the culled kernels' gate only skips
+pairs that cannot give a nearer hit, so every output is equal exactly.
+K5 and K6 run in float32 and in float64 (``DTYPES``); K7 and K8 take
+float32 only and refuse float64.
 """
 
 import numpy as np
@@ -28,6 +29,8 @@ from tensorflowraytrace_tpu_torch.ops import segment_kernels as sk
 
 pytestmark = pytest.mark.cuda
 EPS = 1e-6
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                                 ids=["f32", "f64"])
 
 
 @pytest.fixture
@@ -49,50 +52,65 @@ def arc_args(p0, p1, arc):
 
 def check(args, kind, size_eps=EPS):
     """The brute and culled kernels of ``kind`` against their plain
-    versions and each other, bit for bit; returns the brute ``valid``."""
+    versions and each other, bit for bit; in float64, which the culled
+    kernel refuses, the brute kernel against both plain versions.  Returns
+    the brute ``valid``."""
     mod, name, eps = ((sk, "segments", (EPS, size_eps, EPS))
                       if kind == "segment" else (ak, "arcs", (EPS, EPS)))
     before = (mod.LAUNCHES, mod.LAUNCHES_CULLED)
     brute = getattr(mod, f"nearest_hit_{name}_kernel")(*args, *eps)
-    culled = getattr(mod, f"nearest_hit_{name}_culled_kernel")(*args, *eps)
+    culled_kernel = getattr(mod, f"nearest_hit_{name}_culled_kernel")
+    if args[0].dtype == torch.float32:
+        got = [culled_kernel(*args, *eps)]
+    else:
+        with pytest.raises(TypeError, match="takes float32;"):
+            culled_kernel(*args, *eps)
+        got = []
     torch.cuda.synchronize()
     assert (mod.LAUNCHES, mod.LAUNCHES_CULLED) == (before[0] + 1,
-                                                   before[1] + 1)
-    plain = getattr(mod, f"nearest_hit_{name}_plain")(*args, *eps)
-    plain_culled = getattr(mod, f"nearest_hit_{name}_culled_plain")(*args, *eps)
-    for got in (culled, plain, plain_culled):
-        for a, b in zip(got, brute):
+                                                   before[1] + len(got))
+    assert brute[2].dtype == args[0].dtype
+    got.append(getattr(mod, f"nearest_hit_{name}_plain")(*args, *eps))
+    got.append(getattr(mod, f"nearest_hit_{name}_culled_plain")(*args, *eps))
+    for out in got:
+        for a, b in zip(out, brute):
             assert torch.equal(a, b)
     return brute[0]
 
 
+@DTYPES
 @pytest.mark.parametrize("n_rays,m", [(200000, None), (1000, 333), (1, 257)])
-def test_kernels_equal_plain_on_random_sets(cuda, n_rays, m):
+def test_kernels_equal_plain_on_random_sets(cuda, n_rays, m, dtype):
     """tpu_kernel_check's sets (777 segments, 555 arcs; seed 7), a ragged
     tile and a single ray."""
     rng = np.random.default_rng(7)
-    seg = scenes2d.random_segments(rng, m or 777, device=cuda)
-    valid = check(seg_args(*scenes2d.random_rays(rng, n_rays, device=cuda),
-                           seg), "segment")
-    arc = scenes2d.random_arcs(rng, m or 555, device=cuda)
-    valid_a = check(arc_args(*scenes2d.random_rays(rng, n_rays, device=cuda),
-                             arc), "arc")
+    kw = dict(dtype=dtype, device=cuda)
+    seg = scenes2d.random_segments(rng, m or 777, **kw)
+    valid = check(seg_args(*scenes2d.random_rays(rng, n_rays, **kw), seg),
+                  "segment")
+    arc = scenes2d.random_arcs(rng, m or 555, **kw)
+    valid_a = check(arc_args(*scenes2d.random_rays(rng, n_rays, **kw), arc),
+                    "arc")
     if n_rays > 1:
         assert valid.any() and valid_a.any()
 
 
-def test_full_circle_arcs(cuda):
+@DTYPES
+def test_full_circle_arcs(cuda, dtype):
     rng = np.random.default_rng(8)
-    arc = scenes2d.random_arcs(rng, 300, device=cuda, full=True)
-    assert check(arc_args(*scenes2d.random_rays(rng, 50000, device=cuda), arc),
+    arc = scenes2d.random_arcs(rng, 300, dtype=dtype, device=cuda, full=True)
+    assert check(arc_args(*scenes2d.random_rays(rng, 50000, dtype=dtype,
+                                                device=cuda), arc),
                  "arc").any()
 
 
-def test_all_miss_and_parked(cuda):
+@DTYPES
+def test_all_miss_and_parked(cuda, dtype):
     rng = np.random.default_rng(9)
-    seg = scenes2d.random_segments(rng, 500, device=cuda)
-    arc = scenes2d.random_arcs(rng, 500, device=cuda)
-    p0, p1 = scenes2d.random_rays(rng, 5000, device=cuda)
+    kw = dict(dtype=dtype, device=cuda)
+    seg = scenes2d.random_segments(rng, 500, **kw)
+    arc = scenes2d.random_arcs(rng, 500, **kw)
+    p0, p1 = scenes2d.random_rays(rng, 5000, **kw)
     far = torch.full_like(p0, 100.0)
     parked = torch.full_like(p0, 1e30)
     parked1 = torch.full_like(p0, 1e30 * (1 + 1e-6))
@@ -105,10 +123,11 @@ def test_all_miss_and_parked(cuda):
         assert bool(check(arc_args(r0, r1, arc), "arc").any()) == hits
 
 
-def test_guide_first_bounce(cuda):
+@DTYPES
+def test_guide_first_bounce(cuda, dtype):
     """The 2D light guide's first search at 131072 rays: 4098 segments and
     512 lenslet arcs."""
-    rays, scene, _ = scenes2d.light_guide(131072, device=cuda)
+    rays, scene, _ = scenes2d.light_guide(131072, dtype=dtype, device=cuda)
     assert scene.segments.n_surfaces == 4098 and scene.arcs.n_surfaces == 512
     assert check(seg_args(rays.p0, rays.p1, scene.segments), "segment").any()
     check(arc_args(rays.p0, rays.p1, scene.arcs), "arc")
@@ -121,35 +140,40 @@ def around(x):
             np.nextafter(x, np.float32(np.inf))]
 
 
-def segment_case(rays, segments, cuda):
+def segment_case(rays, segments, cuda, dtype=torch.float32):
     """(rays (n, 4) as p0 xy, p1 xy; segments (m, 4) as sp0 xy, sp1 xy) as
-    K5's arguments."""
-    r = torch.as_tensor(np.asarray(rays, np.float32), device=cuda)
-    s = torch.as_tensor(np.asarray(segments, np.float32), device=cuda)
+    K5's arguments, from float32 values."""
+    r = torch.as_tensor(np.asarray(rays, np.float32), device=cuda).to(dtype)
+    s = torch.as_tensor(np.asarray(segments, np.float32), device=cuda).to(dtype)
     return [t.contiguous() for t in (r[:, :2], r[:, 2:], s[:, :2], s[:, 2:])]
 
 
-def test_segment_kernels_at_the_reject_tests_edges(cuda):
+@DTYPES
+def test_segment_kernels_at_the_reject_tests_edges(cuda, dtype):
     """K5 (and K7) bit for bit with the plain version where its reject test
     has least room: |den| at i_eps, seg_u at s_lo and s_hi, ray_u at r_eps,
     each a float32 step either side; equal u on two segments (the first
     index wins); parked rays; ragged last tiles and ray counts that are not
-    a multiple of a block's rays."""
+    a multiple of a block's rays.  In float64 (no reject test) the same
+    float32 values sit a float32 step from the float64 thresholds, and
+    the same validity results follow."""
     s_lo, s_hi = np.float32(-EPS), np.float32(1.0 + EPS)
     # |den| = dy2 for a ray along +x from x = -0.5 and a segment (0, 0) ->
     # (1, dy2); the ray crosses it at seg_u = 0.5
     for e in around(EPS):
-        args = segment_case([[-0.5, e / 2, 0.5, e / 2]], [[0, 0, 1, e]], cuda)
+        args = segment_case([[-0.5, e / 2, 0.5, e / 2]], [[0, 0, 1, e]], cuda,
+                            dtype)
         check(args, "segment")
     # seg_u = oy on the segment x = 0, y in [0, 1] (den = 1)
     ys = around(s_lo) + around(s_hi) + around(0.0)
-    args = segment_case([[-0.5, y, 0.5, y] for y in ys], [[0, 0, 0, 1]], cuda)
+    args = segment_case([[-0.5, y, 0.5, y] for y in ys], [[0, 0, 0, 1]], cuda,
+                        dtype)
     valid = check(args, "segment").cpu().numpy()
     assert valid[1] and valid[4] and not valid[0] and not valid[5]
     # ray_u = r at the segment x = 0: rays start r before it
     rs = around(EPS) + around(2 * EPS) + around(0.0)
     args = segment_case([[-r, 0.5, 1 - r, 0.5] for r in rs], [[0, 0, 0, 1]],
-                        cuda)
+                        cuda, dtype)
     valid = check(args, "segment").cpu().numpy()
     assert valid[4] and not valid[7]
     # equal u = 2 on five segments through (1, 0.5), one of them twice, for
@@ -158,15 +182,15 @@ def test_segment_kernels_at_the_reject_tests_edges(cuda):
     args = segment_case([[-1, 0.25, 0, 0.25], [-1, 0.5, 0, 0.5]],
                         [[2, 0, 2, 1], [1, -1, 1, 2], [1, 0, 1, 1],
                          [1, 0, 1, 1], [0.5, 0, 1.5, 1], [0.5, 1, 1.5, 0]],
-                        cuda)
+                        cuda, dtype)
     check(args, "segment")
     _, idx, u = sk.nearest_hit_segments_kernel(*args, EPS, EPS, EPS)
     assert idx.tolist() == [4, 1] and u.tolist() == [1.75, 2.0]
     # parked rays among live ones; tiles and blocks left ragged
     rng = np.random.default_rng(11)
     for n, m in ((1000, 1025), (1025, 2049), (3000, 4097)):
-        seg = scenes2d.random_segments(rng, m, device=cuda)
-        p0, p1 = scenes2d.random_rays(rng, n, device=cuda)
+        seg = scenes2d.random_segments(rng, m, dtype=dtype, device=cuda)
+        p0, p1 = scenes2d.random_rays(rng, n, dtype=dtype, device=cuda)
         third = (torch.arange(n, device=cuda) % 3 == 0)[:, None]
         p0 = torch.where(third, torch.full_like(p0, 1e30), p0)
         p1 = torch.where(third, torch.full_like(p1, 1e30 * (1 + 1e-6)), p1)
@@ -174,15 +198,17 @@ def test_segment_kernels_at_the_reject_tests_edges(cuda):
         assert valid.any() and not valid[third[:, 0]].any()
 
 
+@DTYPES
 @pytest.mark.parametrize("label", ["tangent", "small a", "far",
                                    "wide windows", "ties", "parked"])
-def test_arc_kernels_at_the_reject_edges(cuda, label):
+def test_arc_kernels_at_the_reject_edges(cuda, label, dtype):
     """K6 and K8 bit for bit, branch flag included, with their plain
     versions on scenes2d.arc_edge_cases: the discriminant and |a| within
     float32 steps of i_eps, tangent rays, rays 13000 radii from the
     lenslets, windows wider than pi, exact ties between arcs in different
     tiles, parked rays."""
-    cases = {c[0]: c[1:] for c in scenes2d.arc_edge_cases(device=cuda)}
+    cases = {c[0]: c[1:] for c in scenes2d.arc_edge_cases(dtype=dtype,
+                                                          device=cuda)}
     p0, p1, arc = cases[label]
     valid = check(arc_args(p0, p1, arc), "arc")
     assert bool(valid.any()) == (label != "parked")

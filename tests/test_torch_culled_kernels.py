@@ -7,9 +7,10 @@ Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 ``python -m pytest tests/test_torch_culled_kernels.py -m cuda --noconftest
 -o addopts=""`` (this file imports no JAX).
 
-The kernels are built with --fmad=false and evaluate K1's float32
-operations in K1's order, and their gate only skips pairs that cannot give
-a nearer hit, so ``valid``, ``idx`` and ``u`` equal K1's exactly.
+The kernels are built with --fmad=false and evaluate K1's operations in
+K1's order, and their gate only skips pairs that cannot give a nearer hit,
+so ``valid``, ``idx`` and ``u`` equal K1's exactly.  K3 runs in float32
+and in float64 (``DTYPES``); K4 takes float32 only and refuses float64.
 """
 
 import numpy as np
@@ -23,6 +24,8 @@ from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 
 pytestmark = pytest.mark.cuda
 EPS = 1e-6
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                                 ids=["f32", "f64"])
 
 
 @pytest.fixture
@@ -32,27 +35,27 @@ def cuda():
     return torch.device("cuda")
 
 
-def sorted_soup(n_tris, n_rays, device, seed=0):
+def sorted_soup(n_tris, n_rays, device, seed=0, dtype=torch.float32):
     """A Morton-sorted random soup and rays from inside it."""
     rng = np.random.default_rng(seed)
     center = rng.uniform(-3, 3, (n_tris, 3))
     tris = [center + rng.normal(0, 0.5, (n_tris, 3)) for _ in range(3)]
-    tri, _ = morton_sort_triangles(TriangleSet.make(*tris, dtype=torch.float32,
+    tri, _ = morton_sort_triangles(TriangleSet.make(*tris, dtype=dtype,
                                                     device=device))
     p0 = rng.uniform(-4, 4, (n_rays, 3))
     d = rng.normal(0, 1, (n_rays, 3))
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = [torch.as_tensor(a, dtype=torch.float32, device=device)
+    rays = [torch.as_tensor(a, dtype=dtype, device=device)
             for a in (p0, p0 + d)]
     return rays + [tri.vp, tri.v1, tri.v2]
 
 
-def guide_slice(n_rays, device, seed=0):
+def guide_slice(n_rays, device, seed=0, dtype=torch.float32):
     """The first bounce of bench.py's structured scene at 64 x 32 rings."""
     guide = ParametricCylindricalGuide(
         (0.0, 0.0, 0.0), (0.0, 0.0, 40.0), minimum_radius=0.3, theta_res=64,
         z_res=32, rotationally_symmetric=True, initial_taper=(0.7, 0.0),
-        mat_in=1, mat_out=0, device=device)
+        mat_in=1, mat_out=0, dtype=dtype, device=device)
     with torch.no_grad():
         tri, _ = morton_sort_triangles(guide.build())
     rng = np.random.default_rng(seed)
@@ -62,43 +65,54 @@ def guide_slice(n_rays, device, seed=0):
     d = rng.normal(0, 1, (n_rays, 3))
     d[:, 2] = np.abs(d[:, 2]) * 3 + 1
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    rays = [torch.as_tensor(a, dtype=torch.float32, device=device)
+    rays = [torch.as_tensor(a, dtype=dtype, device=device)
             for a in (p0, p0 + d)]
     return rays + [tri.vp.detach(), tri.v1.detach(), tri.v2.detach()]
 
 
 def check(args):
     """K3 and K4 against K1 and against their plain versions, bit for
-    bit; returns K1's ``valid``."""
+    bit; in float64, which K4 refuses, K3 and both plain versions.
+    Returns K1's ``valid``."""
     ref = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
     before = (tk.LAUNCHES_CULLED, tk.LAUNCHES_TWOLEVEL)
-    k3 = tk.nearest_hit_triangles_culled_kernel(*args, EPS, EPS, EPS)
-    k4 = tk.nearest_hit_triangles_twolevel_kernel(*args, EPS, EPS, EPS)
+    got = [tk.nearest_hit_triangles_culled_kernel(*args, EPS, EPS, EPS)]
+    if args[0].dtype == torch.float32:
+        got.append(tk.nearest_hit_triangles_twolevel_kernel(*args, EPS, EPS,
+                                                            EPS))
+    else:
+        with pytest.raises(TypeError, match="takes float32;"):
+            tk.nearest_hit_triangles_twolevel_kernel(*args, EPS, EPS, EPS)
     torch.cuda.synchronize()
-    assert (tk.LAUNCHES_CULLED, tk.LAUNCHES_TWOLEVEL) == (before[0] + 1,
-                                                          before[1] + 1)
-    p3 = tk.nearest_hit_triangles_culled_plain(*args, EPS, EPS, EPS)
-    p4 = tk.nearest_hit_triangles_twolevel_plain(*args, EPS, EPS, EPS)
-    for got in (k3, k4, p3, p4):
-        for a, b in zip(got, ref):
+    assert (tk.LAUNCHES_CULLED, tk.LAUNCHES_TWOLEVEL) == (
+        before[0] + 1, before[1] + len(got) - 1)
+    assert ref[2].dtype == got[0][2].dtype == args[0].dtype
+    got.append(tk.nearest_hit_triangles_culled_plain(*args, EPS, EPS, EPS))
+    got.append(tk.nearest_hit_triangles_twolevel_plain(*args, EPS, EPS, EPS))
+    for out in got:
+        for a, b in zip(out, ref):
             assert torch.equal(a, b)
     return ref[0]
 
 
+@DTYPES
 @pytest.mark.parametrize("n_rays,n_tris", [(131072, 4096), (1000, 333),
                                            (256, 1), (1, 257)])
-def test_culled_kernels_equal_k1_on_a_sorted_soup(cuda, n_rays, n_tris):
-    valid = check(sorted_soup(n_tris, n_rays, cuda))
+def test_culled_kernels_equal_k1_on_a_sorted_soup(cuda, n_rays, n_tris,
+                                                  dtype):
+    valid = check(sorted_soup(n_tris, n_rays, cuda, dtype=dtype))
     if n_tris > 1 and n_rays > 1:
         assert valid.any()
 
 
-def test_culled_kernels_equal_k1_on_a_guide_slice(cuda):
-    assert check(guide_slice(65536, cuda)).any()
+@DTYPES
+def test_culled_kernels_equal_k1_on_a_guide_slice(cuda, dtype):
+    assert check(guide_slice(65536, cuda, dtype=dtype)).any()
 
 
-def test_culled_kernels_all_miss_and_parked(cuda):
-    p0, p1, vp, v1, v2 = sorted_soup(512, 5000, cuda)
+@DTYPES
+def test_culled_kernels_all_miss_and_parked(cuda, dtype):
+    p0, p1, vp, v1, v2 = sorted_soup(512, 5000, cuda, dtype=dtype)
     far = torch.full_like(p0, 100.0)
     assert not check([far, far + 1.0, vp, v1, v2]).any()
     parked = torch.full_like(p0, 1e30)
@@ -112,14 +126,15 @@ def test_culled_kernels_all_miss_and_parked(cuda):
     assert check([mix0, mix1, vp, v1, v2]).any()
 
 
-def test_culled_blocks_parked_full_and_single(cuda):
+@DTYPES
+def test_culled_blocks_parked_full_and_single(cuda, dtype):
     """K3 against its plain version and K1: a block whose rays are all
     parked, a block in which every ray needs every tile (rays along the
     plane of edge-on triangles: no hit, so no ray's best ever culls a box
     its line crosses), and a block in which one ray needs a tile (the
     others point away from the soup)."""
     ray_block = 256                  # kBlock in csrc/triangle_search_culled.cu
-    p0, p1, vp, v1, v2 = sorted_soup(2000, 3 * ray_block, cuda)
+    p0, p1, vp, v1, v2 = sorted_soup(2000, 3 * ray_block, cuda, dtype=dtype)
     b = slice(0, ray_block)
     p0[b], p1[b] = 1e30, 1e30 * (1 + 1e-6)              # all parked
     one = slice(ray_block, 2 * ray_block)
@@ -135,12 +150,11 @@ def test_culled_blocks_parked_full_and_single(cuda):
     x = np.sort(rng.uniform(0, 100, m))
     tri = [np.stack([x + rng.uniform(-1, 1, m), np.zeros(m),
                      rng.uniform(-1, 1, m)], 1) for _ in range(3)]
-    tri = [torch.as_tensor(t, dtype=torch.float32, device=cuda) for t in tri]
+    tri = [torch.as_tensor(t, dtype=dtype, device=cuda) for t in tri]
     n = 2 * ray_block + 7
-    z = torch.as_tensor(rng.uniform(-0.5, 0.5, n), dtype=torch.float32,
-                        device=cuda)
+    z = torch.as_tensor(rng.uniform(-0.5, 0.5, n), dtype=dtype, device=cuda)
     q0 = torch.stack([torch.full_like(z, -1.0), torch.zeros_like(z), z], 1)
-    q1 = q0 + torch.tensor([1.0, 0.0, 0.0], device=cuda)
+    q1 = q0 + torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=cuda)
     assert not check([q0, q1, *tri]).any()
 
 
@@ -186,8 +200,10 @@ def test_culled_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
     p0, p1, vp, v1, v2 = sorted_soup(16, 32, cuda)
     for fn in (tk.nearest_hit_triangles_culled_kernel,
                tk.nearest_hit_triangles_twolevel_kernel):
-        with pytest.raises(TypeError):
+        with pytest.raises(TypeError, match="one dtype"):
             fn(p0.double(), p1, vp, v1, v2, EPS, EPS, EPS)
+        with pytest.raises(TypeError, match="takes float32"):
+            fn(*(t.half() for t in (p0, p1, vp, v1, v2)), EPS, EPS, EPS)
         with pytest.raises(ValueError, match="contiguous"):
             fn(p0.T.contiguous().T, p1, vp, v1, v2, EPS, EPS, EPS)
         with pytest.raises(ValueError, match="is on"):
