@@ -302,8 +302,8 @@ exits non-zero without printing a result):
    profiled (idle share).  19b examples/cooke_triplet.py at its defaults
    (48 rays x 3 lines x 3 fields, Adam under the cosine schedule): one
    step by CUDA events and under the profiler (kernels a step, idle
-   share), then the design, cut below 2000 steps only as far as 100 s
-   force (never below 200), and the example's check rms1 < rms0 / 2.
+   share), then the design cut to 100 of its 2000 steps behind
+   ``cut_probe``, and the example's check rms1 < rms0 / 2.
    19c examples/paraxial_analysis.py and lens_report.py in float32 on the
    card: their checks, and every number held against the CPU's float64
    within the tolerances stated at ``FIRST_ORDER_RTOL``.  19d the
@@ -411,6 +411,21 @@ exits non-zero without printing a result):
    CPU port's float64 run, every ray landing.  The kernels line gives
    K1, K3, K5 and K6 ``dtypes`` and their float64 ``max_abs_err``, ``ms``
    (by CUDA events), ``plain_ms``, ``bound_ms`` and launches.
+25. the float64 culled and two-level searches: 25a K4 at the 3D guide's
+   first bounce (2^20 x 16,386) and K7-K10 at the 2D guide's (2^20 x 4098
+   segments and 512 arcs), 10 launches each alone on their inputs
+   prepared once, timed by CUDA events, every launch bit for bit with the
+   plain version, which the brute search's float64 kernel (K1, K5, K6)
+   equals too; the wrapper's and the plain version's times, the bound at
+   the FP64 peak and the kernel's ratio to it; then 24a's parked, all-miss
+   and tie cases and, for K4, K9 and K10, a forced list overflow (the cap
+   lowered to 2, 1 for K10's two chunks).  25b three float64 traces at
+   full width with the re-sort: the 3D guide under ``"grid"`` (K4 24
+   launches) and the 2D guide under ``cull=True`` (K7, K8 50 each) and
+   ``"grid"`` (K9, K10 50 each), no other search launched, each bit for
+   bit with 24b's float64 trace of its scene.  The kernels line gives K4
+   and K7-K10 their float64 fields as 24 does K1, K3, K5 and K6, with
+   ``wrapper_ms``.
 23. every design path run twice from the same seeds and generators, in
    one process, ``REPEAT_STEPS`` (5) steps each, the streamed training's
    4 whole: the flagship and the hexalens trainings (and the hexalens's
@@ -458,8 +473,9 @@ and K8 launched alone at the 2D guide's first bounce (see
 and two 32,768-row tables, in float32 and float64 (see
 ``segsum_alone``); neither prints a result line.
 ``python3 chip_smoke.py --float64-alone`` runs phases 1 and 2 and times
-K1, K3, K5 and K6 alone at phase 24a's shapes in float32 and float64, by
-CUDA events and device time, beside each dtype's bound, then the 3D and 2D
+the nine searches alone at phases 24a's and 25a's shapes in float32 and
+float64, in turns, by CUDA events and device time, beside each dtype's
+bound, then the 3D and 2D
 guides' traces under ``TraceConfig.recommended`` in both dtypes, in
 turns (see ``float64_alone``); copied into the root of an earlier
 checkout, it times that checkout's float32 kernels the same way.  It
@@ -480,6 +496,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 import warnings
 
 N_SOUP_TRIS = 4094
@@ -655,10 +672,10 @@ SVM_RAYS = 1 << 20
 SVM_TRIANGLES = 35826
 COOKE_STEPS = 2000         # the example's default
 # cut so that the script stays inside its time limit: the step is
-# host-bound, ~190-290 ms on the H100 (11,750 launches), and the loss
-# settles by step 200, the floor of the cut
-COOKE_CUT_STEPS = 200
-COOKE_BUDGET_S = 120.0     # the most the cut design may take by the probe
+# host-bound, ~190-290 ms on the H100 (11,750 launches); at 100 steps the
+# CPU's float32 design takes the mean RMS spot to 0.0039 of its start (200
+# steps: 0.0036, the card's 0.0036), where 19b's check asks for 0.5
+COOKE_CUT_STEPS = 100
 COOKE_TIMED = 20           # steps timed one by one by CUDA events
 COOKE_PROFILED = 3
 # the card's float32 against the CPU's float64 (19c): the CPU's own
@@ -705,7 +722,7 @@ HYBRID_CUT_STEPS = 400
 TOL_DESIGN_CUT_STEPS = 200  # the nominal design's 400 (populations.py)
 CUT_BUDGET_S = {"wavefront_lens": 20.0, "achromat": 60.0,
                 "hybrid_achromat": 100.0, "asphere_singlet": 30.0,
-                "strehl_lens": 20.0}
+                "strehl_lens": 20.0, "cooke_triplet": 60.0}
 EXAMPLE_TIMED = 5           # steps timed one by one by CUDA events
 EXAMPLE_PROFILED = 2
 # --dispatch-cost: rounds of interleaved_ms, and runs a round
@@ -3550,8 +3567,14 @@ def gradients(loss, params):
 # kernel: (module under ops, the wrappers' common stem)
 SEARCH_WRAPPERS = {"K1": ("triangle_kernels", "nearest_hit_triangles"),
                    "K3": ("triangle_kernels", "nearest_hit_triangles_culled"),
+                   "K4": ("triangle_kernels",
+                          "nearest_hit_triangles_twolevel"),
                    "K5": ("segment_kernels", "nearest_hit_segments"),
-                   "K6": ("arc_kernels", "nearest_hit_arcs")}
+                   "K6": ("arc_kernels", "nearest_hit_arcs"),
+                   "K7": ("segment_kernels", "nearest_hit_segments_culled"),
+                   "K8": ("arc_kernels", "nearest_hit_arcs_culled"),
+                   "K9": ("segment_kernels", "nearest_hit_segments_twolevel"),
+                   "K10": ("arc_kernels", "nearest_hit_arcs_twolevel")}
 
 
 def search_module(kernel):
@@ -4094,9 +4117,7 @@ def phase_19(device):
     probe_ms = statistics.median(step_ms)
     mean_s = statistics.fmean(step_ms) * 1e-3
     steps = COOKE_CUT_STEPS
-    check(mean_s * steps <= COOKE_BUDGET_S,
-          f"19b a step takes {mean_s * 1e3:.3f} ms: {steps} steps would "
-          f"take more than {COOKE_BUDGET_S:.0f} s")
+    cut_probe("cooke_triplet", step_ms, steps)
     prof, _, cooke_shares = profiled_steps(probe, COOKE_PROFILED,
                                            "profiled", {})
     per_step = device_profile(prof)[2] / COOKE_PROFILED
@@ -5373,14 +5394,34 @@ F64_STEPS = 5            # 24d: the achromat doublet's steps
 F64_ACHROMAT_RTOL = 1e-9  # 24d: the card's losses against the CPU's
 F64_REPLAY_STRIDE = 64   # 24b: every 64th ray of each 2D call replayed
 F64_TRACE_REPS = 3       # --float64-alone: traces a dtype, after one
+# the culled and two-level searches (phase 25): the brute search whose
+# hits they return, the CUDA kernel's name in float32 and in float64, the
+# launch counter
+F64_CULLED = {
+    "K4": ("K1", "triangle_search_twolevel_kernel",
+           "triangle_search_twolevel_f64_kernel", "LAUNCHES_TWOLEVEL"),
+    "K7": ("K5", "segment_search_culled_kernel",
+           "segment_search_culled_f64_kernel", "LAUNCHES_CULLED"),
+    "K8": ("K6", "arc_search_culled_kernel", "arc_search_culled_f64_kernel",
+           "LAUNCHES_CULLED"),
+    "K9": ("K5", "segment_search_twolevel_kernel",
+           "segment_search_twolevel_f64_kernel", "LAUNCHES_TWOLEVEL"),
+    "K10": ("K6", "arc_search_twolevel_kernel",
+            "arc_search_twolevel_f64_kernel", "LAUNCHES_TWOLEVEL"),
+}
+BRUTE_OF = {"K3": "K1", **{k: v[0] for k, v in F64_CULLED.items()}}
+# 25a's forced overflow: the lowered cap of each two-level search's lists
+# (K10's 512 arcs make two chunks, so only a cap of 1 overflows)
+F64_OVERFLOW_CAP = {"K4": 2, "K9": 2, "K10": 1}
+ARC_SEARCHES = ("K6", "K8", "K10")   # the searches that take no size_eps
 
 
 def f64_search(key, plain=False):
-    """Search ``key`` of ``F64_SEARCHES`` (its wrapper, or its plain
+    """Search ``key`` of ``SEARCH_WRAPPERS`` (its wrapper, or its plain
     version) as a function of its tensor arguments."""
     mod, stem = search_module(key)
     fn = getattr(mod, stem + ("_plain" if plain else "_kernel"))
-    eps = (EPS, EPS) if key == "K6" else (EPS, EPS, EPS)
+    eps = (EPS, EPS) if key in ARC_SEARCHES else (EPS, EPS, EPS)
     return lambda args: fn(*args, *eps)
 
 
@@ -5395,41 +5436,57 @@ def reset_f64_launches():
         setattr(search_module(key)[0], counter, 0)
 
 
-def search_shapes(dtype, device):
-    """Phase 24a's shapes in ``dtype``, ``{key: tensor arguments}``: K1 at
-    the soup's first bounce (2^20 rays x 4096 triangles, unsorted as in
-    phase 5), K3 at the 3D guide's (2^20 x 16,386), K5 and K6 at the 2D
-    guide's (2^20 x 4098 segments, x 512 arcs), the guides' rays in the
-    re-sort's Morton order as in phases 10 and 13."""
+def search_shapes(dtype, device, keys=("K1", "K3", "K5", "K6")):
+    """The main shapes of the searches ``keys`` in ``dtype``, ``{key:
+    tensor arguments}``: K1 at the soup's first bounce (2^20 rays x 4096
+    triangles, unsorted as in phase 5), K3 and K4 at the 3D guide's (2^20 x
+    16,386), K5, K7 and K9 at the 2D guide's segments (2^20 x 4098), K6, K8
+    and K10 at its arcs (x 512), the guides' rays in the re-sort's Morton
+    order as in phases 10 and 13.  Each scene is built only if a key
+    needs it."""
     from tensorflowraytrace_tpu_torch import scenes2d
     from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
 
-    rays, scene = soup_scene(BENCH_RAYS, device, dtype=dtype)
-    t = scene.triangles
-    cases = {"K1": [a.detach().contiguous()
-                    for a in (rays.p0, rays.p1, t.vp, t.v1, t.v2)]}
-    g_rays, g_scene = structured_guide(GUIDE_RAYS, dtype=dtype, device=device)
-    cases["K3"] = [a.detach() for a in first_bounce_3d(g_rays,
-                                                       g_scene.triangles)]
-    r2, s2, _ = scenes2d.light_guide(GUIDE2D_RAYS, dtype=dtype, device=device)
-    p0, p1 = first_bounce_2d(r2, s2.segments)
-    cases["K5"] = surface_args(p0, p1, s2.segments)
-    cases["K6"] = surface_args(p0, p1, s2.arcs)
-    return cases
+    cases = {}
+    if "K1" in keys:
+        rays, scene = soup_scene(BENCH_RAYS, device, dtype=dtype)
+        t = scene.triangles
+        cases["K1"] = [a.detach().contiguous()
+                       for a in (rays.p0, rays.p1, t.vp, t.v1, t.v2)]
+    if {"K3", "K4"} & set(keys):
+        g_rays, g_scene = structured_guide(GUIDE_RAYS, dtype=dtype,
+                                           device=device)
+        cases["K3"] = cases["K4"] = [
+            a.detach() for a in first_bounce_3d(g_rays, g_scene.triangles)]
+    if {"K5", "K6", "K7", "K8", "K9", "K10"} & set(keys):
+        r2, s2, _ = scenes2d.light_guide(GUIDE2D_RAYS, dtype=dtype,
+                                         device=device)
+        p0, p1 = first_bounce_2d(r2, s2.segments)
+        cases["K5"] = cases["K7"] = cases["K9"] = surface_args(
+            p0, p1, s2.segments)
+        cases["K6"] = cases["K8"] = cases["K10"] = surface_args(p0, p1,
+                                                                s2.arcs)
+    return {key: cases[key] for key in keys}
 
 
 def search_bound(key, args, u, peak):
     """The least time of search ``key`` on ``args`` (final hits ``u``), as
     phases 5, 10 and 13 count it: the operations these inputs need at
     ``peak`` (FP32 or FP64) against the bytes read and written once at
-    PEAK_BYTES_S.  Returns ``(bound ms, "operations" or "bytes",
-    pairs)``."""
+    PEAK_BYTES_S.  A culled or two-level search is charged the pairs of
+    the chunks its slab test admits up to its final hit (K3 and K4 at the
+    finer of their chunks, K7-K10 at 256 surfaces).  Returns ``(bound ms,
+    "operations" or "bytes", pairs)``."""
+    from tensorflowraytrace_tpu_torch.models.acceleration import (
+        chunk_aabbs_2d, chunk_aabbs_arcs,
+    )
     from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 
     n, m = args[0].shape[0], args[2].shape[0]
     size = args[0].element_size()
-    if key in ("K1", "K3"):
+    if key in ("K1", "K3", "K4"):
         if key == "K1":
             pairs = n * m
             out = tk.pairs_out_on_tu(*args, EPS, EPS)
@@ -5437,15 +5494,23 @@ def search_bound(key, args, u, peak):
             pairs, out = triangle_pairs(*args, u,
                                         min(tk.CULL_CHUNK, tk.FINE_CHUNK))
         ops = (pairs - out) * K1_FLOPS_PER_PAIR + out * TU_FLOPS_PER_PAIR
-    elif key == "K5":
-        pairs = n * m
+    elif key in ("K5", "K7", "K9"):
+        pairs = n * m if key == "K5" else admitted_pairs(
+            args[0], args[1], chunk_aabbs_2d(args[2], args[3], gk.CULL_CHUNK),
+            m, u, gk.CULL_CHUNK)
         ops = pairs * SEG_FLOPS_PER_PAIR
     else:
-        pairs = n * m
-        past = ak.admitted_arc_pairs(args[0], args[1], args[2], args[5], EPS)
+        if key == "K6":
+            pairs = n * m
+            past = ak.admitted_arc_pairs(args[0], args[1], args[2], args[5],
+                                         EPS)
+        else:
+            arcs = types.SimpleNamespace(center=args[2], radius=args[5])
+            pairs, past = arc_work(args[0], args[1], chunk_aabbs_arcs(
+                *args[2:], gk.CULL_CHUNK), arcs, u)
         ops = past * ARC_FLOPS_PER_PAIR + (pairs - past) * ARC_REJECT_FLOPS
     moved = (sum(a.numel() for a in args) * size
-             + n * (size + 4 + (1 if key == "K6" else 0)))
+             + n * (size + 4 + (1 if key in ARC_SEARCHES else 0)))
     ops_ms, bytes_ms = ops / peak * 1e3, moved / PEAK_BYTES_S * 1e3
     return (max(ops_ms, bytes_ms),
             "operations" if ops_ms >= bytes_ms else "bytes", pairs)
@@ -5501,11 +5566,12 @@ def differ(got, want):
             for a, b in zip(got, want)]
 
 
-def check_f64_case(key, label, args):
+def check_f64_case(key, label, args, phase="24a"):
     """Search ``key`` on ``args`` (float64) against its plain version bit
-    for bit (K1 also at each rays a thread it is compiled for; K3 also
-    against K1), the outputs in the rays' dtype.  Returns the plain
-    output.  These launches are comparisons, not the main path."""
+    for bit (K1 also at each rays a thread it is compiled for; a culled or
+    two-level search's brute search's float64 kernel too, ``BRUTE_OF``),
+    the outputs in the rays' dtype.  Returns the plain output.  These
+    launches are comparisons, not the main path."""
     import torch
 
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
@@ -5516,18 +5582,35 @@ def check_f64_case(key, label, args):
         for rpt in tk.BRUTE_RAYS_PER_THREAD:
             got[f"{rpt} rays a thread"] = tk.brute_launch(
                 *args, EPS, EPS, EPS, rays_per_thread=rpt)
-    if key == "K3":
-        got["K1"] = f64_search("K1")(args)
+    if key in BRUTE_OF:
+        got[BRUTE_OF[key]] = f64_search(BRUTE_OF[key])(args)
     torch.cuda.synchronize()
     for name, out in got.items():
         diffs = differ(out, plain)
         check(out[2].dtype == torch.float64 and not any(diffs),
-              f"phase 24a {key} {label} ({name}): {diffs} elements differ "
-              f"from the plain version (u is {out[2].dtype})")
-    print(f"phase 24a {key} {label}: N={args[0].shape[0]} "
+              f"phase {phase} {key} {label} ({name}): {diffs} elements "
+              f"differ from the plain version (u is {out[2].dtype})")
+    print(f"phase {phase} {key} {label}: N={args[0].shape[0]} "
           f"M={args[2].shape[0]} hits={int(plain[0].sum())}; bit for bit "
           f"with the plain version: {', '.join(got)}", flush=True)
     return plain
+
+
+def check_edge_cases(phase, key, args):
+    """``f64_edge_cases`` of search ``key`` through ``check_f64_case``,
+    each case's hits as it needs them: ties, a hit on the first copy;
+    all-miss, no hit; parked, none on a parked ray."""
+    for label, edge in f64_edge_cases(key, args).items():
+        valid, idx = check_f64_case(key, label, edge, phase)[:2]
+        if label == "ties":
+            ok = bool(valid.any()) and int(idx.max()) < args[2].shape[0]
+        elif label == "all-miss":
+            ok = not bool(valid.any())
+        else:
+            ok = bool(valid.any()) and not bool(valid[::3].any())
+        check(ok, f"phase {phase} {key} {label}: the hits are not as the "
+              "case needs (ties: a hit on the first copy; all-miss: no "
+              "hit; parked: none on a parked ray)")
 
 
 def phase_24a(device):
@@ -5578,17 +5661,7 @@ def phase_24a(device):
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
               f"{bound_ms:.5f} ms ({bound_by} at the FP64 peak; {pairs} "
               f"pairs)", flush=True)
-        for label, edge in f64_edge_cases(key, args).items():
-            valid, idx = check_f64_case(key, label, edge)[:2]
-            if label == "ties":
-                ok = bool(valid.any()) and int(idx.max()) < args[2].shape[0]
-            elif label == "all-miss":
-                ok = not bool(valid.any())
-            else:
-                ok = bool(valid.any()) and not bool(valid[::3].any())
-            check(ok, f"phase 24a {key} {label}: the hits are not as the "
-                  "case needs (ties: a hit on the first copy; all-miss: no "
-                  "hit; parked: none on a parked ray)")
+        check_edge_cases("24a", key, args)
         del args, plain, u, valid
     return fields
 
@@ -5599,7 +5672,8 @@ def phase_24b(device):
     K1 float64 trace, bit for bit; the 2D guide (50 bounces: K5 + K6),
     every search call replayed through its plain version on every
     F64_REPLAY_STRIDE-th ray, bit for bit.  Each search launches once a
-    bounce.  Returns the launch counts."""
+    bounce.  Returns the launch counts and each guide's final rays
+    (``{"3D guide": rays, "2D guide": rays}``, phase 25b's references)."""
     import dataclasses
 
     import torch
@@ -5647,7 +5721,8 @@ def phase_24b(device):
           f"phase 24b 3D guide: recommended against brute {same}")
     print(f"phase 24b 3D guide: recommended (K3 + re-sort) bit for bit with "
           f"the brute K1 trace {same}", flush=True)
-    del rays, scene, finals, got, ref
+    refs = {"3D guide": ref}
+    del rays, scene, finals, got
 
     rays, scene, materials = scenes2d.light_guide(GUIDE2D_RAYS, dtype=f64,
                                                   device=device)
@@ -5679,7 +5754,8 @@ def phase_24b(device):
           f"[active,finished,stopped,dead] {state_counts(res.state)}; "
           f"{calls} calls, each bit for bit with the plain version on every "
           f"{F64_REPLAY_STRIDE}th ray", flush=True)
-    return launched
+    refs["2D guide"] = res
+    return launched, refs
 
 
 def phase_24c(device):
@@ -5802,9 +5878,10 @@ def phase_24d(device):
 
 def phase_24(device):
     """Float64 on the card: 24a-24d.  Returns the kernels-line fields of
-    K1, K3, K5 and K6 in float64, with the main paths' launches."""
+    K1, K3, K5 and K6 in float64, with the main paths' launches, and
+    24b's final rays of the two guides."""
     fields = phase_24a(device)
-    launched = phase_24b(device)
+    launched, refs = phase_24b(device)
     launched.update(phase_24c(device))
     achromat = phase_24d(device)
     fields["K1"]["launches"] = {"guide3d_brute": launched["K1_guide3d"],
@@ -5815,58 +5892,263 @@ def phase_24(device):
         fields[key]["launches"] = {"guide2d_recommended":
                                    launched[f"{key}_guide2d"],
                                    "achromat": achromat[key]}
+    return fields, refs
+
+
+# ---------------------------------------------------------------------
+# phase 25: the float64 culled and two-level searches on the card
+# ---------------------------------------------------------------------
+
+def search_launches():
+    """Every search kernel's launch count since the last reset, K1-K10
+    (K2 is not a search)."""
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    return {"K1": tk.LAUNCHES, "K3": tk.LAUNCHES_CULLED,
+            "K4": tk.LAUNCHES_TWOLEVEL, **launches_2d()}
+
+
+def reset_search_launches():
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    tk.LAUNCHES = tk.LAUNCHES_CULLED = tk.LAUNCHES_TWOLEVEL = 0
+    reset_2d_launches()
+
+
+def search_halves(key, args):
+    """Search ``key``'s wrapper on ``args`` in its two halves, ``(prepare,
+    launch)``: its inputs' preparation (K4's, K7-K10's and K6's tables,
+    boxes and lists) and its launch on them, so that the launch can be
+    timed alone; K1, K3 and K5 prepare nothing."""
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    if key == "K4":
+        m = args[2].shape[0]
+        return (lambda: tk.twolevel_prepare(*args, EPS, EPS),
+                lambda prep: tk.twolevel_launch(args[0], args[1], m, prep,
+                                                EPS, EPS, EPS))
+    if key in ("K1", "K3"):
+        return lambda: None, lambda _: f64_search(key)(args)
+    kind = "arc" if key in ARC_SEARCHES else "segment"
+    variant = next(v for v, (k, _) in SEARCHES_2D[kind].items() if k == key)
+    return alone_2d(kind, args, args[2].shape[0])[variant]
+
+
+def phase_25a(device):
+    """K4, K7, K8, K9 and K10 in float64 at their main shapes (K4 at the 3D
+    guide's first bounce, K7-K10 at the 2D guide's; ``search_shapes``):
+    F64_LAUNCHES launches of each kernel alone on its inputs prepared once,
+    timed by CUDA events, each bit for bit with the plain version, which
+    the brute search's float64 kernel equals too on the same tensors; the
+    wrapper's and the plain version's times; the bound at the FP64 peak
+    and the kernel's ratio to it; then the parked, all-miss and tie cases
+    and, for the two-level searches, a forced overflow (the cap lowered to
+    F64_OVERFLOW_CAP, on the parked case's rays).  Returns the kernels-line
+    fields by key."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
+    from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
+
+    fields = {}
+    for key, args in search_shapes(torch.float64, device,
+                                   tuple(F64_CULLED)).items():
+        brute = BRUTE_OF[key]
+        plain, plain_ms = timed_once(lambda: f64_search(key, plain=True)(args))
+        diffs = differ(f64_search(brute)(args), plain)
+        check(not any(diffs), f"phase 25a {key}: {brute}'s float64 kernel "
+              f"differs from {key}'s plain version: {diffs}")
+        prepare, launch = search_halves(key, args)
+        prepared = prepare()
+        launch(prepared)  # warm-up
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = [launch(prepared) for _ in range(F64_LAUNCHES)]
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop) / F64_LAUNCHES
+        for k, out in enumerate(outs):
+            diffs = differ(out, plain)
+            check(out[2].dtype == torch.float64 and not any(diffs),
+                  f"phase 25a {key} launch {k}: {diffs} elements differ from "
+                  "the plain version")
+        valid, u = plain[0], plain[2]
+        err = max(float((out[2] - u)[valid].abs().max()) if valid.any()
+                  else 0.0 for out in outs)
+        del outs, prepared
+        wrapper_ms = cuda_ms(lambda: f64_search(key)(args), F64_LAUNCHES)
+        bound_ms, bound_by, pairs = search_bound(key, args, u,
+                                                 PEAK_FP64_FLOP_S)
+        fields[key] = {
+            "max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "pairs": pairs, "shape": f"{args[0].shape[0]}x{args[2].shape[0]}"}
+        print(f"phase 25a {key} float64 {args[0].shape[0]}x"
+              f"{args[2].shape[0]}: {F64_LAUNCHES} launches, each bit for "
+              f"bit with the plain version, as {brute}'s float64 kernel is; "
+              f"hits {int(valid.sum())}; kernel {ms:.4f} ms, wrapper "
+              f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.5f} ms ({bound_by} at the FP64 peak; {pairs} "
+              f"pairs), the kernel {ms / bound_ms:.1f}x it", flush=True)
+        check_edge_cases("25a", key, args)
+        if key in F64_OVERFLOW_CAP:
+            cap = F64_OVERFLOW_CAP[key]
+            n = min(F64_EDGE_RAYS, args[0].shape[0])
+            sub = [args[0][:n], args[1][:n], *args[2:]]
+            with override(tk if key == "K4" else gk, TWOLEVEL_MAX_CAND=cap):
+                lists = search_halves(key, sub)[0]()
+                n_chunks = lists[1].shape[0]
+                sweeps = int((lists[2] == n_chunks).sum())
+                check(lists[4] == cap < n_chunks and sweeps > 0,
+                      f"phase 25a {key}: the cap {cap} forced no overflow")
+                valid = check_f64_case(key, f"forced overflow (cap {cap}, "
+                                       f"{sweeps} of {lists[2].shape[0]} "
+                                       f"blocks sweep)", sub, "25a")[0]
+            check(bool(valid.any()), f"phase 25a {key}: no hit under the "
+                  "forced overflow")
+        del args, plain, u, valid
+    return fields
+
+
+def phase_25b(device, refs):
+    """Three float64 traces at full width, each with the re-sort: the 3D
+    guide under cull="grid" (K4, 24 bounces), the 2D guide under cull=True
+    (K7 + K8) and under "grid" (K9 + K10), 50 bounces each, from
+    ``TraceConfig.recommended``'s settings.  Each search launches once a
+    bounce and no other search runs; state, p0 and p1 equal, bit for bit,
+    24b's float64 trace of the same scene (``refs``: K3 + re-sort in 3D,
+    K5 + K6 in 2D).  Returns the launch counts."""
+    import torch
+
+    from tensorflowraytrace_tpu_torch import TraceConfig, scenes2d, trace
+    from tensorflowraytrace_tpu_torch.ops import materials as mats
+    from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
+
+    f64 = torch.float64
+    rays, scene = structured_guide(GUIDE_RAYS, dtype=f64, device=device)
+    base3d = TraceConfig.recommended(scene, max_bounces=GUIDE_BOUNCES,
+                                     device=device)
+    runs = [("3D guide", "grid", ("K4",), rays, scene,
+             (mats.vacuum, mats.acrylic), base3d)]
+    r2, s2, m2 = scenes2d.light_guide(GUIDE2D_RAYS, dtype=f64, device=device)
+    base2d = TraceConfig.recommended(s2, max_bounces=50, dead_ray_length=10.0,
+                                     device=device)
+    runs += [("2D guide", True, ("K7", "K8"), r2, s2, m2, base2d),
+             ("2D guide", "grid", ("K9", "K10"), r2, s2, m2, base2d)]
+    launched = {}
+    for label, cull, keys, rays, scene, materials, base in runs:
+        cfg = dataclasses.replace(base, cull=cull, resort_rays=True)
+        reset_search_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            got = trace(rays, scene, materials, cfg).rays
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = search_launches()
+        want = {k: cfg.max_bounces if k in keys else 0 for k in counts}
+        check(counts == want, f"phase 25b {label} cull={cull!r}: launches "
+              f"{counts}")
+        ref = refs[label]
+        same = {f: same_bits(getattr(got, f), getattr(ref, f))
+                for f in ("state", "p0", "p1")}
+        check(all(same.values()) and got.p1.dtype == f64
+              and bool(torch.isfinite(got.p1).all()),
+              f"phase 25b {label} cull={cull!r} against 24b's trace {same}")
+        mine = {k: counts[k] for k in keys}
+        launched.update({f"{k}_{label[:2].lower()}": c
+                         for k, c in mine.items()})
+        print(f"phase 25b {label} float64 cull={cull!r} + re-sort "
+              f"({' + '.join(keys)}): {dt * 1e3:.3f} ms, launches {mine} "
+              f"(no other search), states"
+              f"[active,finished,stopped,dead] {state_counts(got.state)}; "
+              f"bit for bit with 24b's trace {same}", flush=True)
+        del got
+    return launched
+
+
+def phase_25(device, refs):
+    """The float64 culled and two-level searches on the card: 25a, 25b.
+    Returns the kernels-line fields of K4 and K7-K10 in float64, with the
+    main paths' launches."""
+    fields = phase_25a(device)
+    launched = phase_25b(device, refs)
+    fields["K4"]["launches"] = {"guide3d_grid_resort": launched["K4_3d"]}
+    for key in ("K7", "K8"):
+        fields[key]["launches"] = {"guide2d_cull_resort":
+                                   launched[f"{key}_2d"]}
+    for key in ("K9", "K10"):
+        fields[key]["launches"] = {"guide2d_grid_resort":
+                                   launched[f"{key}_2d"]}
     return fields
 
 
 def float64_alone(device):
-    """``--float64-alone``: K1, K3, K5 and K6 launched alone at phase 24a's
-    shapes in float32 and, where the checkout has float64 instances, in
-    float64: by CUDA events (the wrapper, mean of 10 launches after one;
-    K6's launch apart from its table) and by device time, each checked
-    against its first launch bit for bit, with each dtype's bound
-    (operations at the FP32 or FP64 peak, or bytes); then the 3D guide
-    (24 bounces) and the 2D guide (50) under TraceConfig.recommended in
-    both dtypes, in turns (float32, float64, float64, float32), median of
+    """``--float64-alone``: the nine searches (K1, K3-K10) launched alone at
+    phases 24a's and 25a's shapes in float32 and, where the checkout has
+    float64 instances, in float64, in turns (float32, float64, float64,
+    float32): by CUDA events (mean of 10 launches after one, each launch
+    apart from its inputs' preparation, ``search_halves``) and by device
+    time, each checked against its first launch bit for bit, with each
+    dtype's bound (operations at the FP32 or FP64 peak, or bytes); then the
+    3D guide (24 bounces) and the 2D guide (50) under
+    TraceConfig.recommended in both dtypes, in turns, median of
     F64_TRACE_REPS synchronised traces after one.  Copied into the root of
     an earlier checkout, it times that checkout's float32 kernels the same
-    way and prints that it has no float64 instances."""
+    way and prints which float64 instances it lacks."""
     import torch
 
     from tensorflowraytrace_tpu_torch import TraceConfig, scenes2d, trace
-    from tensorflowraytrace_tpu_torch.ops import arc_kernels as ak
     from tensorflowraytrace_tpu_torch.ops import materials as mats
     from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
     from tensorflowraytrace_tpu_torch.scenes3d import structured_guide
 
     has_f64 = hasattr(tk, "LAUNCH_CULLED")
+    has_culled_f64 = hasattr(tk, "LAUNCH_TWOLEVEL")
     dtypes = [torch.float32] + ([torch.float64] if has_f64 else [])
     if not has_f64:
         print("float64 alone: this checkout has no float64 searches; "
               "float32 only", flush=True)
-    for dtype in dtypes:
+    elif not has_culled_f64:
+        print("float64 alone: this checkout has no float64 culled or "
+              "two-level searches; K4 and K7-K10 in float32 only",
+              flush=True)
+    names = {**{k: v[:2] for k, v in F64_SEARCHES.items()},
+             **{k: v[1:3] for k, v in F64_CULLED.items()}}
+    keys = ("K1", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10")
+    shapes = {dtype: search_shapes(dtype, device, keys) for dtype in dtypes}
+    bounds = {}
+    for dtype in dtypes + dtypes[::-1]:
         name = str(dtype).removeprefix("torch.")
-        peak = PEAK_FP32_FLOP_S if dtype == torch.float32 else PEAK_FP64_FLOP_S
-        for key, args in search_shapes(dtype, device).items():
-            fn = f64_search(key)
-            first = fn(args)
-            if key == "K6":
-                table = ak.prepare(*args[2:])
-                launch = lambda: ak.launch(args[0], args[1], table, EPS, EPS)
-            else:
-                launch = lambda: fn(args)
-            ms = cuda_ms(launch, 10)
-            kernel = F64_SEARCHES[key][0 if dtype == torch.float32 else 1]
-            dev = kernel_device_ms(launch, kernel)
-            diffs = differ(launch(), first)
+        f32 = dtype == torch.float32
+        for key, args in shapes[dtype].items():
+            if not (f32 or key in F64_SEARCHES or has_culled_f64):
+                continue
+            prepare, launch = search_halves(key, args)
+            prepared = prepare()
+            first = launch(prepared)
+            ms = cuda_ms(lambda: launch(prepared), 10)
+            dev = kernel_device_ms(lambda: launch(prepared),
+                                   names[key][0 if f32 else 1])
+            diffs = differ(launch(prepared), first)
             check(not any(diffs), f"float64 alone {key} {name}: a launch "
                   f"differs from the first: {diffs}")
-            bound_ms, bound_by, pairs = search_bound(key, args, first[2], peak)
+            # K4, K9 and K10 share the bounds of K3, K7 and K8
+            family = (dtype, {"K4": "K3", "K9": "K7", "K10": "K8"}.get(key,
+                                                                     key))
+            if family not in bounds:
+                bounds[family] = search_bound(
+                    key, args, first[2],
+                    PEAK_FP32_FLOP_S if f32 else PEAK_FP64_FLOP_S)
+            bound_ms, bound_by, pairs = bounds[family]
             dev_ms = "not measured" if dev is None else f"{dev:.4f} ms"
             print(f"float64 alone {key} {name} {args[0].shape[0]}x"
                   f"{args[2].shape[0]}: kernel {ms:.4f} ms by CUDA events, "
                   f"device time {dev_ms}; bound {bound_ms:.5f} ms "
                   f"({bound_by}; {pairs} pairs)", flush=True)
-            del args, first
+            del prepared, first
+    del shapes
     scenes = {}
     for dtype in dtypes:
         rays, scene = structured_guide(GUIDE_RAYS, dtype=dtype, device=device)
@@ -6508,8 +6790,13 @@ def main():
     done("23")
 
     # ---- phase 24: float64 on the card (K1, K3, K5, K6; K2)
-    f64 = phase_24(device)
+    f64, f64_traces = phase_24(device)
     done("24")
+
+    # ---- phase 25: the float64 culled and two-level searches (K4, K7-K10)
+    f64.update(phase_25(device, f64_traces))
+    del f64_traces
+    done("25")
 
     def float64(key):
         """The kernels-line fields of ``key``'s float64 instance."""
@@ -6598,7 +6885,7 @@ def main():
         "launches_caustic": react17[f"{key}_caustic"],
         "launches_sequential_vs_mesh": classical19[key],
         "launches_export": export21[key], **by_example(key),
-        **(float64(key) if key == "K3" else {"dtypes": ["float32"]}),
+        **float64(key),
     } for name, source, line, key in (
         ("triangle_search_culled", tk.SOURCE_CULLED, 144, "K3"),
         ("triangle_search_twolevel", tk.SOURCE_TWOLEVEL, 979, "K4"))] + [{
@@ -6616,7 +6903,7 @@ def main():
             for k in ("asphere", "config2", "strehl")}
            if key == "K5" else {}),
         **(by_example(key) if key in ("K5", "K6") else {}),
-        **(float64(key) if key in ("K5", "K6") else {"dtypes": ["float32"]}),
+        **float64(key),
     } for name, source, line, key in (
         ("segment_search", gk.SOURCE, 705, "K5"),
         ("arc_search", ak.SOURCE, 367, "K6"),

@@ -1,4 +1,5 @@
-// Nearest ray-arc hit search with chunk culling (K8), float32, sm_90a.
+// Nearest ray-arc hit search with chunk culling (K8), float32 and float64,
+// sm_90a.
 //
 // Replaces: tensorflowraytrace_tpu/ops/pallas_kernels.py, _arc_kernel_culled
 // (launched through _nearest_hit_arcs_culled_impl / nearest_hit_arcs_pallas
@@ -42,6 +43,15 @@
 // plus one slab test per ray and chunk.  On the 2D guide's 512 lenslets a
 // block walks 2 chunks, and a per-ray gate admits under 1% of the pairs,
 // so the reads of the rays and the block's fixed cost are most of it.
+//
+// The float64 instance (arc_search_culled_launch_f64): K7's float64 walk
+// (search2d::f64::walk: a thread a ray, its best in registers, the chunk
+// staged when one of the block's rays passes) on K8's boxes in float64
+// (twolevel_boxes, SNAP_REACH and GATE_PAD kept), each chunk staged from
+// the float64 (m, 8) arc table as K6's float64 instance stages a tile
+// (search2d::f64::stage_arcs: 1 / r, the flags as ints) and folded with its
+// pair (search2d::f64::fold_arc, the exact reject first), so K8 equals K6's
+// float64 instance bit for bit, branch included.
 
 #include <cstdint>
 
@@ -147,6 +157,45 @@ arc_search_culled_kernel(const float* __restrict__ p0,
   }
 }
 
+__global__ void __launch_bounds__(kMaxThreads)
+arc_search_culled_f64_kernel(const double* __restrict__ p0,
+                             const double* __restrict__ p1,
+                             const double* __restrict__ table,
+                             const double* __restrict__ aabb, int n, int m,
+                             const search2d::f64::Limits lim,
+                             double slack_hi, double slack_lo, double slack,
+                             double* __restrict__ u_out,
+                             int* __restrict__ idx_out,
+                             unsigned char* __restrict__ branch_out) {
+  __shared__ search2d::f64::ArcTile tile;  // 15 KB
+
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = ray < n;
+  const search2d::f64::Ray r = search2d::f64::load_ray(p0, p1, ray, live);
+  double best_u = search2d::f64::kBig;
+  int best_idx = 0;
+  bool best_minus = false;
+
+  search2d::f64::walk(
+      (m + kTile - 1) / kTile, [](int k) { return k; }, aabb, r, live,
+      lim.r_eps, slack_hi, slack_lo, slack, best_u,
+      [&](int c) {
+        const int base = c * kTile;
+        search2d::f64::stage_arcs(tile, table, base, min(kTile, m - base));
+      },
+      [&](int c) {
+        const int base = c * kTile, count = min(kTile, m - base);
+        for (int t = 0; t < count; ++t)
+          search2d::f64::fold_arc(tile, t, base + t, r, lim, best_u, best_idx,
+                                  best_minus);
+      });
+  if (live) {
+    u_out[ray] = best_u;
+    idx_out[ray] = best_idx;
+    branch_out[ray] = best_minus ? 1 : 0;
+  }
+}
+
 }  // namespace
 
 // K6's arguments plus aabb: (ceil(m / chunk), 4) float32, where chunk must
@@ -176,5 +225,24 @@ extern "C" int arc_search_culled_launch(
                                   s>>>(p0, p1, rows, aabb, n, m, i_eps, r_eps,
                                        slack_hi, slack_lo, slack, u_out,
                                        idx_out, branch_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 instance: p0, p1, table (arc_kernels.arc_table in float64),
+// aabb and u_out float64, i_eps, r_eps and the slack the float64 values
+// the plain version compares with; chunk and ray_block as above.
+extern "C" int arc_search_culled_launch_f64(
+    const double* p0, const double* p1, const double* table,
+    const double* aabb, int n, int m, int chunk, int ray_block, double i_eps,
+    double r_eps, double slack_hi, double slack_lo, double slack,
+    double* u_out, int* idx_out, unsigned char* branch_out, void* stream) {
+  if (chunk != kTile || ray_block % 32 != 0 || ray_block < kMinThreads ||
+      ray_block > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + ray_block - 1) / ray_block;
+  arc_search_culled_f64_kernel<<<blocks, ray_block, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      p0, p1, table, aabb, n, m, search2d::f64::Limits{i_eps, 0.0, 0.0, r_eps},
+      slack_hi, slack_lo, slack, u_out, idx_out, branch_out);
   return static_cast<int>(cudaGetLastError());
 }

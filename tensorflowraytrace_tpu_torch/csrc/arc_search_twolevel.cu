@@ -1,4 +1,5 @@
-// Two-level nearest ray-arc hit search (K10), float32, for sm_90a.
+// Two-level nearest ray-arc hit search (K10), float32 and float64, for
+// sm_90a.
 //
 // Replaces: tensorflowraytrace_tpu/ops/pallas_kernels.py,
 // _twolevel_arc_kernel (launched through _nearest_hit_arcs_twolevel_impl /
@@ -74,6 +75,18 @@
 // 15 operations for a pair its exact reject refuses, 50 for the rest; the
 // bound K8 has, at the same 256-arc chunks), plus one slab test per ray and
 // candidate chunk and the candidate precompute outside the kernel.
+//
+// The float64 instance (arc_search_twolevel_launch_f64): K9's float64 walk
+// (search2d::f64::twolevel_walk: a thread a ray, its best in registers, a
+// chunk staged when one of the block's rays passes) over the same lists on
+// the float64 boxes.  Its table is the float64 chunk-major table of the
+// same layout, (C, 2, 256, 4) doubles, the flags as int64 bits in their
+// float64 slot (arc_kernels.twolevel_table); each chunk is staged into
+// search2d::f64::ArcTile (15 KB; the rays stay in registers, so the
+// shared memory does not grow with the ray block, and the ray block keeps
+// the float32 instance's limit) and folded with K6's float64 pair
+// (search2d::f64::fold_arc), so K10 equals K6's float64 instance bit for
+// bit, branch included.
 
 #include <cuda_runtime.h>
 
@@ -138,6 +151,57 @@ arc_search_twolevel_kernel(const float* __restrict__ p0,
   }
 }
 
+__global__ void __launch_bounds__(kMaxThreads)
+arc_search_twolevel_f64_kernel(const double* __restrict__ p0,
+                               const double* __restrict__ p1,
+                               const double* __restrict__ table,
+                               const double* __restrict__ aabb,
+                               const int* __restrict__ counts,
+                               const int* __restrict__ cand, int n, int m,
+                               int n_chunks, int max_cand,
+                               const search2d::f64::Limits lim,
+                               double slack_hi, double slack_lo, double slack,
+                               double* __restrict__ u_out,
+                               int* __restrict__ idx_out,
+                               unsigned char* __restrict__ branch_out) {
+  constexpr int kTile = search2d::kTile;
+  __shared__ search2d::f64::ArcTile tile;  // 15 KB
+
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = ray < n;
+  const search2d::f64::Ray r = search2d::f64::load_ray(p0, p1, ray, live);
+  double best_u = search2d::f64::kBig;
+  int best_idx = 0;
+  bool best_minus = false;
+
+  search2d::f64::twolevel_walk(
+      aabb, counts, cand, n_chunks, max_cand, r, live, lim.r_eps, slack_hi,
+      slack_lo, slack, best_u,
+      [&](int c) {
+        const double* head = table + static_cast<size_t>(c) * 2 * kTile * 4;
+        const double* edge = head + kTile * 4;
+        for (int t = threadIdx.x; t < kTile; t += blockDim.x) {
+          tile.centre[t] = make_double2(head[4 * t + 0], head[4 * t + 1]);
+          tile.inv_r[t] = head[4 * t + 2];
+          tile.flags[t] =
+              static_cast<int>(__double_as_longlong(head[4 * t + 3]));
+          tile.start[t] = make_double2(edge[4 * t + 0], edge[4 * t + 1]);
+          tile.end[t] = make_double2(edge[4 * t + 2], edge[4 * t + 3]);
+        }
+      },
+      [&](int c) {
+        const int base = c * kTile, count = min(kTile, m - base);
+        for (int t = 0; t < count; ++t)
+          search2d::f64::fold_arc(tile, t, base + t, r, lim, best_u, best_idx,
+                                  best_minus);
+      });
+  if (live) {
+    u_out[ray] = best_u;
+    idx_out[ray] = best_idx;
+    branch_out[ray] = best_minus ? 1 : 0;
+  }
+}
+
 }  // namespace
 
 // p0, p1: (n, 2) float32; table: (n_chunks, 2, fine, 4) 4-byte words, 16-byte
@@ -162,5 +226,27 @@ extern "C" int arc_search_twolevel_launch(
       p0, p1, reinterpret_cast<const float4*>(table), aabb, counts, cand, n,
       m, n_chunks, max_cand, i_eps, r_eps, slack_hi, slack_lo, slack, u_out,
       idx_out, branch_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 instance: p0, p1, table ((n_chunks, 2, fine, 4) doubles, the
+// flags as int64 bits), aabb and u_out float64, i_eps, r_eps and the slack
+// the float64 values the plain version compares with; counts, cand, fine
+// and ray_block as above.
+extern "C" int arc_search_twolevel_launch_f64(
+    const double* p0, const double* p1, const double* table,
+    const double* aabb, const int* counts, const int* cand, int n, int m,
+    int n_chunks, int fine, int ray_block, int max_cand, double i_eps,
+    double r_eps, double slack_hi, double slack_lo, double slack,
+    double* u_out, int* idx_out, unsigned char* branch_out, void* stream) {
+  if (fine != search2d::kTile || ray_block % 32 != 0 || ray_block < 32 ||
+      ray_block > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + ray_block - 1) / ray_block;
+  arc_search_twolevel_f64_kernel<<<blocks, ray_block, 0,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      p0, p1, table, aabb, counts, cand, n, m, n_chunks, max_cand,
+      search2d::f64::Limits{i_eps, 0.0, 0.0, r_eps}, slack_hi, slack_lo,
+      slack, u_out, idx_out, branch_out);
   return static_cast<int>(cudaGetLastError());
 }

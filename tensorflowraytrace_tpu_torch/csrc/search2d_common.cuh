@@ -20,8 +20,8 @@
 // skips only pairs the exact arithmetic rejects, and the culled and
 // two-level kernels only skip chunks whose box a ray cannot reach no
 // farther than its best, so they return the brute kernels' hits bit for
-// bit.  The float64 instances of K5 and K6 share the float64 ray load and
-// pairs at the end (namespace search2d::f64).
+// bit.  The float64 instances of K5-K10 share the float64 ray load, pairs,
+// gate and walk at the end (namespace search2d::f64).
 
 #pragma once
 
@@ -604,6 +604,86 @@ __device__ __forceinline__ void fold_arc(const ArcTile& tile, int t, int idx,
     best_idx = idx;
     best_minus = um < up;
   }
+}
+
+// ----------------------------------------- the float64 walk (K7 to K10)
+//
+// The float64 instances of K7-K10 keep each ray (one a thread) and its
+// running best in registers, with no compaction and no shared ray slots:
+// at each step every thread gates its own ray on the chunk's float64 box
+// (slab_gate), the block stages the chunk when one of its rays passes
+// (__syncthreads_or), and each ray that passed folds the whole chunk in
+// index order with the brute instances' pair (fold_segment, fold_arc).  A
+// warp runs a chunk for all its rays when one needs it.
+
+// The slab gate's inverse direction of a ray: 1 / d with |d| < 1e-30
+// replaced by +-1e-30 (search2d::safe_inverse in float64).
+struct Inverse {
+  double ix, iy;
+};
+
+__device__ __forceinline__ double safe_inverse(double d) {
+  return 1.0 / (fabs(d) < 1.0e-30 ? (d < 0.0 ? -1.0e-30 : 1.0e-30) : d);
+}
+
+__device__ __forceinline__ Inverse inverse(const Ray& r) {
+  return Inverse{safe_inverse(r.dx), safe_inverse(r.dy)};
+}
+
+// search2d::slab_gate in float64, on (C, 4) float64 boxes.
+__device__ __forceinline__ bool slab_gate(const double* __restrict__ box,
+                                          const Ray& r, const Inverse& inv,
+                                          double r_eps, double slack_hi,
+                                          double slack_lo, double slack,
+                                          double best_u) {
+  double t1 = (box[0] - r.ox) * inv.ix, t2 = (box[2] - r.ox) * inv.ix;
+  double tmin = fmin(t1, t2), tmax = fmax(t1, t2);
+  t1 = (box[1] - r.oy) * inv.iy;
+  t2 = (box[3] - r.oy) * inv.iy;
+  tmin = fmax(tmin, fmin(t1, t2));
+  tmax = fmin(tmax, fmax(t1, t2));
+  return (tmax * slack_hi + slack >= fmax(tmin, r_eps)) &&
+         (tmin * slack_lo - slack <= best_u);
+}
+
+// The walk: `steps` chunks, chunk_of(k) at step k.  stage(c) brings chunk c
+// into shared memory (every thread of the block calls it); fold(c) folds it
+// into this thread's best.  Chunks must come in ascending order, so that a
+// tie keeps the first index, as in the plain versions.
+template <typename ChunkOf, typename Stage, typename Fold>
+__device__ __forceinline__ void walk(int steps, ChunkOf chunk_of,
+                                     const double* __restrict__ aabb,
+                                     const Ray& r, bool live, double r_eps,
+                                     double slack_hi, double slack_lo,
+                                     double slack, const double& best_u,
+                                     Stage stage, Fold fold) {
+  const Inverse inv = inverse(r);
+  for (int k = 0; k < steps; ++k) {
+    const int c = chunk_of(k);
+    const bool need = live && slab_gate(aabb + 4 * c, r, inv, r_eps,
+                                        slack_hi, slack_lo, slack, best_u);
+    // also the barrier after the previous chunk's last read
+    if (!__syncthreads_or(need)) continue;  // the same in every thread
+    stage(c);
+    __syncthreads();
+    if (need) fold(c);
+  }
+}
+
+// The walk of K9 and K10 over the block's own candidate list, as
+// search2d::twolevel_walk_listed reads it (every chunk in order when the
+// list overflowed).
+template <typename Stage, typename Fold>
+__device__ __forceinline__ void twolevel_walk(
+    const double* __restrict__ aabb, const int* __restrict__ counts,
+    const int* __restrict__ cand, int n_chunks, int max_cand, const Ray& r,
+    bool live, double r_eps, double slack_hi, double slack_lo, double slack,
+    const double& best_u, Stage stage, Fold fold) {
+  const int cnt = counts[blockIdx.x];
+  const bool sweep = cnt == n_chunks;
+  const int* cands = cand + static_cast<size_t>(blockIdx.x) * max_cand;
+  walk(cnt, [&](int k) { return sweep ? k : cands[min(k, max_cand - 1)]; },
+       aabb, r, live, r_eps, slack_hi, slack_lo, slack, best_u, stage, fold);
 }
 
 }  // namespace f64

@@ -1,4 +1,5 @@
-// Nearest ray-segment hit search with chunk culling (K7), float32, sm_90a.
+// Nearest ray-segment hit search with chunk culling (K7), float32 and
+// float64, sm_90a.
 //
 // Replaces: tensorflowraytrace_tpu/ops/pallas_kernels.py,
 // _segment_kernel_culled (launched through
@@ -43,6 +44,17 @@
 // bounce most rays have a near best hit or are parked, so most (ray,
 // chunk) pairs are skipped; on a Morton-sorted scene a chunk is a compact
 // stretch of wall, so its box is small.
+//
+// The float64 instance (segment_search_culled_launch_f64), simpler: K3's
+// float64 design (search2d::f64::walk).  Each thread keeps its ray and
+// running best in registers (no ray slots, so the best's index needs no
+// packing into a float) and gates its own ray on the chunk's float64 box
+// (twolevel_boxes in float64, GATE_PAD kept); the block stages the chunk
+// from sp0 and sp1 (start and direction as double2, 8 KB) when one of its
+// rays passes, and each ray that passed folds the whole chunk with K5's
+// float64 pair (search2d::f64::fold_segment), so K7 equals K5's float64
+// instance bit for bit.  What bounds it: FP64 issue slots on the admitted
+// pairs and the warps' idle lanes.
 
 #include <cuda_runtime.h>
 
@@ -144,6 +156,48 @@ segment_search_culled_kernel(const float* __restrict__ p0,
   }
 }
 
+__global__ void __launch_bounds__(kMaxThreads)
+segment_search_culled_f64_kernel(const double* __restrict__ p0,
+                                 const double* __restrict__ p1,
+                                 const double* __restrict__ sp0,
+                                 const double* __restrict__ sp1,
+                                 const double* __restrict__ aabb, int n,
+                                 int m, const search2d::f64::Limits lim,
+                                 double slack_hi, double slack_lo,
+                                 double slack, double* __restrict__ u_out,
+                                 int* __restrict__ idx_out) {
+  __shared__ double2 start[kTile], dir[kTile];  // 8 KB
+
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = ray < n;
+  const search2d::f64::Ray r = search2d::f64::load_ray(p0, p1, ray, live);
+  double best_u = search2d::f64::kBig;
+  int best_idx = 0;
+
+  search2d::f64::walk(
+      (m + kTile - 1) / kTile, [](int k) { return k; }, aabb, r, live,
+      lim.r_eps, slack_hi, slack_lo, slack, best_u,
+      [&](int c) {
+        const int base = c * kTile, count = min(kTile, m - base);
+        for (int t = threadIdx.x; t < count; t += blockDim.x) {
+          const int g = 2 * (base + t);
+          const double x = sp0[g + 0], y = sp0[g + 1];
+          start[t] = make_double2(x, y);
+          dir[t] = make_double2(sp1[g + 0] - x, sp1[g + 1] - y);
+        }
+      },
+      [&](int c) {
+        const int base = c * kTile, count = min(kTile, m - base);
+        for (int t = 0; t < count; ++t)
+          search2d::f64::fold_segment(start[t], dir[t], base + t, r, lim,
+                                      best_u, best_idx);
+      });
+  if (live) {
+    u_out[ray] = best_u;
+    idx_out[ray] = best_idx;
+  }
+}
+
 }  // namespace
 
 // K5's arguments plus aabb: (ceil(m / chunk), 4) float32, where chunk must
@@ -165,5 +219,25 @@ extern "C" int segment_search_culled_launch(
                                  static_cast<cudaStream_t>(stream)>>>(
       p0, p1, sp0, sp1, aabb, n, m, reject::limits(i_eps, s_lo, s_hi, r_eps),
       slack_hi, slack_lo, slack, u_out, idx_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 instance: every pointer float64 but idx_out (int32), the
+// thresholds and slack as the float64 values the plain version compares
+// with; chunk and ray_block as above.
+extern "C" int segment_search_culled_launch_f64(
+    const double* p0, const double* p1, const double* sp0, const double* sp1,
+    const double* aabb, int n, int m, int chunk, int ray_block, double i_eps,
+    double s_lo, double s_hi, double r_eps, double slack_hi, double slack_lo,
+    double slack, double* u_out, int* idx_out, void* stream) {
+  if (chunk != kTile || ray_block % 32 != 0 || ray_block < kMinThreads ||
+      ray_block > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + ray_block - 1) / ray_block;
+  segment_search_culled_f64_kernel<<<blocks, ray_block, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      p0, p1, sp0, sp1, aabb, n, m,
+      search2d::f64::Limits{i_eps, s_lo, s_hi, r_eps}, slack_hi, slack_lo,
+      slack, u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,5 @@
-// Two-level nearest ray-segment hit search (K9), float32, for sm_90a.
+// Two-level nearest ray-segment hit search (K9), float32 and float64, for
+// sm_90a.
 //
 // Replaces: tensorflowraytrace_tpu/ops/pallas_kernels.py,
 // _twolevel_segment_kernel (launched through
@@ -53,6 +54,14 @@
 // as in K5; the bound K7 has, at the same 256-segment chunks), plus one
 // slab test per ray and candidate chunk and the candidate precompute
 // outside the kernel.
+//
+// The float64 instance (segment_search_twolevel_launch_f64): the same
+// candidate lists (twolevel_candidates on the float64 boxes), walked as
+// K7's float64 instance walks every chunk (search2d::f64::twolevel_walk:
+// a thread a ray, its best in registers, a chunk staged when one of the
+// block's rays passes, no compaction), each chunk staged from the float64
+// table (C, 256, 4) as start and direction double2 (8 KB) and folded with
+// K5's float64 pair, so K9 equals K5's float64 instance bit for bit.
 
 #include <cuda_runtime.h>
 
@@ -117,6 +126,49 @@ segment_search_twolevel_kernel(const float* __restrict__ p0,
   }
 }
 
+__global__ void __launch_bounds__(kMaxThreads)
+segment_search_twolevel_f64_kernel(const double* __restrict__ p0,
+                                   const double* __restrict__ p1,
+                                   const double* __restrict__ table,
+                                   const double* __restrict__ aabb,
+                                   const int* __restrict__ counts,
+                                   const int* __restrict__ cand, int n,
+                                   int m, int n_chunks, int max_cand,
+                                   const search2d::f64::Limits lim,
+                                   double slack_hi, double slack_lo,
+                                   double slack, double* __restrict__ u_out,
+                                   int* __restrict__ idx_out) {
+  constexpr int kTile = search2d::kTile;
+  __shared__ double2 start[kTile], dir[kTile];  // 8 KB
+
+  const int ray = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = ray < n;
+  const search2d::f64::Ray r = search2d::f64::load_ray(p0, p1, ray, live);
+  double best_u = search2d::f64::kBig;
+  int best_idx = 0;
+
+  search2d::f64::twolevel_walk(
+      aabb, counts, cand, n_chunks, max_cand, r, live, lim.r_eps, slack_hi,
+      slack_lo, slack, best_u,
+      [&](int c) {
+        const double* rows = table + static_cast<size_t>(c) * kTile * 4;
+        for (int t = threadIdx.x; t < kTile; t += blockDim.x) {
+          start[t] = make_double2(rows[4 * t + 0], rows[4 * t + 1]);
+          dir[t] = make_double2(rows[4 * t + 2], rows[4 * t + 3]);
+        }
+      },
+      [&](int c) {
+        const int base = c * kTile, count = min(kTile, m - base);
+        for (int t = 0; t < count; ++t)
+          search2d::f64::fold_segment(start[t], dir[t], base + t, r, lim,
+                                      best_u, best_idx);
+      });
+  if (live) {
+    u_out[ray] = best_u;
+    idx_out[ray] = best_idx;
+  }
+}
+
 }  // namespace
 
 // p0, p1: (n, 2) float32; table: (n_chunks, fine, 4) float32, 16-byte
@@ -142,5 +194,27 @@ extern "C" int segment_search_twolevel_launch(
       p0, p1, reinterpret_cast<const float4*>(table), aabb, counts, cand, n,
       m, n_chunks, max_cand, reject::limits(i_eps, s_lo, s_hi, r_eps),
       slack_hi, slack_lo, slack, u_out, idx_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 instance: p0, p1, table, aabb and u_out float64 (the table
+// and boxes as segment_kernels.twolevel_prepare makes them in float64),
+// the thresholds and slack the float64 values the plain version compares
+// with; counts, cand, fine and ray_block as above.
+extern "C" int segment_search_twolevel_launch_f64(
+    const double* p0, const double* p1, const double* table,
+    const double* aabb, const int* counts, const int* cand, int n, int m,
+    int n_chunks, int fine, int ray_block, int max_cand, double i_eps,
+    double s_lo, double s_hi, double r_eps, double slack_hi, double slack_lo,
+    double slack, double* u_out, int* idx_out, void* stream) {
+  if (fine != search2d::kTile || ray_block % 32 != 0 || ray_block < 32 ||
+      ray_block > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + ray_block - 1) / ray_block;
+  segment_search_twolevel_f64_kernel<<<blocks, ray_block, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      p0, p1, table, aabb, counts, cand, n, m, n_chunks, max_cand,
+      search2d::f64::Limits{i_eps, s_lo, s_hi, r_eps}, slack_hi, slack_lo,
+      slack, u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

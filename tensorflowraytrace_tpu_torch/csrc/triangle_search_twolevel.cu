@@ -1,4 +1,5 @@
-// Two-level nearest ray-triangle hit search (K4), float32, for sm_90a.
+// Two-level nearest ray-triangle hit search (K4), float32 and float64, for
+// sm_90a.
 //
 // Replaces: tensorflowraytrace_tpu/ops/pallas_kernels.py,
 // _twolevel_triangle_kernel (launched through
@@ -12,13 +13,14 @@
 // note), so valid, idx and u equal K1's bit for bit.
 //
 // Inputs, prepared by the wrapper (ops/triangle_kernels.py) on the card:
-// - the triangle table chunk-major, (C, 3, F, 4) float32: fine chunk c holds
-//   triangles c*F .. c*F+F-1 as three rows of F float4, (v0x, v0y, v0z,
-//   E1x), (E1y, E1z, E2x, E2y), (E2z, 0, 0, 0) -- K3's tile -- zero past m;
-// - the chunk boxes, (C, 6) float32 (models/acceleration.py chunk_aabbs at
-//   F triangles, widened as K3's by ops/triangle_kernels.culled_boxes: each
-//   ray's own gate decides, so each box must hold every point
-//   Moller-Trumbore accepts);
+// - the triangle table chunk-major, (C, 3, F, 4) in the rays' dtype: fine
+//   chunk c holds triangles c*F .. c*F+F-1 as three rows of F 4-vectors,
+//   (v0x, v0y, v0z, E1x), (E1y, E1z, E2x, E2y), (E2z, 0, 0, 0) -- K3's
+//   tile -- zero past m;
+// - the chunk boxes, (C, 6) in that dtype (models/acceleration.py
+//   chunk_aabbs at F triangles, widened as K3's by
+//   ops/triangle_kernels.culled_boxes: each ray's own gate decides, so each
+//   box must hold every point Moller-Trumbore accepts);
 // - counts (nb,) int32 and cand (nb * max_cand,) int32 from
 //   twolevel_candidates on those boxes: block b walks cand[b*max_cand ...]
 //   for counts[b] steps, or every chunk 0 .. C-1 in order when counts[b] ==
@@ -58,6 +60,19 @@
 // tests and the candidate precompute outside the kernel.  The candidate
 // lists and the gate keep the admitted pairs near the pairs a ray can
 // improve on; cp.async keeps the copies off the critical path.
+//
+// The float64 instance (triangle_search_twolevel_launch_f64), K3's float64
+// design over the same candidate lists: no compaction, no reject test, no
+// cp.async.  Each thread keeps its ray and running best in registers and
+// gates its own ray on the chunk's float64 box (tsearch::f64::slab_gate);
+// the block stages the chunk when one of its rays passes
+// (__syncthreads_or), from the float64 table (96 bytes a triangle) into
+// one buffer of K3's float64 tile, five rows of double2 a triangle (40 KB
+// at F = 512, under the 48 KB of static shared memory, so no second
+// buffer and no raised limit), and each ray that passed folds the chunk
+// with K1's float64 pair (tsearch::f64::fold_triangle).  So K4 equals K1's
+// float64 instance bit for bit.  What bounds it: FP64 issue slots on the
+// admitted pairs and the warps' idle lanes.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -148,6 +163,64 @@ triangle_search_twolevel_kernel(const float* __restrict__ p0,
   }
 }
 
+__global__ void __launch_bounds__(kMaxThreads)
+triangle_search_twolevel_f64_kernel(const double* __restrict__ p0,
+                                    const double* __restrict__ p1,
+                                    const double* __restrict__ table,
+                                    const double* __restrict__ aabb,
+                                    const int* __restrict__ counts,
+                                    const int* __restrict__ cand, int n,
+                                    int m, int n_chunks, int max_cand,
+                                    const tsearch::f64::Limits lim,
+                                    double slack_hi, double slack_lo,
+                                    double slack, double* __restrict__ u_out,
+                                    int* __restrict__ idx_out) {
+  __shared__ double2 tile[5 * kFine];  // 40 KB
+
+  const int b = blockIdx.x;
+  const int ray = b * blockDim.x + threadIdx.x;
+  const bool live = ray < n;
+  const tsearch::f64::Ray r = tsearch::f64::load_ray(p0, p1, ray, live);
+  double best_u = tsearch::f64::kBig;
+  int best_idx = 0;
+
+  const int cnt = counts[b];
+  const bool sweep = cnt == n_chunks;
+  const int* cands = cand + static_cast<size_t>(b) * max_cand;
+  for (int k = 0; k < cnt; ++k) {
+    const int c = sweep ? k : cands[min(k, max_cand - 1)];
+    const bool need = live && tsearch::f64::slab_gate(aabb + 6 * c, r,
+                                                      lim.r_eps, slack_hi,
+                                                      slack_lo, slack, best_u);
+    // also the barrier after the previous chunk's last read
+    if (!__syncthreads_or(need)) continue;  // the same in every thread
+    // the chunk's three rows of F 4-vectors into the five rows of double2
+    // that tsearch::f64::load_triangle reads
+    const double* rows = table + static_cast<size_t>(c) * 3 * kFine * 4;
+    for (int t = threadIdx.x; t < kFine; t += blockDim.x) {
+      const double* a = rows + 4 * t;
+      const double* e = a + 4 * kFine;
+      tile[t] = make_double2(a[0], a[1]);
+      tile[kFine + t] = make_double2(a[2], a[3]);
+      tile[2 * kFine + t] = make_double2(e[0], e[1]);
+      tile[3 * kFine + t] = make_double2(e[2], e[3]);
+      tile[4 * kFine + t] = make_double2(e[4 * kFine], 0.0);
+    }
+    __syncthreads();
+    if (need) {
+      const int base = c * kFine, count = min(kFine, m - base);
+      for (int t = 0; t < count; ++t)
+        tsearch::f64::fold_triangle(
+            tsearch::f64::load_triangle<kFine>(tile, t), base + t, r, lim,
+            best_u, best_idx);
+    }
+  }
+  if (live) {
+    u_out[ray] = best_u;
+    idx_out[ray] = best_idx;
+  }
+}
+
 }  // namespace
 
 // p0, p1: (n, 3) float32; table: (n_chunks, 3, fine, 4) float32, 16-byte
@@ -178,5 +251,27 @@ extern "C" int triangle_search_twolevel_launch(
       p0, p1, reinterpret_cast<const float4*>(table), aabb, counts, cand, n,
       m, n_chunks, max_cand, reject::limits(i_eps, s_lo, s_hi, r_eps),
       slack_hi, slack_lo, slack, u_out, idx_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 instance: p0, p1, table ((n_chunks, 3, fine, 4) doubles),
+// aabb and u_out float64 (as triangle_kernels.twolevel_prepare makes them
+// in float64), the thresholds and slack the float64 values the plain
+// version compares with; counts, cand, fine and ray_block as above.
+extern "C" int triangle_search_twolevel_launch_f64(
+    const double* p0, const double* p1, const double* table,
+    const double* aabb, const int* counts, const int* cand, int n, int m,
+    int n_chunks, int fine, int ray_block, int max_cand, double i_eps,
+    double s_lo, double s_hi, double r_eps, double slack_hi, double slack_lo,
+    double slack, double* u_out, int* idx_out, void* stream) {
+  if (fine != kFine || ray_block % 32 != 0 || ray_block < 32 ||
+      ray_block > kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n + ray_block - 1) / ray_block;
+  triangle_search_twolevel_f64_kernel<<<blocks, ray_block, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      p0, p1, table, aabb, counts, cand, n, m, n_chunks, max_cand,
+      tsearch::f64::Limits{i_eps, s_lo, s_hi, r_eps}, slack_hi, slack_lo,
+      slack, u_out, idx_out);
   return static_cast<int>(cudaGetLastError());
 }

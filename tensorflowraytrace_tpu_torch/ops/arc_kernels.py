@@ -48,10 +48,13 @@ it admits, the work a kernel's bound is charged for.
 Each wrapper is two halves, a preparation (the arc table, the gate boxes,
 the candidate lists) and the launch, so that the launch can be timed alone.
 
-K6 has a float32 and a float64 instance (``LAUNCH``), launched by the
-rays' dtype, each reading the table in its dtype (the flags as float
-values, which the kernel turns into ints as it stages a tile); K8 and K10
-take float32 only.
+K6, K8 and K10 each have a float32 and a float64 instance (``LAUNCH``,
+``LAUNCH_CULLED``, ``LAUNCH_TWOLEVEL``), launched by the rays' dtype, each
+reading its table in its dtype: K6's and K8's the (M, 8) table of
+:func:`arc_table` (the flags as float values, which the kernels turn into
+ints as they stage a chunk), K10's the chunk-major table of
+:func:`twolevel_table` (the flags as the integer bits of the table's
+width: int32 in a float32 slot, int64 in a float64 one).
 
 Contract: per ray ``(valid, idx int32, ray_u, branch)``, ``ray_u`` in the
 rays' dtype; ``ray_u`` is ``BIG = 3e38`` where nothing is hit, ``valid``
@@ -98,6 +101,14 @@ SOURCE_TWOLEVEL = "arc_search_twolevel.cu"
 # thresholds
 LAUNCH = {torch.float32: ("arc_search_launch", ctypes.c_float),
           torch.float64: ("arc_search_launch_f64", ctypes.c_double)}
+LAUNCH_CULLED = {
+    torch.float32: ("arc_search_culled_launch", ctypes.c_float),
+    torch.float64: ("arc_search_culled_launch_f64", ctypes.c_double)}
+LAUNCH_TWOLEVEL = {
+    torch.float32: ("arc_search_twolevel_launch", ctypes.c_float),
+    torch.float64: ("arc_search_twolevel_launch_f64", ctypes.c_double)}
+# the integer whose bits K10's table holds its flags in, by the table's dtype
+FLAG_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
 
 # the table's flag bits
 _BIG_WINDOW = 1     # the window spans more than pi
@@ -125,22 +136,26 @@ def load_library():
 
 
 def load_culled_library():
-    """The K8 library, built at first use, with its C signature declared."""
+    """The K8 library, built at first use, with the C signatures of its
+    float32 and float64 launches declared."""
     lib = cuda_build.load(SOURCE_CULLED)
-    fn = lib.arc_search_culled_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
+    for name, real in LAUNCH_CULLED.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+            + [real] * 5 + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
     return lib
 
 
 def load_twolevel_library():
-    """The K10 library, built at first use, with its C signature declared."""
+    """The K10 library, built at first use, with the C signatures of its
+    float32 and float64 launches declared."""
     lib = cuda_build.load(SOURCE_TWOLEVEL)
-    fn = lib.arc_search_twolevel_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float] * 5 + [ctypes.c_void_p] * 4
-    fn.restype = ctypes.c_int
+    for name, real in LAUNCH_TWOLEVEL.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+            + [real] * 5 + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -167,7 +182,7 @@ def arc_chunk_table(center, angle_start, angle_end, radius, chunk):
     when it stages a tile -- then ``chunk`` rows of (cos, sin of the
     window's start, cos, sin of its end); zero past M.  The flags stay
     float here (the plain version reads them so); :func:`twolevel_prepare`
-    turns them into the int32 bits the kernel reads."""
+    turns them into the integer bits the kernels read."""
     t = arc_table(center, angle_start, angle_end, radius)
     cols = torch.cat([t[:, :2], 1.0 / t[:, 2:3], t[:, 7:8], t[:, 3:7]], dim=1)
     return chunk_major(cols, chunk).view(-1, 2, 4, chunk).transpose(2, 3) \
@@ -176,11 +191,9 @@ def arc_chunk_table(center, angle_start, angle_end, radius, chunk):
 
 def _check_arcs(p0, p1, center, angle_start, angle_end, radius,
                 kernel=None):
-    """K6's inputs (float32 or float64), or with ``kernel`` ("K8", "K10")
-    a float32-only search's."""
-    check_cuda_inputs("arc", p0, p1,
-                      dtypes=tuple(LAUNCH) if kernel is None
-                      else (torch.float32,), kernel=kernel, center=center,
+    """The inputs of an arc search (float32 or float64); ``kernel`` ("K8",
+    "K10") names it in a refusal."""
+    check_cuda_inputs("arc", p0, p1, kernel=kernel, center=center,
                       angle_start=angle_start, angle_end=angle_end,
                       radius=radius)
     m = center.shape[0]
@@ -282,11 +295,11 @@ def culled_prepare(center, angle_start, angle_end, radius):
 
 
 def culled_launch(p0, p1, prepared, intersect_eps, ray_start_eps):
-    """Launch K8 on checked CUDA inputs and :func:`culled_prepare`'s
-    output; the wrapper's second half."""
+    """Launch K8's instance of ``p0``'s dtype on checked CUDA inputs and
+    :func:`culled_prepare`'s output; the wrapper's second half."""
     global LAUNCHES_CULLED
     table, boxes = prepared
-    out = _launch(load_culled_library().arc_search_culled_launch,
+    out = _launch(getattr(load_culled_library(), LAUNCH_CULLED[p0.dtype][0]),
                   "arc_search_culled", p0,
                   (p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
                    boxes.data_ptr(), p0.shape[0], table.shape[0],
@@ -341,11 +354,14 @@ def twolevel_boxes(center, angle_start, angle_end, radius):
 
 def twolevel_table(center, angle_start, angle_end, radius):
     """K10's arc table: :func:`arc_chunk_table` at
-    ``segment_kernels.CULL_CHUNK`` with its flags row as int32 bits (as
-    search2d::ArcTile reads it)."""
+    ``segment_kernels.CULL_CHUNK`` with its flags row as the bits of an
+    integer of the table's width (``FLAG_BITS``: int32 in float32, as
+    search2d::ArcTile reads it; int64 in float64, as K10's float64 instance
+    reads it)."""
     table = arc_chunk_table(center, angle_start, angle_end, radius,
                             segment_kernels.CULL_CHUNK)
-    table[:, 0, :, 3] = table[:, 0, :, 3].to(torch.int32).view(torch.float32)
+    table[:, 0, :, 3] = table[:, 0, :, 3].to(FLAG_BITS[table.dtype]) \
+        .view(table.dtype)
     return table
 
 
@@ -362,11 +378,13 @@ def twolevel_prepare(p0, p1, center, angle_start, angle_end, radius,
 
 
 def twolevel_launch(p0, p1, m, prepared, intersect_eps, ray_start_eps):
-    """Launch K10 on checked CUDA inputs and :func:`twolevel_prepare`'s
-    output for ``m`` arcs; the wrapper's second half."""
+    """Launch K10's instance of ``p0``'s dtype on checked CUDA inputs and
+    :func:`twolevel_prepare`'s output for ``m`` arcs; the wrapper's second
+    half."""
     global LAUNCHES_TWOLEVEL
     table, boxes, counts, cand, cap = prepared
-    out = _launch(load_twolevel_library().arc_search_twolevel_launch,
+    out = _launch(getattr(load_twolevel_library(),
+                          LAUNCH_TWOLEVEL[p0.dtype][0]),
                   "arc_search_twolevel", p0,
                   (p0.data_ptr(), p1.data_ptr(), table.data_ptr(),
                    boxes.data_ptr(), counts.data_ptr(), cand.data_ptr(),

@@ -32,8 +32,8 @@ by name.  Nothing falls back to the plain version on CUDA tensors.
 | ``segment_sum`` | K2 ``csrc/segment_sum.cu`` | ``segsum_kernels.segment_sum_kernel`` |
 
 A search returns ``(valid bool, idx int32, ray_u)`` per ray, and an arc
-search ``branch bool`` after them; ``ray_u`` is in the rays' dtype: float32
-or float64 on CUDA for K1, K3, K5 and K6, float32 for K4 and K7-K10.
+search ``branch bool`` after them; ``ray_u`` is in the rays' dtype, float32
+or float64 on CUDA for every search.
 ``segment_sum`` returns the (m, k) sum in the cotangent's dtype, added in
 the fixed order of ``segsum_kernels`` on either device, so the two give the
 same bits.  Its gradient with respect to the cotangent is the gather ``g[idx].T`` (zero

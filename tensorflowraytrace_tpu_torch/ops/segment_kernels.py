@@ -32,8 +32,10 @@ Contract (shared with every search kernel of the JAX package): per ray
 ``(valid, idx int32, ray_u)``, ``ray_u`` in the rays' dtype; ``ray_u`` is
 ``BIG = 3e38`` where nothing is hit and ``valid`` is ``ray_u < BIG / 2``;
 the nearest hit wins and a tie goes to the first segment; there is no
-gradient.  K5 has a float32 and a float64 instance (``LAUNCH``), launched
-by the rays' dtype; K7 and K9 take float32 only.
+gradient.  K5, K7 and K9 each have a float32 and a float64 instance
+(``LAUNCH``, ``LAUNCH_CULLED``, ``LAUNCH_TWOLEVEL``), launched by the rays'
+dtype; the float64 gate boxes, tables and candidate lists are made in
+float64 by the same functions.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` and loaded with ``ctypes`` (``ops/cuda_build.py``); the two
@@ -69,6 +71,12 @@ SOURCE_TWOLEVEL = "segment_search_twolevel.cu"
 # thresholds
 LAUNCH = {torch.float32: ("segment_search_launch", ctypes.c_float),
           torch.float64: ("segment_search_launch_f64", ctypes.c_double)}
+LAUNCH_CULLED = {
+    torch.float32: ("segment_search_culled_launch", ctypes.c_float),
+    torch.float64: ("segment_search_culled_launch_f64", ctypes.c_double)}
+LAUNCH_TWOLEVEL = {
+    torch.float32: ("segment_search_twolevel_launch", ctypes.c_float),
+    torch.float64: ("segment_search_twolevel_launch_f64", ctypes.c_double)}
 
 # the culling chunk of K7 and K8 and the fine chunk of K9 and K10 is the 2D
 # kernels' shared-memory tile (kTile in csrc/search2d_common.cuh; the
@@ -101,36 +109,38 @@ def load_library():
 
 
 def load_culled_library():
-    """The K7 library, built at first use, with its C signature declared."""
+    """The K7 library, built at first use, with the C signatures of its
+    float32 and float64 launches declared."""
     lib = cuda_build.load(SOURCE_CULLED)
-    fn = lib.segment_search_culled_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-        + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    for name, real in LAUNCH_CULLED.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+            + [real] * 7 + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
     return lib
 
 
 def load_twolevel_library():
-    """The K9 library, built at first use, with its C signature declared."""
+    """The K9 library, built at first use, with the C signatures of its
+    float32 and float64 launches declared."""
     lib = cuda_build.load(SOURCE_TWOLEVEL)
-    fn = lib.segment_search_twolevel_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    for name, real in LAUNCH_TWOLEVEL.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+            + [real] * 7 + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
     return lib
 
 
-def check_cuda_inputs(what, p0, p1, dtypes=(torch.float32,), kernel=None,
-                      **surfaces):
+def check_cuda_inputs(what, p0, p1, kernel=None, **surfaces):
     """What a 2D kernel takes: (N, 2) rays ``p0``/``p1`` and the per-surface
-    tensors ``surfaces`` (each with M rows), all of one of ``dtypes``,
+    tensors ``surfaces`` (each with M rows), all float32 or all float64,
     contiguous, detached and on one device, with 1 <= N and N, M < 2^31 /
     8; ``kernel`` names the search in a dtype's refusal."""
     device = p0.device
     m = None
     named = {"p0": p0, "p1": p1, **surfaces}
-    check_dtypes(f"{what} search" + (f" ({kernel})" if kernel else ""),
-                 dtypes, named)
+    check_dtypes(f"{what} search" + (f" ({kernel})" if kernel else ""), named)
     for name, t in named.items():
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, p0 on {device}")
@@ -153,11 +163,9 @@ def check_cuda_inputs(what, p0, p1, dtypes=(torch.float32,), kernel=None,
 
 
 def _check_segments(p0, p1, sp0, sp1, kernel=None):
-    """K5's inputs (float32 or float64), or with ``kernel`` ("K7", "K9")
-    a float32-only search's."""
-    check_cuda_inputs("segment", p0, p1,
-                      dtypes=tuple(LAUNCH) if kernel is None
-                      else (torch.float32,), kernel=kernel, sp0=sp0, sp1=sp1)
+    """The inputs of a segment search (float32 or float64); ``kernel``
+    ("K7", "K9") names it in a refusal."""
+    check_cuda_inputs("segment", p0, p1, kernel=kernel, sp0=sp0, sp1=sp1)
     if sp0.dim() != 2 or sp0.shape[1] != 2 or sp1.shape != sp0.shape:
         raise ValueError("sp0 and sp1 must be (segments, 2) and equal in shape")
 
@@ -229,13 +237,13 @@ def culled_prepare(sp0, sp1, size_eps):
 
 
 def culled_launch(p0, p1, prepared, intersect_eps, size_eps, ray_start_eps):
-    """Launch K7 on checked CUDA inputs and :func:`culled_prepare`'s
-    output; the wrapper's second half."""
+    """Launch K7's instance of ``p0``'s dtype on checked CUDA inputs and
+    :func:`culled_prepare`'s output; the wrapper's second half."""
     global LAUNCHES_CULLED
     sp0, sp1, boxes = prepared
-    fn = load_culled_library().segment_search_culled_launch
+    fn = getattr(load_culled_library(), LAUNCH_CULLED[p0.dtype][0])
     n, m = p0.shape[0], sp0.shape[0]
-    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    u = torch.empty((n,), dtype=p0.dtype, device=p0.device)
     idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream
@@ -277,9 +285,9 @@ def twolevel_lists(p0, p1, boxes, ray_start_eps):
 
 
 def segment_chunk_table(sp0, sp1, chunk):
-    """K9's segment table: (C, chunk, 4), chunk-major, one float4 a segment:
-    start x, start y, direction x, direction y (``sp1 - sp0``); zero past
-    M."""
+    """K9's segment table: (C, chunk, 4) in the segments' dtype,
+    chunk-major, one 4-vector a segment: start x, start y, direction x,
+    direction y (``sp1 - sp0``); zero past M."""
     return chunk_major(torch.cat([sp0, sp1 - sp0], dim=1), chunk) \
         .transpose(1, 2).contiguous()
 
@@ -333,13 +341,14 @@ def twolevel_prepare(p0, p1, sp0, sp1, size_eps, ray_start_eps):
 
 def twolevel_launch(p0, p1, m, prepared, intersect_eps, size_eps,
                     ray_start_eps):
-    """Launch K9 on checked CUDA inputs and :func:`twolevel_prepare`'s
-    output for ``m`` segments; the wrapper's second half."""
+    """Launch K9's instance of ``p0``'s dtype on checked CUDA inputs and
+    :func:`twolevel_prepare`'s output for ``m`` segments; the wrapper's
+    second half."""
     global LAUNCHES_TWOLEVEL
     table, boxes, counts, cand, cap = prepared
-    fn = load_twolevel_library().segment_search_twolevel_launch
+    fn = getattr(load_twolevel_library(), LAUNCH_TWOLEVEL[p0.dtype][0])
     n = p0.shape[0]
-    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    u = torch.empty((n,), dtype=p0.dtype, device=p0.device)
     idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream

@@ -44,9 +44,9 @@ the nearest hit wins and a tie goes to the first triangle index; there is
 no gradient.
 
 Dtypes, as the JAX package's Pallas searches compute in their inputs'
-dtype: K1 and K3 have a float32 and a float64 instance, launched by the
-rays' dtype (``LAUNCH``, ``LAUNCH_CULLED``); K4 takes float32 only, and
-every kernel refuses mixed dtypes and any other dtype.
+dtype: K1, K3 and K4 each have a float32 and a float64 instance, launched
+by the rays' dtype (``LAUNCH``, ``LAUNCH_CULLED``, ``LAUNCH_TWOLEVEL``),
+and every kernel refuses mixed dtypes and any other dtype.
 
 The kernels are compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/`` and loaded with ``ctypes`` (``ops/cuda_build.py``); their
@@ -84,9 +84,9 @@ LAUNCH = {torch.float32: ("triangle_search_launch", ctypes.c_float),
 LAUNCH_CULLED = {
     torch.float32: ("triangle_search_culled_launch", ctypes.c_float),
     torch.float64: ("triangle_search_culled_launch_f64", ctypes.c_double)}
-# what a float32-only kernel's refusal of float64 names
-FLOAT64_SEARCHES = ("float64 runs in K1 (cull=False) and K3 (cull=True) in "
-                    "3D and in K5 and K6 (cull=False) in 2D")
+LAUNCH_TWOLEVEL = {
+    torch.float32: ("triangle_search_twolevel_launch", ctypes.c_float),
+    torch.float64: ("triangle_search_twolevel_launch_f64", ctypes.c_double)}
 
 # K1: threads a block (kThreads in csrc/triangle_search.cu) and the rays a
 # thread it is compiled for; see brute_rays_per_thread
@@ -100,9 +100,9 @@ CULL_CHUNK = 256
 # float32 ulps): the float32 arithmetic can accept a hit a
 # few ulps outside the exact surface, and the gate must not refuse it.  The
 # slab test's own slack (1 +- 1e-6 and 1e-6 in t) does not cover that far
-# from the origin: at x ~ 40 one ulp is 3.8e-6.  Float64 boxes (K3's float64
-# instance) keep the same pad: float64 rounds 2^29 times finer, so they
-# hold every accepted point with that much room to spare.
+# from the origin: at x ~ 40 one ulp is 3.8e-6.  Float64 boxes (the float64
+# instances of these searches) keep the same pad: float64 rounds 2^29 times
+# finer, so they hold every accepted point with that much room to spare.
 GATE_PAD = 2.0 ** -17
 # K4: rays per block (one thread each, a multiple of 32 up to 1024),
 # triangles per fine chunk (the kernel is compiled for 512; the launch
@@ -153,38 +153,36 @@ def load_culled_library():
 
 
 def load_twolevel_library():
-    """The K4 library, built at first use, with its C signature declared."""
+    """The K4 library, built at first use, with the C signatures of its
+    float32 and float64 launches declared."""
     lib = cuda_build.load(SOURCE_TWOLEVEL)
-    fn = lib.triangle_search_twolevel_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
-        + [ctypes.c_float] * 7 + [ctypes.c_void_p] * 3
-    fn.restype = ctypes.c_int
+    for name, real in LAUNCH_TWOLEVEL.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+            + [real] * 7 + [ctypes.c_void_p] * 3
+        fn.restype = ctypes.c_int
     return lib
 
 
-def check_dtypes(what, dtypes, named):
+def check_dtypes(what, named):
     """Raise ``TypeError`` unless every tensor of ``named`` (the first the
-    rays' ``p0``) has one dtype and a ``what`` kernel has an instance of it
-    (``dtypes``: float32 alone, or float32 and float64)."""
+    rays' ``p0``) has one dtype and the search kernels have an instance of
+    it (float32 or float64, ``LAUNCH``'s keys); ``what`` names the search."""
     dtype = next(iter(named.values())).dtype
     for name, t in named.items():
         if t.dtype != dtype:
             raise TypeError(f"the CUDA {what} takes one dtype; {name} is "
                             f"{t.dtype}, p0 {dtype}")
-    if dtype not in dtypes:
-        kinds = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
-        note = ("" if torch.float64 in dtypes or dtype != torch.float64
-                else f" ({FLOAT64_SEARCHES})")
-        raise TypeError(f"the CUDA {what} takes {kinds}; p0 is {dtype}{note}")
+    if dtype not in LAUNCH:
+        kinds = " or ".join(str(d).removeprefix("torch.") for d in LAUNCH)
+        raise TypeError(f"the CUDA {what} takes {kinds}; p0 is {dtype}")
 
 
-def _check_cuda_inputs(p0, p1, vp, v1, v2, dtypes=tuple(LAUNCH),
-                       what="triangle search"):
-    """What a triangle kernel takes: (N, 3) rays and (M, 3) triangles of
-    one of ``dtypes`` (K1's and K3's float32 and float64 by default),
-    contiguous, detached and on one device."""
+def _check_cuda_inputs(p0, p1, vp, v1, v2, what="triangle search"):
+    """What a triangle kernel takes: (N, 3) rays and (M, 3) triangles, all
+    float32 or all float64, contiguous, detached and on one device."""
     named = {"p0": p0, "p1": p1, "vp": vp, "v1": v1, "v2": v2}
-    check_dtypes(what, dtypes, named)
+    check_dtypes(what, named)
     device = p0.device
     for name, t in named.items():
         if t.device != device:
@@ -359,9 +357,10 @@ def chunk_major(columns, chunk):
 
 
 def chunk_major_table(vp, v1, v2, fine_chunk):
-    """K4's triangle table: (C, 3, F, 4) float32, one contiguous block per
-    fine chunk holding K3's tile, three rows of F float4: (v0x, v0y, v0z,
-    E1x), (E1y, E1z, E2x, E2y), (E2z, 0, 0, 0); zero past M."""
+    """K4's triangle table: (C, 3, F, 4) in the triangles' dtype, one
+    contiguous block per fine chunk holding K3's tile, three rows of F
+    4-vectors: (v0x, v0y, v0z, E1x), (E1y, E1z, E2x, E2y), (E2z, 0, 0, 0);
+    zero past M (96 bytes a triangle in float64)."""
     cols = torch.cat([vp, v1 - vp, v2 - vp, torch.zeros_like(vp)], dim=1)
     return chunk_major(cols, fine_chunk).view(-1, 3, 4, fine_chunk) \
         .transpose(2, 3).contiguous()
@@ -391,7 +390,7 @@ def triangle_search_twolevel_cuda(p0, p1, vp, v1, v2, intersect_eps,
     """K4's operator on CUDA tensors: the input checks, the preparation
     (:func:`twolevel_prepare`, with the tunables read now) and the
     launch."""
-    _check_cuda_inputs(p0, p1, vp, v1, v2, dtypes=(torch.float32,),
+    _check_cuda_inputs(p0, p1, vp, v1, v2,
                        what="two-level triangle search (K4)")
     rb = TWOLEVEL_RAY_BLOCK
     if rb % 32 or not 32 <= rb <= 1024:
@@ -416,13 +415,14 @@ def twolevel_prepare(p0, p1, vp, v1, v2, size_eps, ray_start_eps):
 
 def twolevel_launch(p0, p1, m, prepared, intersect_eps, size_eps,
                     ray_start_eps):
-    """Launch K4 on checked CUDA inputs and ``twolevel_prepare``'s output
-    for ``m`` triangles; the wrapper's second half."""
+    """Launch K4's instance of ``p0``'s dtype on checked CUDA inputs and
+    ``twolevel_prepare``'s output for ``m`` triangles; the wrapper's second
+    half."""
     global LAUNCHES_TWOLEVEL
     table, boxes, counts, cand, cap = prepared
-    fn = load_twolevel_library().triangle_search_twolevel_launch
+    fn = getattr(load_twolevel_library(), LAUNCH_TWOLEVEL[p0.dtype][0])
     n = p0.shape[0]
-    u = torch.empty((n,), dtype=torch.float32, device=p0.device)
+    u = torch.empty((n,), dtype=p0.dtype, device=p0.device)
     idx = torch.empty((n,), dtype=torch.int32, device=p0.device)
     with torch.cuda.device(p0.device):
         stream = torch.cuda.current_stream(p0.device).cuda_stream

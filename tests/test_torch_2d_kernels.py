@@ -15,8 +15,8 @@ Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 The kernels are built with --fmad=false and evaluate their plain versions'
 operations in the same order, and the culled kernels' gate only skips
 pairs that cannot give a nearer hit, so every output is equal exactly.
-K5 and K6 run in float32 and in float64 (``DTYPES``); K7 and K8 take
-float32 only and refuse float64.
+K5-K8 run in float32 and in float64 (``DTYPES``), each dtype's culled
+instance against the brute one of the same dtype.
 """
 
 import numpy as np
@@ -52,24 +52,17 @@ def arc_args(p0, p1, arc):
 
 def check(args, kind, size_eps=EPS):
     """The brute and culled kernels of ``kind`` against their plain
-    versions and each other, bit for bit; in float64, which the culled
-    kernel refuses, the brute kernel against both plain versions.  Returns
-    the brute ``valid``."""
+    versions and each other, bit for bit, in the dtype of ``args``.
+    Returns the brute ``valid``."""
     mod, name, eps = ((sk, "segments", (EPS, size_eps, EPS))
                       if kind == "segment" else (ak, "arcs", (EPS, EPS)))
     before = (mod.LAUNCHES, mod.LAUNCHES_CULLED)
     brute = getattr(mod, f"nearest_hit_{name}_kernel")(*args, *eps)
-    culled_kernel = getattr(mod, f"nearest_hit_{name}_culled_kernel")
-    if args[0].dtype == torch.float32:
-        got = [culled_kernel(*args, *eps)]
-    else:
-        with pytest.raises(TypeError, match="takes float32;"):
-            culled_kernel(*args, *eps)
-        got = []
+    got = [getattr(mod, f"nearest_hit_{name}_culled_kernel")(*args, *eps)]
     torch.cuda.synchronize()
     assert (mod.LAUNCHES, mod.LAUNCHES_CULLED) == (before[0] + 1,
-                                                   before[1] + len(got))
-    assert brute[2].dtype == args[0].dtype
+                                                   before[1] + 1)
+    assert brute[2].dtype == got[0][2].dtype == args[0].dtype
     got.append(getattr(mod, f"nearest_hit_{name}_plain")(*args, *eps))
     got.append(getattr(mod, f"nearest_hit_{name}_culled_plain")(*args, *eps))
     for out in got:
@@ -214,10 +207,11 @@ def test_arc_kernels_at_the_reject_edges(cuda, label, dtype):
     assert bool(valid.any()) == (label != "parked")
 
 
-def test_arc_kernels_on_a_ragged_guide(cuda):
+@DTYPES
+def test_arc_kernels_on_a_ragged_guide(cuda, dtype):
     """K6 and K8 on the 2D guide's first search at a ray count that leaves
     K6's last block of 1024 rays (4 a thread) ragged."""
-    rays, scene, _ = scenes2d.light_guide(100003, device=cuda)
+    rays, scene, _ = scenes2d.light_guide(100003, dtype=dtype, device=cuda)
     check(arc_args(rays.p0, rays.p1, scene.arcs), "arc")
 
 
@@ -226,29 +220,32 @@ GATE_LABELS = ["segment ends", "segment ends, small size_eps", "tangent snap",
                "all-miss segments", "all-miss arcs"]
 
 
-def gate_case(label, cuda):
+def gate_case(label, cuda, dtype=torch.float32):
     """scenes2d.gate_edge_cases' case ``label``: ``(kind, args, size_eps)``."""
-    p0, p1, surfaces, size_eps = {c[0]: c[1:] for c in
-                                  scenes2d.gate_edge_cases(device=cuda)}[label]
+    p0, p1, surfaces, size_eps = {
+        c[0]: c[1:] for c in scenes2d.gate_edge_cases(dtype=dtype,
+                                                      device=cuda)}[label]
     if hasattr(surfaces, "p0"):
         return "segment", seg_args(p0, p1, surfaces), size_eps
     return "arc", arc_args(p0, p1, surfaces), size_eps
 
 
+@DTYPES
 @pytest.mark.parametrize("label", GATE_LABELS)
-def test_gate_edge_cases(cuda, label):
+def test_gate_edge_cases(cuda, label, dtype):
     """K7 against K5 and K8 against K6 where the accepted hits lie at the
     edge of the chunk boxes: past a segment's ends under size_eps 1e-2, a
     tangent pair's snapped point off its circle, window ends from near and
     far; parked and all-miss batches."""
-    kind, args, size_eps = gate_case(label, cuda)
+    kind, args, size_eps = gate_case(label, cuda, dtype)
     valid = check(args, kind, size_eps)
     assert bool(valid.any()) == (label.split()[0] not in ("parked",
                                                           "all-miss"))
 
 
+@DTYPES
 @pytest.mark.parametrize("m", [300, 100])
-def test_blocks_that_every_one_or_no_ray_needs(cuda, m):
+def test_blocks_that_every_one_or_no_ray_needs(cuda, m, dtype):
     """K7 and K8 over blocks of ``sk.CULLED_RAY_BLOCK`` rays: a block whose
     every ray is aimed at a surface, one with a single such ray, one with
     none and a ragged last block; m = 300 leaves the second chunk ragged,
@@ -258,15 +255,17 @@ def test_blocks_that_every_one_or_no_ray_needs(cuda, m):
     for kind, make, to_args in (
             ("segment", scenes2d.random_segments, seg_args),
             ("arc", scenes2d.random_arcs, arc_args)):
-        surfaces = make(rng, m, device=cuda)
-        p0, p1 = scenes2d.block_rays(rng, surfaces, block, device=cuda)
+        surfaces = make(rng, m, dtype=dtype, device=cuda)
+        p0, p1 = scenes2d.block_rays(rng, surfaces, block, dtype=dtype,
+                                     device=cuda)
         valid = check(to_args(p0, p1, surfaces), kind)
         assert valid[:block].float().mean() > 0.5
         assert not valid[block + 1:3 * block].any()
 
 
+@DTYPES
 @pytest.mark.parametrize("block", [128, 256, 512, 1024])
-def test_k8_at_every_ray_block(cuda, monkeypatch, block):
+def test_k8_at_every_ray_block(cuda, monkeypatch, block, dtype):
     """K8's listed walk at each ray block it launches, against its plain
     version and K6 (``check``): blocks of which every ray, one ray or no
     ray needs a chunk, over 300 arcs (a ragged second chunk), 100 (one
@@ -274,8 +273,9 @@ def test_k8_at_every_ray_block(cuda, monkeypatch, block):
     monkeypatch.setattr(sk, "CULLED_RAY_BLOCK", block)
     rng = np.random.default_rng(13)
     for m in (300, 100, 255):
-        arc = scenes2d.random_arcs(rng, m, device=cuda)
-        p0, p1 = scenes2d.block_rays(rng, arc, block, device=cuda)
+        arc = scenes2d.random_arcs(rng, m, dtype=dtype, device=cuda)
+        p0, p1 = scenes2d.block_rays(rng, arc, block, dtype=dtype,
+                                     device=cuda)
         valid = check(arc_args(p0, p1, arc), "arc")
         assert valid[:block].float().mean() > 0.5
         assert not valid[block + 1:3 * block].any()
@@ -291,7 +291,7 @@ def test_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
                 (ak.nearest_hit_arcs_kernel, arc, (EPS, EPS)),
                 (ak.nearest_hit_arcs_culled_kernel, arc, (EPS, EPS))]
     for fn, args, eps in searches:
-        with pytest.raises(TypeError):
+        with pytest.raises(TypeError, match="one dtype"):
             fn(args[0].double(), *args[1:], *eps)
         with pytest.raises(ValueError, match="contiguous"):
             fn(args[0].T.contiguous().T, *args[1:], *eps)
@@ -305,8 +305,9 @@ def test_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
             with pytest.raises(ValueError, match="CULLED_RAY_BLOCK"):
                 fn(*args, *eps)
     monkeypatch.setattr(sk, "CULLED_RAY_BLOCK", 256)
-    # the culled kernels are compiled for one chunk width
+    # the culled kernels are compiled for one chunk width, in both dtypes
     monkeypatch.setattr(sk, "CULL_CHUNK", 128)
     for fn, args, eps in (searches[1], searches[3]):
-        with pytest.raises(RuntimeError, match="launch failed"):
-            fn(*args, *eps)
+        for a in (args, [t.double() for t in args]):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fn(*a, *eps)

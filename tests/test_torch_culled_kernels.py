@@ -9,8 +9,9 @@ Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 
 The kernels are built with --fmad=false and evaluate K1's operations in
 K1's order, and their gate only skips pairs that cannot give a nearer hit,
-so ``valid``, ``idx`` and ``u`` equal K1's exactly.  K3 runs in float32
-and in float64 (``DTYPES``); K4 takes float32 only and refuses float64.
+so ``valid``, ``idx`` and ``u`` equal K1's exactly.  K3 and K4 run in
+float32 and in float64 (``DTYPES``), each dtype's instance against K1's of
+the same dtype.
 """
 
 import numpy as np
@@ -71,22 +72,16 @@ def guide_slice(n_rays, device, seed=0, dtype=torch.float32):
 
 
 def check(args):
-    """K3 and K4 against K1 and against their plain versions, bit for
-    bit; in float64, which K4 refuses, K3 and both plain versions.
-    Returns K1's ``valid``."""
+    """K3 and K4 against K1 and against their plain versions, bit for bit,
+    in the dtype of ``args``.  Returns K1's ``valid``."""
     ref = tk.nearest_hit_triangles_kernel(*args, EPS, EPS, EPS)
     before = (tk.LAUNCHES_CULLED, tk.LAUNCHES_TWOLEVEL)
-    got = [tk.nearest_hit_triangles_culled_kernel(*args, EPS, EPS, EPS)]
-    if args[0].dtype == torch.float32:
-        got.append(tk.nearest_hit_triangles_twolevel_kernel(*args, EPS, EPS,
-                                                            EPS))
-    else:
-        with pytest.raises(TypeError, match="takes float32;"):
-            tk.nearest_hit_triangles_twolevel_kernel(*args, EPS, EPS, EPS)
+    got = [tk.nearest_hit_triangles_culled_kernel(*args, EPS, EPS, EPS),
+           tk.nearest_hit_triangles_twolevel_kernel(*args, EPS, EPS, EPS)]
     torch.cuda.synchronize()
-    assert (tk.LAUNCHES_CULLED, tk.LAUNCHES_TWOLEVEL) == (
-        before[0] + 1, before[1] + len(got) - 1)
-    assert ref[2].dtype == got[0][2].dtype == args[0].dtype
+    assert (tk.LAUNCHES_CULLED, tk.LAUNCHES_TWOLEVEL) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert ref[2].dtype == got[0][2].dtype == got[1][2].dtype == args[0].dtype
     got.append(tk.nearest_hit_triangles_culled_plain(*args, EPS, EPS, EPS))
     got.append(tk.nearest_hit_triangles_twolevel_plain(*args, EPS, EPS, EPS))
     for out in got:
@@ -158,20 +153,24 @@ def test_culled_blocks_parked_full_and_single(cuda, dtype):
     assert not check([q0, q1, *tri]).any()
 
 
+@DTYPES
 @pytest.mark.parametrize("twolevel", [dict(TWOLEVEL_MAX_CAND=2),
                                       dict(TWOLEVEL_MAX_CAND=1,
                                            TWOLEVEL_RAY_BLOCK=64),
                                       dict(TWOLEVEL_RAY_BLOCK=1024)])
-def test_twolevel_overflow_and_block_shapes(cuda, monkeypatch, twolevel):
+def test_twolevel_overflow_and_block_shapes(cuda, monkeypatch, twolevel,
+                                            dtype):
     """A cap of 1 or 2 makes every block sweep all chunks; other ray blocks
     give the same hits (``twolevel`` sets the module constants)."""
     for name, value in twolevel.items():
         monkeypatch.setattr(tk, name, value)
-    assert check(sorted_soup(3000, 20000, cuda)).any()
+    assert check(sorted_soup(3000, 20000, cuda, dtype=dtype)).any()
 
 
+@DTYPES
 @pytest.mark.parametrize("ray_block", [64, 128, 256, 512, 1024])
-def test_twolevel_blocks_that_few_rays_need(cuda, monkeypatch, ray_block):
+def test_twolevel_blocks_that_few_rays_need(cuda, monkeypatch, ray_block,
+                                            dtype):
     """K4 at every ray block the tune tries, against K1 and its plain
     version: consecutive blocks in which 0, 1, 31, 32, 33 and all rays
     point into a sorted soup of 3000 triangles (a ragged last chunk) and
@@ -181,7 +180,8 @@ def test_twolevel_blocks_that_few_rays_need(cuda, monkeypatch, ray_block):
     than one candidate sweeps."""
     monkeypatch.setattr(tk, "TWOLEVEL_RAY_BLOCK", ray_block)
     lives = [0, 1, 31, 32, 33, ray_block]
-    p0, p1, vp, v1, v2 = sorted_soup(3000, len(lives) * ray_block, cuda)
+    p0, p1, vp, v1, v2 = sorted_soup(3000, len(lives) * ray_block, cuda,
+                                     dtype=dtype)
     slot = torch.arange(p0.shape[0], device=cuda) % ray_block
     live = slot < torch.tensor(lives, device=cuda).repeat_interleave(ray_block)
     away = (~live & (slot % 2 == 0))[:, None]
@@ -210,13 +210,15 @@ def test_culled_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
             fn(p0, p1.cpu(), vp, v1, v2, EPS, EPS, EPS)
         with pytest.raises(ValueError, match="detached"):
             fn(p0, p1, vp.clone().requires_grad_(), v1, v2, EPS, EPS, EPS)
-    # K3 and K4 are compiled for one chunk width each
+    # K3 and K4 are compiled for one chunk width each, in both dtypes
     for name, fn in (("CULL_CHUNK", tk.nearest_hit_triangles_culled_kernel),
                      ("FINE_CHUNK", tk.nearest_hit_triangles_twolevel_kernel)):
         with monkeypatch.context() as m:
             m.setattr(tk, name, 128)
-            with pytest.raises(RuntimeError, match="launch failed"):
-                fn(p0, p1, vp, v1, v2, EPS, EPS, EPS)
+            for args in ((p0, p1, vp, v1, v2),
+                         [t.double() for t in (p0, p1, vp, v1, v2)]):
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    fn(*args, EPS, EPS, EPS)
     monkeypatch.setattr(tk, "TWOLEVEL_RAY_BLOCK", 100)
     with pytest.raises(ValueError, match="TWOLEVEL_RAY_BLOCK"):
         tk.nearest_hit_triangles_twolevel_kernel(p0, p1, vp, v1, v2, EPS, EPS,

@@ -1,9 +1,10 @@
 """The float64 searches (K1, K3, K5, K6) of the PyTorch port against the JAX
-package, on the CPU.
+package, on the CPU, and the dtype rules of all nine.
 
-The JAX package's Pallas searches compute in their inputs' dtype; K1, K3,
-K5 and K6 have float64 instances on the card, which run their plain
-versions' float64 arithmetic.  Here, with small sizes:
+The JAX package's Pallas searches compute in their inputs' dtype; every
+search of the port has a float64 instance on the card, which runs its
+plain version's float64 arithmetic (K4 and K7-K10:
+tests/test_torch_float64_culled.py).  Here, with small sizes:
 
 * the plain K1, K3, K5 and K6 in float64 against the Pallas kernels in
   interpret mode in float64: equal ``valid``, ``ray_u`` within rtol 1e-12,
@@ -18,15 +19,16 @@ versions' float64 arithmetic.  Here, with small sizes:
   lens of arcs and segments) against the JAX package's ``use_pallas=True``
   float64 traces; ``TraceConfig.recommended`` picks the kernels for a
   float64 scene on the card;
-* the wrappers' dtype rules: K1, K3, K5 and K6 take float32 or float64,
-  every kernel refuses mixed dtypes and float16, K4 and K7-K10 refuse
-  float64 naming the float64 searches; every ``ctypes`` declaration of a
-  launch matches its C signature in the source;
-* float64 traces exported through the ``tfrt_torch`` operators.
+* the wrappers' dtype rules: every search takes float32 or float64 and
+  refuses mixed dtypes and float16; every ``ctypes`` declaration of a
+  launch, float32 and float64, matches its C signature in the source;
+* float64 traces exported through the ``tfrt_torch`` operators, on every
+  search path.
 
 The kernels themselves run on the card: tests/test_torch_kernels.py,
-test_torch_culled_kernels.py and test_torch_2d_kernels.py, over float32
-and float64, and phase 24 of chip_smoke.py.
+test_torch_culled_kernels.py, test_torch_2d_kernels.py and
+test_torch_twolevel2d_kernels.py, over float32 and float64, and phases 24
+and 25 of chip_smoke.py.
 """
 
 import ctypes
@@ -47,7 +49,6 @@ from tensorflowraytrace_tpu import SegmentSet as JSegmentSet
 from tensorflowraytrace_tpu import TraceConfig as JTraceConfig
 from tensorflowraytrace_tpu import TriangleSet as JTriangleSet
 from tensorflowraytrace_tpu import engine as j_engine
-from tensorflowraytrace_tpu.models import acceleration as j_acc
 from tensorflowraytrace_tpu.ops import materials as j_mats
 from tensorflowraytrace_tpu.ops import pallas_kernels as pk
 from tensorflowraytrace_tpu_torch import (
@@ -61,10 +62,12 @@ from tensorflowraytrace_tpu_torch.ops import segment_kernels as gk
 from tensorflowraytrace_tpu_torch.ops import triangle_kernels as tk
 from tensorflowraytrace_tpu_torch.utils.convert import triangles_from_numpy
 from torch_export_common import check_exported_kernel_trace
+from torch_float64_common import (
+    T, arcs, assert_hits, rays, segments, sorted_soup,
+)
 from torch_threads import one_torch_thread  # noqa: F401 (a fixture)
 
 EPS = 1e-6
-RTOL = 1e-12
 PI = math.pi
 F64 = torch.float64
 
@@ -75,67 +78,6 @@ def on_cpu():
     previous = config.set_default_device("cpu")
     yield
     config.set_default_device(previous)
-
-
-def T(a):
-    return torch.as_tensor(np.array(a))
-
-
-def rays(rng, n, dim):
-    p0 = rng.uniform(-4, 4, (n, dim))
-    d = rng.normal(0, 1, (n, dim))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return p0, p0 + d
-
-
-def sorted_soup(rng, n_tris, n_rays):
-    """tests/test_pallas.py's random soup in float64, Morton-sorted by the
-    JAX package: ``(jax triangles, [vp, v1, v2], p0, p1)``."""
-    center = rng.uniform(-3, 3, (n_tris, 3))
-    tris = [center + rng.normal(0, 0.4, (n_tris, 3)) for _ in range(3)]
-    jt, _ = j_acc.morton_sort_triangles(JTriangleSet.make(*tris, mat_in=1,
-                                                          dtype=jnp.float64))
-    return jt, [np.asarray(a) for a in (jt.vp, jt.v1, jt.v2)], \
-        *rays(rng, n_rays, 3)
-
-
-def segments(rng, m):
-    mid = rng.uniform(-3, 3, (m, 2))
-    return [mid + rng.normal(0, 0.5, (m, 2)) for _ in range(2)]
-
-
-def arcs(rng, m, full=False):
-    """Random arcs: signed radii, windows sweeping 0.3-5.8 rad (or the full
-    circle), ends wrapped to [-pi, pi)."""
-    center = rng.uniform(-3, 3, (m, 2))
-    a1 = rng.uniform(-PI, PI, m)
-    sweep = np.full(m, 2 * PI) if full else rng.uniform(0.3, 5.8, m)
-    a2 = a1 + sweep if full else (a1 + sweep + PI) % (2 * PI) - PI
-    radius = rng.uniform(0.3, 1.5, m) * rng.choice([-1.0, 1.0], m)
-    return center, a1, a2, radius
-
-
-def assert_hits(got, want, pair_u):
-    """``got`` (the port's tensors) against ``want`` (JAX's arrays): equal
-    ``valid``, ``ray_u`` within ``RTOL``, ``idx`` (and a branch, last)
-    equal except at ties: where the indices differ, ``pair_u(rows, idx)``
-    (the port's ray parameter of each row's pair with surface idx) at
-    JAX's index equals the port's hit within ``RTOL``."""
-    got = [g.numpy() for g in got]
-    want = [np.asarray(w) for w in want]
-    valid, idx, u = got[:3]
-    np.testing.assert_array_equal(valid, want[0])
-    assert valid.any() and not valid.all()
-    np.testing.assert_allclose(u[valid], want[2][valid], rtol=RTOL)
-    assert u.dtype == np.float64
-    differ = np.nonzero(valid & (idx != want[1]))[0]
-    assert len(differ) <= valid.sum() // 100
-    if len(differ):
-        other = pair_u(torch.as_tensor(differ), torch.as_tensor(want[1][differ]))
-        np.testing.assert_allclose(other.numpy(), u[differ], rtol=RTOL)
-    if len(got) == 4:
-        same = valid & (idx == want[1])
-        np.testing.assert_array_equal(got[3][same], want[3][same])
 
 
 # ----------------------------------------------------------------------
@@ -383,11 +325,16 @@ def arc_args(dtype=F64):
     return [T(a).to(dtype) for a in (*rays(rng, 32, 2), *arcs(rng, 20))]
 
 
-# the float64 searches' input checks, each what its CUDA operator runs first
+# every search's input checks, what its CUDA operator runs first
 ACCEPTS = {"K1": (tk._check_cuda_inputs, triangle_args),
            "K3": (tk._check_cuda_inputs, triangle_args),
+           "K4": (tk._check_cuda_inputs, triangle_args),
            "K5": (gk._check_segments, segment_args),
-           "K6": (ak._check_arcs, arc_args)}
+           "K6": (ak._check_arcs, arc_args),
+           "K7": (gk._check_segments, segment_args),
+           "K8": (ak._check_arcs, arc_args),
+           "K9": (gk._check_segments, segment_args),
+           "K10": (ak._check_arcs, arc_args)}
 # every search's CUDA operator, with its inputs
 CUDA_OPS = {"K1": (tk.triangle_search_cuda, triangle_args, 3),
             "K3": (tk.triangle_search_culled_cuda, triangle_args, 3),
@@ -419,16 +366,6 @@ def test_searches_refuse_mixed_dtypes_and_float16(kernel):
         op(*make(torch.float16), *[EPS] * n_eps)
 
 
-@pytest.mark.parametrize("kernel", ["K4", "K7", "K8", "K9", "K10"])
-def test_float32_searches_refuse_float64_naming_the_others(kernel):
-    op, make, n_eps = CUDA_OPS[kernel]
-    with pytest.raises(TypeError) as info:
-        op(*make(F64), *[EPS] * n_eps)
-    message = str(info.value)
-    assert f"({kernel})" in message and "takes float32;" in message
-    assert tk.FLOAT64_SEARCHES in message
-
-
 _CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
            "double": ctypes.c_double}
 
@@ -456,10 +393,10 @@ def c_signature(source, name):
     (ak, "load_twolevel_library")],
     ids=lambda x: x if isinstance(x, str) else x.__name__.split(".")[-1])
 def test_launch_declarations_match_the_sources(monkeypatch, module, loader):
-    """What each loader declares for each of its launches (float32 and,
-    for K1, K3, K5 and K6, float64) against the C signature in the
-    source, read on the CPU: a float64 threshold declared c_float would
-    reach the kernel as garbage."""
+    """What each loader declares for each of its launches, float32 and
+    float64, against the C signature in the source, read on the CPU: a
+    float64 threshold declared c_float would reach the kernel as
+    garbage."""
     fake = types.SimpleNamespace()
 
     def load(source):
@@ -477,9 +414,11 @@ def test_launch_declarations_match_the_sources(monkeypatch, module, loader):
     getattr(module, loader)()
     declared = {k: v for k, v in vars(fake).items()
                 if isinstance(v, Fn) and hasattr(v, "argtypes")}
-    assert declared
-    if loader == "load_library":
-        assert len(declared) == 2     # float32 and float64
+    assert sorted(declared) == sorted(
+        name for name, _ in getattr(module, {
+            "load_library": "LAUNCH", "load_culled_library": "LAUNCH_CULLED",
+            "load_twolevel_library": "LAUNCH_TWOLEVEL"}[loader]).values())
+    assert len(declared) == 2     # float32 and float64
     for name, fn in declared.items():
         assert fn.argtypes == c_signature(fake.source, name), name
         assert fn.restype == ctypes.c_int
@@ -490,8 +429,9 @@ def test_launch_declarations_match_the_sources(monkeypatch, module, loader):
 # ----------------------------------------------------------------------
 
 @pytest.mark.parametrize("dim,cull", [("2d", False), ("3d", False),
-                                      ("3d", True)],
-                         ids=["K5-K6", "K1", "K3"])
+                                      ("3d", True), ("3d", "grid"),
+                                      ("2d", True), ("2d", "grid")],
+                         ids=["K5-K6", "K1", "K3", "K4", "K7-K8", "K9-K10"])
 def test_exported_float64_trace(dim, cull):
     """A 2-bounce float64 trace exported through the operators (their fake
     implementations give the rays' dtype): the graph calls the searches,

@@ -12,9 +12,10 @@ Every test here needs an NVIDIA GPU with CUDA and nvcc: they are marked
 --noconftest -o addopts=""`` (this file imports no JAX).
 
 K9 and K10 run K5's and K6's pair tests (csrc/search2d_common.cuh) with
-the same float32 operations as the plain versions, and their gate only
-skips pairs that cannot give a nearer hit, so every output is equal
-exactly.
+the same operations as the plain versions, and their gate only skips
+pairs that cannot give a nearer hit, so every output is equal exactly.
+Each runs in float32 and in float64 (``DTYPES``), against the brute
+kernel of the same dtype.
 """
 
 import numpy as np
@@ -27,6 +28,8 @@ from tensorflowraytrace_tpu_torch.ops import segment_kernels as sk
 
 pytestmark = pytest.mark.cuda
 EPS = 1e-6
+DTYPES = pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                                 ids=["f32", "f64"])
 
 
 @pytest.fixture
@@ -56,6 +59,7 @@ def check(args, kind, size_eps=EPS):
     brute = getattr(mod, f"nearest_hit_{name}_kernel")(*args, *eps)
     torch.cuda.synchronize()
     assert mod.LAUNCHES_TWOLEVEL == before + 1
+    assert got[2].dtype == brute[2].dtype == args[0].dtype
     plain = getattr(mod, f"nearest_hit_{name}_twolevel_plain")(*args, *eps)
     for ref in (brute, plain):
         for a, b in zip(got, ref):
@@ -63,38 +67,44 @@ def check(args, kind, size_eps=EPS):
     return brute[0]
 
 
+@DTYPES
 @pytest.mark.parametrize("cap", [None, 1])
 @pytest.mark.parametrize("n_rays,m", [(200000, None), (1000, 333), (1, 257)])
 def test_kernels_equal_plain_on_random_sets(cuda, monkeypatch, n_rays, m,
-                                            cap):
+                                            cap, dtype):
     """tpu_kernel_check's sets (777 segments, 555 arcs; seed 7), a ragged
     tile and a single ray; ``cap`` 1 makes every block with more than one
     candidate chunk overflow and sweep every chunk."""
     if cap is not None:
         monkeypatch.setattr(sk, "TWOLEVEL_MAX_CAND", cap)
     rng = np.random.default_rng(7)
-    seg = scenes2d.random_segments(rng, m or 777, device=cuda)
-    valid = check(seg_args(*scenes2d.random_rays(rng, n_rays, device=cuda),
-                           seg), "segment")
-    arc = scenes2d.random_arcs(rng, m or 555, device=cuda)
-    valid_a = check(arc_args(*scenes2d.random_rays(rng, n_rays, device=cuda),
-                             arc), "arc")
+    kw = dict(dtype=dtype, device=cuda)
+    seg = scenes2d.random_segments(rng, m or 777, **kw)
+    valid = check(seg_args(*scenes2d.random_rays(rng, n_rays, **kw), seg),
+                  "segment")
+    arc = scenes2d.random_arcs(rng, m or 555, **kw)
+    valid_a = check(arc_args(*scenes2d.random_rays(rng, n_rays, **kw), arc),
+                    "arc")
     if n_rays > 1:
         assert valid.any() and valid_a.any()
 
 
-def test_full_circle_arcs(cuda):
+@DTYPES
+def test_full_circle_arcs(cuda, dtype):
     rng = np.random.default_rng(8)
-    arc = scenes2d.random_arcs(rng, 300, device=cuda, full=True)
-    assert check(arc_args(*scenes2d.random_rays(rng, 50000, device=cuda), arc),
+    kw = dict(dtype=dtype, device=cuda)
+    arc = scenes2d.random_arcs(rng, 300, full=True, **kw)
+    assert check(arc_args(*scenes2d.random_rays(rng, 50000, **kw), arc),
                  "arc").any()
 
 
-def test_all_miss_and_parked(cuda):
+@DTYPES
+def test_all_miss_and_parked(cuda, dtype):
     rng = np.random.default_rng(9)
-    seg = scenes2d.random_segments(rng, 500, device=cuda)
-    arc = scenes2d.random_arcs(rng, 500, device=cuda)
-    p0, p1 = scenes2d.random_rays(rng, 5000, device=cuda)
+    kw = dict(dtype=dtype, device=cuda)
+    seg = scenes2d.random_segments(rng, 500, **kw)
+    arc = scenes2d.random_arcs(rng, 500, **kw)
+    p0, p1 = scenes2d.random_rays(rng, 5000, **kw)
     far = torch.full_like(p0, 100.0)
     parked = torch.full_like(p0, 1e30)
     parked1 = torch.full_like(p0, 1e30 * (1 + 1e-6))
@@ -107,30 +117,33 @@ def test_all_miss_and_parked(cuda):
         assert bool(check(arc_args(r0, r1, arc), "arc").any()) == hits
 
 
+@DTYPES
 @pytest.mark.parametrize("cap", [None, 1])
-def test_guide_first_bounce(cuda, monkeypatch, cap):
+def test_guide_first_bounce(cuda, monkeypatch, cap, dtype):
     """The 2D light guide's first search at 131072 rays: 4098 segments (17
     chunks) and 512 lenslet arcs (2 chunks); with ``cap`` 1 the blocks
     overflow and sweep."""
     if cap is not None:
         monkeypatch.setattr(sk, "TWOLEVEL_MAX_CAND", cap)
-    rays, scene, _ = scenes2d.light_guide(131072, device=cuda)
+    rays, scene, _ = scenes2d.light_guide(131072, dtype=dtype, device=cuda)
     assert scene.segments.n_surfaces == 4098 and scene.arcs.n_surfaces == 512
     assert check(seg_args(rays.p0, rays.p1, scene.segments), "segment").any()
     check(arc_args(rays.p0, rays.p1, scene.arcs), "arc")
 
 
+@DTYPES
 @pytest.mark.parametrize("cap", [None, 1])
 @pytest.mark.parametrize("label", ["tangent", "small a", "far",
                                    "wide windows", "ties", "parked"])
-def test_k10_at_the_reject_edges(cuda, monkeypatch, label, cap):
+def test_k10_at_the_reject_edges(cuda, monkeypatch, label, cap, dtype):
     """K10 bit for bit, branch flag included, with its plain version and
     K6 on scenes2d.arc_edge_cases (the discriminant and |a| at i_eps,
     tangent and far rays, wide windows, exact ties between arcs of two
     chunks, parked rays); ``cap`` 1 makes the blocks overflow and sweep."""
     if cap is not None:
         monkeypatch.setattr(sk, "TWOLEVEL_MAX_CAND", cap)
-    cases = {c[0]: c[1:] for c in scenes2d.arc_edge_cases(device=cuda)}
+    cases = {c[0]: c[1:] for c in scenes2d.arc_edge_cases(dtype=dtype,
+                                                          device=cuda)}
     p0, p1, arc = cases[label]
     valid = check(arc_args(p0, p1, arc), "arc")
     assert bool(valid.any()) == (label != "parked")
@@ -154,18 +167,20 @@ GATE_LABELS = ["segment ends", "segment ends, small size_eps", "tangent snap",
                "all-miss segments", "all-miss arcs"]
 
 
-def gate_case(label, cuda):
+def gate_case(label, cuda, dtype=torch.float32):
     """scenes2d.gate_edge_cases' case ``label``: ``(kind, args, size_eps)``."""
-    p0, p1, surfaces, size_eps = {c[0]: c[1:] for c in
-                                  scenes2d.gate_edge_cases(device=cuda)}[label]
+    p0, p1, surfaces, size_eps = {
+        c[0]: c[1:] for c in scenes2d.gate_edge_cases(dtype=dtype,
+                                                      device=cuda)}[label]
     if hasattr(surfaces, "p0"):
         return "segment", seg_args(p0, p1, surfaces), size_eps
     return "arc", arc_args(p0, p1, surfaces), size_eps
 
 
+@DTYPES
 @pytest.mark.parametrize("cap", [None, 1])
 @pytest.mark.parametrize("label", GATE_LABELS)
-def test_gate_edge_cases(cuda, monkeypatch, label, cap):
+def test_gate_edge_cases(cuda, monkeypatch, label, cap, dtype):
     """K9 against K5 and K10 against K6 where the accepted hits lie at the
     edge of the chunk boxes: past a segment's ends under size_eps 1e-2, a
     tangent pair's snapped point off its circle, window ends from near and
@@ -173,14 +188,15 @@ def test_gate_edge_cases(cuda, monkeypatch, label, cap):
     and sweep."""
     if cap is not None:
         monkeypatch.setattr(sk, "TWOLEVEL_MAX_CAND", cap)
-    kind, args, size_eps = gate_case(label, cuda)
+    kind, args, size_eps = gate_case(label, cuda, dtype)
     valid = check(args, kind, size_eps)
     assert bool(valid.any()) == (label.split()[0] not in ("parked",
                                                           "all-miss"))
 
 
+@DTYPES
 @pytest.mark.parametrize("m", [300, 100])
-def test_blocks_that_every_one_or_no_ray_needs(cuda, m):
+def test_blocks_that_every_one_or_no_ray_needs(cuda, m, dtype):
     """K9 and K10 over blocks of ``sk.TWOLEVEL_RAY_BLOCK`` rays: a block
     whose every ray is aimed at a surface, one with a single such ray, one
     with none and a ragged last block; m = 300 leaves the second chunk
@@ -190,8 +206,9 @@ def test_blocks_that_every_one_or_no_ray_needs(cuda, m):
     for kind, make, to_args in (("segment", scenes2d.random_segments,
                                  seg_args),
                                 ("arc", scenes2d.random_arcs, arc_args)):
-        surfaces = make(rng, m, device=cuda)
-        p0, p1 = scenes2d.block_rays(rng, surfaces, block, device=cuda)
+        surfaces = make(rng, m, dtype=dtype, device=cuda)
+        p0, p1 = scenes2d.block_rays(rng, surfaces, block, dtype=dtype,
+                                     device=cuda)
         valid = check(to_args(p0, p1, surfaces), kind)
         assert valid[:block].float().mean() > 0.5
         assert not valid[block + 1:3 * block].any()
@@ -205,7 +222,7 @@ def test_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
     searches = [(sk.nearest_hit_segments_twolevel_kernel, seg, (EPS, EPS, EPS)),
                 (ak.nearest_hit_arcs_twolevel_kernel, arc, (EPS, EPS))]
     for fn, args, eps in searches:
-        with pytest.raises(TypeError):
+        with pytest.raises(TypeError, match="one dtype"):
             fn(args[0].double(), *args[1:], *eps)
         with pytest.raises(ValueError, match="contiguous"):
             fn(args[0].T.contiguous().T, *args[1:], *eps)
@@ -218,8 +235,9 @@ def test_kernels_refuse_what_they_cannot_take(cuda, monkeypatch):
         with pytest.raises(ValueError, match="TWOLEVEL_RAY_BLOCK"):
             fn(*args, *eps)
     monkeypatch.setattr(sk, "TWOLEVEL_RAY_BLOCK", 256)
-    # the kernels are compiled for one fine chunk
+    # the kernels are compiled for one fine chunk, in both dtypes
     monkeypatch.setattr(sk, "CULL_CHUNK", 128)
     for fn, args, eps in searches:
-        with pytest.raises(RuntimeError, match="launch failed"):
-            fn(*args, *eps)
+        for a in (args, [t.double() for t in args]):
+            with pytest.raises(RuntimeError, match="launch failed"):
+                fn(*a, *eps)
